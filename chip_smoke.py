@@ -24,9 +24,27 @@ result line):
 6. Where the time goes: one more fit at the main path's width, of
    PROFILE_TREES trees, under torch.profiler: the device's busy share of the
    fit's wall time and the kernels that take the most device time.
+7. The row-major kernel (B2) vs its plain version at N = 1,000,000, F = 28,
+   B = 21, row-major codes, at the widths a DRF fit's passes take: the root
+   (L = 1, the in-bag 63.2 % of rows weighted), sibling passes at L = 16,
+   256 and 2048 and the compaction passes at L = 4097 slots (about half the
+   rows weighted): kernel, plain and `index_add_` times and the bound. One
+   dense-rebuild width, L = 2^18, is checked untimed.
+8. The DRF path through the public API: the 1M x 28 frame, a default
+   `H2ORandomForestEstimator(ntrees=DRF_TREES, hist_method="pallas")`
+   (depth 20, clamped to the card's memory; mtries, row sampling,
+   active-node compaction), OOB `auc()`, `predict` on 100k fresh rows. The
+   dispatch must be "pallas" only and the B2 launches must equal the passes
+   the level plan predicts plus those of the dense rebuilds; OOB and
+   holdout AUC must reach DRF_AUC_FLOOR.
+9. Reference check: a small DRF (4000 x 8, depth 14, level 13 in compact
+   slots) on cuda and on the CPU gives the same forest and predictions.
+10. Where the DRF fit's time goes: DRF_PROFILE_TREES trees under
+   torch.profiler.
 
-The last line is {"ok": true, "device": {...}}; the line before it is the
-kernel table as JSON.
+Each path is driven with every launch count set to 0 just before it and
+read just after. The last line is {"ok": true, "device": {...}}; the line
+before it is the kernel table as JSON.
 """
 
 from __future__ import annotations
@@ -52,6 +70,14 @@ LEVEL_WIDTHS = [1, 1, 2, 4, 8, 16]   # histogram passes of one depth-6 tree
 PASSES = [(L, i > 0) for i, L in enumerate(LEVEL_WIDTHS)]
 DEEP_L = 1024                        # a depth-11 sibling pass: node slices
 PROFILE_TREES = 5
+# B2 at a DRF fit's widths: (L, share of rows weighted)
+ROWS_PASSES = [(1, 0.632), (16, 0.5), (256, 0.5), (2048, 0.5), (4097, 0.5)]
+ROWS_DEEP_L = 2 ** 18                # the deepest dense-rebuild width
+DRF_TREES = 50
+DRF_PROFILE_TREES = 2
+# the reference DRF (JAX package, CPU) on the same generator at 100k rows:
+# OOB AUC 0.80553, holdout AUC 0.81410 (tools/drf_auc_floor.py); less 0.01
+DRF_AUC_FLOOR = 0.7955
 
 
 def make_higgs_like(n_rows: int, n_feat: int = 28, seed: int = 0):
@@ -170,7 +196,7 @@ def main_path(dev):
     gbm = H2OGradientBoostingEstimator(
         ntrees=NTREES, max_depth=DEPTH, learn_rate=0.1,
         histogram_type="UniformAdaptive", seed=42, device=str(dev))
-    hist_cuda.launches = 0
+    hist_cuda.launches = hist_cuda.launches_rows = 0
     histogram.DISPATCH.clear()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -184,6 +210,7 @@ def main_path(dev):
     pred = gbm.predict(ft)
     pred_s = time.time() - t1
     launches = hist_cuda.launches
+    rows_launches = hist_cuda.launches_rows
     dispatch = dict(histogram.DISPATCH)
     p1 = np.asarray(pred.vec("1").data, np.float64)
     rec = dict(wall_s=wall, trees_per_s=NTREES / wall, auc=auc,
@@ -199,30 +226,25 @@ def main_path(dev):
         raise AssertionError("predict returned non-finite probabilities")
     expect = NTREES * DEPTH
     if launches != expect or dispatch.get("pallas_factored") != expect \
-            or set(dispatch) != {"pallas_factored"}:
+            or set(dispatch) != {"pallas_factored"} or rows_launches:
         raise AssertionError(f"histogram dispatch {dispatch}, {launches} "
                              f"kernel launches; expected {expect} kernel "
                              "launches and no other method")
     return rec, fr
 
 
-def profile_fit(dev, fr):
-    """Phase 6: a fit of PROFILE_TREES trees on the main path's frame under
+def profile_fit(est, fr, tag="profile"):
+    """Phases 6 and 10: one fit of `est` on the main path's frame under
     torch.profiler. Busy share = the union of the device's kernel and copy
     intervals over the fit's wall time (the profiler's own host overhead
     lengthens that wall, so the share reads low)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
-
-    gbm = H2OGradientBoostingEstimator(
-        ntrees=PROFILE_TREES, max_depth=DEPTH, learn_rate=0.1,
-        histogram_type="UniformAdaptive", seed=42, device=str(dev))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        gbm.train(y="label", training_frame=fr)
+        est.train(y="label", training_frame=fr)
         torch.cuda.synchronize()
         wall = time.time() - t0
     spans, by_name = [], {}
@@ -237,11 +259,12 @@ def profile_fit(dev, fr):
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    rec = dict(trees=PROFILE_TREES, wall_s=wall, device_busy_s=busy_us / 1e6,
+    rec = dict(trees=est.model.ntrees_built, wall_s=wall,
+               device_busy_s=busy_us / 1e6,
                busy_share=busy_us / 1e6 / wall, device_events=len(spans),
-               fit_timings=gbm.model.fit_timings,
+               fit_timings=est.model.fit_timings,
                top_device_ms={k[:80]: v / 1e3 for k, v in top})
-    print("profile: " + json.dumps(rec), flush=True)
+    print(f"{tag}: " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -274,6 +297,153 @@ def small_reference_check(dev):
         raise AssertionError("cuda and cpu fits disagree beyond 1e-5")
 
 
+def rows_vs_plain(dev):
+    """Phase 7: the B2 kernel against `hist_plain_rows` at the widths of a
+    DRF fit's passes, on seeded row-major inputs; returns (per-pass rows,
+    max |err|)."""
+    from h2o3_tpu_torch.ops import hist_cuda
+
+    rng = np.random.default_rng(11)
+    codes = torch.from_numpy(
+        rng.integers(0, NBINS, (N_ROWS, N_FEAT), dtype=np.uint8)).to(dev)
+    g = rng.normal(size=N_ROWS).astype(np.float32)
+    h = np.ones(N_ROWS, np.float32)
+    rows, worst = [], 0.0
+    for L, share in ROWS_PASSES + [(ROWS_DEEP_L, 0.5)]:
+        w = (rng.random(N_ROWS) < share).astype(np.float32)
+        vals = torch.from_numpy(np.stack([w, g * w, h * w])).to(dev)
+        node = torch.from_numpy(
+            rng.integers(0, L, N_ROWS, dtype=np.int32)).to(dev)
+        got = hist_cuda.hist_build_rows(codes, node, vals, L, NBINS)
+        ref = hist_cuda.hist_plain_rows(codes, node, vals, L, NBINS)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        del got, ref
+        worst = max(worst, err)
+        route = hist_cuda.rows_plan(L, NBINS, N_FEAT)[0]
+        if L == ROWS_DEEP_L:
+            print(f"rows hist L={L} (dense rebuild, {route} route): matches "
+                  f"plain, max |err| {err:.3e}", flush=True)
+            continue
+        ms = time_ms(lambda: hist_cuda.hist_build_rows(codes, node, vals, L,
+                                                       NBINS))
+        plain_ms = time_ms(
+            lambda: hist_cuda.hist_plain_rows(codes, node, vals, L, NBINS),
+            reps=5)
+        # one library call computing the same histogram: flat ids
+        # f·L·B + node·B + code into an (F·L·B, 3) buffer
+        ids = (torch.arange(N_FEAT, device=dev, dtype=torch.int64)[None, :]
+               * (L * NBINS) + node.to(torch.int64)[:, None] * NBINS
+               + codes.to(torch.int64)).reshape(-1)
+        src = vals.t()[:, None, :].expand(N_ROWS, N_FEAT, 3).reshape(-1, 3)
+        buf = torch.zeros((N_FEAT * L * NBINS, 3), device=dev)
+        lib_ms = time_ms(lambda: buf.zero_().index_add_(0, ids, src), reps=10)
+        del ids, src, buf
+        # this pass's data: codes of the weighted rows only, node and values
+        # of every row, the output once
+        n_w = int(w.sum())
+        nbytes = n_w * N_FEAT + 16 * N_ROWS + L * N_FEAT * NBINS * 3 * 4
+        flops = 3 * n_w * N_FEAT
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / 67e12) * 1e3
+        rows.append(dict(L=L, route=route, weighted_rows=n_w, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bytes=nbytes, max_abs_err=err))
+        print(f"rows hist L={L:4d} ({route}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bytes bound "
+              f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), max |err| "
+              f"{err:.3e}", flush=True)
+    return rows, worst
+
+
+def drf_path(dev, fr):
+    """Phase 8: the DRF path at full width; returns its record."""
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.metrics import auc_exact
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+    from h2o3_tpu_torch.ops import hist_cuda, histogram
+
+    drf = H2ORandomForestEstimator(ntrees=DRF_TREES, hist_method="pallas",
+                                   seed=42, device=str(dev))
+    hist_cuda.launches = hist_cuda.launches_rows = 0
+    histogram.DISPATCH.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    drf.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, b1_launches = hist_cuda.launches_rows, hist_cuda.launches
+    dispatch = dict(histogram.DISPATCH)
+    model = drf.model
+    oob_auc = float(drf.auc())
+    Xt, yt = make_higgs_like(100_000, seed=1)
+    names = [f"f{i}" for i in range(N_FEAT)] + ["label"]
+    ft = Frame.from_numpy(np.column_stack([Xt, yt]), names=names).asfactor("label")
+    t1 = time.time()
+    pred = drf.predict(ft)
+    pred_s = time.time() - t1
+    p1 = np.asarray(pred.vec("1").data, np.float64)
+    plan = histogram_level_plan(model.max_depth, model.compact_cap)
+    expect = (DRF_TREES * len(plan)
+              + model.dense_rebuilds * len(histogram_level_plan(model.max_depth)))
+    rec = dict(wall_s=wall, trees_per_s=DRF_TREES / wall,
+               max_depth_used=model.max_depth, compact_cap=model.compact_cap,
+               compact_overflows=model.dense_rebuilds,
+               dense_rebuilds=model.dense_rebuilds, oob_auc=oob_auc,
+               holdout_auc=auc_exact(yt, p1), predict_s=pred_s,
+               fit_timings=model.fit_timings, hist_launches=launches,
+               planned_passes=expect, dispatch=dispatch,
+               peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"DRF depth used: {model.max_depth} (requested 20)", flush=True)
+    print("drf path: " + json.dumps(rec), flush=True)
+    if min(oob_auc, rec["holdout_auc"]) < DRF_AUC_FLOOR:
+        raise AssertionError(f"DRF AUC below the floor {DRF_AUC_FLOOR}: OOB "
+                             f"{oob_auc}, holdout {rec['holdout_auc']}")
+    if pred.names != ["predict", "0", "1"] or pred.nrow != 100_000 \
+            or not np.all(np.isfinite(p1)):
+        raise AssertionError("DRF predict frame wrong or non-finite")
+    if launches != expect or dispatch != {"pallas": expect} or b1_launches:
+        raise AssertionError(f"DRF histogram dispatch {dispatch}, {launches} "
+                             f"B2 launches, {b1_launches} B1 launches; "
+                             f"expected {expect} B2 launches and no other")
+    return rec
+
+
+def small_drf_check(dev):
+    """Phase 9: cuda and CPU DRF fits of one small problem agree. Binary
+    labels keep every histogram sum exact in f32, whatever the order of the
+    atomics, so the forests must be the same."""
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    X, y = make_higgs_like(4000, n_feat=8, seed=3)
+    names = [f"f{i}" for i in range(8)] + ["label"]
+    fr = Frame.from_numpy(np.column_stack([X, y]), names=names).asfactor("label")
+    fits = {}
+    for d in (str(dev), "cpu"):
+        est = H2ORandomForestEstimator(ntrees=5, max_depth=14, seed=42,
+                                       hist_method="pallas", device=d)
+        est.train(y="label", training_frame=fr)
+        fits[d] = est
+    a, b = fits[str(dev)].model.forest, fits["cpu"].model.forest
+    for f in ("feat", "bin", "is_split"):
+        if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
+            raise AssertionError(f"cuda and cpu DRF forests differ in {f}")
+    dv = float((a.value.cpu() - b.value).abs().max())
+    pa = np.asarray(fits[str(dev)].predict(fr).vec("1").data)
+    pb = np.asarray(fits["cpu"].predict(fr).vec("1").data)
+    dp = float(np.abs(pa - pb).max())
+    da = abs(fits[str(dev)].auc() - fits["cpu"].auc())
+    print(f"small DRF check: forest structure equal ({int(a.is_split.sum())} "
+          f"splits), max |value diff| {dv:.3e}, max |predict diff| {dp:.3e}, "
+          f"OOB AUC diff {da:.3e}", flush=True)
+    if dv > 1e-5 or dp > 1e-5 or da > 1e-5:
+        raise AssertionError("cuda and cpu DRF fits disagree beyond 1e-5")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -290,27 +460,39 @@ def main() -> int:
     if hist_cuda.build_log.strip():
         print(hist_cuda.build_log.strip(), flush=True)
 
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+
     rows, worst = kernel_vs_plain(dev)
     rec, fr = main_path(dev)
     small_reference_check(dev)
-    profile_fit(dev, fr)
+    profile_fit(H2OGradientBoostingEstimator(
+        ntrees=PROFILE_TREES, max_depth=DEPTH, learn_rate=0.1,
+        histogram_type="UniformAdaptive", seed=42, device=str(dev)), fr)
+    rows_b2, worst_b2 = rows_vs_plain(dev)
+    drf_rec = drf_path(dev, fr)
+    small_drf_check(dev)
+    profile_fit(H2ORandomForestEstimator(
+        ntrees=DRF_PROFILE_TREES, hist_method="pallas", seed=42,
+        device=str(dev)), fr, tag="drf profile")
 
-    per_tree = lambda k: sum(r[k] for r in rows)  # noqa: E731
+    def total(passes, k):
+        return sum(r[k] for r in passes)
+
     kernels = [dict(
-        name="hist_factored",
-        route="cuda",
-        source="h2o3_tpu_torch/csrc/hist.cu",
-        replaces="h2o3_tpu/ops/hist_pallas.py:103",
-        launches=rec["hist_launches"],
-        max_abs_err=worst,
-        ms=per_tree("ms"),
-        plain_ms=per_tree("plain_ms"),
-        bound_ms=per_tree("bound_ms"),
-        bound_by="bytes",
-        library_ms=per_tree("library_ms"),
-    )]
-    print("times are the sum over one depth-6 tree's six passes "
-          f"(L = {LEVEL_WIDTHS}) at N={N_ROWS}, F={N_FEAT}, B={NBINS}",
+        name=name, route="cuda", source="h2o3_tpu_torch/csrc/hist.cu",
+        replaces=replaces, launches=launches, max_abs_err=err,
+        ms=total(passes, "ms"), plain_ms=total(passes, "plain_ms"),
+        bound_ms=total(passes, "bound_ms"), bound_by="bytes",
+        library_ms=total(passes, "library_ms"))
+        for name, replaces, launches, err, passes in (
+            ("hist_factored", "h2o3_tpu/ops/hist_pallas.py:103",
+             rec["hist_launches"], worst, rows),
+            ("hist_rows", "h2o3_tpu/ops/hist_pallas.py:174",
+             drf_rec["hist_launches"], worst_b2, rows_b2))]
+    print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
+          f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}), "
+          f"hist_rows over the DRF widths L = {[L for L, _ in ROWS_PASSES]}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Carry a trained tree model across from its numpy arrays.
 
-A GBM's "weights" are its forest: per tree the heap arrays `feat`, `bin`,
-`thr`, `is_split` and `value` (plus the node covers), the initial margin
-`f0`, the bin edges and the heap depth. `forest_from_numpy` builds the
-port's model from them, so a model trained by the JAX package (whose
-arrays the caller reads out as numpy) scores in the port.
+A tree model's "weights" are its forest: per tree the heap arrays `feat`,
+`bin`, `thr`, `is_split` and `value` (plus the node covers), the initial
+margin `f0`, the bin edges, the heap depth and the mode (``"gbm"`` sums
+the trees through the link; ``"drf"`` averages them). `forest_from_numpy`
+builds the port's model from them, so a GBM or DRF model trained by the JAX
+package (whose arrays the caller reads out as numpy) scores in the port.
 """
 
 from __future__ import annotations
@@ -26,10 +27,13 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0: float,
                       domain: Optional[List[str]] = None,
                       problem: str = "binomial",
                       distribution: str = "bernoulli",
+                      mode: str = "gbm",
                       device=None) -> SharedTreeModel:
     """Port model from (ntrees, T) heap arrays. `edges` are the per-feature
     bin edges of the training `BinnedMatrix`; `domain` the response levels
-    of a binomial model."""
+    of a binomial model; `mode` the reference model's `mode`."""
+    if mode not in ("gbm", "drf"):
+        raise ValueError(f"mode must be 'gbm' or 'drf', got {mode!r}")
     dev = devlib.resolve(device)
     T = treelib.heap_size(max_depth)
     arrays = dict(feat=(feat, torch.int32), bin=(bin, torch.int32),
@@ -51,4 +55,4 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0: float,
            if covers is not None else None)
     return SharedTreeModel(None, x, y, bm, problem, 2 if problem == "binomial" else 1,
                            domain, distribution, float(f0), forest, cov,
-                           int(max_depth), dev)
+                           int(max_depth), dev, mode=mode)

@@ -8,11 +8,15 @@ the split search, and the row partition; rows of decided leaves keep
 flowing left, so every depth-D cell inherits its deciding ancestor's rows
 and value. NAs sit in the last bin and traverse right.
 
+Levels wider than `compact_cap` run in active-node compaction (live nodes
+in compact slots, an overflow count the fit loop checks), and `mtries_rate`
+samples features per node and level with the reference's threefry draws
+(`ops.prng`).
+
 The TPU reference computes per-row lookups and leaf totals as one-hot
 matmuls (the TPU has no fast gather); here they are true gathers and
-`index_add_`. Not ported yet: active-node compaction (depth > 12),
-monotone constraints and mtries (ROADMAP queue A, items 4-5), and the
-loss-guided builder (item 10).
+`index_add_`. Not ported yet: monotone constraints (ROADMAP queue A, item
+4) and `build_tree_lossguide` (item 10).
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops import packing
-from ..ops.histogram import build_histograms, feature_major, ordered_axis_fold
+from ..ops import packing, prng
+from ..ops.histogram import (build_histograms, ordered_axis_fold,
+                             resolve_method, widen)
 
 _INF = float("inf")
 
@@ -56,20 +61,25 @@ def _nan_first_argmax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(isn.any(dim=1), first_nan, clean.argmax(dim=1))
 
 
-def _fused_level_best(hist, node_ok, feat_mask, nbins: int, min_rows,
+def _fused_level_best(hist, node_ok, feat_mask, keep, nbins: int, min_rows,
                       reg_lambda, reg_alpha, gsum, hsum, wsum):
     """Best (gain, feature, bin) per level node from an (L, F, B, 3)
-    histogram. The reference scans features keeping a running best with a
-    strict `>` (NaN gains count as the maximum); that equals one flat
-    argmax over (F·B) with first-occurrence ties and NaN-as-max, which is
-    what this computes, over all features at once."""
+    histogram; `keep` is the (L, F) mtries column sample or None. The
+    reference scans features keeping a running best with a strict `>` (NaN
+    gains count as the maximum); that equals one flat argmax over (F·B)
+    with first-occurrence ties and NaN-as-max, which is what this computes,
+    over all features at once."""
     L, F, B = hist.shape[0], hist.shape[1], hist.shape[2]
     G, H, W = gsum[:, None, None], hsum[:, None, None], wsum[:, None, None]
     Gt = _tl1(G, reg_alpha)
     base = Gt * Gt / (H + reg_lambda)
-    WL = torch.cumsum(hist[..., 0], dim=2)                    # (L, F, B)
-    GL = torch.cumsum(hist[..., 1], dim=2)
-    HL = torch.cumsum(hist[..., 2], dim=2)
+    # one scan over the bins for all three channels: the bin axis is not
+    # the innermost, so CUDA scans each (node, feature, channel) column in
+    # order, as the CPU does. Per-channel views take the innermost-dim scan
+    # kernel instead, which on an H100 was 70 % of the device time of a
+    # depth-19 DRF fit at 1M rows.
+    cum = torch.cumsum(hist, dim=2)                          # (L, F, B, 3)
+    WL, GL, HL = cum[..., 0], cum[..., 1], cum[..., 2]
     GR, HR, WR = G - GL, H - HL, W - WL
     GLt, GRt = _tl1(GL, reg_alpha), _tl1(GR, reg_alpha)
     gain = (GLt * GLt / (HL + reg_lambda)
@@ -77,6 +87,8 @@ def _fused_level_best(hist, node_ok, feat_mask, nbins: int, min_rows,
     bin_ok = torch.arange(B, device=hist.device) < nbins - 1  # no NA-bin split
     ok = (WL >= min_rows) & (WR >= min_rows) & bin_ok[None, None, :]
     ok = ok & (feat_mask > 0)[None, :, None] & node_ok[:, None, None]
+    if keep is not None:
+        ok = ok & keep[:, :, None]
     gain = torch.where(ok, gain, torch.full_like(gain, -_INF))
     flat = gain.reshape(L, F * B)
     best = _nan_first_argmax(flat)
@@ -107,11 +119,55 @@ def value_at(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.to(torch.int64)]
 
 
+def compact_switch_depth(max_depth: int, compact_cap: int) -> int:
+    """First level handled by active-node compaction (max_depth = never):
+    the first level wider than the cap. Shared by `build_tree` and
+    `histogram_level_plan`, so the plan is the structure that runs."""
+    if not compact_cap:
+        return max_depth
+    for d in range(max_depth):
+        if 2 ** d > compact_cap:
+            return d
+    return max_depth
+
+
+def histogram_level_plan(max_depth: int, compact_cap: int = 0):
+    """(label, n_nodes) of each histogram pass of one `build_tree`: d0 over
+    1 node, deeper dense levels over the PARENT count (sibling subtraction
+    accumulates only left children), then the compact transition and one
+    pass per compact level over compact_cap + 1 slots."""
+    d_sw = compact_switch_depth(max_depth, compact_cap)
+    levels = [("d%d" % d, 1 if d == 0 else 2 ** (d - 1))
+              for d in range(min(d_sw, max_depth))]
+    if d_sw < max_depth:
+        levels.append(("compact_transition", compact_cap + 1))
+        levels += [("d%d" % d, compact_cap + 1)
+                   for d in range(d_sw, max_depth)]
+    return levels
+
+
+def _row_code(codes: torch.Tensor, rf: torch.Tensor, pack_bits: int) -> torch.Tensor:
+    """codes[i, rf[i]] as int32: each row's code of its split feature."""
+    if pack_bits:
+        return packing.packed_row_values(codes, rf, pack_bits)
+    return codes.gather(1, rf.to(torch.int64)[:, None])[:, 0].to(torch.int32)
+
+
+def _keep_mask(key, n_nodes: int, F: int, rate: torch.Tensor):
+    """Per-(node, feature) column sample of one level (DRF mtries): the
+    next key and an (n_nodes, F) bool mask, at least one feature kept per
+    node (reference `tree.py:397-402`)."""
+    key, sub = prng.split(key)
+    keep = prng.uniform(sub, (n_nodes, F), rate.device) < rate
+    keep[:, 0] |= ~keep.any(dim=1)
+    return key, keep
+
+
 def build_tree(
     codes: torch.Tensor,       # (N, F) uint8 codes, or packed (N·bits/8, F)
     g: torch.Tensor,           # (N,) gradients
     h: torch.Tensor,           # (N,) hessians
-    w: torch.Tensor,           # (N,) row weights (0 = pad / masked)
+    w: torch.Tensor,           # (N,) row weights (0 = pad / out of bag)
     feat_mask: torch.Tensor,   # (F,) f32 1/0 column mask
     edges: torch.Tensor,       # (F, nbins-2) raw-value right edges (+inf pad)
     max_depth: int,
@@ -124,20 +180,37 @@ def build_tree(
     max_abs_leaf: Optional[float] = None,
     pack_bits: int = 0,
     n_shard_blocks: int = 0,
+    mtries_rate: Optional[float] = None,
+    key=None,
+    compact_cap: int = 0,
 ):
     """Build one tree; returns (Tree, final leaf heap index (N,), gain per
-    feature (F,), cover (T,) — Σ row weights per heap node)."""
+    feature (F,), cover (T,) — Σ row weights per heap node), and with
+    ``compact_cap`` a fifth element: the overflow count (0-d int32 tensor).
+
+    ``mtries_rate`` samples each feature per node and level with that
+    probability (DRF's per-split column sampling), drawing from ``key`` (an
+    `ops.prng` key) as the reference does: one `split` per level.
+
+    ``compact_cap`` > 0 runs the levels wider than the cap in active-node
+    compaction: at most ``compact_cap`` live nodes sit in compact slots
+    (slot CAP is the trash slot of dead rows), so a level's histogram is
+    (CAP + 1, F, B, 3) whatever its depth. If the live nodes ever exceed
+    the cap the overflow count is nonzero and the tree is not the exact
+    one: the caller must rebuild it densely (`shared_tree`'s fit loop does)."""
     dev = g.device
     F = codes.shape[1]
     N = (packing.packed_nrows(codes.shape[0], pack_bits) if pack_bits
          else codes.shape[0])
     T = heap_size(max_depth)
-    feat_a = torch.zeros(T, dtype=torch.int32, device=dev)
-    bin_a = torch.zeros(T, dtype=torch.int32, device=dev)
-    thr_a = torch.zeros(T, dtype=torch.float32, device=dev)
-    split_a = torch.zeros(T, dtype=torch.bool, device=dev)
-    value_a = torch.zeros(T, dtype=torch.float32, device=dev)
-    cover_a = torch.zeros(T, dtype=torch.float32, device=dev)
+    # one spare cell at index T takes the compact phase's writes of dead
+    # slots (the reference's scatter mode="drop"); it is cut off at the end
+    feat_a = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    bin_a = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    thr_a = torch.zeros(T + 1, dtype=torch.float32, device=dev)
+    split_a = torch.zeros(T + 1, dtype=torch.bool, device=dev)
+    value_a = torch.zeros(T + 1, dtype=torch.float32, device=dev)
+    cover_a = torch.zeros(T + 1, dtype=torch.float32, device=dev)
 
     idx = torch.zeros(N, dtype=torch.int64, device=dev)   # level-local node
     active = torch.ones(1, dtype=torch.bool, device=dev)
@@ -145,10 +218,26 @@ def build_tree(
     pad_edges = torch.cat(
         [edges.to(torch.float32),
          torch.full((F, 1), _INF, dtype=torch.float32, device=dev)], dim=1)
-    # the widened feature-major codes every level's histogram pass reads:
-    # built once per tree, a tree-lifetime transient (the resident matrix
-    # stays packed)
-    codes_fm = feature_major(codes, pack_bits)
+    # the widened codes every level's histogram pass reads, in the layout of
+    # the resolved method's kernel: built once per tree, a tree-lifetime
+    # transient (the resident matrix stays packed)
+    method = resolve_method(hist_method, dev)
+    codes_w = widen(codes, pack_bits, method)
+    rate = (torch.tensor(mtries_rate, dtype=torch.float32, device=dev)
+            if mtries_rate is not None else None)
+    if rate is not None and key is None:
+        key = prng.PRNGKey(0)
+    d_switch = compact_switch_depth(max_depth, compact_cap)
+    # per-row frozen leaf (absolute heap node): compaction stops flowing
+    # the rows of decided leaves left, so the leaf is tracked per row
+    row_leaf = (torch.zeros(N, dtype=torch.int64, device=dev)
+                if d_switch < max_depth else None)
+
+    def hist_pass(node_id, wts, n_nodes):
+        return build_histograms(
+            codes, node_id, g, h, wts, n_nodes, nbins, method=method,
+            pack_bits=pack_bits, n_shard_blocks=n_shard_blocks,
+            codes_w=codes_w)
 
     def newton(gs, hs):
         v = -_tl1(gs, reg_alpha) / (hs + reg_lambda + 1e-12)
@@ -156,42 +245,45 @@ def build_tree(
             v = torch.clamp(v, -max_abs_leaf, max_abs_leaf)
         return v.to(torch.float32)
 
+    def totals(hist):
+        return (hist[..., 0].sum(dim=2)[:, 0], hist[..., 1].sum(dim=2)[:, 0],
+                hist[..., 2].sum(dim=2)[:, 0])
+
+    def search(hist, node_ok, keep, gsum, hsum, wsum):
+        best_gain, bf, bb = _fused_level_best(
+            hist, node_ok, feat_mask, keep, nbins, min_rows, reg_lambda,
+            reg_alpha, gsum, hsum, wsum)
+        do = best_gain > max(min_split_improvement, 1e-10)
+        gain_per_feature.index_add_(
+            0, bf.to(torch.int64),
+            torch.where(do, best_gain, torch.zeros_like(best_gain)))
+        bthr = pad_edges[bf.to(torch.int64),
+                         torch.clamp(bb, max=nbins - 2).to(torch.int64)]
+        return do, bf, bb, bthr
+
     hist_prev = None
-    for d in range(max_depth):
+    for d in range(min(d_switch, max_depth)):
         L = 2 ** d
         base = L - 1                        # heap offset of this level
         if d == 0:
-            hist = build_histograms(
-                codes, idx, g, h, w, L, nbins, method=hist_method,
-                pack_bits=pack_bits, n_shard_blocks=n_shard_blocks,
-                codes_fm=codes_fm)
+            hist = hist_pass(idx, w, L)
         else:
             # sibling subtraction: only LEFT children are accumulated
             is_left = (idx % 2 == 0)
-            hist_left = build_histograms(
-                codes, idx // 2, g, h, w * is_left.to(w.dtype), L // 2, nbins,
-                method=hist_method, pack_bits=pack_bits,
-                n_shard_blocks=n_shard_blocks, codes_fm=codes_fm)
+            hist_left = hist_pass(idx // 2, w * is_left.to(w.dtype), L // 2)
             hist_right = hist_prev - hist_left
             hist = torch.stack([hist_left, hist_right], dim=1).reshape(
                 (L,) + tuple(hist_left.shape[1:]))
         hist_prev = hist
 
-        wsum = hist[..., 0].sum(dim=2)[:, 0]    # (L,) totals (same for all F)
-        gsum = hist[..., 1].sum(dim=2)[:, 0]
-        hsum = hist[..., 2].sum(dim=2)[:, 0]
+        wsum, gsum, hsum = totals(hist)     # (L,) totals (same for all F)
         value_a[base:base + L] = newton(gsum, hsum)
         cover_a[base:base + L] = wsum
 
-        best_gain, bf, bb = _fused_level_best(
-            hist, active, feat_mask, nbins, min_rows, reg_lambda, reg_alpha,
-            gsum, hsum, wsum)
-        do_split = best_gain > max(min_split_improvement, 1e-10)
-        gain_per_feature.index_add_(
-            0, bf.to(torch.int64),
-            torch.where(do_split, best_gain, torch.zeros_like(best_gain)))
-        bthr = pad_edges[bf.to(torch.int64),
-                         torch.clamp(bb, max=nbins - 2).to(torch.int64)]
+        keep = None
+        if rate is not None:
+            key, keep = _keep_mask(key, L, F, rate)
+        do_split, bf, bb, bthr = search(hist, active, keep, gsum, hsum, wsum)
         zero_i = torch.zeros_like(bf)
         feat_a[base:base + L] = torch.where(do_split, bf, zero_i)
         bin_a[base:base + L] = torch.where(do_split, bb, zero_i)
@@ -200,22 +292,113 @@ def build_tree(
 
         # partition: decided-leaf rows flow left; splitters route by code
         rf, rb, rs = bf[idx], bb[idx], do_split[idx]
-        if pack_bits:
-            rcode = packing.packed_row_values(codes, rf, pack_bits)
-        else:
-            rcode = codes.gather(1, rf.to(torch.int64)[:, None])[:, 0].to(torch.int32)
-        go_right = (rcode > rb) & rs
+        go_right = (_row_code(codes, rf, pack_bits) > rb) & rs
         idx = 2 * idx + go_right.to(torch.int64)
+        if row_leaf is not None:
+            row_leaf = torch.where(rs, (2 ** (d + 1) - 1) + idx, row_leaf)
         active = torch.repeat_interleave(do_split, 2)
 
-    # final level: leaf values from exact per-cell totals
-    Lf = 2 ** max_depth
-    basef = Lf - 1
-    tot = _leaf_totals(idx, torch.stack([w, g * w, h * w]), Lf, n_shard_blocks)
-    value_a[basef:] = newton(tot[:, 1], tot[:, 2])
-    cover_a[basef:] = tot[:, 0]
-    return (Tree(feat_a, bin_a, thr_a, split_a, value_a), idx + basef,
-            gain_per_feature, cover_a)
+    def finish(leaf):
+        return (Tree(feat_a[:T], bin_a[:T], thr_a[:T], split_a[:T], value_a[:T]),
+                leaf, gain_per_feature, cover_a[:T])
+
+    if d_switch >= max_depth:
+        # final level: leaf values from exact per-cell totals
+        Lf = 2 ** max_depth
+        basef = Lf - 1
+        tot = _leaf_totals(idx, torch.stack([w, g * w, h * w]), Lf,
+                           n_shard_blocks)
+        value_a[basef:T] = newton(tot[:, 1], tot[:, 2])
+        cover_a[basef:T] = tot[:, 0]
+        out = finish(idx + basef)
+        if compact_cap:
+            return out + (torch.zeros((), dtype=torch.int32, device=dev),)
+        return out
+
+    # ---- compact phase: levels d_switch..max_depth with <= CAP live slots
+    CAP = compact_cap
+    M = CAP // 2
+    if 2 * M != CAP:
+        raise ValueError("compact_cap must be even (slot pairs)")
+    L_t = 2 ** d_switch
+    act_i = active.to(torch.int32)
+    overflow = (act_i.sum() > CAP).to(torch.int32)
+    sid_nodes = torch.where(active, torch.clamp(torch.cumsum(act_i, 0) - 1, max=CAP),
+                            CAP).to(torch.int64)                  # (L_t,)
+    row_slot = sid_nodes[idx]                                     # (N,)
+    slot_node = torch.full((CAP + 1,), -1, dtype=torch.int64, device=dev)
+    slot_node[sid_nodes] = torch.where(
+        active, torch.arange(L_t, device=dev), -1)
+    # transition histogram: one fresh pass in slot space (no subtraction
+    # across the dense/compact boundary)
+    slot_hist = hist_pass(row_slot, w * (row_slot < CAP).to(w.dtype), CAP + 1)
+    slot_iota = torch.arange(CAP + 1, device=dev)
+
+    for d in range(d_switch, max_depth):
+        base = 2 ** d - 1
+        valid = (slot_node >= 0) & (slot_iota < CAP)
+        wsum, gsum, hsum = totals(slot_hist)
+        abs_node = torch.where(valid, base + slot_node, T)        # T: spare
+        zero_f = torch.zeros_like(wsum)
+        value_a[abs_node] = torch.where(valid, newton(gsum, hsum), zero_f)
+        cover_a[abs_node] = torch.where(valid, wsum, zero_f)
+
+        # split search over live slots (the dense level's math)
+        keep = None
+        if rate is not None:
+            key, keep = _keep_mask(key, CAP + 1, F, rate)
+        do, bf, bb, bthr = search(slot_hist, valid, keep, gsum, hsum, wsum)
+        vd = valid & do
+        zero_i = torch.zeros_like(bf)
+        feat_a[abs_node] = torch.where(vd, bf, zero_i)
+        bin_a[abs_node] = torch.where(vd, bb, zero_i)
+        thr_a[abs_node] = torch.where(vd, bthr, torch.zeros_like(bthr))
+        split_a[abs_node] = vd
+
+        # partition rows
+        do = vd
+        rs_do = do[row_slot]
+        go_right = (_row_code(codes, bf[row_slot], pack_bits) > bb[row_slot]) & rs_do
+        gr = go_right.to(torch.int64)
+        child_local = 2 * slot_node[row_slot] + gr
+        row_leaf = torch.where(rs_do, (2 ** (d + 1) - 1) + child_local, row_leaf)
+
+        # child slot assignment: split parents ranked, children interleaved
+        do_i = do.to(torch.int32)
+        rank = torch.clamp(torch.cumsum(do_i, 0) - 1, max=M - 1).to(torch.int64)
+        overflow = overflow + (do_i.sum() > M).to(torch.int32)
+        new_row_slot = torch.where(rs_do, 2 * rank[row_slot] + gr, CAP)
+        tgt = torch.where(do, rank, M)                            # (CAP+1,)
+        par_slot = torch.full((M + 1,), CAP, dtype=torch.int64, device=dev)
+        par_slot[tgt] = torch.where(do, slot_iota, CAP)
+        par_slot_c = torch.clamp(par_slot, max=CAP)
+        par_node = torch.where(par_slot < CAP, slot_node[par_slot_c], -1)  # (M+1,)
+        kids = torch.stack([2 * par_node, 2 * par_node + 1], dim=1).reshape(
+            2 * (M + 1))
+        kids = torch.where(kids < 0, -1, kids)
+        new_slot_node = torch.cat(
+            [kids[:CAP], torch.full((1,), -1, dtype=torch.int64, device=dev)])
+
+        # child histograms: LEFT from one masked pass in parent-slot space,
+        # RIGHT by parent minus left (sibling subtraction)
+        hl = hist_pass(row_slot, w * ((~go_right) & rs_do).to(w.dtype), CAP + 1)
+        hl_p = hl[par_slot_c]
+        pair = torch.stack([hl_p, slot_hist[par_slot_c] - hl_p], dim=1).reshape(
+            (2 * (M + 1),) + tuple(hl.shape[1:]))
+        slot_hist = torch.cat([pair[:CAP], torch.zeros_like(hl[:1])])
+        slot_node = new_slot_node
+        row_slot = new_row_slot
+
+    # final level: exact per-slot totals (dead rows sit in the trash slot)
+    basef = 2 ** max_depth - 1
+    valid = (slot_node >= 0) & (slot_iota < CAP)
+    tot = _leaf_totals(row_slot, torch.stack([w, g * w, h * w]), CAP + 1,
+                       n_shard_blocks)
+    abs_node = torch.where(valid, basef + slot_node, T)
+    zero_f = torch.zeros_like(tot[:, 0])
+    value_a[abs_node] = torch.where(valid, newton(tot[:, 1], tot[:, 2]), zero_f)
+    cover_a[abs_node] = torch.where(valid, tot[:, 0], zero_f)
+    return finish(row_leaf) + (overflow,)
 
 
 def predict_codes(tree: Tree, codes: torch.Tensor, max_depth: int) -> torch.Tensor:

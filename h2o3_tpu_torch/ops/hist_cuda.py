@@ -1,16 +1,23 @@
-"""The gradient-histogram kernel for Hopper, its build, and its plain twin.
+"""The gradient-histogram kernels for Hopper, their build, and their plain
+twins.
 
-Replaces the TPU kernel `h2o3_tpu/ops/hist_pallas.py::
-build_histograms_pallas_factored` (kernel body `_hist_kernel_factored`). The
-CUDA source is `h2o3_tpu_torch/csrc/hist.cu`; its header comment gives the
-design and the bound (device-memory bytes). `nvcc` builds it at first use
-into `h2o3_tpu_torch/_build/` (ignored by git) as a shared library with a
-plain C entry point, loaded through `ctypes`.
+Two entries replace the two TPU kernels of `h2o3_tpu/ops/hist_pallas.py`:
 
-`hist_build` launches the kernel for tensors on a CUDA device and uses
-`hist_plain` — a per-feature `index_add_`, the sequential f32 fold of the
-reference's `_hist_segment` — only for tensors that lie on the CPU. A
-failed build or launch raises; nothing falls back to the plain version.
+* `hist_build` — `build_histograms_pallas_factored` (B1, kernel body
+  `_hist_kernel_factored`), on feature-major (F, N) codes;
+* `hist_build_rows` — `build_histograms_pallas` (B2, kernel body
+  `_hist_kernel`), on row-major (N, F) codes.
+
+The CUDA source of both is `h2o3_tpu_torch/csrc/hist.cu`; its comments give
+each design and bound (device-memory bytes). `nvcc` builds it at first use
+into `h2o3_tpu_torch/_build/` (ignored by git) as a shared library with
+plain C entry points, loaded through `ctypes`.
+
+Each entry launches its kernel for tensors on a CUDA device and uses its
+plain twin (`hist_plain`, `hist_plain_rows`: a per-feature `index_add_`,
+the sequential f32 fold of the reference's `_hist_segment`) only for
+tensors that lie on the CPU. A failed build or launch raises; nothing falls
+back to the plain version.
 """
 
 from __future__ import annotations
@@ -36,8 +43,17 @@ SMEM_MAX = 232448
 THREADS = 512
 MIN_ROWS_PER_BLOCK = 1024
 
-# kernel launches made by `hist_build` (one per call that reaches the card)
+# B2's row tile: at most ROWS_TILE rows and TILE_BYTES code bytes; a block
+# keeps several features' histograms while they fit ROWS_HIST_TARGET bytes
+ROWS_TILE = 256
+TILE_BYTES = 8192
+ROWS_HIST_TARGET = 40 * 1024
+GLOBAL_THREADS = 256
+
+# kernel launches made by `hist_build` / `hist_build_rows` (one per call
+# that reaches the card)
 launches = 0
+launches_rows = 0
 # what nvcc printed for the last build (-Xptxas -v: registers, shared memory)
 build_log = ""
 
@@ -76,6 +92,10 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     fn = lib.h2o3_hist_build
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.h2o3_hist_build_rows
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
@@ -166,4 +186,93 @@ def hist_build(codes: torch.Tensor, node: torch.Tensor, vals: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"histogram kernel launch failed: cudaError {rc}")
     launches += 1
+    return out
+
+
+def rows_plan(n_nodes: int, nbins: int, n_feat: int):
+    """(route, features per block, tile rows, shared bytes) of one B2 pass.
+    The shared route keeps the (nodes, B, 3) f32 histograms of a block of
+    features in shared memory beside the staged row tile, as many features
+    as fit ROWS_HIST_TARGET. It is taken while at least two features fit;
+    wider passes take the global route (atomics into the output), which on
+    an H100 is the faster one from there on (tools/hist_rows_routes.py:
+    at B = 21 the shared route with one feature per block re-reads every
+    row tile F times)."""
+    per_feat = n_nodes * nbins * 3 * 4
+    if 2 * per_feat > ROWS_HIST_TARGET:
+        return "global", 0, 0, 0
+    tile = max(1, min(ROWS_TILE, TILE_BYTES // max(n_feat, 1)))
+    if tile >= 16:
+        tile -= tile % 16                  # 16-byte aligned tiles
+    staging = -(-tile * n_feat // 16) * 16 + tile * 4 * 4
+    fpb = min(n_feat, ROWS_HIST_TARGET // per_feat)
+    return "shared", fpb, tile, staging + fpb * per_feat
+
+
+def hist_plain_rows(codes: torch.Tensor, node: torch.Tensor,
+                    vals: torch.Tensor, n_nodes: int,
+                    nbins: int) -> torch.Tensor:
+    """`hist_plain` on row-major (N, F) codes — the plain PyTorch version of
+    the B2 kernel (one `index_add_` per feature over node·B + code)."""
+    return hist_plain(codes.t(), node, vals, n_nodes, nbins)
+
+
+def hist_build_rows(codes: torch.Tensor, node: torch.Tensor,
+                    vals: torch.Tensor, n_nodes: int,
+                    nbins: int) -> torch.Tensor:
+    """(L, F, B, 3) f32 histogram of vals per (node, feature, bin), from
+    row-major codes (N, F) uint8, node (N,) int32 and vals (3, N) f32, all
+    contiguous on one device. On a CUDA device this launches the B2 kernel
+    on the current stream (no synchronisation); on the CPU it is
+    `hist_plain_rows`."""
+    global launches_rows
+    if codes.device.type == "cpu":
+        return hist_plain_rows(codes, node, vals, n_nodes, nbins)
+    N, F = codes.shape
+    if codes.dtype != torch.uint8 or node.dtype != torch.int32 \
+            or vals.dtype != torch.float32:
+        raise TypeError(f"hist_build_rows takes uint8 codes, int32 node, f32 "
+                        f"vals; got {codes.dtype}, {node.dtype}, {vals.dtype}")
+    if tuple(node.shape) != (N,) or tuple(vals.shape) != (3, N):
+        raise ValueError(f"shape mismatch: codes {tuple(codes.shape)}, node "
+                         f"{tuple(node.shape)}, vals {tuple(vals.shape)}")
+    if not (codes.is_contiguous() and node.is_contiguous()
+            and vals.is_contiguous()):
+        raise ValueError("hist_build_rows takes contiguous tensors")
+    if not (codes.device == node.device == vals.device):
+        raise ValueError("hist_build_rows inputs lie on different devices")
+    route, fpb, tile, smem = rows_plan(n_nodes, nbins, F)
+    shape = (n_nodes, F, nbins, 3)
+    if N == 0 or F == 0:
+        return torch.zeros(shape, dtype=torch.float32, device=codes.device)
+    lib = build()
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    if route == "global":
+        out = torch.zeros(shape, dtype=torch.float32, device=codes.device)
+        partials, n_rb, rows, threads = None, 0, 0, GLOBAL_THREADS
+        blocks = max(1, min(-(-N * F // threads), 8 * sms))
+    else:
+        out = torch.empty(shape, dtype=torch.float32, device=codes.device)
+        n_fb = math.ceil(F / fpb)
+        # about two blocks per SM in all, never blocks of fewer than
+        # MIN_ROWS_PER_BLOCK rows; each block's rows are whole tiles
+        n_rb = max(1, min(math.ceil(N / MIN_ROWS_PER_BLOCK),
+                          math.ceil(2 * sms / n_fb)))
+        rows = math.ceil(math.ceil(N / n_rb) / tile) * tile
+        n_rb = math.ceil(N / rows)
+        partials = torch.empty((n_rb, F, n_nodes, nbins, 3),
+                               dtype=torch.float32, device=codes.device)
+        threads = THREADS
+        blocks = max(1, min(math.ceil(out.numel() / 256), 4 * sms))
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        rc = lib.h2o3_hist_build_rows(
+            codes.data_ptr(), node.data_ptr(), vals.data_ptr(),
+            partials.data_ptr() if partials is not None else None,
+            out.data_ptr(), N, F, n_nodes, nbins, int(route == "global"),
+            rows, fpb, tile, n_rb, threads, smem, blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"row-major histogram kernel launch failed: "
+                           f"cudaError {rc}")
+    launches_rows += 1
     return out

@@ -7,14 +7,19 @@ Methods keep the reference's names:
   sequential f32 fold of the reference's `_hist_segment`. The CPU default,
   and the parity oracle.
 * ``pallas_factored`` — the reference's TPU default (`hist_pallas.py`
-  B1). Here it is the hand-written CUDA kernel `csrc/hist.cu`, launched
-  through `hist_cuda.hist_build`. The ``auto`` default on ``cuda``.
+  B1). Here it is the hand-written CUDA kernel of `csrc/hist.cu` on
+  feature-major codes, launched through `hist_cuda.hist_build`. The
+  ``auto`` default on ``cuda``.
+* ``pallas`` — `hist_pallas.py` B2, asked for by name
+  (``hist_method="pallas"``). Here it is the row-major CUDA kernel of
+  `csrc/hist.cu`, launched through `hist_cuda.hist_build_rows`; on the CPU
+  its plain twin `hist_cuda.hist_plain_rows`.
 
-``pallas`` (B2; ROADMAP queue B, item 2), ``onehot`` and ``host`` (queue
-A, item 3) are not ported yet and raise. The kernel takes every level
-width: where one feature's (L, B, 3) histogram outgrows a block's shared
-memory it splits the nodes into slices, so nothing gives way to
-``segment`` on the card.
+``onehot`` and ``host`` (ROADMAP queue A, item 3) are not ported yet and
+raise. Both kernels take every level width (B1 splits the nodes into
+slices where one feature's (L, B, 3) histogram outgrows shared memory, B2
+switches to global atomics), so nothing gives way to ``segment`` on the
+card.
 
 Every call counts its resolved method in `DISPATCH`, the stand-in for the
 reference's `_record_selection` registry counters.
@@ -33,7 +38,6 @@ from . import hist_cuda, packing
 DISPATCH: Counter = Counter()
 
 _NOT_PORTED = {
-    "pallas": "ROADMAP queue B, item 2 (build_histograms_pallas)",
     "onehot": "ROADMAP queue A, item 3 (the XLA one-hot matmul path)",
     "host": "ROADMAP queue A, item 3 (host-side accumulate)",
 }
@@ -46,18 +50,34 @@ def resolve_method(method: str, device: torch.device) -> str:
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"histogram method {method!r} is not ported: {_NOT_PORTED[method]}")
-    if method not in ("segment", "pallas_factored"):
+    if method not in ("segment", "pallas_factored", "pallas"):
         raise ValueError(f"unknown histogram method {method!r}")
     return method
 
 
 def feature_major(codes: torch.Tensor, pack_bits: int = 0) -> torch.Tensor:
     """(F, N) uint8 contiguous codes from the (packed) (N, F) matrix — the
-    widened transient the kernels read. The tree builder calls this once per
-    tree and hands it to every level's pass."""
+    widened transient `segment` and `pallas_factored` read."""
     if pack_bits:
         codes = packing.unpack_device(codes, pack_bits)
     return codes.t().contiguous()
+
+
+def row_major(codes: torch.Tensor, pack_bits: int = 0) -> torch.Tensor:
+    """(N, F) uint8 contiguous codes from the (packed) (N, F) matrix — the
+    widened transient `pallas` (B2) reads."""
+    if pack_bits:
+        codes = packing.unpack_device(codes, pack_bits)
+    return codes.contiguous()
+
+
+def widen(codes: torch.Tensor, pack_bits: int, method: str) -> torch.Tensor:
+    """The widened codes in the layout `method`'s kernel reads.
+    `tree.build_tree` calls this once per tree and hands it to every
+    level's pass."""
+    if method == "pallas":
+        return row_major(codes, pack_bits)
+    return feature_major(codes, pack_bits)
 
 
 def ordered_axis_fold(parts: torch.Tensor) -> torch.Tensor:
@@ -68,10 +88,12 @@ def ordered_axis_fold(parts: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _run_kernel(method: str, codes_fm, node, vals, n_nodes: int, nbins: int):
+def _run_kernel(method: str, codes_w, node, vals, n_nodes: int, nbins: int):
     if method == "segment":
-        return hist_cuda.hist_plain(codes_fm, node, vals, n_nodes, nbins)
-    return hist_cuda.hist_build(codes_fm, node, vals, n_nodes, nbins)
+        return hist_cuda.hist_plain(codes_w, node, vals, n_nodes, nbins)
+    if method == "pallas":
+        return hist_cuda.hist_build_rows(codes_w, node, vals, n_nodes, nbins)
+    return hist_cuda.hist_build(codes_w, node, vals, n_nodes, nbins)
 
 
 def build_histograms(
@@ -85,14 +107,14 @@ def build_histograms(
     method: str = "auto",
     pack_bits: int = 0,
     n_shard_blocks: int = 0,
-    codes_fm: Optional[torch.Tensor] = None,
+    codes_w: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Histogram of {Σw, Σg·w, Σh·w} per (tree node, feature, bin), shape
     (n_nodes, F, nbins, 3). Rows with w == 0 contribute nothing.
 
     `codes` is the (N, F) code matrix, or with ``pack_bits`` in {4, 5, 6}
-    the `ops.packing` word matrix; `codes_fm` is its widened feature-major
-    form (`feature_major`) when the caller already holds it.
+    the `ops.packing` word matrix; `codes_w` is its widened form in the
+    method's layout (`widen`) when the caller already holds it.
 
     ``n_shard_blocks`` > 0 splits the rows into that many equal contiguous
     blocks, runs the same kernel on each and folds the partials in block
@@ -100,8 +122,8 @@ def build_histograms(
     vals = torch.stack([w, g * w, h * w]).to(torch.float32)   # (3, N)
     method = resolve_method(method, vals.device)
     DISPATCH[method] += 1
-    if codes_fm is None:
-        codes_fm = feature_major(codes, pack_bits)
+    if codes_w is None:
+        codes_w = widen(codes, pack_bits, method)
     node = node_id.to(torch.int32).contiguous()
     if n_shard_blocks > 0:
         n = node.shape[0]
@@ -109,10 +131,14 @@ def build_histograms(
             raise ValueError(
                 f"{n} rows do not divide into {n_shard_blocks} shard blocks")
         rows = n // n_shard_blocks
-        parts = [_run_kernel(method, codes_fm[:, b * rows:(b + 1) * rows].contiguous(),
-                             node[b * rows:(b + 1) * rows],
+
+        def block(b):
+            r = slice(b * rows, (b + 1) * rows)
+            return codes_w[r] if method == "pallas" else codes_w[:, r].contiguous()
+
+        parts = [_run_kernel(method, block(b), node[b * rows:(b + 1) * rows],
                              vals[:, b * rows:(b + 1) * rows].contiguous(),
                              n_nodes, nbins)
                  for b in range(n_shard_blocks)]
         return ordered_axis_fold(torch.stack(parts))
-    return _run_kernel(method, codes_fm, node, vals, n_nodes, nbins)
+    return _run_kernel(method, codes_w, node, vals, n_nodes, nbins)

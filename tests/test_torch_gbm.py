@@ -152,11 +152,12 @@ def test_forest_from_numpy_predicts_like_the_jax_model(fits, kind):
                                    rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(sample_rate=0.5), dict(col_sample_rate=0.8),
-                                dict(hist_method="pallas"),
+@pytest.mark.parametrize("kw", [dict(sample_rate_per_class=[0.5, 0.9]),
+                                dict(goss=True),
+                                dict(balance_classes=True),
                                 dict(monotone_constraints={"f0": 1}),
                                 dict(distribution="poisson"),
-                                dict(max_depth=14)])
+                                dict(calibrate_model=True)])
 def test_unported_parameters_raise(kw):
     X, y = make_higgs_like(200)
     fr = Frame.from_numpy(np.column_stack([X, y]), names=NAMES).asfactor("label")

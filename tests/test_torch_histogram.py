@@ -150,18 +150,21 @@ def test_resolve_method_and_dispatch_counter():
     assert histogram.resolve_method("auto", cpu) == "segment"
     assert histogram.resolve_method("auto", cuda) == "pallas_factored"
     assert histogram.resolve_method("segment", cuda) == "segment"
-    for m in ("pallas", "onehot", "host"):
+    assert histogram.resolve_method("pallas", cuda) == "pallas"
+    assert histogram.resolve_method("pallas", cpu) == "pallas"
+    for m in ("onehot", "host"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             histogram.resolve_method(m, cuda)
     with pytest.raises(ValueError):
         histogram.resolve_method("bogus", cpu)
     codes, node, g, h, w = _inputs(5, 256, 3, 2)
     histogram.DISPATCH.clear()
-    for m in ("auto", "segment", "pallas_factored"):
+    for m in ("auto", "segment", "pallas_factored", "pallas"):
         histogram.build_histograms(
             torch.from_numpy(codes), torch.from_numpy(node), torch.from_numpy(g),
             torch.from_numpy(h), torch.from_numpy(w), 2, B, method=m)
-    assert histogram.DISPATCH == {"segment": 2, "pallas_factored": 1}
+    assert histogram.DISPATCH == {"segment": 2, "pallas_factored": 1,
+                                  "pallas": 1}
 
 
 def test_feats_per_block_rule():
@@ -180,3 +183,71 @@ def test_feats_per_block_rule():
                                 else 1)
     with pytest.raises(ValueError):
         plan(1, 20_000, 1)                      # one node does not fit
+
+
+@pytest.mark.parametrize("L", [1, 4, 33])
+def test_hist_plain_rows_and_wrapper_match_segment(L):
+    """`hist_plain_rows` on the B2 kernel's own inputs (row-major codes),
+    and the B2 wrapper on CPU tensors (which takes the plain path)."""
+    codes, node, g, h, w = _inputs(60 + L, 3000, 6, L)
+    ref = _ref_segment(codes, node, g, h, w, L)
+    vals = torch.from_numpy(np.stack([w, g * w, h * w]))
+    rows, nd = torch.from_numpy(codes), torch.from_numpy(node)
+    plain = hist_cuda.hist_plain_rows(rows, nd, vals, L, B)
+    np.testing.assert_allclose(plain.numpy(), ref, rtol=1e-6, atol=1e-5)
+    # the same index_add_ fold as the feature-major twin: the same bits
+    assert torch.equal(plain, hist_cuda.hist_plain(
+        torch.from_numpy(np.ascontiguousarray(codes.T)), nd, vals, L, B))
+    before = hist_cuda.launches_rows
+    wrapped = hist_cuda.hist_build_rows(rows, nd, vals, L, B)
+    assert hist_cuda.launches_rows == before     # no launch off the card
+    assert torch.equal(wrapped, plain)
+
+
+@pytest.mark.parametrize("L", [1, 4])
+def test_hist_plain_rows_matches_b2_body(L):
+    """B2's kernel body in interpret mode against its port's plain twin;
+    bf16 operands in the TPU kernel, so 2e-3 of the largest entry."""
+    N, F, R = 2048, 16, 512
+    codes, node, g, h, w = _inputs(70 + L, N, F, L)
+    vals = np.stack([w, g * w, h * w]).astype(np.float32)
+    tpu = _pallas_b2(codes, node, vals, L, B, R)
+    got = hist_cuda.hist_plain_rows(torch.from_numpy(codes), torch.from_numpy(node),
+                                    torch.from_numpy(vals), L, B).numpy()
+    assert np.abs(got - tpu).max() <= 2e-3 * np.abs(got).max()
+
+
+@pytest.mark.parametrize("pack_bits", [0, 5])
+@pytest.mark.parametrize("blocks", [0, 4])
+def test_build_histograms_pallas_method_matches_segment(pack_bits, blocks):
+    """"pallas" widens the (packed) codes row-major and, on the CPU, runs
+    `hist_plain_rows`: the reference's `segment` result."""
+    codes, node, g, h, w = _inputs(80 + pack_bits + blocks, 2048, 7, 8)
+    ref = _ref_segment(codes, node, g, h, w, 8, pack_bits=pack_bits,
+                       blocks=blocks)
+    c = packing.pack_host(codes, pack_bits) if pack_bits else codes
+    assert histogram.widen(torch.from_numpy(c), pack_bits, "pallas").shape == (2048, 7)
+    got = histogram.build_histograms(
+        torch.from_numpy(c), torch.from_numpy(node), torch.from_numpy(g),
+        torch.from_numpy(h), torch.from_numpy(w), 8, B, method="pallas",
+        pack_bits=pack_bits, n_shard_blocks=blocks)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-5)
+
+
+def test_rows_plan_rule():
+    """B2's launch plan at the DRF path's widths (F = 28, B = 21): several
+    features per block while at least two fit, then global atomics; every
+    shared plan fits a block's shared memory."""
+    plan = hist_cuda.rows_plan
+    assert plan(1, 21, 28)[:3] == ("shared", 28, 256)
+    assert plan(16, 21, 28)[:2] == ("shared", 10)
+    assert plan(64, 21, 28)[:2] == ("shared", 2)
+    for L in (128, 256, 1024, 2048, 4097, 2 ** 18):
+        assert plan(L, 21, 28) == ("global", 0, 0, 0)
+    assert plan(8, 256, 28)[0] == "global"
+    for L, nb, F in ((1, 21, 28), (64, 21, 28), (6, 256, 28), (1, 21, 5000),
+                     (3, 33, 7)):
+        route, fpb, tile, smem = plan(L, nb, F)
+        assert route == "shared" and 1 <= fpb <= F and tile >= 1
+        assert smem <= hist_cuda.SMEM_MAX
+        assert smem >= fpb * L * nb * 12 + tile * F

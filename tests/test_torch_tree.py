@@ -8,11 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from h2o3_tpu.models import tree as ref_tree
 from h2o3_tpu_torch.models import tree
-from h2o3_tpu_torch.ops import packing
+from h2o3_tpu_torch.ops import packing, prng
 
 B = 21
 
@@ -60,7 +61,7 @@ def _both(codes, g, h, w, edges, depth, pack_bits, **kw):
 
 
 def _assert_same_tree(ref, got):
-    (rt, rleaf, rgain, rcov), (gt, gleaf, ggain, gcov) = ref, got
+    (rt, rleaf, rgain, rcov), (gt, gleaf, ggain, gcov) = ref[:4], got[:4]
     for f in ("feat", "bin", "is_split"):
         assert np.array_equal(getattr(gt, f).numpy(), np.asarray(getattr(rt, f))), f
     np.testing.assert_allclose(gt.thr.numpy(), np.asarray(rt.thr), rtol=0, atol=0)
@@ -145,3 +146,84 @@ def test_predict_forest_raw_matches_reference():
     got = tree.predict_forest_raw(pf, torch.from_numpy(X), 4).numpy()
     ref = np.asarray(ref_tree.predict_forest_raw(rf, jnp.asarray(X), 4))
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _fused_fixture(seed=1, N=2048, F=9):
+    """`tests/test_tree_fused.py::_tree_data`: continuous g, h > 0.1."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, B, (N, F)).astype(np.uint8)
+    g = rng.normal(size=N).astype(np.float32)
+    h = rng.random(N).astype(np.float32) + 0.1
+    w = np.where(rng.random(N) > 0.05, 1.0, 0.0).astype(np.float32)
+    edges = np.sort(rng.normal(size=(F, B - 2)), axis=1).astype(np.float32)
+    return codes, g, h, w, edges
+
+
+def _both_keyed(codes, g, h, w, edges, seed, pack_bits=0, **kw):
+    """`_both` with the per-level column sample drawn from PRNGKey(seed)
+    (jax.random in the reference, `ops.prng` in the port)."""
+    rate = kw.pop("mtries_rate", None)
+    rkw = dict(kw, key=jax.random.PRNGKey(seed))
+    pkw = dict(kw, key=prng.PRNGKey(seed))
+    if rate is not None:
+        rkw["mtries_rate"] = jnp.float32(rate)
+        pkw["mtries_rate"] = rate
+    F = codes.shape[1]
+    c = packing.pack_host(codes, pack_bits) if pack_bits else codes
+    fm = np.ones(F, np.float32)
+    ref = ref_tree.build_tree(
+        jnp.asarray(c), jnp.asarray(g), jnp.asarray(h), jnp.asarray(w),
+        jnp.asarray(fm), jnp.asarray(edges), nbins=B, hist_method="segment",
+        pack_bits=pack_bits, fused_split=True, **rkw)
+    got = tree.build_tree(
+        torch.from_numpy(c), torch.from_numpy(g), torch.from_numpy(h),
+        torch.from_numpy(w), torch.from_numpy(fm), torch.from_numpy(edges),
+        nbins=B, pack_bits=pack_bits, **pkw)
+    return ref, got
+
+
+@pytest.mark.parametrize("pack_bits", [0, 5])
+@pytest.mark.parametrize("rate", [0.5, 5 / 9])
+def test_build_tree_mtries_parity(pack_bits, rate):
+    """Per-level (node, feature) keep masks from the threefry draws: the
+    same features are offered to each node, so the same tree is built."""
+    codes, g, h, w, edges = _fused_fixture()
+    ref, got = _both_keyed(codes, g, h, w, edges, 3, pack_bits, max_depth=4,
+                           min_rows=5.0, mtries_rate=rate)
+    full, _ = _both_keyed(codes, g, h, w, edges, 3, pack_bits, max_depth=4,
+                          min_rows=5.0)
+    # the sample really changed the tree
+    assert not np.array_equal(np.asarray(ref[0].feat), np.asarray(full[0].feat))
+    _assert_same_tree(ref, got)
+
+
+@pytest.mark.parametrize("pack_bits", [0, 5])
+@pytest.mark.parametrize("mtries_rate", [None, 0.5])
+def test_build_tree_compact_parity(pack_bits, mtries_rate):
+    """Depth 9 with a 64-slot cap: levels 7 and 8 run in compact slots and
+    split there. The same tree, the same per-row leaves, no overflow."""
+    codes, g, h, w, edges = _fused_fixture(N=2048, F=9)
+    ref, got = _both_keyed(codes, g, h, w, edges, 5, pack_bits, max_depth=9,
+                           min_rows=12.0, compact_cap=64,
+                           mtries_rate=mtries_rate)
+    assert int(np.asarray(ref[-1])) == 0 and int(got[-1]) == 0
+    assert tree.compact_switch_depth(9, 64) == 7
+    assert np.asarray(ref[0].is_split)[127:511].sum() >= 10
+    _assert_same_tree(ref, got)
+
+
+@pytest.mark.parametrize("pack_bits", [0, 5])
+def test_build_tree_compact_overflow_flag(pack_bits):
+    """A 4-slot cap cannot hold the live frontier: both packages count the
+    same overflows (the fit loop then rebuilds the tree densely)."""
+    codes, g, h, w, edges = _fused_fixture(N=2048, F=9)
+    ref, got = _both_keyed(codes, g, h, w, edges, 5, pack_bits, max_depth=8,
+                           min_rows=1.0, compact_cap=4)
+    assert int(np.asarray(ref[-1])) > 0
+    assert int(got[-1]) == int(np.asarray(ref[-1]))
+
+
+def test_histogram_level_plan_matches_reference():
+    for depth, cap in ((6, 0), (19, 4096), (8, 64), (14, 16), (3, 4096)):
+        assert (tree.histogram_level_plan(depth, cap)
+                == ref_tree.histogram_level_plan(depth, cap))
