@@ -24,23 +24,25 @@ result line):
 6. Where the time goes: one more fit at the main path's width, of
    PROFILE_TREES trees, under torch.profiler: the device's busy share of the
    fit's wall time and the kernels that take the most device time.
-7. The row-major kernel (B2) vs its plain version at N = 1,000,000, F = 28,
-   B = 21, row-major codes, at the widths a DRF fit's passes take: the root
-   (L = 1, the in-bag 63.2 % of rows weighted), sibling passes at L = 16,
-   256 and 2048 and the compaction passes at L = 4097 slots (about half the
-   rows weighted): kernel, plain and `index_add_` times and the bound. One
-   dense-rebuild width, L = 2^18, is checked untimed.
+7. The row-major kernels (B2) vs their plain version at N = 1,000,000,
+   F = 28, B = 21, row-major codes, at every distinct width of the DRF
+   fit's level plan (L = 1, 2, 4, ..., 2^17 and the 4097 compaction slots;
+   the root at L = 1 with the in-bag 63.2 % of rows weighted, the other
+   passes about half), on a uniform node law and on a skewed one (half the
+   weighted rows in one node, every fourth node empty): kernel times on
+   both, plain and `index_add_` times and the bound on the uniform one.
 8. The DRF path through the public API: the 1M x 28 frame, a default
    `H2ORandomForestEstimator(ntrees=DRF_TREES, hist_method="pallas")`
    (depth 20, clamped to the card's memory; mtries, row sampling,
    active-node compaction), OOB `auc()`, `predict` on 100k fresh rows. The
    dispatch must be "pallas" only and the B2 launches must equal the passes
    the level plan predicts plus those of the dense rebuilds; OOB and
-   holdout AUC must reach DRF_AUC_FLOOR.
+   holdout AUC must reach DRF_AUC_FLOOR and equal DRF_AUCS (binary labels
+   keep every histogram sum exact, so any right kernel builds this forest).
 9. Reference check: a small DRF (4000 x 8, depth 14, level 13 in compact
    slots) on cuda and on the CPU gives the same forest and predictions.
 10. Where the DRF fit's time goes: DRF_PROFILE_TREES trees under
-   torch.profiler.
+   torch.profiler, with B2's device time summed over all its kernels.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after. The last line is {"ok": true, "device": {...}}; the line
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import json
 import math
+from collections import Counter
 import os
 import subprocess
 import sys
@@ -70,14 +73,18 @@ LEVEL_WIDTHS = [1, 1, 2, 4, 8, 16]   # histogram passes of one depth-6 tree
 PASSES = [(L, i > 0) for i, L in enumerate(LEVEL_WIDTHS)]
 DEEP_L = 1024                        # a depth-11 sibling pass: node slices
 PROFILE_TREES = 5
-# B2 at a DRF fit's widths: (L, share of rows weighted)
-ROWS_PASSES = [(1, 0.632), (16, 0.5), (256, 0.5), (2048, 0.5), (4097, 0.5)]
-ROWS_DEEP_L = 2 ** 18                # the deepest dense-rebuild width
 DRF_TREES = 50
+# the DRF fit's plan: depth 20 clamped to 19 by the card's memory (phase 8
+# reads the depth back), 4096 compact slots; every tree overflows them at 1M
+# rows and is rebuilt with dense levels
+DRF_DEPTH, DRF_CAP = 19, 4096
 DRF_PROFILE_TREES = 2
 # the reference DRF (JAX package, CPU) on the same generator at 100k rows:
 # OOB AUC 0.80553, holdout AUC 0.81410 (tools/drf_auc_floor.py); less 0.01
 DRF_AUC_FLOOR = 0.7955
+# OOB and holdout AUC of that fit on an H100 with the reference's exact sums
+# (PERF.md §5); a kernel that sums right gives them to 1e-6
+DRF_AUCS = (0.832020, 0.837229)
 
 
 def make_higgs_like(n_rows: int, n_feat: int = 28, seed: int = 0):
@@ -259,11 +266,14 @@ def profile_fit(est, fr, tag="profile"):
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # B2's kernels: count, scan, scatter, zero and the bucketed main kernel
+    b2 = {k[:80]: v / 1e3 for k, v in by_name.items() if "hist_rows_" in k}
     rec = dict(trees=est.model.ntrees_built, wall_s=wall,
                device_busy_s=busy_us / 1e6,
                busy_share=busy_us / 1e6 / wall, device_events=len(spans),
                fit_timings=est.model.fit_timings,
-               top_device_ms={k[:80]: v / 1e3 for k, v in top})
+               top_device_ms={k[:80]: v / 1e3 for k, v in top},
+               b2_device_ms=sum(b2.values()), b2_kernels_ms=b2)
     print(f"{tag}: " + json.dumps(rec), flush=True)
     return rec
 
@@ -297,9 +307,42 @@ def small_reference_check(dev):
         raise AssertionError("cuda and cpu fits disagree beyond 1e-5")
 
 
+def drf_widths():
+    """(L, launches per smoke fit) for every distinct B2 width of the DRF
+    fit: each tree's compact attempt and its dense rebuild."""
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+
+    n = Counter(L for _, L in histogram_level_plan(DRF_DEPTH, DRF_CAP)
+                + histogram_level_plan(DRF_DEPTH))
+    return sorted((L, DRF_TREES * c) for L, c in n.items())
+
+
+def rows_fixture(rng, L, skewed):
+    """Node ids (N,) int32 and weights (N,) f32 of one B2 pass: the in-bag
+    63.2 % of rows weighted at L = 1, half the rows elsewhere; node ids
+    uniform, or skewed: half the weighted rows in node L // 2, every fourth
+    node empty."""
+    w = rng.random(N_ROWS) < (0.632 if L == 1 else 0.5)
+    node = rng.integers(0, L, N_ROWS)
+    if skewed:
+        node = np.where(node % 4 == 3, node - 1, node)
+        node[w & (rng.random(N_ROWS) < 0.5)] = L // 2
+    return node.astype(np.int32), w.astype(np.float32)
+
+
+def rows_bound_ms(n_weighted, L):
+    """Least time of one B2 pass on the card: the codes of the weighted
+    rows, node ids and values of every row and the output, once each, over
+    the memory rate (the adds take less); and those bytes."""
+    nbytes = (n_weighted * N_FEAT + 16 * N_ROWS
+              + L * N_FEAT * NBINS * 3 * 4)
+    flops = 3 * n_weighted * N_FEAT
+    return max(nbytes / HBM_BYTES_PER_S, flops / 67e12) * 1e3, nbytes
+
+
 def rows_vs_plain(dev):
-    """Phase 7: the B2 kernel against `hist_plain_rows` at the widths of a
-    DRF fit's passes, on seeded row-major inputs; returns (per-pass rows,
+    """Phase 7: the B2 kernels against `hist_plain_rows` at every width of
+    the DRF plan, on seeded row-major inputs; returns (per-width rows,
     max |err|)."""
     from h2o3_tpu_torch.ops import hist_cuda
 
@@ -307,53 +350,51 @@ def rows_vs_plain(dev):
     codes = torch.from_numpy(
         rng.integers(0, NBINS, (N_ROWS, N_FEAT), dtype=np.uint8)).to(dev)
     g = rng.normal(size=N_ROWS).astype(np.float32)
-    h = np.ones(N_ROWS, np.float32)
     rows, worst = [], 0.0
-    for L, share in ROWS_PASSES + [(ROWS_DEEP_L, 0.5)]:
-        w = (rng.random(N_ROWS) < share).astype(np.float32)
-        vals = torch.from_numpy(np.stack([w, g * w, h * w])).to(dev)
-        node = torch.from_numpy(
-            rng.integers(0, L, N_ROWS, dtype=np.int32)).to(dev)
-        got = hist_cuda.hist_build_rows(codes, node, vals, L, NBINS)
-        ref = hist_cuda.hist_plain_rows(codes, node, vals, L, NBINS)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, rtol=1e-5,
-                                   atol=1e-5 * float(ref.abs().max()))
-        err = float((got - ref).abs().max())
-        del got, ref
-        worst = max(worst, err)
-        route = hist_cuda.rows_plan(L, NBINS, N_FEAT)[0]
-        if L == ROWS_DEEP_L:
-            print(f"rows hist L={L} (dense rebuild, {route} route): matches "
-                  f"plain, max |err| {err:.3e}", flush=True)
-            continue
-        ms = time_ms(lambda: hist_cuda.hist_build_rows(codes, node, vals, L,
-                                                       NBINS))
-        plain_ms = time_ms(
-            lambda: hist_cuda.hist_plain_rows(codes, node, vals, L, NBINS),
-            reps=5)
-        # one library call computing the same histogram: flat ids
-        # f·L·B + node·B + code into an (F·L·B, 3) buffer
-        ids = (torch.arange(N_FEAT, device=dev, dtype=torch.int64)[None, :]
-               * (L * NBINS) + node.to(torch.int64)[:, None] * NBINS
-               + codes.to(torch.int64)).reshape(-1)
-        src = vals.t()[:, None, :].expand(N_ROWS, N_FEAT, 3).reshape(-1, 3)
-        buf = torch.zeros((N_FEAT * L * NBINS, 3), device=dev)
-        lib_ms = time_ms(lambda: buf.zero_().index_add_(0, ids, src), reps=10)
-        del ids, src, buf
-        # this pass's data: codes of the weighted rows only, node and values
-        # of every row, the output once
-        n_w = int(w.sum())
-        nbytes = n_w * N_FEAT + 16 * N_ROWS + L * N_FEAT * NBINS * 3 * 4
-        flops = 3 * n_w * N_FEAT
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / 67e12) * 1e3
-        rows.append(dict(L=L, route=route, weighted_rows=n_w, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bytes=nbytes, max_abs_err=err))
-        print(f"rows hist L={L:4d} ({route}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bytes bound "
-              f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), max |err| "
-              f"{err:.3e}", flush=True)
+    for L, n_fit in drf_widths():
+        rec = dict(L=L, launches=n_fit, per_tree=n_fit / DRF_TREES)
+        for law in ("uniform", "skewed"):
+            node_np, w = rows_fixture(rng, L, law == "skewed")
+            vals = torch.from_numpy(np.stack([w, g * w, w])).to(dev)
+            node = torch.from_numpy(node_np).to(dev)
+            got = hist_cuda.hist_build_rows(codes, node, vals, L, NBINS)
+            ref = hist_cuda.hist_plain_rows(codes, node, vals, L, NBINS)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=1e-5,
+                                       atol=1e-5 * float(ref.abs().max()))
+            err = float((got - ref).abs().max())
+            del got, ref
+            worst = max(worst, err)
+            ms = time_ms(lambda: hist_cuda.hist_build_rows(codes, node, vals,
+                                                           L, NBINS))
+            if law == "skewed":
+                rec.update(skewed_ms=ms, skewed_max_abs_err=err)
+                continue
+            plain_ms = time_ms(lambda: hist_cuda.hist_plain_rows(
+                codes, node, vals, L, NBINS), reps=5)
+            # one library call computing the same histogram: flat ids
+            # f·L·B + node·B + code into an (F·L·B, 3) buffer
+            ids = (torch.arange(N_FEAT, device=dev, dtype=torch.int64)[None, :]
+                   * (L * NBINS) + node.to(torch.int64)[:, None] * NBINS
+                   + codes.to(torch.int64)).reshape(-1)
+            src = vals.t()[:, None, :].expand(N_ROWS, N_FEAT, 3).reshape(-1, 3)
+            buf = torch.zeros((N_FEAT * L * NBINS, 3), device=dev)
+            lib_ms = time_ms(lambda: buf.zero_().index_add_(0, ids, src),
+                             reps=10)
+            del ids, src, buf
+            n_w = int(w.sum())
+            bound_ms, nbytes = rows_bound_ms(n_w, L)
+            rec.update(weighted_rows=n_w, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms, bytes=nbytes,
+                       max_abs_err=err)
+        rows.append(rec)
+        print(f"rows hist L={L:6d} ({n_fit:3d} per fit): kernel "
+              f"{rec['ms']:.4f} ms uniform, {rec['skewed_ms']:.4f} ms skewed; "
+              f"plain {rec['plain_ms']:.4f} ms, index_add_ "
+              f"{rec['library_ms']:.4f} ms, bytes bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bytes'] / 1e6:.1f} MB), max |err| "
+              f"{max(rec['max_abs_err'], rec['skewed_max_abs_err']):.3e}",
+              flush=True)
     return rows, worst
 
 
@@ -402,9 +443,16 @@ def drf_path(dev, fr):
     if min(oob_auc, rec["holdout_auc"]) < DRF_AUC_FLOOR:
         raise AssertionError(f"DRF AUC below the floor {DRF_AUC_FLOOR}: OOB "
                              f"{oob_auc}, holdout {rec['holdout_auc']}")
+    if max(abs(oob_auc - DRF_AUCS[0]),
+           abs(rec["holdout_auc"] - DRF_AUCS[1])) > 1e-6:
+        raise AssertionError(f"DRF forest differs: OOB AUC {oob_auc}, holdout "
+                             f"{rec['holdout_auc']}, expected {DRF_AUCS}")
     if pred.names != ["predict", "0", "1"] or pred.nrow != 100_000 \
             or not np.all(np.isfinite(p1)):
         raise AssertionError("DRF predict frame wrong or non-finite")
+    if expect != sum(n for _, n in drf_widths()):
+        raise AssertionError(f"the fit ran {expect} B2 passes; phase 7 "
+                             "weighted its widths for another plan")
     if launches != expect or dispatch != {"pallas": expect} or b1_launches:
         raise AssertionError(f"DRF histogram dispatch {dispatch}, {launches} "
                              f"B2 launches, {b1_launches} B1 launches; "
@@ -476,8 +524,8 @@ def main() -> int:
         ntrees=DRF_PROFILE_TREES, hist_method="pallas", seed=42,
         device=str(dev)), fr, tag="drf profile")
 
-    def total(passes, k):
-        return sum(r[k] for r in passes)
+    def total(passes, k):   # per tree: B2 widths weighted by passes per tree
+        return sum(r[k] * r.get("per_tree", 1) for r in passes)
 
     kernels = [dict(
         name=name, route="cuda", source="h2o3_tpu_torch/csrc/hist.cu",
@@ -492,8 +540,8 @@ def main() -> int:
              drf_rec["hist_launches"], worst_b2, rows_b2))]
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}), "
-          f"hist_rows over the DRF widths L = {[L for L, _ in ROWS_PASSES]}",
-          flush=True)
+          f"hist_rows over one DRF tree's {DRF_DEPTH + 1} + {DRF_DEPTH} passes "
+          "(compact attempt and dense rebuild; uniform node law)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

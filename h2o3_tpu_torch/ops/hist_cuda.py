@@ -29,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,12 +43,14 @@ SMEM_MAX = 232448
 THREADS = 512
 MIN_ROWS_PER_BLOCK = 1024
 
-# B2's row tile: at most ROWS_TILE rows and TILE_BYTES code bytes; a block
-# keeps several features' histograms while they fit ROWS_HIST_TARGET bytes
-ROWS_TILE = 256
-TILE_BYTES = 8192
-ROWS_HIST_TARGET = 40 * 1024
-GLOBAL_THREADS = 256
+# B2 (node-bucketed): a block of ROWS_THREADS threads holds the
+# (G, fb, B, 3) histograms of a group of G <= GROUP_NODES consecutive nodes
+# and takes at most CHUNK_ROWS of the group's rows (tools/hist_rows_routes.py
+# chose them on an H100)
+GROUP_NODES = 8
+CHUNK_ROWS = 512
+ROWS_THREADS = 512
+SCAN_TILE = 8192                     # hist.cu kScanTile: counts per scan tile
 
 # kernel launches made by `hist_build` / `hist_build_rows` (one per call
 # that reaches the card)
@@ -71,13 +73,18 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+def library_path() -> Path:
+    """Where `build` puts the library of the current source."""
+    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libh2o3hist_{tag}.so"
+
+
 def build() -> ctypes.CDLL:
     """Compile (once per source version) and load the kernel library."""
     global _lib, build_log
     if _lib is not None:
         return _lib
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    so = BUILD_DIR / f"libh2o3hist_{tag}.so"
+    so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -88,14 +95,17 @@ def build() -> ctypes.CDLL:
         build_log = res.stdout + res.stderr
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        so.with_suffix(".log").write_text(build_log)
         os.replace(tmp, so)
+    elif so.with_suffix(".log").exists():
+        build_log = so.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(so))
     fn = lib.h2o3_hist_build
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.h2o3_hist_build_rows
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
@@ -189,24 +199,61 @@ def hist_build(codes: torch.Tensor, node: torch.Tensor, vals: torch.Tensor,
     return out
 
 
-def rows_plan(n_nodes: int, nbins: int, n_feat: int):
-    """(route, features per block, tile rows, shared bytes) of one B2 pass.
-    The shared route keeps the (nodes, B, 3) f32 histograms of a block of
-    features in shared memory beside the staged row tile, as many features
-    as fit ROWS_HIST_TARGET. It is taken while at least two features fit;
-    wider passes take the global route (atomics into the output), which on
-    an H100 is the faster one from there on (tools/hist_rows_routes.py:
-    at B = 21 the shared route with one feature per block re-reads every
-    row tile F times)."""
-    per_feat = n_nodes * nbins * 3 * 4
-    if 2 * per_feat > ROWS_HIST_TARGET:
-        return "global", 0, 0, 0
-    tile = max(1, min(ROWS_TILE, TILE_BYTES // max(n_feat, 1)))
-    if tile >= 16:
-        tile -= tile % 16                  # 16-byte aligned tiles
-    staging = -(-tile * n_feat // 16) * 16 + tile * 4 * 4
-    fpb = min(n_feat, ROWS_HIST_TARGET // per_feat)
-    return "shared", fpb, tile, staging + fpb * per_feat
+class RowsPlan(NamedTuple):
+    """One B2 pass: the main kernel's nodes per group (G), features per
+    block (fb), rows per chunk (C), grid (chunk slots, feature blocks) and
+    shared bytes; the scan tiles of the node counts
+    and of the groups' chunk counts; the byte offsets in the scratch buffer
+    of the node offsets, the chunk prefix, the chunk-to-group map, the row
+    ranks and the row records in node order, and the buffer's size."""
+    group_nodes: int
+    feats_per_block: int
+    chunk_rows: int
+    grid: tuple[int, int]
+    smem: int
+    node_tiles: int
+    group_tiles: int
+    scratch: tuple[int, ...]
+    scratch_bytes: int
+
+
+def rows_plan(n_nodes: int, nbins: int, n_feat: int,
+              n_rows: int) -> RowsPlan:
+    """The launch plan of one B2 pass (`hist_build_rows`) over n_rows rows.
+    A block keeps the histograms of G = min(GROUP_NODES, L) nodes of all
+    features in shared memory, fewer where they do not fit; where one
+    node's histograms of all features do not fit, a block takes one node
+    and as many features as fit. Raises only where one node's histogram of
+    one feature does not fit."""
+    per = nbins * 3 * 4                  # bytes of one (node, feature) histogram
+
+    def smem(G: int, fb: int) -> int:    # hist.cu: G + 1 offsets, (G, fb, B, 3)
+        return 4 * ((G + 4) // 4 * 4) + 4 * (-(-G * fb * nbins * 3 // 4) * 4)
+
+    if smem(1, 1) > SMEM_MAX:
+        raise ValueError(f"one node's histogram of {nbins} bins exceeds the "
+                         "block's shared memory")
+    C = CHUNK_ROWS
+    if smem(1, n_feat) <= SMEM_MAX:
+        fb = n_feat
+        G = max(1, min(GROUP_NODES, n_nodes))
+        while smem(G, fb) > SMEM_MAX:
+            G -= 1
+    else:
+        G, fb = 1, (SMEM_MAX - smem(1, 0)) // per
+        while smem(1, fb) > SMEM_MAX:
+            fb -= 1
+    n_groups = -(-n_nodes // G)
+    grid = (n_groups + -(-n_rows // C), -(-n_feat // fb))
+    node_tiles = -(-(n_nodes + 1) // SCAN_TILE)
+    group_tiles = -(-(n_groups + 1) // SCAN_TILE)
+    offsets, at = [], 0
+    for size in (4 * SCAN_TILE * node_tiles, 4 * SCAN_TILE * group_tiles,
+                 4 * grid[0], 4 * n_rows, 16 * n_rows):
+        offsets.append(at)
+        at += -(-size // 16) * 16
+    return RowsPlan(G, fb, C, grid, smem(G, fb), node_tiles, group_tiles,
+                    tuple(offsets), at)
 
 
 def hist_plain_rows(codes: torch.Tensor, node: torch.Tensor,
@@ -222,9 +269,9 @@ def hist_build_rows(codes: torch.Tensor, node: torch.Tensor,
                     nbins: int) -> torch.Tensor:
     """(L, F, B, 3) f32 histogram of vals per (node, feature, bin), from
     row-major codes (N, F) uint8, node (N,) int32 and vals (3, N) f32, all
-    contiguous on one device. On a CUDA device this launches the B2 kernel
-    on the current stream (no synchronisation); on the CPU it is
-    `hist_plain_rows`."""
+    contiguous on one device. On a CUDA device this launches the B2 kernels
+    (`rows_plan`) on the current stream, with no synchronisation; on the CPU
+    it is `hist_plain_rows`."""
     global launches_rows
     if codes.device.type == "cpu":
         return hist_plain_rows(codes, node, vals, n_nodes, nbins)
@@ -241,36 +288,22 @@ def hist_build_rows(codes: torch.Tensor, node: torch.Tensor,
         raise ValueError("hist_build_rows takes contiguous tensors")
     if not (codes.device == node.device == vals.device):
         raise ValueError("hist_build_rows inputs lie on different devices")
-    route, fpb, tile, smem = rows_plan(n_nodes, nbins, F)
-    shape = (n_nodes, F, nbins, 3)
-    if N == 0 or F == 0:
-        return torch.zeros(shape, dtype=torch.float32, device=codes.device)
+    plan = rows_plan(n_nodes, nbins, F, N)
+    out = torch.empty((n_nodes, F, nbins, 3), dtype=torch.float32,
+                      device=codes.device)
+    if N == 0 or F == 0 or n_nodes == 0:
+        return out.zero_()
     lib = build()
-    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
-    if route == "global":
-        out = torch.zeros(shape, dtype=torch.float32, device=codes.device)
-        partials, n_rb, rows, threads = None, 0, 0, GLOBAL_THREADS
-        blocks = max(1, min(-(-N * F // threads), 8 * sms))
-    else:
-        out = torch.empty(shape, dtype=torch.float32, device=codes.device)
-        n_fb = math.ceil(F / fpb)
-        # about two blocks per SM in all, never blocks of fewer than
-        # MIN_ROWS_PER_BLOCK rows; each block's rows are whole tiles
-        n_rb = max(1, min(math.ceil(N / MIN_ROWS_PER_BLOCK),
-                          math.ceil(2 * sms / n_fb)))
-        rows = math.ceil(math.ceil(N / n_rb) / tile) * tile
-        n_rb = math.ceil(N / rows)
-        partials = torch.empty((n_rb, F, n_nodes, nbins, 3),
-                               dtype=torch.float32, device=codes.device)
-        threads = THREADS
-        blocks = max(1, min(math.ceil(out.numel() / 256), 4 * sms))
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=codes.device)
+    parts = [scratch.data_ptr() + at for at in plan.scratch]
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.h2o3_hist_build_rows(
-            codes.data_ptr(), node.data_ptr(), vals.data_ptr(),
-            partials.data_ptr() if partials is not None else None,
-            out.data_ptr(), N, F, n_nodes, nbins, int(route == "global"),
-            rows, fpb, tile, n_rb, threads, smem, blocks, stream)
+            codes.data_ptr(), node.data_ptr(), vals.data_ptr(), *parts,
+            out.data_ptr(), N, F, n_nodes, nbins, plan.group_nodes,
+            plan.feats_per_block, plan.chunk_rows, plan.node_tiles,
+            plan.group_tiles, plan.grid[0], ROWS_THREADS, plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"row-major histogram kernel launch failed: "
                            f"cudaError {rc}")

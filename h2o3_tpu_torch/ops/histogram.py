@@ -18,8 +18,8 @@ Methods keep the reference's names:
 ``onehot`` and ``host`` (ROADMAP queue A, item 3) are not ported yet and
 raise. Both kernels take every level width (B1 splits the nodes into
 slices where one feature's (L, B, 3) histogram outgrows shared memory, B2
-switches to global atomics), so nothing gives way to ``segment`` on the
-card.
+buckets the rows by node and keeps small groups of nodes in shared memory),
+so nothing gives way to ``segment`` on the card.
 
 Every call counts its resolved method in `DISPATCH`, the stand-in for the
 reference's `_record_selection` registry counters.

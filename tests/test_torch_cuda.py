@@ -96,35 +96,89 @@ def test_gbm_fit_on_cuda_launches_the_kernel_at_every_level(dev):
     torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("N,F,L,nbins,w_zero", [
-    (200_003, 28, 1, 21, 0.3),      # the DRF root pass, ragged row count
-    (200_003, 28, 16, 21, 0.5),     # several features per block
-    (200_003, 28, 64, 21, 0.5),     # two features per block, > 48 KB
-    (200_003, 28, 128, 21, 0.5),    # the narrowest global-atomics pass
-    (200_003, 28, 2048, 21, 0.5),   # the last dense level before compaction
-    (200_003, 28, 4097, 21, 0.5),   # the compaction passes
-    (200_003, 28, 2 ** 18, 21, 0.5),  # a dense rebuild's deepest width
-    (50_001, 5, 1024, 256, 0.3),    # the widest uint8 code range
-    (4_099, 3, 4, 256, 1.0),        # every row at zero weight
-])
-def test_rows_kernel_matches_plain(dev, N, F, L, nbins, w_zero):
-    rng = np.random.default_rng(N + L)
-    codes = torch.from_numpy(
-        rng.integers(0, nbins, (N, F)).astype(np.uint8)).to(dev)
-    node = torch.from_numpy(rng.integers(0, L, N).astype(np.int32)).to(dev)
+def _rows_inputs(dev, seed, N, F, L, nbins, w_zero, law="uniform"):
+    """Row-major codes, node ids and values of one B2 pass. The skewed law
+    puts half the weighted rows in node L // 2 and leaves every fourth node
+    empty, as the deep dense levels and the compaction passes do."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, nbins, (N, F)).astype(np.uint8)
+    node = rng.integers(0, L, N)
     g = rng.normal(size=N).astype(np.float32)
     h = rng.random(N).astype(np.float32)
     w = (rng.random(N) >= w_zero).astype(np.float32)
-    vals = torch.from_numpy(np.stack([w, g * w, h * w])).to(dev)
-    before = hist_cuda.launches_rows
-    got = hist_cuda.hist_build_rows(codes, node, vals, L, nbins)
-    assert hist_cuda.launches_rows == before + 1
+    if law == "skewed":
+        node = np.where(node % 4 == 3, node - 1, node)
+        node[(w > 0) & (rng.random(N) < 0.5)] = L // 2
+    vals = np.stack([w, g * w, h * w])
+    return (torch.from_numpy(codes).to(dev),
+            torch.from_numpy(node.astype(np.int32)).to(dev),
+            torch.from_numpy(vals).to(dev))
+
+
+def _check_rows(got, codes, node, vals, L, nbins):
     ref = hist_cuda.hist_plain_rows(codes, node, vals, L, nbins)
     torch.cuda.synchronize()
-    assert got.shape == (L, F, nbins, 3)
+    assert got.shape == (L, codes.shape[1], nbins, 3)
     # f32 sums in another order (atomics), so rtol 1e-5 of the largest entry
     torch.testing.assert_close(got, ref, rtol=1e-5,
                                atol=1e-5 * max(float(ref.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("N,F,L,nbins,w_zero,law", [
+    (200_003, 28, 1, 21, 0.3, "uniform"),     # the DRF root pass, ragged N
+    (200_003, 28, 16, 21, 0.5, "uniform"),    # one node per group
+    (200_003, 28, 64, 21, 0.5, "uniform"),
+    (200_003, 28, 128, 21, 0.5, "uniform"),
+    (200_003, 28, 2048, 21, 0.5, "uniform"),  # the last dense level before compaction
+    (200_003, 28, 4097, 21, 0.5, "uniform"),  # the compaction passes
+    (200_003, 28, 4097, 21, 0.5, "skewed"),   # ... with one node of 50k rows
+    (200_003, 28, 8191, 21, 0.5, "uniform"),  # one node below a group boundary
+    (200_003, 28, 8193, 21, 0.5, "uniform"),  # one above; global counters
+    (200_003, 28, 2 ** 17, 21, 0.5, "skewed"),  # a dense rebuild's widest pass
+    (200_003, 28, 2 ** 18, 21, 0.5, "uniform"),
+    (50_001, 5, 1024, 256, 0.3, "uniform"),   # the widest uint8 code range
+    (4_099, 3, 4, 256, 1.0, "uniform"),       # every row at zero weight
+])
+def test_rows_kernel_matches_plain(dev, N, F, L, nbins, w_zero, law):
+    codes, node, vals = _rows_inputs(dev, N + L, N, F, L, nbins, w_zero, law)
+    before = hist_cuda.launches_rows
+    got = hist_cuda.hist_build_rows(codes, node, vals, L, nbins)
+    assert hist_cuda.launches_rows == before + 1
+    _check_rows(got, codes, node, vals, L, nbins)
+
+
+@pytest.mark.parametrize("G,C", [(8, 1024), (1, 128), (8, 128)])
+def test_rows_kernel_groups_of_several_chunks(dev, monkeypatch, G, C):
+    """Small chunks make groups whose rows span several chunks (atomics
+    into a zeroed slab), beside groups of one chunk and, at G = 1, empty
+    groups (plain stores)."""
+    N, F, L, nbins = 50_001, 7, 300, 21
+    codes, node, vals = _rows_inputs(dev, 9, N, F, L, nbins, 0.5, "skewed")
+    monkeypatch.setattr(hist_cuda, "GROUP_NODES", G)
+    monkeypatch.setattr(hist_cuda, "CHUNK_ROWS", C)
+    per_node = np.bincount(node.cpu().numpy()[vals[0].cpu().numpy() > 0],
+                           minlength=L)
+    chunks = -(-np.add.reduceat(per_node, np.arange(0, L, G)) // C)
+    assert (chunks > 1).any()
+    got = hist_cuda.hist_build_rows(codes, node, vals, L, nbins)
+    _check_rows(got, codes, node, vals, L, nbins)
+
+
+@pytest.mark.parametrize("L", [16, 10_000])
+def test_rows_kernel_skips_foreign_node_ids(dev, L):
+    """Node ids below 0 and at or above L add nothing (shared and global
+    counters)."""
+    N, F, nbins = 100_003, 6, 21
+    codes, node, vals = _rows_inputs(dev, L, N, F, L, nbins, 0.3)
+    rng = np.random.default_rng(L)
+    foreign = torch.from_numpy(rng.random(N) < 0.2).to(dev)
+    wild = torch.from_numpy(
+        rng.choice([-3, -1, L, L + 1, 2 ** 30], N).astype(np.int32)).to(dev)
+    node_w = torch.where(foreign, wild, node)
+    got = hist_cuda.hist_build_rows(codes, node_w, vals, L, nbins)
+    keep = ~foreign
+    _check_rows(got, codes[keep].contiguous(), node[keep].contiguous(),
+                vals[:, keep].contiguous(), L, nbins)
 
 
 def test_rows_kernel_rejects_what_it_does_not_take(dev):

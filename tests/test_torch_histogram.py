@@ -234,20 +234,59 @@ def test_build_histograms_pallas_method_matches_segment(pack_bits, blocks):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-5)
 
 
-def test_rows_plan_rule():
-    """B2's launch plan at the DRF path's widths (F = 28, B = 21): several
-    features per block while at least two fit, then global atomics; every
-    shared plan fits a block's shared memory."""
+@pytest.mark.parametrize("L,G", [(1, 1), (2, 2), (4, 4), (16, 8),
+                                 (4097, 8), (2 ** 17, 8)])
+def test_rows_plan_rule(L, G):
+    """B2's launch plan at the DRF path's widths (N = 1M, F = 28, B = 21):
+    groups of min(8, L) nodes with every feature, chunks of 512 rows; the
+    grid's chunk slots bound every way of filling the groups; the scratch
+    parts are 16-byte aligned and in order."""
+    N, F, nb = 10 ** 6, 28, 21
+    plan = hist_cuda.rows_plan(L, nb, F, N)
+    assert (plan.group_nodes, plan.feats_per_block) == (G, F)
+    assert plan.chunk_rows == hist_cuda.CHUNK_ROWS == 512
+    n_groups = -(-L // G)
+    assert plan.grid == (n_groups + -(-N // 512), 1)
+    assert plan.smem == 4 * ((G + 4) // 4 * 4) + G * F * nb * 12
+    assert plan.smem <= hist_cuda.SMEM_MAX
+    tile = hist_cuda.SCAN_TILE
+    assert (plan.node_tiles - 1) * tile < L + 1 <= plan.node_tiles * tile
+    assert ((plan.group_tiles - 1) * tile < n_groups + 1
+            <= plan.group_tiles * tile)
+    sizes = (4 * tile * plan.node_tiles, 4 * tile * plan.group_tiles,
+             4 * plan.grid[0], 4 * N, 16 * N)
+    assert plan.scratch[0] == 0
+    ends = plan.scratch[1:] + (plan.scratch_bytes,)
+    for at, end, size in zip(plan.scratch, ends, sizes):
+        assert at % 16 == 0 and end - at >= size
+    # chunks needed by any node law: uniform, geometric, all in one node
+    rng = np.random.default_rng(L)
+    for per_node in (np.bincount(rng.integers(0, L, N), minlength=L),
+                     np.bincount(np.minimum(rng.geometric(0.01, N), L) - 1,
+                                 minlength=L),
+                     np.eye(1, L, L // 2, dtype=np.int64)[0] * N):
+        per_group = np.add.reduceat(per_node, np.arange(0, L, G))
+        chunks = np.maximum(1, -(-per_group // plan.chunk_rows))
+        assert chunks.sum() <= plan.grid[0]
+
+
+def test_rows_plan_limits(monkeypatch):
+    """Other sizes, groups cut to what fits, a node that does not fit with
+    all its features, and the one raise: one node's histogram of one
+    feature beyond shared memory."""
     plan = hist_cuda.rows_plan
-    assert plan(1, 21, 28)[:3] == ("shared", 28, 256)
-    assert plan(16, 21, 28)[:2] == ("shared", 10)
-    assert plan(64, 21, 28)[:2] == ("shared", 2)
-    for L in (128, 256, 1024, 2048, 4097, 2 ** 18):
-        assert plan(L, 21, 28) == ("global", 0, 0, 0)
-    assert plan(8, 256, 28)[0] == "global"
-    for L, nb, F in ((1, 21, 28), (64, 21, 28), (6, 256, 28), (1, 21, 5000),
-                     (3, 33, 7)):
-        route, fpb, tile, smem = plan(L, nb, F)
-        assert route == "shared" and 1 <= fpb <= F and tile >= 1
-        assert smem <= hist_cuda.SMEM_MAX
-        assert smem >= fpb * L * nb * 12 + tile * F
+    monkeypatch.setattr(hist_cuda, "GROUP_NODES", 64)
+    assert plan(2 ** 17, 21, 28, 10 ** 6).group_nodes == 32
+    assert plan(5, 21, 28, 10 ** 6).group_nodes == 5
+    monkeypatch.setattr(hist_cuda, "GROUP_NODES", 4)
+    monkeypatch.setattr(hist_cuda, "CHUNK_ROWS", 2048)
+    p = plan(100, 21, 28, 10 ** 6)
+    assert (p.group_nodes, p.chunk_rows, p.grid) == (4, 2048, (25 + 489, 1))
+    monkeypatch.undo()
+    assert plan(64, 256, 28, 10 ** 6).group_nodes == 2     # 86 KB per node
+    p = plan(4, 256, 1000, 5000)            # 3 MB per node: features split
+    assert (p.group_nodes, p.feats_per_block) == (1, 75)
+    assert p.grid == (4 + 10, 14) and p.smem <= hist_cuda.SMEM_MAX
+    assert plan(1, 21, 28, 0).grid == (1, 1)
+    with pytest.raises(ValueError):
+        plan(1, 20_000, 1, 10)              # one node does not fit
