@@ -7,13 +7,20 @@ result line):
 
 1. The card's name and power limit (nvidia-smi).
 2. Build the histogram kernel (csrc/hist.cu) with nvcc and time the build.
-3. Kernel vs its plain PyTorch version at the bench shape (N = 1,000,000
+3. Kernel vs its plain PyTorch versions at the bench shape (N = 1,000,000
    rows, F = 28 features, B = 21 bins) for each of a depth-6 tree's six
    passes (the root pass with every row weighted; the sibling passes with
    about half the rows at zero weight, as `build_tree` hands them over),
-   from seeded numpy inputs: the kernel's, the plain version's and one
-   `index_add_` call's times, and the bound. Then one deep pass (L = 1024,
-   which the kernel splits into node slices) is checked, untimed.
+   from seeded numpy inputs, on two code laws: uniform random codes and the
+   smoke frame's own UniformAdaptive codes (most rows in a few central
+   bins). The kernel must equal `hist_plain_fixed` bit for bit, give the
+   same bits on a second launch, lie within the tolerance of `hist_plain`
+   (f32), and lie no farther from an f64 sum than `hist_plain` does in each
+   channel (w, g·w, h·w); both errors against f64 are printed per channel.
+   Times: the kernel's on both laws, with the L2 flushed before each
+   launch, the plain version's and one `index_add_` call's, and the bound.
+   Then one deep pass (L = 1024, which the kernel splits into node slices)
+   is checked the same way, untimed.
 4. The main path through the port's public API: a 1M x 28 HIGGS-like
    frame, `asfactor("label")`, a depth-6 UniformAdaptive GBM of 20 trees,
    `auc()`, `predict` on 100k fresh rows. The launch counts are zeroed just
@@ -23,7 +30,8 @@ result line):
    give the same forest and predictions.
 6. Where the time goes: one more fit at the main path's width, of
    PROFILE_TREES trees, under torch.profiler: the device's busy share of the
-   fit's wall time and the kernels that take the most device time.
+   fit's wall time, the kernels that take the most device time, and B1's
+   device time summed over its kernels.
 7. The row-major kernels (B2) vs their plain version at N = 1,000,000,
    F = 28, B = 21, row-major codes, at every distinct width of the DRF
    fit's level plan (L = 1, 2, 4, ..., 2^17 and the 4097 compaction slots;
@@ -73,6 +81,10 @@ LEVEL_WIDTHS = [1, 1, 2, 4, 8, 16]   # histogram passes of one depth-6 tree
 PASSES = [(L, i > 0) for i, L in enumerate(LEVEL_WIDTHS)]
 DEEP_L = 1024                        # a depth-11 sibling pass: node slices
 PROFILE_TREES = 5
+# training AUC of the smoke's GBM on an H100 (PERF.md §5); B1's fixed-point
+# sums differ from f32 ones in the last bits, so the fit must stay within
+# 1e-3 of it
+GBM_AUC = 0.780812
 DRF_TREES = 50
 # the DRF fit's plan: depth 20 clamped to 19 by the card's memory (phase 8
 # reads the depth back), 4096 compact slots; every tree overflows them at 1M
@@ -132,38 +144,126 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def time_ms_cold(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of fn() in ms, by CUDA events around each call,
+    with the L2 cache flushed before each call and outside the events: a
+    pass's inputs fit the card's 50 MB L2. The flush writes 1 GiB (~0.3 ms),
+    so the host has enqueued all of fn()'s launches before the device
+    reaches the first event, and the events time the device's work."""
+    flush = torch.empty(1 << 28, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def fit_codes(dev):
+    """(F, N) uint8 feature-major codes of the main path's frame as its fit
+    bins them (UniformAdaptive, 20 bins and the NA bin)."""
+    from h2o3_tpu_torch.frame.binning import build_bins
+
+    X, _ = make_higgs_like(N_ROWS)
+    bm = build_bins(X, nbins=NBINS, histogram_type="UniformAdaptive", seed=42)
+    return torch.from_numpy(np.ascontiguousarray(bm.codes.T)).to(dev)
+
+
+def pass_inputs(rng, dev, L, sibling):
+    """Node ids (N,) int32 and vals (3, N) f32 of one B1 pass: every row
+    weighted at the root, about half in a sibling pass; g normal, h
+    uniform."""
+    w = (rng.random(N_ROWS) < 0.5 if sibling
+         else np.ones(N_ROWS, bool)).astype(np.float32)
+    g = rng.normal(size=N_ROWS).astype(np.float32)
+    h = rng.random(N_ROWS).astype(np.float32)
+    vals = torch.from_numpy(np.stack([w, g * w, h * w])).to(dev)
+    node = torch.from_numpy(rng.integers(0, L, N_ROWS, dtype=np.int32)).to(dev)
+    return node, vals
+
+
+def channels(errs):
+    return "/".join(f"{e:.1e}" for e in errs)
+
+
+def check_b1(codes, node, vals, L):
+    """B1 at one pass against its plain versions; returns (max |kernel -
+    hist_plain|, kernel's and hist_plain's max |err| against an f64 sum per
+    channel). Raises unless the kernel equals `hist_plain_fixed` bit for
+    bit, repeats its bits on a second launch, lies within rtol 1e-5 / atol
+    1e-5·max of `hist_plain`, and lies no farther from f64 in any
+    channel."""
+    from h2o3_tpu_torch.ops import hist_cuda
+
+    got = hist_cuda.hist_build(codes, node, vals, L, NBINS)
+    again = hist_cuda.hist_build(codes, node, vals, L, NBINS)
+    fixed = hist_cuda.hist_plain_fixed(codes, node, vals, L, NBINS)
+    ref = hist_cuda.hist_plain(codes, node, vals, L, NBINS)
+    f64 = hist_cuda.hist_plain(codes, node, vals, L, NBINS, torch.float64)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"L={L}: two launches of B1 differ")
+    if not torch.equal(got, fixed):
+        raise AssertionError(
+            f"L={L}: B1 differs from hist_plain_fixed by "
+            f"{float((got - fixed).abs().max()):.3e}")
+    torch.testing.assert_close(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    err_k, err_p = ([float(e) for e in
+                     (x.double() - f64).abs().reshape(-1, 3).amax(0)]
+                    for x in (got, ref))
+    if any(k > p for k, p in zip(err_k, err_p)):
+        raise AssertionError(
+            f"L={L}: B1 lies farther from f64 than hist_plain in a channel "
+            f"(w/g·w/h·w): {channels(err_k)} against {channels(err_p)}")
+    return err, err_k, err_p
+
+
 def kernel_vs_plain(dev):
-    """Phase 3: per pass of a depth-6 tree, the kernel against `hist_plain`
-    on the same seeded inputs; returns (per-pass rows, max |err|)."""
+    """Phase 3: per pass of a depth-6 tree, the kernel against its plain
+    versions on the same seeded inputs, on uniform codes and on the fit's
+    own codes; returns (per-pass rows, max |kernel - hist_plain|)."""
     from h2o3_tpu_torch.ops import hist_cuda
 
     rng = np.random.default_rng(7)
-    codes = torch.from_numpy(
-        rng.integers(0, NBINS, (N_FEAT, N_ROWS), dtype=np.uint8)).to(dev)
-    g = rng.normal(size=N_ROWS).astype(np.float32)
-    h = rng.random(N_ROWS).astype(np.float32)
+    laws = {"uniform": torch.from_numpy(
+        rng.integers(0, NBINS, (N_FEAT, N_ROWS), dtype=np.uint8)).to(dev),
+        "fit": fit_codes(dev)}
     rows, worst = [], 0.0
     for L, sibling in PASSES + [(DEEP_L, True)]:
-        w = (rng.random(N_ROWS) < 0.5 if sibling
-             else np.ones(N_ROWS, bool)).astype(np.float32)
-        vals = torch.from_numpy(np.stack([w, g * w, h * w])).to(dev)
-        node = torch.from_numpy(
-            rng.integers(0, L, N_ROWS, dtype=np.int32)).to(dev)
-        got = hist_cuda.hist_build(codes, node, vals, L, NBINS)
-        ref = hist_cuda.hist_plain(codes, node, vals, L, NBINS)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, rtol=1e-5,
-                                   atol=1e-5 * float(ref.abs().max()))
-        err = float((got - ref).abs().max())
-        del got, ref
-        worst = max(worst, err)
+        node, vals = pass_inputs(rng, dev, L, sibling)
+        n_w = int((vals[0] != 0).sum())
+        rec = dict(L=L, sibling=sibling, weighted_rows=n_w)
+        for law, codes in laws.items():
+            err, err_k, err_p = check_b1(codes, node, vals, L)
+            worst = max(worst, err)
+            tag = "" if law == "uniform" else "fit_"
+            rec.update({f"{tag}max_abs_err": err,
+                        f"{tag}f64_err": err_k, f"{tag}plain_f64_err": err_p})
+            if L == DEEP_L:
+                continue
+            rec[f"{tag}ms"] = time_ms_cold(
+                lambda: hist_cuda.hist_build(codes, node, vals, L, NBINS))
         if L == DEEP_L:
-            fpb, npb = hist_cuda.block_plan(L, NBINS, N_FEAT)
-            print(f"hist L={L} (deep, {-(-L // npb)} node slices of {npb}): "
-                  f"matches plain, max |err| {err:.3e}", flush=True)
+            p = hist_cuda.block_plan(L, NBINS, N_FEAT, N_ROWS)
+            print(f"hist L={L} (deep, {p.grid[2]} node slices of "
+                  f"{p.nodes_per_block}, {p.grid[0]} row blocks): equals "
+                  f"hist_plain_fixed on both code laws; max |err| vs f64 "
+                  f"(w/g·w/h·w) uniform {channels(rec['f64_err'])} "
+                  f"(hist_plain {channels(rec['plain_f64_err'])}), fit codes "
+                  f"{channels(rec['fit_f64_err'])} "
+                  f"({channels(rec['fit_plain_f64_err'])})", flush=True)
             continue
-        ms = time_ms(lambda: hist_cuda.hist_build(codes, node, vals, L, NBINS))
-        plain_ms = time_ms(
+        codes = laws["uniform"]
+        rec["plain_ms"] = time_ms(
             lambda: hist_cuda.hist_plain(codes, node, vals, L, NBINS), reps=5)
         # one library call computing the same histogram: flat ids
         # f·L·B + node·B + code into an (F·L·B, 3) buffer
@@ -172,21 +272,20 @@ def kernel_vs_plain(dev):
                + codes.to(torch.int64)).reshape(-1)
         src = vals.t().repeat(N_FEAT, 1)
         buf = torch.zeros((N_FEAT * L * NBINS, 3), device=dev)
-        lib_ms = time_ms(lambda: buf.zero_().index_add_(0, ids, src), reps=10)
-        del ids, src
-        # this pass's data: codes of the weighted rows only, node and values
-        # of every row, the output once
-        n_w = int(w.sum())
-        nbytes = n_w * N_FEAT + 16 * N_ROWS + L * N_FEAT * NBINS * 3 * 4
-        flops = 3 * n_w * N_FEAT
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / 67e12) * 1e3
-        rows.append(dict(L=L, sibling=sibling, weighted_rows=n_w, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bytes=nbytes, max_abs_err=err))
+        rec["library_ms"] = time_ms(lambda: buf.zero_().index_add_(0, ids, src),
+                                    reps=10)
+        del ids, src, buf
+        rec["bound_ms"], rec["bytes"] = bound_ms_of(n_w, L)
+        rows.append(rec)
         print(f"hist L={L:2d} {'sibling' if sibling else 'root   '}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-              f"{lib_ms:.4f} ms, bytes bound {bound_ms:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB), max |err| {err:.3e}", flush=True)
+              f"{rec['ms']:.4f} ms uniform, {rec['fit_ms']:.4f} ms fit codes "
+              f"(L2 flushed); plain {rec['plain_ms']:.4f} ms, index_add_ "
+              f"{rec['library_ms']:.4f} ms, bytes bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bytes'] / 1e6:.1f} MB); max |err| vs f64 (w/g·w/h·w) "
+              f"uniform: kernel {channels(rec['f64_err'])}, hist_plain "
+              f"{channels(rec['plain_f64_err'])}; fit codes: kernel "
+              f"{channels(rec['fit_f64_err'])}, hist_plain "
+              f"{channels(rec['fit_plain_f64_err'])}", flush=True)
     return rows, worst
 
 
@@ -225,8 +324,9 @@ def main_path(dev):
                fit_timings=gbm.model.fit_timings,
                hist_launches=launches, dispatch=dispatch)
     print("main path: " + json.dumps(rec), flush=True)
-    if auc < 0.75:
-        raise AssertionError(f"training AUC {auc} < 0.75")
+    if auc < 0.75 or abs(auc - GBM_AUC) > 1e-3:
+        raise AssertionError(f"training AUC {auc}: below 0.75 or more than "
+                             f"1e-3 from {GBM_AUC}")
     if pred.names != ["predict", "0", "1"] or pred.nrow != 100_000:
         raise AssertionError(f"predict frame {pred.names} x {pred.nrow}")
     if not np.all(np.isfinite(p1)):
@@ -266,13 +366,16 @@ def profile_fit(est, fr, tag="profile"):
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    # B2's kernels: count, scan, scatter, zero and the bucketed main kernel
+    # B1's kernels (scale, main, fold) and B2's (count, scan, scatter and
+    # the bucketed main kernel)
+    b1 = {k[:80]: v / 1e3 for k, v in by_name.items() if "hist_fixed_" in k}
     b2 = {k[:80]: v / 1e3 for k, v in by_name.items() if "hist_rows_" in k}
     rec = dict(trees=est.model.ntrees_built, wall_s=wall,
                device_busy_s=busy_us / 1e6,
                busy_share=busy_us / 1e6 / wall, device_events=len(spans),
                fit_timings=est.model.fit_timings,
                top_device_ms={k[:80]: v / 1e3 for k, v in top},
+               b1_device_ms=sum(b1.values()), b1_kernels_ms=b1,
                b2_device_ms=sum(b2.values()), b2_kernels_ms=b2)
     print(f"{tag}: " + json.dumps(rec), flush=True)
     return rec
@@ -330,10 +433,11 @@ def rows_fixture(rng, L, skewed):
     return node.astype(np.int32), w.astype(np.float32)
 
 
-def rows_bound_ms(n_weighted, L):
-    """Least time of one B2 pass on the card: the codes of the weighted
-    rows, node ids and values of every row and the output, once each, over
-    the memory rate (the adds take less); and those bytes."""
+def bound_ms_of(n_weighted, L):
+    """Least time of one histogram pass (B1 or B2) on the card: the codes
+    of the weighted rows, node ids and values of every row and the output,
+    once each, over the memory rate (the adds take less); and those
+    bytes."""
     nbytes = (n_weighted * N_FEAT + 16 * N_ROWS
               + L * N_FEAT * NBINS * 3 * 4)
     flops = 3 * n_weighted * N_FEAT
@@ -383,7 +487,7 @@ def rows_vs_plain(dev):
                              reps=10)
             del ids, src, buf
             n_w = int(w.sum())
-            bound_ms, nbytes = rows_bound_ms(n_w, L)
+            bound_ms, nbytes = bound_ms_of(n_w, L)
             rec.update(weighted_rows=n_w, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound_ms, bytes=nbytes,
                        max_abs_err=err)
@@ -539,9 +643,13 @@ def main() -> int:
             ("hist_rows", "h2o3_tpu/ops/hist_pallas.py:174",
              drf_rec["hist_launches"], worst_b2, rows_b2))]
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
-          f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}), "
+          f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
+          "uniform codes, L2 flushed; "
+          f"{total(rows, 'fit_ms'):.4f} ms on the fit's own codes), "
           f"hist_rows over one DRF tree's {DRF_DEPTH + 1} + {DRF_DEPTH} passes "
-          "(compact attempt and dense rebuild; uniform node law)", flush=True)
+          "(compact attempt and dense rebuild; uniform node law); "
+          "max_abs_err is against the f32 plain version (hist_factored also "
+          "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,111 +1,347 @@
 // Gradient histograms for Hopper (sm_90a): the ports of the two TPU kernels
 // of h2o3_tpu/ops/hist_pallas.py. This part is build_histograms_pallas_factored
-// (kernel body _hist_kernel_factored); the port of build_histograms_pallas
-// (_hist_kernel), entry h2o3_hist_build_rows, follows further down.
+// (kernel body _hist_kernel_factored), entry h2o3_hist_build; the port of
+// build_histograms_pallas (_hist_kernel), entry h2o3_hist_build_rows,
+// follows further down.
 //
 // Computes out[l, f, b, c] = sum over rows r with node[r] == l and
 // codes[f, r] == b of vals[c, r], for the channels c = {w, g*w, h*w}:
 // the (L, F, B, 3) float32 histogram of one tree level.
 //
-// Inputs: codes (F, N) uint8 feature-major (a warp reads 32 neighbouring
-// rows of one feature: one 32-byte sector), node (N,) int32, vals (3, N)
+// Inputs: codes (F, N) uint8 feature-major, node (N,) int32, vals (3, N)
 // float32. Rows whose node id or code is out of range match no bin (the
 // TPU kernel pads with code -1 for the same effect).
 //
-// Bound: bytes. A pass reads N*F code bytes plus 16*N bytes of node and
-// values and writes L*F*B*3 floats; it does about 3*N*F adds. At the bench
-// shape (N = 1e6, F = 28) that is ~44 MB and ~84 M adds, far below the
-// card's arithmetic rate, so device-memory bandwidth bounds it.
+// Bound: bytes. A pass reads the code bytes of the weighted rows, 16*N bytes
+// of node and values and writes L*F*B*3 floats; it does 6 integer adds per
+// weighted (row, feature) pair. At the bench shape (N = 1e6, F = 28) that is
+// ~44 MB and ~170 M adds: device-memory bandwidth bounds it.
 //
-// Design. The TPU kernel builds a one-hot matrix and multiplies, because a
-// TPU has no scatter atomics. Hopper has fast shared-memory atomics, so
-// here each block keeps a private float32 histogram of nl*B*3 floats per
-// feature, for a block of features and a slice of nl nodes, in shared
-// memory and adds each row into it with atomicAdd (shared memory only).
-// Grid = (row blocks, feature blocks, node slices): each block walks its
-// row range once, skips the rows whose node lies outside its slice, and
-// for the others loads the values once and the code once per feature of
-// the block. A level whose L*B*3 histogram of one feature outgrows shared
-// memory (deep trees, wide categorical bins) is split into node slices;
-// at the bench shape there is one slice. The block then writes its
-// histogram as one per-row-block partial to global memory, and a second
-// kernel folds the partials over row blocks left to right, in a fixed
-// order (the structure of the reference's n_shard_blocks fold).
-// Accumulation is float32 throughout; the operands are not rounded to
-// bf16 as on the TPU. The order of the shared-memory atomics varies from
-// run to run, so the last bits of a sum can too; the fixed-point
-// deterministic variant is left to the kernel's redesign (ROADMAP B1).
+// Design. The TPU kernel one-hots an 8-feature block and multiplies, because
+// a TPU has no scatter atomics. Here the histogram is a scatter into shared
+// memory, in fixed point, because f32 atomicAdd on shared memory is a
+// compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN in the SASS) while the
+// int32 one is a native ATOMS.ADD. One memset and three launches:
+//  1. scale: max|vals[c]| per channel, as the bits of a non-negative float,
+//     reduced per block and combined by atomicMax into three zeroed words
+//     (the largest bits are the largest float; a NaN or an inf lands above
+//     every finite value).
+//  2. main: one block per (row block, feature block, node slice); there are
+//     just enough row blocks for two blocks per SM (hist_cuda.block_plan
+//     sizes the grid, tiles and threads). The block zeroes an
+//     (nl, fb, B, 3) histogram of int32 pairs {hi, lo} in shared memory and
+//     walks its rows in tiles of up to kRowsMax rows (as many as the shared
+//     memory left holds): it stages the tile's (fb, tile) codes in
+//     shared memory with 16-byte loads, compacts the tile's weighted
+//     in-slice rows into a list (warp ballot and popc, one shared atomic per
+//     warp) and counts them per node (__match_any_sync), then walks the
+//     list, a row per lane, each lane starting at its own feature, so that
+//     the lanes of a warp add into different features' slabs. A node whose
+//     slab would pass kRowsMax rows with this tile's is first added into an
+//     int64 accumulator (native 64-bit global atomics) and zeroed; at its
+//     end the block adds every node's slab there.
+//  3. fold: out = float(the int64 sum) times 2^-s_c; a channel whose maximum
+//     was not finite is NaN.
+// Node slices: where one feature's (L, B, 3) histogram outgrows the block's
+// shared memory, the nodes are split into slices, as many as fit; each slice
+// re-reads every row's node id, so such a block takes the whole shared
+// window (one block per SM, twice the threads) and the fewest slices.
+//
+// Fixed point. Channel c's values are quantized as q = rint(v * 2^s_c),
+// rounding to nearest even, with s_c = T - floor(log2(max|vals[c]|)) (s_c = 0
+// for an all-zero channel), T = min(kFixTop, 61 - ceil(log2 N)). With m =
+// max|v| in [2^e, 2^(e+1)), |v| * 2^s <= m * 2^s < 2^(T + 1), so |q| <=
+// 2^(T + 1) <= 2^36. Shared memory holds q as hi = q >> kLoBits (rounded
+// down) and lo = q - hi * 2^kLoBits, so |hi| <= 2^18 and 0 <= lo < 2^18, each
+// added with a native int32 atomic. A bin of node l holds rows of node l
+// only, and a node's slab takes at most kRowsMax = 2^12 rows between two
+// flushes (tiles are at most kRowsMax rows), so |sum hi| <= 2^30 and sum lo
+// < 2^30: no int32 sum overflows. A flush adds hi * 2^kLoBits + lo, exactly
+// the sum of the q, into int64, where a bin's sum is at most N * 2^(T + 1)
+// <= 2^62. Denormal and tiny maxima take the same rule (the product is
+// formed in double, where 2^s for s up to 35 + 149 is exact; so is the
+// product). Integer sums do not depend on the order of the atomics, the row
+// blocks or the grid: the output is a function of the inputs alone, bit for
+// bit, and equals hist_cuda.hist_plain_fixed (the same rule in PyTorch).
+// Precision: a row's quantization error is at most 2^-36 of the largest
+// |value|, 2^-13 of that value's f32 ulp, so each output is, but for that,
+// the exact sum rounded to f32 once. (One int32 per channel left 20 bits at
+// 1024-row slabs, and the signed g*w channel came out farther from an f64
+// sum than f32 atomics at 10^4-row bins.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void hist_partial_kernel(const uint8_t* __restrict__ codes,
-                                    const int32_t* __restrict__ node,
-                                    const float* __restrict__ vals,
-                                    float* __restrict__ partials,
-                                    int n_rows, int n_feat, int n_nodes,
-                                    int n_bins, int rows_per_block,
-                                    int feats_per_block, int nodes_per_block) {
-  extern __shared__ float hist[];  // (nf, nl, B, 3)
+constexpr int kRowsMax = 4096;  // hist_cuda.R_MAX: rows per slab at most
+constexpr int kFixTop = 35;     // hist_cuda.FIX_TOP
+constexpr int kLoBits = 18;     // hist_cuda.LO_BITS: q = hi * 2^kLoBits + lo
+constexpr int kRowsPerThread = 4;  // hist_cuda.ROWS_PER_THREAD: tile rows
+
+// T of the rule above for a pass over n_rows rows
+__device__ __forceinline__ int fix_top(int n_rows) {
+  const int ceil_log2 = n_rows > 1 ? 32 - __clz(n_rows - 1) : 0;
+  return min(kFixTop, 61 - ceil_log2);
+}
+
+// s_c of the rule above from the bits of max|v| (sign clear); 0 for a
+// zero maximum and for a NaN or an inf (bits >= 0x7f800000).
+__device__ __forceinline__ int fix_shift(unsigned bits, int top) {
+  if (bits >= 0x7f800000u || bits == 0) return 0;
+  const int ex = bits >> 23;
+  const int e = ex ? ex - 127 : (31 - __clz(bits & 0x7fffffu)) - 149;
+  return top - e;
+}
+
+// maxbits[c] = atomicMax of the bits of |vals[c, r]| over the rows: each
+// thread keeps 4 rows' loads in flight, and each block reduces through
+// shared memory to one atomic per channel.
+__global__ void hist_fixed_scale_kernel(const float* __restrict__ vals,
+                                        unsigned* __restrict__ maxbits,
+                                        int n_rows) {
+  __shared__ unsigned wmax[32][3];
+  unsigned m[3] = {0u, 0u, 0u};
+  const size_t stride = (size_t)n_rows;
+  for (int r0 = blockIdx.x * blockDim.x * 4 + threadIdx.x; r0 < n_rows;
+       r0 += gridDim.x * blockDim.x * 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = r0 + u * blockDim.x;
+      if (r < n_rows) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          m[c] = max(m[c], __float_as_uint(vals[c * stride + r]) & 0x7fffffffu);
+      }
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int o = 16; o; o >>= 1)
+      m[c] = max(m[c], __shfl_xor_sync(0xffffffffu, m[c], o));
+    if (lane == 0) wmax[warp][c] = m[c];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      unsigned v = lane < (int)(blockDim.x >> 5) ? wmax[lane][c] : 0u;
+#pragma unroll
+      for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+      if (lane == 0 && v) atomicMax(maxbits + c, v);
+    }
+  }
+}
+
+// The walk: each lane takes a weighted row of the list, loads and quantizes
+// its three values once, and walks the block's features starting at its own
+// lane's feature, so the 32 lanes of a warp add into up to 32 features'
+// slabs at once, and the row's six words stay in registers for all its
+// features.
+__global__ void hist_fixed_kernel(const uint8_t* __restrict__ codes,
+                                  const int32_t* __restrict__ node,
+                                  const float* __restrict__ vals,
+                                  const unsigned* __restrict__ maxbits,
+                                  unsigned long long* __restrict__ acc,
+                                  int n_rows, int n_feat, int n_nodes,
+                                  int n_bins, int rows_per_block,
+                                  int feats_per_block, int nodes_per_block,
+                                  int tile_rows) {
+  // shared: the (nl, fb, B) histogram of {hi0, hi1, hi2, lo0, lo1, lo2},
+  // the tile's list of weighted rows (row in tile | slab offset << 12), its
+  // (fb, S) codes, the list's length (one per tile parity: a thread may
+  // still read the last tile's while thread 0 resets the next one's), the
+  // number of nodes to flush, and per node of the slice: rows since its last
+  // flush, rows of this tile, and the list of nodes to flush
+  extern __shared__ __align__(16) int hist[];
   const int f0 = blockIdx.y * feats_per_block;
   const int nf = min(feats_per_block, n_feat - f0);
   const int l0 = blockIdx.z * nodes_per_block;
   const int nl = min(nodes_per_block, n_nodes - l0);
-  const int slab = nl * n_bins * 3;
-  const int n_sh = nf * slab;
-  for (int i = threadIdx.x; i < n_sh; i += blockDim.x) hist[i] = 0.0f;
-  __syncthreads();
+  const int b3 = n_bins * 3;
+  const int per3 = nf * b3;         // a node's (fb, B, 3) entries
+  const int per_node = 2 * per3;    // and its ints in shared memory
+  const int n_sh = nl * per_node;
+  int* list = hist + ((n_sh + 3) & ~3);
+  const int S = tile_rows + 16;  // a staged feature's bytes (16-aligned)
+  uint8_t* stile = reinterpret_cast<uint8_t*>(list + tile_rows);
+  int* n_list = reinterpret_cast<int*>(stile + nf * S);
+  int* n_flush = n_list + 2;
+  int* cnt = n_flush + 1;
+  int* tcnt = cnt + nl;
+  int* flush = tcnt + nl;
+  const size_t row_len = (size_t)n_feat * b3;
+  unsigned long long* dst = acc + (size_t)l0 * row_len + (size_t)f0 * b3;
 
+  const int top = fix_top(n_rows);
+  bool fin[3];
+  double scale[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const unsigned bits = maxbits[c];
+    fin[c] = bits < 0x7f800000u;
+    scale[c] = ldexp(1.0, fix_shift(bits, top));
+  }
+
+  // entry i = (j * B + b) * 3 + c of node l's slab: add hi * 2^kLoBits + lo
+  // into acc and zero the pair
+  auto drain = [&](int l, int i) {
+    int* h = hist + l * per_node + (i / 3) * 6 + i % 3;
+    const long long v = ((long long)h[0] << kLoBits) + h[3];
+    if (v) atomicAdd(dst + l * row_len + i, (unsigned long long)v);
+    h[0] = 0;
+    h[3] = 0;
+  };
+
+  for (int i = threadIdx.x; i < n_sh; i += blockDim.x) hist[i] = 0;
+  for (int i = threadIdx.x; i < 3 + 2 * nl; i += blockDim.x) n_list[i] = 0;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const size_t stride = (size_t)n_rows;
   const int r0 = blockIdx.x * rows_per_block;
   const int r1 = min(r0 + rows_per_block, n_rows);
-  const size_t stride = (size_t)n_rows;
-  for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int l = node[r] - l0;
-    if ((unsigned)l >= (unsigned)nl) continue;  // another slice's node
-    const float v0 = vals[r];
-    const float v1 = vals[stride + r];
-    const float v2 = vals[2 * stride + r];
-    // rows with all-zero values (zero weight: padding, the right-hand
-    // siblings of a sibling-subtraction pass) add nothing
-    if (v0 == 0.0f && v1 == 0.0f && v2 == 0.0f) continue;
-    float* row_hist = hist + l * n_bins * 3;
-    const uint8_t* c = codes + (size_t)f0 * stride + r;
-    for (int j = 0; j < nf; ++j) {
-      const int b = c[(size_t)j * stride];
-      if (b >= n_bins) continue;
-      float* h = row_hist + j * slab + b * 3;
-      atomicAdd(h, v0);
-      atomicAdd(h + 1, v1);
-      atomicAdd(h + 2, v2);
+  const int n_mod = n_rows & 15;
+  const int units = tile_rows / 16 + 1;  // 16-byte loads per staged feature
+
+  for (int t0 = r0, par = 0; t0 < r1; t0 += tile_rows, par ^= 1) {
+    const int nt = min(tile_rows, r1 - t0);
+    __syncthreads();  // the last tile's walk is done
+    if (threadIdx.x == 0) {
+      n_list[par ^ 1] = 0;
+      *n_flush = 0;
+    }
+    // stage: feature j's bytes from the 16-byte boundary at or below its
+    // row t0; that boundary and the last 16-byte word lie inside the
+    // tensor's allocation (PyTorch's blocks are 512-byte aligned), and the
+    // bytes outside [t0, t0 + nt) are never read back
+    const uintptr_t g0 = reinterpret_cast<uintptr_t>(codes) +
+                         (size_t)f0 * stride + t0;
+    const int sh0 = (int)(g0 & 15);
+    for (int i = threadIdx.x; i < nf * units; i += blockDim.x) {
+      const int j = i / units;
+      const int u = i - j * units;
+      const uintptr_t g = g0 + (size_t)j * stride;
+      const int sh = (int)(g & 15);
+      if (u * 16 < sh + nt)
+        reinterpret_cast<uint4*>(stile + j * S)[u] =
+            __ldg(reinterpret_cast<const uint4*>((g & ~(uintptr_t)15)) + u);
+    }
+    // compact: the tile's weighted rows with a node in this slice, counted
+    // per node. A thread takes rows k = u * blockDim.x + threadIdx.x, and
+    // issues all its node loads, then all its value loads, before it uses
+    // any: one round trip to device memory each, not one per row
+    int lr[kRowsPerThread];
+    float v[kRowsPerThread][3];
+#pragma unroll
+    for (int u = 0; u < kRowsPerThread; ++u) {
+      const int k = u * blockDim.x + threadIdx.x;
+      lr[u] = k < nt ? node[t0 + k] - l0 : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsPerThread; ++u) {
+      const int k = u * blockDim.x + threadIdx.x;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        v[u][c] = (unsigned)lr[u] < (unsigned)nl ? vals[c * stride + t0 + k]
+                                                 : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsPerThread; ++u) {
+      const int k = u * blockDim.x + threadIdx.x;
+      const int l = lr[u];
+      // zero-weight rows (padding, the right-hand siblings of a
+      // sibling-subtraction pass) add nothing
+      const bool keep = (unsigned)l < (unsigned)nl &&
+                        !(v[u][0] == 0.0f && v[u][1] == 0.0f && v[u][2] == 0.0f);
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      int base = 0;
+      if (lane == 0 && ballot) base = atomicAdd(n_list + par, __popc(ballot));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      const unsigned peers = __match_any_sync(0xffffffffu, keep ? l : -1);
+      if (keep && lane == __ffs(peers) - 1) atomicAdd(tcnt + l, __popc(peers));
+      if (keep) list[base + __popc(ballot & below)] = k | (l * per_node) << 12;
+    }
+    __syncthreads();
+    // a node whose rows since its last flush and this tile's would pass
+    // kRowsMax has its slab added into acc and zeroed first
+    for (int l = threadIdx.x; l < nl; l += blockDim.x) {
+      const int c = cnt[l] + tcnt[l];
+      if (c > kRowsMax) {
+        flush[atomicAdd(n_flush, 1)] = l;
+        cnt[l] = tcnt[l];
+      } else {
+        cnt[l] = c;
+      }
+      tcnt[l] = 0;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < *n_flush * per3; i += blockDim.x)
+      drain(flush[i / per3], i % per3);
+    __syncthreads();
+    const int n_w = n_list[par];
+    const int rot = lane % nf;
+    for (int e = threadIdx.x; e < n_w; e += blockDim.x) {
+      const int en = list[e];
+      const int k = en & 4095;
+      int* hrow = hist + (en >> 12);
+      int hi[3], lo[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        // the value again (the compaction's load left it in cache)
+        const float v = __ldg(vals + c * stride + t0 + k);
+        const long long q =
+            fin[c] ? __double2ll_rn((double)v * scale[c]) : 0;
+        hi[c] = (int)(q >> kLoBits);
+        lo[c] = (int)(q & ((1 << kLoBits) - 1));
+      }
+      int j = rot;
+      for (int jj = 0; jj < nf; ++jj) {
+        const int b = stile[j * S + ((sh0 + j * n_mod) & 15) + k];
+        if (b < n_bins) {
+          int* h = hrow + (j * n_bins + b) * 6;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            // a half that is zero in every lane (lo of 0/1 weights) costs
+            // no atomic
+            if (hi[c]) atomicAdd(h + c, hi[c]);
+            if (lo[c]) atomicAdd(h + 3 + c, lo[c]);
+          }
+        }
+        if (++j == nf) j = 0;
+      }
     }
   }
   __syncthreads();
-
-  // this row block's partial: partials[blockIdx.x, f0:f0+nf, l0:l0+nl, B, 3]
-  const size_t full = (size_t)n_nodes * n_bins * 3;
-  float* dst = partials + ((size_t)blockIdx.x * n_feat + f0) * full +
-               (size_t)l0 * n_bins * 3;
-  for (int i = threadIdx.x; i < n_sh; i += blockDim.x)
-    dst[(size_t)(i / slab) * full + i % slab] = hist[i];
+  for (int i = threadIdx.x; i < nl * per3; i += blockDim.x)
+    drain(i / per3, i % per3);
 }
 
-// out (L, F, B, 3) = left fold of partials (R, F, L, B, 3) over R.
-__global__ void hist_fold_kernel(const float* __restrict__ partials,
-                                 float* __restrict__ out, int n_parts,
-                                 int n_feat, int n_nodes, int n_bins) {
-  const int total = n_nodes * n_feat * n_bins * 3;
-  const size_t part = (size_t)total;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int bc = i % (n_bins * 3);
-    const int f = (i / (n_bins * 3)) % n_feat;
-    const int l = i / (n_bins * 3 * n_feat);
-    const size_t src = ((size_t)f * n_nodes + l) * n_bins * 3 + bc;
-    float acc = partials[src];
-    for (int p = 1; p < n_parts; ++p) acc += partials[src + p * part];
-    out[i] = acc;
+// out[i] = float(acc[i]) * 2^-s_c, c = i % 3; NaN where channel c's maximum
+// was not finite.
+__global__ void hist_fixed_fold_kernel(const long long* __restrict__ acc,
+                                       const unsigned* __restrict__ maxbits,
+                                       float* __restrict__ out,
+                                       long long total, int n_rows) {
+  const int top = fix_top(n_rows);
+  unsigned bad = 0;  // bit c: channel c's maximum was not finite
+  double inv[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const unsigned bits = maxbits[c];
+    bad |= (unsigned)(bits >= 0x7f800000u) << c;
+    inv[c] = ldexp(1.0, -fix_shift(bits, top));
+  }
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % 3);
+    // the channel's scale by a select, not by indexing a local array
+    const double s = c == 0 ? inv[0] : c == 1 ? inv[1] : inv[2];
+    out[i] = (bad >> c) & 1u
+                 ? __int_as_float(0x7fc00000)
+                 : __double2float_rn((double)__ll2float_rn(acc[i]) * s);
   }
 }
 
@@ -482,34 +718,46 @@ __global__ void hist_rows_bucket_kernel(const uint8_t* __restrict__ codes,
 
 }  // namespace
 
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = ok).
+// The feature-major entry (B1): one memset of `scratch` (16 bytes of channel
+// maxima, then the (L, F, B, 3) int64 accumulator), then the scale, main and
+// fold launches on `stream`. Returns the first CUDA error (0 = ok).
 extern "C" int h2o3_hist_build(const void* codes, const void* node,
-                               const void* vals, void* partials, void* out,
+                               const void* vals, void* scratch, void* out,
                                int n_rows, int n_feat, int n_nodes, int n_bins,
                                int rows_per_block, int feats_per_block,
                                int nodes_per_block, int n_row_blocks,
-                               int threads, int smem_bytes,
-                               int fold_blocks, void* stream) {
+                               int tile_rows, int threads, int smem_bytes,
+                               int scale_blocks, int fold_blocks,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hist_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int n_feat_blocks = (n_feat + feats_per_block - 1) / feats_per_block;
-  const int n_node_slices = (n_nodes + nodes_per_block - 1) / nodes_per_block;
-  dim3 grid(n_row_blocks, n_feat_blocks, n_node_slices);
-  hist_partial_kernel<<<grid, threads, smem_bytes, s>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(node),
-      static_cast<const float*>(vals), static_cast<float*>(partials), n_rows,
-      n_feat, n_nodes, n_bins, rows_per_block, feats_per_block,
-      nodes_per_block);
-  cudaError_t e = cudaGetLastError();
+  unsigned* mb = static_cast<unsigned*>(scratch);
+  long long* acc = reinterpret_cast<long long*>(static_cast<char*>(scratch) + 16);
+  const long long total = (long long)n_nodes * n_feat * n_bins * 3;
+  // a tile takes at most kRowsMax rows and kRowsPerThread per thread
+  if (tile_rows > kRowsMax || tile_rows > kRowsPerThread * threads)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, 16 + total * sizeof(long long), s);
   if (e != cudaSuccess) return (int)e;
-  hist_fold_kernel<<<fold_blocks, 256, 0, s>>>(
-      static_cast<const float*>(partials), static_cast<float*>(out),
-      n_row_blocks, n_feat, n_nodes, n_bins);
+  hist_fixed_scale_kernel<<<scale_blocks, 512, 0, s>>>(
+      static_cast<const float*>(vals), mb, n_rows);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  if (smem_bytes > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(hist_fixed_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem_bytes)) != cudaSuccess)
+    return (int)e;
+  dim3 grid(n_row_blocks, (n_feat + feats_per_block - 1) / feats_per_block,
+            (n_nodes + nodes_per_block - 1) / nodes_per_block);
+  hist_fixed_kernel<<<grid, threads, smem_bytes, s>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(node),
+      static_cast<const float*>(vals), mb,
+      reinterpret_cast<unsigned long long*>(acc), n_rows, n_feat, n_nodes,
+      n_bins, rows_per_block, feats_per_block, nodes_per_block, tile_rows);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  hist_fixed_fold_kernel<<<fold_blocks, 256, 0, s>>>(
+      acc, mb, static_cast<float*>(out), total, n_rows);
   return (int)cudaGetLastError();
 }
 

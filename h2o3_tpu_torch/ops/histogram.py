@@ -19,7 +19,10 @@ Methods keep the reference's names:
 raise. Both kernels take every level width (B1 splits the nodes into
 slices where one feature's (L, B, 3) histogram outgrows shared memory, B2
 buckets the rows by node and keeps small groups of nodes in shared memory),
-so nothing gives way to ``segment`` on the card.
+so nothing gives way to ``segment`` on the card. B1 sums in fixed point, so
+its histograms are the same bits from run to run and equal
+`hist_cuda.hist_plain_fixed`; against ``segment``'s f32 sums they agree
+within rtol 1e-5. B2 sums in f32.
 
 Every call counts its resolved method in `DISPATCH`, the stand-in for the
 reference's `_record_selection` registry counters.

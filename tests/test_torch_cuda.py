@@ -28,9 +28,16 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, seed, N, F, L, nbins):
+def _inputs(dev, seed, N, F, L, nbins, law="uniform"):
+    """Feature-major codes, node ids and values of one B1 pass. The skewed
+    code law puts most rows in a few central bins, as the fit's
+    UniformAdaptive bins of normal features do."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, nbins, (F, N)).astype(np.uint8)
+    if law == "skewed":
+        codes = np.clip(rng.normal(nbins / 2, nbins / 8, (F, N)), 0,
+                        nbins - 1).astype(np.uint8)
+    else:
+        codes = rng.integers(0, nbins, (F, N)).astype(np.uint8)
     node = rng.integers(0, L, N).astype(np.int32)
     g = rng.normal(size=N).astype(np.float32)
     h = rng.random(N).astype(np.float32)
@@ -40,25 +47,135 @@ def _inputs(dev, seed, N, F, L, nbins):
             torch.from_numpy(vals).to(dev))
 
 
-@pytest.mark.parametrize("N,F,L,nbins", [
-    (200_003, 28, 1, 21),      # the main path's root pass, ragged row count
-    (200_003, 28, 16, 21),     # its deepest pass at depth 6
-    (50_001, 5, 256, 21),      # one feature per block, > 48 KB shared memory
-    (4_099, 3, 4, 256),        # the widest uint8 code range
-    (100_003, 3, 1024, 21),    # depth-11 sibling pass: two node slices
-    (100_003, 3, 1024, 256),   # wide categorical bins: fourteen node slices
+def _check_fixed(got, codes, node, vals, L, nbins):
+    """The kernel's output equals its fixed-point twin bit for bit, and a
+    second launch gives the same bits."""
+    again = hist_cuda.hist_build(codes, node, vals, L, nbins)
+    fixed = hist_cuda.hist_plain_fixed(codes, node, vals, L, nbins)
+    torch.cuda.synchronize()
+    # every bit, NaNs in the same places
+    for other in (again, fixed):
+        torch.testing.assert_close(got, other, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("N,F,L,nbins,law", [
+    (200_003, 28, 1, 21, "uniform"),      # the main path's root pass, ragged N
+    (500_000, 7, 1, 21, "uniform"),       # odd F, 263 row blocks, odd entries
+    (200_003, 28, 16, 21, "uniform"),     # its deepest pass at depth 6
+    (200_003, 28, 16, 21, "skewed"),      # ... on codes crowded in a few bins
+    (50_001, 5, 256, 21, "uniform"),      # one feature per block, fat row blocks
+    (4_099, 3, 4, 256, "uniform"),        # the widest uint8 code range
+    (100_003, 3, 1024, 21, "uniform"),    # depth-11 sibling pass: node slices
+    (100_003, 3, 1024, 256, "uniform"),   # wide categorical bins: many slices
 ])
-def test_kernel_matches_plain(dev, N, F, L, nbins):
-    codes, node, vals = _inputs(dev, N + L, N, F, L, nbins)
+def test_kernel_matches_plain(dev, N, F, L, nbins, law):
+    codes, node, vals = _inputs(dev, N + L, N, F, L, nbins, law)
     before = hist_cuda.launches
     got = hist_cuda.hist_build(codes, node, vals, L, nbins)
     assert hist_cuda.launches == before + 1
     ref = hist_cuda.hist_plain(codes, node, vals, L, nbins)
     torch.cuda.synchronize()
     assert got.shape == (L, F, nbins, 3)
-    # f32 sums in another order (shared-memory atomics, then the fold)
+    # fixed-point sums against f32 sums in another order
     torch.testing.assert_close(got, ref, rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))
+    _check_fixed(got, codes, node, vals, L, nbins)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("TILE_ROWS", 256), ("TILE_ROWS", 512), ("THREADS", 256),
+    ("THREADS", 1024), ("SMEM_PAIR", hist_cuda.SMEM_MAX),
+    ("MIN_ROWS_PER_BLOCK", 4096)])
+def test_kernel_bits_do_not_depend_on_the_plan(dev, monkeypatch, knob, value):
+    """Integer sums: other tiles, threads, feature splits and row blocks
+    give the same bits."""
+    codes, node, vals = _inputs(dev, 8, 100_003, 28, 16, 21)
+    base = hist_cuda.hist_build(codes, node, vals, 16, 21)
+    monkeypatch.setattr(hist_cuda, knob, value)
+    got = hist_cuda.hist_build(codes, node, vals, 16, 21)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base)
+
+
+def test_kernel_flushes_crowded_nodes(dev):
+    """Fat row blocks (deep level) where one node takes half the rows: its
+    slab is added into the int64 accumulator two or three times per
+    block."""
+    N, F, L, nbins = 1_000_003, 3, 1024, 21
+    codes, node, vals = _inputs(dev, 2, N, F, L, nbins)
+    node[torch.arange(N, device=dev) % 2 == 0] = 5
+    plan = hist_cuda.block_plan(L, nbins, F, N)
+    assert plan.rows_per_block > 4 * hist_cuda.R_MAX
+    got = hist_cuda.hist_build(codes, node, vals, L, nbins)
+    _check_fixed(got, codes, node, vals, L, nbins)
+
+
+@pytest.mark.parametrize("case", ["at_maximum", "zeros", "nan_g", "inf_h",
+                                  "tiny", "denormal"])
+def test_kernel_scale_edges(dev, case):
+    """Every row at the top of its binade in one bin (the int32 bounds, in
+    slabs drained at the block's end and in slabs flushed every R_MAX rows),
+    all-zero values, a NaN or an inf (that channel NaN), tiny and denormal
+    maxima."""
+    N, F = 3 * hist_cuda.R_MAX * 40, 2
+    codes, node, vals = _inputs(dev, 3, N, F, 1, 21)
+    if case == "at_maximum":
+        codes.zero_()
+        vals.fill_(1 - 2 ** -24)
+        vals[2].neg_()
+    elif case == "zeros":
+        vals.zero_()
+    elif case == "nan_g":
+        vals[1, 17] = float("nan")
+    elif case == "inf_h":
+        vals[2, 5] = float("inf")
+    else:
+        vals[1:] *= 1e-30 if case == "tiny" else 1e-39
+    for L in (1, 1024):      # blocks of 1872 rows; blocks of 11,184 in node 0
+        nd = node if L == 1 else (node * 7) % L
+        got = hist_cuda.hist_build(codes, nd, vals, L, 21)
+        _check_fixed(got, codes, nd, vals, L, 21)
+    if case == "at_maximum":
+        m = 1 - 2 ** -24                      # the exact sum, rounded once
+        assert torch.equal(got[:, 0, 0].sum(0).cpu(), torch.tensor(
+            [N * m, N * m, -N * m], dtype=torch.float64).float())
+    if case in ("nan_g", "inf_h"):
+        c = 1 if case == "nan_g" else 2
+        assert torch.isnan(got[..., c]).all()
+        assert torch.isfinite(got[..., [k for k in range(3) if k != c]]).all()
+
+
+@pytest.mark.parametrize("L,sibling,law", [
+    (1, False, "uniform"), (4, True, "skewed"), (16, True, "uniform"),
+    (1024, True, "uniform")])
+def test_kernel_no_farther_from_f64_than_f32(dev, L, sibling, law):
+    """In each channel (w, g·w, h·w) the kernel's sums lie no farther from
+    an f64 sum of the same inputs than `hist_plain`'s f32 atomics do."""
+    N, F = 1_000_000, 4
+    codes, node, vals = _inputs(dev, 20 + L, N, F, L, 21, law)
+    if sibling:
+        vals[:, torch.arange(N, device=dev) % 2 == 1] = 0
+    got = hist_cuda.hist_build(codes, node, vals, L, 21)
+    f32 = hist_cuda.hist_plain(codes, node, vals, L, 21)
+    f64 = hist_cuda.hist_plain(codes, node, vals, L, 21, torch.float64)
+    err = (got.double() - f64).abs().reshape(-1, 3).amax(0)
+    err_f32 = (f32.double() - f64).abs().reshape(-1, 3).amax(0)
+    assert (err <= err_f32).all(), (err, err_f32)
+
+
+def test_kernel_past_2_26_rows(dev):
+    """Past 2^26 rows the scale rule gives one bit less per doubling (no
+    int64 sum passes 2^62); the kernel follows it, bit for bit."""
+    N = 2 ** 26 + 5
+    assert hist_cuda.fix_top(N) == hist_cuda.FIX_TOP - 1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    codes = torch.randint(0, 21, (1, N), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    node = torch.randint(0, 2, (N,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((3, N), generator=gen, device=dev)
+    got = hist_cuda.hist_build(codes, node, vals, 2, 21)
+    _check_fixed(got, codes, node, vals, 2, 21)
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):

@@ -167,22 +167,58 @@ def test_resolve_method_and_dispatch_counter():
                                   "pallas": 1}
 
 
-def test_feats_per_block_rule():
+@pytest.mark.parametrize("L,N,fb,n_rb,slices", [
+    (1, 200_000, 28, 196, 1),                  # blocks of 1024 rows
+    (1, 10 ** 6, 28, 264, 1),                  # two blocks per SM
+    (2, 10 ** 6, 28, 264, 1), (4, 10 ** 6, 28, 264, 1),
+    (8, 10 ** 6, 14, 132, 1),                  # 28 = 14 + 14
+    (16, 10 ** 6, 10, 88, 1),                  # 28 = 10 + 10 + 8
+    (1024, 10 ** 6, 1, 4, 3),                  # node slices, whole window
+])
+def test_feats_per_block_rule(L, N, fb, n_rb, slices):
+    """B1's launch plan at the GBM path's widths (F = 28, B = 21, 132
+    SMs): every feature where two blocks fit an SM, else balanced feature
+    blocks, else node slices; two blocks per SM, never of fewer than
+    MIN_ROWS_PER_BLOCK rows; tiles that fill the shared memory left; node
+    slices in one block of twice the threads per SM and the whole
+    window."""
+    F, nb = 28, 21
+    p = hist_cuda.block_plan(L, nb, F, N)
+    assert (p.feats_per_block, p.grid[0], p.grid[2]) == (fb, n_rb, slices)
+    if slices == 1:
+        assert p.threads == hist_cuda.THREADS
+        assert p.smem <= hist_cuda.SMEM_PAIR
+    else:
+        assert p.threads == 2 * hist_cuda.THREADS
+        assert hist_cuda.SMEM_PAIR < p.smem <= hist_cuda.SMEM_MAX
+    assert p.grid[0] * p.grid[1] * p.grid[2] >= min(2 * 132, N // 1024)
+    assert p.grid[0] * p.rows_per_block >= N > (p.grid[0] - 1) * p.rows_per_block
+    assert p.rows_per_block % 16 == 0 and p.tile_rows % 16 == 0
+    assert hist_cuda.TILE_ROWS <= p.tile_rows <= hist_cuda.R_MAX
+    assert slices * p.nodes_per_block >= L > (slices - 1) * p.nodes_per_block
+    assert (slices > 1) == (L * nb * 24 > hist_cuda.SMEM_PAIR)
+
+
+def test_block_plan_limits(monkeypatch):
+    """Wide bins, small frames, a larger shared-memory budget, tiles beyond
+    R_MAX, and the one raise: one node's histogram of one feature beyond
+    shared memory."""
     plan = hist_cuda.block_plan
-    assert plan(1, 21, 28) == (28, 1)
-    assert plan(16, 21, 28) == (12, 16)
-    assert plan(256, 21, 28) == (1, 256)       # opt-in window
-    # deeper levels split the nodes into even slices that fit the window
-    assert plan(1024, 21, 28) == (1, 512)
-    assert plan(1024, 256, 28) == (1, 74)
-    for L, nb in ((1024, 21), (4096, 21), (1024, 256), (77, 256)):
-        fpb, npb = plan(L, nb, 28)
-        assert npb * nb * 3 * 4 <= hist_cuda.SMEM_MAX
-        fewest = -(-L // (hist_cuda.SMEM_MAX // (nb * 3 * 4)))
-        assert -(-L // npb) == (fewest if L * nb * 12 > hist_cuda.SMEM_MAX
-                                else 1)
+    p = plan(1024, 256, 28, 10 ** 6)
+    assert p.feats_per_block == 1 and p.smem <= hist_cuda.SMEM_MAX
+    assert p.grid[2] * p.nodes_per_block >= 1024 and p.threads == 1024
+    p = plan(4000, 256, 2, 5000)            # 6 KB a node: 34 fit the window
+    assert p.smem <= hist_cuda.SMEM_MAX and p.nodes_per_block == 34
+    assert plan(16, 21, 28, 4000).grid == (4, 3, 1)
+    assert plan(1, 21, 28, 0).grid == (1, 1, 1)
+    monkeypatch.setattr(hist_cuda, "SMEM_PAIR", hist_cuda.SMEM_MAX)
+    assert plan(16, 21, 28, 10 ** 6).feats_per_block == 14
+    monkeypatch.setattr(hist_cuda, "TILE_ROWS", 2 * hist_cuda.R_MAX)
     with pytest.raises(ValueError):
-        plan(1, 20_000, 1)                      # one node does not fit
+        plan(1, 21, 28, 10 ** 6)
+    monkeypatch.undo()
+    with pytest.raises(ValueError):
+        plan(1, 20_000, 1, 10)                # one node does not fit
 
 
 @pytest.mark.parametrize("L", [1, 4, 33])

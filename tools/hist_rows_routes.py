@@ -5,7 +5,7 @@ width of the DRF fit's level plan, on a uniform and a skewed node law.
                                       [--sass] [--out FILE]
 
 Needs a CUDA card. At N = 1,000,000 rows, F = 28, B = 21, with
-`chip_smoke.py`'s fixtures (`drf_widths`, `rows_fixture`, `rows_bound_ms`),
+`chip_smoke.py`'s fixtures (`drf_widths`, `rows_fixture`, `bound_ms_of`),
 it checks each run against `hist_plain_rows` and times it by CUDA events
 (median of 20 launches after 3 warm-up launches):
 
@@ -99,7 +99,7 @@ def kernel_ms(fn, reps: int = 5) -> dict:
     out = Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            name = re.sub(r"^.*?(hist_rows_\w+).*$", r"\1", e.name)
+            name = re.sub(r"^.*?(hist_\w+).*$", r"\1", e.name)
             out[name[:60]] += e.time_range.elapsed_us() / 1e3 / reps
     return dict(out)
 
@@ -159,7 +159,7 @@ def main() -> int:
             ref = hist_cuda.hist_plain_rows(codes, node, vals, L, B)
             p = hist_cuda.rows_plan(L, B, F, N)
             rec = dict(L=L, law=law, launches=n_fit,
-                       bound_ms=smoke.rows_bound_ms(int(w.sum()), L)[0],
+                       bound_ms=smoke.bound_ms_of(int(w.sum()), L)[0],
                        plan=dict(G=p.group_nodes, fb=p.feats_per_block,
                                  C=p.chunk_rows, grid=p.grid,
                                  smem=p.smem))
