@@ -51,10 +51,31 @@ result line):
    slots) on cuda and on the CPU gives the same forest and predictions.
 10. Where the DRF fit's time goes: DRF_PROFILE_TREES trees under
    torch.profiler, with B2's device time summed over all its kernels.
+11. The forest-scoring kernel (csrc/score.cu) vs its plain version
+   (`tree.predict_forest_raw`) on f32 rows with 5 % NaN, N in SCORE_ROWS, on
+   the GBM's forest of phase 4 (20 trees, depth 6) and the DRF's of phase 8
+   (50 trees, depth 19, 2^20 - 1 nodes a tree): within 1e-5 * max(1,
+   max |plain|); on a random forest with leaf values on a 2^-10 grid (every
+   sum exact in any order) equal bit for bit. Times: kernel and plain by
+   CUDA events with the L2 flushed before each call (so the events time the
+   device, not the host's enqueue), the kernel's own device time from
+   torch.profiler (calls back to back, L2 warm), and the bound (X and the
+   output once, over the memory rate).
+12. Serving on the card: phase 4's GBM through `ScoringEngine.score` from 8
+   threads, SERVE_REQUESTS requests of 1-300 rows (a seeded mix), then one
+   request of 100,000 rows. Every response equals `model.predict` on its
+   rows within 1e-6; the scorer cache has one miss and then hits, its warm
+   buckets on the 64/128/256/512k ladder; no batch was served by the
+   failover's numpy fallback and no breaker opened. p50/p99 request latency
+   and rows/s are printed beside the card.
+13. MOJO round trip: the GBM and the DRF exported, reloaded with the port's
+   `load_model`, and scored by its numpy walk (f64 sums) within 1e-5 of the
+   card model's predictions.
 
 Each path is driven with every launch count set to 0 just before it and
-read just after. The last line is {"ok": true, "device": {...}}; the line
-before it is the kernel table as JSON.
+read just after (phase 12 is the scoring path's own). The last line is
+{"ok": true, "device": {...}}; the line before it is the kernel table as
+JSON.
 """
 
 from __future__ import annotations
@@ -62,9 +83,11 @@ from __future__ import annotations
 import json
 import math
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -97,6 +120,9 @@ DRF_AUC_FLOOR = 0.7955
 # OOB and holdout AUC of that fit on an H100 with the reference's exact sums
 # (PERF.md §5); a kernel that sums right gives them to 1e-6
 DRF_AUCS = (0.832020, 0.837229)
+# phase 11: rows scored per case; phase 12: requests of 1..SERVE_MAX_ROWS rows
+SCORE_ROWS = (64, 512, 100_000, 1_000_000)
+SERVE_REQUESTS, SERVE_MAX_ROWS, SERVE_THREADS, SERVE_BIG = 64, 300, 8, 100_000
 
 
 def make_higgs_like(n_rows: int, n_feat: int = 28, seed: int = 0):
@@ -164,6 +190,38 @@ def time_ms_cold(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def kernel_device_ms(fn, match: str, reps: int = 10,
+                     warmup: int = 2):
+    """(median device time in ms, count) of the kernels whose name holds
+    `match`, one per call of fn(), from torch.profiler's CUDA activity: the
+    device's own time, no host enqueue in it (the calls run back to back,
+    so the L2 is warm). Late in this script the profiler records only some
+    of them (3 fewer than the calls, on an H100 with torch's CUPTI); the
+    median is over those it recorded, and a line says what it saw. None
+    where it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    us = [e.time_range.elapsed_us() for e in events
+          if e.device_type == DeviceType.CUDA and match in e.name]
+    if len(us) != reps:
+        seen = Counter(f"{e.device_type}:{e.name[:50]}" for e in events)
+        print(f"profiler: {len(us)} {match} kernels in {reps} calls; "
+              f"events seen: {seen.most_common(8)}", flush=True)
+    if not us:
+        return None, 0
+    return float(np.median(us)) / 1e3, len(us)
 
 
 def fit_codes(dev):
@@ -290,11 +348,12 @@ def kernel_vs_plain(dev):
 
 
 def main_path(dev):
-    """Phase 4: the port's main path at full width; returns its record."""
+    """Phase 4: the port's main path at full width; returns its record, the
+    frame and the model."""
     from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
     from h2o3_tpu_torch.frame.frame import Frame
     from h2o3_tpu_torch.models.metrics import auc_exact
-    from h2o3_tpu_torch.ops import hist_cuda, histogram
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
 
     X, y = make_higgs_like(N_ROWS)
     names = [f"f{i}" for i in range(N_FEAT)] + ["label"]
@@ -302,7 +361,7 @@ def main_path(dev):
     gbm = H2OGradientBoostingEstimator(
         ntrees=NTREES, max_depth=DEPTH, learn_rate=0.1,
         histogram_type="UniformAdaptive", seed=42, device=str(dev))
-    hist_cuda.launches = hist_cuda.launches_rows = 0
+    hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
     histogram.DISPATCH.clear()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -317,12 +376,14 @@ def main_path(dev):
     pred_s = time.time() - t1
     launches = hist_cuda.launches
     rows_launches = hist_cuda.launches_rows
+    score_launches = score_cuda.launches
     dispatch = dict(histogram.DISPATCH)
     p1 = np.asarray(pred.vec("1").data, np.float64)
     rec = dict(wall_s=wall, trees_per_s=NTREES / wall, auc=auc,
                holdout_auc=auc_exact(yt, p1), predict_s=pred_s,
                fit_timings=gbm.model.fit_timings,
-               hist_launches=launches, dispatch=dispatch)
+               hist_launches=launches, score_launches=score_launches,
+               dispatch=dispatch)
     print("main path: " + json.dumps(rec), flush=True)
     if auc < 0.75 or abs(auc - GBM_AUC) > 1e-3:
         raise AssertionError(f"training AUC {auc}: below 0.75 or more than "
@@ -337,7 +398,10 @@ def main_path(dev):
         raise AssertionError(f"histogram dispatch {dispatch}, {launches} "
                              f"kernel launches; expected {expect} kernel "
                              "launches and no other method")
-    return rec, fr
+    if score_launches != 1:
+        raise AssertionError(f"predict launched the forest kernel "
+                             f"{score_launches} times; expected once")
+    return rec, fr, gbm.model
 
 
 def profile_fit(est, fr, tag="profile"):
@@ -503,16 +567,17 @@ def rows_vs_plain(dev):
 
 
 def drf_path(dev, fr):
-    """Phase 8: the DRF path at full width; returns its record."""
+    """Phase 8: the DRF path at full width; returns its record and the
+    model."""
     from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
     from h2o3_tpu_torch.frame.frame import Frame
     from h2o3_tpu_torch.models.metrics import auc_exact
     from h2o3_tpu_torch.models.tree import histogram_level_plan
-    from h2o3_tpu_torch.ops import hist_cuda, histogram
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
 
     drf = H2ORandomForestEstimator(ntrees=DRF_TREES, hist_method="pallas",
                                    seed=42, device=str(dev))
-    hist_cuda.launches = hist_cuda.launches_rows = 0
+    hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
     histogram.DISPATCH.clear()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
@@ -530,6 +595,7 @@ def drf_path(dev, fr):
     t1 = time.time()
     pred = drf.predict(ft)
     pred_s = time.time() - t1
+    score_launches = score_cuda.launches
     p1 = np.asarray(pred.vec("1").data, np.float64)
     plan = histogram_level_plan(model.max_depth, model.compact_cap)
     expect = (DRF_TREES * len(plan)
@@ -540,7 +606,8 @@ def drf_path(dev, fr):
                dense_rebuilds=model.dense_rebuilds, oob_auc=oob_auc,
                holdout_auc=auc_exact(yt, p1), predict_s=pred_s,
                fit_timings=model.fit_timings, hist_launches=launches,
-               planned_passes=expect, dispatch=dispatch,
+               score_launches=score_launches, planned_passes=expect,
+               dispatch=dispatch,
                peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"DRF depth used: {model.max_depth} (requested 20)", flush=True)
     print("drf path: " + json.dumps(rec), flush=True)
@@ -561,7 +628,10 @@ def drf_path(dev, fr):
         raise AssertionError(f"DRF histogram dispatch {dispatch}, {launches} "
                              f"B2 launches, {b1_launches} B1 launches; "
                              f"expected {expect} B2 launches and no other")
-    return rec
+    if score_launches != 1:
+        raise AssertionError(f"DRF predict launched the forest kernel "
+                             f"{score_launches} times; expected once")
+    return rec, model
 
 
 def small_drf_check(dev):
@@ -596,6 +666,218 @@ def small_drf_check(dev):
         raise AssertionError("cuda and cpu DRF fits disagree beyond 1e-5")
 
 
+def score_rows(rng, n):
+    """(n, N_FEAT) f32 rows of the main path's generator, 5 % of the values
+    NaN."""
+    X, _ = make_higgs_like(n, seed=int(rng.integers(1 << 30)))
+    X[rng.random(X.shape) < 0.05] = np.nan
+    return X
+
+
+def score_bound_ms(n):
+    """Least time of one forest-scoring call on the card: X and the output
+    once each, over the memory rate (the compares take less)."""
+    return (n * N_FEAT * 4 + n * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def score_vs_plain(dev, forests):
+    """Phase 11: the forest kernel against `predict_forest_raw` on each of
+    `forests` ({name: (Tree, depth)}) at every N of SCORE_ROWS, and bit for
+    bit on a forest whose sums are exact; returns (rows, max |err|)."""
+    from h2o3_tpu_torch.models.tree import Tree, heap_size, predict_forest_raw
+    from h2o3_tpu_torch.ops import score_cuda
+
+    rng = np.random.default_rng(13)
+    rows, worst = [], 0.0
+    for name, (forest, depth) in forests.items():
+        for n in SCORE_ROWS:
+            X = torch.from_numpy(score_rows(rng, n)).to(dev)
+            got = score_cuda.forest_score(forest, X, depth)
+            ref = predict_forest_raw(forest, X, depth)
+            torch.cuda.synchronize()
+            scale = max(1.0, float(ref.abs().max()))
+            err = float((got - ref).abs().max())
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"forest kernel on {name} at N={n}: max "
+                                     f"|err| {err:.3e} > 1e-5 * {scale:.3g}")
+            worst = max(worst, err)
+            big = n >= 100_000 and depth > 10
+            def kernel():
+                return score_cuda.forest_score(forest, X, depth)
+
+            rec = dict(forest=name, trees=int(forest.feat.shape[0]),
+                       depth=depth, N=n, max_abs_err=err, max_abs=scale,
+                       ms=time_ms_cold(kernel, reps=5 if big else 20),
+                       plain_ms=time_ms_cold(lambda: predict_forest_raw(
+                           forest, X, depth), reps=3 if big else 10,
+                           warmup=1 if big else 3),
+                       bound_ms=score_bound_ms(n))
+            rec["device_ms"], rec["device_kernels"] = kernel_device_ms(
+                kernel, "forest_score_kernel", reps=8 if big else 20)
+            del X, got, ref
+            rows.append(rec)
+            dev_ms = ("not measured" if rec["device_ms"] is None
+                      else f"{rec['device_ms']:.4f} ms over "
+                      f"{rec['device_kernels']} kernels")
+            print(f"forest_score {name} ({rec['trees']} trees, depth {depth})"
+                  f" N={n}: kernel {rec['ms']:.4f} ms (L2 flushed; profiler "
+                  f"device time {dev_ms}, L2 warm), plain "
+                  f"{rec['plain_ms']:.4f} ms, bytes bound {rec['bound_ms']:.5f}"
+                  f" ms; max |err| {err:.3e} (max |sum| {scale:.3g})",
+                  flush=True)
+    # leaf values on a 2^-10 grid: every sum is exact in any order, so the
+    # kernel's traversal must give the walk's sums to the bit
+    nt, depth, n = 50, 10, 100_000
+    T = heap_size(depth)
+    split = rng.random((nt, T)) < 0.9
+    split[:, 2 ** depth - 1:] = False
+    dyadic = Tree(*[torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, N_FEAT, (nt, T), dtype=np.int32),
+        np.zeros((nt, T), np.int32),
+        rng.normal(size=(nt, T)).astype(np.float32), split,
+        (rng.integers(-512, 512, (nt, T)) / 1024.0).astype(np.float32))])
+    X = torch.from_numpy(score_rows(rng, n)).to(dev)
+    got = score_cuda.forest_score(dyadic, X, depth)
+    ref = predict_forest_raw(dyadic, X, depth)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("forest kernel differs from the walk on a "
+                             "dyadic forest: max |err| "
+                             f"{float((got - ref).abs().max()):.3e}")
+    print(f"forest_score dyadic forest ({nt} trees, depth {depth}, N={n}): "
+          "equal to the walk bit for bit", flush=True)
+    return rows, worst
+
+
+def serve_path(dev, model):
+    """Phase 12: `ScoringEngine.score` on the card with phase 4's GBM from
+    SERVE_THREADS threads, SERVE_REQUESTS requests of 1..SERVE_MAX_ROWS
+    rows, then one of SERVE_BIG rows; returns its record."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    rng = np.random.default_rng(21)
+    names = [f"f{i}" for i in range(N_FEAT)]
+
+    def frame(n):
+        return Frame.from_numpy(score_rows(rng, n), names=names)
+
+    reqs = [frame(int(n)) for n in rng.integers(1, SERVE_MAX_ROWS + 1,
+                                                SERVE_REQUESTS)]
+    big = frame(SERVE_BIG)
+    engine = ScoringEngine(ServingConfig())
+
+    def call(fr):
+        t0 = time.perf_counter()
+        out = engine.score("gbm", model, fr)
+        return out, time.perf_counter() - t0
+
+    hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=SERVE_THREADS) as ex:
+        results = list(ex.map(call, reqs))
+    burst_s = time.perf_counter() - t0
+    big_out, big_s = call(big)
+    launches = score_cuda.launches
+    hist_launches = hist_cuda.launches + hist_cuda.launches_rows
+    snap = engine.snapshot()
+    engine.shutdown()
+
+    worst = 0.0
+    for fr, (out, _) in zip(reqs + [big], results + [(big_out, big_s)]):
+        want = model.predict(fr)
+        if out.names != want.names or out.nrow != fr.nrow:
+            raise AssertionError(f"served {out.names} x {out.nrow}, predict "
+                                 f"gives {want.names} x {want.nrow}")
+        worst = max(worst, float(np.abs(
+            np.asarray(out.vec("1").data, np.float64)
+            - np.asarray(want.vec("1").data, np.float64)).max()))
+    lat = np.array([s for _, s in results]) * 1e3
+    n_rows = sum(fr.nrow for fr in reqs)
+    tot, cache, fo = snap["totals"], snap["cache"], snap["failover"]
+    # where a request's time goes: its wait in the batch queue and its
+    # batch's scoring call (frame work, copies, the kernel), per batch
+    hist = snap["models"]["gbm"]["histograms"]
+    wait, call_ms = hist["queue_wait_ms"], hist["device_ms"]
+    buckets = sorted({b for e in cache["entries"] for b in e["warm_buckets"]})
+    rec = dict(requests=len(reqs), rows=n_rows, threads=SERVE_THREADS,
+               p50_ms=float(np.percentile(lat, 50)),
+               p99_ms=float(np.percentile(lat, 99)),
+               slowest_ms=sorted(lat.tolist())[-3:],
+               slowest_request=int(lat.argmax()),
+               queue_wait_ms=dict(mean=wait["mean"], max=wait["max"]),
+               batch_call_ms=dict(mean=call_ms["mean"], max=call_ms["max"]),
+               burst_s=burst_s, rows_per_s=n_rows / burst_s,
+               big_rows=SERVE_BIG, big_ms=big_s * 1e3,
+               big_rows_per_s=SERVE_BIG / big_s, batches=tot["batches"],
+               batched_rows=tot["batched_rows"], score_launches=launches,
+               max_abs_err=worst, cache_hits=cache["hits"],
+               cache_misses=cache["misses"], warm_buckets=buckets,
+               fallback_scores=tot["fallback_scores"],
+               fallback_builds=fo["fallback_builds"],
+               breakers=fo["breakers"], errors=tot["errors"],
+               rejections=tot["rejections"])
+    print("serving: " + json.dumps(rec), flush=True)
+    print(f"serving on {card_line()}: {len(reqs)} requests of 1-"
+          f"{SERVE_MAX_ROWS} rows from {SERVE_THREADS} threads: p50 "
+          f"{rec['p50_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms, "
+          f"{rec['rows_per_s']:.0f} rows/s; one request of {SERVE_BIG} rows: "
+          f"{rec['big_ms']:.3f} ms, {rec['big_rows_per_s']:.0f} rows/s",
+          flush=True)
+    if worst > 1e-6:
+        raise AssertionError(f"served predictions differ from "
+                             f"model.predict by {worst:.3e}")
+    if cache["misses"] != 1 or cache["hits"] < 1:
+        raise AssertionError(f"scorer cache: {cache['misses']} misses, "
+                             f"{cache['hits']} hits; expected one miss, "
+                             "then hits")
+    if not all(b in (64, 128, 256) or b % 512 == 0 for b in buckets):
+        raise AssertionError(f"warm buckets {buckets} off the ladder")
+    if (fo["fallback_builds"] or tot["fallback_scores"] or fo["breakers"]
+            or tot["errors"] or tot["rejections"]):
+        raise AssertionError("the serving path degraded: " + json.dumps(
+            dict(failover=fo, totals=tot)))
+    if launches < 1 or launches != tot["batches"] or hist_launches:
+        raise AssertionError(f"{launches} forest kernel launches for "
+                             f"{tot['batches']} batches, {hist_launches} "
+                             "histogram launches")
+    return rec
+
+
+def mojo_round_trip(dev, models):
+    """Phase 13: export each of `models` ({name: model}), reload it with
+    the port's `load_model` and score 20,000 fresh rows with its numpy
+    walk; returns {name: max |numpy - card|}."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(31)
+    fr = Frame.from_numpy(score_rows(rng, 20_000),
+                          names=[f"f{i}" for i in range(N_FEAT)])
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_mojo_") as d:
+        for name, model in models.items():
+            t0 = time.time()
+            path = mojo.save_model(model, d, f"{name}.h2o3")
+            save_s = time.time() - t0
+            scorer = mojo.load_model(path)
+            load_s = time.time() - t0 - save_s
+            got = np.asarray(scorer.predict(fr).vec("1").data, np.float64)
+            want = np.asarray(model.predict(fr).vec("1").data, np.float64)
+            err = float(np.abs(got - want).max())
+            out[name] = err
+            print(f"mojo {name}: {os.path.getsize(path) / 1e6:.1f} MB, saved "
+                  f"in {save_s:.2f} s, loaded in {load_s:.2f} s; numpy "
+                  f"scorer vs card max |err| {err:.3e}", flush=True)
+            if not err <= 1e-5:
+                raise AssertionError(f"MOJO of the {name} scores {err:.3e} "
+                                     "away from the card model")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -604,29 +886,40 @@ def main() -> int:
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
-    from h2o3_tpu_torch.ops import hist_cuda
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
 
+    # one nvcc per source, all started together
     t0 = time.time()
-    hist_cuda.build()
-    print(f"kernel build: {time.time() - t0:.2f} s", flush=True)
-    if hist_cuda.build_log.strip():
-        print(hist_cuda.build_log.strip(), flush=True)
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        for f in [ex.submit(m.build) for m in (hist_cuda, score_cuda)]:
+            f.result()
+    print(f"kernel build (hist.cu and score.cu in parallel): "
+          f"{time.time() - t0:.2f} s", flush=True)
+    for m in (hist_cuda, score_cuda):
+        if m.build_log.strip():
+            print(m.build_log.strip(), flush=True)
 
     from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                            H2ORandomForestEstimator)
 
     rows, worst = kernel_vs_plain(dev)
-    rec, fr = main_path(dev)
+    rec, fr, gbm_model = main_path(dev)
     small_reference_check(dev)
     profile_fit(H2OGradientBoostingEstimator(
         ntrees=PROFILE_TREES, max_depth=DEPTH, learn_rate=0.1,
         histogram_type="UniformAdaptive", seed=42, device=str(dev)), fr)
     rows_b2, worst_b2 = rows_vs_plain(dev)
-    drf_rec = drf_path(dev, fr)
+    drf_rec, drf_model = drf_path(dev, fr)
     small_drf_check(dev)
     profile_fit(H2ORandomForestEstimator(
         ntrees=DRF_PROFILE_TREES, hist_method="pallas", seed=42,
         device=str(dev)), fr, tag="drf profile")
+    del fr
+    rows_sc, worst_sc = score_vs_plain(dev, {
+        "gbm": (gbm_model.forest, gbm_model.max_depth),
+        "drf": (drf_model.forest, drf_model.max_depth)})
+    serve_rec = serve_path(dev, gbm_model)
+    mojo_round_trip(dev, {"gbm": gbm_model, "drf": drf_model})
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)
@@ -642,12 +935,24 @@ def main() -> int:
              rec["hist_launches"], worst, rows),
             ("hist_rows", "h2o3_tpu/ops/hist_pallas.py:174",
              drf_rec["hist_launches"], worst_b2, rows_b2))]
+    # the scoring path's shape: phase 12's large request and phase 4's
+    # predict, 100,000 rows through the GBM's forest; no single PyTorch
+    # call walks a forest, so there is no library time
+    at = next(r for r in rows_sc if r["forest"] == "gbm" and r["N"] == 100_000)
+    kernels.append(dict(
+        name="forest_score", route="cuda", source="h2o3_tpu_torch/csrc/score.cu",
+        replaces="h2o3_tpu/models/tree.py:1057",
+        launches=serve_rec["score_launches"], max_abs_err=worst_sc,
+        ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+        bound_by="bytes", library_ms=None))
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
           "uniform codes, L2 flushed; "
           f"{total(rows, 'fit_ms'):.4f} ms on the fit's own codes), "
           f"hist_rows over one DRF tree's {DRF_DEPTH + 1} + {DRF_DEPTH} passes "
           "(compact attempt and dense rebuild; uniform node law); "
+          "forest_score is one call on 100,000 rows of the GBM's 20 trees "
+          "(CUDA events, L2 flushed), its launches phase 12's; "
           "max_abs_err is against the f32 plain version (hist_factored also "
           "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 """Frame — columnar table, trimmed to the port's first slice.
 
-A copy of the construction, column-access, row-take, `split_frame` and
-`asfactor` parts of `h2o3_tpu/frame/frame.py`, with the same semantics.
+A copy of the construction, column-access, row-take, `rbind`,
+`split_frame` and `asfactor` parts of `h2o3_tpu/frame/frame.py`, with the
+same semantics.
 Columns are host numpy (`Vec`); the algorithms move what they need to the
 device. The munging surface (Rapids, group-by, string ops, parsing) is not
 ported yet: ROADMAP queue A, item 11.
@@ -106,6 +107,46 @@ class Frame:
 
     def take(self, idx: np.ndarray) -> "Frame":
         return Frame({n: v.take(idx) for n, v in self._vecs.items()})
+
+    # -- combination --------------------------------------------------------
+    def rbind(self, other: "Frame") -> "Frame":
+        return Frame.rbind_all([self, other])
+
+    @staticmethod
+    def rbind_all(frames: Sequence["Frame"]) -> "Frame":
+        """Stack k frames rowwise with ONE concatenate per column. Enum
+        columns take the union of the frames' domains, in order of first
+        appearance, and each frame's codes are remapped into it."""
+        if not frames:
+            raise ValueError("rbind_all: no frames")
+        first = frames[0]
+        for fr in frames[1:]:
+            if fr.names != first.names:
+                raise ValueError("rbind: column names differ")
+        out = {}
+        for n in first.names:
+            vs = [fr._vecs[n] for fr in frames]
+            if any(v.type == "enum" for v in vs):
+                dom = list(dict.fromkeys(
+                    x for v in vs for x in (v.domain or [])))
+                parts = []
+                for v in vs:
+                    dv = v.domain or []
+                    remap = (np.asarray([dom.index(x) for x in dv],
+                                        np.int32)
+                             if dv else np.zeros(0, np.int32))
+                    c = np.asarray(v.data)
+                    parts.append(np.where(c >= 0,
+                                          remap[np.maximum(c, 0)], -1))
+                out[n] = Vec(np.concatenate(parts), "enum", domain=dom)
+            elif vs[0].type == "string":
+                out[n] = Vec(None, "string", strings=np.concatenate(
+                    [v.to_numpy() for v in vs]))
+            else:
+                out[n] = Vec(
+                    np.concatenate([v.to_numpy() for v in vs]),
+                    vs[0].type, domain=vs[0].domain)
+        return Frame(out)
 
     # -- split (h2o.split_frame / water.rapids AstSplitFrame) ----------------
     def split_frame(self, ratios: Sequence[float], seed: int = 1234) -> List["Frame"]:

@@ -4,7 +4,8 @@ Port of the single-device, in-core fit of `h2o3_tpu/models/shared_tree.py`
 (`_fit`, the per-tree step `_one_tree` with `_grads`, row and column
 sampling, the margin update, DRF out-of-bag sums, the compaction-overflow
 rebuild, the forest pack, training metrics and `SharedTreeModel._margins`
-through the walk scorer). Reference parity: `hex/tree/SharedTree.java`,
+through the forest-scoring kernel, and the memory-feasibility depth clamp
+with its warning). Reference parity: `hex/tree/SharedTree.java`,
 `hex/tree/gbm/GBM.java` and `hex/tree/drf/DRF.java`.
 
 Each iteration m: the tree's keys from `fold_in(seed key, m)` (`ops.prng`,
@@ -33,7 +34,8 @@ import torch
 from .. import device as devlib
 from ..frame.binning import BinnedMatrix, build_bins
 from ..frame.frame import Frame
-from ..ops import packing, prng
+from ..ops import packing, prng, score_cuda
+from ..runtime.log import Log
 from . import distributions as dist_mod
 from . import tree as treelib
 from .metrics import ModelMetricsBinomial, ModelMetricsRegression
@@ -47,6 +49,15 @@ def _sync(dev: torch.device) -> None:
 
 def _pad_to_multiple(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _histogram_budget(dev: torch.device) -> int:
+    """Bytes the deepest level's histograms may take: half the card's
+    memory (the reference's half of the device's byte limit), 8 GiB on the
+    CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[1] // 2
+    return 8 << 30
 
 
 def _binom_binned_stats(margins: torch.Tensor, y: torch.Tensor, n: int,
@@ -157,13 +168,17 @@ class SharedTreeModel(H2OModel):
         return X
 
     def _margins(self, X: np.ndarray) -> np.ndarray:
-        """(N, 1) f64 margins on a raw feature matrix (walk scorer)."""
+        """(N, 1) f64 margins on a raw feature matrix, scored on the device
+        the model was fit on: the forest kernel on the card, the plain walk
+        on the CPU (`score_cuda.forest_score`). Rows are padded with zeros
+        to a multiple of SCORE_ROW_BUCKET, which are sliced off; GBM's
+        initial margin is added in f64 on the host."""
         n = X.shape[0]
         npad = _pad_to_multiple(max(n, 1), SCORE_ROW_BUCKET)
         Xp = np.zeros((npad, X.shape[1]), np.float32)
         Xp[:n] = X
         Xd = torch.from_numpy(Xp).to(self.device)
-        s = treelib.predict_forest_raw(self.forest, Xd, self.max_depth)
+        s = score_cuda.forest_score(self.forest, Xd, self.max_depth)
         return (s.cpu().numpy().astype(np.float64)[:n] + self.f0)[:, None]
 
     def _score_probs(self, X: np.ndarray) -> np.ndarray:
@@ -298,14 +313,18 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 f"{nbins} bins need 16-bit codes, which the histogram kernel "
                 "does not take yet (ROADMAP queue B, item 1)")
         # memory-feasibility depth clamp: the deepest level's histograms
-        # take ~2^D·F·nbins·96 bytes; keep them under half the device memory
-        if dev.type == "cuda":
-            budget = torch.cuda.mem_get_info(dev)[1] // 2
-        else:
-            budget = 8 << 30
-        while tp["max_depth"] > 4 and \
-                (1 << tp["max_depth"]) * F * nbins * 96 > budget:
-            tp["max_depth"] -= 1
+        # take ~2^D·F·nbins·96 bytes; keep them under the histogram budget
+        budget = _histogram_budget(dev)
+        feas = tp["max_depth"]
+        while feas > 4 and (1 << feas) * F * nbins * 96 > budget:
+            feas -= 1
+        if tp["max_depth"] > feas:
+            Log.warn(
+                f"max_depth={tp['max_depth']} clamped to {feas}: the "
+                f"level-complete heap's deepest histograms (F={F}, "
+                f"nbins={nbins}) would exceed the HBM budget "
+                f"({budget >> 30} GiB)")
+            tp["max_depth"] = feas
 
         bm = build_bins(X, nbins=nbins, histogram_type=tp["histogram_type"],
                         names=list(x), is_categorical=is_cat, domains=doms,

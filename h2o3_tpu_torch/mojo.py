@@ -1,0 +1,228 @@
+"""Model artifacts — save/load + standalone scoring, for the port's models.
+
+A copy of the tree parts of `h2o3_tpu/mojo.py`, rewired to the port.
+Reference parity: `h2o-genmodel/src/main/java/hex/genmodel/` (`MojoModel`,
+`easy/EasyPredictModelWrapper`). An artifact is a zip of `model.json`
+(metadata) and `arrays.npz` (numpy arrays), scoreable with numpy alone.
+The format is the reference's, member for member: a port model's artifact
+loads in `h2o3_tpu.mojo.load_model`, and a reference tree artifact loads
+here.
+
+The port's `SharedTreeModel.forest` is one stacked `Tree` of tensors (the
+reference keeps a list of class forests), so a GBM or DRF is written as the
+one class forest `forest0_*` with ``n_forests = 1``; its covers tensor is
+`forest0_cover`. `MojoScorer` scores tree artifacts with the reference's
+numpy walk, summing in f64; the reference's native C++ scorer
+(`native/loader.py`) and the other algorithms' payloads are not ported yet
+(ROADMAP queue A, item 11). Exporting any other model raises the
+reference's `TypeError`.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import zipfile
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+FORMAT_VERSION = 1
+
+
+def _model_payload(model) -> Dict[str, Any]:
+    """Extract (meta, arrays) from a trained model."""
+    from .models.shared_tree import SharedTreeModel
+
+    if isinstance(model, MojoScorer):
+        # a loaded artifact re-exports losslessly: its payload IS its state
+        out: Dict[str, Any] = {"meta": dict(model.meta),
+                               "arrays": dict(model.arrays)}
+        if model.children:
+            out["children"] = {k: _model_payload(c)
+                               for k, c in model.children.items()}
+        return out
+    if not isinstance(model, SharedTreeModel):
+        raise TypeError(
+            f"cannot export model of type {type(model).__name__}: "
+            "not a MOJO-exportable kind (see docs/mojo.md for the "
+            "export matrix and ratified cuts)")
+    arrays: Dict[str, np.ndarray] = {}
+    meta: Dict[str, Any] = {
+        "format_version": FORMAT_VERSION,
+        "model_id": model.model_id,
+        "algo": model.algo,
+        "x": model.x,
+        "y": model.y,
+    }
+    meta.update(
+        kind="tree", problem=model.problem, nclass=model.nclass,
+        domain=model.domain, distribution=model.distribution,
+        max_depth=model.max_depth, mode=model.mode,
+        ntrees=model.ntrees_built,
+        f0=np.asarray(model.f0).tolist(),
+        feature_domains=model.bm.domains,
+    )
+    for field in ("feat", "bin", "thr", "is_split", "value"):
+        arrays[f"forest0_{field}"] = getattr(model.forest, field).cpu().numpy()
+    if model.covers is not None:
+        # per-node training covers — predict_contributions (TreeSHAP)
+        arrays["forest0_cover"] = model.covers.cpu().numpy().astype(np.float32)
+    meta["n_forests"] = 1
+    return {"meta": meta, "arrays": arrays}
+
+
+def save_model(est_or_model, path: str = ".", filename: Optional[str] = None,
+               force: bool = False) -> str:
+    model = getattr(est_or_model, "model", est_or_model)
+    payload = _model_payload(model)
+    os.makedirs(path, exist_ok=True) if not os.path.splitext(path)[1] else None
+    if os.path.isdir(path) or not os.path.splitext(path)[1]:
+        fn = filename or f"{model.model_id}.h2o3"
+        out = os.path.join(path, fn)
+    else:
+        out = path
+    if os.path.exists(out) and not force:
+        raise FileExistsError(f"{out} exists; pass force=True")
+    with zipfile.ZipFile(out, "w", zipfile.ZIP_DEFLATED) as z:
+        _write_payload(z, "", payload)
+    return out
+
+
+def _write_payload(z: "zipfile.ZipFile", prefix: str, payload: Dict) -> None:
+    """One payload (meta + arrays [+ children, recursively]) under a zip
+    prefix — the nested-directory MOJO convention."""
+    z.writestr(prefix + "model.json", json.dumps(payload["meta"]))
+    buf = io.BytesIO()
+    np.savez(buf, **payload["arrays"])
+    z.writestr(prefix + "arrays.npz", buf.getvalue())
+    for name, child in (payload.get("children") or {}).items():
+        _write_payload(z, f"{prefix}{name}/", child)
+
+
+def _read_payload(z: "zipfile.ZipFile", prefix: str,
+                  names: List[str]) -> "MojoScorer":
+    meta = json.loads(z.read(prefix + "model.json"))
+    arrays = dict(np.load(io.BytesIO(z.read(prefix + "arrays.npz"))))
+    kids = sorted({
+        n[len(prefix):].split("/", 1)[0]
+        for n in names
+        if n.startswith(prefix) and "/" in n[len(prefix):]
+    })
+    children = {k: _read_payload(z, f"{prefix}{k}/", names) for k in kids}
+    return MojoScorer(meta, arrays, children=children or None)
+
+
+def load_model(path: str) -> "MojoScorer":
+    with zipfile.ZipFile(path) as z:
+        return _read_payload(z, "", z.namelist())
+
+
+class MojoScorer:
+    """Numpy-only offline scorer — `EasyPredictModelWrapper` equivalent.
+
+    predict() accepts a Frame or a numpy matrix in training-column order and
+    returns the same columns the in-process scorer produces."""
+
+    def __init__(self, meta: Dict, arrays: Dict[str, np.ndarray],
+                 children: Optional[Dict[str, "MojoScorer"]] = None):
+        self.meta = meta
+        self.arrays = arrays
+        self.children = children or {}
+        self.algo = meta["algo"]
+        self.model_id = meta.get("model_id", "artifact")
+        self.x = meta["x"]
+        self.y = meta["y"]
+
+    def scoring_signature(self) -> tuple:
+        """Serving-cache key parts, so loaded artifacts ride the same
+        scorer cache as live models."""
+        x = self.x
+        nf = len(x) if isinstance(x, (list, tuple)) else (1 if x else 0)
+        return (nf, "float32")
+
+    def _matrix(self, data) -> np.ndarray:
+        from .frame.frame import Frame
+
+        if isinstance(data, Frame):
+            from .models.shared_tree import frame_to_matrix
+
+            X, _, _ = frame_to_matrix(
+                data, self.x, expected_domains=self.meta.get("feature_domains")
+            )
+            return X
+        return np.asarray(data, np.float64)
+
+    @staticmethod
+    def _score_one_forest(feat, thr, split, value, D: int,
+                          X: np.ndarray) -> np.ndarray:
+        """Summed leaf values of one stacked forest over raw feature rows,
+        in f64 (the reference's numpy walk)."""
+        ntrees = feat.shape[0]
+        total = np.zeros(X.shape[0])
+        for t in range(ntrees):
+            node = np.zeros(X.shape[0], np.int64)
+            for _ in range(D):
+                f = feat[t][node]
+                s = split[t][node]
+                xv = X[np.arange(X.shape[0]), f]
+                right = np.isnan(xv) | (xv > thr[t][node])
+                child = 2 * node + 1 + (right & s).astype(np.int64)
+                node = np.where(s, child, node)
+            total += value[t][node]
+        return total
+
+    def _tree_scores(self, X: np.ndarray) -> np.ndarray:
+        meta = self.meta
+        D = meta["max_depth"]
+        outs = []
+        for k in range(meta["n_forests"]):
+            a = self.arrays
+            total = self._score_one_forest(
+                a[f"forest{k}_feat"], a[f"forest{k}_thr"],
+                a[f"forest{k}_is_split"].astype(bool),
+                a[f"forest{k}_value"], D, X)
+            f0 = meta["f0"]
+            f0k = f0[k] if isinstance(f0, list) else f0
+            outs.append(total + (f0k if meta["mode"] != "drf" else 0.0))
+        return np.column_stack(outs)
+
+    def predict(self, data):
+        from .frame.frame import Frame
+
+        meta = self.meta
+        if meta["kind"] != "tree":
+            raise NotImplementedError(
+                f"scoring a {meta['kind']!r} artifact is not ported "
+                "(ROADMAP queue A, item 11)")
+        X = self._matrix(data)
+        m = self._tree_scores(X)
+        problem = meta["problem"]
+        if meta["mode"] == "drf":
+            m = m / max(meta["ntrees"], 1)
+            if problem == "binomial":
+                p1 = np.clip(m[:, 0], 0, 1)
+                probs = np.column_stack([1 - p1, p1])
+            elif problem == "multinomial":
+                p = np.clip(m, 0, None)
+                probs = p / np.maximum(p.sum(axis=1, keepdims=True), 1e-12)
+            else:
+                return Frame.from_dict({"predict": m[:, 0]})
+        else:
+            if problem == "binomial":
+                p1 = 1 / (1 + np.exp(-m[:, 0]))
+                probs = np.column_stack([1 - p1, p1])
+            elif problem == "multinomial":
+                e = np.exp(m - m.max(axis=1, keepdims=True))
+                probs = e / e.sum(axis=1, keepdims=True)
+            else:
+                out = m[:, 0]
+                if meta["distribution"] in ("poisson", "gamma", "tweedie"):
+                    out = np.exp(out)
+                return Frame.from_dict({"predict": out})
+        dom = meta["domain"]
+        d = {"predict": np.asarray(dom, dtype=object)[probs.argmax(axis=1)]}
+        for i, cls in enumerate(dom):
+            d[str(cls)] = probs[:, i]
+        return Frame.from_dict(d, column_types={"predict": "enum"})

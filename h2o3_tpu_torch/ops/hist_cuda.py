@@ -11,7 +11,8 @@ Two entries replace the two TPU kernels of `h2o3_tpu/ops/hist_pallas.py`:
 The CUDA source of both is `h2o3_tpu_torch/csrc/hist.cu`; its comments give
 each design and bound (device-memory bytes). `nvcc` builds it at first use
 into `h2o3_tpu_torch/_build/` (ignored by git) as a shared library with
-plain C entry points, loaded through `ctypes`.
+plain C entry points, loaded through `ctypes` (`build_library`, which
+`ops/score_cuda.py` builds `csrc/score.cu` with too).
 
 B1 sums in fixed point (`fixed_shifts`: one power-of-two scale per channel
 from its largest magnitude, 36 bits below it; pairs of int32 shared-memory
@@ -22,8 +23,8 @@ vary with the order of its atomics.
 Each entry launches its kernel for tensors on a CUDA device and uses its
 plain twin (`hist_plain`, `hist_plain_rows`: a per-feature `index_add_`,
 the sequential f32 fold of the reference's `_hist_segment`) only for
-tensors that lie on the CPU. A failed build or launch raises; nothing falls
-back to the plain version.
+tensors that lie on the CPU. A failed build or launch raises
+`KernelError`; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -90,6 +92,20 @@ launches_rows = 0
 build_log = ""
 
 _lib: Optional[ctypes.CDLL] = None
+_build_lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build or to launch. It is a fault of
+    the kernel, its build or its arguments, not of the card, so the serving
+    failover (`runtime/retry.is_device_error`) lets it reach the caller."""
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise `KernelError` for a non-zero status of a kernel entry point
+    (a `cudaError_t` value)."""
+    if rc != 0:
+        raise KernelError(f"{what} launch failed: CUDA runtime status {rc}")
 
 
 def _nvcc() -> str:
@@ -98,48 +114,68 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA histogram kernel is built "
-                       "from csrc/hist.cu at first use and needs the CUDA "
-                       "toolkit")
+    raise KernelError("nvcc not found: the port's CUDA kernels are built "
+                       "from h2o3_tpu_torch/csrc at first use and need the "
+                       "CUDA toolkit")
+
+
+def source_library_path(source: Path, stem: str) -> Path:
+    """Where `build_library` puts the library of `source`'s current text."""
+    tag = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{stem}_{tag}.so"
+
+
+def build_library(source: Path, stem: str) -> tuple[ctypes.CDLL, str]:
+    """Compile one CUDA source of the port with nvcc for sm_90a (once per
+    version of its text) into `BUILD_DIR` and load it; returns the library
+    and what `-Xptxas -v` printed. Each build writes a temporary file of its
+    own process and thread, so builds of one source or of several may run
+    in parallel threads or processes; the last rename wins with a whole
+    library. A failed build raises `KernelError`."""
+    so = source_library_path(source, stem)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(
+            f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise KernelError(f"nvcc failed on {source.name} "
+                               f"({res.returncode}):\n{log}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+    else:
+        log_file = so.with_suffix(".log")
+        log = log_file.read_text() if log_file.exists() else ""
+    return ctypes.CDLL(str(so)), log
 
 
 def library_path() -> Path:
     """Where `build` puts the library of the current source."""
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libh2o3hist_{tag}.so"
+    return source_library_path(SOURCE, "h2o3hist")
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library."""
+    """Compile (once per source version) and load the kernel library; one
+    thread builds, the others wait for it."""
     global _lib, build_log
-    if _lib is not None:
-        return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        so.with_suffix(".log").write_text(build_log)
-        os.replace(tmp, so)
-    elif so.with_suffix(".log").exists():
-        build_log = so.with_suffix(".log").read_text()
-    lib = ctypes.CDLL(str(so))
-    fn = lib.h2o3_hist_build
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.h2o3_hist_build_rows
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    with _build_lock:
+        if _lib is not None:
+            return _lib
+        lib, build_log = build_library(SOURCE, "h2o3hist")
+        fn = lib.h2o3_hist_build
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.h2o3_hist_build_rows
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
 
 
 class FactoredPlan(NamedTuple):
@@ -307,8 +343,7 @@ def hist_build(codes: torch.Tensor, node: torch.Tensor, vals: torch.Tensor,
             plan.rows_per_block, plan.feats_per_block, plan.nodes_per_block,
             plan.grid[0], plan.tile_rows, plan.threads, plan.smem, scale_blocks,
             fold_blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"histogram kernel launch failed: cudaError {rc}")
+    check_launch(rc, "histogram kernel")
     launches += 1
     return out
 
@@ -418,8 +453,6 @@ def hist_build_rows(codes: torch.Tensor, node: torch.Tensor,
             out.data_ptr(), N, F, n_nodes, nbins, plan.group_nodes,
             plan.feats_per_block, plan.chunk_rows, plan.node_tiles,
             plan.group_tiles, plan.grid[0], ROWS_THREADS, plan.smem, stream)
-    if rc != 0:
-        raise RuntimeError(f"row-major histogram kernel launch failed: "
-                           f"cudaError {rc}")
+    check_launch(rc, "row-major histogram kernel")
     launches_rows += 1
     return out

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (or the chip smoke script)
-loads neither `jax` nor the JAX package, and its entry points refuse to run
-on a device the caller did not ask for."""
+loads neither `jax` nor the JAX package (the scan below covers every module
+of the port, the serving engine, MOJO and runtime included), and its entry
+points refuse to run on a device the caller did not ask for."""
 
 import ast
 import os
@@ -23,6 +24,9 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch, h2o3_tpu_torch.estimators, h2o3_tpu_torch.convert\n"
         "import h2o3_tpu_torch.ops.hist_cuda, h2o3_tpu_torch.ops.histogram\n"
         "import h2o3_tpu_torch.models.shared_tree, chip_smoke\n"
+        "import h2o3_tpu_torch.ops.score_cuda, h2o3_tpu_torch.mojo\n"
+        "import h2o3_tpu_torch.serving, h2o3_tpu_torch.runtime.dkv\n"
+        "import h2o3_tpu_torch.runtime.memory_ledger, h2o3_tpu_torch.runtime.retry\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'h2o3_tpu' or m.startswith('h2o3_tpu.'))\n"

@@ -1,0 +1,187 @@
+"""MOJO artifacts of the port against the reference's: the same frames fit
+by both packages (GBM bernoulli and gaussian, DRF binomial and regression;
+binary labels and a target on a grid of quarters, so the forests match),
+exported by each, compared member by member, and loaded across.
+
+The zip members are compared, not the zip bytes: `zipfile.writestr` stamps
+the current time. `model.json` must be equal apart from `model_id`, and
+every array equal. A GBM's leaf values are Newton steps on f32 gradient
+sums, which the two packages add in another order from the second tree on
+(`tests/test_torch_gbm.py` holds them to 1e-5), so a several-tree GBM's
+`forest0_value` is held to 1e-6; a one-tree gaussian GBM on 2048 rows of the
+quarter grid sums exactly, and there every array is equal to the bit.
+"""
+
+import io
+import json
+import zipfile
+
+import numpy as np
+import pytest
+
+import jax
+
+from h2o3_tpu import mojo as refmojo
+from h2o3_tpu.frame.frame import Frame as RefFrame
+from h2o3_tpu.models.drf import H2ORandomForestEstimator as RefDRF
+from h2o3_tpu.models.gbm import H2OGradientBoostingEstimator as RefGBM
+from h2o3_tpu.parallel import mesh
+from h2o3_tpu_torch import mojo
+from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                       H2ORandomForestEstimator)
+from h2o3_tpu_torch.frame.frame import Frame
+
+from test_torch_gbm import make_higgs_like
+
+F = 6
+NAMES = [f"f{i}" for i in range(F)] + ["label"]
+
+# case -> (algo, response kind, rows, parameters, bit-equal leaf values)
+CASES = {
+    "gbm_bernoulli": ("gbm", "binomial", 2000,
+                      dict(ntrees=4, max_depth=4, seed=42), False),
+    "gbm_gaussian": ("gbm", "regression", 2000,
+                     dict(ntrees=4, max_depth=4, seed=42), False),
+    "gbm_gaussian_one_tree": ("gbm", "regression", 2048,
+                              dict(ntrees=1, max_depth=4, seed=42), True),
+    "drf_binomial": ("drf", "binomial", 2000,
+                     dict(ntrees=4, max_depth=8, seed=42), True),
+    "drf_regression": ("drf", "regression", 2000,
+                       dict(ntrees=4, max_depth=8, seed=42), True),
+}
+
+
+def _data(n, seed, kind):
+    X, y = make_higgs_like(n, n_feat=F, seed=seed)
+    if kind == "regression":
+        y = (np.round(4 * (2 * X[:, 0] + np.sin(3 * X[:, 1]))) / 4).astype(np.float32)
+    return np.column_stack([X, y])
+
+
+def _frames(d, kind):
+    rf, pf = RefFrame.from_numpy(d, names=NAMES), Frame.from_numpy(d, names=NAMES)
+    if kind == "binomial":
+        rf, pf = rf.asfactor("label"), pf.asfactor("label")
+    return rf, pf
+
+
+def _members(path):
+    with zipfile.ZipFile(path) as z:
+        names = sorted(z.namelist())
+        meta = json.loads(z.read("model.json"))
+        arrays = dict(np.load(io.BytesIO(z.read("arrays.npz"))))
+    return names, meta, arrays
+
+
+@pytest.fixture(scope="module")
+def artifacts(tmp_path_factory):
+    out = {}
+    mesh.init(jax.devices()[:1])
+    try:
+        for case, (algo, kind, n, params, _exact) in CASES.items():
+            rf, pf = _frames(_data(n, 0, kind), kind)
+            if algo == "drf":
+                ref = RefDRF(**params)
+                port = H2ORandomForestEstimator(device="cpu",
+                                                hist_method="pallas", **params)
+            else:
+                ref = RefGBM(**params)
+                port = H2OGradientBoostingEstimator(device="cpu", **params)
+            ref.train(y="label", training_frame=rf)
+            port.train(y="label", training_frame=pf)
+            d = tmp_path_factory.mktemp(case)
+            test = _data(700, 1, kind)
+            test[::37, 2] = np.nan                  # NAs at scoring time
+            rt, pt = _frames(test, kind)
+            out[case] = dict(
+                kind=kind, ref=ref.model, port=port.model, ref_test=rt,
+                port_test=pt,
+                ref_path=refmojo.save_model(ref.model, str(d), "ref.h2o3"),
+                port_path=mojo.save_model(port.model, str(d), "port.h2o3"))
+    finally:
+        mesh.reset()
+    return out
+
+
+def _pred_cols(frame, kind):
+    names = frame.names[1:] if kind == "binomial" else frame.names
+    return {n: np.asarray(frame.vec(n).data, np.float64) for n in names}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_model_json_equal_apart_from_model_id(artifacts, case):
+    a = artifacts[case]
+    ref_names, ref_meta, _ = _members(a["ref_path"])
+    names, meta, _ = _members(a["port_path"])
+    assert names == ref_names == ["arrays.npz", "model.json"]
+    assert meta.pop("model_id") == a["port"].model_id
+    ref_meta.pop("model_id")
+    assert meta == ref_meta
+    assert meta["n_forests"] == 1 and meta["kind"] == "tree"
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_arrays_equal(artifacts, case):
+    a = artifacts[case]
+    _, _, ref_arrays = _members(a["ref_path"])
+    _, _, arrays = _members(a["port_path"])
+    assert sorted(arrays) == sorted(ref_arrays) == [
+        f"forest0_{f}" for f in ("bin", "cover", "feat", "is_split", "thr",
+                                 "value")]
+    exact = CASES[case][4]
+    for k in sorted(arrays):
+        assert arrays[k].dtype == ref_arrays[k].dtype, k
+        assert arrays[k].shape == ref_arrays[k].shape, k
+        if k == "forest0_value" and not exact:
+            np.testing.assert_allclose(arrays[k], ref_arrays[k], rtol=0,
+                                       atol=1e-6)
+        else:
+            np.testing.assert_array_equal(arrays[k], ref_arrays[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_cross_load_predicts_like_the_fitted_model(artifacts, case):
+    """The reference's loader on the port's file and the port's loader on
+    the reference's file both predict what the fitted models predict."""
+    a = artifacts[case]
+    kind = a["kind"]
+    want_port = _pred_cols(a["port"].predict(a["port_test"]), kind)
+    want_ref = _pred_cols(a["ref"].predict(a["ref_test"]), kind)
+    ref_on_port = refmojo.load_model(a["port_path"]).predict(a["ref_test"])
+    port_on_ref = mojo.load_model(a["ref_path"]).predict(a["port_test"])
+    port_on_port = mojo.load_model(a["port_path"]).predict(a["port_test"])
+    for got, want in ((_pred_cols(ref_on_port, kind), want_port),
+                      (_pred_cols(port_on_ref, kind), want_ref),
+                      (_pred_cols(port_on_port, kind), want_port)):
+        assert list(got) == list(want)
+        for col in want:
+            np.testing.assert_allclose(got[col], want[col], rtol=0,
+                                       atol=1e-5, err_msg=col)
+
+
+def test_artifact_reexports_losslessly(artifacts, tmp_path):
+    a = artifacts["drf_binomial"]
+    loaded = mojo.load_model(a["port_path"])
+    again = mojo.save_model(loaded, str(tmp_path), "again.h2o3")
+    _, meta0, arr0 = _members(a["port_path"])
+    _, meta1, arr1 = _members(again)
+    assert meta0 == meta1
+    assert all(np.array_equal(arr0[k], arr1[k]) for k in arr0)
+
+
+def test_unsupported_model_raises_the_reference_type_error(tmp_path):
+    class NotATree:
+        model_id, algo, x, y = "m", "glm", ["a"], "y"
+
+    with pytest.raises(TypeError) as port_err:
+        mojo.save_model(NotATree(), str(tmp_path))
+    with pytest.raises(TypeError) as ref_err:
+        refmojo.save_model(NotATree(), str(tmp_path))
+    assert str(port_err.value) == str(ref_err.value)
+
+
+def test_save_refuses_to_overwrite_without_force(artifacts):
+    a = artifacts["gbm_bernoulli"]
+    with pytest.raises(FileExistsError):
+        mojo.save_model(a["port"], a["port_path"])
+    assert mojo.save_model(a["port"], a["port_path"], force=True) == a["port_path"]
