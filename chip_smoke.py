@@ -24,7 +24,8 @@ result line):
 4. The main path through the port's public API: a 1M x 28 HIGGS-like
    frame, `asfactor("label")`, a depth-6 UniformAdaptive GBM of 20 trees,
    `auc()`, `predict` on 100k fresh rows. The launch counts are zeroed just
-   before and read just after; every level must have launched the kernel.
+   before and read just after; every level must have launched the kernel,
+   and `predict` the forest kernels once, on their resident plan.
 5. Reference check on a small input: the same fit on cuda and on the CPU
    (plain versions, which the CPU tests hold against the JAX package) must
    give the same forest and predictions.
@@ -44,28 +45,37 @@ result line):
    (depth 20, clamped to the card's memory; mtries, row sampling,
    active-node compaction), OOB `auc()`, `predict` on 100k fresh rows. The
    dispatch must be "pallas" only and the B2 launches must equal the passes
-   the level plan predicts plus those of the dense rebuilds; OOB and
+   the level plan predicts plus those of the dense rebuilds, and `predict`
+   must launch the forest kernels once, on their streamed plan; OOB and
    holdout AUC must reach DRF_AUC_FLOOR and equal DRF_AUCS (binary labels
    keep every histogram sum exact, so any right kernel builds this forest).
 9. Reference check: a small DRF (4000 x 8, depth 14, level 13 in compact
    slots) on cuda and on the CPU gives the same forest and predictions.
 10. Where the DRF fit's time goes: DRF_PROFILE_TREES trees under
    torch.profiler, with B2's device time summed over all its kernels.
-11. The forest-scoring kernel (csrc/score.cu) vs its plain version
-   (`tree.predict_forest_raw`) on f32 rows with 5 % NaN, N in SCORE_ROWS, on
-   the GBM's forest of phase 4 (20 trees, depth 6) and the DRF's of phase 8
-   (50 trees, depth 19, 2^20 - 1 nodes a tree): within 1e-5 * max(1,
-   max |plain|); on a random forest with leaf values on a 2^-10 grid (every
-   sum exact in any order) equal bit for bit. Times: kernel and plain by
-   CUDA events with the L2 flushed before each call (so the events time the
-   device, not the host's enqueue), the kernel's own device time from
-   torch.profiler (calls back to back, L2 warm), and the bound (X and the
-   output once, over the memory rate).
+11. The forest-scoring kernels (csrc/score.cu) on f32 rows with 5 % NaN, N
+   in SCORE_ROWS, on the GBM's forest of phase 4 (20 trees, depth 6: the
+   resident plan) and the DRF's of phase 8 (50 trees, depth 19, 2^20 - 1
+   nodes a tree: the streamed plan), each over its score table (bytes and
+   build time printed): equal bit for bit to `predict_forest_ordered` (the
+   walk, its trees added in the kernels' order) and within 1e-5 * max(1,
+   max |plain|) of `predict_forest_raw`; on a random forest with leaf
+   values on a 2^-10 grid (every sum exact in any order) equal bit for bit
+   to both. The plan that ran is printed. Times: the kernels and
+   `predict_forest_raw` by CUDA events with the L2 flushed before each call
+   (so the events time the device, not the host's enqueue), the device
+   time of all the plan's kernels (walk and fold) from torch.profiler
+   (calls back to back, L2 warm), and the bound: the forest's fields as
+   the model stores them that the walks must read, each once (is_split of
+   every reachable node above the last level, 1 byte; feat and thr of
+   every reachable split node, 8; value of every reachable leaf, 4), X
+   and the output once, over the memory rate.
 12. Serving on the card: phase 4's GBM through `ScoringEngine.score` from 8
    threads, SERVE_REQUESTS requests of 1-300 rows (a seeded mix), then one
    request of 100,000 rows. Every response equals `model.predict` on its
    rows within 1e-6; the scorer cache has one miss and then hits, its warm
-   buckets on the 64/128/256/512k ladder; no batch was served by the
+   buckets on the 64/128/256/512k ladder; one resident forest launch per
+   batch; no batch was served by the
    failover's numpy fallback and no breaker opened. p50/p99 request latency
    and rows/s are printed beside the card.
 13. MOJO round trip: the GBM and the DRF exported, reloaded with the port's
@@ -85,6 +95,7 @@ import math
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -192,36 +203,45 @@ def time_ms_cold(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def kernel_device_ms(fn, match: str, reps: int = 10,
-                     warmup: int = 2):
-    """(median device time in ms, count) of the kernels whose name holds
-    `match`, one per call of fn(), from torch.profiler's CUDA activity: the
-    device's own time, no host enqueue in it (the calls run back to back,
-    so the L2 is warm). Late in this script the profiler records only some
-    of them (3 fewer than the calls, on an H100 with torch's CUPTI); the
-    median is over those it recorded, and a line says what it saw. None
-    where it recorded none."""
+def kernel_device_ms(fn, match: str, reps: int = 10, warmup: int = 2):
+    """(device ms per call of fn(), kernels recorded, {kernel: median ms})
+    from torch.profiler's
+    CUDA activity over `reps` calls back to back (L2 warm, no host enqueue
+    in it): the median time of each kernel whose name holds `match`, summed
+    over those names (a call launches each once). The profiler warms up for
+    one step of `reps` calls before the step it records: without it, on an
+    H100 with torch's CUPTI, it missed the first kernels of the window.
+    A line says what it saw where it recorded other than one of each name
+    per call; None where it recorded none."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     events = list(prof.events())
-    us = [e.time_range.elapsed_us() for e in events
-          if e.device_type == DeviceType.CUDA and match in e.name]
-    if len(us) != reps:
+    by_name = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and match in e.name:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    n = sum(len(v) for v in by_name.values())
+    if any(len(v) != reps for v in by_name.values()) or not by_name:
         seen = Counter(f"{e.device_type}:{e.name[:50]}" for e in events)
-        print(f"profiler: {len(us)} {match} kernels in {reps} calls; "
-              f"events seen: {seen.most_common(8)}", flush=True)
-    if not us:
-        return None, 0
-    return float(np.median(us)) / 1e3, len(us)
+        print(f"profiler: {n} {match} kernels in {reps} calls "
+              f"({ {k[:60]: len(v) for k, v in by_name.items()} }); events "
+              f"seen: {seen.most_common(8)}", flush=True)
+    if not by_name:
+        return None, 0, {}
+    per = {k: float(np.median(v)) / 1e3 for k, v in by_name.items()}
+    return sum(per.values()), n, per
 
 
 def fit_codes(dev):
@@ -362,6 +382,7 @@ def main_path(dev):
         ntrees=NTREES, max_depth=DEPTH, learn_rate=0.1,
         histogram_type="UniformAdaptive", seed=42, device=str(dev))
     hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
+    score_cuda.launches_resident = score_cuda.launches_streamed = 0
     histogram.DISPATCH.clear()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -377,13 +398,15 @@ def main_path(dev):
     launches = hist_cuda.launches
     rows_launches = hist_cuda.launches_rows
     score_launches = score_cuda.launches
+    score_plans = dict(resident=score_cuda.launches_resident,
+                       streamed=score_cuda.launches_streamed)
     dispatch = dict(histogram.DISPATCH)
     p1 = np.asarray(pred.vec("1").data, np.float64)
     rec = dict(wall_s=wall, trees_per_s=NTREES / wall, auc=auc,
                holdout_auc=auc_exact(yt, p1), predict_s=pred_s,
                fit_timings=gbm.model.fit_timings,
                hist_launches=launches, score_launches=score_launches,
-               dispatch=dispatch)
+               score_plans=score_plans, dispatch=dispatch)
     print("main path: " + json.dumps(rec), flush=True)
     if auc < 0.75 or abs(auc - GBM_AUC) > 1e-3:
         raise AssertionError(f"training AUC {auc}: below 0.75 or more than "
@@ -398,9 +421,10 @@ def main_path(dev):
         raise AssertionError(f"histogram dispatch {dispatch}, {launches} "
                              f"kernel launches; expected {expect} kernel "
                              "launches and no other method")
-    if score_launches != 1:
-        raise AssertionError(f"predict launched the forest kernel "
-                             f"{score_launches} times; expected once")
+    if score_launches != 1 or score_plans != dict(resident=1, streamed=0):
+        raise AssertionError(f"predict launched the forest kernels "
+                             f"{score_launches} times ({score_plans}); "
+                             "expected once, on the resident plan")
     return rec, fr, gbm.model
 
 
@@ -578,6 +602,7 @@ def drf_path(dev, fr):
     drf = H2ORandomForestEstimator(ntrees=DRF_TREES, hist_method="pallas",
                                    seed=42, device=str(dev))
     hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
+    score_cuda.launches_resident = score_cuda.launches_streamed = 0
     histogram.DISPATCH.clear()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
@@ -596,6 +621,8 @@ def drf_path(dev, fr):
     pred = drf.predict(ft)
     pred_s = time.time() - t1
     score_launches = score_cuda.launches
+    score_plans = dict(resident=score_cuda.launches_resident,
+                       streamed=score_cuda.launches_streamed)
     p1 = np.asarray(pred.vec("1").data, np.float64)
     plan = histogram_level_plan(model.max_depth, model.compact_cap)
     expect = (DRF_TREES * len(plan)
@@ -606,7 +633,8 @@ def drf_path(dev, fr):
                dense_rebuilds=model.dense_rebuilds, oob_auc=oob_auc,
                holdout_auc=auc_exact(yt, p1), predict_s=pred_s,
                fit_timings=model.fit_timings, hist_launches=launches,
-               score_launches=score_launches, planned_passes=expect,
+               score_launches=score_launches, score_plans=score_plans,
+               planned_passes=expect,
                dispatch=dispatch,
                peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"DRF depth used: {model.max_depth} (requested 20)", flush=True)
@@ -628,9 +656,10 @@ def drf_path(dev, fr):
         raise AssertionError(f"DRF histogram dispatch {dispatch}, {launches} "
                              f"B2 launches, {b1_launches} B1 launches; "
                              f"expected {expect} B2 launches and no other")
-    if score_launches != 1:
-        raise AssertionError(f"DRF predict launched the forest kernel "
-                             f"{score_launches} times; expected once")
+    if score_launches != 1 or score_plans != dict(resident=0, streamed=1):
+        raise AssertionError(f"DRF predict launched the forest kernels "
+                             f"{score_launches} times ({score_plans}); "
+                             "expected once, on the streamed plan")
     return rec, model
 
 
@@ -674,57 +703,117 @@ def score_rows(rng, n):
     return X
 
 
-def score_bound_ms(n):
-    """Least time of one forest-scoring call on the card: X and the output
-    once each, over the memory rate (the compares take less)."""
-    return (n * N_FEAT * 4 + n * 4) / HBM_BYTES_PER_S * 1e3
+def walk_nodes(forest, depth):
+    """(reachable nodes above the last level, the split ones among them,
+    reachable leaves) of a stacked forest walked `depth` steps: the roots
+    are reachable, and both children of every reachable split node above
+    the last level; a leaf is a reachable node that is not split or lies on
+    the last level."""
+    nt = forest.is_split.shape[0]
+    above = split_n = leaves = 0
+    live = torch.ones((nt, 1), dtype=torch.bool, device=forest.is_split.device)
+    for d in range(depth):
+        lo = 2 ** d - 1
+        split = forest.is_split[:, lo:lo + 2 ** d] & live
+        here, s = int(live.sum()), int(split.sum())
+        above, split_n, leaves = above + here, split_n + s, leaves + here - s
+        live = split.repeat_interleave(2, dim=1)
+    return above, split_n, leaves + int(live.sum())
+
+
+def score_bound_ms(forest, depth, n):
+    """(least time of one forest-scoring call on the card in ms, its bytes):
+    what the walks must read of the forest's fields as the model stores
+    them, each byte once (is_split, 1 byte, of every reachable node above
+    the last level; feat and thr, 8 bytes, of every reachable split node;
+    value, 4 bytes, of every reachable leaf), and X and the output once
+    each, over the memory rate (the compares take less). Computed from the
+    `Tree` alone, whatever implements the walk."""
+    above, split_n, leaves = walk_nodes(forest, depth)
+    nbytes = above + 8 * split_n + 4 * leaves + (N_FEAT * 4 + 4) * n
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
 def score_vs_plain(dev, forests):
-    """Phase 11: the forest kernel against `predict_forest_raw` on each of
-    `forests` ({name: (Tree, depth)}) at every N of SCORE_ROWS, and bit for
-    bit on a forest whose sums are exact; returns (rows, max |err|)."""
-    from h2o3_tpu_torch.models.tree import Tree, heap_size, predict_forest_raw
+    """Phase 11: the forest kernels against their plain versions on each of
+    `forests` ({name: (Tree, depth)}) at every N of SCORE_ROWS, and on a
+    forest whose sums are exact; returns (rows, max |err| against
+    `predict_forest_raw`)."""
+    from h2o3_tpu_torch.models.tree import (Tree, heap_size,
+                                            predict_forest_ordered,
+                                            predict_forest_raw)
     from h2o3_tpu_torch.ops import score_cuda
 
     rng = np.random.default_rng(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, worst = [], 0.0
     for name, (forest, depth) in forests.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pack = score_cuda.build_score_pack(forest, N_FEAT)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        pack_bytes = pack.nodes.numel() * pack.nodes.element_size()
+        nt = int(forest.feat.shape[0])
+        print(f"forest_score {name}: score table {pack_bytes} bytes "
+              f"({pack_bytes / 1e6:.3f} MB), built in {pack_s * 1e3:.3f} ms",
+              flush=True)
         for n in SCORE_ROWS:
             X = torch.from_numpy(score_rows(rng, n)).to(dev)
-            got = score_cuda.forest_score(forest, X, depth)
+            plan = score_cuda.score_plan(nt, depth, N_FEAT, n, sms)
+            got = score_cuda.forest_score(forest, X, depth, pack=pack)
+            ordered = predict_forest_ordered(forest, X, depth)
             ref = predict_forest_raw(forest, X, depth)
             torch.cuda.synchronize()
+            if not torch.equal(got, ordered):
+                raise AssertionError(
+                    f"forest kernel ({plan.kind} plan) on {name} at N={n} "
+                    "differs from predict_forest_ordered: max |err| "
+                    f"{float((got - ordered).abs().max()):.3e}")
             scale = max(1.0, float(ref.abs().max()))
             err = float((got - ref).abs().max())
             if not err <= 1e-5 * scale:
                 raise AssertionError(f"forest kernel on {name} at N={n}: max "
                                      f"|err| {err:.3e} > 1e-5 * {scale:.3g}")
             worst = max(worst, err)
+            del ordered, ref
             big = n >= 100_000 and depth > 10
-            def kernel():
-                return score_cuda.forest_score(forest, X, depth)
 
-            rec = dict(forest=name, trees=int(forest.feat.shape[0]),
-                       depth=depth, N=n, max_abs_err=err, max_abs=scale,
+            def kernel():
+                return score_cuda.forest_score(forest, X, depth, pack=pack)
+
+            bound, nbytes = score_bound_ms(forest, depth, n)
+            rec = dict(forest=name, trees=nt, depth=depth, N=n,
+                       plan=plan._asdict(), max_abs_err=err, max_abs=scale,
+                       equal_to_ordered=True, pack_bytes=pack_bytes,
+                       pack_build_ms=pack_s * 1e3,
                        ms=time_ms_cold(kernel, reps=5 if big else 20),
                        plain_ms=time_ms_cold(lambda: predict_forest_raw(
                            forest, X, depth), reps=3 if big else 10,
                            warmup=1 if big else 3),
-                       bound_ms=score_bound_ms(n))
-            rec["device_ms"], rec["device_kernels"] = kernel_device_ms(
-                kernel, "forest_score_kernel", reps=8 if big else 20)
-            del X, got, ref
+                       bound_ms=bound, bytes=nbytes)
+            rec["device_ms"], rec["device_kernels"], per = kernel_device_ms(
+                kernel, "forest_score_", reps=8 if big else 20)
+            rec["device_ms_by_kernel"] = {
+                re.search(r"forest_score_(\w+)", k).group(1): v
+                for k, v in per.items()}
+            del X, got
             rows.append(rec)
             dev_ms = ("not measured" if rec["device_ms"] is None
                       else f"{rec['device_ms']:.4f} ms over "
-                      f"{rec['device_kernels']} kernels")
-            print(f"forest_score {name} ({rec['trees']} trees, depth {depth})"
-                  f" N={n}: kernel {rec['ms']:.4f} ms (L2 flushed; profiler "
+                      f"{rec['device_kernels']} kernels "
+                      f"{json.dumps(rec['device_ms_by_kernel'])}")
+            print(f"forest_score {name} ({nt} trees, depth {depth}) N={n}: "
+                  f"{plan.kind} plan (grid {plan.grid}, {plan.smem} B shared"
+                  + (f", {plan.chunk} trees x {plan.staged_levels} levels, "
+                     f"{plan.rows_per_block} rows a block"
+                     if plan.kind == "streamed" else "")
+                  + f"): kernel {rec['ms']:.4f} ms (L2 flushed; profiler "
                   f"device time {dev_ms}, L2 warm), plain "
-                  f"{rec['plain_ms']:.4f} ms, bytes bound {rec['bound_ms']:.5f}"
-                  f" ms; max |err| {err:.3e} (max |sum| {scale:.3g})",
-                  flush=True)
+                  f"{rec['plain_ms']:.4f} ms, bytes bound {bound:.5f} ms "
+                  f"({nbytes / 1e6:.1f} MB); equal to predict_forest_ordered; "
+                  f"max |err| vs predict_forest_raw {err:.3e} (max |sum| "
+                  f"{scale:.3g})", flush=True)
     # leaf values on a 2^-10 grid: every sum is exact in any order, so the
     # kernel's traversal must give the walk's sums to the bit
     nt, depth, n = 50, 10, 100_000
@@ -737,15 +826,18 @@ def score_vs_plain(dev, forests):
         rng.normal(size=(nt, T)).astype(np.float32), split,
         (rng.integers(-512, 512, (nt, T)) / 1024.0).astype(np.float32))])
     X = torch.from_numpy(score_rows(rng, n)).to(dev)
+    kind = score_cuda.score_plan(nt, depth, N_FEAT, n, sms).kind
     got = score_cuda.forest_score(dyadic, X, depth)
     ref = predict_forest_raw(dyadic, X, depth)
+    ordered = predict_forest_ordered(dyadic, X, depth)
     torch.cuda.synchronize()
-    if not torch.equal(got, ref):
+    if not (torch.equal(got, ref) and torch.equal(got, ordered)):
         raise AssertionError("forest kernel differs from the walk on a "
                              "dyadic forest: max |err| "
                              f"{float((got - ref).abs().max()):.3e}")
-    print(f"forest_score dyadic forest ({nt} trees, depth {depth}, N={n}): "
-          "equal to the walk bit for bit", flush=True)
+    print(f"forest_score dyadic forest ({nt} trees, depth {depth}, N={n}, "
+          f"{kind} plan): equal to the walk and to predict_forest_ordered "
+          "bit for bit", flush=True)
     return rows, worst
 
 
@@ -775,6 +867,7 @@ def serve_path(dev, model):
         return out, time.perf_counter() - t0
 
     hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
+    score_cuda.launches_resident = score_cuda.launches_streamed = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=SERVE_THREADS) as ex:
@@ -782,6 +875,7 @@ def serve_path(dev, model):
     burst_s = time.perf_counter() - t0
     big_out, big_s = call(big)
     launches = score_cuda.launches
+    resident = score_cuda.launches_resident
     hist_launches = hist_cuda.launches + hist_cuda.launches_rows
     snap = engine.snapshot()
     engine.shutdown()
@@ -840,10 +934,11 @@ def serve_path(dev, model):
             or tot["errors"] or tot["rejections"]):
         raise AssertionError("the serving path degraded: " + json.dumps(
             dict(failover=fo, totals=tot)))
-    if launches < 1 or launches != tot["batches"] or hist_launches:
-        raise AssertionError(f"{launches} forest kernel launches for "
-                             f"{tot['batches']} batches, {hist_launches} "
-                             "histogram launches")
+    if launches < 1 or launches != tot["batches"] or resident != launches \
+            or hist_launches:
+        raise AssertionError(f"{launches} forest kernel launches "
+                             f"({resident} resident) for {tot['batches']} "
+                             f"batches, {hist_launches} histogram launches")
     return rec
 
 

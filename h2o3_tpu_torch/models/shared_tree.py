@@ -169,8 +169,9 @@ class SharedTreeModel(H2OModel):
 
     def _margins(self, X: np.ndarray) -> np.ndarray:
         """(N, 1) f64 margins on a raw feature matrix, scored on the device
-        the model was fit on: the forest kernel on the card, the plain walk
-        on the CPU (`score_cuda.forest_score`). Rows are padded with zeros
+        the model was fit on: the forest kernels over the model's score
+        table on the card, the plain walk on the CPU, which builds no table
+        (`score_cuda.forest_score`). Rows are padded with zeros
         to a multiple of SCORE_ROW_BUCKET, which are sliced off; GBM's
         initial margin is added in f64 on the host."""
         n = X.shape[0]
@@ -178,8 +179,21 @@ class SharedTreeModel(H2OModel):
         Xp = np.zeros((npad, X.shape[1]), np.float32)
         Xp[:n] = X
         Xd = torch.from_numpy(Xp).to(self.device)
-        s = score_cuda.forest_score(self.forest, Xd, self.max_depth)
+        pack = self._score_table(X.shape[1]) if Xd.is_cuda else None
+        s = score_cuda.forest_score(self.forest, Xd, self.max_depth, pack=pack)
         return (s.cpu().numpy().astype(np.float64)[:n] + self.f0)[:, None]
+
+    def _score_table(self, n_feat: int) -> score_cuda.ScorePack:
+        """The forest's packed score table (8 bytes a node), built at the
+        first score on the card and kept while the forest and the feature
+        count stay the same. It lives in the model's `__dict__`, so the
+        memory ledger counts it with the model."""
+        pack = getattr(self, "_score_pack", None)
+        if pack is None or pack.forest is not self.forest \
+                or pack.n_feat != n_feat:
+            pack = self._score_pack = score_cuda.build_score_pack(
+                self.forest, n_feat)
+        return pack
 
     def _score_probs(self, X: np.ndarray) -> np.ndarray:
         return probs_from_margins(self.mode, self.problem, self._margins(X),

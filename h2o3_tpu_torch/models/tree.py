@@ -426,19 +426,41 @@ def predict_codes_packed(tree: Tree, packed: torch.Tensor, bits: int,
     return tree.value[node]
 
 
-def predict_forest_raw(forest: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor:
-    """Σ over a stacked forest ((ntrees, T) fields) of leaf values on raw
-    features (N, F): one gather round per level for all trees at once.
-    NaN and x > thr go right, as in training (the NA bin is last)."""
+def forest_leaves(forest: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """(ntrees, N) int64: the node each row's walk ends on in each tree of a
+    stacked forest ((ntrees, T) fields) on raw features X (N, F), one gather
+    round per level for all trees at once. NaN and x > thr go right, as in
+    training (the NA bin is last); a node that is not split holds the row;
+    feature indices are clamped into [0, F), as the reference's
+    `take(..., mode="clip")`."""
     nt = forest.feat.shape[0]
-    N = X.shape[0]
+    N, F = X.shape
     node = torch.zeros((nt, N), dtype=torch.int64, device=X.device)
     rows = torch.arange(N, device=X.device)[None, :]
     for _ in range(max_depth):
-        f = forest.feat.gather(1, node).to(torch.int64)
+        f = forest.feat.gather(1, node).clamp(0, max(F - 1, 0)).to(torch.int64)
         t = forest.thr.gather(1, node)
         s = forest.is_split.gather(1, node)
         x = X[rows, f]
         right = torch.isnan(x) | (x > t)
         node = torch.where(s, 2 * node + 1 + (right & s).to(torch.int64), node)
-    return forest.value.gather(1, node).sum(dim=0)
+    return node
+
+
+def predict_forest_raw(forest: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Σ over a stacked forest of leaf values on raw features (N, F): the
+    walk of `forest_leaves`, its per-tree values summed at once."""
+    return forest.value.gather(1, forest_leaves(forest, X, max_depth)).sum(dim=0)
+
+
+def predict_forest_ordered(forest: Tree, X: torch.Tensor,
+                           max_depth: int) -> torch.Tensor:
+    """`predict_forest_raw`'s per-tree leaf values, added in tree order in
+    f32 from 0.0 (one add per tree): the order the forest kernels
+    (`ops/score_cuda.py`) add in, so on the card they equal it bit for
+    bit."""
+    leaf = forest.value.gather(1, forest_leaves(forest, X, max_depth))
+    acc = torch.zeros(X.shape[0], dtype=torch.float32, device=X.device)
+    for t in range(leaf.shape[0]):
+        acc = acc + leaf[t]
+    return acc
