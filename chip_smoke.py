@@ -81,9 +81,37 @@ result line):
 13. MOJO round trip: the GBM and the DRF exported, reloaded with the port's
    `load_model`, and scored by its numpy walk (f64 sums) within 1e-5 of the
    card model's predictions.
+14. Multinomial GBM at full width: a Covertype-shaped frame made from a
+   seed (COV_ROWS x 54: 10 continuous, 4 wilderness and 40 soil indicator
+   columns; 7 classes at Covertype's priors) with a COV_VALID-row
+   validation frame from another seed, through
+   `H2OGradientBoostingEstimator` at H2O's defaults with AutoML's stopping
+   settings (COV_GBM). B1 must launch 7 x 5 passes per iteration built and
+   nothing else; the scoring history has one row per 5 iterations with the
+   training and validation logloss; the iteration the fit stopped at is
+   the one `ScoreKeeper` gives on that history; `predict` on the validation
+   frame launches the forest kernels 7 times (one per class forest, on the
+   resident plan), its probability rows sum to 1 within 1e-6, and the
+   validation logloss is below the class priors'. Prints the fit's binning,
+   loop and scoring split beside the card. Then COV_PROFILE_TREES
+   iterations of the same fit under torch.profiler (as phase 6).
+15. Multinomial DRF, reduced to COV_DRF_TREES trees: phase 14's frame through
+   `H2ORandomForestEstimator(hist_method="pallas")` at its other defaults
+   (depth clamped by the card, mtries, row sampling, compaction), scored out
+   of bag after every tree. B2's launches equal 7 x the level plan's passes
+   per iteration plus the dense rebuilds'; `predict` launches the forest
+   kernels 7 times, on the streamed plan; the OOB history is printed.
+16. Reference check on small inputs, card against CPU: a 4-class GBM and
+   DRF (4000 x 8, well-separated classes), a GBM per new distribution
+   (poisson, gamma, tweedie, laplace, quantile, huber) and a weighted
+   binomial GBM with a validation frame and early stopping. The forest
+   structure, the iteration count and the history rows must be equal;
+   leaf values, predictions (relative to max(1, |p|) for the log links) and
+   history metrics within 1e-5.
 
 Each path is driven with every launch count set to 0 just before it and
-read just after (phase 12 is the scoring path's own). The last line is
+read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
+them again before their `predict`). The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
 JSON.
 """
@@ -134,6 +162,19 @@ DRF_AUCS = (0.832020, 0.837229)
 # phase 11: rows scored per case; phase 12: requests of 1..SERVE_MAX_ROWS rows
 SCORE_ROWS = (64, 512, 100_000, 1_000_000)
 SERVE_REQUESTS, SERVE_MAX_ROWS, SERVE_THREADS, SERVE_BIG = 64, 300, 8, 100_000
+# phases 14-15: a Covertype-shaped frame (UCI Covertype, Blackard & Dean,
+# archive.ics.uci.edu/dataset/31): 10 continuous columns, 4 wilderness-area
+# and 40 soil-type indicator columns, 7 classes at the data set's priors
+COV_ROWS, COV_VALID, COV_K = 581_012, 116_202, 7
+COV_PRIORS = (0.365, 0.488, 0.062, 0.005, 0.016, 0.030, 0.035)
+COV_NAMES = ([f"cont{i}" for i in range(10)] + [f"wild{i}" for i in range(4)]
+             + [f"soil{i}" for i in range(40)])
+# H2O's GBM defaults with AutoML's stopping settings
+COV_GBM = dict(ntrees=50, max_depth=5, min_rows=10, nbins=20, learn_rate=0.1,
+               stopping_rounds=3, stopping_metric="logloss",
+               stopping_tolerance=1e-3, score_tree_interval=5, seed=42)
+COV_DRF_TREES = 5
+COV_PROFILE_TREES = 5
 
 
 def make_higgs_like(n_rows: int, n_feat: int = 28, seed: int = 0):
@@ -428,8 +469,8 @@ def main_path(dev):
     return rec, fr, gbm.model
 
 
-def profile_fit(est, fr, tag="profile"):
-    """Phases 6 and 10: one fit of `est` on the main path's frame under
+def profile_fit(est, fr, tag="profile", y="label", valid=None):
+    """Phases 6, 10 and 14: one fit of `est` on `fr` (and `valid`) under
     torch.profiler. Busy share = the union of the device's kernel and copy
     intervals over the fit's wall time (the profiler's own host overhead
     lengthens that wall, so the share reads low)."""
@@ -439,7 +480,7 @@ def profile_fit(est, fr, tag="profile"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        est.train(y="label", training_frame=fr)
+        est.train(y=y, training_frame=fr, validation_frame=valid)
         torch.cuda.synchronize()
         wall = time.time() - t0
     spans, by_name = [], {}
@@ -484,7 +525,7 @@ def small_reference_check(dev):
             histogram_type="UniformAdaptive", device=d)
         est.train(y="label", training_frame=fr)
         fits[d] = est
-    a, b = fits[str(dev)].model.forest, fits["cpu"].model.forest
+    a, b = fits[str(dev)].model.forest[0], fits["cpu"].model.forest[0]
     for f in ("feat", "bin", "is_split"):
         if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
             raise AssertionError(f"cuda and cpu forests differ in {f}")
@@ -679,7 +720,7 @@ def small_drf_check(dev):
                                        hist_method="pallas", device=d)
         est.train(y="label", training_frame=fr)
         fits[d] = est
-    a, b = fits[str(dev)].model.forest, fits["cpu"].model.forest
+    a, b = fits[str(dev)].model.forest[0], fits["cpu"].model.forest[0]
     for f in ("feat", "bin", "is_split"):
         if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
             raise AssertionError(f"cuda and cpu DRF forests differ in {f}")
@@ -973,6 +1014,352 @@ def mojo_round_trip(dev, models):
     return out
 
 
+def make_covtype_like(n: int, seed: int):
+    """(X (n, 54) f32, y (n,) class codes) shaped like UCI Covertype:
+    elevation, aspect, slope, four distances, three hillshades and a fire
+    distance; a one-hot wilderness area of 4 and soil type of 40; the cover
+    type drawn from a softmax over class scores that depend mostly on
+    elevation (as Covertype's do), then on the area, the soil and the
+    distances, with intercepts set so the classes keep COV_PRIORS. The
+    class effects come from a fixed seed, so every call draws from the same
+    law."""
+    law = np.random.default_rng(2024)
+    centre = law.normal(size=COV_K) * 1.2
+    w_cont = law.normal(size=(COV_K, 10)) * 0.35
+    w_wild = law.normal(size=(COV_K, 4)) * 0.8
+    w_soil = law.normal(size=(COV_K, 40)) * 0.8
+    soil_p = law.dirichlet(np.full(40, 0.6))
+    rng = np.random.default_rng(seed)
+    cont = np.column_stack([
+        rng.normal(2959, 280, n),                    # elevation
+        rng.uniform(0, 360, n),                      # aspect
+        rng.gamma(3.0, 4.7, n),                      # slope
+        rng.gamma(1.5, 180, n),                      # horizontal to water
+        rng.normal(46, 58, n),                       # vertical to water
+        rng.gamma(1.8, 1300, n),                     # to roadways
+        np.clip(rng.normal(212, 27, n), 0, 255),     # hillshade 9am
+        np.clip(rng.normal(223, 20, n), 0, 255),     # hillshade noon
+        np.clip(rng.normal(143, 38, n), 0, 255),     # hillshade 3pm
+        rng.gamma(1.9, 1040, n),                     # to fire points
+    ])
+    wild = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = rng.choice(40, n, p=soil_p)
+    z = (cont - cont.mean(0)) / cont.std(0)
+    score = (-(z[:, :1] - centre[None, :]) ** 2 + z @ w_cont.T
+             + w_wild.T[wild] + w_soil.T[soil])
+    # intercepts that give the priors in expectation (a few fixed-point
+    # steps on the softmax's mean)
+    b = np.log(np.asarray(COV_PRIORS) / sum(COV_PRIORS))
+    target = np.exp(b)
+    for _ in range(8):
+        e = np.exp(score + b - (score + b).max(1, keepdims=True))
+        b += np.log(target / (e / e.sum(1, keepdims=True)).mean(0))
+    g = score + b - np.log(-np.log(rng.random((n, COV_K))))   # Gumbel max
+    X = np.column_stack([cont, np.eye(4)[wild], np.eye(40)[soil]])
+    return X.astype(np.float32), g.argmax(1)
+
+
+def covtype_frames():
+    """Phase 14's training and validation frames, the label a factor."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    out = []
+    for n, seed in ((COV_ROWS, 5), (COV_VALID, 6)):
+        X, y = make_covtype_like(n, seed)
+        out.append(Frame.from_numpy(
+            np.column_stack([X, y.astype(np.float32)]),
+            names=COV_NAMES + ["cover"]).asfactor("cover"))
+    return out
+
+
+def replay_stop(history, rounds, tol, key):
+    """The iteration count `ScoreKeeper` stops at when it reads `key` of
+    each row of `history` in turn (None: it never stops)."""
+    from h2o3_tpu_torch.models.model_base import ScoreKeeper
+
+    sk = ScoreKeeper(rounds, "logloss", tol)
+    return next((r["number_of_trees"] for r in history if sk.record(r[key])),
+                None)
+
+
+def zero_counts():
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
+
+    hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
+    score_cuda.launches_resident = score_cuda.launches_streamed = 0
+    histogram.DISPATCH.clear()
+    torch.cuda.synchronize()
+
+
+def multinomial_gbm_path(dev, fr, fv):
+    """Phase 14: a 7-class GBM with a validation frame and early stopping
+    at full width through the public API; returns its record and model."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
+
+    gbm = H2OGradientBoostingEstimator(device=str(dev), **COV_GBM)
+    zero_counts()
+    t0 = time.time()
+    gbm.train(y="cover", training_frame=fr, validation_frame=fv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, dispatch = hist_cuda.launches, dict(histogram.DISPATCH)
+    rows_launches = hist_cuda.launches_rows
+    model = gbm.model
+    built = model.ntrees_built
+    hist = [dict(number_of_trees=r["number_of_trees"], logloss=r["logloss"],
+                 validation_logloss=r["validation_logloss"])
+            for r in model.scoring_history]
+    zero_counts()
+    t1 = time.time()
+    pred = gbm.predict(fv)
+    pred_s = time.time() - t1
+    score_launches = score_cuda.launches
+    score_plans = dict(resident=score_cuda.launches_resident,
+                       streamed=score_cuda.launches_streamed)
+    probs = np.column_stack([np.asarray(pred.vec(str(k)).data, np.float64)
+                             for k in range(COV_K)])
+    yv = np.asarray(fv.vec("cover").data)
+    ytr = np.asarray(fr.vec("cover").data)
+    prior = np.bincount(ytr, minlength=COV_K) / len(ytr)
+    prior_logloss = float(-np.mean(np.log(prior[yv])))
+    passes = len(histogram_level_plan(model.max_depth))
+    expect = COV_K * passes * built
+    stop_at = replay_stop(hist, COV_GBM["stopping_rounds"],
+                          COV_GBM["stopping_tolerance"], "validation_logloss")
+    rec = dict(rows=fr.nrow, valid_rows=fv.nrow, features=len(COV_NAMES),
+               classes=COV_K,
+               class_shares=(np.bincount(ytr, minlength=COV_K)
+                             / len(ytr)).round(4).tolist(),
+               wall_s=wall, iterations=built, trees=built * COV_K,
+               fit_timings=model.fit_timings, hist_launches=launches,
+               expected_hist_launches=expect, dispatch=dispatch,
+               history=hist, replayed_stop=stop_at,
+               train_logloss=float(model.logloss()),
+               valid_logloss=float(model.logloss(valid=True)),
+               valid_mean_per_class_error=float(
+                   model.mean_per_class_error(valid=True)),
+               prior_logloss=prior_logloss, predict_s=pred_s,
+               score_launches=score_launches, score_plans=score_plans,
+               max_row_sum_err=float(np.abs(probs.sum(1) - 1).max()))
+    print("multinomial gbm: " + json.dumps(rec), flush=True)
+    ft = model.fit_timings
+    print(f"multinomial gbm on {card_line()}: {fr.nrow} x {len(COV_NAMES)}, "
+          f"{COV_K} classes, {built} iterations ({built * COV_K} trees) in "
+          f"{wall:.3f} s: binning {ft['bins_s']:.3f} s, upload "
+          f"{ft['upload_s']:.3f} s, loop {ft['trees_s']:.3f} s, scoring "
+          f"{ft['score_s']:.3f} s, metrics {ft['metrics_s']:.3f} s; "
+          f"validation logloss {rec['valid_logloss']:.6f} (prior "
+          f"{prior_logloss:.6f})", flush=True)
+    if launches != expect or dispatch != {"pallas_factored": expect} \
+            or rows_launches:
+        raise AssertionError(f"multinomial GBM: {launches} B1 launches "
+                             f"({dispatch}); expected {COV_K} x {passes} x "
+                             f"{built} = {expect} and no other method")
+    want_rows = [n for n in range(5, COV_GBM["ntrees"] + 1, 5) if n <= built]
+    if [r["number_of_trees"] for r in hist] != want_rows or not all(
+            np.isfinite([r["logloss"], r["validation_logloss"]]).all()
+            for r in hist):
+        raise AssertionError(f"scoring history rows {hist}; expected one "
+                             f"per 5 iterations up to {built}")
+    if (stop_at or COV_GBM["ntrees"]) != built:
+        raise AssertionError(f"the fit stopped at {built}; ScoreKeeper on "
+                             f"its history stops at {stop_at}")
+    if score_launches != COV_K or score_plans["resident"] != COV_K:
+        raise AssertionError(f"predict launched the forest kernels "
+                             f"{score_launches} times ({score_plans}); "
+                             f"expected {COV_K}, on the resident plan")
+    if pred.names != ["predict"] + [str(k) for k in range(COV_K)] \
+            or not np.all(np.isfinite(probs)) \
+            or rec["max_row_sum_err"] > 1e-6:
+        raise AssertionError(f"predict frame {pred.names}: non-finite or "
+                             f"rows off 1 by {rec['max_row_sum_err']:.3e}")
+    if not rec["valid_logloss"] < prior_logloss:
+        raise AssertionError(f"validation logloss {rec['valid_logloss']} "
+                             f"not below the prior's {prior_logloss}")
+    return rec, model
+
+
+def multinomial_drf_path(dev, fr, fv):
+    """Phase 15: phase 14's frame through a 7-class DRF with B2, reduced
+    to COV_DRF_TREES trees, scored out of bag at every iteration."""
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
+
+    drf = H2ORandomForestEstimator(ntrees=COV_DRF_TREES, hist_method="pallas",
+                                   score_tree_interval=1, seed=42,
+                                   device=str(dev))
+    zero_counts()
+    t0 = time.time()
+    drf.train(y="cover", training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, b1, dispatch = (hist_cuda.launches_rows, hist_cuda.launches,
+                              dict(histogram.DISPATCH))
+    model = drf.model
+    plan = histogram_level_plan(model.max_depth, model.compact_cap)
+    expect = (COV_K * model.ntrees_built * len(plan) + model.dense_rebuilds
+              * len(histogram_level_plan(model.max_depth)))
+    zero_counts()
+    t1 = time.time()
+    pred = drf.predict(fv)
+    pred_s = time.time() - t1
+    score_launches = score_cuda.launches
+    score_plans = dict(resident=score_cuda.launches_resident,
+                       streamed=score_cuda.launches_streamed)
+    probs = np.column_stack([np.asarray(pred.vec(str(k)).data, np.float64)
+                             for k in range(COV_K)])
+    perf = model.model_performance(fv)
+    hist = [dict(number_of_trees=r["number_of_trees"], oob_logloss=r["logloss"])
+            for r in model.scoring_history]
+    rec = dict(wall_s=wall, iterations=model.ntrees_built,
+               trees=model.ntrees_built * COV_K,
+               max_depth_used=model.max_depth, compact_cap=model.compact_cap,
+               dense_rebuilds=model.dense_rebuilds,
+               fit_timings=model.fit_timings, hist_launches=launches,
+               expected_hist_launches=expect, dispatch=dispatch,
+               oob_history=hist, oob_logloss=float(model.logloss()),
+               valid_logloss=float(perf.logloss),
+               valid_mean_per_class_error=float(perf.mean_per_class_error),
+               predict_s=pred_s, score_launches=score_launches,
+               score_plans=score_plans,
+               max_row_sum_err=float(np.abs(probs.sum(1) - 1).max()),
+               peak_device_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print("multinomial drf: " + json.dumps(rec), flush=True)
+    if launches != expect or dispatch != {"pallas": expect} or b1:
+        raise AssertionError(f"multinomial DRF: {launches} B2 launches "
+                             f"({dispatch}), {b1} B1; expected {expect}")
+    if score_launches != COV_K or score_plans["streamed"] != COV_K:
+        raise AssertionError(f"DRF predict launched the forest kernels "
+                             f"{score_launches} times ({score_plans}); "
+                             f"expected {COV_K}, on the streamed plan")
+    if [r["number_of_trees"] for r in hist] != list(
+            range(1, COV_DRF_TREES + 1)) or not np.all(np.isfinite(
+                [r["oob_logloss"] for r in hist])):
+        raise AssertionError(f"DRF OOB history {hist}")
+    if not np.all(np.isfinite(probs)) or rec["max_row_sum_err"] > 1e-6:
+        raise AssertionError("DRF probabilities non-finite or off 1")
+    return rec, model
+
+
+def _pair_fit(est_cls, d, params, fr, fv=None, y="label"):
+    est = est_cls(device=d, **params)
+    est.train(y=y, training_frame=fr, validation_frame=fv)
+    return est.model
+
+
+def _forest_diff(a, b):
+    """(number of (class, tree, node) whose feature, bin or split flag
+    differ; max |leaf value diff|) of two models' class forests."""
+    nodes, dv = 0, 0.0
+    for fa, fb in zip(a.forest, b.forest):
+        diff = torch.zeros_like(fb.is_split)
+        for f in ("feat", "bin", "is_split"):
+            diff |= getattr(fa, f).cpu() != getattr(fb, f)
+        nodes += int(diff.sum())
+        dv = max(dv, float((fa.value.cpu() - fb.value).abs().max()))
+    return nodes, dv
+
+
+def _pred_diff(a, b, fr):
+    pa, pb = a.predict(fr), b.predict(fr)
+    cols = pa.names[1:] if len(pa.names) > 1 else pa.names
+    return max(float(np.abs(np.asarray(pa.vec(c).data, np.float64)
+                            - np.asarray(pb.vec(c).data, np.float64)).max())
+               for c in cols)
+
+
+def small_extension_checks(dev):
+    """Phase 16: the new modules on a small input, card against CPU (whose
+    plain versions the CPU tests hold against the JAX package). Must match
+    exactly: the forest structure of the 4-class DRF (one-hot sums are
+    exact in any order) and of the well-separated 4-class GBM, of each
+    distribution's GBM, and of the weighted GBM, with its stopping iteration
+    and scoring history rows. Must agree within 1e-5: predictions (relative
+    to max(1, |p|) for the log-link families), history metrics and leaf
+    values, these within 1e-4 for the 4-class GBM: its softmax gradients
+    are not dyadic, and a leaf value -G/(H+λ) carries the CPU's f32
+    histogram rounding (the sequential sum's, ~eps·sqrt(n)·|partial sum|),
+    which B1's fixed-point sums do not have. Every case is fitted and
+    printed before the first failure is raised."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(41)
+    names = [f"f{i}" for i in range(8)] + ["label"]
+    X = rng.normal(size=(4000, 8)).astype(np.float32)
+    yc = np.argmax(2 * X[:, :4] + 0.5 * rng.normal(size=(4000, 4)), axis=1)
+    fc = Frame.from_numpy(np.column_stack([X, yc]), names=names).asfactor("label")
+    cases = [("gbm_4class", H2OGradientBoostingEstimator,
+              dict(ntrees=5, max_depth=4, seed=42), fc, None),
+             ("drf_4class", H2ORandomForestEstimator,
+              dict(ntrees=5, max_depth=10, seed=42, hist_method="pallas"),
+              fc, None)]
+    mu = np.exp(0.6 * X[:, 0] - 0.4 * X[:, 1] + 0.3 * np.sin(2 * X[:, 2]))
+    for dname in ("poisson", "gamma", "tweedie", "laplace", "quantile",
+                  "huber"):
+        if dname == "poisson":
+            yr = rng.poisson(mu)
+        elif dname in ("gamma", "tweedie"):
+            yr = rng.gamma(2.0, mu / 2.0)
+        else:
+            yr = 3 * X[:, 0] + np.sin(2 * X[:, 1]) + rng.standard_t(3, 4000)
+        fr = Frame.from_numpy(np.column_stack([X, yr]), names=names)
+        cases.append((dname, H2OGradientBoostingEstimator,
+                      dict(ntrees=5, max_depth=4, seed=42, distribution=dname,
+                           tweedie_power=1.3, quantile_alpha=0.8), fr, None))
+    Xw, yw = make_higgs_like(3000, n_feat=8, seed=3)
+    Xv, yv = make_higgs_like(1500, n_feat=8, seed=4)
+    wn = names + ["w"]
+    w = rng.choice([0.5, 1.0, 2.0], 3000)
+    fw = Frame.from_numpy(np.column_stack([Xw, yw, w]), names=wn).asfactor("label")
+    fwv = Frame.from_numpy(np.column_stack([Xv, yv, np.ones(1500)]),
+                           names=wn).asfactor("label")
+    cases.append(("gbm_weighted_valid_stopping", H2OGradientBoostingEstimator,
+                  dict(ntrees=40, max_depth=3, learn_rate=0.5, seed=42,
+                       weights_column="w", stopping_rounds=2,
+                       stopping_tolerance=0.01, score_tree_interval=3),
+                  fw, fwv))
+    out, bad = {}, []
+    for name, cls, params, fr, fv in cases:
+        a = _pair_fit(cls, str(dev), params, fr, fv)
+        b = _pair_fit(cls, "cpu", params, fr, fv)
+        nodes, dv = _forest_diff(a, b)
+        scale = 1.0
+        dp = _pred_diff(a, b, fr)
+        if params.get("distribution") in ("poisson", "gamma", "tweedie"):
+            p = np.asarray(b.predict(fr).vec("predict").data, np.float64)
+            scale = max(1.0, float(np.abs(p).max()))
+        ha = [(r["number_of_trees"], r.get("validation_logloss"))
+              for r in a.scoring_history]
+        hb = [(r["number_of_trees"], r.get("validation_logloss"))
+              for r in b.scoring_history]
+        dh = max([abs(x[1] - y[1]) for x, y in zip(ha, hb)
+                  if x[1] is not None] or [0.0])
+        rec = dict(iterations=(a.ntrees_built, b.ntrees_built),
+                   differing_nodes=nodes, max_value_diff=dv,
+                   max_predict_diff=dp, predict_scale=scale,
+                   history_rows=[x[0] for x in ha], max_history_diff=dh)
+        out[name] = rec
+        print(f"small check {name}: " + json.dumps(rec), flush=True)
+        if nodes or a.ntrees_built != b.ntrees_built \
+                or [x[0] for x in ha] != [x[0] for x in hb]:
+            bad.append(f"{name}: cuda and cpu fits differ in structure "
+                       f"({nodes} nodes), iterations or history rows")
+        value_tol = 1e-4 if name == "gbm_4class" else 1e-5
+        if dv > value_tol or dp > 1e-5 * scale or dh > 1e-5:
+            bad.append(f"{name}: cuda and cpu fits disagree beyond the "
+                       "tolerance")
+    if out["gbm_weighted_valid_stopping"]["iterations"][0] >= 40:
+        bad.append("the weighted GBM's stop did not fire")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1011,10 +1398,20 @@ def main() -> int:
         device=str(dev)), fr, tag="drf profile")
     del fr
     rows_sc, worst_sc = score_vs_plain(dev, {
-        "gbm": (gbm_model.forest, gbm_model.max_depth),
-        "drf": (drf_model.forest, drf_model.max_depth)})
+        "gbm": (gbm_model.forest[0], gbm_model.max_depth),
+        "drf": (drf_model.forest[0], drf_model.max_depth)})
     serve_rec = serve_path(dev, gbm_model)
     mojo_round_trip(dev, {"gbm": gbm_model, "drf": drf_model})
+    del gbm_model, drf_model
+    fr_cov, fv_cov = covtype_frames()
+    multinomial_gbm_path(dev, fr_cov, fv_cov)
+    profile_fit(H2OGradientBoostingEstimator(
+        device=str(dev), **dict(COV_GBM, ntrees=COV_PROFILE_TREES)),
+        fr_cov, tag="multinomial gbm profile", y="cover", valid=fv_cov)
+    torch.cuda.reset_peak_memory_stats(dev)
+    multinomial_drf_path(dev, fr_cov, fv_cov)
+    del fr_cov, fv_cov
+    small_extension_checks(dev)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)

@@ -1,11 +1,13 @@
 """Carry a trained tree model across from its numpy arrays.
 
-A tree model's "weights" are its forest: per tree the heap arrays `feat`,
-`bin`, `thr`, `is_split` and `value` (plus the node covers), the initial
-margin `f0`, the bin edges, the heap depth and the mode (``"gbm"`` sums
-the trees through the link; ``"drf"`` averages them). `forest_from_numpy`
-builds the port's model from them, so a GBM or DRF model trained by the JAX
-package (whose arrays the caller reads out as numpy) scores in the port.
+A tree model's "weights" are its forests: per class forest (K of them for a
+multinomial model, else one) and per tree the heap arrays `feat`, `bin`,
+`thr`, `is_split` and `value` (plus the node covers), the initial margin
+`f0` (a K-vector for multinomial), the bin edges, the heap depth and the
+mode (``"gbm"`` sums the trees through the link; ``"drf"`` averages them).
+`forest_from_numpy` builds the port's model from them, so a GBM or DRF
+model trained by the JAX package (whose arrays the caller reads out as
+numpy) scores in the port.
 """
 
 from __future__ import annotations
@@ -21,7 +23,15 @@ from .models import tree as treelib
 from .models.shared_tree import SharedTreeModel
 
 
-def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0: float,
+def _class_forests(a) -> List[np.ndarray]:
+    """One (ntrees, T) array, or a sequence of K of them, as a list of K
+    arrays."""
+    if isinstance(a, (list, tuple)):
+        return [np.asarray(x) for x in a]
+    return [np.asarray(a)]
+
+
+def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0,
                       edges: Sequence[np.ndarray], max_depth: int,
                       x: Sequence[str], y: str, nbins: int,
                       domain: Optional[List[str]] = None,
@@ -29,9 +39,11 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0: float,
                       distribution: str = "bernoulli",
                       mode: str = "gbm",
                       device=None) -> SharedTreeModel:
-    """Port model from (ntrees, T) heap arrays. `edges` are the per-feature
-    bin edges of the training `BinnedMatrix`; `domain` the response levels
-    of a binomial model; `mode` the reference model's `mode`."""
+    """Port model from heap arrays: each field one (ntrees, T) array, or K
+    of them for a multinomial model (one per class forest, in class order).
+    `f0` is a float, or the K-vector of a multinomial model. `edges` are
+    the per-feature bin edges of the training `BinnedMatrix`; `domain` the
+    response levels of a classifier; `mode` the reference model's `mode`."""
     if mode not in ("gbm", "drf"):
         raise ValueError(f"mode must be 'gbm' or 'drf', got {mode!r}")
     dev = devlib.resolve(device)
@@ -41,18 +53,33 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0: float,
                   value=(value, torch.float32))
     fields = {}
     for name, (a, dt) in arrays.items():
-        a = np.asarray(a)
-        if a.ndim != 2 or a.shape[1] != T:
-            raise ValueError(f"{name}: expected (ntrees, {T}) for max_depth "
-                             f"{max_depth}, got {a.shape}")
-        fields[name] = torch.as_tensor(a).to(dt).to(dev)
-    forest = treelib.Tree(**fields)
+        per_class = _class_forests(a)
+        for a_k in per_class:
+            if a_k.ndim != 2 or a_k.shape[1] != T:
+                raise ValueError(f"{name}: expected (ntrees, {T}) for max_depth "
+                                 f"{max_depth}, got {a_k.shape}")
+        fields[name] = [torch.as_tensor(a_k).to(dt).to(dev) for a_k in per_class]
+    K = len(fields["feat"])
+    if any(len(v) != K for v in fields.values()):
+        raise ValueError("every field needs the same number of class forests")
+    forest = [treelib.Tree(**{f: fields[f][k] for f in fields}) for k in range(K)]
+    f0_arr = np.asarray(f0, np.float32).reshape(-1)
+    if problem == "multinomial":
+        if f0_arr.size != K or domain is None or len(domain) != K:
+            raise ValueError(f"a multinomial model needs {K} class forests, "
+                             "f0 values and domain levels alike")
+        f0_v, nclass = f0_arr, K
+    else:
+        if K != 1 or f0_arr.size != 1:
+            raise ValueError(f"a {problem} model has one forest and one f0")
+        f0_v, nclass = float(f0_arr[0]), (2 if problem == "binomial" else 1)
     F = len(x)
     bm = BinnedMatrix(codes=None, edges=[np.asarray(e, np.float64) for e in edges],
                       nbins=int(nbins), names=list(x),
                       is_categorical=np.zeros(F, bool), domains=[None] * F)
-    cov = (torch.as_tensor(np.asarray(covers, np.float32)).to(dev)
+    cov = ([torch.as_tensor(np.asarray(c, np.float32)).to(dev)
+            for c in _class_forests(covers)]
            if covers is not None else None)
-    return SharedTreeModel(None, x, y, bm, problem, 2 if problem == "binomial" else 1,
-                           domain, distribution, float(f0), forest, cov,
-                           int(max_depth), dev, mode=mode)
+    return SharedTreeModel(None, x, y, bm, problem, nclass, domain,
+                           distribution, f0_v, forest, cov, int(max_depth), dev,
+                           mode=mode)

@@ -1,24 +1,30 @@
 """SharedTree fit loop — GBM and DRF over `tree.build_tree`.
 
 Port of the single-device, in-core fit of `h2o3_tpu/models/shared_tree.py`
-(`_fit`, the per-tree step `_one_tree` with `_grads`, row and column
+(`_fit`, the per-iteration step `_one_tree` with `_grads`, row and column
 sampling, the margin update, DRF out-of-bag sums, the compaction-overflow
-rebuild, the forest pack, training metrics and `SharedTreeModel._margins`
-through the forest-scoring kernel, and the memory-feasibility depth clamp
-with its warning). Reference parity: `hex/tree/SharedTree.java`,
+rebuild, validation margins, scoring events and early stopping, training
+and validation metrics, and `SharedTreeModel._margins` through the
+forest-scoring kernel, and the memory-feasibility depth clamp with its
+warning). Reference parity: `hex/tree/SharedTree.java`,
 `hex/tree/gbm/GBM.java` and `hex/tree/drf/DRF.java`.
 
-Each iteration m: the tree's keys from `fold_in(seed key, m)` (`ops.prng`,
-the reference's threefry draws) → the row and column samples → gradients
-(GBM: from the margins; DRF: g = −y, h = 1, so a leaf is its rows' mean
-response) → `tree.build_tree` → margins += leaf value per row. A DRF
-forest predicts the average of its trees. PyTorch runs this eagerly; there
-is no per-iteration program to compile.
+Each iteration m: the keys from `fold_in(seed key, m)` (`ops.prng`, the
+reference's threefry draws) → the row and column samples → one tree per
+class (K = the class count for multinomial, else 1), class k's key folded
+from class k−1's: its gradients (GBM: from the margins, the softmax over
+margins that classes < k already moved for multinomial; DRF: g = −y_k,
+h = 1, so a leaf is its rows' mean response) → `tree.build_tree` →
+margins[:, k] += leaf value per row. A DRF forest predicts the average of
+its trees. Scoring events fall where the reference's chunked driver puts
+them (`score_events`); with a validation frame its margins advance by one
+`predict_codes` walk per new tree, and `ScoreKeeper` reads its metric.
+PyTorch runs this eagerly; there is no per-iteration program to compile.
 
 Not ported yet (ROADMAP queue A, items 5-9): per-class row sampling,
-multinomial and the other distributions, validation frames, early stopping,
-CV, checkpoints, DART, dataset cache, streaming, sharding, QoS and
-calibration. Asking for any of them raises `NotImplementedError`.
+class balancing, calibration, offsets, CV, checkpoints, DART, dataset
+cache, streaming, sharding and QoS. Asking for any of them raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,20 +32,22 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import device as devlib
-from ..frame.binning import BinnedMatrix, build_bins
+from ..frame.binning import BinnedMatrix, bin_apply, build_bins
 from ..frame.frame import Frame
 from ..ops import packing, prng, score_cuda
 from ..runtime.log import Log
 from . import distributions as dist_mod
 from . import tree as treelib
-from .metrics import ModelMetricsBinomial, ModelMetricsRegression
-from .model_base import SCORE_ROW_BUCKET, H2OEstimator, H2OModel, response_info
+from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
+                      ModelMetricsRegression)
+from .model_base import (SCORE_ROW_BUCKET, H2OEstimator, H2OModel,
+                         ScoreKeeper, ScoringHistory, response_info)
 
 
 def _sync(dev: torch.device) -> None:
@@ -89,28 +97,148 @@ def _binom_binned_stats(margins: torch.Tensor, y: torch.Tensor, n: int,
 _log = logging.getLogger(__name__)
 
 
-def probs_from_margins(mode: str, problem: str, m: np.ndarray,
+def probs_from_margins(mode: str, problem: str, dist: str, m: np.ndarray,
                        ntrees: int) -> np.ndarray:
-    """Host-side margins (N, 1) → predictions. GBM: the link of the summed
-    margins; DRF: the forest average of the per-leaf response means (vote
-    averaging, `hex/tree/drf/DRFModel.score0`)."""
+    """Host-side margins (N, K) → predictions. GBM: the link of the summed
+    margins (softmax for multinomial, exp for the log-link families); DRF:
+    the forest average of the per-leaf response means (vote averaging,
+    `hex/tree/drf/DRFModel.score0`), clipped and normalised for
+    multinomial, uniform where every class's votes are 0."""
     m = np.asarray(m)
     if mode == "drf":
         m = m * (1.0 / max(ntrees, 1))
         if problem == "binomial":
             p1 = np.clip(m[:, 0], 0.0, 1.0)
             return np.stack([1 - p1, p1], axis=1)
+        if problem == "multinomial":
+            p = np.clip(m, 0.0, None)
+            s = p.sum(axis=1, keepdims=True)
+            return np.where(s > 0, p / np.maximum(s, 1e-12), 1.0 / m.shape[1])
         return m[:, :1]
     if problem == "binomial":
         p1 = 1 / (1 + np.exp(-m[:, 0]))
         return np.stack([1 - p1, p1], axis=1)
+    if problem == "multinomial":
+        e = np.exp(m - m.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+    if dist in ("poisson", "gamma", "tweedie"):
+        return np.exp(m[:, :1])
     return m[:, :1]
 
 
 def _metrics_for(problem, yvec, probs):
     if problem == "binomial":
         return ModelMetricsBinomial.make(np.asarray(yvec.data), probs[:, 1])
+    if problem == "multinomial":
+        return ModelMetricsMultinomial.make(np.asarray(yvec.data), probs)
     return ModelMetricsRegression.make(yvec.numeric_np(), probs[:, 0])
+
+
+def _response_matrix(yvec, problem: str, K: int) -> np.ndarray:
+    """The response as (n, K) f32: one-hot over the K classes for
+    multinomial, the class code (binomial) or the value (regression)
+    otherwise."""
+    if problem == "multinomial":
+        yk = np.zeros((len(yvec.data), K), np.float32)
+        yk[np.arange(len(yvec.data)), np.asarray(yvec.data)] = 1.0
+        return yk
+    return (yvec.numeric_np() if problem == "regression"
+            else np.asarray(yvec.data)).astype(np.float32)[:, None]
+
+
+def _event_loss(margins: torch.Tensor, y: torch.Tensor, n: int,
+                inv_ntrees: float, mode: str, problem: str,
+                dist: str) -> torch.Tensor:
+    """Mean loss of a scoring event over the first `n` rows, on the device
+    in f32 (the reference's `_event_loss_terms`): logloss for binomial and
+    multinomial, squared error of the prediction for regression. Clips are
+    1e-7, as f32 needs. Returns a 0-d tensor."""
+    valid = (torch.arange(margins.shape[0], device=margins.device) < n)
+    vf = valid.to(torch.float32)
+    m = margins
+    eps = 1e-7
+    if mode == "drf":
+        m = m * float(np.float32(inv_ntrees))
+    if problem == "binomial":
+        p1 = (m[:, 0].clamp(0.0, 1.0) if mode == "drf"
+              else 1 / (1 + torch.exp(-m[:, 0])))
+        pc = p1.clamp(eps, 1 - eps)
+        num = -torch.where(y[:, 0] > 0.5, torch.log(pc), torch.log1p(-pc))
+    elif problem == "multinomial":
+        if mode == "drf":
+            p = m.clamp(min=0.0)
+            s = p.sum(dim=1, keepdim=True)
+            probs = torch.where(s > 0, p / s.clamp(min=1e-12),
+                                torch.full_like(p, 1.0 / m.shape[1]))
+        else:
+            probs = dist_mod.softmax(m)
+        num = -torch.sum(torch.log(probs.clamp(eps, 1.0)) * y, dim=1)
+    else:
+        pred = m[:, 0]
+        if mode != "drf" and dist in ("poisson", "gamma", "tweedie"):
+            pred = torch.exp(pred)
+        num = (pred - y[:, 0]) ** 2
+    return torch.sum(num * vf) / torch.sum(vf).clamp(min=1e-12)
+
+
+def _event_record(problem: str, ntrees: int, val: float) -> Dict:
+    """One scoring-history row from an event's mean loss."""
+    ev: Dict = {"number_of_trees": ntrees, "timestamp": time.time()}
+    if problem in ("binomial", "multinomial"):
+        ev["logloss"] = val
+        if problem == "binomial":
+            ev["auc"] = float("nan")      # full AUC at final scoring
+        ev["training_deviance"] = val
+    else:
+        ev["deviance"] = val
+        ev["rmse"] = float(np.sqrt(val))
+        ev["training_deviance"] = val
+    return ev
+
+
+def _host_event_loss(problem: str, dist: str, mode: str, m: np.ndarray,
+                     y: np.ndarray, ntrees: int) -> float:
+    """The same mean loss on the host in f64 (the reference's
+    `_score_event` host path, which DRF's out-of-bag events take), clips
+    1e-15."""
+    probs = probs_from_margins(mode, problem, dist, m, ntrees)
+    if problem == "binomial":
+        p = np.clip(probs[:, 1], 1e-15, 1 - 1e-15)
+        nll = -np.log(np.where(y[:, 0] > 0.5, p, 1 - p))
+        return float(nll.sum() / max(len(nll), 1e-12))
+    if problem == "multinomial":
+        p = np.clip(probs, 1e-15, 1)
+        nll = -np.log(p[y.astype(bool)])
+        return float(nll.sum() / max(len(nll), 1e-12))
+    sq = (probs[:, 0] - y[:, 0]) ** 2
+    return float(sq.sum() / max(len(sq), 1e-12))
+
+
+def score_events(ntrees: int, score_tree_interval: int = 0,
+                 stopping: bool = False,
+                 score_each_iteration: bool = False) -> list:
+    """The iteration counts after which the fit scores (and may stop), as
+    the reference's chunked driver places them (`shared_tree.py` chunking):
+    the trees run in chunks of `score_tree_interval`, of min(10, ntrees)
+    when only a stopper is set, of 1 under `score_each_iteration` (25
+    otherwise, with no event); an event falls on a chunk boundary where the
+    interval divides the count, or on every boundary when a stopper runs
+    without an interval."""
+    if score_each_iteration:
+        chunk = 1
+    elif score_tree_interval:
+        chunk = score_tree_interval
+    elif stopping:
+        chunk = max(1, min(10, ntrees))
+    else:
+        chunk = min(25, max(ntrees, 1))
+    out = []
+    for built in sorted(set(range(chunk, ntrees + 1, chunk)) | {ntrees}):
+        if ((score_tree_interval and built % score_tree_interval == 0)
+                or score_each_iteration
+                or (stopping and not score_tree_interval)):
+            out.append(built)
+    return out
 
 
 def frame_to_matrix(frame: Frame, x: Sequence[str], expected_domains=None):
@@ -142,8 +270,8 @@ class SharedTreeModel(H2OModel):
     algo = "sharedtree"
 
     def __init__(self, params, x, y, bm: BinnedMatrix, problem, nclass,
-                 domain, distribution, f0: float, forest: treelib.Tree,
-                 covers: Optional[torch.Tensor], max_depth: int,
+                 domain, distribution, f0, forest: List[treelib.Tree],
+                 covers: Optional[List[torch.Tensor]], max_depth: int,
                  device: torch.device, mode: str = "gbm"):
         self.algo = getattr(params, "algo", self.algo)
         super().__init__(params)
@@ -154,13 +282,13 @@ class SharedTreeModel(H2OModel):
         self.nclass = nclass
         self.domain = domain
         self.distribution = distribution
-        self.f0 = float(f0)          # initial margin
-        self.forest = forest         # stacked Tree, (ntrees, T) per field
-        self.covers = covers         # (ntrees, T) Σ row weights per node
+        self.f0 = f0                 # initial margin: a float, or (K,) for K > 1
+        self.forest = list(forest)   # K class forests, each a stacked Tree
+        self.covers = covers         # K (ntrees, T) Σ row weights per node
         self.max_depth = max_depth
         self.device = device
         self.mode = mode             # 'gbm' (summed margins) | 'drf' (averaged)
-        self.ntrees_built = int(forest.feat.shape[0])
+        self.ntrees_built = int(self.forest[0].feat.shape[0]) if self.forest else 0
         self.fit_timings: Dict[str, float] = {}
 
     def _matrix(self, frame: Frame) -> np.ndarray:
@@ -168,40 +296,44 @@ class SharedTreeModel(H2OModel):
         return X
 
     def _margins(self, X: np.ndarray) -> np.ndarray:
-        """(N, 1) f64 margins on a raw feature matrix, scored on the device
-        the model was fit on: the forest kernels over the model's score
-        table on the card, the plain walk on the CPU, which builds no table
-        (`score_cuda.forest_score`). Rows are padded with zeros
-        to a multiple of SCORE_ROW_BUCKET, which are sliced off; GBM's
-        initial margin is added in f64 on the host."""
+        """(N, K) f64 margins on a raw feature matrix, scored on the device
+        the model was fit on: one forest-kernel call per class forest over
+        that forest's score table on the card, the plain walk on the CPU,
+        which builds no table (`score_cuda.forest_score`). Rows are padded
+        with zeros to a multiple of SCORE_ROW_BUCKET, which are sliced off;
+        GBM's initial margin is added in f64 on the host."""
         n = X.shape[0]
         npad = _pad_to_multiple(max(n, 1), SCORE_ROW_BUCKET)
         Xp = np.zeros((npad, X.shape[1]), np.float32)
         Xp[:n] = X
         Xd = torch.from_numpy(Xp).to(self.device)
-        pack = self._score_table(X.shape[1]) if Xd.is_cuda else None
-        s = score_cuda.forest_score(self.forest, Xd, self.max_depth, pack=pack)
-        return (s.cpu().numpy().astype(np.float64)[:n] + self.f0)[:, None]
+        outs = []
+        for k, forest in enumerate(self.forest):
+            pack = self._score_table(k, X.shape[1]) if Xd.is_cuda else None
+            s = score_cuda.forest_score(forest, Xd, self.max_depth, pack=pack)
+            f0k = self.f0 if np.ndim(self.f0) == 0 else self.f0[k]
+            outs.append(s.cpu().numpy().astype(np.float64)[:n] + f0k)
+        return np.column_stack(outs)
 
-    def _score_table(self, n_feat: int) -> score_cuda.ScorePack:
-        """The forest's packed score table (8 bytes a node), built at the
-        first score on the card and kept while the forest and the feature
-        count stay the same. It lives in the model's `__dict__`, so the
-        memory ledger counts it with the model."""
-        pack = getattr(self, "_score_pack", None)
-        if pack is None or pack.forest is not self.forest \
+    def _score_table(self, k: int, n_feat: int) -> score_cuda.ScorePack:
+        """Class k's packed score table (8 bytes a node), built at the first
+        score on the card and kept while that forest and the feature count
+        stay the same. The tables live in the model's `__dict__`, keyed by
+        class, so the memory ledger counts them with the model."""
+        cache = self.__dict__.setdefault("_score_tables", {})
+        pack = cache.get(k)
+        if pack is None or pack.forest is not self.forest[k] \
                 or pack.n_feat != n_feat:
-            pack = self._score_pack = score_cuda.build_score_pack(
-                self.forest, n_feat)
+            pack = cache[k] = score_cuda.build_score_pack(self.forest[k], n_feat)
         return pack
 
     def _score_probs(self, X: np.ndarray) -> np.ndarray:
-        return probs_from_margins(self.mode, self.problem, self._margins(X),
-                                  self.ntrees_built)
+        return probs_from_margins(self.mode, self.problem, self.distribution,
+                                  self._margins(X), self.ntrees_built)
 
     def predict(self, test_data: Frame) -> Frame:
         out = self._score_probs(self._matrix(test_data))
-        if self.problem == "binomial":
+        if self.problem in ("binomial", "multinomial"):
             lab = out.argmax(axis=1)
             d = {"predict": np.asarray(self.domain, dtype=object)[lab]}
             for i, cls in enumerate(self.domain):
@@ -226,7 +358,6 @@ class H2OSharedTreeEstimator(H2OEstimator):
         calibrate_model=(False, "queue A, item 5"),
         calibration_frame=(None, "queue A, item 5"),
         goss=(False, "queue A, item 7"),
-        score_tree_interval=(0, "queue A, item 5 (scoring history)"),
         balance_classes=(False, "queue A, item 5"),
         class_sampling_factors=(None, "queue A, item 5"),
     )
@@ -296,7 +427,13 @@ class H2OSharedTreeEstimator(H2OEstimator):
         if tp["mtries"] not in (-2, -1, 0) and tp["mtries"] < 1:
             raise ValueError(f"mtries must be -2, -1, or >= 1, got {tp['mtries']}")
 
-    def _fit(self, x, y, train: Frame) -> SharedTreeModel:
+    def _default_stopping_metric(self, problem: str) -> str:
+        sm = self._parms.get("stopping_metric", "AUTO")
+        if sm and sm != "AUTO":
+            return sm.lower()
+        return "logloss" if problem in ("binomial", "multinomial") else "deviance"
+
+    def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> SharedTreeModel:
         tp = self._tree_params()
         self._validate_tree_params(tp)
         dev = devlib.resolve(self._parms.get("device"))
@@ -304,17 +441,15 @@ class H2OSharedTreeEstimator(H2OEstimator):
         yvec = train.vec(y)
         problem, nclass, domain = response_info(yvec)
         drf = self._mode == "drf"
-        if problem == "multinomial":
-            raise NotImplementedError(
-                f"multinomial {self._mode.upper()} is not ported "
-                "(ROADMAP queue A, item 5)")
         dist = dist_mod.infer_distribution(
             problem, self._parms.get("distribution", "AUTO"))
         if drf and problem == "regression":
             dist = "gaussian"      # DRF trees fit raw response means
         if dist not in dist_mod.FAMILIES:
-            raise NotImplementedError(
-                f"distribution {dist!r} is not ported (ROADMAP queue A, item 5)")
+            raise ValueError(f"unknown distribution {dist!r}")
+        # the parameters that reach grad_hess (the reference's step config)
+        dist_kw = dict(tweedie_power=float(self._parms.get("tweedie_power", 1.5)),
+                       alpha=float(self._parms.get("quantile_alpha", 0.5)))
 
         t0 = time.perf_counter()
         X, is_cat, doms = frame_to_matrix(train, x)
@@ -344,13 +479,19 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         names=list(x), is_categorical=is_cat, domains=doms,
                         seed=seed)
         t_bins = time.perf_counter()
-        if problem == "regression":
-            yk = yvec.numeric_np().astype(np.float32)
+        wc = self._parms.get("weights_column")
+        w = (train.vec(wc).numeric_np() if wc else np.ones(n)).astype(np.float32)
+        K = nclass if problem == "multinomial" else 1
+        yk = _response_matrix(yvec, problem, K)
+        if drf:
+            f0 = np.zeros(K, np.float32)
+        elif problem == "multinomial":
+            # log of the weighted class priors
+            pri = np.average(yk, axis=0, weights=w)
+            f0 = np.log(np.clip(pri, 1e-10, 1.0)).astype(np.float32)
         else:
-            yk = np.asarray(yvec.data, np.float32)
-        w = np.ones(n, np.float32)
-        f0 = (np.float32(0.0) if drf
-              else np.float32(dist_mod.init_margin(dist, yk, w)))
+            f0 = np.asarray([np.float32(dist_mod.init_margin(
+                dist, yk[:, 0], w, alpha=dist_kw["alpha"]))])
 
         # rows padded to a multiple of 8 (every pack group divides 8) with
         # zero-weight rows, which contribute nothing
@@ -362,14 +503,14 @@ class H2OSharedTreeEstimator(H2OEstimator):
         codes_d = torch.from_numpy(
             packing.pack_host(codes_p, pack_bits) if pack_bits else codes_p
         ).to(dev)
-        y_d = torch.from_numpy(np.concatenate([yk, np.zeros(pad, np.float32)])).to(dev)
+        y_d = torch.from_numpy(np.concatenate([yk, np.zeros((pad, K), np.float32)])).to(dev)
         w_d = torch.from_numpy(np.concatenate([w, np.zeros(pad, np.float32)])).to(dev)
         edges = np.full((F, nbins - 2), np.float32(np.inf), np.float32)
         for j, e in enumerate(bm.edges):
             edges[j, : min(len(e), nbins - 2)] = e[: nbins - 2]
         edges_d = torch.from_numpy(edges).to(dev)
         ones = torch.ones(F, dtype=torch.float32, device=dev)
-        margins = torch.full((npad,), float(f0), dtype=torch.float32, device=dev)
+        margins = torch.from_numpy(f0).to(dev)[None, :].repeat(npad, 1)
         cap = tp["max_abs_leaf"] if np.isfinite(tp["max_abs_leaf"]) else 3.4e38
         # sampling: per-row rate, per-tree column product, DRF's per-split
         # mtries rate, each compared in f32 as the reference does
@@ -386,18 +527,36 @@ class H2OSharedTreeEstimator(H2OEstimator):
                        if tp["max_depth"] > 12 else 0)
         lr = tp["learn_rate"] if not drf else 1.0
         if oob:
-            oob_sum = torch.zeros(npad, dtype=torch.float32, device=dev)
+            oob_sum = torch.zeros((npad, K), dtype=torch.float32, device=dev)
             oob_cnt = torch.zeros(npad, dtype=torch.float32, device=dev)
+        # validation margins, tracked per tree on the validation frame's
+        # codes in the training bins (SharedTree's Score pass)
+        if valid is not None:
+            Xv, _, _ = frame_to_matrix(valid, x, expected_domains=bm.domains)
+            codes_v = torch.from_numpy(bin_apply(bm, Xv)).to(dev)
+            n_v = valid.nrow
+            y_v = torch.from_numpy(_response_matrix(valid.vec(y), problem,
+                                                    K)).to(dev)
+            margins_v = torch.from_numpy(f0).to(dev)[None, :].repeat(n_v, 1)
+        stop_rounds = int(self._parms.get("stopping_rounds") or 0)
+        stopper = (ScoreKeeper(stop_rounds, self._default_stopping_metric(problem),
+                               float(self._parms.get("stopping_tolerance", 1e-3)))
+                   if stop_rounds > 0 else None)
+        events = set(score_events(
+            tp["ntrees"], int(self._parms.get("score_tree_interval") or 0),
+            stopper is not None, bool(self._parms.get("score_each_iteration"))))
         key = prng.PRNGKey(seed & 0x7FFFFFFF)
         _sync(dev)
         t_up = time.perf_counter()
 
-        trees, covers = [], []
+        trees = [[] for _ in range(K)]
+        covers = [[] for _ in range(K)]
         gains = torch.zeros(F, dtype=torch.float32, device=dev)
+        history = []
         dense_rebuilds = 0
+        score_s = 0.0
         for m in range(tp["ntrees"]):
             krow, kcol, ktree = prng.split(prng.fold_in(prng.fold_in(key, m), 0), 3)
-            ktree = prng.fold_in(ktree, 0)
             if row_sampled:
                 row_mask = (prng.uniform(krow, (npad,), dev) < row_rate).to(torch.float32)
                 wt = w_d * row_mask
@@ -408,55 +567,113 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 fm[0] = torch.maximum(fm[0], 1 - fm.sum().clamp(0, 1))
             else:
                 fm = ones
-            if drf:
-                g, h = -y_d, torch.ones_like(y_d)
-            else:
-                g, h = dist_mod.grad_hess(dist, margins, y_d)
-
-            def grow(cap_slots):
-                return treelib.build_tree(
-                    codes_d, g, h, wt, fm, edges_d,
-                    max_depth=tp["max_depth"], nbins=nbins,
-                    min_rows=tp["min_rows"],
-                    min_split_improvement=tp["min_split_improvement"],
-                    reg_lambda=tp["reg_lambda"], max_abs_leaf=cap,
-                    hist_method=tp["hist_method"], pack_bits=pack_bits,
-                    mtries_rate=mtries_rate, key=ktree, compact_cap=cap_slots)
-
-            out = grow(compact_cap)
-            if compact_cap and int(out[4]) > 0:
-                # exactness is never traded: the same tree (same keys),
-                # grown with dense levels
-                dense_rebuilds += 1
-                out = grow(0)
-            tr, leaf_idx, gain_f, cover = out[:4]
             scale = np.float32(np.float32(lr)
                                * np.power(np.float32(tp["learn_rate_annealing"]),
                                           np.float32(m)))
-            tr = tr._replace(value=tr.value * torch.tensor(scale, device=dev))
-            leaf_vals = treelib.value_at(tr.value, leaf_idx)
-            margins = margins + leaf_vals
+            new = []
+            for k in range(K):
+                # each class's key folds the previous class's key
+                ktree = prng.fold_in(ktree, k)
+                if drf:
+                    g, h = -y_d[:, k], torch.ones_like(y_d[:, k])
+                elif problem == "multinomial":
+                    # class k sees the margins classes < k already moved
+                    p = dist_mod.softmax(margins)[:, k]
+                    g, h = p - y_d[:, k], p * (1 - p)
+                else:
+                    g, h = dist_mod.grad_hess(dist, margins[:, 0], y_d[:, 0],
+                                              **dist_kw)
+                g, h = g.contiguous(), h.contiguous()
+
+                def grow(cap_slots):
+                    return treelib.build_tree(
+                        codes_d, g, h, wt, fm, edges_d,
+                        max_depth=tp["max_depth"], nbins=nbins,
+                        min_rows=tp["min_rows"],
+                        min_split_improvement=tp["min_split_improvement"],
+                        reg_lambda=tp["reg_lambda"], max_abs_leaf=cap,
+                        hist_method=tp["hist_method"], pack_bits=pack_bits,
+                        mtries_rate=mtries_rate, key=ktree,
+                        compact_cap=cap_slots)
+
+                out = grow(compact_cap)
+                if compact_cap and int(out[4]) > 0:
+                    # exactness is never traded: the same tree (same keys),
+                    # grown with dense levels
+                    dense_rebuilds += 1
+                    out = grow(0)
+                tr, leaf_idx, gain_f, cover = out[:4]
+                tr = tr._replace(value=tr.value * torch.tensor(scale, device=dev))
+                leaf_vals = treelib.value_at(tr.value, leaf_idx)
+                margins[:, k] += leaf_vals
+                if oob:
+                    # out-of-bag: rows this tree did not sample take its vote
+                    oob_sum[:, k] += leaf_vals * (1.0 - row_mask)
+                trees[k].append(tr)
+                covers[k].append(cover)
+                gains = gains + gain_f
+                new.append(tr)
             if oob:
-                # out-of-bag: rows this tree did not sample take its vote
-                oob_sum = oob_sum + leaf_vals * (1.0 - row_mask)
-                oob_cnt = oob_cnt + (1.0 - row_mask)
-            trees.append(tr)
-            covers.append(cover)
-            gains = gains + gain_f
+                oob_cnt += 1.0 - row_mask
+            built = m + 1
+            if valid is None and built not in events:
+                continue
+            _sync(dev)
+            t_ev = time.perf_counter()
+            if valid is not None:
+                for k, tr in enumerate(new):
+                    margins_v[:, k] += treelib.predict_codes(tr, codes_v,
+                                                             tp["max_depth"])
+            if built in events:
+                if oob:
+                    # DRF scores its out-of-bag votes, on the host in f64
+                    osum = oob_sum[:n].cpu().numpy().astype(np.float64)
+                    ocnt = oob_cnt[:n].cpu().numpy().astype(np.float64)[:, None]
+                    mnp = margins[:n].cpu().numpy().astype(np.float64)
+                    oob_mean = np.where(ocnt > 0, osum / np.maximum(ocnt, 1.0),
+                                        mnp / built)
+                    val = _host_event_loss(problem, dist, self._mode,
+                                           oob_mean * built, yk, built)
+                else:
+                    val = float(_event_loss(margins, y_d, n, 1.0 / built,
+                                            self._mode, problem, dist))
+                ev = _event_record(problem, built, val)
+                if valid is not None:
+                    vval = float(_event_loss(margins_v, y_v, n_v, 1.0 / built,
+                                             self._mode, problem, dist))
+                    ev.update({f"validation_{k2}": v2 for k2, v2 in
+                               _event_record(problem, built, vval).items()
+                               if k2 not in ("number_of_trees", "timestamp")})
+                history.append(ev)
+            _sync(dev)
+            score_s += time.perf_counter() - t_ev
+            if built in events and stopper is not None:
+                # the stopper watches the validation metric where there is one
+                name = (f"validation_{stopper.metric}" if valid is not None
+                        else stopper.metric)
+                v = ev.get(name)
+                if v is None:
+                    v = ev.get("validation_training_deviance" if valid is not None
+                               else "training_deviance", np.nan)
+                if stopper.record(v):
+                    break
         if dense_rebuilds:
             _log.warning(
                 "%d of %d trees overflowed the compact-node cap %d and were "
-                "rebuilt with dense levels", dense_rebuilds, tp["ntrees"],
-                compact_cap)
-        forest = treelib.Tree(*[torch.stack([getattr(t, f) for t in trees])
-                                for f in treelib.Tree._fields])
+                "rebuilt with dense levels", dense_rebuilds,
+                K * len(trees[0]), compact_cap)
+        forest = [treelib.Tree(*[torch.stack([getattr(t, f) for t in tk])
+                                 for f in treelib.Tree._fields])
+                  for tk in trees]
         _sync(dev)
         t_trees = time.perf_counter()
         model = SharedTreeModel(self, x, y, bm, problem, nclass, domain, dist,
-                                float(f0), forest, torch.stack(covers),
+                                f0.copy() if K > 1 else float(f0[0]), forest,
+                                [torch.stack(c) for c in covers],
                                 tp["max_depth"], dev, mode=self._mode)
         model.compact_cap = compact_cap
         model.dense_rebuilds = dense_rebuilds
+        model.scoring_history = ScoringHistory(history)
         gain_total = gains.cpu().numpy().astype(np.float64)
         if gain_total.sum() > 0:
             order = np.argsort(-gain_total)
@@ -466,30 +683,41 @@ class H2OSharedTreeEstimator(H2OEstimator):
                  float(gain_total[i] / gain_total.sum()))
                 for i in order]
         ntrees = model.ntrees_built
-        if problem == "binomial" and not drf:
+        if problem == "binomial" and dist == "bernoulli" and not drf:
             # the whole training-metric reduction runs on the device (AUC2
             # binned design): only the bin counts come back
-            qs, npos, nneg, nll, sq = _binom_binned_stats(margins, y_d, n)
+            qs, npos, nneg, nll, sq = _binom_binned_stats(margins[:, 0],
+                                                          y_d[:, 0], n)
             model.training_metrics = ModelMetricsBinomial.from_binned(
                 qs.cpu().numpy(), npos.cpu().numpy(), nneg.cpu().numpy(),
                 float(nll), float(sq))
         else:
-            m_np = margins[:n].cpu().numpy().astype(np.float64)[:, None]
+            m_np = margins[:n].cpu().numpy().astype(np.float64)
             if oob:
                 # DRF training metrics are out-of-bag: each row is scored
                 # by the trees that did not sample it; rows every tree
                 # sampled fall back to the in-bag forest average
-                osum = oob_sum[:n].cpu().numpy().astype(np.float64)[:, None]
+                osum = oob_sum[:n].cpu().numpy().astype(np.float64)
                 ocnt = oob_cnt[:n].cpu().numpy().astype(np.float64)[:, None]
                 m_np = np.where(ocnt > 0, osum / np.maximum(ocnt, 1.0),
                                 m_np / max(ntrees, 1)) * max(ntrees, 1)
             model.training_metrics = _metrics_for(
-                problem, yvec, probs_from_margins(self._mode, problem, m_np,
-                                                  ntrees))
+                problem, yvec, probs_from_margins(self._mode, problem, dist,
+                                                  m_np, ntrees))
+        if valid is not None:
+            if drf:
+                model.validation_metrics = model._make_metrics(valid)
+            else:
+                mv = margins_v.cpu().numpy().astype(np.float64)
+                model.validation_metrics = _metrics_for(
+                    problem, valid.vec(y),
+                    probs_from_margins(self._mode, problem, dist, mv, ntrees))
         # host-clock split of the fit (the device is synchronised at each
-        # mark): frame→matrix + binning, packing + upload, the boosting loop,
-        # training metrics
+        # mark): frame→matrix + binning, packing + upload, the boosting loop
+        # less its scoring, the scoring events with the validation margin
+        # walks, training and validation metrics
         model.fit_timings = dict(bins_s=t_bins - t0, upload_s=t_up - t_bins,
-                                 trees_s=t_trees - t_up,
+                                 trees_s=t_trees - t_up - score_s,
+                                 score_s=score_s,
                                  metrics_s=time.perf_counter() - t_trees)
         return model

@@ -8,11 +8,11 @@ The format is the reference's, member for member: a port model's artifact
 loads in `h2o3_tpu.mojo.load_model`, and a reference tree artifact loads
 here.
 
-The port's `SharedTreeModel.forest` is one stacked `Tree` of tensors (the
-reference keeps a list of class forests), so a GBM or DRF is written as the
-one class forest `forest0_*` with ``n_forests = 1``; its covers tensor is
-`forest0_cover`. `MojoScorer` scores tree artifacts with the reference's
-numpy walk, summing in f64; the reference's native C++ scorer
+A GBM or DRF is written as its K class forests `forest{k}_*` (K = the
+class count of a multinomial model, else 1) with ``n_forests = K`` and the
+f0 list, each forest's covers as `forest{k}_cover`. `MojoScorer` scores
+tree artifacts with the reference's numpy walk, summing in f64, through
+each distribution's link; the reference's native C++ scorer
 (`native/loader.py`) and the other algorithms' payloads are not ported yet
 (ROADMAP queue A, item 11). Exporting any other model raises the
 reference's `TypeError`.
@@ -64,12 +64,14 @@ def _model_payload(model) -> Dict[str, Any]:
         f0=np.asarray(model.f0).tolist(),
         feature_domains=model.bm.domains,
     )
-    for field in ("feat", "bin", "thr", "is_split", "value"):
-        arrays[f"forest0_{field}"] = getattr(model.forest, field).cpu().numpy()
-    if model.covers is not None:
-        # per-node training covers — predict_contributions (TreeSHAP)
-        arrays["forest0_cover"] = model.covers.cpu().numpy().astype(np.float32)
-    meta["n_forests"] = 1
+    for k, stacked in enumerate(model.forest):
+        for field in ("feat", "bin", "thr", "is_split", "value"):
+            arrays[f"forest{k}_{field}"] = getattr(stacked, field).cpu().numpy()
+        if model.covers:
+            # per-node training covers — predict_contributions (TreeSHAP)
+            arrays[f"forest{k}_cover"] = (
+                model.covers[k].cpu().numpy().astype(np.float32))
+    meta["n_forests"] = len(model.forest)
     return {"meta": meta, "arrays": arrays}
 
 

@@ -59,7 +59,7 @@ def test_clamp_logs_the_reference_warning(monkeypatch):
     assert want.startswith("max_depth=8 clamped to 6: ")
     warns = [ln for ln in Log.get_logs() if " WARN " in ln]
     assert len(warns) == 1 and warns[0].endswith(" WARN " + want)
-    assert est.model.forest.feat.shape[1] == 2 ** 7 - 1
+    assert est.model.forest[0].feat.shape[1] == 2 ** 7 - 1
 
 
 def test_no_clamp_no_warning():

@@ -207,7 +207,7 @@ def test_gbm_fit_on_cuda_launches_the_kernel_at_every_level(dev):
     est, launches, dispatch = fits["cuda"]
     assert launches == 16 and dispatch == {"pallas_factored": 16}
     assert fits["cpu"][1] == 0 and fits["cpu"][2] == {"segment": 16}
-    a, b = est.model.forest, fits["cpu"][0].model.forest
+    a, b = est.model.forest[0], fits["cpu"][0].model.forest[0]
     for f in ("feat", "bin", "is_split"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5, atol=1e-5)
@@ -332,7 +332,7 @@ def test_drf_fit_on_cuda_matches_cpu(dev):
     passes = 4 * len(histogram_level_plan(14, 4096)) + est.model.dense_rebuilds * 14
     assert launches == passes and dispatch == {"pallas": passes}
     assert fits["cpu"][1] == 0
-    a, b = est.model.forest, fits["cpu"][0].model.forest
+    a, b = est.model.forest[0], fits["cpu"][0].model.forest[0]
     for f in ("feat", "bin", "is_split"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5, atol=1e-5)

@@ -99,7 +99,7 @@ def fits():
 @pytest.mark.parametrize("case", list(CASES))
 def test_forest_structure_matches(fits, case):
     ref, port = fits[case]["ref"].model, fits[case]["port"].model
-    rf, pf = ref.forest[0], port.forest
+    rf, pf = ref.forest[0], port.forest[0]
     assert port.ntrees_built == ref.ntrees_built == 5
     assert port.max_depth == ref.max_depth
     for f in ("feat", "bin", "is_split"):
@@ -108,7 +108,7 @@ def test_forest_structure_matches(fits, case):
     np.testing.assert_allclose(pf.thr.numpy(), np.asarray(rf.thr), rtol=0, atol=0)
     np.testing.assert_allclose(pf.value.numpy(), np.asarray(rf.value),
                                rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(port.covers.numpy(), np.asarray(ref.covers[0]),
+    np.testing.assert_allclose(port.covers[0].numpy(), np.asarray(ref.covers[0]),
                                rtol=1e-6, atol=1e-3)
     assert port.f0 == pytest.approx(ref.f0, abs=1e-7)
 
@@ -213,7 +213,8 @@ def test_overflow_rebuild_equals_the_dense_tree(monkeypatch):
     dense = _port_drf(max_depth=14)
     assert small.dense_rebuilds == 3 and dense.dense_rebuilds == 0
     for f in ("feat", "bin", "is_split", "value"):
-        assert torch.equal(getattr(small.forest, f), getattr(dense.forest, f)), f
+        assert torch.equal(getattr(small.forest[0], f),
+                           getattr(dense.forest[0], f)), f
     assert small.auc() == dense.auc()
 
 
@@ -222,7 +223,7 @@ def test_pallas_and_segment_give_the_same_forest_on_cpu():
     index_add_ fold as "segment" over the same rows: the same bits."""
     a, b = _port_drf(max_depth=8, hist_method="pallas"), _port_drf(max_depth=8)
     for f in ("feat", "bin", "is_split", "value"):
-        assert torch.equal(getattr(a.forest, f), getattr(b.forest, f)), f
+        assert torch.equal(getattr(a.forest[0], f), getattr(b.forest[0], f)), f
 
 
 def test_drf_defaults_and_mtries():

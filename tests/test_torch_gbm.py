@@ -72,7 +72,7 @@ def fits():
 def test_forest_structure_matches(fits, kind):
     ref, port = fits[kind]["ref"].model, fits[kind]["port"].model
     rf = ref.forest[0]
-    pf = port.forest
+    pf = port.forest[0]
     assert port.ntrees_built == ref.ntrees_built == 5
     for f in ("feat", "bin", "is_split"):
         assert np.array_equal(getattr(pf, f).numpy(), np.asarray(getattr(rf, f))), f
@@ -80,7 +80,7 @@ def test_forest_structure_matches(fits, kind):
     np.testing.assert_allclose(pf.thr.numpy(), np.asarray(rf.thr), rtol=0, atol=0)
     np.testing.assert_allclose(pf.value.numpy(), np.asarray(rf.value),
                                rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(port.covers.numpy(), np.asarray(ref.covers[0]),
+    np.testing.assert_allclose(port.covers[0].numpy(), np.asarray(ref.covers[0]),
                                rtol=1e-6, atol=1e-3)
     assert port.f0 == pytest.approx(ref.f0, abs=1e-7)
 
@@ -156,7 +156,7 @@ def test_forest_from_numpy_predicts_like_the_jax_model(fits, kind):
                                 dict(goss=True),
                                 dict(balance_classes=True),
                                 dict(monotone_constraints={"f0": 1}),
-                                dict(distribution="poisson"),
+                                dict(nfolds=3),
                                 dict(calibrate_model=True)])
 def test_unported_parameters_raise(kw):
     X, y = make_higgs_like(200)

@@ -1,15 +1,19 @@
 """MOJO artifacts of the port against the reference's: the same frames fit
-by both packages (GBM bernoulli and gaussian, DRF binomial and regression;
-binary labels and a target on a grid of quarters, so the forests match),
-exported by each, compared member by member, and loaded across.
+by both packages (GBM bernoulli, gaussian, poisson and multinomial, DRF
+binomial, regression and multinomial; binary labels, a target on a grid of
+quarters and four well-separated classes, so the forests match), exported
+by each, compared member by member, and loaded across. A multinomial model
+writes one class forest `forest{k}_*` per class and the f0 list.
 
 The zip members are compared, not the zip bytes: `zipfile.writestr` stamps
 the current time. `model.json` must be equal apart from `model_id`, and
 every array equal. A GBM's leaf values are Newton steps on f32 gradient
 sums, which the two packages add in another order from the second tree on
 (`tests/test_torch_gbm.py` holds them to 1e-5), so a several-tree GBM's
-`forest0_value` is held to 1e-6; a one-tree gaussian GBM on 2048 rows of the
-quarter grid sums exactly, and there every array is equal to the bit.
+`forest0_value` is held to 1e-6 (1e-5 for the multinomial GBM, whose
+softmax gradients are not dyadic: `tests/test_torch_multinomial.py`); a
+one-tree gaussian GBM on 2048 rows of the quarter grid sums exactly, and
+there every array is equal to the bit.
 """
 
 import io
@@ -36,31 +40,47 @@ from test_torch_gbm import make_higgs_like
 F = 6
 NAMES = [f"f{i}" for i in range(F)] + ["label"]
 
-# case -> (algo, response kind, rows, parameters, bit-equal leaf values)
+# case -> (algo, response kind, rows, parameters, leaf-value tolerance:
+# 0 = bit-equal)
 CASES = {
     "gbm_bernoulli": ("gbm", "binomial", 2000,
-                      dict(ntrees=4, max_depth=4, seed=42), False),
+                      dict(ntrees=4, max_depth=4, seed=42), 1e-6),
     "gbm_gaussian": ("gbm", "regression", 2000,
-                     dict(ntrees=4, max_depth=4, seed=42), False),
+                     dict(ntrees=4, max_depth=4, seed=42), 1e-6),
     "gbm_gaussian_one_tree": ("gbm", "regression", 2048,
-                              dict(ntrees=1, max_depth=4, seed=42), True),
+                              dict(ntrees=1, max_depth=4, seed=42), 0),
+    "gbm_poisson": ("gbm", "counts", 2000,
+                    dict(ntrees=4, max_depth=4, seed=42,
+                         distribution="poisson"), 1e-6),
+    "gbm_multinomial": ("gbm", "multinomial", 2000,
+                        dict(ntrees=4, max_depth=3, seed=42), 1e-5),
     "drf_binomial": ("drf", "binomial", 2000,
-                     dict(ntrees=4, max_depth=8, seed=42), True),
+                     dict(ntrees=4, max_depth=8, seed=42), 0),
     "drf_regression": ("drf", "regression", 2000,
-                       dict(ntrees=4, max_depth=8, seed=42), True),
+                       dict(ntrees=4, max_depth=8, seed=42), 0),
+    "drf_multinomial": ("drf", "multinomial", 2000,
+                        dict(ntrees=4, max_depth=8, seed=42), 0),
 }
+CLASSIFIERS = ("binomial", "multinomial")
 
 
 def _data(n, seed, kind):
     X, y = make_higgs_like(n, n_feat=F, seed=seed)
     if kind == "regression":
         y = (np.round(4 * (2 * X[:, 0] + np.sin(3 * X[:, 1]))) / 4).astype(np.float32)
+    elif kind == "counts":
+        rng = np.random.default_rng(seed + 7)
+        y = rng.poisson(np.exp(0.5 * X[:, 0] - 0.3 * X[:, 1])).astype(np.float32)
+    elif kind == "multinomial":
+        rng = np.random.default_rng(seed + 7)
+        y = np.argmax(2 * X[:, :4] + 0.5 * rng.normal(size=(n, 4)),
+                      axis=1).astype(np.float32)
     return np.column_stack([X, y])
 
 
 def _frames(d, kind):
     rf, pf = RefFrame.from_numpy(d, names=NAMES), Frame.from_numpy(d, names=NAMES)
-    if kind == "binomial":
+    if kind in CLASSIFIERS:
         rf, pf = rf.asfactor("label"), pf.asfactor("label")
     return rf, pf
 
@@ -104,7 +124,7 @@ def artifacts(tmp_path_factory):
 
 
 def _pred_cols(frame, kind):
-    names = frame.names[1:] if kind == "binomial" else frame.names
+    names = frame.names[1:] if kind in CLASSIFIERS else frame.names
     return {n: np.asarray(frame.vec(n).data, np.float64) for n in names}
 
 
@@ -117,7 +137,9 @@ def test_model_json_equal_apart_from_model_id(artifacts, case):
     assert meta.pop("model_id") == a["port"].model_id
     ref_meta.pop("model_id")
     assert meta == ref_meta
-    assert meta["n_forests"] == 1 and meta["kind"] == "tree"
+    K = 4 if a["kind"] == "multinomial" else 1
+    assert meta["n_forests"] == K and meta["kind"] == "tree"
+    assert np.ndim(meta["f0"]) == (K > 1)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -125,16 +147,17 @@ def test_arrays_equal(artifacts, case):
     a = artifacts[case]
     _, _, ref_arrays = _members(a["ref_path"])
     _, _, arrays = _members(a["port_path"])
-    assert sorted(arrays) == sorted(ref_arrays) == [
-        f"forest0_{f}" for f in ("bin", "cover", "feat", "is_split", "thr",
-                                 "value")]
-    exact = CASES[case][4]
+    K = 4 if a["kind"] == "multinomial" else 1
+    assert sorted(arrays) == sorted(ref_arrays) == sorted(
+        f"forest{c}_{f}" for c in range(K)
+        for f in ("bin", "cover", "feat", "is_split", "thr", "value"))
+    tol = CASES[case][4]
     for k in sorted(arrays):
         assert arrays[k].dtype == ref_arrays[k].dtype, k
         assert arrays[k].shape == ref_arrays[k].shape, k
-        if k == "forest0_value" and not exact:
+        if k.endswith("_value") and tol:
             np.testing.assert_allclose(arrays[k], ref_arrays[k], rtol=0,
-                                       atol=1e-6)
+                                       atol=tol, err_msg=k)
         else:
             np.testing.assert_array_equal(arrays[k], ref_arrays[k], err_msg=k)
 

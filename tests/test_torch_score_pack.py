@@ -159,48 +159,49 @@ def test_model_builds_its_table_once(cpu_gbm):
     """The table a model keeps for the card: built at the first call, then
     the same one; the memory ledger grows by its bytes."""
     model, _ = cpu_gbm
-    model.__dict__.pop("_score_pack", None)
+    model.__dict__.pop("_score_tables", None)
     host0, dev0 = memory_ledger.measure(model)
     before = score_cuda.pack_builds
-    pack = model._score_table(len(model.x))
-    assert model._score_table(len(model.x)) is pack
+    pack = model._score_table(0, len(model.x))
+    assert model._score_table(0, len(model.x)) is pack
     assert score_cuda.pack_builds == before + 1
-    assert model._score_pack is pack and pack.forest is model.forest
+    assert model._score_tables == {0: pack}
+    assert pack.forest is model.forest[0]
     assert pack.n_feat == len(model.x)
     host1, dev1 = memory_ledger.measure(model)
     nbytes = pack.nodes.numel() * pack.nodes.element_size()
-    assert nbytes == 8 * model.forest.feat.numel()
+    assert nbytes == 8 * model.forest[0].feat.numel()
     assert (host1 - host0, dev1 - dev0) == (nbytes, 0)
-    model.__dict__.pop("_score_pack")
+    model.__dict__.pop("_score_tables")
 
 
 def test_cpu_model_builds_no_table(cpu_gbm):
     """On the CPU the plain walk scores and reads no table, so a model there
     builds none and the ledger does not grow."""
     model, fr = cpu_gbm
-    model.__dict__.pop("_score_pack", None)
+    model.__dict__.pop("_score_tables", None)
     before = score_cuda.pack_builds
     ledger0 = memory_ledger.measure(model)
     p1 = np.asarray(model.predict(fr).vec("1").data)
     p2 = np.asarray(model.predict(fr).vec("1").data)
     np.testing.assert_array_equal(p1, p2)
     assert score_cuda.pack_builds == before
-    assert "_score_pack" not in model.__dict__
+    assert "_score_tables" not in model.__dict__
     assert memory_ledger.measure(model) == ledger0
 
 
 def test_model_rebuilds_its_table_for_a_new_forest(cpu_gbm):
     model, _ = cpu_gbm
     F = len(model.x)
-    old = model._score_table(F)
-    model.forest = treelib.Tree(*(f.clone() for f in model.forest))
+    old = model._score_table(0, F)
+    model.forest = [treelib.Tree(*(f.clone() for f in model.forest[0]))]
     try:
-        assert model._score_table(F) is not old
-        assert model._score_pack.forest is model.forest
-        assert model._score_table(F + 1).n_feat == F + 1
+        assert model._score_table(0, F) is not old
+        assert model._score_tables[0].forest is model.forest[0]
+        assert model._score_table(0, F + 1).n_feat == F + 1
     finally:
-        model.forest = old.forest
-        model.__dict__.pop("_score_pack", None)
+        model.forest = [old.forest]
+        model.__dict__.pop("_score_tables", None)
 
 
 # -- the plans on the card -----------------------------------------------------
@@ -243,14 +244,15 @@ def test_card_model_builds_its_table_once(dev):
                                        device=str(dev))
     est.train(y="label", training_frame=fr)
     model = est.model
-    model.__dict__.pop("_score_pack", None)
+    model.__dict__.pop("_score_tables", None)
     host0, dev0 = memory_ledger.measure(model)
     before = score_cuda.pack_builds
     p1 = np.asarray(model.predict(fr).vec("1").data)
-    pack = model._score_pack
+    pack = model._score_tables[0]
     p2 = np.asarray(model.predict(fr).vec("1").data)
     assert score_cuda.pack_builds == before + 1
-    assert model._score_pack is pack and pack.forest is model.forest
+    assert model._score_tables == {0: pack}
+    assert pack.forest is model.forest[0]
     np.testing.assert_array_equal(p1, p2)
     host1, dev1 = memory_ledger.measure(model)
     nbytes = pack.nodes.numel() * pack.nodes.element_size()

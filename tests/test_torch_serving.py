@@ -8,6 +8,7 @@ torch's CUDA errors. The reference's REST cases wait for the port's REST
 layer (ROADMAP queue A, item 11).
 """
 
+import gc
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -410,7 +411,11 @@ def test_engine_serves_a_port_gbm_like_predict(gbm):
 
 def test_scorer_cache_ledger_owner_measures_the_model(gbm):
     """The scorer cache accounts the model it wraps while the DKV does
-    not hold it, and reports 0 while the DKV's owner does."""
+    not hold it, and reports 0 while the DKV's owner does. An earlier
+    test's engine that served the same model sits in a reference cycle
+    until the collector runs, and its cache's owner would claim the model's
+    bytes first; collect it before the ledger pass."""
+    gc.collect()
     cache = ScorerCache(4)
     cache.get_or_build("ledger_m", gbm)
     owner = "scorer:ledger_m:predict"
@@ -435,6 +440,40 @@ def test_measure_splits_tensors_by_device():
 
 
 # -- scorer failover (tests/test_faults.py) -----------------------------------
+
+def test_engine_serves_a_multinomial_model_like_predict():
+    """A 4-class GBM served from 4 threads: each response has the
+    reference's output columns (`predict` and one probability per class)
+    and equals `model.predict` on its rows."""
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(1200, 5))
+    y = np.argmax(2 * X[:, :4] + 0.5 * rng.normal(size=(1200, 4)), axis=1)
+    names = [f"x{i}" for i in range(5)] + ["y"]
+    fr = Frame.from_numpy(np.column_stack([X, y]), names=names).asfactor("y")
+    est = H2OGradientBoostingEstimator(ntrees=3, max_depth=3, seed=1,
+                                       device="cpu")
+    model = est.train(y="y", training_frame=fr).model
+    eng = ScoringEngine(_cfg(max_wait_ms=10.0))
+    reqs = [Frame.from_numpy(rng.normal(size=(int(n), 5)), names=names[:5])
+            for n in rng.integers(1, 200, size=8)]
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        outs = list(ex.map(lambda r: eng.score("multi", model, r), reqs))
+    cols = ["predict", "0", "1", "2", "3"]
+    for r, out in zip(reqs, outs):
+        want = model.predict(r)
+        assert out.names == want.names == cols and out.nrow == r.nrow
+        labels = [[v.domain[c] for c in v.data]
+                  for v in (out.vec("predict"), want.vec("predict"))]
+        assert labels[0] == labels[1]
+        for c in cols[1:]:
+            np.testing.assert_allclose(np.asarray(out.vec(c).data),
+                                       np.asarray(want.vec(c).data),
+                                       rtol=0, atol=1e-6)
+    snap = eng.snapshot()
+    assert snap["cache"]["misses"] == 1 and snap["totals"]["errors"] == 0
+    assert snap["totals"]["fallback_scores"] == 0
+    eng.shutdown()
+
 
 def _serving_model(n, seed):
     rng = np.random.default_rng(seed)
@@ -519,7 +558,7 @@ def test_kernel_failure_reaches_the_caller_not_the_fallback(monkeypatch,
     the meta device, so `forest_score` takes its device path (checks, then
     the build) with no card; the build runs a compiler that fails."""
     model, fr = _serving_model(100, seed=14)
-    model.forest = Tree(*[t.to("meta") for t in model.forest])
+    model.forest = [Tree(*[t.to("meta") for t in f]) for f in model.forest]
     model.device = torch.device("meta")
     monkeypatch.setattr(score_cuda, "_lib", None)
     monkeypatch.setattr(hist_cuda, "BUILD_DIR", tmp_path)

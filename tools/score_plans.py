@@ -190,7 +190,7 @@ def main() -> int:
     del fr
     rng = smoke.np.random.default_rng(17)
     for name, model in (("gbm", gbm), ("drf", drf)):
-        forest, depth = model.forest, model.max_depth
+        forest, depth = model.forest[0], model.max_depth
         nt = int(forest.feat.shape[0])
         torch.cuda.synchronize()
         t0 = smoke.time.perf_counter()
