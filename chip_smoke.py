@@ -109,11 +109,44 @@ result line):
    leaf values, predictions (relative to max(1, |p|) for the log links) and
    history metrics within 1e-5.
 
+17. The Airlines logistic GLM headline (BASELINE.json config 2,
+   `bench.py::bench_glm`'s generator copied here): 1,000,000 rows of
+   DepTime, Distance and the enums Origin (100 levels), Dest (100), Month
+   (12) and DayOfWeek (7), response IsDepDelayed (NO/YES) — 217 slopes and
+   the intercept — through `H2OGeneralizedLinearEstimator(family=
+   "binomial", solver="IRLSM", lambda_=0.0, compute_p_values=True)`,
+   fitted twice (the first pays the solver libraries' first use; the
+   second is checked). The fit must stay on the fused path and converge,
+   every standard error be finite, the training AUC lie within 0.005 of
+   the AUC of the generator's own probabilities, coef()["DepTime"] within
+   5 % of the generator's 0.002, and `predict` on 100,000 fresh rows equal
+   the numpy MOJO scorer within 1e-5. Printed beside the card: the fit's
+   split (host pack, H2D, expansion, IRLS loop, p-values, metrics), the
+   Gram's time per iteration by CUDA events against 2·N·p² over the f32
+   peak and its error against an f64 Gram (TF32 would show), the
+   expansion against its bytes bound, peak device memory.
+18. λ search at full width: phase 17's frame with a 200,000-row validation
+   frame, alpha 0.5, the default 30 λ. The path must have 30 λ, λ_best be
+   the argmin of the printed validation deviances, and the host's f64
+   re-solve at λ_best score no worse on the validation frame than the
+   path's f32 β (within 1e-6 relative). Printed: wall, IRLS iterations and
+   ISTA steps, and from the same fit under torch.profiler its kernel
+   launches, the most launched kernels and the device's busy share of the
+   unprofiled wall.
+19. GLM reference check on small frames (4000 x 5: two numeric columns,
+   three string enums), card against CPU: gaussian OLS, binomial, poisson,
+   gamma, tweedie, ridge, lasso, non_negative, a weighted binomial, λ
+   search with a validation frame and p-values. The same path, IRLS
+   iterations and λ_best; β within 1e-4, predictions within 1e-5. Then the
+   binomial GLM served by `ScoringEngine` from 4 threads, equal to
+   `model.predict`, no batch served by the fallback.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
-them again before their `predict`). The last line is
-{"ok": true, "device": {...}}; the line before it is the kernel table as
-JSON.
+them again before their `predict`; the GLM runs none of the hand-written
+kernels, and phases 17 and 18 fail if it launched one). TF32 must stay off
+through phases 17-19. The last line is {"ok": true, "device": {...}}; the
+line before it is the kernel table as JSON.
 """
 
 from __future__ import annotations
@@ -1360,6 +1393,426 @@ def small_extension_checks(dev):
     return out
 
 
+# phases 17-18: bench.py::bench_glm's Airlines-like frame at the bench's
+# size (1M rows, 217 slopes and the intercept); a validation frame and
+# fresh rows for predict from other seeds
+AIR_ROWS, AIR_VALID, AIR_TEST, AIR_NLAMBDA = 1_000_000, 200_000, 100_000, 30
+# H100 SXM f32 peak outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12
+GLM_GRAM_REPS = 10
+
+
+def make_airlines_like(n: int, seed: int):
+    """bench.py::bench_glm's generator: DepTime, Distance, the enums Origin
+    (100 levels), Dest (100), Month (12) and DayOfWeek (7), and the
+    response IsDepDelayed (NO/YES) drawn from a logistic model in them.
+    Returns (frame, the generator's P(YES) per row, the 0/1 labels)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    dep = rng.integers(0, 2400, n).astype(np.float64)
+    dist = np.abs(rng.normal(800, 500, n))
+    origin = rng.integers(0, 100, n)
+    dest = rng.integers(0, 100, n)
+    month = rng.integers(0, 12, n)
+    dow = rng.integers(0, 7, n)
+    eff = (0.002 * (dep - 1200) + 0.4 * (origin % 7 == 0)
+           - 0.3 * (dest % 11 == 0) + 0.1 * (dow >= 5))
+    p = 1 / (1 + np.exp(-eff))
+    y = (rng.random(n) < p).astype(int)
+    fr = Frame.from_dict(
+        {"DepTime": dep, "Distance": dist,
+         "Origin": np.char.add("O", origin.astype(str)),
+         "Dest": np.char.add("D", dest.astype(str)),
+         "Month": month.astype(str), "DayOfWeek": dow.astype(str),
+         "IsDepDelayed": np.where(y == 1, "YES", "NO")},
+        column_types={"Origin": "enum", "Dest": "enum", "Month": "enum",
+                      "DayOfWeek": "enum", "IsDepDelayed": "enum"})
+    return fr, p, y
+
+
+def tf32_off():
+    """The GLM phases need true f32 products (the reference's
+    Precision.HIGHEST): TF32 would move β by ~1e-3 relative."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError(
+            "TF32 is on: allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+            f"precision {torch.get_float32_matmul_precision()!r}")
+
+
+def kernel_counts():
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
+
+    return dict(hist=hist_cuda.launches, hist_rows=hist_cuda.launches_rows,
+                score=score_cuda.launches)
+
+
+def _design_bytes(dinfo, n: int, p: int) -> int:
+    """Bytes the design's expansion must move: its compact packs read
+    once (numeric columns at their transfer width, int32 codes) and the
+    (n, p) f32 design written once."""
+    width = {0: 1, 1: 2, 2: 4}
+    packed = sum(width[g] for g in dinfo._transfer_groups)
+    packed += 4 * sum(1 for k, _, _ in dinfo._spec if k == "cat")
+    return n * packed + 4 * n * p
+
+
+def airlines_glm_path(dev, fr, p_true, y):
+    """Phase 17: the Airlines logistic headline through the public API;
+    returns its record."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+    from h2o3_tpu_torch.models import estimator_engine, glm
+    from h2o3_tpu_torch.models.metrics import ModelMetricsBinomial
+
+    tf32_off()
+
+    def fit():
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        est = H2OGeneralizedLinearEstimator(
+            family="binomial", solver="IRLSM", lambda_=0.0,
+            compute_p_values=True, device=str(dev))
+        est.train(y="IsDepDelayed", training_frame=fr)
+        torch.cuda.synchronize()
+        return (est.model, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev), kernel_counts())
+
+    # the first fit pays the first use of the solver libraries and of the
+    # expansion's kernels; the second is the steady state, and is checked
+    first, first_wall, _, _ = fit()
+    m, wall, peak, counts = fit()
+    plan, ft = m.fitplan, m.fit_timings
+    auc_true = ModelMetricsBinomial.make(y, p_true).auc
+    coef = m.coef()
+    # the Gram alone at the fit's shape and β, by CUDA events, against its
+    # f32 operation bound and against an f64 Gram (TF32 would be ~1e-3 off)
+    dinfo, Xd = estimator_engine.design_matrix(
+        fr, m.x, standardize=True, add_intercept=True, device=dev)
+    yd = torch.from_numpy(np.asarray(fr.vec("IsDepDelayed").data,
+                                     np.float32)).to(dev)
+    wd = torch.ones_like(yd)
+    bd = torch.as_tensor(np.asarray(m.beta, np.float32), device=dev)
+    gram_ms = time_ms(lambda: glm._gram_step(Xd, yd, wd, bd, "binomial"),
+                      reps=GLM_GRAM_REPS, warmup=2)
+    gram, _ = glm._gram_step(Xd, yd, wd, bd, "binomial")
+    X64 = Xd.double()
+    del Xd
+    mu = torch.sigmoid(X64 @ bd.double())
+    ww = torch.clamp(mu * (1 - mu), min=1e-10)
+    gram64 = (X64 * ww[:, None]).T @ X64
+    del X64, mu, ww
+    gram_err = float(((gram.double() - gram64).abs().max()
+                      / gram64.abs().max()))
+    N, P = AIR_ROWS, len(dinfo.coef_names) + 1
+    gram_bound = 2 * N * P * P / F32_FLOPS_PER_S * 1e3
+    expand_bound = _design_bytes(dinfo, N, P) / HBM_BYTES_PER_S * 1e3
+    del gram64
+    # predict on fresh rows against the numpy MOJO scorer (f64)
+    ft_fr, _, _ = make_airlines_like(AIR_TEST, 1)
+    t1 = time.perf_counter()
+    pred = m.predict(ft_fr)
+    predict_s = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_glm_") as d:
+        scorer = mojo.load_model(mojo.save_model(m, d, "glm.h2o3"))
+        got = scorer.predict(ft_fr)
+    mojo_err = float(np.abs(np.asarray(got.vec("YES").data, np.float64)
+                            - np.asarray(pred.vec("YES").data,
+                                         np.float64)).max())
+    rec = dict(rows=N, p=P, path=plan["path"], iterations=plan["iterations"],
+               converged=plan["converged"], deltas=plan["deltas"],
+               auc=m.auc(), auc_true=auc_true,
+               coef_DepTime=coef["DepTime"],
+               stderr_finite=bool(np.isfinite(m.stderr).all()),
+               wall_s=wall, timings=ft, peak_bytes=peak,
+               first_fit=dict(wall_s=first_wall, timings=first.fit_timings,
+                              iterations=first.fitplan["iterations"]),
+               gram_ms=gram_ms, gram_bound_ms=gram_bound,
+               gram_rel_err_vs_f64=gram_err,
+               expand_bound_ms=expand_bound, predict_rows=AIR_TEST,
+               predict_s=predict_s, mojo_max_abs_err=mojo_err,
+               kernel_counts=counts)
+    print("glm airlines: " + json.dumps(rec), flush=True)
+    print(f"glm airlines on {card_line()}: {N} x {P}, {plan['iterations']} "
+          f"IRLS iterations ({plan['path']}), fit {wall:.3f} s = design "
+          f"{ft['pack_s']:.3f} host pack + {ft['h2d_s']:.3f} H2D + "
+          f"{ft['expand_s'] * 1e3:.3f} ms expansion (bound {expand_bound:.4f} ms), "
+          f"IRLS loop {ft['irls_s']:.3f}, p-values {ft['pvalues_s']:.3f}, "
+          f"metrics {ft['metrics_s']:.3f}; Gram {gram_ms:.3f} ms per "
+          f"iteration against its f32 bound {gram_bound:.3f} ms; peak "
+          f"device memory {peak / 2**30:.2f} GiB; AUC {m.auc():.6f} against "
+          f"the generator's {auc_true:.6f}; the first fit {first_wall:.3f} s",
+          flush=True)
+    bad = []
+    if plan["path"] != "fused" or not plan["converged"]:
+        bad.append(f"the fit left the fused path or did not converge: {plan}")
+    if abs(m.auc() - auc_true) > 0.005:
+        bad.append(f"training AUC {m.auc():.6f} is more than 0.005 from "
+                   f"the generator's {auc_true:.6f}")
+    if abs(coef["DepTime"] - 0.002) > 0.05 * 0.002:
+        bad.append(f"coef DepTime {coef['DepTime']:.6g} is more than 5 % "
+                   "from the generator's 0.002")
+    if not rec["stderr_finite"]:
+        bad.append("a standard error is not finite")
+    if not mojo_err <= 1e-5:
+        bad.append(f"predict differs from the MOJO scorer by {mojo_err:.3e}")
+    # an f32 sum over 1M rows errs by up to ~eps·sqrt(N) ≈ 6e-5 relative;
+    # TF32 rounds every operand to 10 bits, ~5e-4 a product
+    if gram_err > 1e-4:
+        bad.append(f"the Gram is {gram_err:.2e} (relative) from f64: TF32?")
+    if any(counts.values()):
+        bad.append(f"the GLM fit launched a tree kernel: {counts}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    tf32_off()
+    return rec
+
+
+def _valid_deviance(model, fv):
+    """A binomial model's deviance on `fv` rescored on the host in f64:
+    2 · rows · logloss."""
+    return 2.0 * fv.nrow * float(model.model_performance(fv).logloss)
+
+
+def airlines_lambda_path(dev, fr, fv):
+    """Phase 18: λ search with a validation frame at full width; returns
+    its record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from h2o3_tpu_torch import convert
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+
+    tf32_off()
+    params = dict(family="binomial", alpha=0.5, lambda_search=True,
+                  device=str(dev))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = H2OGeneralizedLinearEstimator(**params)
+    est.train(y="IsDepDelayed", training_frame=fr, validation_frame=fv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    m = est.model
+    plan = m.fitplan
+    devs = plan["path_deviances"]
+    best = plan["best_index"]
+    # the chosen λ's f32 path β and the host's f64 re-solve, both rescored
+    di = m.dinfo
+    path_model = convert.glm_from_numpy(
+        beta=m.full_path[best][1], family="binomial", x=m.x, y=m.y,
+        spec=di._spec, coef_names=di.coef_names, means=di.means,
+        stds=di.stds, col_means=di.col_means,
+        transfer_groups=di._transfer_groups, domain=m.domain, device=dev)
+    dev_path = _valid_deviance(path_model, fv)
+    dev_resolved = _valid_deviance(m, fv)
+    # the same fit under torch.profiler (device activity only): launches
+    # and device time; the busy share is over the unprofiled wall
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        H2OGeneralizedLinearEstimator(**params).train(
+            y="IsDepDelayed", training_frame=fr, validation_frame=fv)
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t1
+    # the raw device activity records (no FunctionEvent tree: a path's
+    # ~250,000 records would take minutes to build one)
+    dev_events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+    kernels = [e for e in dev_events
+               if not e.name().startswith(("Memcpy", "Memset"))]
+    busy_s = sum(e.duration_ns() for e in dev_events) / 1e9
+    top = Counter(e.name()[:60] for e in kernels).most_common(6)
+    rec = dict(rows=fr.nrow, valid_rows=fv.nrow, path=plan["path"],
+               nlambda=len(m.full_path), lambda_best=m.lambda_best,
+               best_index=best, path_deviances=devs,
+               irls_iterations=plan["irls_iterations"],
+               ista_steps=plan["ista_steps"], wall_s=wall,
+               timings=m.fit_timings, kernel_launches=len(kernels),
+               device_events=len(dev_events), device_busy_s=busy_s,
+               busy_share=busy_s / wall, profiled_wall_s=prof_wall,
+               valid_deviance_path=dev_path,
+               valid_deviance_resolved=dev_resolved,
+               top_kernels=top, kernel_counts=counts)
+    print("glm lambda path: " + json.dumps(rec), flush=True)
+    print(f"glm lambda path on {card_line()}: {len(m.full_path)} λ, best "
+          f"#{best} λ={m.lambda_best:.6g}, {plan['irls_iterations']} IRLS "
+          f"iterations, {plan['ista_steps']} ISTA steps, "
+          f"{len(kernels)} kernel launches; fit {wall:.3f} s, device busy "
+          f"{busy_s:.3f} s ({100 * busy_s / wall:.2f} %); validation "
+          f"deviance at λ_best: path {dev_path:.6f}, re-solved "
+          f"{dev_resolved:.6f}", flush=True)
+    bad = []
+    if plan["path"] != "fused_path" or len(m.full_path) != AIR_NLAMBDA:
+        bad.append(f"path {plan['path']} with {len(m.full_path)} λ")
+    if int(np.argmin(devs)) != best or m.lambda_best != m.full_path[best][0]:
+        bad.append(f"λ_best #{best} is not the argmin of the validation "
+                   "deviances")
+    # the re-solve (f64, ISTA to 1e-9) may not score worse than the f32
+    # path's β beyond 1e-6 relative: the two solve the same problem to
+    # β_eps, and a gap that small is below the f32 rescoring's resolution
+    if not (np.isfinite(dev_resolved)
+            and dev_resolved <= dev_path * (1 + 1e-6)):
+        bad.append(f"re-solved deviance {dev_resolved} above the path's "
+                   f"{dev_path}")
+    if any(counts.values()):
+        bad.append(f"the λ path launched a tree kernel: {counts}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    tf32_off()
+    return rec
+
+
+def glm_small_frame(n: int, seed: int, family: str, weights: bool = False):
+    """tests/test_torch_glm.py::glm_frame: two numeric columns (one with
+    3 % NaN) and three string enums of 4, 3 and 5 levels, the response
+    drawn from `family` around a linear predictor in all five."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=n)
+    b = rng.uniform(0, 4, n)
+    c1 = rng.integers(0, 4, n)
+    c2 = rng.integers(0, 3, n)
+    c3 = rng.integers(0, 5, n)
+    eta = (0.8 * np.nan_to_num(a) - 0.3 * b + np.asarray([0, .5, -.4, .2])[c1]
+           + np.asarray([0, -.6, .3])[c2] + 0.15 * c3)
+    if family == "gaussian":
+        y = 1.0 + eta + 0.5 * rng.normal(size=n)
+    elif family == "binomial":
+        y = np.where(rng.random(n) < 1 / (1 + np.exp(-eta)), "yes",
+                     "no").astype(object)
+    elif family == "poisson":
+        y = rng.poisson(np.exp(0.5 * eta)).astype(np.float64)
+    elif family == "gamma":
+        y = rng.gamma(2.0, np.exp(0.5 * eta + 1.0) / 2.0)
+    else:  # tweedie: a compound Poisson-gamma with exact zeros
+        y = rng.poisson(np.exp(0.5 * eta)) * rng.gamma(2.0, 0.5, n)
+    a = a.copy()
+    a[rng.random(n) < 0.03] = np.nan
+    d = {"a": a, "b": b,
+         "c1": np.asarray(["ORD", "JFK", "SFO", "ATL"], dtype=object)[c1],
+         "c2": np.asarray(["mon", "tue", "wed"], dtype=object)[c2],
+         "c3": np.asarray([f"L{i}" for i in range(5)], dtype=object)[c3],
+         "y": y}
+    if weights:
+        d["w"] = rng.uniform(0.5, 2.0, n)
+    types = {"c1": "enum", "c2": "enum", "c3": "enum"}
+    if family == "binomial":
+        types["y"] = "enum"
+    return Frame.from_dict(d, column_types=types)
+
+
+GLM_SMALL_CASES = {
+    "gaussian_ols": ("gaussian", dict(lambda_=0.0)),
+    "binomial": ("binomial", dict(lambda_=0.0)),
+    "poisson": ("poisson", dict(lambda_=0.0)),
+    "gamma": ("gamma", dict(lambda_=0.0)),
+    "tweedie": ("tweedie", dict(lambda_=0.0)),
+    "ridge": ("gaussian", dict(lambda_=0.05, alpha=0.0)),
+    "lasso": ("gaussian", dict(lambda_=0.02, alpha=1.0)),
+    "non_negative": ("gaussian", dict(lambda_=0.0, non_negative=True)),
+    "weighted_binomial": ("binomial", dict(lambda_=0.0, weights_column="w")),
+    "lambda_search_valid": ("binomial", dict(lambda_search=True, alpha=0.5,
+                                             nlambdas=10)),
+    "pvalues_gamma": ("gamma", dict(lambda_=0.0, compute_p_values=True)),
+}
+
+
+def small_glm_checks(dev):
+    """Phase 19: GLM on small frames (4000 x 5), card against CPU (whose
+    plain path the CPU tests hold against the JAX package): the same path,
+    IRLS iterations and λ chosen; β within 1e-4 and predictions within
+    1e-5 (relative to max(1, |p|) for the log links): the card's cuBLAS
+    Gram adds its f32 sums in another order than the CPU's, so β differs in
+    its last bits (~1e-6 on these frames), as between the CPU and the JAX
+    package. Standard errors within 1e-4 relative. Then the binomial GLM
+    served by `ScoringEngine` on the card from 4 threads. Every case is
+    fitted and printed before the first failure is raised."""
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    tf32_off()
+    x = ["a", "b", "c1", "c2", "c3"]
+    out, bad, models = {}, [], {}
+    for name, (family, params) in GLM_SMALL_CASES.items():
+        weights = "weights_column" in params
+        fr = glm_small_frame(4000, 0, family, weights=weights)
+        fv = glm_small_frame(1500, 1, family, weights=weights)
+        valid = fv if params.get("lambda_search") else None
+        fits = []
+        for d in (str(dev), "cpu"):
+            e = H2OGeneralizedLinearEstimator(family=family, device=d,
+                                              **params)
+            e.train(x=x, y="y", training_frame=fr, validation_frame=valid)
+            fits.append(e.model)
+        a, b = fits
+        pa, pb = a.predict(fv), b.predict(fv)
+        cols = pa.names[1:] if family == "binomial" else pa.names
+        scale = 1.0
+        if family in ("poisson", "gamma", "tweedie"):
+            scale = max(1.0, float(np.abs(np.asarray(
+                pb.vec("predict").data)).max()))
+        dp = max(float(np.abs(np.asarray(pa.vec(c).data, np.float64)
+                              - np.asarray(pb.vec(c).data, np.float64)).max())
+                 for c in cols)
+        db = float(np.abs(np.asarray(a.beta) - np.asarray(b.beta)).max())
+        dse = (float(np.max(np.abs(a.stderr - b.stderr) / b.stderr))
+               if b.stderr is not None else 0.0)
+        keys = ("path", "iterations", "best_index")
+        rec = dict(plans=[{k: f.fitplan.get(k) for k in keys}
+                          for f in fits],
+                   lambda_best=[a.lambda_best, b.lambda_best],
+                   max_beta_diff=db, max_predict_diff=dp,
+                   predict_scale=scale, max_stderr_rel_diff=dse)
+        out[name] = rec
+        print(f"glm small check {name}: " + json.dumps(rec), flush=True)
+        if rec["plans"][0] != rec["plans"][1] or \
+                a.fitplan["path"] not in ("fused", "fused_path"):
+            bad.append(f"{name}: cuda and cpu fits ran other paths or "
+                       "iterations")
+        if abs(a.lambda_best - b.lambda_best) > 1e-5 * max(b.lambda_best,
+                                                          1e-300):
+            bad.append(f"{name}: λ_best {a.lambda_best} vs {b.lambda_best}")
+        if db > 1e-4 or dp > 1e-5 * scale or dse > 1e-4:
+            bad.append(f"{name}: cuda and cpu fits disagree beyond the "
+                       "tolerance")
+        models[name] = a
+    # the binomial GLM served on the card
+    model = models["binomial"]
+    rng = np.random.default_rng(51)
+    reqs = []
+    for i, n in enumerate(rng.integers(1, 301, 24)):
+        fr = glm_small_frame(int(n), 100 + i, "binomial")
+        reqs.append(fr[[c for c in fr.names if c != "y"]])
+    engine = ScoringEngine(ServingConfig())
+    zero_counts()
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        served = list(ex.map(lambda r: engine.score("glm", model, r), reqs))
+    snap = engine.snapshot()
+    engine.shutdown()
+    worst = max(float(np.abs(np.asarray(o.vec("yes").data, np.float64)
+                             - np.asarray(model.predict(r).vec("yes").data,
+                                          np.float64)).max())
+                for r, o in zip(reqs, served))
+    tot, fo = snap["totals"], snap["failover"]
+    print(f"glm serving: {len(reqs)} requests in {tot['batches']} batches, "
+          f"max |served - predict| {worst:.3e}, fallback scores "
+          f"{tot['fallback_scores']}, errors {tot['errors']}", flush=True)
+    if worst > 1e-6 or tot["fallback_scores"] or fo["fallback_builds"] \
+            or tot["errors"] or snap["cache"]["misses"] != 1:
+        bad.append("serving the GLM: " + json.dumps(dict(
+            worst=worst, totals=tot, failover=fo)))
+    if bad:
+        raise AssertionError("; ".join(bad))
+    tf32_off()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1412,6 +1865,12 @@ def main() -> int:
     multinomial_drf_path(dev, fr_cov, fv_cov)
     del fr_cov, fv_cov
     small_extension_checks(dev)
+    fr_air, p_air, y_air = make_airlines_like(AIR_ROWS, 0)
+    airlines_glm_path(dev, fr_air, p_air, y_air)
+    fv_air, _, _ = make_airlines_like(AIR_VALID, 2)
+    airlines_lambda_path(dev, fr_air, fv_air)
+    del fr_air, fv_air
+    small_glm_checks(dev)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)

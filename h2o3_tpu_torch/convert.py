@@ -1,4 +1,4 @@
-"""Carry a trained tree model across from its numpy arrays.
+"""Carry a trained model across from its numpy arrays.
 
 A tree model's "weights" are its forests: per class forest (K of them for a
 multinomial model, else one) and per tree the heap arrays `feat`, `bin`,
@@ -8,6 +8,12 @@ mode (``"gbm"`` sums the trees through the link; ``"drf"`` averages them).
 `forest_from_numpy` builds the port's model from them, so a GBM or DRF
 model trained by the JAX package (whose arrays the caller reads out as
 numpy) scores in the port.
+
+A GLM's weights are its standardized β (intercept last), its family and
+response domain, and the state of its `DataInfo`: the column spec, the
+coefficient names, the standardization stats, the imputation means and the
+transfer groups frozen at fit. `glm_from_numpy` builds the port's
+`GLMModel` from them.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import torch
 from . import device as devlib
 from .frame.binning import BinnedMatrix
 from .models import tree as treelib
+from .models.glm import FAMILIES, GLMModel
+from .models.model_base import DataInfo
 from .models.shared_tree import SharedTreeModel
 
 
@@ -83,3 +91,32 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0,
     return SharedTreeModel(None, x, y, bm, problem, nclass, domain,
                            distribution, f0_v, forest, cov, int(max_depth), dev,
                            mode=mode)
+
+
+def glm_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
+                   coef_names: Sequence[str], means=None, stds=None,
+                   col_means=None, transfer_groups=None,
+                   standardize: bool = True, use_all: bool = False,
+                   domain: Optional[List[str]] = None,
+                   lambda_best: float = 0.0, device=None) -> GLMModel:
+    """Port GLM from a reference GLM's state: `beta` the (p+1,) standardized
+    coefficients with the intercept last; `spec` the `DataInfo._spec`
+    entries ("num", name, None) / ("cat", name, domain); `means`/`stds` the
+    standardization stats (None when not standardized); `col_means` the
+    imputation means; `transfer_groups` the numeric columns' upload dtypes
+    (`DataInfo._transfer_groups`); `domain` the response levels of a
+    binomial model."""
+    if family not in FAMILIES or family in ("AUTO", "multinomial"):
+        raise ValueError(f"family {family!r}: expected a fitted IRLS family")
+    b = np.asarray(beta, np.float64)
+    if b.shape != (len(coef_names) + 1,):
+        raise ValueError(f"beta: expected ({len(coef_names) + 1},) for "
+                         f"{len(coef_names)} coefficients, got {b.shape}")
+    dinfo = DataInfo.from_state(
+        spec=spec, coef_names=coef_names, standardize=standardize,
+        use_all=use_all, means=means, stds=stds, col_means=col_means,
+        transfer_groups=transfer_groups)
+    if list(x) != dinfo.x:
+        raise ValueError("x must name the spec's columns in order")
+    return GLMModel(None, x, y, dinfo, family, b, domain,
+                    lambda_best=float(lambda_best), device=device)

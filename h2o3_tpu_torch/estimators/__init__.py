@@ -2,5 +2,7 @@
 
 from ..models.drf import H2ORandomForestEstimator
 from ..models.gbm import H2OGradientBoostingEstimator
+from ..models.glm import H2OGeneralizedLinearEstimator
 
-__all__ = ["H2OGradientBoostingEstimator", "H2ORandomForestEstimator"]
+__all__ = ["H2OGeneralizedLinearEstimator", "H2OGradientBoostingEstimator",
+           "H2ORandomForestEstimator"]

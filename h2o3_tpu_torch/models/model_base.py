@@ -1,12 +1,14 @@
 """Model framework — the estimator lifecycle and the trained-model surface.
 
 Port of the parts of `h2o3_tpu/models/model_base.py` the tree estimators
-use: `H2OModel` (metric accessors, `predict`, `model_performance`, the
-scoring history), `H2OEstimator` (parameter checking, `train` with a
-validation frame), `ScoringHistory` and `ScoreKeeper` (`hex.ScoreKeeper`'s
-moving-average early stopping). Cross-validation, offsets, checkpoints,
-jobs, the REST/DKV surface and `DataInfo` are not ported yet (ROADMAP
-queue A, items 5, 8 and 11).
+and GLM use: `H2OModel` (metric accessors, `predict`, `model_performance`,
+the scoring history), `H2OEstimator` (parameter checking, `train` with a
+validation frame), `ScoringHistory`, `ScoreKeeper` (`hex.ScoreKeeper`'s
+moving-average early stopping) and `DataInfo` (`hex.DataInfo`: the
+standardized one-hot design, its stats fit on the host and its expansion
+on the device). Cross-validation, offsets, checkpoints, jobs and the
+REST/DKV surface are not ported yet (ROADMAP queue A, items 5 and 11);
+neither are `DataInfo`'s multi-device and multi-process layouts (item 9).
 """
 
 from __future__ import annotations
@@ -16,16 +18,71 @@ import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from .. import device as devlib
 from ..frame.frame import Frame
 from ..frame.vec import Vec
 from .metrics import ModelMetricsBase
 
 _model_counter = itertools.count()
 
-# scorer row bucket: tree scoring pads its row dimension to this multiple,
-# as the reference does, so scoring inputs keep a fixed grid of shapes
+# scorer row bucket: tree scoring and the GLM scoring design pad their row
+# dimension to this multiple, as the reference does, so scoring inputs
+# keep a fixed grid of shapes
 SCORE_ROW_BUCKET = 512
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def expand_design(spec, use_all: bool, standardized: bool,
+                  add_intercept: bool, nums8, nums16, nums32, cats, means,
+                  stds) -> torch.Tensor:
+    """The design matrix from its compact packs, on the packs' device — the
+    plain torch form of the reference's jitted `_device_expand_fn`.
+
+    `spec` holds per input column ("num", transfer group) or ("cat", K).
+    Numeric columns arrive in three transfer groups (uint8, int16, f32) and
+    widen to f32 here; a categorical column's int32 codes become K one-hot
+    columns (K − 1 without `use_all`; a code of −1 — NA or an unseen level —
+    is all zeros). Then (X − means) / stds, NaN → 0 and the intercept
+    column, as the reference does. The output is allocated once and filled
+    and standardized in place (the reference's arrays are immutable, so it
+    materializes each step; in place keeps the peak at one design matrix)."""
+    groups = (nums8, nums16, nums32)
+    n = cats.shape[0]
+    widths = [1 if kind == "num" else (K if use_all or K == 0 else K - 1)
+              for kind, K in spec]
+    p = sum(widths)
+    dev = cats.device
+    X = torch.empty((n, p + int(add_intercept)), dtype=torch.float32,
+                    device=dev)
+    idx = [0, 0, 0]
+    ci = 0
+    pos = 0
+    for (kind, K), width in zip(spec, widths):
+        if kind == "num":
+            g = K  # for num entries, K carries the transfer group id
+            X[:, pos] = groups[g][:, idx[g]]
+            idx[g] += 1
+        else:
+            codes = cats[:, ci]
+            ci += 1
+            first = 0 if use_all else 1
+            lv = torch.arange(first, K, dtype=torch.int32, device=dev)
+            X[:, pos:pos + width] = codes[:, None] == lv[None, :]
+        pos += width
+    body = X[:, :p]
+    if standardized:
+        body.sub_(means[None, :]).div_(stds[None, :])
+    # trailing NaN cleanup, mirroring fit_transform/transform
+    body.nan_to_num_(nan=0.0)
+    if add_intercept:
+        X[:, p] = 1.0
+    return X
 
 
 class ScoringHistory(list):
@@ -76,6 +133,310 @@ class ScoreKeeper:
         return recent >= best_prior - margin
 
 
+class DataInfo:
+    """`hex.DataInfo` — Frame → dense numeric design matrix.
+
+    use_all_factor_levels / standardize / imputeMissing mirror the reference
+    flags; categorical expansion is one-hot (the reference's default enum
+    encoding for GLM/DL). A copy of the reference's class: the host half
+    (spec, coefficient names, stats, `fit_transform`, `transform`) is its
+    numpy code, byte for byte; `device_design` uploads the compact packs and
+    expands them with `expand_design` on the device."""
+
+    def __init__(
+        self,
+        frame: Frame,
+        x: Sequence[str],
+        standardize: bool = True,
+        use_all_factor_levels: bool = False,
+        impute_missing: bool = True,
+        max_categorical_levels: int = 1000,
+    ):
+        self.x = list(x)
+        self.standardize = standardize
+        self.use_all = use_all_factor_levels
+        self.coef_names: List[str] = []
+        self._spec = []  # per input col: ("num", name) | ("cat", name, domain)
+        for n in self.x:
+            v = frame.vec(n)
+            if v.type == "enum":
+                dom = (v.domain or [])[:max_categorical_levels]
+                self._spec.append(("cat", n, dom))
+                levels = dom if use_all_factor_levels else dom[1:]
+                self.coef_names += [f"{n}.{d}" for d in levels]
+            else:
+                self._spec.append(("num", n, None))
+                self.coef_names.append(n)
+        self.means: Optional[np.ndarray] = None
+        self.stds: Optional[np.ndarray] = None
+        self.impute_missing = impute_missing
+        self.col_means: Dict[str, float] = {}
+
+    @classmethod
+    def from_state(cls, *, spec, coef_names, standardize: bool,
+                   use_all: bool, means=None, stds=None, col_means=None,
+                   transfer_groups=None,
+                   impute_missing: bool = True) -> "DataInfo":
+        """A fitted DataInfo from its stored state (a model carried across
+        from the reference, see `convert.glm_from_numpy`)."""
+        self = cls.__new__(cls)
+        self._spec = [(k, n, list(d) if d is not None else None)
+                      for k, n, d in spec]
+        self.x = [n for _, n, _ in self._spec]
+        self.coef_names = list(coef_names)
+        self.standardize = bool(standardize)
+        self.use_all = bool(use_all)
+        self.means = (np.asarray(means, np.float64)
+                      if means is not None else None)
+        self.stds = np.asarray(stds, np.float64) if stds is not None else None
+        self.impute_missing = impute_missing
+        self.col_means = {k: float(v) for k, v in (col_means or {}).items()}
+        if transfer_groups is not None:
+            self._transfer_groups = [int(g) for g in transfer_groups]
+        return self
+
+    def fit_transform(self, frame: Frame) -> np.ndarray:
+        X = self._expand(frame, fit=True)
+        if self.standardize:
+            self.means = np.nanmean(X, axis=0)
+            self.stds = np.nanstd(X, axis=0)
+            self.stds = np.where(self.stds < 1e-10, 1.0, self.stds)
+            X = (X - self.means) / self.stds
+        return np.nan_to_num(X, nan=0.0).astype(np.float32)
+
+    def transform(self, frame: Frame) -> np.ndarray:
+        X = self._expand(frame, fit=False)
+        if self.standardize and self.means is not None:
+            X = (X - self.means) / self.stds
+        return np.nan_to_num(X, nan=0.0).astype(np.float32)
+
+    def device_design(self, frame: Frame, fit: bool,
+                      add_intercept: bool = False, cloud=None,
+                      quota: Optional[int] = None,
+                      row_bucket: int = 0, device=None,
+                      timings: Optional[Dict[str, float]] = None):
+        """Expanded design matrix built ON DEVICE from compact columns.
+
+        Semantically identical to fit_transform/transform (same one-hot
+        layout, imputation, standardization — the stats are derived
+        analytically from the codes), but the host→device transfer is the
+        compact representation (numeric columns at 1, 2 or 4 bytes and
+        categorical int32 codes, ~P_cat× smaller than the dense one-hot),
+        and `expand_design` expands it on the device. With `row_bucket` the
+        rows pad to its multiple; the pad rows expand to values the CALLER
+        slices off on the host.
+
+        `cloud`/`quota` (the reference's row-sharded multi-device and
+        multi-process assembly) are not ported. `timings`, when given,
+        receives the host-clock split pack_s / h2d_s / expand_s (the device
+        is synchronised at each mark)."""
+        if cloud is not None or quota is not None:
+            raise NotImplementedError(
+                "DataInfo.device_design over a multi-device or "
+                "multi-process cloud is not ported (ROADMAP queue A, item 9)")
+        dev = devlib.resolve(device)
+        t0 = time.perf_counter()
+        n = frame.nrow
+        nums, cats = [], []
+        means, stds = [], []
+        # wide-numeric fast pre-pass: per-column nanmean/nanstd/isnan calls
+        # cost ~2 s of host time at MNIST width (784 × 60k); batching them
+        # as axis-0 reductions over one stacked matrix is ~10× cheaper and
+        # numerically identical
+        _num_cols = [nm for k, nm, _ in self._spec if k == "num"]
+        _pre = {}
+        if len(_num_cols) > 8:
+            mat = np.stack([frame.vec(nm).numeric_np()
+                            for nm in _num_cols], axis=1)
+            nan_mask = np.isnan(mat)
+            has_nan_vec = nan_mask.any(axis=0)
+            if fit:
+                has_valid = ~nan_mask.all(axis=0)
+                with np.errstate(all="ignore"):
+                    mvec = np.where(has_valid, np.nanmean(mat, axis=0), 0.0)
+                    svec = np.where(has_valid, np.nanstd(mat, axis=0), 0.0)
+                nvalid = (~nan_mask).sum(axis=0)
+                # isfinite-else-0.0, matching the narrow per-column path:
+                # nan_to_num would map an infinite column mean to ±1.8e308
+                # and diverge the standardization stats by frame width
+                _pre = {nm: (mat[:, j], bool(has_nan_vec[j]),
+                             float(mvec[j]) if np.isfinite(mvec[j]) else 0.0,
+                             float(svec[j]) if np.isfinite(svec[j]) else 0.0,
+                             int(nvalid[j]))
+                        for j, nm in enumerate(_num_cols)}
+            else:
+                # scoring path: stats come from the stored fit-time values;
+                # only the column data + NaN flags are needed
+                _pre = {nm: (mat[:, j], bool(has_nan_vec[j]), 0.0, 0.0, 0)
+                        for j, nm in enumerate(_num_cols)}
+        pos = 0  # expanded-column position (for stored-stat lookups)
+        for kind, name, dom in self._spec:
+            v = frame.vec(name)
+            if kind == "num":
+                if name in _pre:
+                    c, has_nan, pre_m, pre_s, n_ok = _pre[name]
+                else:
+                    c = v.numeric_np()
+                    has_nan = bool(np.isnan(c).any())
+                    n_ok = int((~np.isnan(c)).sum()) if fit else 0
+                    pre_m = pre_s = 0.0
+                    if fit:
+                        with np.errstate(all="ignore"):
+                            pre_m = (float(np.nanmean(c)) if n_ok else 0.0)
+                            pre_s = (float(np.nanstd(c)) if n_ok else 0.0)
+                        pre_m = pre_m if np.isfinite(pre_m) else 0.0
+                        pre_s = pre_s if np.isfinite(pre_s) else 0.0
+                if self.impute_missing:
+                    if fit:
+                        self.col_means[name] = pre_m
+                    if has_nan:
+                        c = np.where(np.isnan(c),
+                                     self.col_means.get(name, 0.0), c)
+                        # post-impute plain std: mean-filling leaves the
+                        # mean unchanged and shrinks the variance by the
+                        # valid-row fraction (exactly, analytically)
+                        pre_s = pre_s * float(np.sqrt(n_ok / max(n, 1)))
+                if fit and self.standardize:
+                    # stats over valid rows only (nanmean/nanstd), exactly
+                    # like fit_transform. All-NaN columns get (0, 1) so
+                    # they standardize to the zeros fit_transform's
+                    # trailing nan_to_num produces.
+                    means.append([pre_m])
+                    stds.append([pre_s if pre_s >= 1e-10 else 1.0])
+                if not self.impute_missing and has_nan:
+                    if self.standardize:
+                        # fit_transform zeroes missing AFTER scaling, so the
+                        # raw fill that standardizes to 0 is the column mean
+                        mm = (means[-1][0] if fit
+                              else float(self.means[pos])
+                              if self.means is not None else 0.0)
+                        c = np.where(np.isnan(c), mm, c)
+                    else:
+                        c = np.nan_to_num(c, nan=0.0)
+                nums.append(c.astype(np.float32))
+                pos += 1
+            else:
+                codes = np.asarray(v.data)
+                if v.domain != dom and v.domain:
+                    remap = np.asarray(
+                        [dom.index(d) if d in dom else -1 for d in v.domain],
+                        np.int64)
+                    codes = np.where(codes >= 0, remap[np.maximum(codes, 0)], -1)
+                cats.append(codes.astype(np.int32))
+                if fit and self.standardize:
+                    K = len(dom)
+                    cnt = np.bincount(codes[codes >= 0], minlength=K)[:K]
+                    p_lvl = cnt / max(n, 1)
+                    lv = p_lvl if self.use_all else p_lvl[1:]
+                    means.append(lv.tolist())
+                    stds.append([float(s) if (s := np.sqrt(pl * (1 - pl))) >= 1e-10
+                                 else 1.0 for pl in lv])
+                pos += len(dom) if self.use_all else max(len(dom) - 1, 0)
+        if fit and self.standardize:
+            self.means = np.asarray(
+                [m for grp in means for m in grp], np.float64)
+            self.stds = np.asarray(
+                [s for grp in stds for s in grp], np.float64)
+
+        cats_a = (np.stack(cats, axis=1) if cats
+                  else np.zeros((n, 0), np.int32))
+
+        # per-column transfer dtype: integer-valued small-range columns
+        # ship as 1–2 bytes/value (LOSSLESS — C1Chunk/C2Chunk parity);
+        # everything else as f32. The layout is FROZEN at fit: a scoring
+        # frame keeps the stored groups when its values still fit them,
+        # and falls back to all-f32 otherwise, as the reference does.
+        def _fits_group(c, g):
+            if g == 2:
+                return True
+            if not c.size:
+                return False
+            with np.errstate(invalid="ignore"):
+                if not bool(np.all(np.mod(c, 1.0) == 0.0)):
+                    return False
+            lo, hi = (0.0, 255.0) if g == 0 else (-32768.0, 32767.0)
+            return bool(lo <= c.min() and c.max() <= hi)
+
+        if fit:
+            num_group = [0 if _fits_group(c, 0) else 1 if _fits_group(c, 1)
+                         else 2 for c in nums]
+            self._transfer_groups = list(num_group)
+        else:
+            stored = getattr(self, "_transfer_groups", None)
+            ok = bool(stored is not None and len(stored) == len(nums) and all(
+                _fits_group(c, g) for c, g in zip(nums, stored)))
+            num_group = stored if ok else [2] * len(nums)
+        groups = ([], [], [])                 # uint8, int16, f32
+        for c, g in zip(nums, num_group):
+            groups[g].append(c)
+        dts = (np.uint8, np.int16, np.float32)
+        packs = [
+            (np.stack(g, axis=1).astype(dt) if g
+             else np.zeros((n, 0), dt))
+            for g, dt in zip(groups, dts)
+        ]
+        gi = iter(num_group)
+        spec = tuple((k, next(gi) if k == "num" else (len(d) if d else 0))
+                     for k, _, d in self._spec)
+        standardized = self.standardize and self.means is not None
+        m_h = (np.asarray(self.means, np.float32) if standardized
+               else np.zeros(0, np.float32))
+        s_h = (np.asarray(self.stds, np.float32) if standardized
+               else np.ones(0, np.float32))
+        if row_bucket:
+            # quantize the row dimension: nearby scoring frame sizes share
+            # one shape; the zero-filled pad rows expand to garbage the
+            # CALLER slices off
+            npad_b = -(-n // row_bucket) * row_bucket
+            if npad_b != n:
+                packs = [np.concatenate(
+                    [p, np.zeros((npad_b - n,) + p.shape[1:], p.dtype)])
+                    for p in packs]
+                cats_a = np.concatenate(
+                    [cats_a, np.zeros((npad_b - n, cats_a.shape[1]),
+                                      cats_a.dtype)])
+        t_pack = time.perf_counter()
+        up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (*packs, cats_a, m_h, s_h)]
+        if timings is not None:
+            _sync(dev)
+        t_h2d = time.perf_counter()
+        X = expand_design(spec, self.use_all, standardized, add_intercept,
+                          *up)
+        if timings is not None:
+            _sync(dev)
+            timings.update(pack_s=t_pack - t0, h2d_s=t_h2d - t_pack,
+                           expand_s=time.perf_counter() - t_h2d)
+        return X
+
+    def _expand(self, frame: Frame, fit: bool) -> np.ndarray:
+        cols = []
+        for kind, n, dom in self._spec:
+            v = frame.vec(n)
+            if kind == "num":
+                c = v.numeric_np()
+                if self.impute_missing:
+                    if fit:
+                        self.col_means[n] = float(np.nanmean(c))
+                    c = np.where(np.isnan(c), self.col_means.get(n, 0.0), c)
+                cols.append(c[:, None])
+            else:
+                codes = np.asarray(v.data)
+                if v.domain != dom and v.domain:
+                    remap = np.asarray(
+                        [dom.index(d) if d in dom else -1 for d in v.domain], np.int64
+                    )
+                    codes = np.where(codes >= 0, remap[np.maximum(codes, 0)], -1)
+                K = len(dom)
+                oh = np.zeros((len(codes), K))
+                valid = codes >= 0
+                oh[np.nonzero(valid)[0], codes[valid]] = 1.0
+                if not self.use_all and K > 0:
+                    oh = oh[:, 1:]
+                cols.append(oh)
+        return np.concatenate(cols, axis=1) if cols else np.zeros((frame.nrow, 0))
+
+
 class H2OModel:
     """Trained-model half of `hex.Model` + the `h2o-py` ModelBase surface."""
 
@@ -117,6 +478,12 @@ class H2OModel:
 
     def varimp(self, use_pandas=False):
         return self.varimp_table
+
+    def summary(self):
+        """Model summary table (h2o-py ModelBase.summary) — generic form;
+        concrete models override with their specifics."""
+        return dict(model_id=self.model_id, algo=self.algo,
+                    run_time_s=round(self.run_time, 3))
 
     def predict(self, test_data: Frame) -> Frame:
         raise NotImplementedError

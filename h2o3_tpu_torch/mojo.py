@@ -10,12 +10,17 @@ here.
 
 A GBM or DRF is written as its K class forests `forest{k}_*` (K = the
 class count of a multinomial model, else 1) with ``n_forests = K`` and the
-f0 list, each forest's covers as `forest{k}_cover`. `MojoScorer` scores
+f0 list, each forest's covers as `forest{k}_cover`. A GLM is written as
+its standardized β (`beta`, f64, intercept last), the standardization
+stats (`means`, `stds`) and its `DataInfo` state (`meta["dinfo"]`: column
+spec, coefficient names, flags and imputation means). `MojoScorer` scores
 tree artifacts with the reference's numpy walk, summing in f64, through
-each distribution's link; the reference's native C++ scorer
-(`native/loader.py`) and the other algorithms' payloads are not ported yet
-(ROADMAP queue A, item 11). Exporting any other model raises the
-reference's `TypeError`.
+each distribution's link, and GLM artifacts by the reference's numpy
+expansion and matvec in f64 (a reference multinomial GLM's artifact
+included; the port fits no multinomial GLM yet, ROADMAP queue A, item 8).
+The reference's native C++ scorer (`native/loader.py`) and the other
+algorithms' payloads are not ported yet (ROADMAP queue A, items 10 and
+11). Exporting any other model raises the reference's `TypeError`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ FORMAT_VERSION = 1
 
 def _model_payload(model) -> Dict[str, Any]:
     """Extract (meta, arrays) from a trained model."""
+    from .models.glm import GLMModel
     from .models.shared_tree import SharedTreeModel
 
     if isinstance(model, MojoScorer):
@@ -43,7 +49,7 @@ def _model_payload(model) -> Dict[str, Any]:
             out["children"] = {k: _model_payload(c)
                                for k, c in model.children.items()}
         return out
-    if not isinstance(model, SharedTreeModel):
+    if not isinstance(model, (SharedTreeModel, GLMModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
             "not a MOJO-exportable kind (see docs/mojo.md for the "
@@ -56,6 +62,17 @@ def _model_payload(model) -> Dict[str, Any]:
         "x": model.x,
         "y": model.y,
     }
+    if isinstance(model, GLMModel):
+        meta.update(
+            kind="glm", family=model.family, domain=model.domain,
+            coef_names=model._names(), standardize=model.dinfo.standardize,
+        )
+        arrays["beta"] = np.asarray(model.beta)
+        if model.dinfo.means is not None:
+            arrays["means"] = model.dinfo.means
+            arrays["stds"] = model.dinfo.stds
+        meta["dinfo"] = _dinfo_meta(model.dinfo)
+        return {"meta": meta, "arrays": arrays}
     meta.update(
         kind="tree", problem=model.problem, nclass=model.nclass,
         domain=model.domain, distribution=model.distribution,
@@ -73,6 +90,16 @@ def _model_payload(model) -> Dict[str, Any]:
                 model.covers[k].cpu().numpy().astype(np.float32))
     meta["n_forests"] = len(model.forest)
     return {"meta": meta, "arrays": arrays}
+
+
+def _dinfo_meta(dinfo) -> Dict:
+    return {
+        "spec": [[k, n, d] for (k, n, d) in dinfo._spec],
+        "coef_names": dinfo.coef_names,
+        "standardize": dinfo.standardize,
+        "use_all": dinfo.use_all,
+        "col_means": dinfo.col_means,
+    }
 
 
 def save_model(est_or_model, path: str = ".", filename: Optional[str] = None,
@@ -119,6 +146,16 @@ def _read_payload(z: "zipfile.ZipFile", prefix: str,
 def load_model(path: str) -> "MojoScorer":
     with zipfile.ZipFile(path) as z:
         return _read_payload(z, "", z.namelist())
+
+
+def _remap_codes(codes: np.ndarray, vdom, dom) -> np.ndarray:
+    """Align enum codes from a scoring frame's domain to the stored
+    training domain (-1 = unseen level)."""
+    if vdom != dom and vdom:
+        lookup = {d: i for i, d in enumerate(dom)}
+        remap = np.asarray([lookup.get(d, -1) for d in vdom], np.int64)
+        codes = np.where(codes >= 0, remap[np.maximum(codes, 0)], -1)
+    return codes
 
 
 class MojoScorer:
@@ -190,10 +227,69 @@ class MojoScorer:
             outs.append(total + (f0k if meta["mode"] != "drf" else 0.0))
         return np.column_stack(outs)
 
+    def _expand_dinfo(self, data) -> np.ndarray:
+        from .frame.frame import Frame
+
+        di = self.meta["dinfo"]
+        cols = []
+        for kind, n, dom in di["spec"]:
+            if isinstance(data, Frame):
+                v = data.vec(n)
+                raw = v.numeric_np()
+                codes = np.asarray(v.data) if v.type == "enum" else None
+                vdom = v.domain
+            else:
+                raise TypeError("dinfo models require a Frame input")
+            if kind == "num":
+                c = np.where(np.isnan(raw), di["col_means"].get(n, 0.0), raw)
+                cols.append(c[:, None])
+            else:
+                codes = _remap_codes(codes, vdom, dom)
+                K = len(dom)
+                oh = np.zeros((len(codes), K))
+                valid = codes >= 0
+                oh[np.nonzero(valid)[0], codes[valid]] = 1.0
+                if not di["use_all"] and K > 0:
+                    oh = oh[:, 1:]
+                cols.append(oh)
+        X = np.concatenate(cols, axis=1)
+        if di["standardize"] and "means" in self.arrays:
+            X = (X - self.arrays["means"]) / self.arrays["stds"]
+        return np.nan_to_num(X, nan=0.0)
+
+    def _glm_predict(self, data):
+        from .frame.frame import Frame
+
+        meta = self.meta
+        X = self._expand_dinfo(data)
+        Xi = np.concatenate([X, np.ones((X.shape[0], 1))], axis=1)
+        eta = Xi @ self.arrays["beta"].T
+        fam = meta["family"]
+        if fam in ("binomial", "quasibinomial", "fractionalbinomial"):
+            p1 = 1 / (1 + np.exp(-np.clip(eta, -500, 500)))
+            dom = meta["domain"]
+            return Frame.from_dict({
+                "predict": np.asarray(dom, dtype=object)[(p1 > 0.5).astype(int)],
+                str(dom[0]): 1 - p1, str(dom[1]): p1,
+            }, column_types={"predict": "enum"})
+        if fam == "multinomial":
+            e = np.exp(eta - eta.max(axis=1, keepdims=True))
+            probs = e / e.sum(axis=1, keepdims=True)
+            dom = meta["domain"]
+            d = {"predict": np.asarray(dom, dtype=object)[probs.argmax(axis=1)]}
+            for i, cls in enumerate(dom):
+                d[str(cls)] = probs[:, i]
+            return Frame.from_dict(d, column_types={"predict": "enum"})
+        if fam in ("poisson", "gamma", "tweedie"):
+            eta = np.exp(eta)
+        return Frame.from_dict({"predict": eta})
+
     def predict(self, data):
         from .frame.frame import Frame
 
         meta = self.meta
+        if meta["kind"] == "glm":
+            return self._glm_predict(data)
         if meta["kind"] != "tree":
             raise NotImplementedError(
                 f"scoring a {meta['kind']!r} artifact is not ported "

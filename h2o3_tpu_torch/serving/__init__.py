@@ -14,7 +14,8 @@ Four cooperating pieces behind one `ScoringEngine` facade:
 - `metrics.ServingMetrics` — per-model counters + latency histograms.
 
 A model scores on the device it was fit on (a tree model through the
-hand-written forest kernel, `ops/score_cuda.py`, on the card); the failover
+hand-written forest kernel, `ops/score_cuda.py`, on the card; a GLM by its
+design expansion and matvec on the device); the failover
 layer degrades to the numpy MOJO scorer only on device errors, and counts
 every batch it serves so. The reference's serving fleet (`registry.py`,
 `router.py`) and its REST routes are not ported yet (ROADMAP queue A,

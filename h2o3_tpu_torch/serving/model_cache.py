@@ -20,10 +20,11 @@ Two layers of reuse:
    `_margins` pads to `SCORE_ROW_BUCKET` itself, so the sub-512 buckets
    share one device shape.
 
-Output kinds: "predict" is served; the port's models have no
-`predict_contributions` or `predict_leaf_node_assignment` yet (ROADMAP
-queue A, items 6 and 11), so "contributions" and "leaves" raise the
-reference's `ValueError`.
+Output kinds: "predict" is served for every port model (GBM, DRF and GLM,
+whose `predict` pads its own design to `SCORE_ROW_BUCKET` rows); the
+port's models have no `predict_contributions` or
+`predict_leaf_node_assignment` yet (ROADMAP queue A, items 6 and 11), so
+"contributions" and "leaves" raise the reference's `ValueError`.
 """
 
 from __future__ import annotations

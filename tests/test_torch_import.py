@@ -24,6 +24,7 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch, h2o3_tpu_torch.estimators, h2o3_tpu_torch.convert\n"
         "import h2o3_tpu_torch.ops.hist_cuda, h2o3_tpu_torch.ops.histogram\n"
         "import h2o3_tpu_torch.models.shared_tree, chip_smoke\n"
+        "import h2o3_tpu_torch.models.glm, h2o3_tpu_torch.models.estimator_engine\n"
         "import h2o3_tpu_torch.ops.score_cuda, h2o3_tpu_torch.mojo\n"
         "import h2o3_tpu_torch.serving, h2o3_tpu_torch.runtime.dkv\n"
         "import h2o3_tpu_torch.runtime.memory_ledger, h2o3_tpu_torch.runtime.retry\n"
@@ -72,6 +73,21 @@ def test_entry_points_run_on_cuda_unless_asked():
         with pytest.raises(RuntimeError, match="cuda"):
             est.train(y="y", training_frame=fr)
     est = H2OGradientBoostingEstimator(ntrees=1, max_depth=2, device="cpu")
+    est.train(y="y", training_frame=fr)
+    assert est.model.device.type == "cpu"
+
+
+def test_glm_runs_on_cuda_unless_asked():
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    fr = Frame.from_numpy(np.column_stack([np.arange(64.0) % 7,
+                                           np.arange(64) % 3]),
+                          names=["a", "y"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            H2OGeneralizedLinearEstimator().train(y="y", training_frame=fr)
+    est = H2OGeneralizedLinearEstimator(device="cpu")
     est.train(y="y", training_frame=fr)
     assert est.model.device.type == "cpu"
 

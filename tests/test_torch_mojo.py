@@ -14,6 +14,10 @@ sums, which the two packages add in another order from the second tree on
 softmax gradients are not dyadic: `tests/test_torch_multinomial.py`); a
 one-tree gaussian GBM on 2048 rows of the quarter grid sums exactly, and
 there every array is equal to the bit.
+
+A binomial and a poisson GLM are held the same way: `model.json` equal,
+the standardization stats equal to the bit and β within 1e-5; and a
+reference multinomial GLM's artifact scores in the port's numpy scorer.
 """
 
 import io
@@ -208,3 +212,122 @@ def test_save_refuses_to_overwrite_without_force(artifacts):
     with pytest.raises(FileExistsError):
         mojo.save_model(a["port"], a["port_path"])
     assert mojo.save_model(a["port"], a["port_path"], force=True) == a["port_path"]
+
+
+# -- GLM artifacts ----------------------------------------------------------
+
+GLM_CASES = {"glm_binomial": "binomial", "glm_poisson": "poisson"}
+
+
+@pytest.fixture(scope="module")
+def glm_artifacts(tmp_path_factory):
+    """A binomial and a poisson GLM fit by both packages on the frames of
+    `tests/test_torch_glm.py` (string enums, NaNs), each exported."""
+    from h2o3_tpu.models.glm import H2OGeneralizedLinearEstimator as RefGLM
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+
+    from test_torch_glm import X_COLS, glm_frame
+
+    out = {}
+    mesh.init(jax.devices()[:1])
+    try:
+        for case, family in GLM_CASES.items():
+            d, types = glm_frame(3000, 0, family)
+            t, _ = glm_frame(700, 1, family)
+            t["c1"] = t["c1"].copy()
+            t["c1"][::9] = "BOS"                 # a level the fit never saw
+            ref = RefGLM(family=family, lambda_=0.0)
+            ref.train(x=X_COLS, y="y",
+                      training_frame=RefFrame.from_dict(d, column_types=types))
+            port = H2OGeneralizedLinearEstimator(family=family, lambda_=0.0,
+                                                 device="cpu")
+            port.train(x=X_COLS, y="y",
+                       training_frame=Frame.from_dict(d, column_types=types))
+            dd = tmp_path_factory.mktemp(case)
+            out[case] = dict(
+                family=family, ref=ref.model, port=port.model,
+                ref_test=RefFrame.from_dict(t, column_types=types),
+                port_test=Frame.from_dict(t, column_types=types),
+                ref_path=refmojo.save_model(ref.model, str(dd), "ref.h2o3"),
+                port_path=mojo.save_model(port.model, str(dd), "port.h2o3"))
+    finally:
+        mesh.reset()
+    return out
+
+
+@pytest.mark.parametrize("case", list(GLM_CASES))
+def test_glm_members_equal(glm_artifacts, case):
+    """model.json equal apart from model_id; `means`, `stds` equal to the
+    bit (host numpy in both packages); `beta` within 1e-5 (the two
+    packages' f32 Gram sums differ in order: `tests/test_torch_glm.py`)."""
+    a = glm_artifacts[case]
+    ref_names, ref_meta, ref_arrays = _members(a["ref_path"])
+    names, meta, arrays = _members(a["port_path"])
+    assert names == ref_names == ["arrays.npz", "model.json"]
+    assert meta.pop("model_id") == a["port"].model_id
+    ref_meta.pop("model_id")
+    assert meta == ref_meta
+    assert meta["kind"] == "glm" and meta["family"] == a["family"]
+    assert sorted(arrays) == sorted(ref_arrays) == ["beta", "means", "stds"]
+    for k in arrays:
+        assert arrays[k].dtype == ref_arrays[k].dtype == np.float64, k
+        assert arrays[k].shape == ref_arrays[k].shape, k
+    np.testing.assert_array_equal(arrays["means"], ref_arrays["means"])
+    np.testing.assert_array_equal(arrays["stds"], ref_arrays["stds"])
+    np.testing.assert_allclose(arrays["beta"], ref_arrays["beta"], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", list(GLM_CASES))
+def test_glm_cross_load_predicts_like_the_fitted_model(glm_artifacts, case):
+    a = glm_artifacts[case]
+    kind = "binomial" if a["family"] == "binomial" else "regression"
+    want_port = _pred_cols(a["port"].predict(a["port_test"]), kind)
+    want_ref = _pred_cols(a["ref"].predict(a["ref_test"]), kind)
+    ref_on_port = refmojo.load_model(a["port_path"]).predict(a["ref_test"])
+    port_on_ref = mojo.load_model(a["ref_path"]).predict(a["port_test"])
+    port_on_port = mojo.load_model(a["port_path"]).predict(a["port_test"])
+    for got, want in ((_pred_cols(ref_on_port, kind), want_port),
+                      (_pred_cols(port_on_ref, kind), want_ref),
+                      (_pred_cols(port_on_port, kind), want_port)):
+        assert list(got) == list(want)
+        for col in want:
+            np.testing.assert_allclose(got[col], want[col], rtol=1e-5,
+                                       atol=1e-5, err_msg=col)
+
+
+def test_glm_artifact_reexports_losslessly(glm_artifacts, tmp_path):
+    a = glm_artifacts["glm_binomial"]
+    again = mojo.save_model(mojo.load_model(a["port_path"]), str(tmp_path),
+                            "again.h2o3")
+    _, meta0, arr0 = _members(a["port_path"])
+    _, meta1, arr1 = _members(again)
+    assert meta0 == meta1
+    assert all(np.array_equal(arr0[k], arr1[k]) for k in arr0)
+
+
+def test_reference_multinomial_glm_artifact_scores_in_the_port(tmp_path):
+    """The port fits no multinomial GLM yet, but its numpy scorer reads
+    the reference's multinomial artifact and predicts what it predicts."""
+    from h2o3_tpu.models.glm import H2OGeneralizedLinearEstimator as RefGLM
+
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(600, 3))
+    y = np.argmax(np.column_stack([X[:, 0], X[:, 1], -X[:, 0]]), axis=1)
+    d = np.column_stack([X, y])
+    names = ["a", "b", "c", "y"]
+    mesh.init(jax.devices()[:1])
+    try:
+        ref = RefGLM(family="multinomial", lambda_=0.0)
+        ref.train(y="y", training_frame=RefFrame.from_numpy(
+            d, names=names).asfactor("y"))
+        path = refmojo.save_model(ref.model, str(tmp_path), "m.h2o3")
+    finally:
+        mesh.reset()
+    want = refmojo.load_model(path).predict(RefFrame.from_numpy(d, names=names))
+    got = mojo.load_model(path).predict(Frame.from_numpy(d, names=names))
+    assert got.names == want.names == ["predict", "0", "1", "2"]
+    for col in got.names[1:]:
+        np.testing.assert_allclose(np.asarray(got.vec(col).data),
+                                   np.asarray(want.vec(col).data),
+                                   rtol=0, atol=1e-12)

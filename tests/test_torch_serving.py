@@ -3,7 +3,8 @@ closure, on the CPU: the in-process cases of `tests/test_serving.py`
 (scorer cache, metrics, admission, micro-batcher) with their stub model and
 timings, the scorer-failover cases of `tests/test_faults.py` through the
 port's `runtime.faults`, the fault registry's own semantics, a real port
-GBM served through `ScoringEngine`, and the device-error classification of
+GBM and a real port GLM served through `ScoringEngine`, and the
+device-error classification of
 torch's CUDA errors. The reference's REST cases wait for the port's REST
 layer (ROADMAP queue A, item 11).
 """
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+from h2o3_tpu_torch.estimators import (H2OGeneralizedLinearEstimator,
+                                       H2OGradientBoostingEstimator)
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.models.tree import Tree
 from h2o3_tpu_torch.ops import hist_cuda, score_cuda
@@ -30,9 +32,11 @@ from h2o3_tpu_torch.serving.batcher import MicroBatcher, _Pending
 from h2o3_tpu_torch.serving.config import ServingConfig
 from h2o3_tpu_torch.serving.metrics import LatencyHistogram, ServingMetrics
 from h2o3_tpu_torch.serving.model_cache import (CompiledScorer, ScorerCache,
+                                                build_fallback_scorer,
                                                 bucket_rows)
 
 from test_torch_gbm import make_higgs_like
+from test_torch_glm import X_COLS, glm_frame
 
 
 @pytest.fixture(autouse=True)
@@ -473,6 +477,72 @@ def test_engine_serves_a_multinomial_model_like_predict():
     assert snap["cache"]["misses"] == 1 and snap["totals"]["errors"] == 0
     assert snap["totals"]["fallback_scores"] == 0
     eng.shutdown()
+
+
+@pytest.fixture(scope="module")
+def glm_model():
+    d, types = glm_frame(3000, 0, "binomial")
+    fr = Frame.from_dict(d, column_types=types)
+    est = H2OGeneralizedLinearEstimator(family="binomial", lambda_=0.0,
+                                        device="cpu")
+    return est.train(x=X_COLS, y="y", training_frame=fr).model
+
+
+def _glm_requests(rng, k):
+    """k requests of 1-300 rows of the GLM's columns; some carry a level
+    the fit never saw and NaNs (the design maps both as at fit)."""
+    reqs = []
+    for i in range(k):
+        n = int(rng.integers(1, 301))
+        d, types = glm_frame(n, 50 + i, "binomial")
+        d.pop("y")
+        types.pop("y", None)
+        if i % 3 == 0:
+            d["c1"] = d["c1"].copy()
+            d["c1"][::2] = "BOS"
+            d["b"] = d["b"].copy()
+            d["b"][::5] = np.nan
+        reqs.append(Frame.from_dict(d, column_types=types))
+    return reqs
+
+
+def test_engine_serves_a_glm_like_predict(glm_model):
+    """A binomial GLM served from 6 threads: coalesced batches (their enum
+    domains merged), padded to row buckets; each response equals
+    `model.predict` on its rows, and no batch took the fallback."""
+    eng = ScoringEngine(_cfg(max_wait_ms=20.0))
+    reqs = _glm_requests(np.random.default_rng(6), 12)
+    with ThreadPoolExecutor(max_workers=6) as ex:
+        outs = list(ex.map(lambda fr: eng.score("glm", glm_model, fr), reqs))
+    for fr, out in zip(reqs, outs):
+        want = glm_model.predict(fr)
+        assert out.names == want.names == ["predict", "no", "yes"]
+        assert out.nrow == fr.nrow
+        for c in ("no", "yes"):
+            np.testing.assert_allclose(np.asarray(out.vec(c).data),
+                                       np.asarray(want.vec(c).data),
+                                       rtol=0, atol=1e-6)
+        labels = [[v.domain[c] for c in v.data]
+                  for v in (out.vec("predict"), want.vec("predict"))]
+        assert labels[0] == labels[1]
+    snap = eng.snapshot()
+    assert snap["cache"]["misses"] == 1 and snap["totals"]["errors"] == 0
+    assert snap["totals"]["fallback_scores"] == 0
+    assert snap["failover"]["fallback_builds"] == 0
+    eng.shutdown()
+
+
+def test_glm_fallback_scorer_is_its_mojo(glm_model):
+    """A quarantined GLM degrades to its numpy MOJO scorer (f64 expansion
+    and matvec), which predicts what the model does within 1e-6."""
+    fn, kind = build_fallback_scorer(glm_model, "predict")
+    assert kind == "mojo-cpu"
+    for fr in _glm_requests(np.random.default_rng(7), 3):
+        got, want = fn(fr), glm_model.predict(fr)
+        assert got.names == want.names
+        np.testing.assert_allclose(np.asarray(got.vec("yes").data),
+                                   np.asarray(want.vec("yes").data),
+                                   rtol=0, atol=1e-6)
 
 
 def _serving_model(n, seed):
