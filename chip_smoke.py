@@ -141,10 +141,51 @@ result line):
    binomial GLM served by `ScoringEngine` from 4 threads, equal to
    `model.predict`, no batch served by the fallback.
 
+Phases 20-23 run right after phase 13, while phase 4's GBM and phase 8's
+DRF are alive; they explain them, and the build of phase 2 compiles
+csrc/tree_shap.cu beside the other two sources.
+
+20. Contributions at full width: `predict_contributions` of the GBM on
+   SHAP_ROWS fresh rows (f32 values, 5 % NaN) and of the DRF on
+   SHAP_DRF_ROWS rows, cut from SHAP_DRF_CUT_FROM (its 50 trees of depth 19
+   cost ~10^10 FP64 operations a row). The TreeSHAP kernel
+   (csrc/tree_shap.cu) must launch once per chunk of rows and nothing else;
+   on every explained row Σφ + BiasTerm equals the model's margin (the
+   DRF's averaged) within 1e-5 · max(1, |margin|); BiasTerm is constant.
+   The kernel equals its plain version (`tree_shap_plain`) bit for bit:
+   on all SHAP_ROWS of the GBM (2 chunks, on the card), on
+   SHAP_PLAIN_ROWS of them (on the card and on the CPU), on SHAP_SLICE_ROWS
+   of the DRF's rows through the DRF tree with the fewest splits (depth
+   19, the kernel's depth-20 instance; plain on the CPU) and on a small
+   DRF (4000 x 8, depth 10). Printed: the wall of each call (the DRF's
+   twice: the second reads the model's kept bias term), the bias term's
+   time where the forest lies against a copy to the host, the kernel's
+   time by CUDA events at both shapes against its bound (the FP64
+   operations of `shap_ops` over the unfused FP64 rate), the plain
+   version's time on 512 rows and on the GBM's 100,000, the scratch peak.
+21. Leaf assignment (both types), feature frequencies and, for the GBM,
+   staged probabilities on LEAF_ROWS rows of both forests: Node_ID equals
+   the CPU's `forest_leaves` on the same f64 rows, Path decodes to
+   Node_ID, each row's frequencies sum to the splits on its paths, the
+   last staged column is `predict`'s p1 within 1e-6. Times printed.
+22. "contributions" and "leaves" served by `ScoringEngine` from
+   SERVE_THREADS threads, SERVE_REQUESTS requests of 1-SERVE_MAX_ROWS rows
+   at phase 12's `ServingConfig`: every response equals the model's method
+   bit for bit, no batch is served by the fallback, contributions batches
+   launch the kernel; then the MOJO scorer's `predict_contributions`
+   (plain TreeSHAP on the host) within 1e-10 of the card's on
+   MOJO_SHAP_ROWS rows. p50/p99 printed.
+23. Small fits, card against CPU: a GBM with `offset_column` (bernoulli
+   and gaussian, validation frames with their own offset) gives the same
+   forest structure and predictions within 1e-5; a small GBM's and DRF's
+   contributions equal the CPU's plain version on their forests within
+   1e-10.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
-them again before their `predict`; the GLM runs none of the hand-written
-kernels, and phases 17 and 18 fail if it launched one). TF32 must stay off
+them again before their `predict`; phase 20 is the TreeSHAP path's; the
+GLM runs none of the hand-written kernels, and phases 17 and 18 fail if it
+launched one). TF32 must stay off
 through phases 17-19. The last line is {"ok": true, "device": {...}}; the
 line before it is the kernel table as JSON.
 """
@@ -1116,9 +1157,10 @@ def replay_stop(history, rounds, tol, key):
 
 
 def zero_counts():
-    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda, shap_cuda
 
     hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
+    shap_cuda.launches = 0
     score_cuda.launches_resident = score_cuda.launches_streamed = 0
     histogram.DISPATCH.clear()
     torch.cuda.synchronize()
@@ -1443,10 +1485,10 @@ def tf32_off():
 
 
 def kernel_counts():
-    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda, shap_cuda
 
     return dict(hist=hist_cuda.launches, hist_rows=hist_cuda.launches_rows,
-                score=score_cuda.launches)
+                score=score_cuda.launches, shap=shap_cuda.launches)
 
 
 def _design_bytes(dinfo, n: int, p: int) -> int:
@@ -1813,6 +1855,535 @@ def small_glm_checks(dev):
     return out
 
 
+# phases 20-23: the explanation outputs. The H100 SXM data sheet's FP64
+# peak outside the tensor cores, 34 TFLOP/s, counts an FMA as two
+# operations; TreeSHAP's adds, multiplies and divides are unfused scalar
+# FP64 instructions (`__d*_rn`), which issue at half that rate
+FP64_OPS_PER_S = 17e12
+SHAP_ROWS = 100_000
+# the DRF's 1,000 explained rows, cut from 100,000: path-dependent TreeSHAP
+# on its 50 trees of depth 19 costs ~10^10 FP64 operations a row
+SHAP_DRF_ROWS, SHAP_DRF_CUT_FROM = 1_000, 100_000
+SHAP_PLAIN_ROWS = 512
+# the DRF's rows that its slice of one depth-19 tree explains, kernel
+# against plain on the CPU (~1.5 ms of host time a leaf, ~22,600 leaves)
+SHAP_SLICE_ROWS = 32
+# phase 21's rows per forest; phase 22's requests, as phase 12's
+LEAF_ROWS = 100_000
+MOJO_SHAP_ROWS = 1_000
+
+
+def shap_ops(forest, depth: int, n_feat: int) -> int:
+    """FP64 adds, multiplies and divides of one row's TreeSHAP over a
+    stacked forest, as csrc/tree_shap.cu does them, counted from the
+    forest's own paths level by level on the device. Every row visits
+    every reachable node and unwinds at the same places; entering a node
+    whose path holds L features costs 7L (EXTEND) and, below the root, 2
+    (its zero fraction); a split node whose feature is already on the path
+    unwinds L elements; a leaf costs 1 + L(4L + 4) (an unwound sum of L
+    steps and 4 operations for each of its L features). Where a row's one
+    fraction picks the arithmetic of a step (UNWIND and the unwound sums),
+    the cheaper branch is counted (3 and 4 operations a step against 7 and
+    8), so the count is a lower bound and the same for every row; a
+    divide counts as one operation, though DDIV is a sequence of several
+    instructions. The fold adds ntrees per feature. Feature sets are int64 bit masks
+    (F <= 62)."""
+    nt = int(forest.feat.shape[0])
+    if n_feat > 62:
+        raise ValueError("shap_ops keeps feature sets in int64 masks")
+    dev = forest.feat.device
+    live = torch.ones((nt, 1), dtype=torch.bool, device=dev)
+    lenb = torch.zeros((nt, 1), dtype=torch.int64, device=dev)
+    mask = torch.zeros((nt, 1), dtype=torch.int64, device=dev)
+    total = 0
+    for lvl in range(depth + 1):
+        lo, n = 2 ** lvl - 1, 2 ** lvl
+        split = (forest.is_split[:, lo:lo + n] & live if lvl < depth
+                 else torch.zeros_like(live))
+        leaf = live & ~split
+        L = lenb
+        total += int(((7 * L + (2 if lvl else 0)) * live).sum())
+        total += int(((1 + L * (4 * L + 4)) * leaf).sum())
+        f = forest.feat[:, lo:lo + n].to(torch.int64).clamp(0, n_feat - 1)
+        rep = ((mask >> f) & 1).bool()
+        total += int((3 * L * (split & rep)).sum())
+        if lvl < depth:
+            live = split.repeat_interleave(2, dim=1)
+            lenb = (L + (~rep).to(torch.int64)).repeat_interleave(2, dim=1)
+            mask = (mask | (1 << f)).repeat_interleave(2, dim=1)
+    return total + n_feat * nt
+
+
+def shap_bound_ms(forest, depth, n_feat, n):
+    """(least time of one TreeSHAP call on the card in ms, its bound, FP64
+    operations, bytes): the operations of `shap_ops` over FP64_OPS_PER_S,
+    and the bytes (X and the output once, 17 bytes of fields of every
+    reachable node) over the memory rate; the larger."""
+    ops = shap_ops(forest, depth, n_feat) * n
+    above, _, leaves = walk_nodes(forest, depth)
+    nbytes = (above + leaves) * 17 + n * (2 * n_feat + 1) * 8
+    t_ops, t_bytes = ops / FP64_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops, nbytes)
+
+
+def _contrib_matrix(fr):
+    return np.column_stack([np.asarray(fr.vec(n).data, np.float64)
+                            for n in fr.names])
+
+
+def _cpu_forest(forest):
+    from h2o3_tpu_torch.models.tree import Tree
+
+    return Tree(*[f.cpu() for f in forest])
+
+
+def _shap_small_drf(dev):
+    """A small DRF (4000 x 8, depth 10, 5 trees) fitted on the card, as
+    phase 9's; returns the model."""
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    X, y = make_higgs_like(4000, n_feat=8, seed=3)
+    fr = Frame.from_numpy(np.column_stack([X, y]),
+                          names=[f"f{i}" for i in range(8)] + ["label"]
+                          ).asfactor("label")
+    est = H2ORandomForestEstimator(ntrees=5, max_depth=10, seed=42,
+                                   hist_method="pallas", device=str(dev))
+    est.train(y="label", training_frame=fr)
+    return est.model
+
+
+def contributions_path(dev, gbm_model, drf_model):
+    """Phase 20: `predict_contributions` at full width: phase 4's GBM on
+    SHAP_ROWS fresh rows, phase 8's DRF on SHAP_DRF_ROWS (cut from
+    SHAP_DRF_CUT_FROM). The counts are zeroed just before and read just
+    after; then the DRF once more (its bias term kept by the model), the
+    bias term timed, and the kernel against its plain version, bit for
+    bit, on all the GBM's rows, on SHAP_PLAIN_ROWS of them, on one of the
+    DRF's depth-19 trees and on a small DRF, and timed. Returns (record,
+    the JSON line's entry)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models import tree_shap as ts
+    from h2o3_tpu_torch.ops import shap_cuda
+
+    rng = np.random.default_rng(51)
+    names = [f"f{i}" for i in range(N_FEAT)]
+    Xg = score_rows(rng, SHAP_ROWS)
+    Xr = score_rows(rng, SHAP_DRF_ROWS)
+    fg = Frame.from_numpy(Xg, names=names)
+    fd = Frame.from_numpy(Xr, names=names)
+    print(f"phase 20 cut: the DRF explains {SHAP_DRF_ROWS} rows, reduced "
+          f"from {SHAP_DRF_CUT_FROM}", flush=True)
+    zero_counts()
+    shap_cuda.scratch_peak = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg = gbm_model.predict_contributions(fg)
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cd = drf_model.predict_contributions(fd)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    launches = shap_cuda.launches
+    other = kernel_counts()
+    scratch = shap_cuda.scratch_peak
+    peak = torch.cuda.max_memory_allocated(dev)
+    bad = []
+    # one launch per chunk of rows
+    expect = sum(-(-n // shap_cuda.chunk_rows(n, m.ntrees_built, N_FEAT))
+                 for n, m in ((SHAP_ROWS, gbm_model),
+                              (SHAP_DRF_ROWS, drf_model)))
+    if launches != expect:
+        bad.append(f"predict_contributions launched the TreeSHAP kernel "
+                   f"{launches} times, expected {expect}")
+    if other["hist"] or other["hist_rows"] or other["score"]:
+        bad.append(f"contributions launched other kernels: {other}")
+    # the DRF again: the model kept its bias term at the first call
+    t0 = time.perf_counter()
+    drf_model.predict_contributions(fd)
+    torch.cuda.synchronize()
+    wall_d2 = time.perf_counter() - t0
+    rec = dict(gbm_rows=SHAP_ROWS, drf_rows=SHAP_DRF_ROWS, launches=launches,
+               gbm_wall_s=wall_g, drf_wall_s=wall_d,
+               drf_wall_bias_kept_s=wall_d2, scratch_peak_bytes=scratch,
+               peak_device_bytes=peak)
+    # the bias term where the forest lies (as the model computes it) and
+    # through a copy of is_split, value and cover to the host
+    for name, model in (("gbm", gbm_model), ("drf", drf_model)):
+        forest, cover = model.forest[0], model.covers[0]
+        scale = 1.0 / model.ntrees_built if model.mode == "drf" else 1.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = ts.forest_bias(forest, cover, scale)
+        t1 = time.perf_counter()
+        on_host = ts.forest_bias(_cpu_forest(forest), cover.cpu(), scale)
+        t2 = time.perf_counter()
+        rec[f"{name}_bias_ms"] = dict(on_card=(t1 - t0) * 1e3,
+                                      copied_to_host=(t2 - t1) * 1e3)
+        kept = model._shap_bias(scale)
+        if not on_card == on_host == kept:
+            bad.append(f"{name}: the bias term differs on the card "
+                       f"({on_card!r}), on the host ({on_host!r}) and as "
+                       f"kept ({kept!r})")
+    # local accuracy and a constant bias term
+    for name, model, fr, C in (("gbm", gbm_model, fg, cg),
+                               ("drf", drf_model, fd, cd)):
+        M = _contrib_matrix(C)
+        marg = model._margins(model._matrix(fr))[:, 0]
+        if model.mode == "drf":
+            marg = marg / model.ntrees_built
+        err = np.abs(M.sum(axis=1) - marg) / np.maximum(1.0, np.abs(marg))
+        rec[f"{name}_local_accuracy_rel_err"] = float(err.max())
+        if C.names != names + ["BiasTerm"] or not np.all(np.isfinite(M)):
+            bad.append(f"{name} contributions: {C.names[:3]}..., finite "
+                       f"{bool(np.all(np.isfinite(M)))}")
+        if not err.max() <= 1e-5:
+            bad.append(f"{name}: sum of contributions misses the margin by "
+                       f"{err.max():.3e} (relative)")
+        if not np.all(M[:, -1] == M[0, -1]):
+            bad.append(f"{name}: BiasTerm varies over rows")
+    # the kernel against its plain version on the same inputs
+    worst = 0.0
+    split_counts = drf_model.forest[0].is_split.sum(dim=1)
+    drf_tree = int(split_counts.argmin())
+    cases = [("gbm", gbm_model, Xg[:SHAP_PLAIN_ROWS], None),
+             ("small_drf", _shap_small_drf(dev), None, None),
+             ("drf_tree", drf_model, Xr[:SHAP_SLICE_ROWS], drf_tree)]
+    for name, model, X, tree in cases:
+        if X is None:
+            X = np.asarray(make_higgs_like(1000, n_feat=8, seed=9)[0])
+            X[rng.random(X.shape) < 0.05] = np.nan
+        Xd = torch.from_numpy(np.ascontiguousarray(X, np.float64)).to(dev)
+        forest, cover = model.forest[0], model.covers[0]
+        scale = 1.0 / model.ntrees_built if model.mode == "drf" else 1.0
+        if tree is not None:
+            # one depth-19 tree: the kernel's depth-20 instance; the plain
+            # version on the CPU only (on the card it is slower still)
+            forest = type(forest)(*[f[tree:tree + 1].contiguous()
+                                    for f in forest])
+            cover = cover[tree:tree + 1].contiguous()
+        bias = ts.forest_bias(forest, cover, scale)
+        got = shap_cuda.tree_shap(forest, cover, Xd, scale, bias)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = (ts.tree_shap_plain(forest, cover, Xd, scale, bias)
+                if tree is None else None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = ts.tree_shap_plain(_cpu_forest(forest), cover.cpu(), Xd.cpu(),
+                                  scale, bias)
+        t2 = time.perf_counter()
+        same = torch.equal(got.cpu(), host) and (
+            want is None or torch.equal(got, want))
+        err = float((got.cpu() - host).abs().max())
+        worst = max(worst, err)
+        rec[f"{name}_equal_to_plain"] = same
+        rec[f"{name}_plain_ms_{X.shape[0]}_rows"] = dict(
+            card=None if want is None else (t1 - t0) * 1e3,
+            cpu=(t2 - t1) * 1e3)
+        what = (f"tree {tree} of the DRF, {int(split_counts[tree])} splits, "
+                f"depth {model.max_depth}" if tree is not None else
+                f"{model.ntrees_built} trees, depth {model.max_depth}")
+        print(f"tree_shap {name} ({what}) on {X.shape[0]} rows: kernel equal "
+              f"to the plain version bit for bit: {same} ("
+              + ("on the CPU" if want is None else "on the card and on the "
+                 f"CPU; plain {(t1 - t0) * 1e3:.1f} ms on the card")
+              + f"; plain {(t2 - t1) * 1e3:.1f} ms on the CPU)", flush=True)
+        if not same:
+            bad.append(f"TreeSHAP kernel differs from its plain version on "
+                       f"{name}: max |err| {err:.3e}")
+    # times at the main path's shapes: the kernel by CUDA events, the plain
+    # version once on the GBM's full rows
+    shapes, last = {}, {}
+    for name, model, X, reps in (("gbm", gbm_model, Xg, 5),
+                                 ("drf", drf_model, Xr, 1)):
+        Xd = torch.from_numpy(np.ascontiguousarray(X, np.float64)).to(dev)
+        forest, cover = model.forest[0], model.covers[0]
+        scale = 1.0 / model.ntrees_built if model.mode == "drf" else 1.0
+        bias = ts.forest_bias(forest, cover, scale)
+
+        def run():
+            last[name] = shap_cuda.tree_shap(forest, cover, Xd, scale, bias)
+
+        ms = time_ms(run, reps=reps, warmup=1 if reps > 1 else 0)
+        bound, by, ops, nbytes = shap_bound_ms(forest, model.max_depth,
+                                               N_FEAT, X.shape[0])
+        shapes[name] = dict(rows=X.shape[0], trees=model.ntrees_built,
+                            depth=model.max_depth, ms=ms, bound_ms=bound,
+                            bound_by=by, fp64_ops=ops, bytes=nbytes,
+                            ops_per_row=ops // X.shape[0])
+    Xd = torch.from_numpy(np.ascontiguousarray(Xg, np.float64)).to(dev)
+    forest, cover = gbm_model.forest[0], gbm_model.covers[0]
+    bias = ts.forest_bias(forest, cover, 1.0)
+
+    def run_plain():
+        last["gbm_plain"] = ts.tree_shap_plain(forest, cover, Xd, 1.0, bias)
+
+    plain_ms = time_ms(run_plain, reps=1, warmup=0)
+    shapes["gbm"]["plain_ms"] = plain_ms
+    # the kernel's last timed output on all the GBM's rows (2 chunks)
+    same = torch.equal(last["gbm"], last["gbm_plain"])
+    rec[f"gbm_{SHAP_ROWS}_rows_equal_to_plain"] = same
+    worst = max(worst, float((last["gbm"] - last["gbm_plain"]).abs().max()))
+    print(f"tree_shap gbm on all {SHAP_ROWS} rows: kernel equal to the plain "
+          f"version on the card bit for bit: {same}", flush=True)
+    if not same:
+        bad.append(f"TreeSHAP kernel differs from its plain version on the "
+                   f"GBM's {SHAP_ROWS} rows")
+    rec["shapes"] = shapes
+    print("contributions: " + json.dumps(rec), flush=True)
+    for name, s in shapes.items():
+        print(f"tree_shap {name} on {card_line()}: {s['rows']} rows x "
+              f"{s['trees']} trees of depth {s['depth']}: kernel "
+              f"{s['ms']:.3f} ms (CUDA events), FP64 bound "
+              f"{s['bound_ms']:.3f} ms ({s['ops_per_row']} operations a row, "
+              f"{s['bound_by']}), "
+              + (f"plain {s['plain_ms']:.1f} ms; " if "plain_ms" in s else "")
+              + f"predict_contributions wall "
+              f"{rec[name + '_wall_s'] * 1e3:.1f} ms", flush=True)
+    print(f"predict_contributions of the DRF again, its bias term kept: "
+          f"wall {wall_d2 * 1e3:.1f} ms; the bias term where the forest lies "
+          f"/ through a copy to the host: gbm "
+          f"{rec['gbm_bias_ms']['on_card']:.2f} / "
+          f"{rec['gbm_bias_ms']['copied_to_host']:.2f} ms, drf "
+          f"{rec['drf_bias_ms']['on_card']:.2f} / "
+          f"{rec['drf_bias_ms']['copied_to_host']:.2f} ms", flush=True)
+    print(f"tree_shap scratch peak {scratch / 1e6:.1f} MB, device memory "
+          f"peak {peak / 1e9:.2f} GB, {launches} launches", flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    entry = dict(
+        name="tree_shap", route="cuda",
+        source="h2o3_tpu_torch/csrc/tree_shap.cu",
+        replaces="h2o3_tpu/native/tree_shap.cpp:123", launches=launches,
+        max_abs_err=worst, ms=shapes["gbm"]["ms"], plain_ms=plain_ms,
+        bound_ms=shapes["gbm"]["bound_ms"], bound_by=shapes["gbm"]["bound_by"],
+        library_ms=None)
+    return rec, entry
+
+
+def _decode_paths(labels):
+    """Heap node ids of "L"/"R" root paths."""
+    u, inv = np.unique(labels, return_inverse=True)
+    ids = []
+    for p in u:
+        node = 0
+        for step in p:
+            node = 2 * node + (1 if step == "L" else 2)
+        ids.append(node)
+    return np.asarray(ids, np.int64)[inv.reshape(-1)]
+
+
+def leaves_path(dev, gbm_model, drf_model):
+    """Phase 21: leaf assignment in both types, feature frequencies and
+    (GBM) staged probabilities on LEAF_ROWS fresh rows of both forests."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.tree import forest_leaves
+
+    rng = np.random.default_rng(61)
+    names = [f"f{i}" for i in range(N_FEAT)]
+    fr = Frame.from_numpy(score_rows(rng, LEAF_ROWS), names=names)
+    rec, bad = {}, []
+    for name, model in (("gbm", gbm_model), ("drf", drf_model)):
+        times = {}
+        t0 = time.perf_counter()
+        ids = model.predict_leaf_node_assignment(fr, type="Node_ID")
+        times["node_id_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths = model.predict_leaf_node_assignment(fr, type="Path")
+        times["path_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        freq = model.feature_frequencies(fr)
+        times["frequencies_s"] = time.perf_counter() - t0
+        X = torch.from_numpy(model._matrix(fr))
+        want = forest_leaves(_cpu_forest(model.forest[0]), X,
+                             model.max_depth).numpy()
+        got = np.column_stack([np.asarray(ids.vec(c).data) for c in ids.names]).T
+        if not np.array_equal(got, want.astype(np.float64)):
+            bad.append(f"{name}: Node_ID differs from the CPU's forest_leaves")
+        for j, c in enumerate(paths.names):
+            v = paths.vec(c)
+            lab = np.asarray(v.domain, dtype=object)[np.asarray(v.data)]
+            if not np.array_equal(_decode_paths(lab), want[j]):
+                bad.append(f"{name}: Path {c} does not decode to Node_ID")
+                break
+        depth_of = np.floor(np.log2(want + 1.0)).sum(axis=0)
+        F = np.column_stack([np.asarray(freq.vec(c).data) for c in freq.names])
+        if not np.array_equal(F.sum(axis=1), depth_of):
+            bad.append(f"{name}: feature frequencies do not sum to the "
+                       "splits on each row's paths")
+        if name == "gbm":
+            t0 = time.perf_counter()
+            staged = model.staged_predict_proba(fr)
+            times["staged_s"] = time.perf_counter() - t0
+            p1 = np.asarray(model.predict(fr).vec("1").data, np.float64)
+            last = np.asarray(staged.vec(staged.names[-1]).data, np.float64)
+            times["staged_last_vs_predict"] = float(np.abs(last - p1).max())
+            if len(staged.names) != model.ntrees_built or \
+                    not times["staged_last_vs_predict"] <= 1e-6:
+                bad.append("staged_predict_proba's last column is not "
+                           "predict's p1 within 1e-6")
+        rec[name] = times
+        print(f"leaves {name} ({model.ntrees_built} trees, {LEAF_ROWS} rows) "
+              f"on {card_line()}: " + json.dumps(times), flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def serve_explanations(dev, model):
+    """Phase 22: "contributions" and "leaves" served by `ScoringEngine`
+    from SERVE_THREADS threads, SERVE_REQUESTS requests of
+    1..SERVE_MAX_ROWS rows each, at phase 12's `ServingConfig`; then the
+    MOJO scorer's contributions against the card's."""
+    import h2o3_tpu_torch.mojo as mojo
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.ops import shap_cuda
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    rng = np.random.default_rng(71)
+    names = [f"f{i}" for i in range(N_FEAT)]
+    reqs = [Frame.from_numpy(score_rows(rng, int(n)), names=names)
+            for n in rng.integers(1, SERVE_MAX_ROWS + 1, SERVE_REQUESTS)]
+    methods = dict(contributions="predict_contributions",
+                   leaves="predict_leaf_node_assignment")
+    rec, bad = {}, []
+    for kind, method in methods.items():
+        engine = ScoringEngine(ServingConfig())
+
+        def call(fr):
+            t0 = time.perf_counter()
+            out = engine.score("gbm", model, fr, output_kind=kind)
+            return out, time.perf_counter() - t0
+
+        shap_cuda.launches = 0
+        torch.cuda.synchronize()
+        with ThreadPoolExecutor(max_workers=SERVE_THREADS) as ex:
+            results = list(ex.map(call, reqs))
+        launches = shap_cuda.launches
+        snap = engine.snapshot()
+        engine.shutdown()
+        for fr, (out, _) in zip(reqs, results):
+            want = getattr(model, method)(fr)
+            same = out.names == want.names and out.nrow == fr.nrow
+            for c in want.names if same else []:
+                a, b = out.vec(c), want.vec(c)
+                if a.type == "enum":
+                    same &= np.array_equal(
+                        np.asarray(a.domain, dtype=object)[np.asarray(a.data)],
+                        np.asarray(b.domain, dtype=object)[np.asarray(b.data)])
+                else:
+                    same &= np.array_equal(np.asarray(a.data),
+                                           np.asarray(b.data))
+            if not same:
+                bad.append(f"served {kind} differ from model.{method}")
+                break
+        lat = np.array([s for _, s in results]) * 1e3
+        tot, fo = snap["totals"], snap["failover"]
+        r = dict(requests=len(reqs), p50_ms=float(np.percentile(lat, 50)),
+                 p99_ms=float(np.percentile(lat, 99)),
+                 batches=tot["batches"], fallback_scores=tot["fallback_scores"],
+                 fallback_builds=fo["fallback_builds"], errors=tot["errors"],
+                 tree_shap_launches=launches)
+        rec[kind] = r
+        print(f"serving {kind} on {card_line()}: " + json.dumps(r), flush=True)
+        if tot["fallback_scores"] or fo["fallback_builds"] or tot["errors"] \
+                or fo["breakers"]:
+            bad.append(f"serving {kind} degraded: " + json.dumps(
+                dict(failover=fo, totals=tot)))
+        if kind == "contributions" and launches < tot["batches"]:
+            bad.append(f"{tot['batches']} contributions batches launched the "
+                       f"TreeSHAP kernel {launches} times")
+    fr = Frame.from_numpy(score_rows(rng, MOJO_SHAP_ROWS), names=names)
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_shap_") as d:
+        scorer = mojo.load_model(mojo.save_model(model, d, "gbm.h2o3"))
+        t0 = time.perf_counter()
+        host = _contrib_matrix(scorer.predict_contributions(fr))
+        mojo_s = time.perf_counter() - t0
+    card = _contrib_matrix(model.predict_contributions(fr))
+    err = float(np.abs(host - card).max())
+    rec["mojo"] = dict(rows=MOJO_SHAP_ROWS, max_abs_err=err, host_s=mojo_s)
+    print(f"mojo contributions on {MOJO_SHAP_ROWS} rows: host plain TreeSHAP "
+          f"{mojo_s:.2f} s, max |err| vs the card {err:.3e}", flush=True)
+    if not err <= 1e-10:
+        bad.append(f"MOJO contributions {err:.3e} away from the card's")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def small_explain_checks(dev):
+    """Phase 23: small fits, card against CPU: a GBM with `offset_column`
+    (bernoulli and gaussian, each with a validation frame carrying its own
+    offset) gives the same forest structure and predictions within 1e-5;
+    the contributions of a small GBM and DRF fitted on the card equal the
+    CPU's plain version on the same forests within 1e-10."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models import tree_shap as ts
+
+    rng = np.random.default_rng(81)
+    names = [f"f{i}" for i in range(8)] + ["off", "label"]
+    out, bad = {}, []
+
+    def frame(n, dist):
+        X = rng.normal(size=(n, 8)).astype(np.float32)
+        off = (0.5 * rng.normal(size=n)).astype(np.float32)
+        eta = 0.8 * X[:, 0] - 0.6 * X[:, 1] + 0.4 * X[:, 2] * X[:, 3] + off
+        y = ((rng.random(n) < 1 / (1 + np.exp(-eta))).astype(np.float32)
+             if dist == "bernoulli" else eta + 0.2 * rng.normal(size=n))
+        fr = Frame.from_numpy(np.column_stack([X, off, y]), names=names)
+        return fr.asfactor("label") if dist == "bernoulli" else fr
+
+    for dist in ("bernoulli", "gaussian"):
+        fr, fv = frame(4000, dist), frame(1500, dist)
+        params = dict(ntrees=8, max_depth=4, seed=42, distribution=dist,
+                      offset_column="off")
+        a = _pair_fit(H2OGradientBoostingEstimator, str(dev), params, fr, fv)
+        b = _pair_fit(H2OGradientBoostingEstimator, "cpu", params, fr, fv)
+        nodes, dv = _forest_diff(a, b)
+        dp = _pred_diff(a, b, fv)
+        out[f"offset_{dist}"] = dict(differing_nodes=nodes,
+                                     max_value_diff=dv, max_predict_diff=dp)
+        if nodes or dp > 1e-5:
+            bad.append(f"offset {dist}: {nodes} nodes differ, predictions "
+                       f"{dp:.3e} apart")
+    X, y = make_higgs_like(4000, n_feat=8, seed=5)
+    fx = Frame.from_numpy(np.column_stack([X, y]),
+                          names=[f"f{i}" for i in range(8)] + ["label"]
+                          ).asfactor("label")
+    Xs = np.asarray(make_higgs_like(500, n_feat=8, seed=6)[0])
+    Xs[rng.random(Xs.shape) < 0.05] = np.nan
+    fs = Frame.from_numpy(Xs, names=[f"f{i}" for i in range(8)])
+    for name, cls, params in (
+            ("gbm", H2OGradientBoostingEstimator,
+             dict(ntrees=10, max_depth=5, seed=42)),
+            ("drf", H2ORandomForestEstimator,
+             dict(ntrees=5, max_depth=8, seed=42, hist_method="pallas"))):
+        m = _pair_fit(cls, str(dev), params, fx)
+        # the f64 results: a contributions frame keeps its columns in f32
+        rows = torch.from_numpy(m._matrix(fs))
+        scale = 1.0 / m.ntrees_built if m.mode == "drf" else 1.0
+        f0 = m.f0 if np.ndim(m.f0) == 0 else m.f0[0]
+        card = ts.compute_contributions(m.forest[0], m.covers[0],
+                                        rows.to(m.device), scale, f0)
+        host = ts.compute_contributions(_cpu_forest(m.forest[0]),
+                                        m.covers[0].cpu(), rows, scale, f0)
+        err = float((card.cpu() - host).abs().max())
+        out[f"contributions_{name}"] = err
+        if not err <= 1e-10:
+            bad.append(f"{name} contributions {err:.3e} from the CPU's")
+    print("small explain checks: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1821,16 +2392,17 @@ def main() -> int:
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
-    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda, shap_cuda
 
     # one nvcc per source, all started together
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        for f in [ex.submit(m.build) for m in (hist_cuda, score_cuda)]:
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        for f in [ex.submit(m.build) for m in (hist_cuda, score_cuda,
+                                                shap_cuda)]:
             f.result()
-    print(f"kernel build (hist.cu and score.cu in parallel): "
+    print(f"kernel build (hist.cu, score.cu and tree_shap.cu in parallel): "
           f"{time.time() - t0:.2f} s", flush=True)
-    for m in (hist_cuda, score_cuda):
+    for m in (hist_cuda, score_cuda, shap_cuda):
         if m.build_log.strip():
             print(m.build_log.strip(), flush=True)
 
@@ -1855,6 +2427,11 @@ def main() -> int:
         "drf": (drf_model.forest[0], drf_model.max_depth)})
     serve_rec = serve_path(dev, gbm_model)
     mojo_round_trip(dev, {"gbm": gbm_model, "drf": drf_model})
+    # phases 20-23 explain phase 4's and phase 8's models while they live
+    _, shap_entry = contributions_path(dev, gbm_model, drf_model)
+    leaves_path(dev, gbm_model, drf_model)
+    serve_explanations(dev, gbm_model)
+    small_explain_checks(dev)
     del gbm_model, drf_model
     fr_cov, fv_cov = covtype_frames()
     multinomial_gbm_path(dev, fr_cov, fv_cov)
@@ -1896,6 +2473,9 @@ def main() -> int:
         launches=serve_rec["score_launches"], max_abs_err=worst_sc,
         ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
         bound_by="bytes", library_ms=None))
+    # TreeSHAP: one call on phase 20's 100,000 rows through the GBM's 20
+    # trees; no PyTorch call computes it, so there is no library time
+    kernels.append(shap_entry)
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
           "uniform codes, L2 flushed; "
@@ -1904,6 +2484,9 @@ def main() -> int:
           "(compact attempt and dense rebuild; uniform node law); "
           "forest_score is one call on 100,000 rows of the GBM's 20 trees "
           "(CUDA events, L2 flushed), its launches phase 12's; "
+          "tree_shap is one call on 100,000 rows of the GBM's 20 trees "
+          "(CUDA events), its bound the FP64 operations of shap_ops, its "
+          "launches phase 20's; "
           "max_abs_err is against the f32 plain version (hist_factored also "
           "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -461,6 +461,12 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
 
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> GLMModel:
         p = self._parms
+        if p.get("offset_column") is not None:
+            # the reference's GLM never reads the offset (it drops the
+            # column and fits without it); the port does not copy that
+            raise NotImplementedError(
+                "offset_column is not ported for GLM (ROADMAP queue A, item "
+                "5: offsets; the reference's GLM ignores it, ROADMAP §C)")
         yvec = train.vec(y)
         problem, nclass, domain = response_info(yvec)
         family = p.get("family", "AUTO")

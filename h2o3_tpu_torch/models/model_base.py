@@ -6,8 +6,9 @@ the scoring history), `H2OEstimator` (parameter checking, `train` with a
 validation frame), `ScoringHistory`, `ScoreKeeper` (`hex.ScoreKeeper`'s
 moving-average early stopping) and `DataInfo` (`hex.DataInfo`: the
 standardized one-hot design, its stats fit on the host and its expansion
-on the device). Cross-validation, offsets, checkpoints, jobs and the
-REST/DKV surface are not ported yet (ROADMAP queue A, items 5 and 11);
+on the device). `offset_column` reaches the tree fit (GBM); GLM raises
+for it. Cross-validation, checkpoints, jobs and the REST/DKV surface are
+not ported yet (ROADMAP queue A, items 5 and 11);
 neither are `DataInfo`'s multi-device and multi-process layouts (item 9).
 """
 
@@ -547,8 +548,7 @@ class H2OEstimator:
             raise ValueError("training_frame is required")
         if y is None:
             raise ValueError(f"{self.algo}: response column y is required")
-        for k, item in (("offset_column", "offsets"), ("fold_column", "CV"),
-                        ("checkpoint", "checkpoints")):
+        for k, item in (("fold_column", "CV"), ("checkpoint", "checkpoints")):
             if self._parms.get(k) is not None:
                 raise NotImplementedError(
                     f"{k} is not ported (ROADMAP queue A, item 5: {item})")
@@ -561,7 +561,8 @@ class H2OEstimator:
         ignored = set(self._parms.get("ignored_columns") or [])
         if x is None:
             x = [n for n in training_frame.names
-                 if n != y and n not in ignored and n != wc]
+                 if n != y and n not in ignored
+                 and n not in (wc, self._parms.get("offset_column"))]
         else:
             x = [training_frame.names[i] if isinstance(i, int) else i for i in x]
             x = [n for n in x if n != y and n not in ignored]
@@ -611,6 +612,19 @@ class H2OEstimator:
 
     def varimp(self, **kw):
         return self.model.varimp(**kw)
+
+    # model-understanding pass-throughs (h2o-py keeps these on the estimator)
+    def predict_contributions(self, *a, **kw):
+        return self.model.predict_contributions(*a, **kw)
+
+    def predict_leaf_node_assignment(self, *a, **kw):
+        return self.model.predict_leaf_node_assignment(*a, **kw)
+
+    def staged_predict_proba(self, *a, **kw):
+        return self.model.staged_predict_proba(*a, **kw)
+
+    def feature_frequencies(self, *a, **kw):
+        return self.model.feature_frequencies(*a, **kw)
 
     @property
     def scoring_history(self):

@@ -21,9 +21,16 @@ them (`score_events`); with a validation frame its margins advance by one
 `predict_codes` walk per new tree, and `ScoreKeeper` reads its metric.
 PyTorch runs this eagerly; there is no per-iteration program to compile.
 
+A GBM's `offset_column` adds the frame's offset to the margins it starts
+from, scores and stops on (DRF rejects one, as the reference does). The
+model's explanation outputs are `predict_contributions` (TreeSHAP,
+`tree_shap.py`, the CUDA kernel `csrc/tree_shap.cu` on the card),
+`predict_leaf_node_assignment`, `feature_frequencies` and
+`staged_predict_proba`.
+
 Not ported yet (ROADMAP queue A, items 5-9): per-class row sampling,
-class balancing, calibration, offsets, CV, checkpoints, DART, dataset
-cache, streaming, sharding and QoS. Asking for any of them raises
+class balancing, calibration, CV, checkpoints, DART, dataset cache,
+streaming, sharding and QoS. Asking for any of them raises
 `NotImplementedError`.
 """
 
@@ -327,12 +334,45 @@ class SharedTreeModel(H2OModel):
             pack = cache[k] = score_cuda.build_score_pack(self.forest[k], n_feat)
         return pack
 
-    def _score_probs(self, X: np.ndarray) -> np.ndarray:
+    def _shap_bias(self, scale: float) -> float:
+        """Class 0's TreeSHAP bias term at `scale` (`tree_shap.forest_bias`,
+        computed where the forest lies), kept while that forest, its covers
+        and the scale stay the same."""
+        from .tree_shap import forest_bias
+
+        hit = self.__dict__.get("_shap_bias_of")
+        if hit is None or hit[0] is not self.forest[0] \
+                or hit[1] is not self.covers[0] or hit[2] != scale:
+            hit = self._shap_bias_of = (
+                self.forest[0], self.covers[0], scale,
+                forest_bias(self.forest[0], self.covers[0], scale))
+        return hit[3]
+
+    def _parm(self, name: str):
+        """A training parameter; None for a model built from arrays."""
+        return (getattr(self.parms, "_parms", None) or {}).get(name)
+
+    def _offset_of(self, frame: Frame) -> Optional[np.ndarray]:
+        """The frame's offset column (f64) where the model was trained with
+        one and the frame has it, else None."""
+        oc = self._parm("offset_column")
+        if oc and oc in frame.names:
+            return frame.vec(oc).numeric_np()
+        return None
+
+    def _score_probs(self, X: np.ndarray,
+                     offset: Optional[np.ndarray] = None) -> np.ndarray:
+        """Predictions from the f64 margins, the offset added to them first
+        (not for DRF, which never applies one)."""
+        m = self._margins(X)
+        if offset is not None and self.mode != "drf":
+            m = m + offset[:, None]
         return probs_from_margins(self.mode, self.problem, self.distribution,
-                                  self._margins(X), self.ntrees_built)
+                                  m, self.ntrees_built)
 
     def predict(self, test_data: Frame) -> Frame:
-        out = self._score_probs(self._matrix(test_data))
+        out = self._score_probs(self._matrix(test_data),
+                                self._offset_of(test_data))
         if self.problem in ("binomial", "multinomial"):
             lab = out.argmax(axis=1)
             d = {"predict": np.asarray(self.domain, dtype=object)[lab]}
@@ -342,8 +382,147 @@ class SharedTreeModel(H2OModel):
         return Frame.from_dict({"predict": out[:, 0]})
 
     def _make_metrics(self, frame: Frame):
-        out = self._score_probs(self._matrix(frame))
+        out = self._score_probs(self._matrix(frame), self._offset_of(frame))
         return _metrics_for(self.problem, frame.vec(self.y), out)
+
+    def _rows_f64(self, frame: Frame) -> torch.Tensor:
+        """The frame's raw feature rows as f64 on the model's device: the
+        rows TreeSHAP, leaf assignment and feature frequencies route."""
+        return torch.from_numpy(self._matrix(frame)).to(self.device)
+
+    def predict_contributions(self, test_data: Frame, output_format="Original",
+                              top_n=0, bottom_n=0, compare_abs=False) -> Frame:
+        """Per-row SHAP feature contributions and BiasTerm (path-dependent
+        TreeSHAP, `tree_shap.compute_contributions`: the CUDA kernel on the
+        card). Contributions are in the margin space (log-odds for GBM
+        binomial, the response for regression, the probability for DRF
+        binomial) and sum with BiasTerm to the raw prediction. Binomial and
+        regression only, as in the reference."""
+        if self.problem == "multinomial":
+            raise ValueError(
+                "predict_contributions is not supported for multinomial "
+                "models (reference parity: hex/Model.scoreContributions)")
+        if output_format not in ("Original", "Compact", "original", "compact"):
+            raise ValueError("output_format must be 'Original' or 'Compact' "
+                             "(they coincide here: enums stay integer-coded, "
+                             "one column per input feature)")
+        if self._parm("offset_column"):
+            raise ValueError(
+                "predict_contributions is not supported for models trained "
+                "with an offset_column (reference parity)")
+        if not self.covers:
+            raise ValueError(
+                "this model has no recorded node covers "
+                "(trained before TreeSHAP support); retrain to enable "
+                "predict_contributions")
+        from .tree_shap import compute_contributions
+
+        scale = 1.0 / max(self.ntrees_built, 1) if self.mode == "drf" else 1.0
+        f0k = self.f0 if np.ndim(self.f0) == 0 else self.f0[0]
+        contrib = compute_contributions(
+            self.forest[0], self.covers[0], self._rows_f64(test_data), scale,
+            f0k, self._shap_bias(scale)).cpu().numpy()
+        if top_n or bottom_n:
+            # top/bottom-N pairs per row: (feature, value) columns, ranked by
+            # signed value (or |value| with compare_abs), BiasTerm excluded
+            vals = contrib[:, :-1]
+            keys = np.abs(vals) if compare_abs else vals
+            order = np.argsort(-keys, axis=1, kind="stable")
+            d = {}
+            fn_arr = np.asarray(self.x, dtype=object)
+            nf = len(self.x)
+            tn = nf if top_n < 0 else min(top_n, nf)
+            bn = nf if bottom_n < 0 else min(bottom_n, nf)
+            for i in range(tn):
+                sel = order[:, i]
+                d[f"top_feature_{i + 1}"] = fn_arr[sel]
+                d[f"top_value_{i + 1}"] = np.take_along_axis(
+                    vals, sel[:, None], axis=1)[:, 0]
+            for i in range(bn):
+                sel = order[:, nf - 1 - i]
+                d[f"bottom_feature_{i + 1}"] = fn_arr[sel]
+                d[f"bottom_value_{i + 1}"] = np.take_along_axis(
+                    vals, sel[:, None], axis=1)[:, 0]
+            d["BiasTerm"] = contrib[:, -1]
+            return Frame.from_dict(d)
+        names = list(self.x) + ["BiasTerm"]
+        return Frame.from_dict({n2: contrib[:, j] for j, n2 in enumerate(names)})
+
+    def staged_predict_proba(self, test_data: Frame) -> Frame:
+        """Class-1 probability after each successive tree (binomial GBM):
+        the per-tree leaf values of one walk over f32 rows (`predict_raw`),
+        their running sum and the sigmoid in f32 on the host, as the
+        reference's numpy does."""
+        if self.problem != "binomial" or self.mode == "drf":
+            raise ValueError("staged_predict_proba supports binomial "
+                             "boosting models only (reference parity)")
+        if self._parm("offset_column"):
+            raise ValueError(
+                "staged_predict_proba is not supported for models trained "
+                "with an offset_column (staged margins would disagree with "
+                "predict())")
+        X = torch.from_numpy(self._matrix(test_data).astype(np.float32)).to(
+            self.device)
+        per_tree = treelib.predict_raw(self.forest[0], X,
+                                       self.max_depth).cpu().numpy()
+        f0k = self.f0 if np.ndim(self.f0) == 0 else self.f0[0]
+        margins = f0k + np.cumsum(per_tree, axis=0)
+        probs = 1.0 / (1.0 + np.exp(-margins))
+        return Frame.from_dict(
+            {f"T{t + 1}": probs[t] for t in range(probs.shape[0])})
+
+    def feature_frequencies(self, test_data: Frame) -> Frame:
+        """Per row, how many times each feature decides the row's path,
+        summed over all trees of every class forest (`h2o-py
+        ModelBase.feature_frequencies`); one walk per class forest over all
+        its trees at once, the counts binned on the device."""
+        X = self._rows_f64(test_data)
+        N, F = X.shape
+        counts = torch.zeros(N * F, dtype=torch.int64, device=X.device)
+        rows = torch.arange(N, device=X.device)[None, :] * F
+
+        def visit(s, f, right):
+            nonlocal counts
+            counts += torch.bincount((rows + f)[s], minlength=N * F)
+
+        for forest in self.forest:
+            treelib.forest_leaves(forest, X, self.max_depth, visit)
+        c = counts.view(N, F).cpu().numpy().astype(np.float64)
+        return Frame.from_dict({n2: c[:, j] for j, n2 in enumerate(self.x)})
+
+    def predict_leaf_node_assignment(self, test_data: Frame,
+                                     type: str = "Path") -> Frame:
+        """Leaf assignment per (tree, class): decision-path strings ("LRL…")
+        or heap node ids (`Model.scoreLeafNodeAssignment`). The node ids
+        come from one walk per class forest over all its trees at once on
+        f64 rows; a heap id fixes its root path, so the strings follow on
+        the host."""
+        if type not in ("Path", "Node_ID"):
+            raise ValueError("type must be 'Path' or 'Node_ID'")
+        X = self._rows_f64(test_data)
+        d, ctypes_ = {}, {}
+        for k, forest in enumerate(self.forest):
+            nodes = treelib.forest_leaves(forest, X,
+                                          self.max_depth).cpu().numpy()
+            for t in range(self.ntrees_built):
+                col = f"T{t + 1}.C{k + 1}"
+                if type == "Path":
+                    d[col] = heap_paths(nodes[t])
+                    ctypes_[col] = "enum"
+                else:
+                    d[col] = nodes[t].astype(np.float64)
+        return Frame.from_dict(d, column_types=ctypes_ or None)
+
+
+def heap_paths(nodes: np.ndarray) -> np.ndarray:
+    """Object array of the root paths ("L"/"R" per step) of heap node ids:
+    node n's path is n + 1 in binary after its leading 1, 0 for left (child
+    2i + 1) and 1 for right (2i + 2)."""
+    u, inv = np.unique(nodes, return_inverse=True)
+    names = np.asarray(
+        [format(int(n) + 1, "b")[1:].replace("0", "L").replace("1", "R")
+         for n in u], dtype=object)
+    return names[inv.reshape(-1)]
 
 
 class H2OSharedTreeEstimator(H2OEstimator):
@@ -481,6 +660,11 @@ class H2OSharedTreeEstimator(H2OEstimator):
         t_bins = time.perf_counter()
         wc = self._parms.get("weights_column")
         w = (train.vec(wc).numeric_np() if wc else np.ones(n)).astype(np.float32)
+        oc = self._parms.get("offset_column")
+        offset = train.vec(oc).numeric_np().astype(np.float32) if oc else None
+        if offset is not None and drf:
+            # reference parity: DRF.init rejects offsets
+            raise ValueError("offset_column is not supported for DRF")
         K = nclass if problem == "multinomial" else 1
         yk = _response_matrix(yvec, problem, K)
         if drf:
@@ -511,6 +695,10 @@ class H2OSharedTreeEstimator(H2OEstimator):
         edges_d = torch.from_numpy(edges).to(dev)
         ones = torch.ones(F, dtype=torch.float32, device=dev)
         margins = torch.from_numpy(f0).to(dev)[None, :].repeat(npad, 1)
+        if offset is not None:
+            # training margins start at f0 + offset; f0 ignores the offset
+            margins = margins + torch.from_numpy(np.concatenate(
+                [offset, np.zeros(pad, np.float32)])).to(dev)[:, None]
         cap = tp["max_abs_leaf"] if np.isfinite(tp["max_abs_leaf"]) else 3.4e38
         # sampling: per-row rate, per-tree column product, DRF's per-split
         # mtries rate, each compared in f32 as the reference does
@@ -538,6 +726,9 @@ class H2OSharedTreeEstimator(H2OEstimator):
             y_v = torch.from_numpy(_response_matrix(valid.vec(y), problem,
                                                     K)).to(dev)
             margins_v = torch.from_numpy(f0).to(dev)[None, :].repeat(n_v, 1)
+            if oc and oc in valid.names:
+                off_v = valid.vec(oc).numeric_np().astype(np.float32)
+                margins_v = margins_v + torch.from_numpy(off_v).to(dev)[:, None]
         stop_rounds = int(self._parms.get("stopping_rounds") or 0)
         stopper = (ScoreKeeper(stop_rounds, self._default_stopping_metric(problem),
                                float(self._parms.get("stopping_tolerance", 1e-3)))

@@ -426,13 +426,17 @@ def predict_codes_packed(tree: Tree, packed: torch.Tensor, bits: int,
     return tree.value[node]
 
 
-def forest_leaves(forest: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor:
+def forest_leaves(forest: Tree, X: torch.Tensor, max_depth: int,
+                  visit=None) -> torch.Tensor:
     """(ntrees, N) int64: the node each row's walk ends on in each tree of a
     stacked forest ((ntrees, T) fields) on raw features X (N, F), one gather
     round per level for all trees at once. NaN and x > thr go right, as in
     training (the NA bin is last); a node that is not split holds the row;
     feature indices are clamped into [0, F), as the reference's
-    `take(..., mode="clip")`."""
+    `take(..., mode="clip")`. X is f32 for scoring; on f64 X the f32
+    thresholds are widened, the routing of TreeSHAP and leaf assignment.
+    `visit(split, feature, goes_right)`, each (ntrees, N), is called once
+    per level where given."""
     nt = forest.feat.shape[0]
     N, F = X.shape
     node = torch.zeros((nt, N), dtype=torch.int64, device=X.device)
@@ -443,8 +447,19 @@ def forest_leaves(forest: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor
         s = forest.is_split.gather(1, node)
         x = X[rows, f]
         right = torch.isnan(x) | (x > t)
+        if visit is not None:
+            visit(s, f, right)
         node = torch.where(s, 2 * node + 1 + (right & s).to(torch.int64), node)
     return node
+
+
+def predict_raw(tree: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Leaf value per row on raw features X (N, F) f32: (N,) for one tree
+    ((T,) fields), (ntrees, N) for a stacked forest. The walk of
+    `forest_leaves` and a value gather; the reference's `predict_raw`."""
+    if tree.feat.dim() == 1:
+        return predict_raw(Tree(*[f[None] for f in tree]), X, max_depth)[0]
+    return tree.value.gather(1, forest_leaves(tree, X, max_depth))
 
 
 def predict_forest_raw(forest: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor:

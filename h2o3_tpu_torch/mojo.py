@@ -18,7 +18,9 @@ tree artifacts with the reference's numpy walk, summing in f64, through
 each distribution's link, and GLM artifacts by the reference's numpy
 expansion and matvec in f64 (a reference multinomial GLM's artifact
 included; the port fits no multinomial GLM yet, ROADMAP queue A, item 8).
-The reference's native C++ scorer (`native/loader.py`) and the other
+`MojoScorer.predict_contributions` runs the plain TreeSHAP of
+`models/tree_shap.py` on the host (the serving failover's contributions
+scorer). The reference's native C++ scorer (`native/loader.py`) and the other
 algorithms' payloads are not ported yet (ROADMAP queue A, items 10 and
 11). Exporting any other model raises the reference's `TypeError`.
 """
@@ -283,6 +285,45 @@ class MojoScorer:
         if fam in ("poisson", "gamma", "tweedie"):
             eta = np.exp(eta)
         return Frame.from_dict({"predict": eta})
+
+    def predict_contributions(self, data):
+        """Offline SHAP contributions and BiasTerm (the genmodel side's
+        `predictContributions`): tree artifacts with recorded covers only,
+        binomial and regression, as the model's. The plain TreeSHAP of
+        `models/tree_shap.py` on the host: this scorer never uses the
+        card."""
+        import torch
+
+        from .frame.frame import Frame
+        from .models.tree import Tree
+        from .models.tree_shap import compute_contributions
+
+        meta = self.meta
+        if meta["kind"] != "tree":
+            raise ValueError("predict_contributions requires a tree artifact")
+        if meta["problem"] == "multinomial":
+            raise ValueError("predict_contributions is not supported for "
+                             "multinomial models")
+        if "forest0_cover" not in self.arrays:
+            raise ValueError("artifact has no node covers (exported before "
+                             "TreeSHAP support); re-export the model")
+        a = self.arrays
+        forest = Tree(*[torch.from_numpy(np.ascontiguousarray(a[f"forest0_{f}"],
+                                                             dt))
+                        for f, dt in (("feat", np.int32), ("bin", np.int32),
+                                      ("thr", np.float32), ("is_split", bool),
+                                      ("value", np.float32))])
+        cover = torch.from_numpy(np.ascontiguousarray(a["forest0_cover"],
+                                                      np.float32))
+        X = torch.from_numpy(np.ascontiguousarray(self._matrix(data),
+                                                  np.float64))
+        scale = 1.0 / max(meta["ntrees"], 1) if meta["mode"] == "drf" else 1.0
+        f0 = meta["f0"]
+        f0k = f0[0] if isinstance(f0, list) else f0
+        contrib = compute_contributions(forest, cover, X, scale,
+                                        f0k).numpy()
+        names = list(self.x) + ["BiasTerm"]
+        return Frame.from_dict({n: contrib[:, j] for j, n in enumerate(names)})
 
     def predict(self, data):
         from .frame.frame import Frame

@@ -21,10 +21,11 @@ Two layers of reuse:
    share one device shape.
 
 Output kinds: "predict" is served for every port model (GBM, DRF and GLM,
-whose `predict` pads its own design to `SCORE_ROW_BUCKET` rows); the
-port's models have no `predict_contributions` or
-`predict_leaf_node_assignment` yet (ROADMAP queue A, items 6 and 11), so
-"contributions" and "leaves" raise the reference's `ValueError`.
+whose `predict` pads its own design to `SCORE_ROW_BUCKET` rows);
+"contributions" (TreeSHAP) and "leaves" (leaf node assignment) for GBM and
+DRF. A model without the method (GLM) raises the reference's
+`ValueError`. A contributions fallback scores with the MOJO scorer's
+`predict_contributions`; a leaves fallback with the model's own method.
 """
 
 from __future__ import annotations

@@ -196,8 +196,7 @@ def test_weights_column_fit_matches(fits):
 def test_unported_parameters_still_raise():
     d = _data(100, 0)
     fr = Frame.from_numpy(d, names=NAMES).asfactor("label")
-    for kw, item in ((dict(offset_column="w"), "offsets"),
-                     (dict(nfolds=3), "CV"),
+    for kw, item in ((dict(nfolds=3), "CV"),
                      (dict(checkpoint="m"), "checkpoints")):
         with pytest.raises(NotImplementedError, match=f"queue A, item 5: {item}"):
             H2OGradientBoostingEstimator(device="cpu", **kw).train(

@@ -26,6 +26,7 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch.models.shared_tree, chip_smoke\n"
         "import h2o3_tpu_torch.models.glm, h2o3_tpu_torch.models.estimator_engine\n"
         "import h2o3_tpu_torch.ops.score_cuda, h2o3_tpu_torch.mojo\n"
+        "import h2o3_tpu_torch.ops.shap_cuda, h2o3_tpu_torch.models.tree_shap\n"
         "import h2o3_tpu_torch.serving, h2o3_tpu_torch.runtime.dkv\n"
         "import h2o3_tpu_torch.runtime.memory_ledger, h2o3_tpu_torch.runtime.retry\n"
         "bad = sorted(m for m in sys.modules\n"

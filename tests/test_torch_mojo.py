@@ -331,3 +331,35 @@ def test_reference_multinomial_glm_artifact_scores_in_the_port(tmp_path):
         np.testing.assert_allclose(np.asarray(got.vec(col).data),
                                    np.asarray(want.vec(col).data),
                                    rtol=0, atol=1e-12)
+
+
+CONTRIB_CASES = ["gbm_bernoulli", "gbm_gaussian", "drf_binomial",
+                 "drf_regression"]
+
+
+@pytest.mark.parametrize("case", CONTRIB_CASES)
+def test_contributions_cross_load(artifacts, case):
+    """The port's `MojoScorer.predict_contributions` (its plain TreeSHAP)
+    on either package's artifact against the reference scorer's on the
+    same artifact (its native TreeSHAP where built): within 1e-12."""
+    a = artifacts[case]
+    for path in (a["ref_path"], a["port_path"]):
+        want = refmojo.load_model(path).predict_contributions(a["ref_test"])
+        got = mojo.load_model(path).predict_contributions(a["port_test"])
+        assert got.names == want.names == [f"f{i}" for i in range(F)] + ["BiasTerm"]
+        for n in want.names:
+            np.testing.assert_allclose(np.asarray(got.vec(n).data, np.float64),
+                                       np.asarray(want.vec(n).data, np.float64),
+                                       rtol=0, atol=1e-12)
+
+
+def test_contributions_of_the_artifact_equal_the_model(artifacts):
+    a = artifacts["gbm_bernoulli"]
+    got = mojo.load_model(a["port_path"]).predict_contributions(a["port_test"])
+    want = a["port"].predict_contributions(a["port_test"])
+    for n in want.names:
+        np.testing.assert_array_equal(np.asarray(got.vec(n).data),
+                                      np.asarray(want.vec(n).data))
+    with pytest.raises(ValueError, match="multinomial"):
+        mojo.load_model(artifacts["gbm_multinomial"]["port_path"]) \
+            .predict_contributions(artifacts["gbm_multinomial"]["port_test"])

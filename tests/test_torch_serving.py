@@ -413,6 +413,73 @@ def test_engine_serves_a_port_gbm_like_predict(gbm):
     eng.shutdown()
 
 
+def _explain_requests(rng, k):
+    reqs = []
+    for i, n in enumerate(rng.integers(1, 301, size=k)):
+        X, y = make_higgs_like(int(n), seed=200 + i)
+        X[::7, 3] = np.nan
+        reqs.append(Frame.from_numpy(np.column_stack([X, y]), names=NAMES))
+    return reqs
+
+
+def _labels(fr, n):
+    v = fr.vec(n)
+    if v.type == "enum":
+        return np.asarray(v.domain, dtype=object)[np.asarray(v.data)]
+    return np.asarray(v.data)
+
+
+@pytest.mark.parametrize("kind,method", [
+    ("contributions", "predict_contributions"),
+    ("leaves", "predict_leaf_node_assignment")])
+def test_engine_serves_explanations_like_the_model(gbm, kind, method):
+    """"contributions" and "leaves" served from 6 threads (coalesced into
+    batches, padded to row buckets) equal the model's own method on each
+    request's rows exactly: a row's result does not depend on its batch."""
+    eng = ScoringEngine(_cfg(max_wait_ms=20.0))
+    reqs = _explain_requests(np.random.default_rng(6), 10)
+    with ThreadPoolExecutor(max_workers=6) as ex:
+        outs = list(ex.map(lambda fr: eng.score("gbm", gbm, fr,
+                                                output_kind=kind), reqs))
+    for fr, out in zip(reqs, outs):
+        want = getattr(gbm, method)(fr)
+        assert out.names == want.names and out.nrow == fr.nrow
+        for n in want.names:
+            np.testing.assert_array_equal(_labels(out, n), _labels(want, n))
+    snap = eng.snapshot()
+    assert snap["cache"]["misses"] == 1
+    assert snap["totals"]["fallback_scores"] == 0
+    eng.shutdown()
+
+
+def test_contributions_failover_is_the_mojo_scorer(gbm):
+    """A quarantined contributions scorer degrades to the MOJO scorer's
+    `predict_contributions`; served under a device fault it answers what
+    the model does."""
+    fn, kind = build_fallback_scorer(gbm, "contributions")
+    assert kind == "mojo-cpu"
+    reqs = _explain_requests(np.random.default_rng(8), 3)
+    for fr in reqs:
+        got, want = fn(fr), gbm.predict_contributions(fr)
+        assert got.names == want.names
+        for n in want.names:
+            np.testing.assert_allclose(np.asarray(got.vec(n).data),
+                                       np.asarray(want.vec(n).data),
+                                       rtol=0, atol=1e-10)
+    eng = ScoringEngine(ServingConfig(max_wait_ms=1.0, breaker_reset_s=30.0))
+    faults.arm("serving.scorer", error="device", rate=1.0)
+    for fr in reqs:
+        out = eng.score("g", gbm, fr, output_kind="contributions")
+        want = gbm.predict_contributions(fr)
+        np.testing.assert_allclose(np.asarray(out.vec("BiasTerm").data),
+                                   np.asarray(want.vec("BiasTerm").data),
+                                   rtol=0, atol=1e-10)
+    t = eng.snapshot()["totals"]
+    assert t["errors"] == 0 and t["fallback_scores"] >= 2
+    assert eng.snapshot()["failover"]["fallback_scorers"][0]["kind"] == "mojo-cpu"
+    eng.shutdown()
+
+
 def test_scorer_cache_ledger_owner_measures_the_model(gbm):
     """The scorer cache accounts the model it wraps while the DKV does
     not hold it, and reports 0 while the DKV's owner does. An earlier
