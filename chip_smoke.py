@@ -148,20 +148,25 @@ csrc/tree_shap.cu beside the other two sources.
 20. Contributions at full width: `predict_contributions` of the GBM on
    SHAP_ROWS fresh rows (f32 values, 5 % NaN) and of the DRF on
    SHAP_DRF_ROWS rows, cut from SHAP_DRF_CUT_FROM (its 50 trees of depth 19
-   cost ~10^10 FP64 operations a row). The TreeSHAP kernel
-   (csrc/tree_shap.cu) must launch once per chunk of rows and nothing else;
-   on every explained row Σφ + BiasTerm equals the model's margin (the
-   DRF's averaged) within 1e-5 · max(1, |margin|); BiasTerm is constant.
-   The kernel equals its plain version (`tree_shap_plain`) bit for bit:
-   on all SHAP_ROWS of the GBM (2 chunks, on the card), on
-   SHAP_PLAIN_ROWS of them (on the card and on the CPU), on SHAP_SLICE_ROWS
-   of the DRF's rows through the DRF tree with the fewest splits (depth
-   19, the kernel's depth-20 instance; plain on the CPU) and on a small
-   DRF (4000 x 8, depth 10). Printed: the wall of each call (the DRF's
-   twice: the second reads the model's kept bias term), the bias term's
-   time where the forest lies against a copy to the host, the kernel's
-   time by CUDA events at both shapes against its bound (the FP64
-   operations of `shap_ops` over the unfused FP64 rate), the plain
+   cost ~10^9 FP64 operations a row). The TreeSHAP kernel
+   (csrc/tree_shap.cu, a replay of each forest's path plan) must launch
+   once per chunk of rows and nothing else; each model builds its plan at
+   its first call and none at the second; on every explained row Σφ +
+   BiasTerm equals the model's margin (the DRF's averaged) within 1e-5 ·
+   max(1, |margin|); BiasTerm is constant. The kernel equals its plain
+   version (`tree_shap_plain`) bit for bit: on all SHAP_ROWS of the GBM (2
+   chunks, on the card), on SHAP_PLAIN_ROWS of them (on the card and on
+   the CPU), on SHAP_SLICE_ROWS of the DRF's rows through the DRF tree
+   with the fewest splits (depth 19, the kernel's depth-20 instance; plain
+   on the CPU) and on a small DRF (4000 x 8, depth 10). Printed: the wall
+   of each call (the DRF's twice: the second reads the model's kept bias
+   term and plan), the bias term's time where the forest lies against a
+   copy to the host, the plan's build time and bytes for both forests,
+   the registers, stack and spill of each depth bucket (`-Xptxas -v`), the
+   kernel's time by CUDA events at both shapes and on the DRF's first
+   SHAP_DRF_SHORT_ROWS rows with the kept plan against
+   its bound (the FP64 operations of `shap_ops` over the unfused FP64
+   rate) and beside the replay's own count (`replay_ops`), the plain
    version's time on 512 rows and on the GBM's 100,000, the scratch peak.
 21. Leaf assignment (both types), feature frequencies and, for the GBM,
    staged probabilities on LEAF_ROWS rows of both forests: Node_ID equals
@@ -1861,9 +1866,15 @@ def small_glm_checks(dev):
 # FP64 instructions (`__d*_rn`), which issue at half that rate
 FP64_OPS_PER_S = 17e12
 SHAP_ROWS = 100_000
-# the DRF's 1,000 explained rows, cut from 100,000: path-dependent TreeSHAP
-# on its 50 trees of depth 19 costs ~10^10 FP64 operations a row
-SHAP_DRF_ROWS, SHAP_DRF_CUT_FROM = 1_000, 100_000
+# the DRF's 10,000 explained rows, cut from 100,000: path-dependent
+# TreeSHAP on its 50 trees of depth 19 costs ~10^9 FP64 operations a row,
+# ≈0.9 ms a row of kernel time on an H100 (PERF.md §5), and phase 20 runs
+# the DRF's rows through the kernel three times
+SHAP_DRF_ROWS, SHAP_DRF_CUT_FROM = 10_000, 100_000
+# the DRF's first rows also timed alone: the size at which the kernel's
+# earlier design was measured (PERF.md §6), and one at which a tree's warps
+# set the call's time
+SHAP_DRF_SHORT_ROWS = 1_000
 SHAP_PLAIN_ROWS = 512
 # the DRF's rows that its slice of one depth-19 tree explains, kernel
 # against plain on the CPU (~1.5 ms of host time a leaf, ~22,600 leaves)
@@ -1912,6 +1923,64 @@ def shap_ops(forest, depth: int, n_feat: int) -> int:
             lenb = (L + (~rep).to(torch.int64)).repeat_interleave(2, dim=1)
             mask = (mask | (1 << f)).repeat_interleave(2, dim=1)
     return total + n_feat * nt
+
+
+def replay_ops(forest, depth: int, n_feat: int) -> int:
+    """FP64 adds, multiplies and divides of one row's TreeSHAP as the
+    replay kernel does them: `shap_ops`'s counting rule with each leaf's
+    root path rebuilt from the root. A leaf costs 1 + L(4L + 4) plus, for
+    every node on its root path, 7L to EXTEND into it and 3L where its
+    parent's split UNWINDs a repeated feature; the zero fractions come
+    from the plan, so their 2 operations a node are not counted. The fold
+    adds ntrees per feature."""
+    nt = int(forest.feat.shape[0])
+    if n_feat > 62:
+        raise ValueError("replay_ops keeps feature sets in int64 masks")
+    dev = forest.feat.device
+    live = torch.ones((nt, 1), dtype=torch.bool, device=dev)
+    lenb = torch.zeros((nt, 1), dtype=torch.int64, device=dev)
+    mask = torch.zeros((nt, 1), dtype=torch.int64, device=dev)
+    pre = torch.zeros((nt, 1), dtype=torch.int64, device=dev)
+    total = 0
+    for lvl in range(depth + 1):
+        lo, n = 2 ** lvl - 1, 2 ** lvl
+        split = (forest.is_split[:, lo:lo + n] & live if lvl < depth
+                 else torch.zeros_like(live))
+        leaf = live & ~split
+        L = lenb
+        cum = pre + 7 * L
+        total += int(((cum + 1 + L * (4 * L + 4)) * leaf).sum())
+        f = forest.feat[:, lo:lo + n].to(torch.int64).clamp(0, n_feat - 1)
+        rep = ((mask >> f) & 1).bool()
+        if lvl < depth:
+            live = split.repeat_interleave(2, dim=1)
+            pre = (cum + 3 * L * (split & rep)).repeat_interleave(2, dim=1)
+            lenb = (L + (~rep).to(torch.int64)).repeat_interleave(2, dim=1)
+            mask = (mask | (1 << f)).repeat_interleave(2, dim=1)
+    return total + n_feat * nt
+
+
+def shap_ptxas(log: str) -> dict:
+    """{depth bucket: registers, stack and spill bytes} of the replay
+    kernel's instances, from the `-Xptxas -v` report of its build."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"tree_shap_replayILi(\d+)E", line)
+        if m:
+            cur = out.setdefault(int(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return dict(sorted(out.items()))
 
 
 def shap_bound_ms(forest, depth, n_feat, n):
@@ -1975,8 +2044,11 @@ def contributions_path(dev, gbm_model, drf_model):
     fd = Frame.from_numpy(Xr, names=names)
     print(f"phase 20 cut: the DRF explains {SHAP_DRF_ROWS} rows, reduced "
           f"from {SHAP_DRF_CUT_FROM}", flush=True)
+    for model in (gbm_model, drf_model):
+        model.__dict__.pop("_shap_plan_of", None)
     zero_counts()
     shap_cuda.scratch_peak = 0
+    builds = ts.plan_builds
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2001,15 +2073,37 @@ def contributions_path(dev, gbm_model, drf_model):
                    f"{launches} times, expected {expect}")
     if other["hist"] or other["hist_rows"] or other["score"]:
         bad.append(f"contributions launched other kernels: {other}")
-    # the DRF again: the model kept its bias term at the first call
+    # each model built its path plan at its first call and keeps it
+    plans = {name: model._shap_plan_of[2] for name, model in
+             (("gbm", gbm_model), ("drf", drf_model))}
+    built = ts.plan_builds - builds
+    # the DRF again: the model kept its bias term and its plan
     t0 = time.perf_counter()
     drf_model.predict_contributions(fd)
     torch.cuda.synchronize()
     wall_d2 = time.perf_counter() - t0
+    if built != 2 or ts.plan_builds - builds != 2 \
+            or drf_model._shap_plan(N_FEAT) is not plans["drf"]:
+        bad.append(f"path plans built: {built} at the first calls (expected "
+                   f"2), {ts.plan_builds - builds - built} at the second")
     rec = dict(gbm_rows=SHAP_ROWS, drf_rows=SHAP_DRF_ROWS, launches=launches,
                gbm_wall_s=wall_g, drf_wall_s=wall_d,
-               drf_wall_bias_kept_s=wall_d2, scratch_peak_bytes=scratch,
-               peak_device_bytes=peak)
+               drf_wall_kept_s=wall_d2, scratch_peak_bytes=scratch,
+               peak_device_bytes=peak,
+               ptxas=shap_ptxas(shap_cuda.build_log))
+    # the path plan's build where the forest lies, timed on its own
+    for name, model in (("gbm", gbm_model), ("drf", drf_model)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = ts.build_shap_plan(model.forest[0], model.covers[0], N_FEAT)
+        torch.cuda.synchronize()
+        rec[f"{name}_plan"] = dict(
+            build_ms=(time.perf_counter() - t0) * 1e3, bytes=plan.nbytes(),
+            leaves=int(plan.leaf_level.numel()),
+            steps=int(plan.step_zin.numel()))
+        if any(not torch.equal(a, b) for a, b in zip(plan, plans[name])
+               if isinstance(a, torch.Tensor)):
+            bad.append(f"{name}: a second plan build differs from the kept")
     # the bias term where the forest lies (as the model computes it) and
     # through a copy of is_split, value and cover to the host
     for name, model in (("gbm", gbm_model), ("drf", drf_model)):
@@ -2095,18 +2189,23 @@ def contributions_path(dev, gbm_model, drf_model):
         if not same:
             bad.append(f"TreeSHAP kernel differs from its plain version on "
                        f"{name}: max |err| {err:.3e}")
-    # times at the main path's shapes: the kernel by CUDA events, the plain
-    # version once on the GBM's full rows
+    # times at the main path's shapes (and on the DRF's first
+    # SHAP_DRF_SHORT_ROWS rows): the kernel by CUDA events with
+    # the kept plan, the plain version once on the GBM's full rows
     shapes, last = {}, {}
-    for name, model, X, reps in (("gbm", gbm_model, Xg, 5),
-                                 ("drf", drf_model, Xr, 1)):
+    for name, model, X, reps in (
+            ("gbm", gbm_model, Xg, 5), ("drf", drf_model, Xr, 1),
+            (f"drf_{SHAP_DRF_SHORT_ROWS}", drf_model,
+             Xr[:SHAP_DRF_SHORT_ROWS], 1)):
         Xd = torch.from_numpy(np.ascontiguousarray(X, np.float64)).to(dev)
         forest, cover = model.forest[0], model.covers[0]
         scale = 1.0 / model.ntrees_built if model.mode == "drf" else 1.0
         bias = ts.forest_bias(forest, cover, scale)
+        plan = plans[name.split("_")[0]]
 
         def run():
-            last[name] = shap_cuda.tree_shap(forest, cover, Xd, scale, bias)
+            last[name] = shap_cuda.tree_shap(forest, cover, Xd, scale, bias,
+                                             plan=plan)
 
         ms = time_ms(run, reps=reps, warmup=1 if reps > 1 else 0)
         bound, by, ops, nbytes = shap_bound_ms(forest, model.max_depth,
@@ -2114,7 +2213,9 @@ def contributions_path(dev, gbm_model, drf_model):
         shapes[name] = dict(rows=X.shape[0], trees=model.ntrees_built,
                             depth=model.max_depth, ms=ms, bound_ms=bound,
                             bound_by=by, fp64_ops=ops, bytes=nbytes,
-                            ops_per_row=ops // X.shape[0])
+                            ops_per_row=ops // X.shape[0],
+                            replay_ops_per_row=replay_ops(
+                                forest, model.max_depth, N_FEAT))
     Xd = torch.from_numpy(np.ascontiguousarray(Xg, np.float64)).to(dev)
     forest, cover = gbm_model.forest[0], gbm_model.covers[0]
     bias = ts.forest_bias(forest, cover, 1.0)
@@ -2135,17 +2236,30 @@ def contributions_path(dev, gbm_model, drf_model):
                    f"GBM's {SHAP_ROWS} rows")
     rec["shapes"] = shapes
     print("contributions: " + json.dumps(rec), flush=True)
+    print("tree_shap.cu -Xptxas -v, replay kernel by depth bucket: "
+          + "; ".join(f"{d}: {r.get('registers')} registers, "
+                      f"{r.get('stack')} B stack, {r.get('spill_stores')} / "
+                      f"{r.get('spill_loads')} B spill stores / loads"
+                      for d, r in rec["ptxas"].items()), flush=True)
     for name, s in shapes.items():
+        p = rec[f"{name.split('_')[0]}_plan"]
+        wall = rec.get(f"{name}_wall_s")
         print(f"tree_shap {name} on {card_line()}: {s['rows']} rows x "
               f"{s['trees']} trees of depth {s['depth']}: kernel "
-              f"{s['ms']:.3f} ms (CUDA events), FP64 bound "
-              f"{s['bound_ms']:.3f} ms ({s['ops_per_row']} operations a row, "
-              f"{s['bound_by']}), "
+              f"{s['ms']:.3f} ms (CUDA events, plan prebuilt), FP64 bound "
+              f"{s['bound_ms']:.3f} ms ({s['ops_per_row']} operations a row "
+              f"by shap_ops, {s['bound_by']}; the replay does "
+              f"{s['replay_ops_per_row']}, "
+              f"{s['replay_ops_per_row'] / max(s['ops_per_row'], 1):.3f}x), "
               + (f"plain {s['plain_ms']:.1f} ms; " if "plain_ms" in s else "")
-              + f"predict_contributions wall "
-              f"{rec[name + '_wall_s'] * 1e3:.1f} ms", flush=True)
-    print(f"predict_contributions of the DRF again, its bias term kept: "
-          f"wall {wall_d2 * 1e3:.1f} ms; the bias term where the forest lies "
+              + (f"predict_contributions wall {wall * 1e3:.1f} ms; "
+                 if wall is not None else "")
+              + f"path plan "
+              f"{p['bytes']} B ({p['leaves']} leaves, {p['steps']} steps), "
+              f"built in {p['build_ms']:.2f} ms", flush=True)
+    print(f"predict_contributions of the DRF again, its bias term and plan "
+          f"kept: wall {wall_d2 * 1e3:.1f} ms; the bias term where the "
+          f"forest lies "
           f"/ through a copy to the host: gbm "
           f"{rec['gbm_bias_ms']['on_card']:.2f} / "
           f"{rec['gbm_bias_ms']['copied_to_host']:.2f} ms, drf "

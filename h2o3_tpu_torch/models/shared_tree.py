@@ -348,6 +348,23 @@ class SharedTreeModel(H2OModel):
                 forest_bias(self.forest[0], self.covers[0], scale))
         return hit[3]
 
+    def _shap_plan(self, n_feat: int):
+        """Class 0's TreeSHAP path plan for rows of `n_feat` features
+        (`tree_shap.build_shap_plan`, built where the forest lies), built
+        at the first explanation on the card and kept while that forest,
+        its covers and the feature count stay the same. It lives in the
+        model's `__dict__`, so the memory ledger counts it with the
+        model."""
+        from .tree_shap import build_shap_plan
+
+        hit = self.__dict__.get("_shap_plan_of")
+        if hit is None or hit[0] is not self.forest[0] \
+                or hit[1] is not self.covers[0] or hit[2].n_feat != n_feat:
+            hit = self._shap_plan_of = (
+                self.forest[0], self.covers[0],
+                build_shap_plan(self.forest[0], self.covers[0], n_feat))
+        return hit[2]
+
     def _parm(self, name: str):
         """A training parameter; None for a model built from arrays."""
         return (getattr(self.parms, "_parms", None) or {}).get(name)
@@ -393,11 +410,12 @@ class SharedTreeModel(H2OModel):
     def predict_contributions(self, test_data: Frame, output_format="Original",
                               top_n=0, bottom_n=0, compare_abs=False) -> Frame:
         """Per-row SHAP feature contributions and BiasTerm (path-dependent
-        TreeSHAP, `tree_shap.compute_contributions`: the CUDA kernel on the
-        card). Contributions are in the margin space (log-odds for GBM
-        binomial, the response for regression, the probability for DRF
-        binomial) and sum with BiasTerm to the raw prediction. Binomial and
-        regression only, as in the reference."""
+        TreeSHAP, `tree_shap.compute_contributions`: the CUDA kernel over
+        the model's kept path plan on the card). Contributions are in the
+        margin space (log-odds for GBM binomial, the response for
+        regression, the probability for DRF binomial) and sum with
+        BiasTerm to the raw prediction. Binomial and regression only, as in
+        the reference."""
         if self.problem == "multinomial":
             raise ValueError(
                 "predict_contributions is not supported for multinomial "
@@ -419,9 +437,12 @@ class SharedTreeModel(H2OModel):
 
         scale = 1.0 / max(self.ntrees_built, 1) if self.mode == "drf" else 1.0
         f0k = self.f0 if np.ndim(self.f0) == 0 else self.f0[0]
+        X = self._rows_f64(test_data)
         contrib = compute_contributions(
-            self.forest[0], self.covers[0], self._rows_f64(test_data), scale,
-            f0k, self._shap_bias(scale)).cpu().numpy()
+            self.forest[0], self.covers[0], X, scale, f0k,
+            self._shap_bias(scale),
+            plan=self._shap_plan(X.shape[1]) if X.is_cuda else None
+        ).cpu().numpy()
         if top_n or bottom_n:
             # top/bottom-N pairs per row: (feature, value) columns, ranked by
             # signed value (or |value| with compare_abs), BiasTerm excluded

@@ -35,6 +35,19 @@ fractions (0 or 1) and the permutation weights differ per row, so
 them. Where the reference branches on a row's one fraction, both branches
 are computed and the row's is taken.
 
+The kernel does not recurse. `build_shap_plan` computes the row-independent
+part once per forest: every reachable node below the root in the DFS's
+order (preorder, left child first) as the step that enters it (its
+parent's feature and threshold, the side, the unwind position and level of
+a repeated feature, the child's zero fraction), grouped by the leaf they
+lead to. A thread rebuilds each leaf's weights along its root path, step
+by step, with the same operations as the DFS: the weights at a leaf are
+the result of one fixed sequence of EXTEND and UNWIND steps, so sharing
+prefixes between leaves, as the DFS does and the kernel does for
+consecutive leaves, changes no bit.
+`tree_shap_replay_plain` is that algorithm in torch, the tests' proof that
+the plan reproduces `tree_shap_plain` bit for bit.
+
 `shapley_bruteforce` is the exponential Shapley oracle of the tests, a
 copy of the reference's.
 """
@@ -49,6 +62,9 @@ import numpy as np
 import torch
 
 from .tree import Tree
+
+# path plans built (`build_shap_plan` calls)
+plan_builds = 0
 
 
 def heap_depth(n_nodes: int) -> int:
@@ -233,14 +249,220 @@ def tree_shap_plain(forest: Tree, covers: torch.Tensor, X: torch.Tensor,
     return out
 
 
+class ShapPlan(NamedTuple):
+    """The row-independent part of a stacked forest's TreeSHAP for rows of
+    `n_feat` features, on the forest's device (`build_shap_plan`).
+
+    Steps are the reachable nodes below the roots in the DFS's order (tree
+    by tree, preorder, left child first); step s is what enters its node
+    from the parent split: `step_feat` (int32, the parent's feature clamped
+    into [0, n_feat)), `step_thr` (f32, its threshold), `step_right` (bool,
+    the node is the right child), `step_pos` (int8, the path position the
+    parent's split unwinds, −1 for none), `step_ulev` (int8, the level of
+    the step that put that element on the path, −1 for none) and
+    `step_zin` (f64, the node's zero fraction, (iz·cover[node]) / den as
+    the DFS computes it).
+
+    Leaves are the nodes the DFS ends at (not split, or at the heap's last
+    level), in its order: tree t's are [tree_leaf[t], tree_leaf[t+1]).
+    Leaf l's root path has `leaf_level[l]` steps, one per level 1..level;
+    the last leaf_step[l+1] − leaf_step[l] of them are steps
+    [leaf_step[l], leaf_step[l+1]) (the nodes first entered on the way to
+    l), the others are the previous leaf's at the same levels, which lie
+    above the two leaves' common ancestor. `leaf_value` is the leaf's f32
+    value. A tree whose root is a leaf has no steps and no leaves."""
+    tree_leaf: torch.Tensor
+    leaf_step: torch.Tensor
+    leaf_level: torch.Tensor
+    leaf_value: torch.Tensor
+    step_feat: torch.Tensor
+    step_thr: torch.Tensor
+    step_right: torch.Tensor
+    step_pos: torch.Tensor
+    step_ulev: torch.Tensor
+    step_zin: torch.Tensor
+    n_feat: int
+    depth: int
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self
+                   if isinstance(t, torch.Tensor))
+
+
+def build_shap_plan(forest: Tree, covers: torch.Tensor,
+                    n_feat: int) -> ShapPlan:
+    """The `ShapPlan` of a stacked forest ((ntrees, T) heaps, f32 covers)
+    for rows of `n_feat` features, built with torch ops where the forest
+    lies: level by level over the reachable split nodes of all trees at
+    once, each carrying its path's features, zero fractions and levels;
+    then one sort into the DFS's order. Each zero fraction is computed as
+    the DFS computes it (iz · cover, then / den, each a correctly rounded
+    f64 operation), so the two agree bit for bit."""
+    global plan_builds
+    plan_builds += 1
+    dev = forest.feat.device
+    nt, T = forest.feat.shape
+    depth = heap_depth(T)
+    issp = forest.is_split.bool()
+    i64 = dict(dtype=torch.int64, device=dev)
+    last = max(n_feat - 1, 0)
+    # the fields are read at the reachable nodes only, then widened
+    cov = lambda t, n: covers[t, n].to(torch.float64)  # noqa: E731
+    # the current level's reachable nodes: tree, heap index, and the path
+    # by position (position 0 is the root's element, feature −1; padding
+    # has feature −2, zero fraction 0, level −1)
+    tree = torch.arange(nt, **i64)
+    node = torch.zeros(nt, **i64)
+    pf = torch.full((nt, 1), -1, **i64)
+    pz = torch.ones((nt, 1), dtype=torch.float64, device=dev)
+    pl = torch.zeros((nt, 1), **i64)
+    plen = torch.ones(nt, **i64)
+    recs = []
+    for lvl in range(depth):
+        sp = issp[tree, node]
+        tree, node, pf, pz, pl, plen = (a[sp] for a in
+                                        (tree, node, pf, pz, pl, plen))
+        if tree.numel() == 0:
+            break
+        f = forest.feat[tree, node].to(torch.int64).clamp(0, last)
+        cn = cov(tree, node)
+        den = torch.where(cn > 0, cn, torch.ones_like(cn))
+        width = lvl + 1
+        cols = torch.arange(width, **i64)
+        match = (pf == f[:, None]) & (cols >= 1)
+        has = match.any(dim=1)
+        pos = torch.where(has, match.to(torch.int64).argmax(dim=1),
+                          torch.full_like(f, -1))
+        pc = pos.clamp(min=0)[:, None]
+        iz = torch.where(has, pz.gather(1, pc)[:, 0], torch.ones_like(cn))
+        ulev = torch.where(has, pl.gather(1, pc)[:, 0], torch.full_like(f, -1))
+        # the path without the unwound element, one column wider
+        src = cols[None, :] + (has[:, None] & (cols[None, :] >= pos[:, None]))
+        keep = src < width
+        src = src.clamp(max=width - 1)
+        pad = lambda a, fill: torch.cat(  # noqa: E731
+            [torch.where(keep, a.gather(1, src), torch.full_like(a, fill)),
+             torch.full_like(a[:, :1], fill)], dim=1)
+        pf, pz, pl = pad(pf, -2), pad(pz, 0.0), pad(pl, -1)
+        plen = plen - has.to(torch.int64)
+        # the two children, left then right
+        side = torch.arange(2, **i64).repeat(tree.numel())
+        two = lambda a: a.repeat_interleave(2, dim=0)  # noqa: E731
+        tree, f, den, iz, pos, ulev, plen, pf, pz, pl, par = (
+            two(a) for a in (tree, f, den, iz, pos, ulev, plen, pf, pz, pl,
+                             node))
+        node = 2 * par + 1 + side
+        zin = (iz * cov(tree, node)) / den
+        at = plen[:, None]
+        pf = pf.scatter(1, at, f[:, None])
+        pz = pz.scatter(1, at, zin[:, None])
+        pl = pl.scatter(1, at, torch.full_like(at, lvl + 1))
+        plen = plen + 1
+        recs.append((tree, node, torch.full_like(tree, lvl + 1), f,
+                     forest.thr[tree, par], side.bool(), pos, ulev, zin))
+    if recs:
+        (s_tree, s_node, s_lvl, s_f, s_thr, s_right, s_pos, s_ulev,
+         s_zin) = (torch.cat(c) for c in zip(*recs))
+    else:
+        e = torch.zeros(0, **i64)
+        s_tree = s_node = s_lvl = s_f = s_pos = s_ulev = e
+        s_thr = torch.zeros(0, dtype=torch.float32, device=dev)
+        s_right = torch.zeros(0, dtype=torch.bool, device=dev)
+        s_zin = torch.zeros(0, dtype=torch.float64, device=dev)
+    # preorder: a node's root path as bits (right = 1) left-aligned to the
+    # heap's depth, ancestors before descendants
+    bits = (s_node + 1 - (1 << s_lvl)) << (depth - s_lvl)
+    key = ((s_tree << depth) + bits) * 32 + s_lvl
+    order = torch.argsort(key)
+    s_tree, s_node, s_lvl, s_f, s_thr, s_right, s_pos, s_ulev, s_zin = (
+        a[order] for a in (s_tree, s_node, s_lvl, s_f, s_thr, s_right, s_pos,
+                           s_ulev, s_zin))
+    is_leaf = ~issp[s_tree, s_node] | (s_lvl == depth)
+    at = torch.nonzero(is_leaf)[:, 0]
+    zero = torch.zeros(1, **i64)
+    per_tree = torch.bincount(s_tree[at], minlength=nt)
+    return ShapPlan(
+        tree_leaf=torch.cat([zero, per_tree.cumsum(0)]),
+        leaf_step=torch.cat([zero, at + 1]),
+        leaf_level=s_lvl[at].to(torch.int32),
+        leaf_value=forest.value[s_tree[at], s_node[at]].to(torch.float32),
+        step_feat=s_f.to(torch.int32), step_thr=s_thr.to(torch.float32),
+        step_right=s_right, step_pos=s_pos.to(torch.int8),
+        step_ulev=s_ulev.to(torch.int8), step_zin=s_zin,
+        n_feat=int(n_feat), depth=depth)
+
+
+def tree_shap_replay_plain(plan: ShapPlan, X: torch.Tensor, scale: float,
+                           bias: float) -> torch.Tensor:
+    """(N, F+1) f64 contributions from a `ShapPlan`: the kernel's
+    algorithm in torch, vectorised over rows. For each leaf of each tree
+    in order: the row's side at the leaf's new steps, then the weights
+    rebuilt from the root (at each step the one fraction, UNWIND where the
+    plan says, EXTEND), then the leaf's contributions added into the tree's
+    φ; the trees' φ added in tree order from 0.0. Equal bit for bit to
+    `tree_shap_plain` on the plan's forest. (The kernel resumes a leaf from
+    the weights at its common ancestor with the previous leaf, where it
+    kept them: the values this replay reaches there.)"""
+    N, F = X.shape
+    if F != plan.n_feat:
+        raise ValueError(f"the plan is for {plan.n_feat} features, X has {F}")
+    h = {k: (v.cpu().tolist() if isinstance(v, torch.Tensor) else v)
+         for k, v in plan._asdict().items()}
+    one_row = torch.ones(N, dtype=torch.float64, device=X.device)
+    zero_row = torch.zeros(N, dtype=torch.float64, device=X.device)
+    acc = torch.zeros((N, F), dtype=torch.float64, device=X.device)
+    nt = len(h["tree_leaf"]) - 1
+    for t in range(nt):
+        phi = torch.zeros((N, F), dtype=torch.float64, device=X.device)
+        slot = [None] * (plan.depth + 1)   # per level: (feat, ulev, zin)
+        takes = [None] * (plan.depth + 1)  # per level: the row takes its side
+        for leaf in range(h["tree_leaf"][t], h["tree_leaf"][t + 1]):
+            k = h["leaf_level"][leaf]
+            s0, s1 = h["leaf_step"][leaf], h["leaf_step"][leaf + 1]
+            for j, s in zip(range(k - (s1 - s0) + 1, k + 1), range(s0, s1)):
+                f = h["step_feat"][s]
+                x = X[:, f]
+                right = torch.isnan(x) | (x > float(h["step_thr"][s]))
+                takes[j] = right == bool(h["step_right"][s])
+                slot[j] = (f, h["step_ulev"][s], h["step_zin"][s])
+            W = _extend(None, 1.0, one_row)
+            ones, alive = {}, []
+            for j in range(1, k + 1):
+                f, ulev, z = slot[j]
+                io = one_row
+                if ulev >= 0:
+                    io = ones[ulev]
+                    W = _unwind(W, io, slot[ulev][2])
+                    alive.remove(ulev)
+                ones[j] = torch.where(takes[j], io, zero_row)
+                W = _extend(W, z, ones[j])
+                alive.append(j)
+            if alive:
+                v = float(h["leaf_value"][leaf]) * scale
+                o = torch.stack([ones[j] for j in alive])
+                zeros = torch.tensor([slot[j][2] for j in alive],
+                                     dtype=torch.float64,
+                                     device=X.device)[:, None]
+                c = (_unwound_sums(W, o, zeros) * (o - zeros)) * v
+                idx = torch.tensor([slot[j][0] for j in alive],
+                                   dtype=torch.int64, device=X.device)
+                phi[:, idx] = phi[:, idx] + c.T
+        acc = acc + phi
+    out = torch.empty((N, F + 1), dtype=torch.float64, device=X.device)
+    out[:, :F] = acc
+    out[:, F] = bias
+    return out
+
+
 def compute_contributions(forest: Tree, covers: torch.Tensor, X: torch.Tensor,
-                          scale: float, f0: float,
-                          bias: float = None) -> torch.Tensor:
+                          scale: float, f0: float, bias: float = None,
+                          plan: ShapPlan = None) -> torch.Tensor:
     """The contributions entry shared by the model and the MOJO scorer:
     (N, F+1) f64 with f0·scale folded into the bias term (`forest_bias`,
     or `bias` where the caller keeps it). The CUDA kernel for X on a CUDA
-    device (`shap_cuda.tree_shap`; a failed build or launch raises
-    `hist_cuda.KernelError`), `tree_shap_plain` for X on the CPU."""
+    device (`shap_cuda.tree_shap` over `plan`, or a plan it builds; a
+    failed build or launch raises `hist_cuda.KernelError`),
+    `tree_shap_plain` for X on the CPU."""
     if tuple(covers.shape) != tuple(forest.feat.shape):
         raise ValueError(
             f"covers shape {tuple(covers.shape)} does not match forest "
@@ -255,7 +477,7 @@ def compute_contributions(forest: Tree, covers: torch.Tensor, X: torch.Tensor,
     else:
         from ..ops import shap_cuda
 
-        out = shap_cuda.tree_shap(forest, covers, X, scale, bias)
+        out = shap_cuda.tree_shap(forest, covers, X, scale, bias, plan=plan)
     out[:, -1] += float(f0) * scale
     return out
 

@@ -8,13 +8,17 @@ contributions of one stacked forest. Its CUDA source is
 bound), built at first use by `hist_cuda.build_library` into
 `h2o3_tpu_torch/_build/` and loaded through `ctypes`.
 
-One thread walks one (row, tree) pair and writes its φ to an (nt, rows, F)
-f64 scratch; a second kernel adds the trees in tree order. The rows go in
-chunks that keep the scratch within SCRATCH_BYTES. The plain version is
-`models/tree_shap.py::tree_shap_plain`, which `compute_contributions`
-runs for tensors on the CPU; the two agree bit for bit on the card. For
-tensors on a CUDA device a failed build or launch raises
-`hist_cuda.KernelError`: nothing falls back to the plain version.
+The kernel reads the forest's path plan (`models/tree_shap.py::
+build_shap_plan`, which a model keeps per forest), not its heaps: a block
+takes one tree and a tile of rows, a thread one (row, tree) pair, and each
+leaf's weights are rebuilt along its root path (from the root, or from the
+weights kept at its common ancestor with the previous leaf); the tree's φ
+goes to an (nt, rows, F) f64 scratch and a second kernel adds the trees in
+tree order. The rows go in chunks that keep the scratch within SCRATCH_BYTES.
+The plain version is `models/tree_shap.py::tree_shap_plain`, which
+`compute_contributions` runs for tensors on the CPU; the two agree bit for
+bit on the card. For tensors on a CUDA device a failed build or launch
+raises `hist_cuda.KernelError`: nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Optional
 import torch
 
 from ..models.tree import Tree
-from ..models.tree_shap import heap_depth
+from ..models.tree_shap import ShapPlan, build_shap_plan, heap_depth
 from . import hist_cuda
 
 SOURCE = hist_cuda.SOURCE.with_name("tree_shap.cu")
@@ -34,7 +38,7 @@ SOURCE = hist_cuda.SOURCE.with_name("tree_shap.cu")
 SCRATCH_BYTES = 256 << 20
 MAX_DEPTH = 30                   # tree_shap.cu kMaxDepth
 
-# chunks launched on the card (one walk and one fold each)
+# chunks launched on the card (one replay and one fold each)
 launches = 0
 # the largest scratch one call allocated, in bytes
 scratch_peak = 0
@@ -54,9 +58,8 @@ def build() -> ctypes.CDLL:
             return _lib
         lib, build_log = hist_cuda.build_library(SOURCE, "h2o3shap")
         fn = lib.h2o3_tree_shap
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
-                          ctypes.c_double, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                       + [ctypes.c_double, ctypes.c_double, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.h2o3_tree_shap_max_depth.argtypes = []
         lib.h2o3_tree_shap_max_depth.restype = ctypes.c_int
@@ -75,11 +78,14 @@ def chunk_rows(n_rows: int, n_trees: int, n_feat: int) -> int:
 
 
 def tree_shap(forest: Tree, covers: torch.Tensor, X: torch.Tensor,
-              scale: float, bias: float) -> torch.Tensor:
+              scale: float, bias: float,
+              plan: Optional[ShapPlan] = None) -> torch.Tensor:
     """(N, F+1) f64: φ · scale of each feature summed over the stacked
     forest ((ntrees, T) fields: int32 feat, f32 thr, bool is_split, f32
     value; f32 covers) on f64 rows X (N, F) on a CUDA device, and `bias`
-    in column F. Launches on the current stream with no synchronisation."""
+    in column F. `plan` is the forest's `build_shap_plan` for F features
+    (built here where it is not given). Launches on the current stream
+    with no synchronisation."""
     global launches, scratch_peak
     if X.device.type != "cuda":
         raise ValueError("shap_cuda.tree_shap runs on a CUDA device; "
@@ -103,10 +109,20 @@ def tree_shap(forest: Tree, covers: torch.Tensor, X: torch.Tensor,
     if depth > MAX_DEPTH:
         raise ValueError(f"tree_shap takes heaps of depth ≤ {MAX_DEPTH}, "
                          f"not {depth}")
-    if not all(t.is_contiguous() for t in fields + (X,)):
-        raise ValueError("tree_shap takes contiguous tensors")
+    if not X.is_contiguous():
+        raise ValueError("tree_shap takes contiguous rows")
     if any(f.device != X.device for f in fields):
         raise ValueError("tree_shap inputs lie on different devices")
+    if plan is None:
+        plan = build_shap_plan(forest, covers, F)
+    tensors = [t for t in plan if isinstance(t, torch.Tensor)]
+    if (plan.n_feat != F or plan.depth != depth
+            or len(plan.tree_leaf) != nt + 1):
+        raise ValueError(f"the plan is for {len(plan.tree_leaf) - 1} trees "
+                         f"of depth {plan.depth} on {plan.n_feat} features, "
+                         f"not {nt} of depth {depth} on {F}")
+    if any(t.device != X.device or not t.is_contiguous() for t in tensors):
+        raise ValueError("the plan's tensors must be contiguous on X's device")
     out = torch.empty((N, F + 1), dtype=torch.float64, device=X.device)
     if N == 0:
         return out
@@ -119,11 +135,13 @@ def tree_shap(forest: Tree, covers: torch.Tensor, X: torch.Tensor,
         for r0 in range(0, N, rows):
             n = min(rows, N - r0)
             rc = lib.h2o3_tree_shap(
-                forest.feat.data_ptr(), forest.thr.data_ptr(),
-                forest.is_split.data_ptr(), forest.value.data_ptr(),
-                covers.data_ptr(), X[r0:].data_ptr(), scratch.data_ptr(),
-                out[r0:].data_ptr(), n, F, nt, T, depth, float(scale),
-                float(bias), stream)
+                plan.tree_leaf.data_ptr(), plan.leaf_step.data_ptr(),
+                plan.leaf_level.data_ptr(), plan.leaf_value.data_ptr(),
+                plan.step_feat.data_ptr(), plan.step_thr.data_ptr(),
+                plan.step_zin.data_ptr(), plan.step_ulev.data_ptr(),
+                plan.step_right.data_ptr(), X[r0:].data_ptr(),
+                scratch.data_ptr(), out[r0:].data_ptr(), n, F, nt, depth,
+                float(scale), float(bias), stream)
             hist_cuda.check_launch(rc, "TreeSHAP kernel")
             launches += 1
     return out

@@ -199,6 +199,59 @@ def test_bias_term_computed_once_per_forest(fits, case, monkeypatch):
         m.covers = old
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_replay_plan_equals_plain_on_fitted_models(fits, case):
+    """The kernel's algorithm in torch (`tree_shap_replay_plain` over
+    `build_shap_plan`) gives `tree_shap_plain`'s bits on the fitted and
+    the carried models' forests."""
+    import torch
+
+    from h2o3_tpu_torch.models import tree_shap as ts
+
+    fx = fits[case]
+    for m in (fx["port"].model, fx["carried"]):
+        X = m._rows_f64(fx["pt"])
+        scale = 1.0 / m.ntrees_built if m.mode == "drf" else 1.0
+        bias = m._shap_bias(scale)
+        plan = ts.build_shap_plan(m.forest[0], m.covers[0], X.shape[1])
+        want = ts.tree_shap_plain(m.forest[0], m.covers[0], X, scale, bias)
+        got = ts.tree_shap_replay_plain(plan, X, scale, bias)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("case", ["gbm", "drf"])
+def test_shap_plan_built_once_per_forest(fits, case):
+    """The model keeps its path plan: built at the first call, then the
+    same one, the memory ledger grown by its bytes; a new covers object or
+    another feature count builds it anew. On the CPU `predict_contributions`
+    runs the plain version and builds none."""
+    from h2o3_tpu_torch.models import tree_shap as ts
+    from h2o3_tpu_torch.runtime import memory_ledger
+
+    m = fits[case]["carried"]
+    m.__dict__.pop("_shap_plan_of", None)
+    before = ts.plan_builds
+    m.predict_contributions(fits[case]["pt"])
+    assert ts.plan_builds == before
+    host0, dev0 = memory_ledger.measure(m)
+    plan = m._shap_plan(F)
+    assert m._shap_plan(F) is plan
+    assert ts.plan_builds == before + 1
+    host1, dev1 = memory_ledger.measure(m)
+    assert (host1 - host0, dev1 - dev0) == (plan.nbytes(), 0)
+    old = m.covers
+    try:
+        m.covers = [old[0].clone()]
+        assert m._shap_plan(F) is not plan
+        assert ts.plan_builds == before + 2
+        assert m._shap_plan(F + 1).n_feat == F + 1
+        assert ts.plan_builds == before + 3
+    finally:
+        m.covers = old
+        m.__dict__.pop("_shap_plan_of", None)
+
+
 def test_contributions_raise_for_multinomial_and_offset():
     rng = np.random.default_rng(3)
     X = rng.normal(size=(300, F))
