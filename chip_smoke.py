@@ -186,11 +186,47 @@ csrc/tree_shap.cu beside the other two sources.
    contributions equal the CPU's plain version on their forests within
    1e-10.
 
+Phases 24-28 run last, on phase 4's frame made again from its seed:
+cross-validation and the stacked ensemble. A wrapper set in this script
+counts the package's `build_bins` calls and times each tree fit and each
+holdout prediction.
+
+24. The GBM of phase 4 with `nfolds=CV_FOLDS` and the holdout kept, on the
+   fold-reuse path (one `build_bins`; B1 launched (CV_FOLDS + 1) x NTREES x
+   DEPTH times and nothing else; no forest launch: the folds walk their
+   holdout codes), then under `H2O3_CV_REBIN=1` (`build_bins` once a fit;
+   the same B1 launches; 2 x CV_FOLDS resident forest launches, a fold's
+   holdout and its validation metrics). Each: xval AUC ≥ 0.75, a
+   probability on every row, the fold sizes the reference's Random
+   assignment gives, fold 0's rows equal to its model's own prediction of
+   them. The two paths' xval AUC and logloss within 0.03 and their
+   holdouts' mean |diff| < 0.05 (the reference's bars). Printed: the
+   parent's and each fold's wall, `bins_s` and `trees_s`, beside the card.
+25. The DRF of phase 8 with `nfolds=CV_FOLDS`, cut to CV_DRF_TREES trees
+   from DRF_TREES (printed on a line of its own): B2 launched the passes of
+   every fit's level plan plus its dense rebuilds, and nothing else; one
+   `build_bins`; the holdout checks of phase 24.
+26. A binomial GLM (λ = 0) on the 28 columns with `nfolds=CV_FOLDS`: no
+   hand-written kernel launched, the holdout finite; the parent's and
+   each fold's split printed.
+27. The stacked ensemble of phase 24's reuse-path GBM, phase 25's DRF and
+   phase 26's GLM with the default metalearner: AUC ≥ the best base
+   model's xval AUC − 0.03 (the reference's bar), metalearner β ≥ 0;
+   `predict` of SE_ROWS fresh rows launches the forest kernels twice (the
+   GBM's resident plan, the DRF's streamed one) and nothing else, and
+   equals the ensemble's MOJO, scored by numpy, within 1e-5.
+28. Card against CPU, 4000 x 8, CV_SMALL_FOLDS folds: the GBM and the DRF
+   on both fold paths (fold forests equal node for node; holdouts and
+   xval metrics within 1e-5, the DRF's AUC on holdouts rounded to 1e-6),
+   the GLM (fold β within 1e-4, holdout within 1e-5), the ensemble
+   (predictions within 1e-5).
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
-them again before their `predict`; phase 20 is the TreeSHAP path's; the
-GLM runs none of the hand-written kernels, and phases 17 and 18 fail if it
-launched one). TF32 must stay off
+them again before their `predict`; phase 20 is the TreeSHAP path's; phases
+24, 25 and 27's `predict` are the CV path's; the GLM runs none of the
+hand-written kernels, and phases 17, 18 and 26 fail if it launched one).
+TF32 must stay off
 through phases 17-19. The last line is {"ok": true, "device": {...}}; the
 line before it is the kernel table as JSON.
 """
@@ -207,6 +243,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -2498,6 +2535,383 @@ def small_explain_checks(dev):
     return out
 
 
+# phases 24-28: cross-validation and the stacked ensemble on phase 4's
+# frame. The DRF's CV is cut to CV_DRF_TREES trees from DRF_TREES: six
+# 50-tree fits would add ≈100 s
+CV_FOLDS, CV_DRF_TREES, CV_SMALL_FOLDS = 5, 10, 3
+SE_ROWS = 100_000
+
+
+class cv_spies:
+    """Counts `build_bins` calls and times each tree `_fit` and each
+    holdout prediction while it is entered: wrappers set on the package's
+    names here, in the smoke, and taken off on exit."""
+
+    def __enter__(self):
+        from h2o3_tpu_torch.models import shared_tree
+
+        self.mod, self.cls = shared_tree, shared_tree.H2OSharedTreeEstimator
+        self.saved = (shared_tree.build_bins, self.cls._fit,
+                      self.cls._cv_predict, self.cls._cv_predict_codes)
+        self.bins_calls, self.fits, self.predict_s = 0, [], 0.0
+        real_bins, real_fit, real_pred, real_codes = self.saved
+
+        def bins(*a, **kw):
+            self.bins_calls += 1
+            return real_bins(*a, **kw)
+
+        def fit(est, x, y, train, valid):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            model = real_fit(est, x, y, train, valid)
+            torch.cuda.synchronize()
+            self.fits.append(dict(rows=int(model.bm.codes.shape[0]),
+                                  wall_s=time.time() - t0,
+                                  bins_s=model.fit_timings["bins_s"],
+                                  trees_s=model.fit_timings["trees_s"]))
+            return model
+
+        def timed(real):
+            def call(est, model, data):
+                t0 = time.time()
+                out = real(est, model, data)
+                self.predict_s += time.time() - t0
+                return out
+            return call
+
+        shared_tree.build_bins = bins
+        self.cls._fit = fit
+        self.cls._cv_predict = timed(real_pred)
+        self.cls._cv_predict_codes = timed(real_codes)
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod.build_bins, self.cls._fit, self.cls._cv_predict,
+         self.cls._cv_predict_codes) = self.saved
+
+
+def cv_rebin(value: str):
+    """H2O3_CV_REBIN set to `value` while the context is entered."""
+    return mock.patch.dict(os.environ, {"H2O3_CV_REBIN": value})
+
+
+def _check_holdout(est, fr, y, nfolds, seed, bad, tag):
+    """The holdout covers every row once: finite probabilities, the fold
+    sizes are the reference's Random assignment's
+    (`default_rng(seed).integers(0, nfolds, n)`), and fold 0's rows hold
+    what its model predicts for them, on the path the fit took."""
+    model = est.model
+    n = len(y)
+    ho = model._cv_holdout_pred
+    assign = np.random.default_rng(seed).integers(0, nfolds, n)
+    if ho is None or ho.shape != (n,) or not np.all(np.isfinite(ho)) \
+            or ho.min() < 0 or ho.max() > 1:
+        bad.append(f"{tag}: holdout missing, of the wrong shape or not a "
+                   "probability")
+        return
+    sizes = [n - int(m.bm.codes.shape[0])
+             for m in model.cross_validation_models]
+    if sizes != [int((assign == f).sum()) for f in range(nfolds)]:
+        bad.append(f"{tag}: fold sizes {sizes} are not the assignment's")
+    idx = np.nonzero(assign == 0)[0]
+    fold0 = model.cross_validation_models[0]
+    if fold0.bm.edges is model.bm.edges:       # the reuse path
+        own = est._cv_predict_codes(fold0, model.bm.codes[idx])
+    else:
+        own = est._cv_predict(fold0, fr.take(idx))
+    if not np.array_equal(own, ho[idx]):
+        bad.append(f"{tag}: fold 0's holdout rows differ from its model's "
+                   "prediction of them")
+
+
+def cv_tree_path(dev, fr, y_np, card):
+    """Phases 24-25: the 5-fold GBM on both fold paths and the 5-fold
+    10-tree DRF; returns their records and estimators."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
+
+    cv = dict(nfolds=CV_FOLDS, keep_cross_validation_predictions=True,
+              seed=42, device=str(dev))
+    out, ests, bad = {}, {}, []
+    for path in ("reuse", "rebin"):
+        est = H2OGradientBoostingEstimator(
+            ntrees=NTREES, max_depth=DEPTH, learn_rate=0.1,
+            histogram_type="UniformAdaptive", **cv)
+        with cv_rebin("1" if path == "rebin" else "0"), cv_spies() as spy:
+            zero_counts()
+            t0 = time.time()
+            est.train(y="label", training_frame=fr)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        rec = dict(card=card, path=path, wall_s=wall,
+                   holdout_predict_s=spy.predict_s,
+                   build_bins_calls=spy.bins_calls, fits=spy.fits,
+                   xval_auc=float(est.auc(xval=True)),
+                   xval_logloss=float(est.logloss(xval=True)),
+                   train_auc=float(est.auc()), hist_launches=hist_cuda.launches,
+                   hist_rows_launches=hist_cuda.launches_rows,
+                   score_launches=score_cuda.launches,
+                   score_plans=dict(resident=score_cuda.launches_resident,
+                                    streamed=score_cuda.launches_streamed),
+                   dispatch=dict(histogram.DISPATCH))
+        print(f"cv gbm {path}: " + json.dumps(rec), flush=True)
+        out[f"gbm_{path}"], ests[f"gbm_{path}"] = rec, est
+        expect = (CV_FOLDS + 1) * NTREES * DEPTH
+        bins_expect = 1 if path == "reuse" else CV_FOLDS + 1
+        # re-bin folds score their holdout and their fold metrics through
+        # the forest kernels; reuse folds walk the codes
+        score_expect = 0 if path == "reuse" else 2 * CV_FOLDS
+        if rec["build_bins_calls"] != bins_expect:
+            bad.append(f"gbm {path}: build_bins ran {rec['build_bins_calls']} "
+                       f"times, expected {bins_expect}")
+        if rec["hist_launches"] != expect or rec["dispatch"] != {
+                "pallas_factored": expect} or rec["hist_rows_launches"]:
+            bad.append(f"gbm {path}: B1 {rec['hist_launches']} launches, "
+                       f"dispatch {rec['dispatch']}; expected {expect} B1 "
+                       "launches and no other method")
+        if rec["score_launches"] != score_expect or \
+                rec["score_plans"]["streamed"]:
+            bad.append(f"gbm {path}: {rec['score_launches']} forest launches "
+                       f"({rec['score_plans']}); expected {score_expect}, "
+                       "resident")
+        if rec["xval_auc"] < 0.75:
+            bad.append(f"gbm {path}: xval AUC {rec['xval_auc']} below 0.75")
+        _check_holdout(est, fr, y_np, CV_FOLDS, 42, bad, f"gbm {path}")
+    a, b = ests["gbm_reuse"].model, ests["gbm_rebin"].model
+    cmp = dict(auc_diff=abs(out["gbm_reuse"]["xval_auc"]
+                            - out["gbm_rebin"]["xval_auc"]),
+               logloss_diff=abs(out["gbm_reuse"]["xval_logloss"]
+                                - out["gbm_rebin"]["xval_logloss"]),
+               holdout_mean_abs_diff=float(np.mean(np.abs(
+                   a._cv_holdout_pred - b._cv_holdout_pred))))
+    print("cv gbm reuse vs rebin: " + json.dumps(cmp), flush=True)
+    out["gbm_paths"] = cmp
+    if cmp["auc_diff"] >= 0.03 or cmp["logloss_diff"] >= 0.03 \
+            or cmp["holdout_mean_abs_diff"] >= 0.05:
+        bad.append(f"gbm reuse vs rebin beyond the reference's bars: {cmp}")
+
+    print(f"phase 25 cut: the DRF's CV fits {CV_DRF_TREES} trees a model, "
+          f"reduced from {DRF_TREES} (six {DRF_TREES}-tree fits would add "
+          "≈100 s)", flush=True)
+    drf = H2ORandomForestEstimator(ntrees=CV_DRF_TREES, hist_method="pallas",
+                                   **cv)
+    with cv_spies() as spy:
+        zero_counts()
+        t0 = time.time()
+        drf.train(y="label", training_frame=fr)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    m = drf.model
+    planned = sum(
+        mm.ntrees_built * len(histogram_level_plan(mm.max_depth, mm.compact_cap))
+        + mm.dense_rebuilds * len(histogram_level_plan(mm.max_depth))
+        for mm in [m] + list(m.cross_validation_models))
+    rec = dict(card=card, wall_s=wall, holdout_predict_s=spy.predict_s,
+               build_bins_calls=spy.bins_calls, fits=spy.fits,
+               max_depth_used=m.max_depth,
+               dense_rebuilds=[mm.dense_rebuilds for mm in
+                               [m] + list(m.cross_validation_models)],
+               oob_auc=float(drf.auc()), xval_auc=float(drf.auc(xval=True)),
+               xval_logloss=float(drf.logloss(xval=True)),
+               hist_rows_launches=hist_cuda.launches_rows,
+               planned_passes=planned, hist_launches=hist_cuda.launches,
+               score_launches=score_cuda.launches,
+               dispatch=dict(histogram.DISPATCH))
+    print("cv drf: " + json.dumps(rec), flush=True)
+    out["drf"], ests["drf"] = rec, drf
+    if rec["hist_rows_launches"] != planned or rec["hist_launches"] \
+            or rec["dispatch"] != {"pallas": planned}:
+        bad.append(f"drf: B2 {rec['hist_rows_launches']} launches, B1 "
+                   f"{rec['hist_launches']}, dispatch {rec['dispatch']}; "
+                   f"expected {planned} B2 launches (the level plans) only")
+    if rec["build_bins_calls"] != 1 or rec["score_launches"]:
+        bad.append(f"drf: build_bins {rec['build_bins_calls']}, forest "
+                   f"launches {rec['score_launches']}; expected 1 and 0")
+    if rec["xval_auc"] < DRF_AUC_FLOOR - 0.05:
+        bad.append(f"drf: xval AUC {rec['xval_auc']} too low")
+    _check_holdout(drf, fr, y_np, CV_FOLDS, 42, bad, "drf")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out, ests
+
+
+def cv_glm_and_ensemble(dev, fr, ests, card):
+    """Phases 26-27: the 5-fold binomial GLM, then the stacked ensemble of
+    the reuse-path GBM, the DRF and the GLM: AUC against the best base
+    model's xval AUC, β ≥ 0, `predict` of SE_ROWS fresh rows against the
+    ensemble's MOJO, the forest launches of that `predict`."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import (H2OGeneralizedLinearEstimator,
+                                           H2OStackedEnsembleEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.ops import score_cuda
+
+    bad = []
+    glm = H2OGeneralizedLinearEstimator(
+        family="binomial", lambda_=0.0, nfolds=CV_FOLDS, seed=42,
+        keep_cross_validation_predictions=True, device=str(dev))
+    kc = kernel_counts()
+    t0 = time.time()
+    glm.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    glm_rec = dict(card=card, wall_s=time.time() - t0,
+                   xval_auc=float(glm.auc(xval=True)),
+                   train_auc=float(glm.auc()),
+                   parent_split=glm.model.fit_timings,
+                   fold_splits=[mm.fit_timings for mm in
+                                glm.model.cross_validation_models])
+    print("cv glm: " + json.dumps(glm_rec), flush=True)
+    if kernel_counts() != kc:
+        bad.append("the GLM's CV launched a hand-written kernel")
+    ho = glm.model._cv_holdout_pred
+    if ho is None or ho.shape != (fr.nrow,) or not np.all(np.isfinite(ho)):
+        bad.append("glm: holdout missing or not finite")
+
+    bases = [ests["gbm_reuse"], ests["drf"], glm]
+    se = H2OStackedEnsembleEstimator(base_models=bases, device=str(dev))
+    t0 = time.time()
+    se.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    se_wall = time.time() - t0
+    beta = np.asarray(se.model.meta.model.beta)
+    best = max(b.auc(xval=True) for b in bases)
+    Xt, yt = make_higgs_like(SE_ROWS, seed=9)
+    names = [f"f{i}" for i in range(N_FEAT)] + ["label"]
+    ft = Frame.from_numpy(np.column_stack([Xt, yt]),
+                          names=names).asfactor("label")
+    zero_counts()
+    t1 = time.time()
+    pred = se.predict(ft)
+    pred_s = time.time() - t1
+    launches = dict(score=score_cuda.launches,
+                    resident=score_cuda.launches_resident,
+                    streamed=score_cuda.launches_streamed,
+                    **{k: v for k, v in kernel_counts().items()
+                       if k != "score"})
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_se_") as d:
+        t2 = time.time()
+        path = mojo.save_model(se.model, d, "se.h2o3")
+        save_s = time.time() - t2
+        size_mb = os.path.getsize(path) / 1e6
+        t3 = time.time()
+        got = mojo.load_model(path).predict(ft)
+        mojo_s = time.time() - t3
+    p_card = np.asarray(pred.vec("1").data, np.float64)
+    p_mojo = np.asarray(got.vec("1").data, np.float64)
+    err = float(np.abs(p_card - p_mojo).max())
+    rec = dict(card=card, fit_wall_s=se_wall, auc=float(se.auc()),
+               best_base_xval_auc=float(best),
+               base_xval_aucs=[float(b.auc(xval=True)) for b in bases],
+               metalearner_beta=beta.tolist(), predict_rows=SE_ROWS,
+               predict_s=pred_s, predict_launches=launches,
+               mojo_mb=size_mb, mojo_save_s=save_s, mojo_predict_s=mojo_s,
+               mojo_max_abs_err=err)
+    print("stacked ensemble: " + json.dumps(rec), flush=True)
+    if rec["auc"] < best - 0.03:
+        bad.append(f"SE AUC {rec['auc']} below the best base model's xval "
+                   f"AUC {best} less 0.03")
+    if (beta[:-1] < 0).any():
+        bad.append(f"metalearner β has a negative weight: {beta}")
+    if launches != dict(score=2, resident=1, streamed=1, hist=0, hist_rows=0,
+                        shap=0):
+        bad.append(f"SE predict launched {launches}; expected the GBM's "
+                   "resident and the DRF's streamed forest launch only")
+    if not err <= 1e-5 or pred.names != ["predict", "0", "1"]:
+        bad.append(f"SE MOJO scores {err:.3e} away from the card")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return dict(glm=glm_rec, se=rec)
+
+
+def small_cv_checks(dev, card):
+    """Phase 28: card against CPU on a small frame (4000 x 8, binary
+    labels), 3-fold CV: the GBM and the DRF on both fold paths (fold
+    forests equal node for node; holdouts and xval metrics within 1e-5,
+    the DRF's AUC on holdouts rounded to 1e-6), the GLM (fold β within
+    1e-4, holdout within 1e-5) and the ensemble of the reuse-path models
+    (predictions within 1e-5)."""
+    from h2o3_tpu_torch.estimators import (H2OGeneralizedLinearEstimator,
+                                           H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator,
+                                           H2OStackedEnsembleEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.metrics import auc_exact
+
+    X, y = make_higgs_like(4000, n_feat=8, seed=3)
+    names = [f"f{i}" for i in range(8)] + ["label"]
+    fr = Frame.from_numpy(np.column_stack([X, y]), names=names).asfactor("label")
+    cv = dict(nfolds=CV_SMALL_FOLDS, seed=42,
+              keep_cross_validation_predictions=True)
+    cases = {
+        "gbm": (H2OGradientBoostingEstimator,
+                dict(ntrees=5, max_depth=4, histogram_type="UniformAdaptive")),
+        "drf": (H2ORandomForestEstimator,
+                dict(ntrees=5, max_depth=10, hist_method="pallas")),
+    }
+    out, bad, fits = {}, [], {}
+    for path in ("reuse", "rebin"):
+        for name, (cls, params) in cases.items():
+            pair = {}
+            with cv_rebin("1" if path == "rebin" else "0"):
+                for d in (str(dev), "cpu"):
+                    est = cls(device=d, **params, **cv)
+                    est.train(y="label", training_frame=fr)
+                    pair[d] = est
+            a, b = pair[str(dev)].model, pair["cpu"].model
+            nodes = sum(_forest_diff(fa, fb)[0] for fa, fb in zip(
+                a.cross_validation_models, b.cross_validation_models))
+            dv = max(_forest_diff(fa, fb)[1] for fa, fb in zip(
+                a.cross_validation_models, b.cross_validation_models))
+            dh = float(np.abs(a._cv_holdout_pred - b._cv_holdout_pred).max())
+            if name == "drf":
+                da = abs(auc_exact(y, np.round(a._cv_holdout_pred, 6))
+                         - auc_exact(y, np.round(b._cv_holdout_pred, 6)))
+            else:
+                da = abs(a.auc(xval=True) - b.auc(xval=True))
+            dl = abs(a.logloss(xval=True) - b.logloss(xval=True))
+            rec = dict(differing_nodes=nodes, max_value_diff=dv,
+                       max_holdout_diff=dh, xval_auc_diff=da,
+                       xval_logloss_diff=dl)
+            out[f"{name}_{path}"] = rec
+            fits[f"{name}_{path}"] = pair
+            print(f"small cv {name} {path}: " + json.dumps(rec), flush=True)
+            if nodes or max(dv, dh, da, dl) > 1e-5:
+                bad.append(f"small cv {name} {path}: card and CPU differ "
+                           f"({rec})")
+    glms = {}
+    for d in (str(dev), "cpu"):
+        est = H2OGeneralizedLinearEstimator(family="binomial", lambda_=0.0,
+                                            device=d, **cv)
+        est.train(y="label", training_frame=fr)
+        glms[d] = est
+    a, b = glms[str(dev)].model, glms["cpu"].model
+    db = max(float(np.abs(np.asarray(fa.beta) - np.asarray(fb.beta)).max())
+             for fa, fb in zip(a.cross_validation_models,
+                               b.cross_validation_models))
+    dh = float(np.abs(a._cv_holdout_pred - b._cv_holdout_pred).max())
+    out["glm"] = dict(max_fold_beta_diff=db, max_holdout_diff=dh)
+    print("small cv glm: " + json.dumps(out["glm"]), flush=True)
+    if db > 1e-4 or dh > 1e-5:
+        bad.append(f"small cv glm: card and CPU differ ({out['glm']})")
+    preds = {}
+    for d in (str(dev), "cpu"):
+        se = H2OStackedEnsembleEstimator(
+            base_models=[fits["gbm_reuse"][d], fits["drf_reuse"][d], glms[d]],
+            device=d)
+        se.train(y="label", training_frame=fr)
+        preds[d] = np.asarray(se.predict(fr).vec("1").data, np.float64)
+    ds = float(np.abs(preds[str(dev)] - preds["cpu"]).max())
+    out["se"] = dict(max_predict_diff=ds)
+    print(f"small cv se: max |predict diff| {ds:.3e} ({card})", flush=True)
+    if ds > 1e-5:
+        bad.append(f"small cv se: card and CPU predictions differ by {ds}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2522,6 +2936,7 @@ def main() -> int:
 
     from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                            H2ORandomForestEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
 
     rows, worst = kernel_vs_plain(dev)
     rec, fr, gbm_model = main_path(dev)
@@ -2562,6 +2977,17 @@ def main() -> int:
     airlines_lambda_path(dev, fr_air, fv_air)
     del fr_air, fv_air
     small_glm_checks(dev)
+    # phases 24-28: cross-validation and the stacked ensemble on phase 4's
+    # frame, made again from its seed
+    card = card_line()
+    X, y = make_higgs_like(N_ROWS)
+    fr = Frame.from_numpy(np.column_stack([X, y]), names=[
+        f"f{i}" for i in range(N_FEAT)] + ["label"]).asfactor("label")
+    del X
+    _, cv_ests = cv_tree_path(dev, fr, y, card)
+    cv_glm_and_ensemble(dev, fr, cv_ests, card)
+    del fr, cv_ests
+    small_cv_checks(dev, card)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)

@@ -1,8 +1,9 @@
 """`h2o.estimators` namespace of the port: the estimators ported so far."""
 
 from ..models.drf import H2ORandomForestEstimator
+from ..models.ensemble import H2OStackedEnsembleEstimator
 from ..models.gbm import H2OGradientBoostingEstimator
 from ..models.glm import H2OGeneralizedLinearEstimator
 
 __all__ = ["H2OGeneralizedLinearEstimator", "H2OGradientBoostingEstimator",
-           "H2ORandomForestEstimator"]
+           "H2ORandomForestEstimator", "H2OStackedEnsembleEstimator"]

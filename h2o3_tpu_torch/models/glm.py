@@ -17,6 +17,9 @@ loop over λ the same way. The chosen λ and the `H2O3_EST_LEGACY=1`
 comparator solve on the host in f64 (`_solve_penalized`), after a Gram on
 the device.
 
+`nfolds` and `fold_column` cross-validate through `model_base._run_cv`,
+each fold re-fit on its own rows and scored by `_cv_predict`.
+
 Not ported: the multinomial fit (optax L-BFGS in the reference, ROADMAP
 queue A, item 8) and the multi-device and multi-process lanes (item 9).
 """
@@ -823,6 +826,11 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         w = wd.cpu().numpy().astype(np.float64)
         mu = _linkinv(family, torch.from_numpy(eta).float()).numpy().astype(np.float64)
         return float(_family_deviance_sum(family, y, mu, w, tweedie_p, xp=np))
+
+    def _cv_predict(self, model: GLMModel, frame: Frame) -> np.ndarray:
+        """Holdout prediction of a CV fold (GLM folds re-fit on their own
+        rows: `_cv_can_reuse` stays False)."""
+        return model._score(frame)
 
     # h2o-py convenience
     @staticmethod

@@ -7,14 +7,20 @@ validation frame), `ScoringHistory`, `ScoreKeeper` (`hex.ScoreKeeper`'s
 moving-average early stopping) and `DataInfo` (`hex.DataInfo`: the
 standardized one-hot design, its stats fit on the host and its expansion
 on the device). `offset_column` reaches the tree fit (GBM); GLM raises
-for it. Cross-validation, checkpoints, jobs and the REST/DKV surface are
-not ported yet (ROADMAP queue A, items 5 and 11);
-neither are `DataInfo`'s multi-device and multi-process layouts (item 9).
+for it. `train` runs the reference's n-fold cross-validation (`_run_cv`,
+`hex.ModelBuilder.computeCrossValidation`): the fold assignment, one fold
+model per fold fit through `_fit`, the holdout predictions and the
+cross-validation metrics. Tree builders slice the parent fit's binned
+codes per fold unless `H2O3_CV_REBIN=1` asks for the per-fold re-bin path.
+Checkpoints, jobs and the REST/DKV surface are not ported yet (ROADMAP
+queue A, items 5 and 11); neither are `DataInfo`'s multi-device and
+multi-process layouts (item 9).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -24,7 +30,8 @@ import torch
 from .. import device as devlib
 from ..frame.frame import Frame
 from ..frame.vec import Vec
-from .metrics import ModelMetricsBase
+from .metrics import (ModelMetricsBase, ModelMetricsBinomial,
+                      ModelMetricsMultinomial, ModelMetricsRegression)
 
 _model_counter = itertools.count()
 
@@ -449,15 +456,16 @@ class H2OModel:
         self.model_id = user_id or f"{self.algo}_{next(_model_counter)}"
         self.training_metrics: Optional[ModelMetricsBase] = None
         self.validation_metrics: Optional[ModelMetricsBase] = None
+        self.cross_validation_metrics: Optional[ModelMetricsBase] = None
         self.scoring_history: ScoringHistory = ScoringHistory()
         self.varimp_table = None
         self.run_time: float = 0.0
+        self._cv_holdout_pred: Optional[np.ndarray] = None
+        self.cross_validation_models: Optional[List] = None
 
     def _m(self, valid=False, xval=False):
-        if xval:
-            raise NotImplementedError(
-                "cross-validation metrics are not ported "
-                "(ROADMAP queue A, item 5: CV)")
+        if xval and self.cross_validation_metrics:
+            return self.cross_validation_metrics
         if valid and self.validation_metrics:
             return self.validation_metrics
         return self.training_metrics
@@ -514,6 +522,9 @@ class H2OEstimator:
         offset_column=None,
         fold_column=None,
         nfolds=0,
+        fold_assignment="AUTO",
+        keep_cross_validation_predictions=False,
+        keep_cross_validation_models=True,
         stopping_rounds=0,
         stopping_metric="AUTO",
         stopping_tolerance=0.001,
@@ -548,21 +559,19 @@ class H2OEstimator:
             raise ValueError("training_frame is required")
         if y is None:
             raise ValueError(f"{self.algo}: response column y is required")
-        for k, item in (("fold_column", "CV"), ("checkpoint", "checkpoints")):
-            if self._parms.get(k) is not None:
-                raise NotImplementedError(
-                    f"{k} is not ported (ROADMAP queue A, item 5: {item})")
-        if int(self._parms.get("nfolds") or 0):
+        if self._parms.get("checkpoint") is not None:
             raise NotImplementedError(
-                "cross-validation is not ported (ROADMAP queue A, item 5: CV)")
+                "checkpoint is not ported (ROADMAP queue A, item 5: "
+                "checkpoints)")
         wc = self._parms.get("weights_column")
         if wc is not None and wc not in training_frame.names:
             raise ValueError(f"weights_column {wc!r} not in the training frame")
+        fold_col = self._parms.get("fold_column")
         ignored = set(self._parms.get("ignored_columns") or [])
         if x is None:
             x = [n for n in training_frame.names
                  if n != y and n not in ignored
-                 and n not in (wc, self._parms.get("offset_column"))]
+                 and n not in (wc, self._parms.get("offset_column"), fold_col)]
         else:
             x = [training_frame.names[i] if isinstance(i, int) else i for i in x]
             x = [n for n in x if n != y and n not in ignored]
@@ -579,12 +588,135 @@ class H2OEstimator:
         t0 = time.time()
         seed = int(self._parms.get("seed", -1))
         self._parms["_actual_seed"] = 1234 if seed in (-1, None) else seed
+        nfolds = int(self._parms.get("nfolds") or 0)
+        if nfolds < 0 or nfolds == 1:
+            raise ValueError(
+                f"nfolds must be 0 (no CV) or >= 2, got {nfolds}")
+        if fold_col and nfolds:
+            raise ValueError(
+                "specify EITHER nfolds OR fold_column, not both "
+                "(hex/ModelBuilder cv_init)")
+        if fold_col and fold_col not in training_frame.names:
+            raise ValueError(f"fold_column {fold_col!r} not in frame")
         model = self._fit(x, y, training_frame, validation_frame)
+        # a fold_column triggers CV by itself (its folds are the column's
+        # distinct values), for estimators that can cross-validate
+        supports_cv = type(self)._cv_predict is not H2OEstimator._cv_predict
+        if nfolds >= 2 or (fold_col and supports_cv):
+            self._run_cv(model, x, y, training_frame, nfolds)
         model.run_time = time.time() - t0
         self._model = model
         return self
 
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> H2OModel:
+        raise NotImplementedError
+
+    # -- n-fold CV (ModelBuilder.computeCrossValidation) --------------------
+    def _run_cv(self, model: H2OModel, x, y, train: Frame, nfolds: int):
+        """The reference's `_run_cv`: assign every row a fold, fit one model
+        per fold on the other folds' rows and predict its own, then score
+        the (n, …) f64 holdout. The reference's trainpool fold counters and
+        its multi-process gate are not ported (ROADMAP queue A, items 9 and
+        11); the port runs one process."""
+        n = train.nrow
+        rng = np.random.default_rng(self._parms["_actual_seed"])
+        fold_col = self._parms.get("fold_column")
+        if fold_col:
+            assign = train.vec(fold_col).numeric_np().astype(np.int64)
+            folds = np.unique(assign)
+        else:
+            mode = self._parms.get("fold_assignment", "AUTO")
+            if mode in ("AUTO", "Random"):
+                assign = rng.integers(0, nfolds, n)
+            elif mode == "Modulo":
+                assign = np.arange(n) % nfolds
+            else:  # Stratified — approximate by per-class modulo
+                yv = train.vec(y).numeric_np()
+                order = np.argsort(yv, kind="mergesort")
+                assign = np.empty(n, np.int64)
+                assign[order] = np.arange(n) % nfolds
+            folds = np.arange(nfolds)
+        # Tree builders expose the parent fit's BinnedMatrix; the folds then
+        # slice its codes by row instead of re-binning a copy of the frame.
+        # The fold frame shrinks to the response and the *_column
+        # parameters. H2O3_CV_REBIN=1 restores the per-fold re-bin path,
+        # which is bit-exact with the reference's fold fits.
+        reuse_bm = None
+        if (os.environ.get("H2O3_CV_REBIN", "") in ("", "0")
+                and self._cv_can_reuse()):
+            reuse_bm = self._cv_reuse_source(model, train)
+        keep_cols = [y] + sorted(
+            v for k, v in self._parms.items()
+            if k.endswith("_column") and isinstance(v, str)
+            and v in train.names and v != y)
+
+        holdout = None
+        cv_models = []
+        for f in folds:
+            idx_tr = np.nonzero(assign != f)[0]
+            idx_ho = np.nonzero(assign == f)[0]
+            sub = type(self)()
+            sub._parms.update(
+                {k: v for k, v in self._parms.items() if not k.startswith("_")})
+            sub._parms["nfolds"] = 0
+            sub._parms["model_id"] = None  # fold models get their own ids
+            sub._parms["_actual_seed"] = self._parms["_actual_seed"]
+            if reuse_bm is not None:
+                # reuse folds take their natural row count, not the
+                # parent's padded one
+                tr = Frame({nm: train.vec(nm).take(idx_tr)
+                            for nm in keep_cols})
+                sub._parms["_cv_reuse"] = dict(bm=reuse_bm, rows=idx_tr)
+                cvm = sub._fit(x, y, tr, None)
+                pred = sub._cv_predict_codes(cvm, reuse_bm.codes[idx_ho])
+            else:
+                # re-bin folds pad to the parent's padded row count, as the
+                # reference does, so their row draws are the reference's
+                sub._parms["_npad_floor"] = getattr(model, "_npad", 0)
+                tr = train.take(idx_tr)
+                ho = train.take(idx_ho)
+                cvm = sub._fit(x, y, tr, None)
+                pred = sub._cv_predict(cvm, ho)
+            if holdout is None:
+                holdout = np.zeros((n,) + pred.shape[1:], dtype=np.float64)
+            holdout[assign == f] = pred
+            if self._parms.get("keep_cross_validation_models", True):
+                if reuse_bm is not None:
+                    # fold validation metrics straight from the holdout
+                    # prediction: the codes walk is the scoring path here
+                    cvm.validation_metrics = self._metrics_from_cv(
+                        train.vec(y).take(idx_ho), None, pred)
+                else:
+                    cvm.validation_metrics = cvm._make_metrics(ho)
+                cv_models.append(cvm)
+        model._cv_holdout_pred = holdout
+        model.cross_validation_models = cv_models or None
+        model.cross_validation_metrics = self._metrics_from_cv(
+            train.vec(y), assign, holdout)
+
+    def _metrics_from_cv(self, yvec: Vec, assign, holdout):
+        if yvec.type == "enum" and yvec.nlevels == 2:
+            return ModelMetricsBinomial.make(
+                np.asarray(yvec.data),
+                holdout[:, -1] if holdout.ndim > 1 else holdout)
+        if yvec.type == "enum":
+            return ModelMetricsMultinomial.make(np.asarray(yvec.data), holdout)
+        return ModelMetricsRegression.make(
+            yvec.numeric_np(), holdout if holdout.ndim == 1 else holdout[:, 0])
+
+    def _cv_predict(self, model: H2OModel, frame: Frame) -> np.ndarray:
+        """Holdout prediction as probabilities (classif) or values (regr)."""
+        raise NotImplementedError
+
+    # -- CV fold-reuse hooks (overridden by builders that can slice a
+    # parent-fit artifact per fold — see shared_tree.py) --------------------
+    def _cv_can_reuse(self) -> bool:
+        return False
+
+    def _cv_reuse_source(self, model: H2OModel, train: Frame):
+        return None
+
+    def _cv_predict_codes(self, model: H2OModel, codes) -> np.ndarray:
         raise NotImplementedError
 
     @property

@@ -28,8 +28,17 @@ model's explanation outputs are `predict_contributions` (TreeSHAP,
 `predict_leaf_node_assignment`, `feature_frequencies` and
 `staged_predict_proba`.
 
+Cross-validation (`model_base._run_cv`) takes one of the reference's two
+fold paths. By default a fold slices the parent fit's `BinnedMatrix` by
+row (`_cv_reuse`: no `frame_to_matrix`, no `build_bins`) and scores its
+holdout rows on those codes (`SharedTreeModel._margins_codes`, one
+`tree.predict_codes` walk per tree, as the reference's jnp walk). Under
+`H2O3_CV_REBIN=1` a fold re-bins its own rows, pads them to the parent's
+padded row count (`_npad_floor`) and scores its holdout through the
+forest kernel (`_cv_predict`).
+
 Not ported yet (ROADMAP queue A, items 5-9): per-class row sampling,
-class balancing, calibration, CV, checkpoints, DART, dataset cache,
+class balancing, calibration, checkpoints, DART, dataset cache,
 streaming, sharding and QoS. Asking for any of them raises
 `NotImplementedError`.
 """
@@ -321,6 +330,30 @@ class SharedTreeModel(H2OModel):
             f0k = self.f0 if np.ndim(self.f0) == 0 else self.f0[k]
             outs.append(s.cpu().numpy().astype(np.float64)[:n] + f0k)
         return np.column_stack(outs)
+
+    def _margins_codes(self, codes: np.ndarray) -> np.ndarray:
+        """(N, K) f64 margins on pre-binned codes (the CV fold-reuse holdout
+        path): rows of the parent's `BinnedMatrix` walk each tree through
+        `tree.predict_codes` on the model's device, the trees' leaf values
+        summed in f32 as the reference's jnp walk does (its row bucketing
+        serves XLA's compiled shapes, which eager torch does not have)."""
+        cd = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
+        outs = []
+        for k, forest in enumerate(self.forest):
+            s = torch.zeros(codes.shape[0], dtype=torch.float32,
+                            device=self.device)
+            for t in range(forest.feat.shape[0]):
+                tree = treelib.Tree(*[getattr(forest, f)[t]
+                                      for f in treelib.Tree._fields])
+                s += treelib.predict_codes(tree, cd, self.max_depth)
+            f0k = self.f0 if np.ndim(self.f0) == 0 else self.f0[k]
+            outs.append(s.cpu().numpy().astype(np.float64) + f0k)
+        return np.column_stack(outs)
+
+    def _probs_from_codes(self, codes: np.ndarray) -> np.ndarray:
+        return probs_from_margins(self.mode, self.problem, self.distribution,
+                                  self._margins_codes(codes),
+                                  self.ntrees_built)
 
     def _score_table(self, k: int, n_feat: int) -> score_cuda.ScorePack:
         """Class k's packed score table (8 bytes a node), built at the first
@@ -633,6 +666,45 @@ class H2OSharedTreeEstimator(H2OEstimator):
             return sm.lower()
         return "logloss" if problem in ("binomial", "multinomial") else "deviance"
 
+    # -- CV fold reuse (model_base._run_cv's default path) -------------------
+    def _cv_can_reuse(self) -> bool:
+        """Tree fits slice the parent's binned codes per fold unless a
+        feature needs the fold's raw x columns or frame-path scoring:
+        checkpoint continuation, monotone constraints and offset_column
+        (per-fold validation metrics apply the holdout's offset through the
+        frame scoring path)."""
+        return (self._parms.get("checkpoint") is None
+                and not self._parms.get("monotone_constraints")
+                and not self._parms.get("offset_column"))
+
+    def _cv_reuse_source(self, model, train: Frame):
+        bm = getattr(model, "bm", None)
+        if isinstance(bm, BinnedMatrix) and bm.codes is not None \
+                and bm.codes.shape[0] == train.nrow:
+            return bm
+        return None
+
+    @staticmethod
+    def _holdout_columns(model: SharedTreeModel, out: np.ndarray) -> np.ndarray:
+        """A holdout prediction: p1 for binomial, every class's probability
+        for multinomial, the value for regression."""
+        if model.problem == "binomial":
+            return out[:, 1]
+        if model.problem == "multinomial":
+            return out
+        return out[:, 0]
+
+    def _cv_predict_codes(self, model: SharedTreeModel,
+                          codes: np.ndarray) -> np.ndarray:
+        """`_cv_predict` on pre-binned holdout codes (fold-reuse path)."""
+        return self._holdout_columns(model, model._probs_from_codes(codes))
+
+    def _cv_predict(self, model: SharedTreeModel, frame: Frame) -> np.ndarray:
+        """Holdout prediction of a re-bin fold, through the forest kernel
+        on the card (the offset is not applied, as in the reference)."""
+        return self._holdout_columns(
+            model, model._score_probs(model._matrix(frame)))
+
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> SharedTreeModel:
         tp = self._tree_params()
         self._validate_tree_params(tp)
@@ -652,11 +724,20 @@ class H2OSharedTreeEstimator(H2OEstimator):
                        alpha=float(self._parms.get("quantile_alpha", 0.5)))
 
         t0 = time.perf_counter()
-        X, is_cat, doms = frame_to_matrix(train, x)
-        n, F = X.shape
-        max_card = int(max([len(d) for d, c in zip(doms, is_cat) if c and d],
-                           default=0))
-        nbins = max(tp["nbins"] + 1, min(max_card + 1, 1 << 10))
+        # a CV fold on the reuse path (model_base._run_cv) slices the parent
+        # fit's BinnedMatrix by row; its frame holds only the response and
+        # the *_column parameters
+        cvr = self._parms.get("_cv_reuse")
+        if cvr is not None:
+            pbm, cv_rows = cvr["bm"], np.asarray(cvr["rows"])
+            n, F = int(len(cv_rows)), int(pbm.codes.shape[1])
+            nbins = int(pbm.nbins)
+        else:
+            X, is_cat, doms = frame_to_matrix(train, x)
+            n, F = X.shape
+            max_card = int(max([len(d) for d, c in zip(doms, is_cat)
+                                if c and d], default=0))
+            nbins = max(tp["nbins"] + 1, min(max_card + 1, 1 << 10))
         if nbins > 256:
             raise NotImplementedError(
                 f"{nbins} bins need 16-bit codes, which the histogram kernel "
@@ -675,9 +756,18 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 f"({budget >> 30} GiB)")
             tp["max_depth"] = feas
 
-        bm = build_bins(X, nbins=nbins, histogram_type=tp["histogram_type"],
-                        names=list(x), is_categorical=is_cat, domains=doms,
-                        seed=seed)
+        if cvr is not None:
+            # edges and domains are the parent's: the fold model scores
+            # through the same quantization grid
+            bm = BinnedMatrix(
+                codes=pbm.codes[cv_rows], edges=pbm.edges, nbins=pbm.nbins,
+                names=list(pbm.names), is_categorical=pbm.is_categorical,
+                domains=list(pbm.domains))
+        else:
+            bm = build_bins(X, nbins=nbins,
+                            histogram_type=tp["histogram_type"],
+                            names=list(x), is_categorical=is_cat,
+                            domains=doms, seed=seed)
         t_bins = time.perf_counter()
         wc = self._parms.get("weights_column")
         w = (train.vec(wc).numeric_np() if wc else np.ones(n)).astype(np.float32)
@@ -699,8 +789,13 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 dist, yk[:, 0], w, alpha=dist_kw["alpha"]))])
 
         # rows padded to a multiple of 8 (every pack group divides 8) with
-        # zero-weight rows, which contribute nothing
+        # zero-weight rows, which contribute nothing. A re-bin CV fold pads
+        # to the parent's padded row count (`_npad_floor`), as the
+        # reference does: the row draws are taken at that count
         npad = _pad_to_multiple(n, 8)
+        floor = int(self._parms.get("_npad_floor") or 0)
+        if floor > npad and floor % 8 == 0:
+            npad = floor
         pad = npad - n
         codes_p = np.concatenate([bm.codes, np.zeros((pad, F), bm.codes.dtype)])
         pack_bits = packing.pack_bits_for(nbins, npad)
@@ -885,6 +980,7 @@ class H2OSharedTreeEstimator(H2OEstimator):
                                 tp["max_depth"], dev, mode=self._mode)
         model.compact_cap = compact_cap
         model.dense_rebuilds = dense_rebuilds
+        model._npad = npad     # CV passes this to re-bin folds as _npad_floor
         model.scoring_history = ScoringHistory(history)
         gain_total = gains.cpu().numpy().astype(np.float64)
         if gain_total.sum() > 0:

@@ -18,6 +18,9 @@ tree artifacts with the reference's numpy walk, summing in f64, through
 each distribution's link, and GLM artifacts by the reference's numpy
 expansion and matvec in f64 (a reference multinomial GLM's artifact
 included; the port fits no multinomial GLM yet, ROADMAP queue A, item 8).
+A stacked ensemble is written as its `meta` with a child payload per base
+model (`base{i}/`) and one for the metalearner (`meta/`); `MojoScorer`
+scores it by building the level-one frame from its children.
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
 scorer). The reference's native C++ scorer (`native/loader.py`) and the other
@@ -40,6 +43,7 @@ FORMAT_VERSION = 1
 
 def _model_payload(model) -> Dict[str, Any]:
     """Extract (meta, arrays) from a trained model."""
+    from .models.ensemble import StackedEnsembleModel
     from .models.glm import GLMModel
     from .models.shared_tree import SharedTreeModel
 
@@ -51,7 +55,8 @@ def _model_payload(model) -> Dict[str, Any]:
             out["children"] = {k: _model_payload(c)
                                for k, c in model.children.items()}
         return out
-    if not isinstance(model, (SharedTreeModel, GLMModel)):
+    if not isinstance(model, (SharedTreeModel, GLMModel,
+                              StackedEnsembleModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
             "not a MOJO-exportable kind (see docs/mojo.md for the "
@@ -64,6 +69,18 @@ def _model_payload(model) -> Dict[str, Any]:
         "x": model.x,
         "y": model.y,
     }
+    if isinstance(model, StackedEnsembleModel):
+        # recursive artifact: every base model + the metalearner ride
+        # along as child payloads (hex/genmodel StackedEnsembleMojoModel)
+        meta.update(kind="stackedensemble", problem=model.problem,
+                    nclass=model.nclass, domain=model.domain,
+                    n_base=len(model.base_models))
+        children = {
+            f"base{i}": _model_payload(bm.model)
+            for i, bm in enumerate(model.base_models)
+        }
+        children["meta"] = _model_payload(model.meta.model)
+        return {"meta": meta, "arrays": arrays, "children": children}
     if isinstance(model, GLMModel):
         meta.update(
             kind="glm", family=model.family, domain=model.domain,
@@ -286,6 +303,28 @@ class MojoScorer:
             eta = np.exp(eta)
         return Frame.from_dict({"predict": eta})
 
+    def _ensemble_predict(self, data):
+        """A stacked ensemble: each base child scores the rows, its class
+        probabilities (or values) form the level-one frame, and the
+        metalearner child scores that."""
+        from .frame.frame import Frame
+
+        meta = self.meta
+        lvl1 = {}
+        problem = meta["problem"]
+        for i in range(meta["n_base"]):
+            base = self.children[f"base{i}"]
+            pf = base.predict(data)
+            bdom = base.meta.get("domain")
+            if problem == "multinomial":
+                for k2, cls in enumerate(bdom):
+                    lvl1[f"m{i}_p{k2}"] = pf.vec(str(cls)).numeric_np()
+            elif problem == "binomial":
+                lvl1[f"m{i}"] = pf.vec(str(bdom[1])).numeric_np()
+            else:
+                lvl1[f"m{i}"] = pf.vec("predict").numeric_np()
+        return self.children["meta"].predict(Frame.from_dict(lvl1))
+
     def predict_contributions(self, data):
         """Offline SHAP contributions and BiasTerm (the genmodel side's
         `predictContributions`): tree artifacts with recorded covers only,
@@ -331,6 +370,8 @@ class MojoScorer:
         meta = self.meta
         if meta["kind"] == "glm":
             return self._glm_predict(data)
+        if meta["kind"] == "stackedensemble":
+            return self._ensemble_predict(data)
         if meta["kind"] != "tree":
             raise NotImplementedError(
                 f"scoring a {meta['kind']!r} artifact is not ported "

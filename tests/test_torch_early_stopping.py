@@ -196,8 +196,11 @@ def test_weights_column_fit_matches(fits):
 def test_unported_parameters_still_raise():
     d = _data(100, 0)
     fr = Frame.from_numpy(d, names=NAMES).asfactor("label")
-    for kw, item in ((dict(nfolds=3), "CV"),
-                     (dict(checkpoint="m"), "checkpoints")):
-        with pytest.raises(NotImplementedError, match=f"queue A, item 5: {item}"):
+    # CV is ported: nfolds=1 raises the reference's check in its place
+    for kw, error, match in (
+            (dict(nfolds=1), ValueError, r"nfolds must be 0 \(no CV\) or >= 2"),
+            (dict(checkpoint="m"), NotImplementedError,
+             "queue A, item 5: checkpoints")):
+        with pytest.raises(error, match=match):
             H2OGradientBoostingEstimator(device="cpu", **kw).train(
                 y="label", training_frame=fr)

@@ -152,18 +152,21 @@ def test_forest_from_numpy_predicts_like_the_jax_model(fits, kind):
                                    rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(sample_rate_per_class=[0.5, 0.9]),
-                                dict(goss=True),
-                                dict(balance_classes=True),
-                                dict(monotone_constraints={"f0": 1}),
-                                dict(nfolds=3),
-                                dict(calibrate_model=True)])
-def test_unported_parameters_raise(kw):
+# nfolds is ported: its case now holds the reference's check of nfolds=1
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(sample_rate_per_class=[0.5, 0.9]), NotImplementedError, "ROADMAP"),
+    (dict(goss=True), NotImplementedError, "ROADMAP"),
+    (dict(balance_classes=True), NotImplementedError, "ROADMAP"),
+    (dict(monotone_constraints={"f0": 1}), NotImplementedError, "ROADMAP"),
+    (dict(nfolds=1), ValueError, "nfolds must be 0 \\(no CV\\) or >= 2"),
+    (dict(calibrate_model=True), NotImplementedError, "ROADMAP")],
+    ids=[f"kw{i}" for i in range(6)])
+def test_unported_parameters_raise(kw, error, match):
     X, y = make_higgs_like(200)
     fr = Frame.from_numpy(np.column_stack([X, y]), names=NAMES).asfactor("label")
     params = dict(PARAMS, device="cpu")
     params.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         H2OGradientBoostingEstimator(**params).train(y="label", training_frame=fr)
 
 

@@ -363,3 +363,90 @@ def test_contributions_of_the_artifact_equal_the_model(artifacts):
     with pytest.raises(ValueError, match="multinomial"):
         mojo.load_model(artifacts["gbm_multinomial"]["port_path"]) \
             .predict_contributions(artifacts["gbm_multinomial"]["port_test"])
+
+
+# -- StackedEnsemble artifacts ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def se_artifacts(tmp_path_factory):
+    """A binomial StackedEnsemble over a 2-fold GBM and GLM, fit by both
+    packages on one frame and exported by each: the ensemble's `meta`
+    with a child payload per base model and one for the metalearner."""
+    import h2o3_tpu.estimators as ref_est
+    import h2o3_tpu_torch.estimators as port_est
+
+    d = _data(400, 5, "binomial")
+    t = _data(300, 6, "binomial")
+    cv = dict(nfolds=2, fold_assignment="Modulo", seed=3,
+              keep_cross_validation_predictions=True)
+    out = {}
+    dd = tmp_path_factory.mktemp("se")
+    mesh.init(jax.devices()[:1])
+    try:
+        for pkg, mod, frame_cls, save, dev in (
+                ("ref", ref_est, RefFrame, refmojo.save_model, {}),
+                ("port", port_est, Frame, mojo.save_model,
+                 dict(device="cpu"))):
+            i = 0 if pkg == "ref" else 1
+            fr, ft = _frames(d, "binomial")[i], _frames(t, "binomial")[i]
+            bases = [mod.H2OGradientBoostingEstimator(ntrees=3, max_depth=3,
+                                                      **cv, **dev),
+                     mod.H2OGeneralizedLinearEstimator(family="binomial",
+                                                       lambda_=0.0, **cv,
+                                                       **dev)]
+            for b in bases:
+                b.train(y="label", training_frame=fr)
+            se = mod.H2OStackedEnsembleEstimator(base_models=bases, **dev)
+            se.train(y="label", training_frame=fr)
+            out[pkg] = dict(model=se.model, test=ft,
+                            path=save(se.model, str(dd), f"{pkg}.h2o3"))
+    finally:
+        mesh.reset()
+    return out
+
+
+def test_se_artifact_members(se_artifacts):
+    with zipfile.ZipFile(se_artifacts["port"]["path"]) as z:
+        port_names = sorted(z.namelist())
+    with zipfile.ZipFile(se_artifacts["ref"]["path"]) as z:
+        ref_names = sorted(z.namelist())
+    assert port_names == ref_names == sorted(
+        f"{p}{m}" for p in ("", "base0/", "base1/", "meta/")
+        for m in ("arrays.npz", "model.json"))
+    _, meta, arrays = _members(se_artifacts["port"]["path"])
+    _, ref_meta, _ = _members(se_artifacts["ref"]["path"])
+    assert meta.pop("model_id") and ref_meta.pop("model_id")
+    assert meta == ref_meta
+    assert meta["kind"] == "stackedensemble" and meta["n_base"] == 2
+    assert arrays == {}
+
+
+@pytest.mark.parametrize("artifact", ["port", "ref"])
+def test_se_artifact_scores_like_the_fitted_ensemble(se_artifacts, artifact):
+    """Either package's artifact, scored by the port's numpy scorer, gives
+    the fitted ensemble's probabilities within 1e-5; and the reference's
+    scorer reads the port's artifact the same."""
+    a = se_artifacts[artifact]
+    want = a["model"].predict(a["test"])
+    got = mojo.load_model(a["path"]).predict(se_artifacts["port"]["test"])
+    assert got.names == want.names == ["predict", "0", "1"]
+    for col in ("0", "1"):
+        np.testing.assert_allclose(np.asarray(got.vec(col).data, np.float64),
+                                   np.asarray(want.vec(col).data, np.float64),
+                                   rtol=0, atol=1e-5)
+    if artifact == "port":
+        ref_got = refmojo.load_model(a["path"]).predict(
+            se_artifacts["ref"]["test"])
+        np.testing.assert_allclose(
+            np.asarray(ref_got.vec("1").data, np.float64),
+            np.asarray(want.vec("1").data, np.float64), rtol=0, atol=1e-5)
+
+
+def test_se_artifact_reexports_losslessly(se_artifacts, tmp_path):
+    path = se_artifacts["port"]["path"]
+    again = mojo.save_model(mojo.load_model(path), str(tmp_path), "again.h2o3")
+    with zipfile.ZipFile(path) as z0, zipfile.ZipFile(again) as z1:
+        assert sorted(z0.namelist()) == sorted(z1.namelist())
+        for name in z0.namelist():
+            if name.endswith(".json"):
+                assert json.loads(z0.read(name)) == json.loads(z1.read(name))
