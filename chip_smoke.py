@@ -221,10 +221,28 @@ holdout prediction.
    the GLM (fold β within 1e-4, holdout within 1e-5), the ensemble
    (predictions within 1e-5).
 
+29. 16-bit codes: benchm-ml's Airlines GBM (H2O's settings there:
+   bernoulli, max_depth 16, learn_rate 0.01, nbins 100) on a generated
+   1M-row frame of its eight features, Origin and Dest of 300 levels, so
+   301 bins and 16-bit codes, cut to BM_TREES trees from 1000 (printed on
+   a line of its own): its wall, `bins_s`, `upload_s`, `trees_s`, B1
+   launches (every pass, nothing else), training AUC, `predict` and AUC on
+   100,000 fresh rows; it must split Origin or Dest at a bin past 255.
+   The DRF (defaults, "pallas", BM_DRF_TREES trees from 50): wall, clamped
+   depth, B2 launches, OOB AUC. Both kernels at B = 301 and 1024, L = 1,
+   64 and 4096: B1 bit-equal to `hist_plain_fixed` and no farther from
+   f64 than `hist_plain`, B2 within rtol 1e-5 of `hist_plain_rows`, timed
+   with the L2 flushed beside the bytes bound at 2 bytes a code; then
+   every width of both fits' plans, checked and timed with the plain and
+   `index_add_` versions. Card against CPU on a 20,000-row cut: GBM and
+   DRF at depth 8, 5 trees, forest structure equal, leaf values and
+   predictions within 1e-5.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
 them again before their `predict`; phase 20 is the TreeSHAP path's; phases
-24, 25 and 27's `predict` are the CV path's; the GLM runs none of the
+24, 25 and 27's `predict` are the CV path's; phase 29's fits are each
+their own; the GLM runs none of the
 hand-written kernels, and phases 17, 18 and 26 fail if it launched one).
 TF32 must stay off
 through phases 17-19. The last line is {"ok": true, "device": {...}}; the
@@ -678,14 +696,15 @@ def rows_fixture(rng, L, skewed):
     return node.astype(np.int32), w.astype(np.float32)
 
 
-def bound_ms_of(n_weighted, L):
+def bound_ms_of(n_weighted, L, n_feat=N_FEAT, nbins=NBINS, code_bytes=1,
+                n_rows=N_ROWS):
     """Least time of one histogram pass (B1 or B2) on the card: the codes
-    of the weighted rows, node ids and values of every row and the output,
-    once each, over the memory rate (the adds take less); and those
-    bytes."""
-    nbytes = (n_weighted * N_FEAT + 16 * N_ROWS
-              + L * N_FEAT * NBINS * 3 * 4)
-    flops = 3 * n_weighted * N_FEAT
+    of the weighted rows (code_bytes a code), node ids and values of every
+    row and the output, once each, over the memory rate (the adds take
+    less); and those bytes."""
+    nbytes = (n_weighted * n_feat * code_bytes + 16 * n_rows
+              + L * n_feat * nbins * 3 * 4)
+    flops = 3 * n_weighted * n_feat
     return max(nbytes / HBM_BYTES_PER_S, flops / 67e12) * 1e3, nbytes
 
 
@@ -2912,6 +2931,399 @@ def small_cv_checks(dev, card):
     return out
 
 
+# phase 29: szilard/benchm-ml's Airlines GBM (github.com/szilard/benchm-ml,
+# its H2O GBM run: max_depth 16, learn_rate 0.01, nbins 100, 1000 trees, a
+# 100k-row test set) on a generated frame of its eight features and label.
+# Origin and Dest have 300 levels, so nbins = max(101, min(301, 1024)) =
+# 301 and the codes are 16-bit. The GBM is cut to BM_TREES trees from
+# 1000, the DRF (H2O's defaults) to BM_DRF_TREES from 50
+BM_ROWS, BM_TEST, BM_SMALL = 1_000_000, 100_000, 20_000
+BM_Y = "dep_delayed_15min"
+BM_LEVELS = dict(Month=12, DayofMonth=31, DayOfWeek=7, UniqueCarrier=22,
+                 Origin=300, Dest=300)
+BM_GBM = dict(distribution="bernoulli", max_depth=16, learn_rate=0.01,
+              nbins=100, seed=42)
+BM_TREES, BM_DRF_TREES = 10, 5
+BM_NBINS = 301
+# Origin codes with a delay effect: a right fit splits at both ends, past 255
+BM_HUB = (264, 288)
+# phase 29's kernel checks: bins and level widths
+BM_CHECK_BINS, BM_CHECK_WIDTHS = (301, 1024), (1, 64, 4096)
+
+
+def make_airlines_bm_like(n: int, seed: int):
+    """benchm-ml's Airlines columns in its order: the enums Month (12
+    levels), DayofMonth (31), DayOfWeek (7), UniqueCarrier (22), Origin
+    (300), Dest (300), the numerics DepTime (hhmm, 1-2359) and Distance,
+    and the label dep_delayed_15min (N/Y, about 19 % Y) from a logistic
+    model in them, whose strongest term is a block of Origin codes past
+    255 (BM_HUB). Airports take a skewed share of the traffic (weights
+    1 / (rank + 5) over a fixed order of the levels). Returns (frame, the
+    generator's P(Y) per row)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+
+    rng = np.random.default_rng(seed)
+    codes = {}
+    for name, k in BM_LEVELS.items():
+        if name in ("Origin", "Dest"):
+            rank = np.random.default_rng(k + len(name)).permutation(k)
+            w = 1.0 / (rank + 5.0)
+            codes[name] = rng.choice(k, n, p=w / w.sum())
+        else:
+            codes[name] = rng.integers(0, k, n)
+    dep = rng.integers(1, 2400, n)
+    dist = np.round(np.abs(rng.normal(800, 500, n)) + 30)
+    o, d = codes["Origin"], codes["Dest"]
+    eff = (-1.9 + 0.0009 * (dep - 1200)
+           + 0.3 * np.isin(codes["Month"], [5, 6, 11])
+           + 0.15 * (codes["DayOfWeek"] >= 4)
+           + 0.25 * (codes["UniqueCarrier"] % 5 == 0)
+           + 1.3 * ((o >= BM_HUB[0]) & (o < BM_HUB[1]))
+           - 0.5 * ((d >= 270) & (d < 285)) + 1e-4 * (dist - 800))
+    p = 1 / (1 + np.exp(-eff))
+    y = (rng.random(n) < p).astype(np.int32)
+    names = dict(Month="c-{:02d}", DayofMonth="c-{:02d}",
+                 DayOfWeek="c-{}", UniqueCarrier="UC{:02d}",
+                 Origin="A{:03d}", Dest="A{:03d}")
+
+    def enum(name):
+        return Vec(codes[name], "enum", domain=[
+            names[name].format(i + 1 if name.startswith(("Month", "Day"))
+                               else i) for i in range(BM_LEVELS[name])])
+
+    vecs = {c: enum(c) for c in ("Month", "DayofMonth", "DayOfWeek")}
+    vecs["DepTime"] = Vec(dep.astype(np.float32))
+    vecs["UniqueCarrier"] = enum("UniqueCarrier")
+    vecs["Origin"] = enum("Origin")
+    vecs["Dest"] = enum("Dest")
+    vecs["Distance"] = Vec(dist.astype(np.float32))
+    vecs[BM_Y] = Vec(y, "enum", domain=["N", "Y"])
+    return Frame(vecs), p
+
+
+def bm_plan_passes(depth: int, cap: int, trees: int, rebuilds: int):
+    """{(L, root pass): passes per tree} of a fit's level plan: every
+    tree's first attempt and, averaged, its dense rebuilds."""
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+
+    per = Counter()
+    for plan, weight in ((histogram_level_plan(depth, cap), 1.0),
+                         (histogram_level_plan(depth), rebuilds / trees)):
+        if weight:
+            for label, L in plan:
+                per[(L, label == "d0")] += weight
+    return dict(per)
+
+
+def airlines_bm_path(dev, card):
+    """Phase 29, the fits: the GBM (B1) on BM_ROWS rows, its training AUC,
+    `predict` and AUC on BM_TEST fresh rows; the DRF (B2) and its OOB AUC.
+    Fails unless the codes are 16-bit, every pass launched the kernel and
+    nothing else, and the GBM splits Origin or Dest at a bin past 255.
+    Returns (records, the training codes, each fit's passes per tree)."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.models.metrics import auc_exact
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+    from h2o3_tpu_torch.ops import hist_cuda, histogram
+
+    bad = []
+    t0 = time.time()
+    fr, _ = make_airlines_bm_like(BM_ROWS, 0)
+    ft, p_test = make_airlines_bm_like(BM_TEST, 1)
+    gen_s = time.time() - t0
+    y_test = np.asarray(ft.vec(BM_Y).data)
+    out, passes = {}, {}
+    for algo in ("gbm", "drf"):
+        if algo == "gbm":
+            est = H2OGradientBoostingEstimator(ntrees=BM_TREES,
+                                               device=str(dev), **BM_GBM)
+        else:
+            est = H2ORandomForestEstimator(ntrees=BM_DRF_TREES, seed=42,
+                                           hist_method="pallas",
+                                           device=str(dev))
+        zero_counts()
+        t1 = time.time()
+        est.train(y=BM_Y, training_frame=fr)
+        torch.cuda.synchronize()
+        wall = time.time() - t1
+        m = est.model
+        b1, b2 = hist_cuda.launches, hist_cuda.launches_rows
+        dispatch = dict(histogram.DISPATCH)
+        ntrees = BM_TREES if algo == "gbm" else BM_DRF_TREES
+        expect = (ntrees * len(histogram_level_plan(m.max_depth,
+                                                    m.compact_cap))
+                  + m.dense_rebuilds * len(histogram_level_plan(m.max_depth)))
+        passes[algo] = bm_plan_passes(m.max_depth, m.compact_cap, ntrees,
+                                      m.dense_rebuilds)
+        f = m.forest[0]
+        at = [m.x.index("Origin"), m.x.index("Dest")]
+        wide = int((f.is_split & (f.bin >= 256)
+                    & ((f.feat == at[0]) | (f.feat == at[1]))).sum())
+        rec = dict(card=card, rows=BM_ROWS, wall_s=wall, nbins=m.bm.nbins,
+                   codes=str(m.bm.codes.dtype), max_depth_used=m.max_depth,
+                   compact_cap=m.compact_cap, dense_rebuilds=m.dense_rebuilds,
+                   fit_timings=m.fit_timings, b1_launches=b1, b2_launches=b2,
+                   planned_passes=expect, dispatch=dispatch,
+                   origin_dest_splits_past_255=wide)
+        if algo == "gbm":
+            rec["train_auc"] = float(est.auc())
+            t2 = time.time()
+            pred = est.predict(ft)
+            rec["predict_s"] = time.time() - t2
+            p1 = np.asarray(pred.vec("Y").data, np.float64)
+            rec.update(predict_rows=BM_TEST, holdout_auc=auc_exact(y_test, p1),
+                       generator_auc=auc_exact(y_test, p_test),
+                       frames_s=gen_s)
+            if pred.names != ["predict", "N", "Y"] or pred.nrow != BM_TEST \
+                    or not np.all(np.isfinite(p1)):
+                bad.append("airlines GBM predict frame wrong or not finite")
+            if not rec["holdout_auc"] >= 0.6:
+                bad.append(f"airlines GBM holdout AUC {rec['holdout_auc']}")
+            if wide == 0:
+                bad.append("the airlines GBM never splits Origin or Dest at "
+                           "a bin past 255")
+            launches, method = b1, "pallas_factored"
+        else:
+            rec["oob_auc"] = float(est.auc())
+            if not rec["oob_auc"] >= 0.55:
+                bad.append(f"airlines DRF OOB AUC {rec['oob_auc']}")
+            launches, method = b2, "pallas"
+        print(f"airlines {algo}: " + json.dumps(rec), flush=True)
+        if m.bm.nbins != BM_NBINS or m.bm.codes.dtype != np.uint16:
+            bad.append(f"airlines {algo}: {m.bm.nbins} bins, "
+                       f"{m.bm.codes.dtype} codes")
+        if launches != expect or dispatch != {method: expect} \
+                or b1 + b2 != launches:
+            bad.append(f"airlines {algo}: dispatch {dispatch}, B1 {b1}, B2 "
+                       f"{b2}; expected {expect} {method} launches only")
+        out[algo] = rec
+        if algo == "gbm":
+            codes = m.bm.codes
+        del est, m
+    if bad:
+        raise AssertionError("; ".join(bad))
+    print(f"phase 29 cuts: the GBM fits {BM_TREES} trees, reduced from "
+          f"benchm-ml's 1000; the DRF {BM_DRF_TREES}, reduced from H2O's "
+          "default 50", flush=True)
+    return out, codes, passes
+
+
+def bm_pass_inputs(rng, dev, L, root, w_rate=None):
+    """Node ids and vals (3, BM_ROWS) of one pass: every row weighted at a
+    GBM root (or at w_rate, the DRF's in-bag share), about half in a
+    sibling pass; g normal, h uniform."""
+    rate = w_rate if w_rate is not None else (1.0 if root else 0.5)
+    w = (rng.random(BM_ROWS) < rate).astype(np.float32)
+    g = rng.normal(size=BM_ROWS).astype(np.float32)
+    h = rng.random(BM_ROWS).astype(np.float32)
+    vals = torch.from_numpy(np.stack([w, g * w, h * w])).to(dev)
+    node = torch.from_numpy(rng.integers(0, L, BM_ROWS,
+                                         dtype=np.int32)).to(dev)
+    return node, vals, int(w.sum())
+
+
+def bm_library_ms(dev, codes_fm, node, vals, L, nbins):
+    """One `index_add_` computing the same histogram: flat ids
+    f·L·B + node·B + code into an (F·L·B, 3) buffer."""
+    F = codes_fm.shape[0]
+    ids = (torch.arange(F, device=dev, dtype=torch.int64)[:, None]
+           * (L * nbins) + node.to(torch.int64)[None, :] * nbins
+           + codes_fm.to(torch.int64)).reshape(-1)
+    src = vals.t().repeat(F, 1)
+    buf = torch.zeros((F * L * nbins, 3), device=dev)
+    ms = time_ms(lambda: buf.zero_().index_add_(0, ids, src), reps=3,
+                 warmup=1)
+    del ids, src, buf
+    return ms
+
+
+def wide_kernels(dev, fit_codes, passes):
+    """Phase 29, the kernels on 16-bit codes at N = BM_ROWS, F = 8: at
+    B in BM_CHECK_BINS (301: the fit's own codes; 1024: uniform codes) and
+    L in BM_CHECK_WIDTHS, B1 bit-equal to `hist_plain_fixed`, within rtol
+    1e-5 of `hist_plain` and no farther from f64 in any channel; B2
+    within rtol 1e-5, atol 1e-5·max of `hist_plain_rows`; each timed with
+    the L2 flushed beside its bound (2 bytes a code). Then every width of
+    the two fits' plans at B = 301, checked and timed with the plain and
+    `index_add_` versions, weighted by its passes per tree. Returns the
+    two kernel entries' numbers."""
+    from h2o3_tpu_torch.ops import hist_cuda, packing
+
+    rng = np.random.default_rng(29)
+    F = fit_codes.shape[1]
+    laws = {301: torch.from_numpy(packing.device_codes(fit_codes)).to(dev),
+            1024: torch.from_numpy(rng.integers(0, 1024, (BM_ROWS, F),
+                                                dtype=np.int16)).to(dev)}
+    worst = dict(b1=0.0, b2=0.0)
+
+    def b1_check(cfm, node, vals, L, nbins, f64_check):
+        got = hist_cuda.hist_build(cfm, node, vals, L, nbins)
+        again = hist_cuda.hist_build(cfm, node, vals, L, nbins)
+        fixed = hist_cuda.hist_plain_fixed(cfm, node, vals, L, nbins)
+        ref = hist_cuda.hist_plain(cfm, node, vals, L, nbins)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got, fixed)):
+            raise AssertionError(f"B1 at B={nbins}, L={L}: not equal to "
+                                 "hist_plain_fixed or to a second launch")
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+        worst["b1"] = max(worst["b1"], float((got - ref).abs().max()))
+        errs = None
+        if f64_check:
+            f64 = hist_cuda.hist_plain(cfm, node, vals, L, nbins,
+                                       torch.float64)
+            errs = [[float(e) for e in (x.double() - f64).abs()
+                     .reshape(-1, 3).amax(0)] for x in (got, ref)]
+            del f64
+            if any(k > p for k, p in zip(*errs)):
+                raise AssertionError(
+                    f"B1 at B={nbins}, L={L} lies farther from f64 than "
+                    f"hist_plain: {channels(errs[0])} against "
+                    f"{channels(errs[1])}")
+        del got, again, fixed, ref
+        return errs
+
+    def b2_check(crm, node, vals, L, nbins):
+        got = hist_cuda.hist_build_rows(crm, node, vals, L, nbins)
+        ref = hist_cuda.hist_plain_rows(crm, node, vals, L, nbins)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+        worst["b2"] = max(worst["b2"], float((got - ref).abs().max()))
+        del got, ref
+
+    for nbins in BM_CHECK_BINS:
+        crm = laws[nbins]
+        cfm = crm.t().contiguous()
+        for L in BM_CHECK_WIDTHS:
+            node, vals, n_w = bm_pass_inputs(rng, dev, L, L == 1)
+            errs = b1_check(cfm, node, vals, L, nbins, True)
+            ms1 = time_ms_cold(lambda: hist_cuda.hist_build(
+                cfm, node, vals, L, nbins), reps=5, warmup=1)
+            b2_check(crm, node, vals, L, nbins)
+            ms2 = time_ms_cold(lambda: hist_cuda.hist_build_rows(
+                crm, node, vals, L, nbins), reps=5, warmup=1)
+            bound, nbytes = bound_ms_of(n_w, L, F, nbins, 2, BM_ROWS)
+            p1 = hist_cuda.block_plan(L, nbins, F, BM_ROWS, code_bytes=2)
+            p2 = hist_cuda.rows_plan(L, nbins, F, BM_ROWS)
+            print(f"16-bit B={nbins} L={L}: B1 {ms1:.4f} ms ({p1.grid[2]} "
+                  f"node slices of {p1.nodes_per_block}, {p1.grid[1]} "
+                  f"feature blocks, {p1.grid[0]} row blocks), B2 {ms2:.4f} "
+                  f"ms (G={p2.group_nodes}, {p2.grid[1]} feature blocks); "
+                  f"bytes bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, 2 B "
+                  f"a code); B1 equals hist_plain_fixed, max |err| vs f64 "
+                  f"(w/g·w/h·w) {channels(errs[0])} (hist_plain "
+                  f"{channels(errs[1])})", flush=True)
+        del cfm
+    # the fits' own plans at B = 301, weighted by passes per tree
+    crm = laws[301]
+    cfm = crm.t().contiguous()
+    del laws
+    totals = {}
+    for algo, kind in (("gbm", "b1"), ("drf", "b2")):
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        for (L, root), per_tree in sorted(passes[algo].items()):
+            node, vals, n_w = bm_pass_inputs(
+                rng, dev, L, root, 0.632 if kind == "b2" and root else None)
+            if kind == "b1":
+                b1_check(cfm, node, vals, L, BM_NBINS, False)
+                ms = time_ms_cold(lambda: hist_cuda.hist_build(
+                    cfm, node, vals, L, BM_NBINS), reps=5, warmup=1)
+            else:
+                b2_check(crm, node, vals, L, BM_NBINS)
+                ms = time_ms_cold(lambda: hist_cuda.hist_build_rows(
+                    crm, node, vals, L, BM_NBINS), reps=5, warmup=1)
+            plain = time_ms(lambda: (
+                hist_cuda.hist_plain(cfm, node, vals, L, BM_NBINS)
+                if kind == "b1" else hist_cuda.hist_plain_rows(
+                    crm, node, vals, L, BM_NBINS)), reps=3, warmup=1)
+            lib = bm_library_ms(dev, cfm, node, vals, L, BM_NBINS)
+            bound, _ = bound_ms_of(n_w, L, F, BM_NBINS, 2, BM_ROWS)
+            for k, v in (("ms", ms), ("plain_ms", plain),
+                         ("bound_ms", bound), ("library_ms", lib)):
+                tot[k] += per_tree * v
+            print(f"16-bit {algo} pass L={L} {'root' if root else 'sibling'}"
+                  f" ({per_tree:g} a tree): {kind.upper()} {ms:.4f} ms, "
+                  f"plain {plain:.4f}, index_add_ {lib:.4f}, bound "
+                  f"{bound:.4f}", flush=True)
+        tot["max_abs_err"] = worst[kind]
+        totals[algo] = tot
+        print(f"16-bit {algo} tree ({kind.upper()}, B={BM_NBINS}): "
+              + json.dumps(tot), flush=True)
+    return totals
+
+
+def _leaves_diff(a, b, fr):
+    """(rows of `fr` whose leaf differs in some tree, max |leaf value diff|
+    over the leaves those rows reach) of two models, on the f32 rows
+    `predict` routes."""
+    from h2o3_tpu_torch.models.tree import Tree, forest_leaves
+
+    X = torch.from_numpy(a._matrix(fr).astype(np.float32))
+    rows, dv = 0, 0.0
+    for fa, fb in zip(a.forest, b.forest):
+        fa, fb = (Tree(*[t.cpu() for t in f]) for f in (fa, fb))
+        la = forest_leaves(fa, X, a.max_depth)
+        lb = forest_leaves(fb, X, b.max_depth)
+        rows += int((la != lb).any(dim=0).sum())
+        dv = max(dv, float((fa.value.gather(1, la)
+                            - fb.value.gather(1, lb)).abs().max()))
+    return rows, dv
+
+
+def small_bm_checks(dev, card):
+    """Phase 29, card against CPU: the generator's frame cut to BM_SMALL
+    rows, a DRF ("pallas", depth 8) and a GBM (benchm-ml's settings, depth
+    8), 5 trees each. The DRF's sums are exact (0/1 weights and labels):
+    its forest structure must be equal, leaf values and predictions within
+    1e-5. The GBM's are not, and two things part the card's forest from
+    the CPU's on this frame without any fault. Tree 0's gradients take two
+    values, so in nodes of a few dozen rows the best splits on two
+    features often isolate the same count of rows and positives, an exact
+    tie in real arithmetic that f32 sums in another order break either way;
+    the GBM is fit with a weights column (uniform in [0.5, 1.5], seeded) so
+    that distinct row sets do not tie. And a 300-level enum leaves most
+    bins of a deep node empty: sibling subtraction (right = parent - left)
+    leaves f32 residues there, of the root's magnitude times the f32
+    epsilon, which decide between thresholds that part the node's rows the
+    same way. So the GBM must route every training row to the same leaf of
+    every tree, with leaf values there and predictions within 1e-5; the
+    nodes whose split differs are printed."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+
+    fr, _ = make_airlines_bm_like(BM_SMALL, 5)
+    w = np.random.default_rng(BM_SMALL).uniform(0.5, 1.5, BM_SMALL)
+    frw = Frame({**{n: fr.vec(n) for n in fr.names},
+                 "w": Vec(w.astype(np.float32))})
+    cases = (("drf", H2ORandomForestEstimator, fr,
+              dict(ntrees=5, max_depth=8, seed=42, hist_method="pallas")),
+             ("gbm_weighted", H2OGradientBoostingEstimator, frw,
+              dict(BM_GBM, max_depth=8, ntrees=5, weights_column="w")))
+    bad = []
+    for name, cls, frame, params in cases:
+        a = _pair_fit(cls, str(dev), params, frame, y=BM_Y)
+        b = _pair_fit(cls, "cpu", params, frame, y=BM_Y)
+        nodes, dv = _forest_diff(a, b)
+        rows, dleaf = _leaves_diff(a, b, frame)
+        dp = _pred_diff(a, b, frame)
+        rec = dict(card=card, rows=BM_SMALL, nbins=a.bm.nbins,
+                   differing_nodes=nodes, max_value_diff=dv,
+                   rows_in_other_leaves=rows, max_leaf_value_diff=dleaf,
+                   max_predict_diff=dp)
+        print(f"small airlines {name}: " + json.dumps(rec), flush=True)
+        same = (not nodes and dv <= 1e-5) if name == "drf" else not rows
+        if not same or dleaf > 1e-5 or dp > 1e-5 or a.bm.nbins != BM_NBINS:
+            bad.append(f"small airlines {name}: card and CPU differ "
+                       f"({nodes} nodes, {rows} rows in other leaves, leaf "
+                       f"values {dleaf:.3e}, predictions {dp:.3e})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2988,6 +3400,11 @@ def main() -> int:
     cv_glm_and_ensemble(dev, fr, cv_ests, card)
     del fr, cv_ests
     small_cv_checks(dev, card)
+    # phase 29: 16-bit codes, on benchm-ml's Airlines GBM
+    bm_recs, bm_codes, bm_passes = airlines_bm_path(dev, card)
+    b16 = wide_kernels(dev, bm_codes, bm_passes)
+    del bm_codes
+    small_bm_checks(dev, card)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)
@@ -3016,6 +3433,19 @@ def main() -> int:
     # TreeSHAP: one call on phase 20's 100,000 rows through the GBM's 20
     # trees; no PyTorch call computes it, so there is no library time
     kernels.append(shap_entry)
+    # the same two kernels on 16-bit codes: phase 29's trees
+    for name, algo, count, replaces in (
+            ("hist_factored_b16", "gbm", "b1_launches",
+             "h2o3_tpu/ops/hist_pallas.py:103"),
+            ("hist_rows_b16", "drf", "b2_launches",
+             "h2o3_tpu/ops/hist_pallas.py:174")):
+        t = b16[algo]
+        kernels.append(dict(
+            name=name, route="cuda", source="h2o3_tpu_torch/csrc/hist.cu",
+            replaces=replaces, launches=bm_recs[algo][count],
+            max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by="bytes",
+            library_ms=t["library_ms"]))
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
           "uniform codes, L2 flushed; "
@@ -3027,6 +3457,10 @@ def main() -> int:
           "tree_shap is one call on 100,000 rows of the GBM's 20 trees "
           "(CUDA events), its bound the FP64 operations of shap_ops, its "
           "launches phase 20's; "
+          f"hist_factored_b16 and hist_rows_b16 are one tree of phase 29's "
+          f"GBM and DRF (N={BM_ROWS}, F=8, B={BM_NBINS}, int16 codes), each "
+          "pass weighted by its count a tree (dense rebuilds averaged), "
+          "their launches those fits'; "
           "max_abs_err is against the f32 plain version (hist_factored also "
           "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,14 +8,18 @@
 // codes[f, r] == b of vals[c, r], for the channels c = {w, g*w, h*w}:
 // the (L, F, B, 3) float32 histogram of one tree level.
 //
-// Inputs: codes (F, N) uint8 feature-major, node (N,) int32, vals (3, N)
-// float32. Rows whose node id or code is out of range match no bin (the
-// TPU kernel pads with code -1 for the same effect).
+// Inputs: codes (F, N) feature-major, uint8 (B <= 256) or int16 (B <= 1024:
+// the fit's 16-bit codes, every one below 1024, so int16 holds them with the
+// same bits), node (N,) int32, vals (3, N) float32. Each code type is a
+// template instance of the kernel, both built into the one library; the
+// entry picks one by code_bytes. Rows whose node id or code is out of range
+// match no bin (the TPU kernel pads with code -1 for the same effect).
 //
-// Bound: bytes. A pass reads the code bytes of the weighted rows, 16*N bytes
-// of node and values and writes L*F*B*3 floats; it does 6 integer adds per
-// weighted (row, feature) pair. At the bench shape (N = 1e6, F = 28) that is
-// ~44 MB and ~170 M adds: device-memory bandwidth bounds it.
+// Bound: bytes. A pass reads the code bytes of the weighted rows (1 or 2 a
+// code), 16*N bytes of node and values and writes L*F*B*3 floats; it does
+// 6 integer adds per weighted (row, feature) pair. At the bench shape
+// (N = 1e6, F = 28) that is ~44 MB and ~170 M adds: device-memory
+// bandwidth bounds it.
 //
 // Design. The TPU kernel one-hots an 8-feature block and multiplies, because
 // a TPU has no scatter atomics. Here the histogram is a scatter into shared
@@ -31,9 +35,9 @@
 //     sizes the grid, tiles and threads). The block zeroes an
 //     (nl, fb, B, 3) histogram of int32 pairs {hi, lo} in shared memory and
 //     walks its rows in tiles of up to kRowsMax rows (as many as the shared
-//     memory left holds): it stages the tile's (fb, tile) codes in
-//     shared memory with 16-byte loads, compacts the tile's weighted
-//     in-slice rows into a list (warp ballot and popc, one shared atomic per
+//     memory left holds): it stages the tile's (fb, tile) codes (1 or 2
+//     bytes each) in shared memory with 16-byte loads, compacts the tile's
+//     weighted in-slice rows into a list (warp ballot and popc, one shared atomic per
 //     warp) and counts them per node (__match_any_sync), then walks the
 //     list, a row per lane, each lane starting at its own feature, so that
 //     the lanes of a warp add into different features' slabs. A node whose
@@ -140,8 +144,9 @@ __global__ void hist_fixed_scale_kernel(const float* __restrict__ vals,
 // its three values once, and walks the block's features starting at its own
 // lane's feature, so the 32 lanes of a warp add into up to 32 features'
 // slabs at once, and the row's six words stay in registers for all its
-// features.
-__global__ void hist_fixed_kernel(const uint8_t* __restrict__ codes,
+// features. Code is uint8_t or int16_t.
+template <typename Code>
+__global__ void hist_fixed_kernel(const Code* __restrict__ codes,
                                   const int32_t* __restrict__ node,
                                   const float* __restrict__ vals,
                                   const unsigned* __restrict__ maxbits,
@@ -166,7 +171,9 @@ __global__ void hist_fixed_kernel(const uint8_t* __restrict__ codes,
   const int per_node = 2 * per3;    // and its ints in shared memory
   const int n_sh = nl * per_node;
   int* list = hist + ((n_sh + 3) & ~3);
-  const int S = tile_rows + 16;  // a staged feature's bytes (16-aligned)
+  constexpr int kCodeBytes = (int)sizeof(Code);
+  // a staged feature's bytes (16-aligned: tile_rows is a multiple of 16)
+  const int S = tile_rows * kCodeBytes + 16;
   uint8_t* stile = reinterpret_cast<uint8_t*>(list + tile_rows);
   int* n_list = reinterpret_cast<int*>(stile + nf * S);
   int* n_flush = n_list + 2;
@@ -203,8 +210,9 @@ __global__ void hist_fixed_kernel(const uint8_t* __restrict__ codes,
   const size_t stride = (size_t)n_rows;
   const int r0 = blockIdx.x * rows_per_block;
   const int r1 = min(r0 + rows_per_block, n_rows);
-  const int n_mod = n_rows & 15;
-  const int units = tile_rows / 16 + 1;  // 16-byte loads per staged feature
+  // a feature's byte offset mod 16 from the one before it
+  const int n_mod = (int)((stride * kCodeBytes) & 15);
+  const int units = S / 16;  // 16-byte loads per staged feature
 
   for (int t0 = r0, par = 0; t0 < r1; t0 += tile_rows, par ^= 1) {
     const int nt = min(tile_rows, r1 - t0);
@@ -216,16 +224,17 @@ __global__ void hist_fixed_kernel(const uint8_t* __restrict__ codes,
     // stage: feature j's bytes from the 16-byte boundary at or below its
     // row t0; that boundary and the last 16-byte word lie inside the
     // tensor's allocation (PyTorch's blocks are 512-byte aligned), and the
-    // bytes outside [t0, t0 + nt) are never read back
-    const uintptr_t g0 = reinterpret_cast<uintptr_t>(codes) +
-                         (size_t)f0 * stride + t0;
+    // bytes outside [t0, t0 + nt) are never read back. A code's offset in
+    // the tile is a multiple of its size, so the walk reads it aligned
+    const uintptr_t g0 =
+        reinterpret_cast<uintptr_t>(codes + (size_t)f0 * stride + t0);
     const int sh0 = (int)(g0 & 15);
     for (int i = threadIdx.x; i < nf * units; i += blockDim.x) {
       const int j = i / units;
       const int u = i - j * units;
-      const uintptr_t g = g0 + (size_t)j * stride;
+      const uintptr_t g = g0 + (size_t)j * stride * kCodeBytes;
       const int sh = (int)(g & 15);
-      if (u * 16 < sh + nt)
+      if (u * 16 < sh + nt * kCodeBytes)
         reinterpret_cast<uint4*>(stile + j * S)[u] =
             __ldg(reinterpret_cast<const uint4*>((g & ~(uintptr_t)15)) + u);
     }
@@ -262,6 +271,10 @@ __global__ void hist_fixed_kernel(const uint8_t* __restrict__ codes,
       base = __shfl_sync(0xffffffffu, base, 0);
       const unsigned peers = __match_any_sync(0xffffffffu, keep ? l : -1);
       if (keep && lane == __ffs(peers) - 1) atomicAdd(tcnt + l, __popc(peers));
+      // k < kRowsMax = 2^12; l * per_node < the slab's ints, which fit the
+      // block's shared memory (at most SMEM_MAX / 4 = 58,112 < 2^19; at
+      // B = 1024 a slice is 8 nodes of one feature, 49,152 ints), so the
+      // word stays below 2^31
       if (keep) list[base + __popc(ballot & below)] = k | (l * per_node) << 12;
     }
     __syncthreads();
@@ -299,8 +312,9 @@ __global__ void hist_fixed_kernel(const uint8_t* __restrict__ codes,
       }
       int j = rot;
       for (int jj = 0; jj < nf; ++jj) {
-        const int b = stile[j * S + ((sh0 + j * n_mod) & 15) + k];
-        if (b < n_bins) {
+        const int b = reinterpret_cast<const Code*>(
+            stile + j * S + ((sh0 + j * n_mod) & 15))[k];
+        if ((unsigned)b < (unsigned)n_bins) {
           int* h = hrow + (j * n_bins + b) * 6;
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
@@ -348,7 +362,8 @@ __global__ void hist_fixed_fold_kernel(const long long* __restrict__ acc,
 // ---------------------------------------------------------------------------
 // The port of the second TPU kernel, h2o3_tpu/ops/hist_pallas.py::
 // build_histograms_pallas (kernel body _hist_kernel): the same (L, F, B, 3)
-// histogram from ROW-MAJOR codes (N, F) uint8, the layout that kernel takes.
+// histogram from ROW-MAJOR codes (N, F), the layout that kernel takes: uint8
+// or int16 as above, the main kernel a template instance for each.
 //
 // Bound: bytes, as for the kernel above: the codes of the weighted rows,
 // 16*N bytes of node ids and values, and the L*F*B*3 f32 output once; about
@@ -640,7 +655,8 @@ __global__ void hist_rows_scatter_kernel(const int32_t* __restrict__ node,
                                         vals[2 * stride + r]);
 }
 
-__global__ void hist_rows_bucket_kernel(const uint8_t* __restrict__ codes,
+template <typename Code>
+__global__ void hist_rows_bucket_kernel(const Code* __restrict__ codes,
                                         const float4* __restrict__ recs,
                                         const int* __restrict__ offs,
                                         const int* __restrict__ chunk0,
@@ -694,9 +710,9 @@ __global__ void hist_rows_bucket_kernel(const uint8_t* __restrict__ codes,
     const int at = r0 + i;
     while (soff[n + 1] <= at) ++n;
     const float4 rec = __ldg(recs + at);
-    const uint8_t* row = codes + (size_t)__float_as_int(rec.x) * n_feat;
+    const Code* row = codes + (size_t)__float_as_int(rec.x) * n_feat;
     const int b = __ldg(row + f0 + j);
-    if (b < n_bins) {
+    if ((unsigned)b < (unsigned)n_bins) {
       float* h = hist + ((n * nf + j) * n_bins + b) * 3;
       atomicAdd(h, rec.y);
       atomicAdd(h + 1, rec.z);
@@ -716,25 +732,73 @@ __global__ void hist_rows_bucket_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+// B1's main launch for one code type.
+template <typename Code>
+cudaError_t launch_fixed(const void* codes, const void* node, const void* vals,
+                         const unsigned* mb, long long* acc, int n_rows,
+                         int n_feat, int n_nodes, int n_bins,
+                         int rows_per_block, int feats_per_block,
+                         int nodes_per_block, int n_row_blocks, int tile_rows,
+                         int threads, int smem_bytes, cudaStream_t s) {
+  cudaError_t e;
+  if (smem_bytes > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(hist_fixed_kernel<Code>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem_bytes)) != cudaSuccess)
+    return e;
+  dim3 grid(n_row_blocks, (n_feat + feats_per_block - 1) / feats_per_block,
+            (n_nodes + nodes_per_block - 1) / nodes_per_block);
+  hist_fixed_kernel<Code><<<grid, threads, smem_bytes, s>>>(
+      static_cast<const Code*>(codes), static_cast<const int32_t*>(node),
+      static_cast<const float*>(vals), mb,
+      reinterpret_cast<unsigned long long*>(acc), n_rows, n_feat, n_nodes,
+      n_bins, rows_per_block, feats_per_block, nodes_per_block, tile_rows);
+  return cudaGetLastError();
+}
+
+// B2's main launch for one code type.
+template <typename Code>
+cudaError_t launch_rows_bucket(const void* codes, const float4* recs,
+                               const int* offs, const int* chunk0,
+                               const int* chunk_group, float* out, int n_feat,
+                               int n_nodes, int n_bins, int group_nodes,
+                               int feats_per_block, int chunk_rows,
+                               int n_slots, int threads, int smem_bytes,
+                               cudaStream_t s) {
+  cudaError_t e;
+  if (smem_bytes > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(hist_rows_bucket_kernel<Code>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem_bytes)) != cudaSuccess)
+    return e;
+  dim3 grid(n_slots, (n_feat + feats_per_block - 1) / feats_per_block);
+  hist_rows_bucket_kernel<Code><<<grid, threads, smem_bytes, s>>>(
+      static_cast<const Code*>(codes), recs, offs, chunk0, chunk_group, out,
+      n_feat, n_nodes, n_bins, group_nodes, feats_per_block, chunk_rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The feature-major entry (B1): one memset of `scratch` (16 bytes of channel
 // maxima, then the (L, F, B, 3) int64 accumulator), then the scale, main and
-// fold launches on `stream`. Returns the first CUDA error (0 = ok).
+// fold launches on `stream`; code_bytes 1 takes uint8 codes, 2 int16.
+// Returns the first CUDA error (0 = ok).
 extern "C" int h2o3_hist_build(const void* codes, const void* node,
                                const void* vals, void* scratch, void* out,
-                               int n_rows, int n_feat, int n_nodes, int n_bins,
-                               int rows_per_block, int feats_per_block,
-                               int nodes_per_block, int n_row_blocks,
-                               int tile_rows, int threads, int smem_bytes,
-                               int scale_blocks, int fold_blocks,
-                               void* stream) {
+                               int code_bytes, int n_rows, int n_feat,
+                               int n_nodes, int n_bins, int rows_per_block,
+                               int feats_per_block, int nodes_per_block,
+                               int n_row_blocks, int tile_rows, int threads,
+                               int smem_bytes, int scale_blocks,
+                               int fold_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned* mb = static_cast<unsigned*>(scratch);
   long long* acc = reinterpret_cast<long long*>(static_cast<char*>(scratch) + 16);
   const long long total = (long long)n_nodes * n_feat * n_bins * 3;
   // a tile takes at most kRowsMax rows and kRowsPerThread per thread
-  if (tile_rows > kRowsMax || tile_rows > kRowsPerThread * threads)
+  if (tile_rows > kRowsMax || tile_rows > kRowsPerThread * threads ||
+      tile_rows % 16 || (code_bytes != 1 && code_bytes != 2))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaMemsetAsync(scratch, 0, 16 + total * sizeof(long long), s);
   if (e != cudaSuccess) return (int)e;
@@ -742,19 +806,18 @@ extern "C" int h2o3_hist_build(const void* codes, const void* node,
       static_cast<const float*>(vals), mb, n_rows);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  if (smem_bytes > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(hist_fixed_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem_bytes)) != cudaSuccess)
-    return (int)e;
-  dim3 grid(n_row_blocks, (n_feat + feats_per_block - 1) / feats_per_block,
-            (n_nodes + nodes_per_block - 1) / nodes_per_block);
-  hist_fixed_kernel<<<grid, threads, smem_bytes, s>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(node),
-      static_cast<const float*>(vals), mb,
-      reinterpret_cast<unsigned long long*>(acc), n_rows, n_feat, n_nodes,
-      n_bins, rows_per_block, feats_per_block, nodes_per_block, tile_rows);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = code_bytes == 1
+          ? launch_fixed<uint8_t>(codes, node, vals, mb, acc, n_rows, n_feat,
+                                  n_nodes, n_bins, rows_per_block,
+                                  feats_per_block, nodes_per_block,
+                                  n_row_blocks, tile_rows, threads,
+                                  smem_bytes, s)
+          : launch_fixed<int16_t>(codes, node, vals, mb, acc, n_rows, n_feat,
+                                  n_nodes, n_bins, rows_per_block,
+                                  feats_per_block, nodes_per_block,
+                                  n_row_blocks, tile_rows, threads,
+                                  smem_bytes, s);
+  if (e != cudaSuccess) return (int)e;
 
   hist_fixed_fold_kernel<<<fold_blocks, 256, 0, s>>>(
       acc, mb, static_cast<float*>(out), total, n_rows);
@@ -766,15 +829,16 @@ extern "C" int h2o3_hist_build(const void* codes, const void* node,
 // one memset and four launches. Scratch: `offs` (node_tiles * kScanTile
 // ints), `chunk0` (group_tiles * kScanTile ints), `chunk_group` (n_slots
 // ints), `rank` (N ints) and `recs` (N float4). `out` is written whole.
-// Returns the first CUDA error (0 = ok).
+// code_bytes 1 takes uint8 codes, 2 int16. Returns the first CUDA error
+// (0 = ok).
 extern "C" int h2o3_hist_build_rows(
     const void* codes, const void* node, const void* vals, void* offs,
     void* chunk0, void* chunk_group, void* rank, void* recs, void* out,
-    int n_rows, int n_feat, int n_nodes, int n_bins, int group_nodes,
-    int feats_per_block, int chunk_rows, int node_tiles, int group_tiles,
-    int n_slots, int threads, int smem_bytes, void* stream) {
+    int code_bytes, int n_rows, int n_feat, int n_nodes, int n_bins,
+    int group_nodes, int feats_per_block, int chunk_rows, int node_tiles,
+    int group_tiles, int n_slots, int threads, int smem_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  if (code_bytes != 1 && code_bytes != 2) return (int)cudaErrorInvalidValue;
   const int32_t* nd = static_cast<const int32_t*>(node);
   const float* v = static_cast<const float*>(vals);
   int* off = static_cast<int*>(offs);
@@ -812,15 +876,14 @@ extern "C" int h2o3_hist_build_rows(
                                   n_feat * n_bins * 3);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  if (smem_bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(hist_rows_bucket_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(n_slots, (n_feat + feats_per_block - 1) / feats_per_block);
-  hist_rows_bucket_kernel<<<grid, threads, smem_bytes, s>>>(
-      c, rc, off, c0, cg, o, n_feat, n_nodes, n_bins, group_nodes,
-      feats_per_block, chunk_rows);
-  return (int)cudaGetLastError();
+  e = code_bytes == 1
+          ? launch_rows_bucket<uint8_t>(codes, rc, off, c0, cg, o, n_feat,
+                                        n_nodes, n_bins, group_nodes,
+                                        feats_per_block, chunk_rows, n_slots,
+                                        threads, smem_bytes, s)
+          : launch_rows_bucket<int16_t>(codes, rc, off, c0, cg, o, n_feat,
+                                        n_nodes, n_bins, group_nodes,
+                                        feats_per_block, chunk_rows, n_slots,
+                                        threads, smem_bytes, s);
+  return (int)e;
 }

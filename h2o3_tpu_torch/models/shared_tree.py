@@ -56,7 +56,7 @@ import torch
 from .. import device as devlib
 from ..frame.binning import BinnedMatrix, bin_apply, build_bins
 from ..frame.frame import Frame
-from ..ops import packing, prng, score_cuda
+from ..ops import hist_cuda, packing, prng, score_cuda
 from ..runtime.log import Log
 from . import distributions as dist_mod
 from . import tree as treelib
@@ -336,8 +336,10 @@ class SharedTreeModel(H2OModel):
         path): rows of the parent's `BinnedMatrix` walk each tree through
         `tree.predict_codes` on the model's device, the trees' leaf values
         summed in f32 as the reference's jnp walk does (its row bucketing
-        serves XLA's compiled shapes, which eager torch does not have)."""
-        cd = torch.from_numpy(np.ascontiguousarray(codes)).to(self.device)
+        serves XLA's compiled shapes, which eager torch does not have).
+        16-bit codes walk as int16 (`packing.device_codes`)."""
+        cd = torch.from_numpy(packing.device_codes(
+            np.ascontiguousarray(codes))).to(self.device)
         outs = []
         for k, forest in enumerate(self.forest):
             s = torch.zeros(codes.shape[0], dtype=torch.float32,
@@ -738,10 +740,15 @@ class H2OSharedTreeEstimator(H2OEstimator):
             max_card = int(max([len(d) for d, c in zip(doms, is_cat)
                                 if c and d], default=0))
             nbins = max(tp["nbins"] + 1, min(max_card + 1, 1 << 10))
-        if nbins > 256:
-            raise NotImplementedError(
-                f"{nbins} bins need 16-bit codes, which the histogram kernel "
-                "does not take yet (ROADMAP queue B, item 1)")
+        # past 256 bins `build_bins` makes uint16 codes, which go to the
+        # device as int16 (`packing.device_codes`); both histogram kernels
+        # take them up to 1024 bins, the categorical cap above. Only a
+        # user's nbins of 1024 or more passes it (the reference fits that)
+        if nbins > hist_cuda.MAX_BINS:
+            raise ValueError(
+                f"{nbins} bins: the histogram kernels take at most "
+                f"{hist_cuda.MAX_BINS}; set nbins below {hist_cuda.MAX_BINS} "
+                "(ROADMAP queue B, item 1: more than 1024 bins)")
         # memory-feasibility depth clamp: the deepest level's histograms
         # take ~2^D·F·nbins·96 bytes; keep them under the histogram budget
         budget = _histogram_budget(dev)
@@ -801,8 +808,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
         pack_bits = packing.pack_bits_for(nbins, npad)
         # the resident matrix stays packed; each tree widens it once
         codes_d = torch.from_numpy(
-            packing.pack_host(codes_p, pack_bits) if pack_bits else codes_p
-        ).to(dev)
+            packing.pack_host(codes_p, pack_bits) if pack_bits
+            else packing.device_codes(codes_p)).to(dev)
         y_d = torch.from_numpy(np.concatenate([yk, np.zeros((pad, K), np.float32)])).to(dev)
         w_d = torch.from_numpy(np.concatenate([w, np.zeros(pad, np.float32)])).to(dev)
         edges = np.full((F, nbins - 2), np.float32(np.inf), np.float32)
@@ -837,7 +844,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # codes in the training bins (SharedTree's Score pass)
         if valid is not None:
             Xv, _, _ = frame_to_matrix(valid, x, expected_domains=bm.domains)
-            codes_v = torch.from_numpy(bin_apply(bm, Xv)).to(dev)
+            codes_v = torch.from_numpy(
+                packing.device_codes(bin_apply(bm, Xv))).to(dev)
             n_v = valid.nrow
             y_v = torch.from_numpy(_response_matrix(valid.vec(y), problem,
                                                     K)).to(dev)

@@ -147,7 +147,8 @@ def histogram_level_plan(max_depth: int, compact_cap: int = 0):
 
 
 def _row_code(codes: torch.Tensor, rf: torch.Tensor, pack_bits: int) -> torch.Tensor:
-    """codes[i, rf[i]] as int32: each row's code of its split feature."""
+    """codes[i, rf[i]] as int32: each row's code of its split feature
+    (uint8 or int16 codes, or packed words)."""
     if pack_bits:
         return packing.packed_row_values(codes, rf, pack_bits)
     return codes.gather(1, rf.to(torch.int64)[:, None])[:, 0].to(torch.int32)
@@ -164,7 +165,7 @@ def _keep_mask(key, n_nodes: int, F: int, rate: torch.Tensor):
 
 
 def build_tree(
-    codes: torch.Tensor,       # (N, F) uint8 codes, or packed (N·bits/8, F)
+    codes: torch.Tensor,       # (N, F) uint8/int16 codes, or packed (N·bits/8, F)
     g: torch.Tensor,           # (N,) gradients
     h: torch.Tensor,           # (N,) hessians
     w: torch.Tensor,           # (N,) row weights (0 = pad / out of bag)
@@ -402,7 +403,8 @@ def build_tree(
 
 
 def predict_codes(tree: Tree, codes: torch.Tensor, max_depth: int) -> torch.Tensor:
-    """Leaf value per row, traversing on binned (N, F) codes."""
+    """Leaf value per row, traversing on binned (N, F) uint8 or int16
+    codes (`packing.device_codes`)."""
     node = torch.zeros(codes.shape[0], dtype=torch.int64, device=codes.device)
     for _ in range(max_depth):
         f, b, s = tree.feat[node], tree.bin[node], tree.is_split[node]

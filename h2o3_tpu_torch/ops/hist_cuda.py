@@ -9,10 +9,14 @@ Two entries replace the two TPU kernels of `h2o3_tpu/ops/hist_pallas.py`:
   `_hist_kernel`), on row-major (N, F) codes.
 
 The CUDA source of both is `h2o3_tpu_torch/csrc/hist.cu`; its comments give
-each design and bound (device-memory bytes). `nvcc` builds it at first use
-into `h2o3_tpu_torch/_build/` (ignored by git) as a shared library with
-plain C entry points, loaded through `ctypes` (`build_library`, which
-`ops/score_cuda.py` builds `csrc/score.cu` with too).
+each design and bound (device-memory bytes). Both take uint8 codes at up to
+256 bins and int16 codes at up to MAX_BINS = 1024 (the fit's 16-bit codes,
+`packing.device_codes`: every code is below 1024, so int16 holds the bits of
+`build_bins`' uint16 and, unlike torch.uint16, gathers and compares on every
+device); each kernel is a template instance per code type. `nvcc` builds it
+at first use into `h2o3_tpu_torch/_build/` (ignored by git) as a shared
+library with plain C entry points, loaded through `ctypes` (`build_library`,
+which `ops/score_cuda.py` builds `csrc/score.cu` with too).
 
 B1 sums in fixed point (`fixed_shifts`: one power-of-two scale per channel
 from its largest magnitude, 36 bits below it; pairs of int32 shared-memory
@@ -83,6 +87,11 @@ GROUP_NODES = 8
 CHUNK_ROWS = 512
 ROWS_THREADS = 512
 SCAN_TILE = 8192                     # hist.cu kScanTile: counts per scan tile
+
+# the code types the kernels take -> bytes a code, and the most bins each
+# reaches; the fit caps bins at 1024 (shared_tree._fit)
+CODE_BYTES = {torch.uint8: 1, torch.int16: 2}
+MAX_BINS = 1024
 
 # kernel launches made by `hist_build` / `hist_build_rows` (one per call
 # that reaches the card)
@@ -167,11 +176,11 @@ def build() -> ctypes.CDLL:
             return _lib
         lib, build_log = build_library(SOURCE, "h2o3hist")
         fn = lib.h2o3_hist_build
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.h2o3_hist_build_rows
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -192,10 +201,11 @@ class FactoredPlan(NamedTuple):
 
 
 def block_plan(n_nodes: int, nbins: int, n_feat: int, n_rows: int,
-               sms: int = 132) -> FactoredPlan:
+               sms: int = 132, code_bytes: int = 1) -> FactoredPlan:
     """The launch plan of one B1 pass (`hist_build`). A block holds the
     (nl, fb, B, 3) histogram of int32 pairs, a tile's list of weighted rows,
-    its staged codes and three counters per node in at most SMEM_PAIR bytes:
+    its staged codes (code_bytes each, a feature's padded to 16 bytes) and
+    three counters per node in at most SMEM_PAIR bytes:
     every feature of all L nodes where that fits beside a tile of TILE_ROWS
     rows, else the fewest balanced feature blocks that fit (28 = 10 + 10 +
     8), else (a block of 2 * THREADS threads in SMEM_MAX bytes) one feature
@@ -213,7 +223,7 @@ def block_plan(n_nodes: int, nbins: int, n_feat: int, n_rows: int,
     def smem(fb: int, nl: int, tile: int = tile) -> int:
         # hist.cu: histogram, list, codes, counters
         return (16 * (-(-fb * nl * nbins * 6 // 4)) + 4 * tile
-                + fb * (tile + 16) + 12 + 12 * nl)
+                + fb * (tile * code_bytes + 16) + 12 + 12 * nl)
 
     if smem(1, 1) > SMEM_MAX:
         raise ValueError(f"one node's histogram of {nbins} bins exceeds the "
@@ -236,7 +246,8 @@ def block_plan(n_nodes: int, nbins: int, n_feat: int, n_rows: int,
             while smem(1, nl, top) > budget:
                 nl -= 1
             nl = -(-L // -(-L // nl))        # even slices
-    tile = min(top, (budget - smem(fb, nl, 0)) // (4 + fb) // 16 * 16)
+    tile = min(top, (budget - smem(fb, nl, 0)) // (4 + fb * code_bytes)
+               // 16 * 16)
     cols = -(-F // fb) * -(-L // nl)
     n_rb = max(1, min(-(-n_rows // MIN_ROWS_PER_BLOCK), -(-2 * sms // cols)))
     rows = max(16, -(-n_rows // (16 * n_rb)) * 16)
@@ -259,6 +270,30 @@ def hist_plain(codes: torch.Tensor, node: torch.Tensor, vals: torch.Tensor,
     for f in range(F):
         out[f].index_add_(0, base + codes[f].to(torch.int64), src)
     return out.view(F, n_nodes, nbins, 3).permute(1, 0, 2, 3).contiguous()
+
+
+def _check_inputs(who: str, codes: torch.Tensor, node: torch.Tensor,
+                  vals: torch.Tensor, n_rows: int, nbins: int) -> None:
+    """What both kernels take: uint8 codes at nbins <= 256, int16 codes at
+    nbins <= MAX_BINS, int32 node ids and f32 values (TypeError, or
+    ValueError for the bin count), n_rows rows of each, contiguous, on one
+    device (ValueError)."""
+    if codes.dtype not in CODE_BYTES or node.dtype != torch.int32 \
+            or vals.dtype != torch.float32:
+        raise TypeError(f"{who} takes uint8 or int16 codes, int32 node, f32 "
+                        f"vals; got {codes.dtype}, {node.dtype}, {vals.dtype}")
+    top = 256 if codes.dtype == torch.uint8 else MAX_BINS
+    if not 1 <= nbins <= top:
+        raise ValueError(f"{who}: {codes.dtype} codes take 1 to {top} bins; "
+                         f"got {nbins}")
+    if tuple(node.shape) != (n_rows,) or tuple(vals.shape) != (3, n_rows):
+        raise ValueError(f"shape mismatch: codes {tuple(codes.shape)}, node "
+                         f"{tuple(node.shape)}, vals {tuple(vals.shape)}")
+    if not (codes.is_contiguous() and node.is_contiguous()
+            and vals.is_contiguous()):
+        raise ValueError(f"{who} takes contiguous tensors")
+    if not (codes.device == node.device == vals.device):
+        raise ValueError(f"{who} inputs lie on different devices")
 
 
 def fix_top(n_rows: int) -> int:
@@ -303,28 +338,19 @@ def hist_build(codes: torch.Tensor, node: torch.Tensor, vals: torch.Tensor,
                n_nodes: int, nbins: int) -> torch.Tensor:
     """(L, F, B, 3) f32 histogram of vals per (node, feature, bin).
 
-    codes (F, N) uint8 feature-major, node (N,) int32, vals (3, N) f32, all
-    contiguous on one device. On a CUDA device this launches the fixed-point
-    kernels (`block_plan`) on the current stream, with no synchronisation:
-    the result equals `hist_plain_fixed`. On the CPU it is `hist_plain`."""
+    codes (F, N) feature-major, uint8 (nbins <= 256) or int16 (nbins <=
+    MAX_BINS), node (N,) int32, vals (3, N) f32, all contiguous on one
+    device. On a CUDA device this launches the fixed-point kernels
+    (`block_plan`) on the current stream, with no synchronisation: the
+    result equals `hist_plain_fixed`. On the CPU it is `hist_plain`."""
     global launches
     if codes.device.type == "cpu":
         return hist_plain(codes, node, vals, n_nodes, nbins)
     F, N = codes.shape
-    if codes.dtype != torch.uint8 or node.dtype != torch.int32 \
-            or vals.dtype != torch.float32:
-        raise TypeError(f"hist_build takes uint8 codes, int32 node, f32 vals; "
-                        f"got {codes.dtype}, {node.dtype}, {vals.dtype}")
-    if tuple(node.shape) != (N,) or tuple(vals.shape) != (3, N):
-        raise ValueError(f"shape mismatch: codes {tuple(codes.shape)}, node "
-                         f"{tuple(node.shape)}, vals {tuple(vals.shape)}")
-    if not (codes.is_contiguous() and node.is_contiguous()
-            and vals.is_contiguous()):
-        raise ValueError("hist_build takes contiguous tensors")
-    if not (codes.device == node.device == vals.device):
-        raise ValueError("hist_build inputs lie on different devices")
+    _check_inputs("hist_build", codes, node, vals, N, nbins)
+    cb = CODE_BYTES[codes.dtype]
     sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
-    plan = block_plan(n_nodes, nbins, F, N, sms)
+    plan = block_plan(n_nodes, nbins, F, N, sms, cb)
     out = torch.empty((n_nodes, F, nbins, 3), dtype=torch.float32,
                       device=codes.device)
     if N == 0 or out.numel() == 0:
@@ -339,7 +365,7 @@ def hist_build(codes: torch.Tensor, node: torch.Tensor, vals: torch.Tensor,
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.h2o3_hist_build(
             codes.data_ptr(), node.data_ptr(), vals.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), N, F, n_nodes, nbins,
+            scratch.data_ptr(), out.data_ptr(), cb, N, F, n_nodes, nbins,
             plan.rows_per_block, plan.feats_per_block, plan.nodes_per_block,
             plan.grid[0], plan.tile_rows, plan.threads, plan.smem, scale_blocks,
             fold_blocks, stream)
@@ -372,8 +398,9 @@ def rows_plan(n_nodes: int, nbins: int, n_feat: int,
     A block keeps the histograms of G = min(GROUP_NODES, L) nodes of all
     features in shared memory, fewer where they do not fit; where one
     node's histograms of all features do not fit, a block takes one node
-    and as many features as fit. Raises only where one node's histogram of
-    one feature does not fit."""
+    and as many features as fit (at B = 1024: G = 1 and 18 features a
+    block). It stages no codes, so it does not depend on their width.
+    Raises only where one node's histogram of one feature does not fit."""
     per = nbins * 3 * 4                  # bytes of one (node, feature) histogram
 
     def smem(G: int, fb: int) -> int:    # hist.cu: G + 1 offsets, (G, fb, B, 3)
@@ -417,26 +444,16 @@ def hist_build_rows(codes: torch.Tensor, node: torch.Tensor,
                     vals: torch.Tensor, n_nodes: int,
                     nbins: int) -> torch.Tensor:
     """(L, F, B, 3) f32 histogram of vals per (node, feature, bin), from
-    row-major codes (N, F) uint8, node (N,) int32 and vals (3, N) f32, all
-    contiguous on one device. On a CUDA device this launches the B2 kernels
-    (`rows_plan`) on the current stream, with no synchronisation; on the CPU
-    it is `hist_plain_rows`."""
+    row-major codes (N, F) uint8 (nbins <= 256) or int16 (nbins <=
+    MAX_BINS), node (N,) int32 and vals (3, N) f32, all contiguous on one
+    device. On a CUDA device this launches the B2 kernels (`rows_plan`) on
+    the current stream, with no synchronisation; on the CPU it is
+    `hist_plain_rows`."""
     global launches_rows
     if codes.device.type == "cpu":
         return hist_plain_rows(codes, node, vals, n_nodes, nbins)
     N, F = codes.shape
-    if codes.dtype != torch.uint8 or node.dtype != torch.int32 \
-            or vals.dtype != torch.float32:
-        raise TypeError(f"hist_build_rows takes uint8 codes, int32 node, f32 "
-                        f"vals; got {codes.dtype}, {node.dtype}, {vals.dtype}")
-    if tuple(node.shape) != (N,) or tuple(vals.shape) != (3, N):
-        raise ValueError(f"shape mismatch: codes {tuple(codes.shape)}, node "
-                         f"{tuple(node.shape)}, vals {tuple(vals.shape)}")
-    if not (codes.is_contiguous() and node.is_contiguous()
-            and vals.is_contiguous()):
-        raise ValueError("hist_build_rows takes contiguous tensors")
-    if not (codes.device == node.device == vals.device):
-        raise ValueError("hist_build_rows inputs lie on different devices")
+    _check_inputs("hist_build_rows", codes, node, vals, N, nbins)
     plan = rows_plan(n_nodes, nbins, F, N)
     out = torch.empty((n_nodes, F, nbins, 3), dtype=torch.float32,
                       device=codes.device)
@@ -450,7 +467,8 @@ def hist_build_rows(codes: torch.Tensor, node: torch.Tensor,
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = lib.h2o3_hist_build_rows(
             codes.data_ptr(), node.data_ptr(), vals.data_ptr(), *parts,
-            out.data_ptr(), N, F, n_nodes, nbins, plan.group_nodes,
+            out.data_ptr(), CODE_BYTES[codes.dtype], N, F, n_nodes, nbins,
+            plan.group_nodes,
             plan.feats_per_block, plan.chunk_rows, plan.node_tiles,
             plan.group_tiles, plan.grid[0], ROWS_THREADS, plan.smem, stream)
     check_launch(rc, "row-major histogram kernel")

@@ -16,10 +16,11 @@ Methods keep the reference's names:
   its plain twin `hist_cuda.hist_plain_rows`.
 
 ``onehot`` and ``host`` (ROADMAP queue A, item 3) are not ported yet and
-raise. Both kernels take every level width (B1 splits the nodes into
-slices where one feature's (L, B, 3) histogram outgrows shared memory, B2
-buckets the rows by node and keeps small groups of nodes in shared memory),
-so nothing gives way to ``segment`` on the card. B1 sums in fixed point, so
+raise. Both kernels take uint8 codes (up to 256 bins) and int16 codes (up
+to 1024 bins, the fit's 16-bit codes), and every level width (B1 splits
+the nodes into slices where one feature's (L, B, 3) histogram outgrows
+shared memory, B2 buckets the rows by node and keeps small groups of
+nodes in shared memory), so nothing gives way to ``segment`` on the card. B1 sums in fixed point, so
 its histograms are the same bits from run to run and equal
 `hist_cuda.hist_plain_fixed`; against ``segment``'s f32 sums they agree
 within rtol 1e-5. B2 sums in f32.
@@ -59,16 +60,18 @@ def resolve_method(method: str, device: torch.device) -> str:
 
 
 def feature_major(codes: torch.Tensor, pack_bits: int = 0) -> torch.Tensor:
-    """(F, N) uint8 contiguous codes from the (packed) (N, F) matrix — the
-    widened transient `segment` and `pallas_factored` read."""
+    """(F, N) contiguous codes from the (packed) (N, F) matrix — the
+    widened transient `segment` and `pallas_factored` read: uint8, or int16
+    past 256 bins (`packing.device_codes`), which pass through as they are."""
     if pack_bits:
         codes = packing.unpack_device(codes, pack_bits)
     return codes.t().contiguous()
 
 
 def row_major(codes: torch.Tensor, pack_bits: int = 0) -> torch.Tensor:
-    """(N, F) uint8 contiguous codes from the (packed) (N, F) matrix — the
-    widened transient `pallas` (B2) reads."""
+    """(N, F) contiguous codes from the (packed) (N, F) matrix — the
+    widened transient `pallas` (B2) reads; uint8 or int16 as
+    `feature_major`'s."""
     if pack_bits:
         codes = packing.unpack_device(codes, pack_bits)
     return codes.contiguous()
@@ -77,7 +80,8 @@ def row_major(codes: torch.Tensor, pack_bits: int = 0) -> torch.Tensor:
 def widen(codes: torch.Tensor, pack_bits: int, method: str) -> torch.Tensor:
     """The widened codes in the layout `method`'s kernel reads.
     `tree.build_tree` calls this once per tree and hands it to every
-    level's pass."""
+    level's pass. Packed words unpack to uint8; unpacked uint8 and int16
+    codes keep their type."""
     if method == "pallas":
         return row_major(codes, pack_bits)
     return feature_major(codes, pack_bits)

@@ -13,6 +13,9 @@ bits   rows/group  bytes/group  bitstream
 5      8           5            row codes MSB-first, 5 bits each
 6      4           3            row codes MSB-first, 6 bits each
 =====  ==========  ===========  =========================================
+
+Past 64 bins the matrix ships unpacked (`pack_bits_for` returns 0), and
+past 256 bins `build_bins`' uint16 codes ship as int16 (`device_codes`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,18 @@ import torch
 # rows per pack group / packed bytes per group, by bit width
 GROUP_ROWS = {4: 2, 5: 8, 6: 4}
 GROUP_BYTES = {4: 1, 5: 5, 6: 3}
+
+
+def device_codes(codes: np.ndarray) -> np.ndarray:
+    """The code matrix as the device takes it: uint8 as it is; uint16 (more
+    than 256 bins) viewed as int16, the same bits, since every code is below
+    1024. torch.uint16 has no `gather` and no comparison on the CPU, while
+    int16 has every op the tree path runs on both devices."""
+    if codes.dtype == np.uint16:
+        return codes.view(np.int16)
+    if codes.dtype != np.uint8:
+        raise TypeError(f"bin codes are uint8 or uint16, not {codes.dtype}")
+    return codes
 
 
 def pack_bits_for(nbins: int, nrows: int) -> int:

@@ -29,15 +29,17 @@ def dev():
 
 
 def _inputs(dev, seed, N, F, L, nbins, law="uniform"):
-    """Feature-major codes, node ids and values of one B1 pass. The skewed
-    code law puts most rows in a few central bins, as the fit's
-    UniformAdaptive bins of normal features do."""
+    """Feature-major codes, node ids and values of one B1 pass; the codes
+    uint8 up to 256 bins, int16 past that (the fit's rule). The skewed code
+    law puts most rows in a few central bins, as the fit's UniformAdaptive
+    bins of normal features do."""
     rng = np.random.default_rng(seed)
+    dt = np.uint8 if nbins <= 256 else np.int16
     if law == "skewed":
         codes = np.clip(rng.normal(nbins / 2, nbins / 8, (F, N)), 0,
-                        nbins - 1).astype(np.uint8)
+                        nbins - 1).astype(dt)
     else:
-        codes = rng.integers(0, nbins, (F, N)).astype(np.uint8)
+        codes = rng.integers(0, nbins, (F, N)).astype(dt)
     node = rng.integers(0, L, N).astype(np.int32)
     g = rng.normal(size=N).astype(np.float32)
     h = rng.random(N).astype(np.float32)
@@ -67,6 +69,12 @@ def _check_fixed(got, codes, node, vals, L, nbins):
     (4_099, 3, 4, 256, "uniform"),        # the widest uint8 code range
     (100_003, 3, 1024, 21, "uniform"),    # depth-11 sibling pass: node slices
     (100_003, 3, 1024, 256, "uniform"),   # wide categorical bins: many slices
+    # 16-bit codes
+    (200_003, 8, 1, 301, "uniform"),      # the Airlines GBM's root pass
+    (200_003, 8, 64, 301, "skewed"),      # node slices of 22
+    (100_003, 8, 4096, 301, "uniform"),   # a compact level: 147 slices
+    (50_001, 5, 1, 1024, "uniform"),      # the cap: 4 features a block
+    (100_003, 3, 1024, 1024, "uniform"),  # slices of 8 nodes
 ])
 def test_kernel_matches_plain(dev, N, F, L, nbins, law):
     codes, node, vals = _inputs(dev, N + L, N, F, L, nbins, law)
@@ -82,17 +90,19 @@ def test_kernel_matches_plain(dev, N, F, L, nbins, law):
     _check_fixed(got, codes, node, vals, L, nbins)
 
 
+@pytest.mark.parametrize("nbins", [21, 301])
 @pytest.mark.parametrize("knob,value", [
     ("TILE_ROWS", 256), ("TILE_ROWS", 512), ("THREADS", 256),
     ("THREADS", 1024), ("SMEM_PAIR", hist_cuda.SMEM_MAX),
     ("MIN_ROWS_PER_BLOCK", 4096)])
-def test_kernel_bits_do_not_depend_on_the_plan(dev, monkeypatch, knob, value):
+def test_kernel_bits_do_not_depend_on_the_plan(dev, monkeypatch, knob, value,
+                                               nbins):
     """Integer sums: other tiles, threads, feature splits and row blocks
-    give the same bits."""
-    codes, node, vals = _inputs(dev, 8, 100_003, 28, 16, 21)
-    base = hist_cuda.hist_build(codes, node, vals, 16, 21)
+    give the same bits, on 8- and 16-bit codes."""
+    codes, node, vals = _inputs(dev, 8, 100_003, 28, 16, nbins)
+    base = hist_cuda.hist_build(codes, node, vals, 16, nbins)
     monkeypatch.setattr(hist_cuda, knob, value)
-    got = hist_cuda.hist_build(codes, node, vals, 16, 21)
+    got = hist_cuda.hist_build(codes, node, vals, 16, nbins)
     torch.cuda.synchronize()
     assert torch.equal(got, base)
 
@@ -145,19 +155,21 @@ def test_kernel_scale_edges(dev, case):
         assert torch.isfinite(got[..., [k for k in range(3) if k != c]]).all()
 
 
-@pytest.mark.parametrize("L,sibling,law", [
-    (1, False, "uniform"), (4, True, "skewed"), (16, True, "uniform"),
-    (1024, True, "uniform")])
-def test_kernel_no_farther_from_f64_than_f32(dev, L, sibling, law):
+@pytest.mark.parametrize("L,sibling,law,nbins", [
+    (1, False, "uniform", 21), (4, True, "skewed", 21),
+    (16, True, "uniform", 21), (1024, True, "uniform", 21),
+    (1, False, "skewed", 301), (4096, True, "uniform", 301),
+    (64, True, "uniform", 1024)])
+def test_kernel_no_farther_from_f64_than_f32(dev, L, sibling, law, nbins):
     """In each channel (w, g·w, h·w) the kernel's sums lie no farther from
     an f64 sum of the same inputs than `hist_plain`'s f32 atomics do."""
     N, F = 1_000_000, 4
-    codes, node, vals = _inputs(dev, 20 + L, N, F, L, 21, law)
+    codes, node, vals = _inputs(dev, 20 + L, N, F, L, nbins, law)
     if sibling:
         vals[:, torch.arange(N, device=dev) % 2 == 1] = 0
-    got = hist_cuda.hist_build(codes, node, vals, L, 21)
-    f32 = hist_cuda.hist_plain(codes, node, vals, L, 21)
-    f64 = hist_cuda.hist_plain(codes, node, vals, L, 21, torch.float64)
+    got = hist_cuda.hist_build(codes, node, vals, L, nbins)
+    f32 = hist_cuda.hist_plain(codes, node, vals, L, nbins)
+    f64 = hist_cuda.hist_plain(codes, node, vals, L, nbins, torch.float64)
     err = (got.double() - f64).abs().reshape(-1, 3).amax(0)
     err_f32 = (f32.double() - f64).abs().reshape(-1, 3).amax(0)
     assert (err <= err_f32).all(), (err, err_f32)
@@ -179,9 +191,16 @@ def test_kernel_past_2_26_rows(dev):
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
+    """int32 or float codes (TypeError); uint8 codes past 256 bins, int16
+    codes past 1024 (ValueError); strided or mismatched inputs."""
     codes, node, vals = _inputs(dev, 1, 1024, 4, 2, 21)
-    with pytest.raises(TypeError):
-        hist_cuda.hist_build(codes.to(torch.int32), node, vals, 2, 21)
+    for dt in (torch.int32, torch.float32):
+        with pytest.raises(TypeError):
+            hist_cuda.hist_build(codes.to(dt), node, vals, 2, 21)
+    with pytest.raises(ValueError):
+        hist_cuda.hist_build(codes, node, vals, 2, 257)
+    with pytest.raises(ValueError):
+        hist_cuda.hist_build(codes.to(torch.int16), node, vals, 2, 1025)
     with pytest.raises(ValueError):
         hist_cuda.hist_build(codes[:, ::2], node[::2], vals[:, ::2], 2, 21)
     with pytest.raises(ValueError):
@@ -214,11 +233,13 @@ def test_gbm_fit_on_cuda_launches_the_kernel_at_every_level(dev):
 
 
 def _rows_inputs(dev, seed, N, F, L, nbins, w_zero, law="uniform"):
-    """Row-major codes, node ids and values of one B2 pass. The skewed law
-    puts half the weighted rows in node L // 2 and leaves every fourth node
-    empty, as the deep dense levels and the compaction passes do."""
+    """Row-major codes (uint8 up to 256 bins, int16 past that), node ids
+    and values of one B2 pass. The skewed law puts half the weighted rows
+    in node L // 2 and leaves every fourth node empty, as the deep dense
+    levels and the compaction passes do."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, nbins, (N, F)).astype(np.uint8)
+    codes = rng.integers(0, nbins, (N, F)).astype(
+        np.uint8 if nbins <= 256 else np.int16)
     node = rng.integers(0, L, N)
     g = rng.normal(size=N).astype(np.float32)
     h = rng.random(N).astype(np.float32)
@@ -255,6 +276,12 @@ def _check_rows(got, codes, node, vals, L, nbins):
     (200_003, 28, 2 ** 18, 21, 0.5, "uniform"),
     (50_001, 5, 1024, 256, 0.3, "uniform"),   # the widest uint8 code range
     (4_099, 3, 4, 256, 1.0, "uniform"),       # every row at zero weight
+    # 16-bit codes
+    (200_003, 8, 1, 301, 0.3, "uniform"),     # the Airlines DRF's root pass
+    (200_003, 8, 4097, 301, 0.5, "skewed"),   # its compaction passes, G = 8
+    (100_003, 8, 64, 1024, 0.5, "uniform"),   # the cap: G = 2
+    (100_003, 28, 64, 1024, 0.5, "skewed"),   # G = 1, features split 18 + 10
+    (50_001, 28, 1, 1024, 0.3, "uniform"),
 ])
 def test_rows_kernel_matches_plain(dev, N, F, L, nbins, w_zero, law):
     codes, node, vals = _rows_inputs(dev, N + L, N, F, L, nbins, w_zero, law)
@@ -302,8 +329,13 @@ def test_rows_kernel_rejects_what_it_does_not_take(dev):
     codes = torch.zeros((1024, 4), dtype=torch.uint8, device=dev)
     node = torch.zeros(1024, dtype=torch.int32, device=dev)
     vals = torch.ones((3, 1024), device=dev)
-    with pytest.raises(TypeError):
-        hist_cuda.hist_build_rows(codes.to(torch.int32), node, vals, 2, 21)
+    for dt in (torch.int32, torch.float32):
+        with pytest.raises(TypeError):
+            hist_cuda.hist_build_rows(codes.to(dt), node, vals, 2, 21)
+    with pytest.raises(ValueError):
+        hist_cuda.hist_build_rows(codes, node, vals, 2, 257)
+    with pytest.raises(ValueError):
+        hist_cuda.hist_build_rows(codes.to(torch.int16), node, vals, 2, 1025)
     with pytest.raises(ValueError):
         hist_cuda.hist_build_rows(codes[::2], node[::2], vals[:, ::2], 2, 21)
     with pytest.raises(ValueError):
@@ -337,3 +369,52 @@ def test_drf_fit_on_cuda_matches_cpu(dev):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5, atol=1e-5)
     assert abs(est.auc() - fits["cpu"][0].auc()) <= 1e-5
+
+
+def _enum_frame(n, levels, seed):
+    """A frame of a `levels`-level enum whose levels past 255 carry the
+    signal, a numeric column and a binary label (the parity fixtures of
+    tests/test_torch_codes16.py, without the JAX package)."""
+    from h2o3_tpu_torch.frame.vec import Vec
+
+    rng = np.random.default_rng(seed)
+    cat = rng.integers(0, levels, n)
+    x = rng.normal(size=n).astype(np.float32)
+    logit = 1.5 * (cat >= 256) - 0.8 * (cat % 7 == 0) + x
+    y = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(int)
+    return Frame({"cat": Vec(cat, "enum",
+                             domain=[f"L{i:04d}" for i in range(levels)]),
+                  "x": Vec(x), "y": Vec(y, "enum", domain=["N", "Y"])})
+
+
+@pytest.mark.parametrize("algo,levels", [("gbm", 300), ("drf", 300),
+                                         ("gbm", 1200)])
+def test_16bit_fit_on_cuda_matches_cpu(dev, algo, levels):
+    """GBM (B1) and DRF (B2) on a 300-level enum, and a GBM at the 1024-bin
+    cap: every pass launches the kernel on int16 codes, and the card's
+    forest is the CPU's."""
+    fr = _enum_frame(4000, levels, levels)
+    fits = {}
+    for d in ("cuda", "cpu"):
+        hist_cuda.launches = hist_cuda.launches_rows = 0
+        histogram.DISPATCH.clear()
+        if algo == "gbm":
+            est = H2OGradientBoostingEstimator(ntrees=4, max_depth=4,
+                                               min_rows=20, seed=42, device=d)
+        else:
+            est = H2ORandomForestEstimator(ntrees=4, max_depth=8, seed=42,
+                                           hist_method="pallas", device=d)
+        est.train(y="y", training_frame=fr)
+        fits[d] = (est, hist_cuda.launches + hist_cuda.launches_rows,
+                   dict(histogram.DISPATCH))
+    est, launches, dispatch = fits["cuda"]
+    assert est.model.bm.nbins == min(levels + 1, 1024)
+    method = "pallas_factored" if algo == "gbm" else "pallas"
+    passes = 4 * len(histogram_level_plan(est.model.max_depth))
+    assert launches == passes and dispatch == {method: passes}
+    assert fits["cpu"][1] == 0
+    a, b = est.model.forest[0], fits["cpu"][0].model.forest[0]
+    for f in ("feat", "bin", "is_split"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert int((a.is_split & (a.feat == 0) & (a.bin >= 255)).sum()) > 0
+    torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5, atol=1e-5)
