@@ -101,6 +101,32 @@ result line):
    of bag after every tree. B2's launches equal 7 x the level plan's passes
    per iteration plus the dense rebuilds'; `predict` launches the forest
    kernels 7 times, on the streamed plan; the OOB history is printed.
+30. The multinomial GLM, run right after phase 15 on its frames (H2O's GLM
+   documentation fits its multinomial example on Covertype):
+   `H2OGeneralizedLinearEstimator(**MN_GLM)` (α = 0, λ = 1e-5: one
+   optimum where the one-hot columns are collinear and a rare class
+   separable) with the validation frame, fitted twice (the second
+   checked): it stays on the L-BFGS path within its step cap, launches no
+   hand-written kernel, its training and validation logloss are below the
+   priors', its f64 gradient norm (the objective evaluated on the card in
+   f64 at the returned β) at most 1e-3, its probability rows sum to 1
+   within 1e-5, and `predict` of the validation frame equals the numpy
+   MOJO scorer within 1e-5. Printed beside the card: the fit's split
+   (host pack, H2D, expansion, L-BFGS, metrics), the steps and loss
+   evaluations, the loss, the design's bytes, the metrics, and the busy
+   share of a third, profiled fit (as phase 6). Then the serving engine
+   answers SERVE_REQUESTS requests of 1..SERVE_MAX_ROWS validation rows
+   from SERVE_THREADS threads, each within MN_SERVE_TOL of `predict`; a
+   MN_FOLDS-fold CV of the same GLM (holdout rows finite, summing to 1);
+   and a stack of it with a MN_FOLDS-fold 7-class GBM, COV_GBM cut to
+   MN_GBM_TREES trees from 50 without early stopping (printed on a line
+   of its own): the multinomial metalearner, a stack logloss below its
+   weaker member's xval logloss and a validation logloss below the
+   priors', `predict` of the validation frame launching the GBM's 7
+   resident forest kernels and nothing else, its MOJO within 1e-5. Last,
+   card against CPU on the CPU test's 4-class frame (4000 rows, λ = 0,
+   MN_FOLDS folds): centred β within MN_BETA_TOL, predictions and
+   holdouts within 1e-4.
 16. Reference check on small inputs, card against CPU: a 4-class GBM and
    DRF (4000 x 8, well-separated classes), a GBM per new distribution
    (poisson, gamma, tweedie, laplace, quantile, huber) and a weighted
@@ -242,10 +268,11 @@ Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
 them again before their `predict`; phase 20 is the TreeSHAP path's; phases
 24, 25 and 27's `predict` are the CV path's; phase 29's fits are each
-their own; the GLM runs none of the
-hand-written kernels, and phases 17, 18 and 26 fail if it launched one).
+their own; phase 30's stack `predict` is its own; the GLM runs none of
+the hand-written kernels, and phases 17, 18, 26 and 30 fail if it
+launched one).
 TF32 must stay off
-through phases 17-19. The last line is {"ok": true, "device": {...}}; the
+through phases 17-19 and 30. The last line is {"ok": true, "device": {...}}; the
 line before it is the kernel table as JSON.
 """
 
@@ -604,7 +631,7 @@ def main_path(dev):
 
 
 def profile_fit(est, fr, tag="profile", y="label", valid=None):
-    """Phases 6, 10 and 14: one fit of `est` on `fr` (and `valid`) under
+    """Phases 6, 10, 14 and 30: one fit of `est` on `fr` (and `valid`) under
     torch.profiler. Busy share = the union of the device's kernel and copy
     intervals over the fit's wall time (the profiler's own host overhead
     lengthens that wall, so the share reads low)."""
@@ -619,7 +646,10 @@ def profile_fit(est, fr, tag="profile", y="label", valid=None):
         wall = time.time() - t0
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # a user annotation (torch.optim's `Optimizer.step#LBFGS.step`)
+        # is mirrored on the device's timeline as a span that runs no work
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -633,7 +663,7 @@ def profile_fit(est, fr, tag="profile", y="label", valid=None):
     # the bucketed main kernel)
     b1 = {k[:80]: v / 1e3 for k, v in by_name.items() if "hist_fixed_" in k}
     b2 = {k[:80]: v / 1e3 for k, v in by_name.items() if "hist_rows_" in k}
-    rec = dict(trees=est.model.ntrees_built, wall_s=wall,
+    rec = dict(trees=getattr(est.model, "ntrees_built", None), wall_s=wall,
                device_busy_s=busy_us / 1e6,
                busy_share=busy_us / 1e6 / wall, device_events=len(spans),
                fit_timings=est.model.fit_timings,
@@ -3324,6 +3354,360 @@ def small_bm_checks(dev, card):
     if bad:
         raise AssertionError("; ".join(bad))
 
+# phase 30: the multinomial GLM on phase 14's Covertype-shaped frames (H2O's
+# GLM documentation fits its multinomial example on Covertype). A ridge of
+# λ = 1e-5 (α = 0) gives the softmax one optimum: the one-hot area and soil
+# columns are collinear, and a rare class is separable on some soil types
+# at λ = 0. The stack's GBM is COV_GBM cut to MN_GBM_TREES trees from 50,
+# without early stopping; both base models have MN_FOLDS folds
+MN_GLM = dict(family="multinomial", alpha=0.0, lambda_=1e-5)
+MN_FOLDS, MN_GBM_TREES = 3, 10
+MN_SERVE_TOL = 1e-5
+# the CPU test's tolerance for centred β (tests/test_torch_glm_multinomial.py)
+MN_BETA_TOL = 3e-4
+MN_CLASSES = ["ash", "birch", "cedar", "dogwood"]
+
+
+def _mn_probs(frame, k: int) -> np.ndarray:
+    return np.column_stack([np.asarray(frame.vec(c).data, np.float64)
+                            for c in frame.names[1:1 + k]])
+
+
+def _mn_labels(frame) -> list:
+    """The `predict` column's labels (its codes index the frame's own
+    domain, which differs between frames)."""
+    v = frame.vec("predict")
+    return [v.domain[c] for c in np.asarray(v.data)]
+
+
+def multinomial_glm_path(dev, fr, fv):
+    """Phase 30: the 7-class GLM at full width through the public API
+    (fitted twice, the second checked), its f64 gradient, a profiled fit,
+    `predict` against the MOJO, the serving engine, a MN_FOLDS-fold CV
+    GLM and its stack with a MN_FOLDS-fold GBM; returns its record."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import (H2OGeneralizedLinearEstimator,
+                                           H2OGradientBoostingEstimator,
+                                           H2OStackedEnsembleEstimator)
+    from h2o3_tpu_torch.models import estimator_engine, glm as glmlib
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    tf32_off()
+    card = card_line()
+    bad = []
+
+    def fit():
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        est = H2OGeneralizedLinearEstimator(device=str(dev), **MN_GLM)
+        est.train(y="cover", training_frame=fr, validation_frame=fv)
+        torch.cuda.synchronize()
+        return (est.model, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev), kernel_counts())
+
+    # the first fit pays the first use of the expansion's and the loss's
+    # kernels; the second is the steady state, and is checked
+    first, first_wall, _, _ = fit()
+    m, wall, peak, counts = fit()
+    plan, ft = m.fitplan, m.fit_timings
+    N, P = fr.nrow, len(m.dinfo.coef_names) + 1
+    # the f64 objective and its gradient at the returned β, on the card
+    _, Xd = estimator_engine.design_matrix(fr, m.x, standardize=True,
+                                           add_intercept=True, device=dev)
+    design_bytes = Xd.numel() * Xd.element_size()
+    X64 = Xd.double()
+    del Xd
+    ycodes = torch.as_tensor(np.asarray(fr.vec("cover").data, np.int64),
+                             device=dev)
+    loss64, grad64 = glmlib._softmax_loss_grad(
+        X64, ycodes, torch.ones(N, dtype=torch.float64, device=dev),
+        torch.as_tensor(m.beta, device=dev), MN_GLM["lambda_"], N)
+    grad64_norm = float(torch.linalg.norm(grad64))
+    del X64, grad64
+    expand_bound = _design_bytes(m.dinfo, N, P) / HBM_BYTES_PER_S * 1e3
+    ytr = np.asarray(fr.vec("cover").data)
+    yv = np.asarray(fv.vec("cover").data)
+    prior = np.bincount(ytr, minlength=COV_K) / len(ytr)
+    prior_logloss = float(-np.mean(np.log(prior[yv])))
+    prof = profile_fit(H2OGeneralizedLinearEstimator(device=str(dev),
+                                                     **MN_GLM),
+                       fr, tag="multinomial glm profile", y="cover",
+                       valid=fv)
+    # predict of the validation frame against the numpy MOJO scorer (f64)
+    t1 = time.perf_counter()
+    pred = m.predict(fv)
+    predict_s = time.perf_counter() - t1
+    probs = _mn_probs(pred, COV_K)
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_mnglm_") as d:
+        t2 = time.perf_counter()
+        path = mojo.save_model(m, d, "glm.h2o3")
+        save_s = time.perf_counter() - t2
+        t3 = time.perf_counter()
+        got = mojo.load_model(path).predict(fv)
+        mojo_s = time.perf_counter() - t3
+    mojo_err = float(np.abs(_mn_probs(got, COV_K) - probs).max())
+    labels_equal = _mn_labels(got) == _mn_labels(pred)
+    rec = dict(card=card, rows=N, valid_rows=fv.nrow, p=P, classes=COV_K,
+               params=MN_GLM, path=plan["path"], steps=plan["iterations"],
+               func_evals=plan["func_evals"], converged=plan["converged"],
+               loss=plan["loss"], grad_norm_f32=plan["grad_norm"],
+               loss_f64=float(loss64), grad_norm_f64=grad64_norm,
+               wall_s=wall, fit_timings=ft, peak_bytes=peak,
+               design_bytes=design_bytes, expand_bound_ms=expand_bound,
+               first_fit=dict(wall_s=first_wall, timings=first.fit_timings,
+                              steps=first.fitplan["iterations"]),
+               train_logloss=float(m.logloss()),
+               valid_logloss=float(m.logloss(valid=True)),
+               train_mean_per_class_error=float(m.mean_per_class_error()),
+               valid_mean_per_class_error=float(
+                   m.mean_per_class_error(valid=True)),
+               prior_logloss=prior_logloss,
+               busy_share=prof["busy_share"], profiled_wall_s=prof["wall_s"],
+               predict_s=predict_s, mojo_save_s=save_s,
+               mojo_predict_s=mojo_s, mojo_max_abs_err=mojo_err,
+               max_row_sum_err=float(np.abs(probs.sum(1) - 1).max()),
+               kernel_counts=counts)
+    print("multinomial glm: " + json.dumps(rec), flush=True)
+    print(f"multinomial glm on {card}: {N} x {P}, {COV_K} classes, "
+          f"{plan['iterations']} L-BFGS steps ({plan['func_evals']} loss "
+          f"evaluations), fit {wall:.3f} s = design {ft['pack_s']:.3f} host "
+          f"pack + {ft['h2d_s']:.3f} H2D + {ft['expand_s'] * 1e3:.3f} ms "
+          f"expansion (bound {expand_bound:.4f} ms), L-BFGS "
+          f"{ft['lbfgs_s']:.3f}, metrics {ft['metrics_s']:.3f}; loss "
+          f"{plan['loss']:.9f}, f64 gradient norm {grad64_norm:.3e}; "
+          f"logloss {rec['train_logloss']:.6f} train, "
+          f"{rec['valid_logloss']:.6f} valid (prior {prior_logloss:.6f}); "
+          f"design {design_bytes / 1e6:.1f} MB; busy "
+          f"{prof['busy_share'] * 100:.2f} % of a profiled fit", flush=True)
+    cap = max(glmlib.LBFGS_MIN_STEPS, 4 * 50)     # max_iterations' default
+    if plan["path"] != "lbfgs" or not 1 <= plan["iterations"] <= cap:
+        bad.append(f"the fit left the L-BFGS path or its step cap: {plan}")
+    if any(counts.values()):
+        bad.append(f"the GLM fit launched a hand-written kernel: {counts}")
+    if not (rec["train_logloss"] < prior_logloss
+            and rec["valid_logloss"] < prior_logloss):
+        bad.append("logloss not below the class priors'")
+    if not np.all(np.isfinite(probs)) or rec["max_row_sum_err"] > 1e-5:
+        bad.append("probabilities non-finite or rows off 1")
+    if not mojo_err <= 1e-5 or not labels_equal:
+        bad.append(f"predict differs from the MOJO scorer by {mojo_err:.3e}")
+    if not grad64_norm <= 1e-3:
+        bad.append(f"f64 gradient norm {grad64_norm:.3e} at the fit's β")
+
+    # the serving engine: requests of 1..SERVE_MAX_ROWS validation rows
+    rng = np.random.default_rng(31)
+    xs = fv[COV_NAMES]
+    reqs = [xs.take(np.arange(s, s + n)) for s, n in zip(
+        rng.integers(0, fv.nrow - SERVE_MAX_ROWS, SERVE_REQUESTS),
+        rng.integers(1, SERVE_MAX_ROWS + 1, SERVE_REQUESTS))]
+    engine = ScoringEngine(ServingConfig())
+    zero_counts()
+    t4 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=SERVE_THREADS) as ex:
+        served = list(ex.map(lambda r: engine.score("mn_glm", m, r), reqs))
+    serve_s = time.perf_counter() - t4
+    serve_counts = kernel_counts()
+    snap = engine.snapshot()
+    engine.shutdown()
+    # cuBLAS picks its GEMM by row count, so a served batch and a lone
+    # `predict` round the logits apart in their last bits (1.0e-6 in
+    # probability measured): MN_SERVE_TOL, and the labels equal wherever
+    # the top two probabilities are more than 2·MN_SERVE_TOL apart
+    worst, same_labels = 0.0, True
+    for r, o in zip(reqs, served):
+        want = m.predict(r)
+        if o.names != want.names or o.nrow != r.nrow:
+            bad.append(f"served {o.names} x {o.nrow}")
+            break
+        pw = _mn_probs(want, COV_K)
+        worst = max(worst, float(np.abs(_mn_probs(o, COV_K) - pw).max()))
+        top2 = np.sort(pw, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > 2 * MN_SERVE_TOL
+        same_labels &= bool((np.asarray(_mn_labels(o))[clear]
+                             == np.asarray(_mn_labels(want))[clear]).all())
+    tot, fo = snap["totals"], snap["failover"]
+    serve_rec = dict(card=card, requests=len(reqs),
+                     rows=sum(r.nrow for r in reqs), threads=SERVE_THREADS,
+                     burst_s=serve_s, batches=tot["batches"],
+                     max_abs_err=worst, labels_equal=same_labels,
+                     cache_misses=snap["cache"]["misses"],
+                     fallback_scores=tot["fallback_scores"],
+                     errors=tot["errors"], kernel_counts=serve_counts)
+    print("multinomial glm serving: " + json.dumps(serve_rec), flush=True)
+    if worst > MN_SERVE_TOL or not same_labels or tot["fallback_scores"] \
+            or fo["fallback_builds"] or tot["errors"] \
+            or snap["cache"]["misses"] != 1 or any(serve_counts.values()):
+        bad.append("serving the multinomial GLM: " + json.dumps(serve_rec))
+
+    # MN_FOLDS-fold CV of the same GLM, the holdout kept for the stack
+    cv_glm = H2OGeneralizedLinearEstimator(
+        device=str(dev), nfolds=MN_FOLDS, seed=42,
+        keep_cross_validation_predictions=True, **MN_GLM)
+    zero_counts()
+    t5 = time.perf_counter()
+    cv_glm.train(y="cover", training_frame=fr)
+    torch.cuda.synchronize()
+    cv_wall = time.perf_counter() - t5
+    cv_counts = kernel_counts()
+    ho = cv_glm.model._cv_holdout_pred
+    cv_rec = dict(card=card, folds=MN_FOLDS, wall_s=cv_wall,
+                  xval_logloss=float(cv_glm.logloss(xval=True)),
+                  xval_mean_per_class_error=float(
+                      cv_glm.model.mean_per_class_error(xval=True)),
+                  parent_split=cv_glm.model.fit_timings,
+                  fold_splits=[mm.fit_timings for mm in
+                               cv_glm.model.cross_validation_models],
+                  fold_steps=[mm.fitplan["iterations"] for mm in
+                              cv_glm.model.cross_validation_models],
+                  kernel_counts=cv_counts)
+    print("multinomial glm cv: " + json.dumps(cv_rec), flush=True)
+    if ho is None or ho.shape != (N, COV_K) or not np.all(np.isfinite(ho)) \
+            or float(np.abs(ho.sum(1) - 1).max()) > 1e-5:
+        bad.append("cv glm: holdout missing, non-finite or rows off 1")
+    if any(cv_counts.values()):
+        bad.append(f"the GLM's CV launched a hand-written kernel: {cv_counts}")
+
+    # the multiclass stack: the CV GLM and a MN_FOLDS-fold 7-class GBM
+    print(f"phase 30 cut: the stack's GBM fits {MN_GBM_TREES} trees a "
+          f"class, reduced from COV_GBM's {COV_GBM['ntrees']}, without early "
+          f"stopping; both base models have {MN_FOLDS} folds", flush=True)
+    gbm = H2OGradientBoostingEstimator(
+        device=str(dev), nfolds=MN_FOLDS, keep_cross_validation_predictions=True,
+        **dict(COV_GBM, ntrees=MN_GBM_TREES, stopping_rounds=0))
+    zero_counts()
+    t6 = time.perf_counter()
+    gbm.train(y="cover", training_frame=fr)
+    torch.cuda.synchronize()
+    gbm_wall = time.perf_counter() - t6
+    gbm_b1 = hist_cuda.launches
+    se = H2OStackedEnsembleEstimator(base_models=[gbm, cv_glm],
+                                     device=str(dev))
+    t7 = time.perf_counter()
+    se.train(y="cover", training_frame=fr)
+    torch.cuda.synchronize()
+    se_wall = time.perf_counter() - t7
+    meta = se.model.meta.model
+    zero_counts()
+    t8 = time.perf_counter()
+    se_pred = se.predict(fv)
+    se_pred_s = time.perf_counter() - t8
+    se_launches = dict(score=score_cuda.launches,
+                       resident=score_cuda.launches_resident,
+                       **{k: v for k, v in kernel_counts().items()
+                          if k != "score"})
+    se_probs = _mn_probs(se_pred, COV_K)
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_mnse_") as d:
+        path = mojo.save_model(se.model, d, "se.h2o3")
+        size_mb = os.path.getsize(path) / 1e6
+        t9 = time.perf_counter()
+        se_got = mojo.load_model(path).predict(fv)
+        se_mojo_s = time.perf_counter() - t9
+    se_err = float(np.abs(_mn_probs(se_got, COV_K) - se_probs).max())
+    xval = [float(gbm.logloss(xval=True)), float(cv_glm.logloss(xval=True))]
+    se_rec = dict(card=card, gbm_trees=MN_GBM_TREES, gbm_wall_s=gbm_wall,
+                  gbm_b1_launches=gbm_b1,
+                  gbm_xval_logloss=xval[0], glm_xval_logloss=xval[1],
+                  fit_wall_s=se_wall, logloss=float(se.model.logloss()),
+                  valid_logloss=float(se.model.model_performance(fv).logloss),
+                  meta_family=meta.family, meta_steps=meta.fitplan[
+                      "iterations"], meta_grad_norm=meta.fitplan["grad_norm"],
+                  predict_s=se_pred_s, predict_launches=se_launches,
+                  mojo_mb=size_mb, mojo_predict_s=se_mojo_s,
+                  mojo_max_abs_err=se_err)
+    print("multinomial stack: " + json.dumps(se_rec), flush=True)
+    # the level-one columns are probabilities and the metalearner's link a
+    # softmax, so the stack need not reach its best member's logloss (the
+    # reference ignores metalearner_transform, ROADMAP §C); it must beat
+    # its weaker member and the priors
+    if meta.family != "multinomial" or not (
+            se_rec["logloss"] < max(xval)
+            and se_rec["valid_logloss"] < prior_logloss):
+        bad.append(f"stack logloss {se_rec['logloss']} not below the weaker "
+                   f"base model's xval logloss {max(xval)}, or its "
+                   f"validation logloss {se_rec['valid_logloss']} not below "
+                   f"the priors' {prior_logloss}")
+    if se_launches != dict(score=COV_K, resident=COV_K, hist=0, hist_rows=0,
+                           shap=0):
+        bad.append(f"stack predict launched {se_launches}; expected the "
+                   f"GBM's {COV_K} resident forest launches only")
+    if not se_err <= 1e-5 or se_pred.names != ["predict"] + [
+            str(k) for k in range(COV_K)]:
+        bad.append(f"stack MOJO scores {se_err:.3e} away from the card")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    tf32_off()
+    return dict(glm=rec, serving=serve_rec, cv=cv_rec, stack=se_rec)
+
+
+def mn_small_frame(n: int, seed: int):
+    """The CPU test's 4-class frame (tests/test_torch_glm_multinomial.py,
+    `mn_frame` with a categorical predictor): numeric a (3 % NaN), b, c, a
+    four-level enum g, labels drawn from a softmax over class scores."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    law = np.random.default_rng(104)
+    W = law.normal(size=(4, 3)) * 0.6
+    Wg = law.normal(size=(4, 4)) * 0.5
+    rng = np.random.default_rng(seed)
+    a, b, c = rng.normal(size=n), rng.uniform(0, 4, n), rng.normal(size=n)
+    eta = np.column_stack([a, b - 2.0, c]) @ W.T
+    g = rng.integers(0, 4, n)
+    eta += Wg.T[g]
+    y = (eta - np.log(-np.log(rng.random((n, 4))))).argmax(1)
+    a = a.copy()
+    a[rng.random(n) < 0.03] = np.nan
+    return Frame.from_dict(
+        {"a": a, "b": b, "c": c,
+         "g": np.asarray(["north", "east", "south", "west"], dtype=object)[g],
+         "y": np.asarray(MN_CLASSES, dtype=object)[y]},
+        column_types={"g": "enum", "y": "enum"})
+
+
+def small_multinomial_glm_checks(dev, card):
+    """Phase 30, card against CPU (whose fit the CPU tests hold against the
+    JAX package) on the CPU test's 4-class frame at 4000 rows, λ = 0: the
+    centred β (B − mean_k B_k) within MN_BETA_TOL, predictions of a
+    validation frame within 1e-4, and a MN_FOLDS-fold CV's holdouts within
+    1e-4. The two stop where their own sums of the loss first repeat, so
+    their steps may differ."""
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLinearEstimator
+
+    fr, fv = mn_small_frame(4000, 0), mn_small_frame(1500, 1)
+    fits = {}
+    for d in (str(dev), "cpu"):
+        est = H2OGeneralizedLinearEstimator(
+            family="multinomial", lambda_=0.0, nfolds=MN_FOLDS, seed=42,
+            keep_cross_validation_predictions=True, device=d)
+        est.train(y="y", training_frame=fr, validation_frame=fv)
+        fits[d] = est.model
+    a, b = fits[str(dev)], fits["cpu"]
+
+    def centred(B):
+        B = np.asarray(B, np.float64)
+        return B - B.mean(axis=0)
+
+    rec = dict(
+        card=card, steps=[a.fitplan["iterations"], b.fitplan["iterations"]],
+        max_centred_beta_diff=float(np.abs(centred(a.beta)
+                                           - centred(b.beta)).max()),
+        max_predict_diff=float(np.abs(_mn_probs(a.predict(fv), 4)
+                                      - _mn_probs(b.predict(fv), 4)).max()),
+        max_holdout_diff=float(np.abs(a._cv_holdout_pred
+                                      - b._cv_holdout_pred).max()),
+        valid_logloss=[float(a.logloss(valid=True)),
+                       float(b.logloss(valid=True))])
+    print("small multinomial glm: " + json.dumps(rec), flush=True)
+    if rec["max_centred_beta_diff"] > MN_BETA_TOL \
+            or rec["max_predict_diff"] > 1e-4 \
+            or rec["max_holdout_diff"] > 1e-4:
+        raise AssertionError(f"small multinomial GLM: card and CPU differ "
+                             f"({rec})")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3381,7 +3765,10 @@ def main() -> int:
         fr_cov, tag="multinomial gbm profile", y="cover", valid=fv_cov)
     torch.cuda.reset_peak_memory_stats(dev)
     multinomial_drf_path(dev, fr_cov, fv_cov)
+    # phase 30: the multinomial GLM, on the same frames
+    multinomial_glm_path(dev, fr_cov, fv_cov)
     del fr_cov, fv_cov
+    small_multinomial_glm_checks(dev, card_line())
     small_extension_checks(dev)
     fr_air, p_air, y_air = make_airlines_like(AIR_ROWS, 0)
     airlines_glm_path(dev, fr_air, p_air, y_air)

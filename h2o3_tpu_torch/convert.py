@@ -9,11 +9,11 @@ mode (``"gbm"`` sums the trees through the link; ``"drf"`` averages them).
 model trained by the JAX package (whose arrays the caller reads out as
 numpy) scores in the port.
 
-A GLM's weights are its standardized β (intercept last), its family and
-response domain, and the state of its `DataInfo`: the column spec, the
-coefficient names, the standardization stats, the imputation means and the
-transfer groups frozen at fit. `glm_from_numpy` builds the port's
-`GLMModel` from them.
+A GLM's weights are its standardized β (intercept last; one row per
+class, (K, p+1), for a multinomial model), its family and response domain,
+and the state of its `DataInfo`: the column spec, the coefficient names,
+the standardization stats, the imputation means and the transfer groups
+frozen at fit. `glm_from_numpy` builds the port's `GLMModel` from them.
 """
 
 from __future__ import annotations
@@ -100,17 +100,25 @@ def glm_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
                    domain: Optional[List[str]] = None,
                    lambda_best: float = 0.0, device=None) -> GLMModel:
     """Port GLM from a reference GLM's state: `beta` the (p+1,) standardized
-    coefficients with the intercept last; `spec` the `DataInfo._spec`
+    coefficients with the intercept last, or the (K, p+1) of a multinomial
+    model, one row per level of `domain`; `spec` the `DataInfo._spec`
     entries ("num", name, None) / ("cat", name, domain); `means`/`stds` the
     standardization stats (None when not standardized); `col_means` the
     imputation means; `transfer_groups` the numeric columns' upload dtypes
     (`DataInfo._transfer_groups`); `domain` the response levels of a
-    binomial model."""
-    if family not in FAMILIES or family in ("AUTO", "multinomial"):
-        raise ValueError(f"family {family!r}: expected a fitted IRLS family")
+    binomial or multinomial model."""
+    if family not in FAMILIES or family == "AUTO":
+        raise ValueError(f"family {family!r}: expected a fitted family")
     b = np.asarray(beta, np.float64)
-    if b.shape != (len(coef_names) + 1,):
-        raise ValueError(f"beta: expected ({len(coef_names) + 1},) for "
+    p1 = len(coef_names) + 1
+    if family == "multinomial":
+        if b.ndim != 2 or domain is None or b.shape != (len(domain), p1):
+            raise ValueError(
+                f"family 'multinomial' needs a (K, {p1}) beta, one row per "
+                f"level of domain, for {len(coef_names)} coefficients; got "
+                f"beta {b.shape} and domain {domain!r}")
+    elif b.shape != (p1,):
+        raise ValueError(f"beta: expected ({p1},) for "
                          f"{len(coef_names)} coefficients, got {b.shape}")
     dinfo = DataInfo.from_state(
         spec=spec, coef_names=coef_names, standardize=standardize,

@@ -9,8 +9,14 @@ predictions of the base models (which must share fold assignment and
 `blending_frame`. `metalearner_algorithm` ∈ {AUTO/glm/gbm/drf}; the
 metalearner runs on the ensemble's `device`.
 
-Not ported: the `deeplearning` metalearner (ROADMAP queue A, item 10) and
-a multinomial GLM metalearner (the GLM raises naming item 8).
+A multiclass stack's level-one frame holds each base model's K class
+probabilities (`m{i}_p{k}`), and its default metalearner is the
+multinomial GLM (λ = 0). The reference also sets `non_negative` for it,
+which no multinomial fit reads; the port sets it for the binomial and
+regression metalearners only, so the model is the same and the
+multinomial GLM's raise for a user's `non_negative` stays (ROADMAP §C).
+
+Not ported: the `deeplearning` metalearner (ROADMAP queue A, item 10).
 `metalearner_nfolds` and `metalearner_transform` are in the reference's
 defaults but its fit never reads them; the port raises for a value other
 than the default (ROADMAP §C).
@@ -134,7 +140,8 @@ class H2OStackedEnsembleEstimator(H2OEstimator):
                 problem, "gaussian")
             mp.setdefault("family", fam)
             mp.setdefault("lambda_", 0.0)
-            mp.setdefault("non_negative", True)
+            if "multinomial" not in (problem, mp["family"]):
+                mp.setdefault("non_negative", True)
             meta = H2OGeneralizedLinearEstimator(**mp)
         elif algo == "gbm":
             from .gbm import H2OGradientBoostingEstimator

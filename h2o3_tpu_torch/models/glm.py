@@ -20,12 +20,28 @@ the device.
 `nfolds` and `fold_column` cross-validate through `model_base._run_cv`,
 each fold re-fit on its own rows and scored by `_cv_predict`.
 
-Not ported: the multinomial fit (optax L-BFGS in the reference, ROADMAP
-queue A, item 8) and the multi-device and multi-process lanes (item 9).
+The multinomial family (and AUTO on a response of three or more classes)
+fits a (K, p+1) β by L-BFGS on the softmax loss (`_fit_multinomial`), as
+the reference runs `optax.lbfgs` (`h2o3_tpu/models/glm.py:1083-1150`):
+from zeros, a memory of 10, one step a turn, the reference's stop rule
+and step cap; `torch.optim.LBFGS` with its strong-Wolfe line search
+takes the steps. The logits and the gradient are true f32 matrix
+products on the device; the loss's row terms are summed in f64, so the
+stop rule's 1e-9 reads the loss's change and not its f32 rounding (in
+f32, two losses of order 1 differ by an ulp, ≈6e-8, or not at all, and
+torch's line search then stalls short of the optimum). The reference's Adam fallback,
+reached only when `optax.lbfgs` is missing, is not ported. Where the
+reference's multinomial fit silently ignores a parameter
+(`lambda_search`, the L1 share of α, `non_negative`), the port raises
+naming it (ROADMAP §C).
+
+Not ported: the multi-device and multi-process lanes (ROADMAP queue A,
+item 9).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from math import erfc, sqrt
 from typing import Dict, List, Optional, Tuple
@@ -36,7 +52,8 @@ import torch
 from .. import device as devlib
 from ..frame.frame import Frame
 from . import estimator_engine as _est
-from .metrics import ModelMetricsBinomial, ModelMetricsRegression
+from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
+                      ModelMetricsRegression)
 from .model_base import (SCORE_ROW_BUCKET, DataInfo, H2OEstimator, H2OModel,
                          _sync, response_info)
 
@@ -47,6 +64,11 @@ FAMILIES = (
 _LOGIT = ("binomial", "quasibinomial", "fractionalbinomial")
 _MULTINOMIAL = "queue A, item 8: multinomial GLM"
 ISTA_STEPS = 500
+# the reference's L-BFGS loop (optax.lbfgs at its defaults): stop when two
+# successive losses differ by less than LBFGS_TOL, or after
+# max(LBFGS_MIN_STEPS, 4·max_iterations) steps; a memory of LBFGS_MEMORY
+# pairs; up to LS_EVALS loss evaluations a line search (torch's default)
+LBFGS_TOL, LBFGS_MIN_STEPS, LBFGS_MEMORY, LS_EVALS = 1e-9, 100, 10, 25
 
 
 # -- link functions (hex/glm/GLMModel.GLMParameters.Link) --------------------
@@ -290,6 +312,62 @@ def _solve_penalized(gram, xy, lam, alpha, n_obs, intercept_idx, beta0,
     return b
 
 
+def _softmax_loss_grad(Xd, ycodes, wd, B, l2: float, n: int):
+    """(loss, ∂loss/∂B) of the reference's multinomial objective as device
+    tensors: −Σ_i w_i·(⟨x_i, B_{y_i}⟩ − logsumexp(x_i Bᵀ)) / n + ½·l2·‖B
+    without its intercept column‖², with n the row count (not Σw). The
+    row terms are f32 and their sum f64 (an f64 scalar); the gradient is
+    the closed form ((P − Y)·w)ᵀX / n + l2·B (intercept column 0), f32,
+    from two f32 matrix products."""
+    logits = Xd @ B.T                                    # (n, K)
+    lse = torch.logsumexp(logits, dim=1)
+    picked = logits.gather(1, ycodes[:, None]).squeeze(1)
+    slopes = B[:, :-1]
+    f64 = torch.float64
+    loss = (-torch.sum((picked - lse) * wd, dtype=f64) / n
+            + 0.5 * l2 * torch.sum(slopes * slopes, dtype=f64))
+    G = torch.exp(logits - lse[:, None])                 # softmax
+    G.scatter_add_(1, ycodes[:, None],
+                   torch.full_like(lse[:, None], -1.0))  # P − Y
+    grad = (G * (wd / n)[:, None]).T @ Xd
+    grad[:, :-1] += l2 * slopes
+    return loss, grad
+
+
+def _lbfgs(fun, x, max_steps: int):
+    """Minimise `fun` (x ↦ (loss, gradient), device tensors) from `x` as
+    the reference's loop runs `optax.lbfgs`, one step a turn: here
+    `torch.optim.LBFGS` (a memory of LBFGS_MEMORY pairs, a strong-Wolfe
+    line search of up to LS_EVALS evaluations) with its own stopping
+    tests off. A turn's loss is the one at x before its step; the loop
+    stops after the turn whose loss differs from the last turn's by less
+    than LBFGS_TOL, or after `max_steps` turns. Returns (x, plan): the
+    turns, whether the loss rule stopped them, the loss evaluations, and
+    the loss and the gradient's norm at x."""
+    param = x.clone().requires_grad_()
+    opt = torch.optim.LBFGS([param], lr=1.0, max_iter=1,
+                            max_eval=LS_EVALS + 1, tolerance_grad=0.0,
+                            tolerance_change=0.0, history_size=LBFGS_MEMORY,
+                            line_search_fn="strong_wolfe")
+
+    def closure():
+        loss, param.grad = fun(param.detach())
+        return loss
+
+    prev, steps, converged = math.inf, 0, False
+    for steps in range(1, max_steps + 1):
+        v = float(opt.step(closure))
+        if abs(prev - v) < LBFGS_TOL:
+            converged = True
+            break
+        prev = v
+    x = param.detach()
+    loss, grad = fun(x)
+    return x, dict(iterations=steps, converged=converged,
+                   func_evals=int(opt.state[param]["func_evals"]),
+                   loss=float(loss), grad_norm=float(torch.linalg.norm(grad)))
+
+
 def attach_linear_artifacts(model: "GLMModel", train, valid, Xd,
                             n: int) -> "GLMModel":
     """Training/validation metrics + |coefficient| varimp for a fitted
@@ -299,8 +377,11 @@ def attach_linear_artifacts(model: "GLMModel", train, valid, Xd,
         train, Xd=Xd if int(Xd.shape[0]) == n else None)
     if valid is not None:
         model.validation_metrics = model._make_metrics(valid)
-    # GLM varimp = |standardized coefficient| magnitudes
+    # GLM varimp = |standardized coefficient| magnitudes (a multinomial
+    # model's: the mean over classes of |B_k|)
     b = np.asarray(model.beta)
+    if model.family == "multinomial":
+        b = np.abs(b).mean(axis=0)
     mags = np.abs(b[:-1])
     if mags.sum() > 0:
         order = np.argsort(-mags)
@@ -321,7 +402,8 @@ class GLMModel(H2OModel):
         self.y = y
         self.dinfo = dinfo
         self.family = family
-        self.beta = beta  # (p+1,) f64 with the intercept last
+        # (p+1,) f64 with the intercept last, or (K, p+1) multinomial
+        self.beta = beta
         self.domain = domain
         self.lambda_best = lambda_best
         self.stderr = stderr
@@ -333,15 +415,29 @@ class GLMModel(H2OModel):
         return self.dinfo.coef_names + ["Intercept"]
 
     def coef(self) -> Dict[str, float]:
-        """De-standardized coefficients (GLMModel.coefficients)."""
+        """De-standardized coefficients (GLMModel.coefficients); a
+        multinomial model's per class, keyed by response level."""
+        if self.family == "multinomial":
+            return {f"{cls}": dict(zip(self._names(),
+                                       self._destandardize(self.beta[k])))
+                    for k, cls in enumerate(self.domain)}
         return dict(zip(self._names(), self._destandardize(self.beta)))
 
     def coef_norm(self) -> Dict[str, float]:
+        if self.family == "multinomial":
+            return {f"{cls}": dict(zip(self._names(),
+                                       np.asarray(self.beta[k])))
+                    for k, cls in enumerate(self.domain)}
         return dict(zip(self._names(), np.asarray(self.beta)))
 
     def summary(self):
         s = super().summary()
-        slopes = np.abs(np.asarray(self.beta)[:-1])   # intercept excluded
+        # intercepts excluded; a multinomial predictor is active if it is
+        # in any class
+        if self.family == "multinomial":
+            slopes = np.abs(np.asarray(self.beta)[:, :-1]).max(axis=0)
+        else:
+            slopes = np.abs(np.asarray(self.beta)[:-1])
         s.update(family=self.family,
                  number_of_predictors_total=len(self.dinfo.coef_names),
                  number_of_active_predictors=int((slopes > 1e-10).sum()),
@@ -403,14 +499,18 @@ class GLMModel(H2OModel):
                                           device=self.device)
         beta = torch.as_tensor(np.asarray(self.beta, np.float32),
                                device=Xd.device)
-        return Xd @ beta
+        return Xd @ beta.t()       # (rows,), or (rows, K) multinomial
 
     def _score(self, frame: Frame, Xd=None) -> np.ndarray:
-        # link inverse applied on the device: ONE n-sized transfer per
-        # scoring; the host-side slice drops any row-bucket pad
+        # link inverse (a multinomial model's softmax) applied on the
+        # device: ONE transfer per scoring; the host-side slice drops any
+        # row-bucket pad
         eta = self._eta_dev(frame, Xd=Xd)
-        return _linkinv(self.family, eta).cpu().numpy().astype(
-            np.float64)[: frame.nrow]
+        if self.family == "multinomial":
+            mu = torch.softmax(eta, dim=1)
+        else:
+            mu = _linkinv(self.family, eta)
+        return mu.cpu().numpy().astype(np.float64)[: frame.nrow]
 
     def predict(self, test_data: Frame) -> Frame:
         out = self._score(test_data)
@@ -419,6 +519,12 @@ class GLMModel(H2OModel):
             d = {"predict": np.asarray(self.domain, dtype=object)[(p1 > 0.5).astype(int)],
                  str(self.domain[0]): 1 - p1, str(self.domain[1]): p1}
             return Frame.from_dict(d, column_types={"predict": "enum"})
+        if self.family == "multinomial":
+            d = {"predict": np.asarray(self.domain,
+                                       dtype=object)[out.argmax(axis=1)]}
+            for i, cls in enumerate(self.domain):
+                d[str(cls)] = out[:, i]
+            return Frame.from_dict(d, column_types={"predict": "enum"})
         return Frame.from_dict({"predict": out})
 
     def _make_metrics(self, frame: Frame, Xd=None):
@@ -426,6 +532,8 @@ class GLMModel(H2OModel):
         yv = frame.vec(self.y)
         if self.family in ("binomial", "quasibinomial"):
             return ModelMetricsBinomial.make(np.asarray(yv.data), out)
+        if self.family == "multinomial":
+            return ModelMetricsMultinomial.make(np.asarray(yv.data), out)
         return ModelMetricsRegression.make(yv.numeric_np(), out)
 
 
@@ -489,9 +597,14 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
             family = {"binomial": "binomial", "multinomial": "multinomial"}.get(
                 problem, "gaussian"
             )
+        alpha = p.get("alpha")
+        alpha = float(alpha[0] if isinstance(alpha, (list, tuple)) else (alpha if alpha is not None else 0.5))
+        lam_v = float(lam[0] if isinstance(lam, (list, tuple)) else (lam or 0.0))
         if family == "multinomial":
-            raise NotImplementedError(
-                f"family='multinomial' is not ported (ROADMAP {_MULTINOMIAL})")
+            if yvec.type != "enum":
+                raise ValueError("family='multinomial' needs a categorical "
+                                 "response; call asfactor on it")
+            self._check_multinomial(p, alpha, lam_v)
         dev = devlib.resolve(p.get("device"))
         t0 = time.perf_counter()
         std_flag = bool(p.get("standardize", True))
@@ -504,11 +617,11 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
 
         if family in _LOGIT:
             yarr = np.asarray(yvec.data, np.float32) if yvec.type == "enum" else yvec.numeric_np().astype(np.float32)
+        elif family == "multinomial":
+            yarr = np.asarray(yvec.data, np.int64)     # class codes
         else:
             yarr = yvec.numeric_np().astype(np.float32)
 
-        alpha = p.get("alpha")
-        alpha = float(alpha[0] if isinstance(alpha, (list, tuple)) else (alpha if alpha is not None else 0.5))
         lambda_search = bool(p.get("lambda_search"))
         tweedie_p = float(p.get("tweedie_variance_power") or 1.5)
         max_iter = int(p.get("max_iterations", -1))
@@ -533,7 +646,11 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         full_path = None
         stderr = None
         cov = None
-        if lambda_search:
+        if family == "multinomial":
+            beta = self._fit_multinomial(Xd, yd, wd, nclass, alpha, lam_v,
+                                         max_iter, fitplan)
+            lam_best = lam_v
+        elif lambda_search:
             vdata = None
             if valid is not None:
                 vdata = self._valid_data(dinfo, valid, y, domain, dev)
@@ -542,7 +659,6 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
                 tweedie_p, p, vdata=vdata, fitplan=fitplan,
             )
         else:
-            lam_v = float(lam[0] if isinstance(lam, (list, tuple)) else (lam or 0.0))
             if engine_on:
                 beta = self._irls_fused(
                     Xd, yd, wd, family, lam_v, alpha, max_iter, beta_eps,
@@ -552,7 +668,10 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
             lam_best = lam_v
         _sync(dev)
         t_irls = time.perf_counter()
-        if p.get("compute_p_values") and (lam_best == 0):
+        # no p-values for a multinomial model (the reference's neither):
+        # its stderr stays None and coef_with_p_values raises
+        if (p.get("compute_p_values") and lam_best == 0
+                and family != "multinomial"):
             cov, stderr = self._covariance(Xd, yd, wd, beta, family,
                                            tweedie_p)
         t_pv = time.perf_counter()
@@ -573,10 +692,50 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         # loop (or the λ path with its re-solve), the p-value covariance,
         # the training and validation metrics
         t_end = time.perf_counter()
+        solve = "lbfgs_s" if family == "multinomial" else "irls_s"
         model.fit_timings = dict(
-            design_t, irls_s=t_irls - t_design, pvalues_s=t_pv - t_irls,
+            design_t, **{solve: t_irls - t_design}, pvalues_s=t_pv - t_irls,
             metrics_s=t_end - t_pv, total_s=t_end - t0)
         return model
+
+    @staticmethod
+    def _check_multinomial(p, alpha: float, lam: float) -> None:
+        """Raise for what the reference's multinomial fit would silently
+        ignore: it never reads `lambda_search` or `non_negative`, and its
+        loss holds only the ridge share of α (ROADMAP §C)."""
+        ignored = [
+            ("lambda_search=True", bool(p.get("lambda_search")),
+             "the reference fits the given λ only"),
+            (f"an L1 share (alpha={alpha:g} with lambda_={lam:g})",
+             alpha > 0 and lam > 0,
+             "the reference's loss holds only the ridge part; pass "
+             "alpha=0 or lambda_=0"),
+            ("non_negative=True", bool(p.get("non_negative")),
+             "the reference's fit does not constrain β"),
+        ]
+        for what, given, why in ignored:
+            if given:
+                raise NotImplementedError(
+                    f"family='multinomial' with {what} is not ported: the "
+                    f"reference ignores it ({why}; ROADMAP {_MULTINOMIAL}, "
+                    "§C)")
+
+    def _fit_multinomial(self, Xd, ycodes, wd, K: int, alpha: float,
+                         lam: float, max_iter: int, fitplan) -> np.ndarray:
+        """The softmax GLM (the reference's `_fit_multinomial`): B (K, p+1)
+        from f32 zeros, the loss of `_softmax_loss_grad`, minimised by
+        `_lbfgs` on the device with the reference's stop rule and step cap.
+        `fitplan` receives the steps, the function evaluations, the last
+        loss and the gradient's norm at the returned B."""
+        n = int(Xd.shape[0])
+        l2 = float(lam) * (1.0 - float(alpha))
+        B = torch.zeros((K, int(Xd.shape[1])), dtype=torch.float32,
+                        device=Xd.device)
+        B, plan = _lbfgs(
+            lambda b: _softmax_loss_grad(Xd, ycodes, wd, b, l2, n), B,
+            max(LBFGS_MIN_STEPS, 4 * int(max_iter)))
+        fitplan.update(path="lbfgs", **plan)
+        return B.cpu().numpy().astype(np.float64)
 
     def _valid_data(self, dinfo, valid, y, domain, dev):
         """(Xv, yv, wv) device tensors of a validation frame for λ

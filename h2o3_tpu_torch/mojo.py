@@ -11,13 +11,13 @@ here.
 A GBM or DRF is written as its K class forests `forest{k}_*` (K = the
 class count of a multinomial model, else 1) with ``n_forests = K`` and the
 f0 list, each forest's covers as `forest{k}_cover`. A GLM is written as
-its standardized β (`beta`, f64, intercept last), the standardization
-stats (`means`, `stds`) and its `DataInfo` state (`meta["dinfo"]`: column
-spec, coefficient names, flags and imputation means). `MojoScorer` scores
-tree artifacts with the reference's numpy walk, summing in f64, through
-each distribution's link, and GLM artifacts by the reference's numpy
-expansion and matvec in f64 (a reference multinomial GLM's artifact
-included; the port fits no multinomial GLM yet, ROADMAP queue A, item 8).
+its standardized β (`beta`, f64, intercept last; (K, p+1), a row per
+class, for a multinomial model), the standardization stats (`means`,
+`stds`) and its `DataInfo` state (`meta["dinfo"]`: column spec,
+coefficient names, flags and imputation means). `MojoScorer` scores tree
+artifacts with the reference's numpy walk, summing in f64, through each
+distribution's link, and GLM artifacts by the reference's numpy expansion
+and matvec in f64 (a multinomial one through a softmax).
 A stacked ensemble is written as its `meta` with a child payload per base
 model (`base{i}/`) and one for the metalearner (`meta/`); `MojoScorer`
 scores it by building the level-one frame from its children.
@@ -86,7 +86,7 @@ def _model_payload(model) -> Dict[str, Any]:
             kind="glm", family=model.family, domain=model.domain,
             coef_names=model._names(), standardize=model.dinfo.standardize,
         )
-        arrays["beta"] = np.asarray(model.beta)
+        arrays["beta"] = np.asarray(model.beta, np.float64)
         if model.dinfo.means is not None:
             arrays["means"] = model.dinfo.means
             arrays["stds"] = model.dinfo.stds

@@ -10,9 +10,11 @@ and once on a blending frame. The metalearner's β must lie within 1e-4 of
 the reference's and be ≥ 0, the ensemble's predictions within 1e-5, its
 training metrics the metalearner's and its validation metrics the
 reference's. The port raises where it does not follow the reference: a
-multinomial ensemble (the GLM names item 8), the `deeplearning`
-metalearner (item 10), and `metalearner_nfolds` / `metalearner_transform`,
-which the reference accepts and ignores.
+multinomial metalearner given a parameter its fit would ignore (the GLM
+names item 8; the multiclass stack itself is held in
+`tests/test_torch_glm_multinomial.py`), the `deeplearning` metalearner
+(item 10), and `metalearner_nfolds` / `metalearner_transform`, which the
+reference accepts and ignores.
 """
 
 import numpy as np
@@ -205,7 +207,9 @@ def test_multinomial_ensemble_raises_item_8():
         ntrees=2, max_depth=2, nfolds=2, seed=7, device="cpu")
     gbm.train(y="y", training_frame=fr)
     assert gbm.model._cv_holdout_pred.shape == (300, 3)
-    se = port_est.H2OStackedEnsembleEstimator(base_models=[gbm], device="cpu")
+    se = port_est.H2OStackedEnsembleEstimator(
+        base_models=[gbm], metalearner_params=dict(lambda_search=True),
+        device="cpu")
     with pytest.raises(NotImplementedError,
                        match="queue A, item 8: multinomial GLM"):
         se.train(y="y", training_frame=fr)

@@ -319,6 +319,10 @@ def test_last_step_is_far_from_beta_eps(fits, case):
 
 @pytest.mark.parametrize("family", ["multinomial", "AUTO"])
 def test_multinomial_raises_naming_its_item(family):
+    """A multinomial fit (family or AUTO on three classes) with
+    `lambda_search`, which the reference's multinomial fit ignores,
+    raises naming item 8 (`tests/test_torch_glm_multinomial.py` holds
+    the fit itself and the other ignored parameters)."""
     rng = np.random.default_rng(0)
     fr = Frame.from_dict({"a": rng.normal(size=60),
                           "y": np.asarray(["p", "q", "r"], dtype=object)[
@@ -326,7 +330,8 @@ def test_multinomial_raises_naming_its_item(family):
                          column_types={"y": "enum"})
     with pytest.raises(NotImplementedError,
                        match="queue A, item 8: multinomial GLM"):
-        H2OGeneralizedLinearEstimator(family=family, device="cpu").train(
+        H2OGeneralizedLinearEstimator(family=family, lambda_search=True,
+                                      device="cpu").train(
             y="y", training_frame=fr)
 
 

@@ -307,8 +307,9 @@ def test_glm_artifact_reexports_losslessly(glm_artifacts, tmp_path):
 
 
 def test_reference_multinomial_glm_artifact_scores_in_the_port(tmp_path):
-    """The port fits no multinomial GLM yet, but its numpy scorer reads
-    the reference's multinomial artifact and predicts what it predicts."""
+    """The port's numpy scorer reads the reference's multinomial GLM
+    artifact and predicts what it predicts (the port's own multinomial
+    GLM and its artifact: `tests/test_torch_glm_multinomial.py`)."""
     from h2o3_tpu.models.glm import H2OGeneralizedLinearEstimator as RefGLM
 
     rng = np.random.default_rng(6)
