@@ -264,15 +264,47 @@ holdout prediction.
    DRF at depth 8, 5 trees, forest structure equal, leaf values and
    predictions within 1e-5.
 
+31. XGBoost (`H2OXGBoostEstimator`), in five places. (d) right after phase
+   18, on its Airlines frame: gblinear, binomial, GBLINEAR_ROUNDS rounds:
+   the fit's split (host pack, H2D, rounds), AUC beside phase 17's GLM,
+   logloss below the priors', β finite, no kernel launched, the MOJO
+   within 1e-5. (b), (c) and (e) right after phase 27, on phase 4's frame:
+   AutoML's XGBoost_1 (50 trees, depth 6, 256 QuantilesGlobal bins on
+   8-bit codes): 300 B1 launches and nothing else, training AUC ≥ 0.75,
+   `predict` of 100,000 fresh rows on the resident plan, contributions of
+   10,000 rows with local accuracy ≤ 1e-5·max(1, |margin|) and the kernel
+   bit-equal to `tree_shap_plain` on the card; B1 at B = 256 on that fit's
+   codes at each pass of a depth-6 tree, held as in phase 3 (bit-equal to
+   `hist_plain_fixed`, no farther from f64 than `hist_plain`) and timed
+   with the plain, `index_add_` and bound times (the `hist_factored_b256`
+   row of the kernel table); XGBoost_2's depth 10 cut to XGB_2_TREES
+   trees, B1 per level width; DART, DART_ROUNDS rounds at rate_drop
+   DART_RATE, both normalize types (rounds rescaled, AUC), and skip_drop=1
+   at XGBoost_1's settings equal bit for bit to the first DART_ROUNDS
+   trees of XGBoost_1. (a) after phase 29: `rank:ndcg` on a generated
+   frame of MSLR-WEB30K's shape (`make_mslr_like`, one fold's training
+   part: 18,919 queries, 2,262,675 documents, 136 features) at the
+   reference's defaults and bench.py's 50 trees: the fit's split, the
+   lambdarank pass's ms a round by CUDA events (g and h finite), B1's
+   launches (300, nothing else) and ms a tree at that shape, NDCG@10 of
+   the model above the zero model's (and the latent score's printed).
+   (f) last: card against CPU on the CPU tests' small frames (gbtree
+   binomial and multinomial, lambdarank, DART, gblinear): every row in the
+   same leaf, leaf values and predictions within 1e-5, β within 1e-4; the
+   card's gbtree and gblinear models served equal to `predict` within
+   1e-6 with no fallback, and their MOJOs within 1e-5. The phase's wall,
+   summed over its five places, is printed.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
 them again before their `predict`; phase 20 is the TreeSHAP path's; phases
 24, 25 and 27's `predict` are the CV path's; phase 29's fits are each
-their own; phase 30's stack `predict` is its own; the GLM runs none of
-the hand-written kernels, and phases 17, 18, 26 and 30 fail if it
-launched one).
+their own; phase 30's stack `predict` is its own; each of phase 31's
+fits, its `predict` and its contributions are their own; the GLM and
+gblinear run none of the hand-written kernels, and phases 17, 18, 26, 30
+and 31(d) fail if they launched one).
 TF32 must stay off
-through phases 17-19 and 30. The last line is {"ok": true, "device": {...}}; the
+through phases 17-19, 30 and 31(d). The last line is {"ok": true, "device": {...}}; the
 line before it is the kernel table as JSON.
 """
 
@@ -456,16 +488,16 @@ def fit_codes(dev):
     return torch.from_numpy(np.ascontiguousarray(bm.codes.T)).to(dev)
 
 
-def pass_inputs(rng, dev, L, sibling):
-    """Node ids (N,) int32 and vals (3, N) f32 of one B1 pass: every row
+def pass_inputs(rng, dev, L, sibling, n=N_ROWS):
+    """Node ids (n,) int32 and vals (3, n) f32 of one B1 pass: every row
     weighted at the root, about half in a sibling pass; g normal, h
     uniform."""
-    w = (rng.random(N_ROWS) < 0.5 if sibling
-         else np.ones(N_ROWS, bool)).astype(np.float32)
-    g = rng.normal(size=N_ROWS).astype(np.float32)
-    h = rng.random(N_ROWS).astype(np.float32)
+    w = (rng.random(n) < 0.5 if sibling
+         else np.ones(n, bool)).astype(np.float32)
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.random(n).astype(np.float32)
     vals = torch.from_numpy(np.stack([w, g * w, h * w])).to(dev)
-    node = torch.from_numpy(rng.integers(0, L, N_ROWS, dtype=np.int32)).to(dev)
+    node = torch.from_numpy(rng.integers(0, L, n, dtype=np.int32)).to(dev)
     return node, vals
 
 
@@ -473,7 +505,7 @@ def channels(errs):
     return "/".join(f"{e:.1e}" for e in errs)
 
 
-def check_b1(codes, node, vals, L):
+def check_b1(codes, node, vals, L, nbins=NBINS):
     """B1 at one pass against its plain versions; returns (max |kernel -
     hist_plain|, kernel's and hist_plain's max |err| against an f64 sum per
     channel). Raises unless the kernel equals `hist_plain_fixed` bit for
@@ -482,11 +514,11 @@ def check_b1(codes, node, vals, L):
     channel."""
     from h2o3_tpu_torch.ops import hist_cuda
 
-    got = hist_cuda.hist_build(codes, node, vals, L, NBINS)
-    again = hist_cuda.hist_build(codes, node, vals, L, NBINS)
-    fixed = hist_cuda.hist_plain_fixed(codes, node, vals, L, NBINS)
-    ref = hist_cuda.hist_plain(codes, node, vals, L, NBINS)
-    f64 = hist_cuda.hist_plain(codes, node, vals, L, NBINS, torch.float64)
+    got = hist_cuda.hist_build(codes, node, vals, L, nbins)
+    again = hist_cuda.hist_build(codes, node, vals, L, nbins)
+    fixed = hist_cuda.hist_plain_fixed(codes, node, vals, L, nbins)
+    ref = hist_cuda.hist_plain(codes, node, vals, L, nbins)
+    f64 = hist_cuda.hist_plain(codes, node, vals, L, nbins, torch.float64)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"L={L}: two launches of B1 differ")
@@ -3708,6 +3740,637 @@ def small_multinomial_glm_checks(dev, card):
     return rec
 
 
+# phase 31: XGBoost. (a) runs on a frame of MSLR-WEB30K's published shape
+# (Qin & Liu, "Introducing LETOR 4.0 Datasets", arXiv:1306.2597, and the
+# MSLR-WEB30K page): 31,531 queries and 3,771,125 documents of 136
+# features, labels 0-4, at most 1,251 documents a query; one fold trains on
+# three of its five parts
+MSLR_QUERIES, MSLR_DOCS, MSLR_FEAT, MSLR_MAX_DOCS = 31_531, 3_771_125, 136, 1_251
+MSLR_TRAIN_QUERIES = round(MSLR_QUERIES * 3 / 5)
+MSLR_TRAIN_DOCS = round(MSLR_DOCS * 3 / 5)
+# the generator's label shares, falling from 0 to 4 as graded relevance's do
+MSLR_LABEL_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
+XGB_TREES, XGB_DEPTH, XGB_NBINS = 50, 6, 256   # bench.py's trees; defaults
+# AutoML's XGBoost_1 and XGBoost_2 (h2o3_tpu/automl/automl.py:167-171)
+XGB_1 = dict(ntrees=50, max_depth=6, learn_rate=0.3, sample_rate=0.8,
+             col_sample_rate_per_tree=0.8, reg_lambda=1.0)
+XGB_2 = dict(ntrees=50, max_depth=10, learn_rate=0.2, sample_rate=0.6,
+             col_sample_rate_per_tree=0.8, reg_lambda=1.0, min_rows=5.0)
+XGB_2_TREES = 3
+XGB_PREDICT_ROWS, XGB_SHAP_ROWS = 100_000, 10_000
+DART_ROUNDS, DART_RATE = 20, 0.1
+GBLINEAR_ROUNDS = 50
+# the reference's lambdarank fixture (tests/test_automl.py:36-55) and fit
+XGB_RANK_SMALL = dict(ntrees=20, max_depth=4, eta=0.3, seed=4,
+                      objective="rank:ndcg", group_column="qid")
+PHASE31_WALLS: dict = {}
+
+
+def make_mslr_like(seed: int):
+    """A frame of MSLR-WEB30K's published shape, one fold's training part:
+    MSLR_TRAIN_QUERIES queries of MSLR_TRAIN_DOCS documents, each query's
+    documents contiguous as in the LETOR files. The law: query sizes
+    gamma(1.5) with the data set's mean, rounded and clipped to [1, 1,251],
+    query 0 at 1,251, the total then matched by ±1 steps on random other
+    queries; feature j standard normal (j % 3 == 0, scores), lognormal
+    (j % 3 == 1, BM25-like) or Poisson(3) counts (j % 3 == 2), f32; a
+    latent score z = x0 + 0.6·ln x1 + 0.4·(x2 − 3)/√3 + 0.5·x3 + 0.5·x6 +
+    a query effect N(0, 0.5²); labels 0-4 at the quantiles of
+    MSLR_LABEL_SHARES of z + noise N(0, 0.8²). Returns (frame, qid,
+    labels, z)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    Q, N = MSLR_TRAIN_QUERIES, MSLR_TRAIN_DOCS
+    sizes = np.clip(np.round(rng.gamma(1.5, N / Q / 1.5, Q)), 1,
+                    MSLR_MAX_DOCS).astype(np.int64)
+    sizes[0] = MSLR_MAX_DOCS
+    while int(sizes.sum()) != N:
+        diff = N - int(sizes.sum())
+        np.add.at(sizes, rng.integers(1, Q, abs(diff)), 1 if diff > 0 else -1)
+        sizes[1:] = np.clip(sizes[1:], 1, MSLR_MAX_DOCS)
+    qid = np.repeat(np.arange(Q), sizes)
+    cols = {}
+    for j in range(MSLR_FEAT):
+        if j % 3 == 0:
+            cols[f"f{j}"] = rng.standard_normal(N, dtype=np.float32)
+        elif j % 3 == 1:
+            cols[f"f{j}"] = np.exp(rng.standard_normal(N, dtype=np.float32))
+        else:
+            cols[f"f{j}"] = rng.poisson(3.0, N).astype(np.float32)
+    z = (cols["f0"] + 0.6 * np.log(cols["f1"])
+         + 0.4 * (cols["f2"] - 3.0) / np.sqrt(3.0)
+         + 0.5 * cols["f3"] + 0.5 * cols["f6"]).astype(np.float64)
+    z += rng.normal(0.0, 0.5, Q)[qid]
+    noisy = z + rng.normal(0.0, 0.8, N)
+    rel = np.digitize(noisy, np.quantile(noisy,
+                                         np.cumsum(MSLR_LABEL_SHARES)[:-1]))
+    del noisy
+    cols["qid"] = qid.astype(np.float64)
+    cols["rel"] = rel.astype(np.float32)
+    return Frame.from_dict(cols), qid, rel.astype(np.float64), z
+
+
+def b1_passes(dev, codes_fm, nbins, widths, seed, check=True, n_rows=None):
+    """B1 at each pass of `widths` (the first a root pass, every row
+    weighted; the others sibling passes, about half) on feature-major
+    codes: with `check`, bit-equal to `hist_plain_fixed`, repeatable, and
+    no farther from f64 than `hist_plain` in any channel (`check_b1`);
+    times with the L2 flushed, and with `check` the plain version's, one
+    `index_add_`'s and the bytes bound. Returns one record a pass."""
+    from h2o3_tpu_torch.ops import hist_cuda
+
+    F, N = codes_fm.shape
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, L in enumerate(widths):
+        node, vals = pass_inputs(rng, dev, L, i > 0, n=N)
+        n_w = int((vals[0] != 0).sum())
+        rec = dict(L=L, sibling=i > 0, weighted_rows=n_w)
+        rec["ms"] = time_ms_cold(
+            lambda: hist_cuda.hist_build(codes_fm, node, vals, L, nbins),
+            reps=10, warmup=2)
+        rec["bound_ms"], rec["bytes"] = bound_ms_of(
+            n_w, L, n_feat=F, nbins=nbins, n_rows=N)
+        if check:
+            rec["max_abs_err"], rec["f64_err"], rec["plain_f64_err"] = \
+                check_b1(codes_fm, node, vals, L, nbins)
+            rec["plain_ms"] = time_ms(
+                lambda: hist_cuda.hist_plain(codes_fm, node, vals, L, nbins),
+                reps=3, warmup=1)
+            rec["library_ms"] = bm_library_ms(dev, codes_fm, node, vals, L,
+                                              nbins)
+        out.append(rec)
+        del node, vals
+    return out
+
+
+def _fit_codes_fm(model, dev):
+    """A fitted tree model's training codes, feature-major, on the card."""
+    return torch.from_numpy(np.ascontiguousarray(model.bm.codes.T)).to(dev)
+
+
+def xgb_rank_path(dev, card):
+    """Phase 31(a): `rank:ndcg` lambdarank on a frame of MSLR-WEB30K's
+    shape (BASELINE.json config 4) at the reference's defaults."""
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+    from h2o3_tpu_torch.models import tree as treelib
+    from h2o3_tpu_torch.models import xgboost as xgb
+    from h2o3_tpu_torch.models.metrics import ndcg_at_k
+    from h2o3_tpu_torch.ops import hist_cuda, histogram
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fr, qid, rel, z = make_mslr_like(0)
+    gen_s = time.perf_counter() - t0
+    sizes = np.bincount(qid)
+    x = [f"f{j}" for j in range(MSLR_FEAT)]
+    print(f"phase 31(a) frame (MSLR-WEB30K's shape, one fold's training "
+          f"part): {len(sizes)} queries, {len(qid)} documents, {MSLR_FEAT} "
+          f"features; documents a query: mean {sizes.mean():.2f}, median "
+          f"{np.median(sizes):.0f}, max {sizes.max()}; labels 0-4: "
+          f"{np.bincount(rel.astype(int), minlength=5).tolist()}; made in "
+          f"{gen_s:.2f} s", flush=True)
+    print(f"phase 31(a) cut: none ({XGB_TREES} trees, bench.py's count)",
+          flush=True)
+    orig = xgb._lambdarank_pass
+    events, shapes = [], []
+    nonfinite = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def timed(margin, chunks, n_rows, disc):
+        if not shapes:
+            shapes.extend(tuple(c.idx.shape) for c in chunks)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g, h = orig(margin, chunks, n_rows, disc)
+        b.record()
+        events.append((a, b))
+        nonfinite.logical_or_(~(torch.isfinite(g).all()
+                                & torch.isfinite(h).all()))
+        return g, h
+
+    # where the tree loop's time goes: CUDA events around each tree build,
+    # each B1 launch and each leaf-total pass of the fit
+    spans = {"build_tree": [], "b1": [], "leaf_totals": []}
+
+    def spanned(name, fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+        return run
+
+    est = H2OXGBoostEstimator(objective="rank:ndcg", group_column="qid",
+                              ntrees=XGB_TREES, max_depth=XGB_DEPTH, seed=1,
+                              device=str(dev))
+    zero_counts()
+    with mock.patch.object(xgb, "_lambdarank_pass", timed), \
+            mock.patch.object(treelib, "build_tree", spanned(
+                "build_tree", treelib.build_tree)), \
+            mock.patch.object(treelib, "_leaf_totals", spanned(
+                "leaf_totals", treelib._leaf_totals)), \
+            mock.patch.object(hist_cuda, "hist_build", spanned(
+                "b1", hist_cuda.hist_build)):
+        t0 = time.perf_counter()
+        est.train(x=x, y="rel", training_frame=fr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts, dispatch = kernel_counts(), dict(histogram.DISPATCH)
+    m = est.model
+    pass_ms = [a.elapsed_time(b) for a, b in events]
+    span_s = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
+              for k, v in spans.items()}
+    t0 = time.perf_counter()
+    scores = m._margins(m._matrix(fr))[:, 0]
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nd_model = ndcg_at_k(rel, scores, qid, 10)
+    ndcg_ms = (time.perf_counter() - t0) * 1e3
+    nd_zero = ndcg_at_k(rel, np.zeros(len(rel)), qid, 10)
+    nd_latent = ndcg_at_k(rel, z, qid, 10)
+    del fr, z
+    codes = _fit_codes_fm(m, dev)
+    passes = b1_passes(dev, codes, XGB_NBINS, LEVEL_WIDTHS, 31, check=False)
+    del codes
+    pairs = sum(q * g * g for q, g in shapes)
+    ft = m.fit_timings
+    rec = dict(queries=int(len(sizes)), documents=int(len(qid)),
+               features=MSLR_FEAT, trees=m.ntrees_built, wall_s=wall,
+               fit_timings=ft, b1_launches=counts["hist"],
+               dispatch=dispatch, kernel_counts=counts,
+               lambdarank_rounds=len(pass_ms),
+               lambdarank_ms_median=float(np.median(pass_ms)),
+               lambdarank_ms_total=float(np.sum(pass_ms)),
+               lambdarank_chunks=len(shapes), pair_elements=int(pairs),
+               ndcg10_model=nd_model, ndcg10_zero=nd_zero,
+               ndcg10_latent=nd_latent, ndcg_host_ms=ndcg_ms,
+               score_train_s=score_s, fit_spans_s=span_s,
+               b1_ms_per_tree=sum(r["ms"] for r in passes),
+               b1_bound_ms_per_tree=sum(r["bound_ms"] for r in passes),
+               b1_passes=[(r["L"], r["ms"], r["bound_ms"]) for r in passes],
+               description=m.training_metrics.description)
+    print("xgb rank: " + json.dumps(rec), flush=True)
+    print(f"xgb rank on {card}: fit {wall:.3f} s = bins {ft['bins_s']:.3f} "
+          f"+ upload {ft['upload_s']:.3f} + trees {ft['trees_s']:.3f} + "
+          f"metrics {ft['metrics_s']:.3f}; lambdarank pass "
+          f"{rec['lambdarank_ms_median']:.3f} ms a round (median of "
+          f"{len(pass_ms)}, CUDA events; {len(shapes)} chunks, {pairs} pair "
+          f"elements), {rec['lambdarank_ms_total'] / 1e3:.3f} s in all; "
+          f"build_tree {span_s['build_tree']:.3f} s of it B1 "
+          f"{span_s['b1']:.3f} s and leaf totals {span_s['leaf_totals']:.3f} "
+          f"s (CUDA events in the fit); B1 "
+          f"{counts['hist']} launches, {rec['b1_ms_per_tree']:.3f} ms a "
+          f"depth-6 tree at B = {XGB_NBINS}, F = {MSLR_FEAT} (bound "
+          f"{rec['b1_bound_ms_per_tree']:.4f}); NDCG@10 model {nd_model:.5f}, "
+          f"zero model {nd_zero:.5f}, latent score {nd_latent:.5f}; "
+          f"ndcg_at_k {ndcg_ms:.1f} ms on the host", flush=True)
+    bad = []
+    if not nd_model > nd_zero:
+        bad.append(f"NDCG@10 {nd_model:.5f} not above the zero model's "
+                   f"{nd_zero:.5f}")
+    # the fit's one forest launch scores the training rows for its NDCG
+    if counts["hist"] != XGB_TREES * XGB_DEPTH or set(dispatch) != {
+            "pallas_factored"} or counts["hist_rows"] or counts["shap"] \
+            or counts["score"] != 1:
+        bad.append(f"histogram dispatch {dispatch}, counts {counts}; "
+                   f"expected {XGB_TREES * XGB_DEPTH} B1 launches and one "
+                   "forest launch")
+    if bool(nonfinite) or len(pass_ms) != XGB_TREES:
+        bad.append(f"lambdarank: NaN or inf in g or h ({bool(nonfinite)}), "
+                   f"{len(pass_ms)} passes for {XGB_TREES} rounds")
+    PHASE31_WALLS["a"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 31(a): " + "; ".join(bad))
+    return rec
+
+
+def xgb_automl_path(dev, fr, card):
+    """Phase 31(b) and (c): AutoML's XGBoost_1 on phase 4's frame (fit,
+    AUC, `predict`, contributions against `tree_shap_plain`), B1 at B = 256
+    on its codes at each pass of a depth-6 tree, and XGBoost_2's depth 10
+    cut to XGB_2_TREES trees. Returns (record, the XGBoost_1 model, the
+    kernels line's entry)."""
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models import tree_shap as ts
+    from h2o3_tpu_torch.ops import histogram, score_cuda, shap_cuda
+
+    t_phase = time.perf_counter()
+    names = [f"f{i}" for i in range(N_FEAT)]
+    est = H2OXGBoostEstimator(seed=42, device=str(dev), **XGB_1)
+    zero_counts()
+    t0 = time.perf_counter()
+    est.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, dispatch = kernel_counts(), dict(histogram.DISPATCH)
+    m = est.model
+    auc = float(est.auc())
+    Xt, yt = make_higgs_like(XGB_PREDICT_ROWS, seed=1)
+    ft_ = Frame.from_numpy(np.column_stack([Xt, yt]),
+                           names=names + ["label"]).asfactor("label")
+    zero_counts()
+    t0 = time.perf_counter()
+    pred = m.predict(ft_)
+    pred_s = time.perf_counter() - t0
+    plans = dict(resident=score_cuda.launches_resident,
+                 streamed=score_cuda.launches_streamed)
+    p1 = np.asarray(pred.vec("1").data, np.float64)
+    # contributions on fresh rows (5 % NaN): local accuracy, and the
+    # kernel against its plain version on the card, bit for bit
+    rng = np.random.default_rng(131)
+    Xc = score_rows(rng, XGB_SHAP_ROWS)
+    fc = Frame.from_numpy(Xc, names=names)
+    zero_counts()
+    t0 = time.perf_counter()
+    C = _contrib_matrix(m.predict_contributions(fc))
+    torch.cuda.synchronize()
+    shap_s = time.perf_counter() - t0
+    shap_launches = shap_cuda.launches
+    marg = m._margins(m._matrix(fc))[:, 0]
+    local = float((np.abs(C.sum(axis=1) - marg)
+                   / np.maximum(1.0, np.abs(marg))).max())
+    Xd = torch.from_numpy(np.ascontiguousarray(Xc, np.float64)).to(dev)
+    forest, cover = m.forest[0], m.covers[0]
+    bias = ts.forest_bias(forest, cover, 1.0)
+    got = shap_cuda.tree_shap(forest, cover, Xd, 1.0, bias,
+                              plan=m._shap_plan(N_FEAT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ts.tree_shap_plain(forest, cover, Xd, 1.0, bias)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    shap_equal = bool(torch.equal(got, want))
+    del Xd, got, want
+    # (c) B1 at B = 256 on the fit's codes, each pass of a depth-6 tree
+    codes = _fit_codes_fm(m, dev)
+    passes = b1_passes(dev, codes, XGB_NBINS, LEVEL_WIDTHS, 32)
+    del codes
+    # XGBoost_2's depth 10, cut to a few trees: B1 per level width
+    est2 = H2OXGBoostEstimator(seed=42, device=str(dev),
+                               **dict(XGB_2, ntrees=XGB_2_TREES))
+    zero_counts()
+    t0 = time.perf_counter()
+    est2.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    counts2 = kernel_counts()
+    m2 = est2.model
+    widths10 = [1] + [2 ** d for d in range(m2.max_depth - 1)]
+    codes = _fit_codes_fm(m2, dev)
+    passes10 = b1_passes(dev, codes, XGB_NBINS, widths10, 33)
+    del codes
+    ft, ft2 = m.fit_timings, m2.fit_timings
+    rec = dict(
+        xgboost_1=dict(wall_s=wall, fit_timings=ft, auc=auc,
+                       b1_launches=counts["hist"], dispatch=dispatch,
+                       predict_rows=XGB_PREDICT_ROWS, predict_s=pred_s,
+                       predict_plans=plans, shap_rows=XGB_SHAP_ROWS,
+                       shap_s=shap_s, shap_launches=shap_launches,
+                       shap_local_accuracy=local,
+                       shap_equal_to_plain=shap_equal, plain_shap_s=plain_s),
+        b256_passes=[{k: r[k] for k in ("L", "ms", "plain_ms", "library_ms",
+                                        "bound_ms", "max_abs_err")}
+                     for r in passes],
+        xgboost_2=dict(trees=m2.ntrees_built, depth=m2.max_depth,
+                       wall_s=wall2, fit_timings=ft2,
+                       b1_launches=counts2["hist"],
+                       b1_ms_per_tree=sum(r["ms"] for r in passes10),
+                       b1_bound_ms_per_tree=sum(r["bound_ms"]
+                                                for r in passes10),
+                       b1_per_width=[(r["L"], r["ms"], r["bound_ms"])
+                                     for r in passes10]))
+    print("xgb automl: " + json.dumps(rec), flush=True)
+    tree6 = {k: sum(r[k] for r in passes) for k in
+             ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"xgb XGBoost_1 on {card}: 1M x 28, {XGB_1['ntrees']} trees, fit "
+          f"{wall:.3f} s (bins {ft['bins_s']:.3f}, upload {ft['upload_s']:.3f}, "
+          f"trees {ft['trees_s']:.3f}), AUC {auc:.6f}; predict of "
+          f"{XGB_PREDICT_ROWS} rows {pred_s * 1e3:.1f} ms ({plans}); "
+          f"contributions of {XGB_SHAP_ROWS} rows {shap_s * 1e3:.1f} ms, "
+          f"local accuracy {local:.2e}, kernel equal to tree_shap_plain: "
+          f"{shap_equal} (plain {plain_s * 1e3:.1f} ms)", flush=True)
+    print(f"xgb B1 at B = {XGB_NBINS}, N = {N_ROWS}, F = {N_FEAT}, 8-bit "
+          f"codes, per depth-6 tree: kernel {tree6['ms']:.4f} ms (L2 "
+          f"flushed), plain {tree6['plain_ms']:.4f}, index_add_ "
+          f"{tree6['library_ms']:.4f}, bound {tree6['bound_ms']:.4f}; per "
+          "pass (L, ms, bound): "
+          + ", ".join(f"({r['L']}, {r['ms']:.4f}, {r['bound_ms']:.4f})"
+                      for r in passes), flush=True)
+    print(f"xgb XGBoost_2 depth {m2.max_depth} cut to {XGB_2_TREES} trees "
+          f"from {XGB_2['ntrees']}: fit {wall2:.3f} s (trees "
+          f"{ft2['trees_s']:.3f}), B1 {counts2['hist']} launches, "
+          f"{rec['xgboost_2']['b1_ms_per_tree']:.4f} ms a tree (bound "
+          f"{rec['xgboost_2']['b1_bound_ms_per_tree']:.4f}); per width (L, "
+          "ms, bound): " + ", ".join(f"({r['L']}, {r['ms']:.4f}, "
+                                     f"{r['bound_ms']:.4f})"
+                                     for r in passes10), flush=True)
+    bad = []
+    if auc < 0.75:
+        bad.append(f"XGBoost_1 training AUC {auc:.6f} below 0.75")
+    if counts["hist"] != XGB_1["ntrees"] * XGB_1["max_depth"] \
+            or set(dispatch) != {"pallas_factored"} or counts["hist_rows"]:
+        bad.append(f"XGBoost_1 dispatch {dispatch}, counts {counts}")
+    if counts2["hist"] != XGB_2_TREES * m2.max_depth:
+        bad.append(f"XGBoost_2: {counts2['hist']} B1 launches, expected "
+                   f"{XGB_2_TREES * m2.max_depth}")
+    if plans != dict(resident=1, streamed=0) or not np.isfinite(p1).all():
+        bad.append(f"predict: plans {plans}, finite {np.isfinite(p1).all()}")
+    if not local <= 1e-5 or not shap_equal or shap_launches < 1:
+        bad.append(f"contributions: local accuracy {local:.3e}, equal to "
+                   f"plain {shap_equal}, {shap_launches} launches")
+    PHASE31_WALLS["b_c"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 31(b, c): " + "; ".join(bad))
+    entry = dict(
+        name="hist_factored_b256", route="cuda",
+        source="h2o3_tpu_torch/csrc/hist.cu",
+        replaces="h2o3_tpu/ops/hist_pallas.py:103",
+        launches=counts["hist"],
+        max_abs_err=max(r["max_abs_err"] for r in passes), **tree6,
+        bound_by="bytes")
+    return rec, m, entry
+
+
+def xgb_dart_path(dev, fr, xgb1_model, card):
+    """Phase 31(e): DART on phase 4's frame, DART_ROUNDS rounds at
+    rate_drop DART_RATE, both normalize types; skip_drop=1 at XGBoost_1's
+    settings equals the first DART_ROUNDS trees of phase 31(b)'s fit bit
+    for bit (a round's trees depend on its index, not on the count)."""
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+
+    t_phase = time.perf_counter()
+    rec, bad = {}, []
+    for nt in ("tree", "forest"):
+        est = H2OXGBoostEstimator(booster="dart", ntrees=DART_ROUNDS,
+                                  rate_drop=DART_RATE, normalize_type=nt,
+                                  seed=42, device=str(dev))
+        zero_counts()
+        t0 = time.perf_counter()
+        est.train(y="label", training_frame=fr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        sc = est.model.dart_scales
+        rec[nt] = dict(wall_s=wall, auc=float(est.auc()),
+                       trees_s=est.model.fit_timings["trees_s"],
+                       rounds_rescaled=int(sum(s != 1.0 for s in sc)),
+                       b1_launches=counts["hist"])
+        if counts["hist"] != DART_ROUNDS * XGB_DEPTH or counts["hist_rows"]:
+            bad.append(f"DART {nt}: counts {counts}")
+        if rec[nt]["auc"] < 0.75 or not rec[nt]["rounds_rescaled"]:
+            bad.append(f"DART {nt}: AUC {rec[nt]['auc']:.6f}, "
+                       f"{rec[nt]['rounds_rescaled']} rounds rescaled")
+    est = H2OXGBoostEstimator(booster="dart", rate_drop=DART_RATE,
+                              skip_drop=1.0, seed=42, device=str(dev),
+                              **dict(XGB_1, ntrees=DART_ROUNDS))
+    est.train(y="label", training_frame=fr)
+    a, b = est.model.forest[0], xgb1_model.forest[0]
+    same = all(torch.equal(fa, fb[:DART_ROUNDS]) for fa, fb in zip(a, b))
+    rec["skip_drop_1_equals_gbtree"] = same
+    if not same:
+        bad.append("DART with skip_drop=1 differs from gbtree's trees")
+    print("xgb dart: " + json.dumps(rec), flush=True)
+    print(f"xgb DART on {card}: {DART_ROUNDS} rounds, rate_drop {DART_RATE}: "
+          + "; ".join(f"{nt} fit {rec[nt]['wall_s']:.3f} s, AUC "
+                      f"{rec[nt]['auc']:.6f}, {rec[nt]['rounds_rescaled']} "
+                      "rounds rescaled" for nt in ("tree", "forest"))
+          + f"; skip_drop=1 equal to gbtree bit for bit: {same}", flush=True)
+    PHASE31_WALLS["e"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 31(e): " + "; ".join(bad))
+    return rec
+
+
+def xgb_gblinear_path(dev, fr, glm_rec, card):
+    """Phase 31(d): gblinear on phase 17's Airlines frame, binomial,
+    GBLINEAR_ROUNDS rounds: the fit's split, AUC beside phase 17's GLM,
+    logloss below the priors', β finite, the MOJO round trip."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+
+    t_phase = time.perf_counter()
+    tf32_off()
+    est = H2OXGBoostEstimator(booster="gblinear", ntrees=GBLINEAR_ROUNDS,
+                              device=str(dev))
+    zero_counts()
+    t0 = time.perf_counter()
+    est.train(y="IsDepDelayed", training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    m = est.model
+    ft = m.fit_timings
+    y = np.asarray(fr.vec("IsDepDelayed").data, np.float64)
+    pri = y.mean()
+    ll_pri = float(-(pri * np.log(pri) + (1 - pri) * np.log(1 - pri)))
+    ft_fr, _, _ = make_airlines_like(AIR_TEST, 1)
+    pred = m.predict(ft_fr)
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_gbl_") as d:
+        got = mojo.load_model(mojo.save_model(m, d, "gbl.h2o3")).predict(ft_fr)
+    mojo_err = float(np.abs(np.asarray(got.vec("YES").data, np.float64)
+                            - np.asarray(pred.vec("YES").data,
+                                         np.float64)).max())
+    rec = dict(rows=fr.nrow, p=len(m.beta), rounds=GBLINEAR_ROUNDS,
+               wall_s=wall, fit_timings=ft, auc=float(m.auc()),
+               glm_auc=glm_rec["auc"], logloss=float(m.logloss()),
+               priors_logloss=ll_pri, mojo_max_abs_err=mojo_err,
+               beta_finite=bool(np.isfinite(m.beta).all()),
+               kernel_counts=counts, algo=m.algo)
+    print("xgb gblinear: " + json.dumps(rec), flush=True)
+    print(f"xgb gblinear on {card}: {fr.nrow} x {len(m.beta)}, "
+          f"{GBLINEAR_ROUNDS} rounds, fit {wall:.3f} s = host pack "
+          f"{ft['pack_s']:.3f} + H2D {ft['h2d_s']:.3f} + expansion "
+          f"{ft['expand_s'] * 1e3:.3f} ms + rounds {ft['rounds_s']:.3f} + "
+          f"metrics {ft['metrics_s']:.3f}; AUC {rec['auc']:.6f} (phase 17's "
+          f"GLM {glm_rec['auc']:.6f}); logloss {rec['logloss']:.6f} against "
+          f"the priors' {ll_pri:.6f}; MOJO {mojo_err:.2e}", flush=True)
+    bad = []
+    if not rec["logloss"] < ll_pri or not rec["beta_finite"]:
+        bad.append(f"logloss {rec['logloss']} not below the priors' "
+                   f"{ll_pri}, or β not finite")
+    if not mojo_err <= 1e-5 or m.algo != "xgboost":
+        bad.append(f"MOJO {mojo_err:.3e}, algo {m.algo}")
+    if any(counts.values()):
+        bad.append(f"gblinear launched a tree kernel: {counts}")
+    tf32_off()
+    PHASE31_WALLS["d"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 31(d): " + "; ".join(bad))
+    return rec
+
+
+def xgb_small_frame(n: int, seed: int, kind: str):
+    """The CPU tests' frames (tests/test_torch_xgboost.py::_data): the
+    reference test's binomial `_frame`, a 4-class response on the same
+    law, or the reference's lambdarank fixture (tests/test_automl.py) with
+    a weights column `w` from another seed: the first round's margins are
+    all 0, so its gradients take few values and splits that part other
+    rows tie exactly; the weights part the tied sets, as in phase 29."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    if kind == "rank":
+        nq, per_q = 60, 20
+        X = rng.normal(size=(nq * per_q, 5))
+        s = X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.normal(size=nq * per_q)
+        rel = np.digitize(s, np.quantile(s, [0.5, 0.75, 0.9])).astype(float)
+        w = np.random.default_rng(seed + 1).uniform(0.5, 1.5, nq * per_q)
+        return Frame.from_dict({**{f"f{i}": X[:, i] for i in range(5)},
+                                "qid": np.repeat(np.arange(nq), per_q)
+                                .astype(float), "rel": rel, "w": w})
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    noise = rng.normal(size=n)
+    d = {f"f{i}": X[:, i] for i in range(8)}
+    if kind == "binomial":
+        d["y"] = ((X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * noise) > 0
+                  ).astype(int).astype(str)
+    else:
+        s = X[:, 0] + 0.8 * X[:, 1] - 0.5 * X[:, 3] + 0.3 * noise
+        d["y"] = np.asarray(["a", "b", "c", "d"])[
+            np.digitize(s, [-1.0, 0.0, 1.0])]
+    return Frame.from_dict(d, column_types={"y": "enum"})
+
+
+XGB_SMALL_CASES = {
+    "gbtree_binomial": ("binomial", 4000, dict(
+        ntrees=5, max_depth=4, seed=1, reg_alpha=0.5, max_delta_step=0.7,
+        gamma=0.1)),
+    "gbtree_multinomial": ("multinomial", 2000, dict(ntrees=4, max_depth=3,
+                                                      seed=2)),
+    "lambdarank": ("rank", 0, dict(XGB_RANK_SMALL, weights_column="w")),
+    "dart": ("binomial", 2000, dict(booster="dart", rate_drop=0.3,
+                                    one_drop=True, ntrees=8, max_depth=3,
+                                    seed=11)),
+    "gblinear": ("binomial", 3000, dict(booster="gblinear", ntrees=30,
+                                        reg_lambda=0.5)),
+}
+
+
+def xgb_small_checks(dev, card):
+    """Phase 31(f): card against CPU on the CPU tests' small frames:
+    forests equal or every row in the same leaf, predictions within 1e-5,
+    gblinear β within 1e-4; the card's gbtree and gblinear models served
+    (equal to `predict` within 1e-6, no fallback) and through the MOJO
+    (within 1e-5)."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    t_phase = time.perf_counter()
+    out, bad, served = {}, [], {}
+    for name, (kind, n, params) in XGB_SMALL_CASES.items():
+        fr = xgb_small_frame(n, 0, kind)
+        y = "rel" if kind == "rank" else "y"
+        x = [c for c in fr.names if c not in (y, "qid")]
+        a, b = (_pair_fit(H2OXGBoostEstimator, d, params, fr, y=y)
+                for d in (str(dev), "cpu"))
+        if name == "gblinear":
+            rec = dict(max_beta_diff=float(np.abs(np.asarray(a.beta)
+                                                  - np.asarray(b.beta)).max()))
+            if rec["max_beta_diff"] > 1e-4:
+                bad.append(f"{name}: β differs by {rec['max_beta_diff']:.3e}")
+        else:
+            nodes, dv = _forest_diff(a, b)
+            rows, lv = _leaves_diff(a, b, fr)
+            rec = dict(nodes_differ=nodes, max_value_diff=dv,
+                       rows_in_other_leaves=rows, max_leaf_value_diff=lv)
+            if rows or lv > 1e-5:
+                bad.append(f"{name}: {rows} rows in other leaves, leaf "
+                           f"values {lv:.3e} apart")
+        rec["max_predict_diff"] = _pred_diff(a, b, fr)
+        if rec["max_predict_diff"] > 1e-5:
+            bad.append(f"{name}: predictions {rec['max_predict_diff']:.3e}")
+        out[name] = rec
+        if name in ("gbtree_binomial", "gblinear"):
+            served[name] = (a, fr[x])
+    engine = ScoringEngine(ServingConfig())
+    rng = np.random.default_rng(61)
+    worst, mojo_err = 0.0, 0.0
+    try:
+        for name, (model, fx) in served.items():
+            cuts = np.sort(rng.choice(np.arange(1, fx.nrow), 15, replace=False))
+            reqs = [fx.take(np.arange(lo, hi)) for lo, hi in
+                    zip(np.r_[0, cuts], np.r_[cuts, fx.nrow])]
+            with ThreadPoolExecutor(max_workers=4) as ex:
+                outs = list(ex.map(lambda r: engine.score(name, model, r),
+                                   reqs))
+            for r, o in zip(reqs, outs):
+                worst = max(worst, float(np.abs(
+                    np.asarray(o.vec("1").data, np.float64)
+                    - np.asarray(model.predict(r).vec("1").data,
+                                 np.float64)).max()))
+            with tempfile.TemporaryDirectory(prefix="h2o3_smoke_xgb_") as d:
+                got = mojo.load_model(mojo.save_model(model, d, "m.h2o3")
+                                      ).predict(fx)
+            mojo_err = max(mojo_err, float(np.abs(
+                np.asarray(got.vec("1").data, np.float64)
+                - np.asarray(model.predict(fx).vec("1").data,
+                             np.float64)).max()))
+        snap = engine.snapshot()
+    finally:
+        engine.shutdown()
+    tot = snap["totals"]
+    out["served"] = dict(max_abs_err=worst, fallback_scores=tot[
+        "fallback_scores"], errors=tot["errors"], mojo_max_abs_err=mojo_err)
+    if worst > 1e-6 or tot["fallback_scores"] or tot["errors"] \
+            or snap["failover"]["fallback_builds"]:
+        bad.append("serving: " + json.dumps(out["served"]))
+    if mojo_err > 1e-5:
+        bad.append(f"MOJO {mojo_err:.3e} from predict")
+    print("xgb small checks (card vs cpu): " + json.dumps(out), flush=True)
+    PHASE31_WALLS["f"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 31(f): " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3771,9 +4434,11 @@ def main() -> int:
     small_multinomial_glm_checks(dev, card_line())
     small_extension_checks(dev)
     fr_air, p_air, y_air = make_airlines_like(AIR_ROWS, 0)
-    airlines_glm_path(dev, fr_air, p_air, y_air)
+    glm_rec = airlines_glm_path(dev, fr_air, p_air, y_air)
     fv_air, _, _ = make_airlines_like(AIR_VALID, 2)
     airlines_lambda_path(dev, fr_air, fv_air)
+    # phase 31(d): gblinear on the same frame
+    xgb_gblinear_path(dev, fr_air, glm_rec, card_line())
     del fr_air, fv_air
     small_glm_checks(dev)
     # phases 24-28: cross-validation and the stacked ensemble on phase 4's
@@ -3785,13 +4450,22 @@ def main() -> int:
     del X
     _, cv_ests = cv_tree_path(dev, fr, y, card)
     cv_glm_and_ensemble(dev, fr, cv_ests, card)
-    del fr, cv_ests
+    del cv_ests
+    # phase 31(b), (c) and (e): XGBoost on the same frame
+    _, xgb1_model, b256 = xgb_automl_path(dev, fr, card)
+    xgb_dart_path(dev, fr, xgb1_model, card)
+    del fr, xgb1_model
     small_cv_checks(dev, card)
     # phase 29: 16-bit codes, on benchm-ml's Airlines GBM
     bm_recs, bm_codes, bm_passes = airlines_bm_path(dev, card)
     b16 = wide_kernels(dev, bm_codes, bm_passes)
     del bm_codes
     small_bm_checks(dev, card)
+    # phase 31(a) and (f): lambdarank at MSLR-WEB30K's shape, card vs CPU
+    xgb_rank_path(dev, card)
+    xgb_small_checks(dev, card)
+    print("phase 31 wall: " + json.dumps(dict(
+        PHASE31_WALLS, total_s=sum(PHASE31_WALLS.values()))), flush=True)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)
@@ -3833,6 +4507,8 @@ def main() -> int:
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by="bytes",
             library_ms=t["library_ms"]))
+    # B1 at XGBoost's 256 bins: phase 31(c), the XGBoost_1 fit's codes
+    kernels.append(b256)
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
           "uniform codes, L2 flushed; "
@@ -3848,6 +4524,9 @@ def main() -> int:
           f"GBM and DRF (N={BM_ROWS}, F=8, B={BM_NBINS}, int16 codes), each "
           "pass weighted by its count a tree (dense rebuilds averaged), "
           "their launches those fits'; "
+          f"hist_factored_b256 is one depth-6 tree of phase 31(b)'s "
+          f"XGBoost_1 (N={N_ROWS}, F={N_FEAT}, B={XGB_NBINS}, uint8 codes, "
+          "L2 flushed), its launches that fit's; "
           "max_abs_err is against the f32 plain version (hist_factored also "
           "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -45,13 +45,14 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0,
                       domain: Optional[List[str]] = None,
                       problem: str = "binomial",
                       distribution: str = "bernoulli",
-                      mode: str = "gbm",
+                      mode: str = "gbm", algo: Optional[str] = None,
                       device=None) -> SharedTreeModel:
     """Port model from heap arrays: each field one (ntrees, T) array, or K
     of them for a multinomial model (one per class forest, in class order).
     `f0` is a float, or the K-vector of a multinomial model. `edges` are
     the per-feature bin edges of the training `BinnedMatrix`; `domain` the
-    response levels of a classifier; `mode` the reference model's `mode`."""
+    response levels of a classifier; `mode` the reference model's `mode`;
+    `algo` its algo where it is not the shared tree's ("xgboost")."""
     if mode not in ("gbm", "drf"):
         raise ValueError(f"mode must be 'gbm' or 'drf', got {mode!r}")
     dev = devlib.resolve(device)
@@ -88,9 +89,12 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0,
     cov = ([torch.as_tensor(np.asarray(c, np.float32)).to(dev)
             for c in _class_forests(covers)]
            if covers is not None else None)
-    return SharedTreeModel(None, x, y, bm, problem, nclass, domain,
-                           distribution, f0_v, forest, cov, int(max_depth), dev,
-                           mode=mode)
+    model = SharedTreeModel(None, x, y, bm, problem, nclass, domain,
+                            distribution, f0_v, forest, cov, int(max_depth),
+                            dev, mode=mode)
+    if algo:
+        model.algo = algo
+    return model
 
 
 def glm_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
@@ -98,7 +102,8 @@ def glm_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
                    col_means=None, transfer_groups=None,
                    standardize: bool = True, use_all: bool = False,
                    domain: Optional[List[str]] = None,
-                   lambda_best: float = 0.0, device=None) -> GLMModel:
+                   lambda_best: float = 0.0, algo: Optional[str] = None,
+                   device=None) -> GLMModel:
     """Port GLM from a reference GLM's state: `beta` the (p+1,) standardized
     coefficients with the intercept last, or the (K, p+1) of a multinomial
     model, one row per level of `domain`; `spec` the `DataInfo._spec`
@@ -106,7 +111,8 @@ def glm_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
     standardization stats (None when not standardized); `col_means` the
     imputation means; `transfer_groups` the numeric columns' upload dtypes
     (`DataInfo._transfer_groups`); `domain` the response levels of a
-    binomial or multinomial model."""
+    binomial or multinomial model; `algo` the reference model's algo where
+    it is not GLM's (a gblinear XGBoost model's "xgboost")."""
     if family not in FAMILIES or family == "AUTO":
         raise ValueError(f"family {family!r}: expected a fitted family")
     b = np.asarray(beta, np.float64)
@@ -126,5 +132,8 @@ def glm_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
         transfer_groups=transfer_groups)
     if list(x) != dinfo.x:
         raise ValueError("x must name the spec's columns in order")
-    return GLMModel(None, x, y, dinfo, family, b, domain,
-                    lambda_best=float(lambda_best), device=device)
+    model = GLMModel(None, x, y, dinfo, family, b, domain,
+                     lambda_best=float(lambda_best), device=device)
+    if algo:
+        model.algo = algo
+    return model

@@ -4,6 +4,8 @@ from ..models.drf import H2ORandomForestEstimator
 from ..models.ensemble import H2OStackedEnsembleEstimator
 from ..models.gbm import H2OGradientBoostingEstimator
 from ..models.glm import H2OGeneralizedLinearEstimator
+from ..models.xgboost import H2OXGBoostEstimator
 
 __all__ = ["H2OGeneralizedLinearEstimator", "H2OGradientBoostingEstimator",
-           "H2ORandomForestEstimator", "H2OStackedEnsembleEstimator"]
+           "H2ORandomForestEstimator", "H2OStackedEnsembleEstimator",
+           "H2OXGBoostEstimator"]

@@ -37,10 +37,21 @@ holdout rows on those codes (`SharedTreeModel._margins_codes`, one
 padded row count (`_npad_floor`) and scores its holdout through the
 forest kernel (`_cv_predict`).
 
+Two hooks serve XGBoost (`models/xgboost.py`). A custom objective
+(`self._objective_fn`, lambdarank's) starts the margins at 0 and gives
+each round's (g, h) from the margins instead of the distribution. DART
+(`tp["dart"]`, the reference's `:249-303` and its loop branches) drops
+whole rounds: the dropped rounds' scaled leaf sums (one
+`tree.predict_codes_packed` walk per class tree over the resident codes)
+leave the margins before the gradients, the "tree" or "forest"
+normalization rescales the new and the dropped rounds, and the per-round
+scales are baked into the stored leaf values after the loop, so scoring,
+MOJO and TreeSHAP see ordinary trees. Both run one round a scoring chunk,
+as the reference does.
+
 Not ported yet (ROADMAP queue A, items 5-9): per-class row sampling,
-class balancing, calibration, checkpoints, DART, dataset cache,
-streaming, sharding and QoS. Asking for any of them raises
-`NotImplementedError`.
+class balancing, calibration, checkpoints, dataset cache, streaming,
+sharding and QoS. Asking for any of them raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -195,6 +206,40 @@ def _event_loss(margins: torch.Tensor, y: torch.Tensor, n: int,
             pred = torch.exp(pred)
         num = (pred - y[:, 0]) ** 2
     return torch.sum(num * vf) / torch.sum(vf).clamp(min=1e-12)
+
+
+def _f32(v: float, dev: torch.device) -> torch.Tensor:
+    """A 0-d f32 tensor of v rounded to f32, as the reference's
+    `jnp.float32` coefficients."""
+    return torch.tensor(np.float32(v), device=dev)
+
+
+def _dart_norm(normalize_type: str, k_drop: int, lr: float):
+    """(new round's scale, dropped rounds' factor) of a DART round that
+    dropped `k_drop` rounds (xgboost dart.cc): "tree" gives 1/(k + lr) and
+    k/(k + lr), "forest" 1/(1 + lr) for both; (1, 1) when none dropped."""
+    if not k_drop:
+        return 1.0, 1.0
+    if normalize_type == "forest":
+        return 1.0 / (1.0 + lr), 1.0 / (1.0 + lr)
+    return 1.0 / (k_drop + lr), k_drop / (k_drop + lr)
+
+
+def _dart_drop_sum(trees, drop_idx: Sequence[int], scales: Sequence[float],
+                   codes: torch.Tensor, pack_bits: int,
+                   max_depth: int) -> torch.Tensor:
+    """(N, K) Σ over the dropped rounds of scale · leaf value, one codes
+    walk per class tree (the reference's `_dart_drop_sum_jit`), the rounds
+    added in order."""
+    cols = []
+    for tk in trees:
+        acc = None
+        for i in drop_idx:
+            c = (treelib.predict_codes_packed(tk[i], codes, pack_bits, max_depth)
+                 * _f32(scales[i], codes.device))
+            acc = c if acc is None else acc + c
+        cols.append(acc)
+    return torch.stack(cols, dim=1)
 
 
 def _event_record(problem: str, ntrees: int, val: float) -> Dict:
@@ -597,13 +642,17 @@ class H2OSharedTreeEstimator(H2OEstimator):
         class_sampling_factors=(None, "queue A, item 5"),
     )
 
-    def _tree_params(self) -> Dict:
+    def _check_unported(self) -> None:
         p = self._parms
         for k, (ok, item) in self._UNPORTED.items():
             if k in p and p[k] != ok:
                 raise NotImplementedError(
                     f"{type(self).__name__}: {k}={p[k]!r} is not ported "
                     f"(ROADMAP {item})")
+
+    def _tree_params(self) -> Dict:
+        p = self._parms
+        self._check_unported()
         drf = self._mode == "drf"
         return dict(
             ntrees=int(p.get("ntrees", 50)),
@@ -621,6 +670,7 @@ class H2OSharedTreeEstimator(H2OEstimator):
             mtries=int(p.get("mtries", -1)) if "mtries" in p else 0,
             reg_lambda=(float(p["reg_lambda"]) if p.get("reg_lambda") is not None
                         else (0.0 if drf else 1.0)),
+            reg_alpha=float(p.get("reg_alpha") or 0.0) if "reg_alpha" in p else 0.0,
             max_abs_leaf=float(p.get("max_abs_leafnode_pred") or np.inf),
         )
 
@@ -724,6 +774,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # the parameters that reach grad_hess (the reference's step config)
         dist_kw = dict(tweedie_power=float(self._parms.get("tweedie_power", 1.5)),
                        alpha=float(self._parms.get("quantile_alpha", 0.5)))
+        obj_fn = getattr(self, "_objective_fn", None)
+        dart = tp.get("dart")
 
         t0 = time.perf_counter()
         # a CV fold on the reuse path (model_base._run_cv) slices the parent
@@ -791,6 +843,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
             # log of the weighted class priors
             pri = np.average(yk, axis=0, weights=w)
             f0 = np.log(np.clip(pri, 1e-10, 1.0)).astype(np.float32)
+        elif obj_fn is not None:
+            f0 = np.zeros(1, np.float32)   # custom objectives start at 0
         else:
             f0 = np.asarray([np.float32(dist_mod.init_margin(
                 dist, yk[:, 0], w, alpha=dist_kw["alpha"]))])
@@ -833,9 +887,10 @@ class H2OSharedTreeEstimator(H2OEstimator):
         mtries = self._resolved_mtries(tp, F, problem)
         mtries_rate = float(np.float32(mtries / max(F, 1))) if mtries > 0 else None
         # deep trees run their wide levels in active-node compaction; a tree
-        # whose live nodes overflow the cap is rebuilt with dense levels
+        # whose live nodes overflow the cap is rebuilt with dense levels.
+        # Custom objectives keep dense levels, as in the reference
         compact_cap = (max(2, int(os.environ.get("H2O3_COMPACT_CAP", 4096)) // 2 * 2)
-                       if tp["max_depth"] > 12 else 0)
+                       if tp["max_depth"] > 12 and obj_fn is None else 0)
         lr = tp["learn_rate"] if not drf else 1.0
         if oob:
             oob_sum = torch.zeros((npad, K), dtype=torch.float32, device=dev)
@@ -857,10 +912,20 @@ class H2OSharedTreeEstimator(H2OEstimator):
         stopper = (ScoreKeeper(stop_rounds, self._default_stopping_metric(problem),
                                float(self._parms.get("stopping_tolerance", 1e-3)))
                    if stop_rounds > 0 else None)
+        interval = int(self._parms.get("score_tree_interval") or 0)
+        # a custom objective or DART runs one round a chunk in the
+        # reference, so a stopper without an interval scores every round
         events = set(score_events(
-            tp["ntrees"], int(self._parms.get("score_tree_interval") or 0),
-            stopper is not None, bool(self._parms.get("score_each_iteration"))))
+            tp["ntrees"], interval, stopper is not None,
+            bool(self._parms.get("score_each_iteration"))
+            or ((obj_fn is not None or dart is not None)
+                and stopper is not None and not interval)))
         key = prng.PRNGKey(seed & 0x7FFFFFFF)
+        # DART: one scale per committed round on its stored leaf values, and
+        # the reference's own generator for the dropout draws
+        dart_scales: List[float] = []
+        if dart is not None:
+            dart_rng = np.random.default_rng((int(seed) + 7919) & 0x7FFFFFFF)
         _sync(dev)
         t_up = time.perf_counter()
 
@@ -885,11 +950,30 @@ class H2OSharedTreeEstimator(H2OEstimator):
             scale = np.float32(np.float32(lr)
                                * np.power(np.float32(tp["learn_rate_annealing"]),
                                           np.float32(m)))
-            new = []
+            drop_idx: List[int] = []
+            if dart is not None and m > 0 \
+                    and dart_rng.random() >= dart["skip_drop"]:
+                mask = dart_rng.random(m) < dart["rate_drop"]
+                if dart["one_drop"] and not mask.any():
+                    mask[int(dart_rng.integers(0, m))] = True
+                drop_idx = [int(i) for i in np.nonzero(mask)[0]]
+            if drop_idx:
+                # the dropped rounds leave the margins the gradients read
+                dsum = _dart_drop_sum(trees, drop_idx, dart_scales, codes_d,
+                                      pack_bits, tp["max_depth"])
+                margins = margins - dsum
+                if valid is not None:
+                    dsum_v = _dart_drop_sum(trees, drop_idx, dart_scales,
+                                            codes_v, 0, tp["max_depth"])
+            ext = (obj_fn(margins[:, 0], y_d[:, 0]) if obj_fn is not None
+                   else None)
+            new, new_vals = [], []
             for k in range(K):
                 # each class's key folds the previous class's key
                 ktree = prng.fold_in(ktree, k)
-                if drf:
+                if ext is not None:
+                    g, h = ext
+                elif drf:
                     g, h = -y_d[:, k], torch.ones_like(y_d[:, k])
                 elif problem == "multinomial":
                     # class k sees the margins classes < k already moved
@@ -906,7 +990,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         max_depth=tp["max_depth"], nbins=nbins,
                         min_rows=tp["min_rows"],
                         min_split_improvement=tp["min_split_improvement"],
-                        reg_lambda=tp["reg_lambda"], max_abs_leaf=cap,
+                        reg_lambda=tp["reg_lambda"],
+                        reg_alpha=tp["reg_alpha"], max_abs_leaf=cap,
                         hist_method=tp["hist_method"], pack_bits=pack_bits,
                         mtries_rate=mtries_rate, key=ktree,
                         compact_cap=cap_slots)
@@ -928,17 +1013,36 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 covers[k].append(cover)
                 gains = gains + gain_f
                 new.append(tr)
+                new_vals.append(leaf_vals)
             if oob:
                 oob_cnt += 1.0 - row_mask
+            if dart is not None:
+                fn, fd = _dart_norm(dart["normalize_type"], len(drop_idx),
+                                    tp["learn_rate"])
+                if drop_idx:
+                    # margins − dropped + new → + fn·new + fd·dropped
+                    margins = (margins + _f32(fn - 1.0, dev)
+                               * torch.stack(new_vals, dim=1)
+                               + _f32(fd, dev) * dsum)
+                    for i in drop_idx:
+                        dart_scales[i] *= fd
+                dart_scales.append(fn)
             built = m + 1
             if valid is None and built not in events:
                 continue
             _sync(dev)
             t_ev = time.perf_counter()
             if valid is not None:
-                for k, tr in enumerate(new):
-                    margins_v[:, k] += treelib.predict_codes(tr, codes_v,
-                                                             tp["max_depth"])
+                vals_v = [treelib.predict_codes(tr, codes_v, tp["max_depth"])
+                          for tr in new]
+                for k, v in enumerate(vals_v):
+                    margins_v[:, k] += v
+                if drop_idx:
+                    # the validation margins never had the dropped rounds
+                    # taken out
+                    margins_v = (margins_v + _f32(fn - 1.0, dev)
+                                 * torch.stack(vals_v, dim=1)
+                                 + _f32(fd - 1.0, dev) * dsum_v)
             if built in events:
                 if oob:
                     # DRF scores its out-of-bag votes, on the host in f64
@@ -972,6 +1076,12 @@ class H2OSharedTreeEstimator(H2OEstimator):
                                else "training_deviance", np.nan)
                 if stopper.record(v):
                     break
+        for i, s in enumerate(dart_scales):
+            if s != 1.0:
+                # bake the round's DART scale into its stored leaf values
+                for k in range(K):
+                    trees[k][i] = trees[k][i]._replace(
+                        value=trees[k][i].value * _f32(s, dev))
         if dense_rebuilds:
             _log.warning(
                 "%d of %d trees overflowed the compact-node cap %d and were "
@@ -988,6 +1098,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
                                 tp["max_depth"], dev, mode=self._mode)
         model.compact_cap = compact_cap
         model.dense_rebuilds = dense_rebuilds
+        if dart is not None:
+            model.dart_scales = dart_scales   # per round, baked into values
         model._npad = npad     # CV passes this to re-bin folds as _npad_floor
         model.scoring_history = ScoringHistory(history)
         gain_total = gains.cpu().numpy().astype(np.float64)

@@ -100,8 +100,13 @@ def _fused_level_best(hist, node_ok, feat_mask, keep, nbins: int, min_rows,
 def _leaf_totals(ids: torch.Tensor, vals3: torch.Tensor, nseg: int,
                  n_shard_blocks: int = 0) -> torch.Tensor:
     """Per-cell {Σw, Σg·w, Σh·w} totals of the final level, (nseg, 3); with
-    ``n_shard_blocks`` per contiguous row block, folded in block order."""
+    ``n_shard_blocks`` per contiguous row block, folded in block order. On
+    the card the sums are exact integer sums (`_fixed_totals`): float
+    `index_add_` there adds with atomics in an order that changes from run
+    to run, and a fit must give the same leaf values every time."""
     def one(ids_b, vals_b):
+        if vals_b.is_cuda:
+            return _fixed_totals(ids_b.to(torch.int64), vals_b, nseg)
         return torch.zeros((nseg, 3), dtype=torch.float32,
                            device=vals_b.device).index_add_(0, ids_b.to(torch.int64),
                                                             vals_b.t())
@@ -111,6 +116,31 @@ def _leaf_totals(ids: torch.Tensor, vals3: torch.Tensor, nseg: int,
             one(ids[b * rows:(b + 1) * rows], vals3[:, b * rows:(b + 1) * rows])
             for b in range(n_shard_blocks)]))
     return one(ids, vals3)
+
+
+def _fixed_totals(ids: torch.Tensor, vals3: torch.Tensor,
+                  nseg: int) -> torch.Tensor:
+    """(nseg, 3) f32 per-cell sums of vals3 (3, N), order-free: each
+    channel is scaled by a power of two that leaves its N-row sum below
+    2^62, rounded to int64 and summed with integer adds (exact in any
+    order), then scaled back and rounded once to f32. A value's rounding
+    error is at most N·max|v|/2^63, far below f32's. A channel holding a
+    NaN or an infinity sums to NaN in every cell."""
+    n = vals3.shape[1]
+    if n == 0:
+        return torch.zeros((nseg, 3), dtype=torch.float32, device=vals3.device)
+    top = vals3.abs().amax(dim=1).to(torch.float64)
+    finite = torch.isfinite(top)
+    _, e = torch.frexp(torch.where(finite, top, 0.0))             # max < 2^e
+    bits = 62 - max(n, 1).bit_length()
+    scale = torch.ldexp(torch.ones(3, dtype=torch.float64, device=vals3.device),
+                        bits - e)
+    q = torch.round(torch.where(finite[:, None], vals3.to(torch.float64), 0.0)
+                    * scale[:, None]).to(torch.int64)
+    acc = torch.zeros((nseg, 3), dtype=torch.int64,
+                      device=vals3.device).index_add_(0, ids, q.t())
+    out = (acc.to(torch.float64) / scale).to(torch.float32)
+    return torch.where(finite[None, :], out, float("nan"))
 
 
 def value_at(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,10 @@ distribution's link, and GLM artifacts by the reference's numpy expansion
 and matvec in f64 (a multinomial one through a softmax).
 A stacked ensemble is written as its `meta` with a child payload per base
 model (`base{i}/`) and one for the metalearner (`meta/`); `MojoScorer`
-scores it by building the level-one frame from its children.
+scores it by building the level-one frame from its children. An XGBoost
+model is one of these under algo "xgboost": a tree payload for gbtree,
+DART (its round scales baked into the leaf values) and lambdarank, a GLM
+payload for gblinear.
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
 scorer). The reference's native C++ scorer (`native/loader.py`) and the other

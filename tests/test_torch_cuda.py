@@ -418,3 +418,55 @@ def test_16bit_fit_on_cuda_matches_cpu(dev, algo, levels):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     assert int((a.is_split & (a.feat == 0) & (a.bin >= 255)).sum()) > 0
     torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5, atol=1e-5)
+
+
+def test_xgboost_on_cuda_is_repeatable_and_matches_cpu(dev, monkeypatch):
+    """XGBoost on the card: two DART fits with the same seed give the same
+    forest bit for bit (the leaf totals add in a fixed order on the card),
+    every row reaches the CPU fit's leaf, and the lambdarank pass equals
+    the CPU's within 1e-6 of the largest |g| and h, its chunkings bit for
+    bit."""
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+    from h2o3_tpu_torch.models import xgboost as xgb
+    from h2o3_tpu_torch.models.tree import Tree, forest_leaves
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(3000, 8)).astype(np.float32)
+    y = ((X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.normal(size=3000)) > 0)
+    d = {f"f{i}": X[:, i] for i in range(8)}
+    d["y"] = y.astype(int).astype(str)
+    fr = Frame.from_dict(d, column_types={"y": "enum"})
+    params = dict(booster="dart", rate_drop=0.3, one_drop=True, ntrees=8,
+                  max_depth=4, seed=11)
+    fits = []
+    for device in (str(dev), str(dev), "cpu"):
+        est = H2OXGBoostEstimator(device=device, **params)
+        est.train(y="y", training_frame=fr)
+        fits.append(est.model)
+    a, b, c = fits
+    for fa, fb in zip(a.forest[0], b.forest[0]):
+        assert torch.equal(fa, fb)
+    Xf = torch.from_numpy(X.astype(np.float64))
+    ta, tc = (Tree(*[f.cpu() for f in m.forest[0]]) for m in (a, c))
+    assert torch.equal(forest_leaves(ta, Xf, 4), forest_leaves(tc, Xf, 4))
+    torch.testing.assert_close(ta.value, tc.value, rtol=0, atol=1e-5)
+
+    sizes = rng.integers(1, 300, 80)
+    qid = np.repeat(np.arange(80), sizes)
+    rel = rng.integers(0, 5, len(qid)).astype(np.float64)
+    m = np.round(rng.normal(size=len(qid) + 8), 1).astype(np.float32)
+    on_cpu = xgb._make_lambdarank(qid, rel, 10, torch.device("cpu"))(
+        torch.from_numpy(m), None)
+    outs = []
+    for consts in ({}, dict(PAIR_CHUNK=5000),
+                   dict(PAIR_CHUNK=1 << 62, PAD_GROWTH=float("inf"))):
+        with monkeypatch.context() as mp:
+            for name, value in consts.items():
+                mp.setattr(xgb, name, value)
+            outs.append(xgb._make_lambdarank(qid, rel, 10, dev)(
+                torch.from_numpy(m).to(dev), None))
+    for got, want in zip(outs[0], on_cpu):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+    for other in outs[1:]:
+        assert all(torch.equal(p, q) for p, q in zip(outs[0], other))
