@@ -295,6 +295,29 @@ holdout prediction.
    1e-6 with no fallback, and their MOJOs within 1e-5. The phase's wall,
    summed over its five places, is printed.
 
+32. DeepLearning (`H2ODeepLearningEstimator`), last. (a) An MNIST-shaped
+   frame (`make_mnist_like`: 60,000 training and 10,000 validation rows of
+   784 integer pixel columns in 0-255, 10 balanced classes; the 67 corner
+   pixels are zero in every row, as MNIST's are, so `ignore_const_cols`
+   keeps 717 columns; about 19 % of the pixels are nonzero; each class a
+   template of strokes, shifted by up to a pixel, with noise) fitted at
+   the defaults (Rectifier, hidden [200, 200], ADADELTA, mini-batch 32)
+   for DL_EPOCHS epochs (cut from 10): the fit's wall split into the host
+   pack, upload, expansion, step loop and scoring events; steps and
+   samples/s; launches a step and the device's busy share of a step from
+   two profiled fits on DL_PROFILE_ROWS rows (DL_PROFILE_EPOCHS, one
+   chunk each) differenced; no hand-written kernel launched; validation
+   logloss below the priors' (ln 10) and the accuracy. (c) Its
+   `predict` of the validation frame against its MOJO (within 1e-5), and
+   one batch served through `ScoringEngine` (within 1e-6 of `predict`).
+   (b) Card against CPU on small frames (Rectifier, Tanh, Maxout and
+   RectifierWithDropout with input dropout, momentum SGD with l1 and l2,
+   ADADELTA with max_w2, a regression, a weighted poisson fit and the
+   autoencoder): the initial weights, a chunk's permutation and its first
+   step's dropout masks equal bit for bit; predictions within DL_CARD_TOL;
+   the autoencoder's `anomaly` on the card within DL_CARD_TOL of the
+   CPU's. TF32 stays off. The phase's wall is printed.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
 them again before their `predict`; phase 20 is the TreeSHAP path's; phases
@@ -302,10 +325,12 @@ them again before their `predict`; phase 20 is the TreeSHAP path's; phases
 their own; phase 30's stack `predict` is its own; each of phase 31's
 fits, its `predict` and its contributions are their own; the GLM and
 gblinear run none of the hand-written kernels, and phases 17, 18, 26, 30
-and 31(d) fail if they launched one).
+and 31(d) fail if they launched one; so does phase 32's DeepLearning
+fit).
 TF32 must stay off
-through phases 17-19, 30 and 31(d). The last line is {"ok": true, "device": {...}}; the
-line before it is the kernel table as JSON.
+through phases 17-19, 30, 31(d) and 32. The last line is
+{"ok": true, "device": {...}}; the line before it is the kernel table as
+JSON.
 """
 
 from __future__ import annotations
@@ -4370,6 +4395,365 @@ def xgb_small_checks(dev, card):
         raise AssertionError("phase 31(f): " + "; ".join(bad))
     return out
 
+# phase 32: DeepLearning on an MNIST-shaped frame (LeCun et al., "Gradient-
+# based learning applied to document recognition", 1998; the MNIST page:
+# 60,000 training and 10,000 test images of 28 x 28 pixels in 0-255, ten
+# digits). H2O's DeepLearning benchmark trains on it as a 784-column frame;
+# 67 of its pixels (the corners) are zero in every training image, so
+# ignore_const_cols keeps 717 columns. DL_EPOCHS is cut from the
+# estimator's default 10 to keep the smoke's wall (tools/dl_mnist.py runs
+# the default); the width is the default's
+DL_ROWS, DL_VALID, DL_CLASSES, DL_SIDE = 60_000, 10_000, 10, 28
+DL_KEEP_PIXELS = 717
+DL_EPOCHS = 3.0
+DL_PROFILE_ROWS, DL_PROFILE_EPOCHS = 2_000, (0.8, 2.4)   # 50, 150 steps
+DL_PROFILE_PAUSE = 0.5
+DL_CARD_TOL = 1e-4
+PHASE32_WALLS: dict = {}
+
+
+def make_mnist_like(n: int, seed: int):
+    """An MNIST-shaped frame: `n` rows of 784 pixel columns C1..C784
+    (integers in 0-255, row-major 28 x 28) and a 10-class `label`, the
+    classes balanced. Pixels outside the DL_KEEP_PIXELS nearest the centre
+    are zero in every row. Each class has a template of strokes (short
+    random walks covering about a fifth of the kept pixels); a row turns
+    on 70 % of its class template and 25 % of another class's (a
+    confusable digit), both shifted by up to one pixel each way, and 3 %
+    of the other kept pixels, at intensities in 64-255."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    side = DL_SIDE
+    r, c = np.divmod(np.arange(side * side), side)
+    dist = np.hypot(r - (side - 1) / 2, c - (side - 1) / 2)
+    keep = np.zeros(side * side, bool)
+    keep[np.argsort(dist, kind="stable")[:DL_KEEP_PIXELS]] = True
+    law = np.random.default_rng(1_000)
+    templates = np.zeros((DL_CLASSES, side, side), bool)
+    for k in range(DL_CLASSES):
+        while templates[k].reshape(-1)[keep].mean() < 0.18:
+            y0, x0 = law.integers(6, side - 6, 2)
+            for dy, dx in law.integers(-1, 2, (24, 2)):
+                y0, x0 = np.clip(y0 + dy, 3, side - 4), np.clip(x0 + dx, 3,
+                                                                side - 4)
+                templates[k, y0 - 1:y0 + 1, x0 - 1:x0 + 1] = True
+    rng = np.random.default_rng(seed)
+    label = rng.permutation(np.arange(n) % DL_CLASSES)
+    other = (label + rng.integers(1, DL_CLASSES, n)) % DL_CLASSES
+    shift = rng.integers(-1, 2, (n, 2))
+
+    def strokes(cls, share):
+        out = np.zeros((n, side * side), bool)
+        for k in range(DL_CLASSES):
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    rows = np.nonzero((cls == k) & (shift[:, 0] == dy)
+                                      & (shift[:, 1] == dx))[0]
+                    out[rows] = np.roll(templates[k], (dy, dx),
+                                        axis=(0, 1)).reshape(-1)
+        return out & (rng.random(out.shape, np.float32) < share)
+
+    on = strokes(label, 0.7) | strokes(other, 0.25)
+    on |= rng.random(on.shape, np.float32) < 0.03
+    on &= keep
+    px = np.where(on, rng.integers(64, 256, on.shape, np.uint8),
+                  np.uint8(0))
+    cols = {f"C{j + 1}": px[:, j] for j in range(side * side)}
+    cols["label"] = label.astype(np.int64)
+    return Frame.from_dict(cols, column_types={"label": "enum"})
+
+
+def _dl_probs(frame) -> np.ndarray:
+    return np.column_stack([np.asarray(frame.vec(n).data, np.float64)
+                            for n in frame.names if n != "predict"])
+
+
+def _dl_launches(dev, fr):
+    """Per fit of DL_PROFILE_EPOCHS on `fr`, both under one torch.profiler
+    session (a session costs seconds to start): (CUDA kernels, device busy
+    µs, steps, step-loop s, kernels by name). The fits' device events part
+    at the widest gap of the timeline, a pause of DL_PROFILE_PAUSE s made
+    between them (a fit's own gaps are host work of milliseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from h2o3_tpu_torch.estimators import H2ODeepLearningEstimator
+
+    # one chunk and one scoring event whatever the epochs
+    ests = [H2ODeepLearningEstimator(epochs=e, seed=42, device=str(dev),
+                                     train_samples_per_iteration=10 ** 9)
+            for e in DL_PROFILE_EPOCHS]
+    # the device's activity only: recording every host op of the steps
+    # as well cost seconds a fit
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, est in enumerate(ests):
+            if i:
+                time.sleep(DL_PROFILE_PAUSE)
+            est.train(y="label", training_frame=fr)
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    gaps = [events[j + 1].time_range.start - events[j].time_range.end
+            for j in range(len(events) - 1)]
+    cut = int(np.argmax(gaps)) + 1
+    if gaps[cut - 1] < DL_PROFILE_PAUSE * 1e6 / 2:
+        raise AssertionError("phase 32: the profiled fits' events do not "
+                             "part at the pause")
+    out = []
+    for est, part in zip(ests, (events[:cut], events[cut:])):
+        busy, end = 0.0, -math.inf
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in part):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        out.append((len(part), busy, est.model.iterations,
+                    est.model.fit_timings["steps_s"],
+                    Counter(e.name[:60] for e in part)))
+    return out
+
+
+def dl_mnist_path(dev, card):
+    """Phase 32 (a) and (c): the MNIST-shaped fit at full width; returns
+    its record."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import H2ODeepLearningEstimator
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    tf32_off()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fr, fv = make_mnist_like(DL_ROWS, 0), make_mnist_like(DL_VALID, 1)
+    gen_s = time.perf_counter() - t0
+    px = np.column_stack([np.asarray(fr.vec(f"C{j + 1}").data)
+                          for j in range(DL_SIDE * DL_SIDE)])
+    nonzero, varying = float((px > 0).mean()), int((px.max(0) > 0).sum())
+    del px
+    print(f"phase 32 frame (MNIST's shape): {DL_ROWS} + {DL_VALID} rows x "
+          f"{DL_SIDE * DL_SIDE} pixels, {DL_CLASSES} classes, {varying} "
+          f"pixels not constant, {nonzero * 100:.2f} % nonzero; generated "
+          f"in {gen_s:.2f} s", flush=True)
+    print(f"phase 32 cut: {DL_EPOCHS:g} epochs of the default 10; full "
+          "width (hidden [200, 200], 717 inputs, mini-batch 32)", flush=True)
+    bad = []
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    est = H2ODeepLearningEstimator(epochs=DL_EPOCHS, seed=42,
+                                   device=str(dev))
+    est.train(y="label", training_frame=fr, validation_frame=fv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = kernel_counts()
+    m = est.model
+    ft = m.fit_timings
+    samples = m.iterations * 32
+    yv = np.asarray(fv.vec("label").data)
+    prior = float(np.log(DL_CLASSES))
+    # launches and busy share a step: two short profiled fits differenced
+    # (the design, the scoring event and the metrics cancel). A step's
+    # work does not depend on the frame's rows, so they fit the first
+    # DL_PROFILE_ROWS rows of the validation frame (all 717 pixels vary)
+    t3 = time.perf_counter()
+    small = fv.take(np.arange(DL_PROFILE_ROWS))
+    prof = _dl_launches(dev, small)
+    profile_s = time.perf_counter() - t3
+    dk, db = prof[1][0] - prof[0][0], prof[1][1] - prof[0][1]
+    dsteps = prof[1][2] - prof[0][2]
+    per_step = {k: v / dsteps for k, v in (prof[1][4] - prof[0][4]).items()
+                if v >= dsteps}
+    step_ms = ft["steps_s"] / m.iterations * 1e3
+    rec = dict(
+        card=card, rows=DL_ROWS, valid_rows=DL_VALID, inputs=len(m.x),
+        params=dict(hidden=[200, 200], epochs=DL_EPOCHS, mini_batch_size=32,
+                    activation="Rectifier", adaptive_rate=True),
+        wall_s=wall, fit_timings=ft, steps=m.iterations,
+        samples_per_s=samples / wall,
+        step_loop_samples_per_s=samples / ft["steps_s"], step_ms=step_ms,
+        scoring_events=len(m.scoring_history),
+        launches_per_step=dk / dsteps,
+        device_us_per_step=db / dsteps,
+        busy_share_of_step=db / dsteps / (step_ms * 1e3),
+        profiled=[dict(epochs=e, kernels=k, busy_us=b, steps=st,
+                       steps_s=ss) for e, (k, b, st, ss, _)
+                  in zip(DL_PROFILE_EPOCHS, prof)], profile_s=profile_s,
+        kernels_per_step=per_step,
+        generator_s=gen_s,
+        peak_bytes=torch.cuda.max_memory_allocated(dev),
+        train_logloss=float(m.logloss()), valid_logloss=float(
+            m.logloss(valid=True)),
+        valid_accuracy=float(m.validation_metrics.accuracy),
+        prior_logloss=prior, kernel_counts=counts)
+    print(f"phase 32(a) on {card}: fit {wall:.3f} s = pack "
+          f"{ft['pack_s']:.3f} + H2D {ft['h2d_s']:.3f} + expand "
+          f"{ft['expand_s']:.3f} + labels {ft['yw_h2d_s']:.3f} + init "
+          f"{ft['init_s']:.3f} + steps {ft['steps_s']:.3f} + scoring "
+          f"{ft['scoring_s']:.3f} + metrics {ft['metrics_s']:.3f}; "
+          f"{m.iterations} steps, {rec['samples_per_s']:.1f} samples/s "
+          f"({rec['step_loop_samples_per_s']:.1f} in the step loop, "
+          f"{step_ms:.4f} ms a step), {rec['launches_per_step']:.2f} launches "
+          f"and {rec['device_us_per_step']:.2f} device µs a step (busy "
+          f"{rec['busy_share_of_step'] * 100:.2f} %); logloss "
+          f"{rec['valid_logloss']:.6f} valid against the priors' "
+          f"{prior:.6f}, accuracy {rec['valid_accuracy']:.4f}", flush=True)
+    if any(counts.values()):
+        bad.append(f"the DeepLearning fit launched a hand-written kernel: "
+                   f"{counts}")
+    if not (rec["valid_logloss"] < prior and rec["train_logloss"] < prior):
+        bad.append("logloss not below the priors'")
+    if m.iterations != -(-int(DL_EPOCHS * DL_ROWS) // 32):
+        bad.append(f"{m.iterations} steps")
+
+    # (c) predict against the MOJO, one served batch
+    t2 = time.perf_counter()
+    pred = m.predict(fv)
+    predict_s = time.perf_counter() - t2
+    probs = _dl_probs(pred)
+    t4 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_dl_") as d:
+        got = mojo.load_model(mojo.save_model(m, d, "dl.h2o3")).predict(fv)
+    mojo_s = time.perf_counter() - t4
+    mojo_err = float(np.abs(_dl_probs(got) - probs).max())
+    engine = ScoringEngine(ServingConfig())
+    try:
+        batch = fv.take(np.arange(100, 357))
+        served = engine.score("mnist_dl", m, batch)
+        snap = engine.snapshot()
+    finally:
+        engine.shutdown()
+    serve_err = float(np.abs(_dl_probs(served)
+                             - _dl_probs(m.predict(batch))).max())
+    rec.update(predict_s=predict_s, mojo_s=mojo_s, mojo_max_abs_err=mojo_err,
+               served_max_abs_err=serve_err,
+               fallback_scores=snap["totals"]["fallback_scores"],
+               predict_accuracy=float((np.asarray(pred.vec("predict").data)
+                                       == yv).mean()))
+    if not np.all(np.isfinite(probs)) or mojo_err > 1e-5:
+        bad.append(f"predict non-finite or {mojo_err:.3e} from the MOJO")
+    if serve_err > 1e-6 or snap["totals"]["fallback_scores"] \
+            or snap["totals"]["errors"]:
+        bad.append(f"served batch {serve_err:.3e} from predict, "
+                   f"{snap['totals']}")
+    print("phase 32 deeplearning mnist: " + json.dumps(rec), flush=True)
+    PHASE32_WALLS["a_c"] = time.perf_counter() - t_phase
+    tf32_off()
+    if bad:
+        raise AssertionError("phase 32(a, c): " + "; ".join(bad))
+    return rec
+
+
+def dl_small_frame(kind: str, n: int, seed: int):
+    """The CPU tests' small frames (tests/test_torch_deeplearning.py):
+    a binary label on 6 normals, a regression on them, weighted poisson
+    counts, and the autoencoder's normals with five planted outliers."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    cols = {f"x{i}": X[:, i] for i in range(6)}
+    if kind == "binomial":
+        logit = X[:, 0] - 1.5 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3]
+        cols["y"] = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(
+            np.int64)
+        return Frame.from_dict(cols, column_types={"y": "enum"})
+    if kind == "regression":
+        cols["y"] = X[:, 0] - 2 * X[:, 1] + np.sin(X[:, 2]) \
+            + 0.1 * rng.normal(size=n)
+    elif kind == "poisson":
+        cols["y"] = rng.poisson(np.exp(0.4 * X[:, 0] - 0.3 * X[:, 1]))
+        cols["w"] = rng.uniform(0.5, 2.0, n)
+    else:
+        X[:5] += 8.0
+        cols = {f"x{i}": X[:, i] for i in range(6)}
+    return Frame.from_dict(cols)
+
+
+DL_SMALL_CASES = {
+    "rectifier": ("binomial", dict(hidden=[32, 32])),
+    "tanh": ("binomial", dict(hidden=[32], activation="Tanh")),
+    "maxout": ("binomial", dict(hidden=[32], activation="Maxout",
+                                input_dropout_ratio=0.1)),
+    "rectifier_dropout": ("binomial", dict(
+        hidden=[32, 16], activation="RectifierWithDropout",
+        input_dropout_ratio=0.2, hidden_dropout_ratios=[0.3, 0.1])),
+    "momentum_l1_l2": ("binomial", dict(
+        hidden=[32], adaptive_rate=False, rate=0.01, momentum_start=0.5,
+        momentum_stable=0.9, l1=1e-4, l2=1e-4)),
+    "adadelta_max_w2": ("binomial", dict(hidden=[32], max_w2=2.0, l1=1e-3)),
+    "regression": ("regression", dict(hidden=[32, 32])),
+    "poisson": ("poisson", dict(hidden=[16], distribution="poisson",
+                                weights_column="w")),
+    "autoencoder": ("autoencoder", dict(autoencoder=True, hidden=[3])),
+}
+
+
+def dl_small_checks(dev, card):
+    """Phase 32(b): card against CPU from the same seed on small frames:
+    the draws bit for bit, predictions within DL_CARD_TOL, the
+    autoencoder's `anomaly` on the card."""
+    from h2o3_tpu_torch.estimators import H2ODeepLearningEstimator
+    from h2o3_tpu_torch.models import deeplearning as dl
+    from h2o3_tpu_torch.ops import prng
+
+    tf32_off()
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    # the draws: the initial weights, a chunk's permutation (two sort
+    # rounds above 1625 rows) and one step's masks, card against CPU
+    key = prng.split(prng.PRNGKey(42))[1]
+    for sizes, act in (([717, 200, 200, 10], "Rectifier"),
+                       ([6, 32, 2], "Maxout")):
+        a, b = (dl._init_params(key, sizes, act, d) for d in (dev, "cpu"))
+        if not all(torch.equal(x.cpu(), y) for p, q in zip(a, b)
+                   for x, y in zip(p, q)):
+            bad.append(f"initial weights of {sizes} differ")
+    for n in (1200, DL_ROWS):
+        if not torch.equal(prng.permutation(key, n, dev).cpu(),
+                           prng.permutation(key, n, "cpu")):
+            bad.append(f"the permutation of {n} rows differs")
+    for ratio, shape in ((0.2, (128, 6)), (0.5, (32, 200)), (0.1, (32, 717))):
+        sub = prng.split(key, 7)[3]
+        if not torch.equal(prng.bernoulli(sub, 1 - ratio, shape, dev).cpu(),
+                           prng.bernoulli(sub, 1 - ratio, shape, "cpu")):
+            bad.append(f"the dropout mask {shape} at {ratio} differs")
+    for name, (kind, params) in DL_SMALL_CASES.items():
+        fr = dl_small_frame(kind, 1200, 7)
+        params = dict(params, epochs=5, seed=5, mini_batch_size=128)
+        kw = dict(x=fr.names) if kind == "autoencoder" else dict(y="y")
+        fits = {}
+        for d in (str(dev), "cpu"):
+            est = H2ODeepLearningEstimator(device=d, **params)
+            est.train(training_frame=fr, **kw)
+            fits[d] = est.model
+        a, b = fits[str(dev)], fits["cpu"]
+        pa, pb = a.predict(fr), b.predict(fr)
+        cols = [c for c in pa.names if c != "predict"] or ["predict"]
+        diff = max(float(np.abs(np.asarray(pa.vec(c).data, np.float64)
+                                - np.asarray(pb.vec(c).data,
+                                             np.float64)).max())
+                   for c in cols)
+        rec = dict(max_predict_diff=diff, steps=a.iterations)
+        if kind == "autoencoder":
+            an = a.anomaly(fr).vec("Reconstruction.MSE").numeric_np()
+            bn = b.anomaly(fr).vec("Reconstruction.MSE").numeric_np()
+            rec["max_anomaly_diff"] = float(np.abs(an - bn).max())
+            rec["planted_in_top8"] = int(len(set(np.argsort(-an)[:8])
+                                             & set(range(5))))
+            diff = max(diff, rec["max_anomaly_diff"])
+        out[name] = rec
+        if not diff <= DL_CARD_TOL:
+            bad.append(f"{name}: card and CPU {diff:.3e} apart")
+    PHASE32_WALLS["b"] = time.perf_counter() - t_phase
+    print(f"phase 32(b) on {card}, card vs cpu (tolerance {DL_CARD_TOL}): "
+          + json.dumps(out), flush=True)
+    tf32_off()
+    if bad:
+        raise AssertionError("phase 32(b): " + "; ".join(bad))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4466,6 +4850,11 @@ def main() -> int:
     xgb_small_checks(dev, card)
     print("phase 31 wall: " + json.dumps(dict(
         PHASE31_WALLS, total_s=sum(PHASE31_WALLS.values()))), flush=True)
+    # phase 32: DeepLearning on an MNIST-shaped frame, then card vs CPU
+    dl_mnist_path(dev, card)
+    dl_small_checks(dev, card)
+    print(f"phase 32 wall on {card}: " + json.dumps(dict(
+        PHASE32_WALLS, total_s=sum(PHASE32_WALLS.values()))), flush=True)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)

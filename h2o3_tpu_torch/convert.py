@@ -14,6 +14,12 @@ class, (K, p+1), for a multinomial model), its family and response domain,
 and the state of its `DataInfo`: the column spec, the coefficient names,
 the standardization stats, the imputation means and the transfer groups
 frozen at fit. `glm_from_numpy` builds the port's `GLMModel` from them.
+
+A DeepLearning model's weights are its layers' (W, b) pairs (W of shape
+(fan_in, units), a Maxout hidden layer with twice the units of the next
+layer's fan-in), its activation, problem, class count, response domain
+and distribution, with the same `DataInfo` state. `dl_from_numpy` builds
+the port's `DeepLearningModel` from them.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from . import device as devlib
 from .frame.binning import BinnedMatrix
 from .models import tree as treelib
+from .models.deeplearning import ACTIVATIONS, DeepLearningModel
 from .models.glm import FAMILIES, GLMModel
 from .models.model_base import DataInfo
 from .models.shared_tree import SharedTreeModel
@@ -137,3 +144,55 @@ def glm_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
     if algo:
         model.algo = algo
     return model
+
+
+def dl_from_numpy(*, net_params, activation: str, problem: str,
+                  x: Sequence[str], y: Optional[str], spec,
+                  coef_names: Sequence[str], nclass: int = 0,
+                  domain: Optional[List[str]] = None,
+                  distribution: str = "gaussian", means=None, stds=None,
+                  col_means=None, transfer_groups=None,
+                  standardize: bool = True, use_all: bool = True,
+                  device=None) -> DeepLearningModel:
+    """Port DeepLearning model from a reference model's state: `net_params`
+    its (W, b) numpy pairs in layer order; `problem` one of "binomial",
+    "multinomial", "regression" and "autoencoder", with `nclass` and the
+    response `domain` of a classifier and the resolved `distribution`
+    (poisson scores exp of the output); `spec`, `coef_names`,
+    `means`/`stds`, `col_means` and `transfer_groups` the `DataInfo` state,
+    as for `glm_from_numpy`. The layer shapes must chain from the
+    coefficient count to the output width of the problem."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
+    out_width = {"binomial": nclass, "multinomial": nclass, "regression": 1,
+                 "autoencoder": len(coef_names)}.get(problem)
+    if out_width is None:
+        raise ValueError(f"problem {problem!r}: expected binomial, "
+                         "multinomial, regression or autoencoder")
+    if problem in ("binomial", "multinomial") and (
+            domain is None or len(domain) != nclass):
+        raise ValueError(f"a {problem} model needs nclass levels of domain")
+    pairs = [(np.array(W, np.float32), np.array(b, np.float32))
+             for W, b in net_params]
+    fan_in = len(coef_names)
+    maxout = activation.startswith("Maxout")
+    for i, (W, b) in enumerate(pairs):
+        last = i == len(pairs) - 1
+        if W.ndim != 2 or W.shape[0] != fan_in or b.shape != (W.shape[1],):
+            raise ValueError(f"layer {i}: W {W.shape} and b {b.shape} do not "
+                             f"take {fan_in} inputs")
+        if last and W.shape[1] != out_width:
+            raise ValueError(f"the output layer has {W.shape[1]} units; a "
+                             f"{problem} model needs {out_width}")
+        fan_in = W.shape[1] // 2 if (maxout and not last) else W.shape[1]
+    dinfo = DataInfo.from_state(
+        spec=spec, coef_names=coef_names, standardize=standardize,
+        use_all=use_all, means=means, stds=stds, col_means=col_means,
+        transfer_groups=transfer_groups)
+    if list(x) != dinfo.x:
+        raise ValueError("x must name the spec's columns in order")
+    dev = devlib.resolve(device)
+    params = [(torch.from_numpy(W).to(dev), torch.from_numpy(b).to(dev))
+              for W, b in pairs]
+    return DeepLearningModel(None, x, y, dinfo, problem, nclass, domain,
+                             params, activation, distribution, device=dev)

@@ -6,8 +6,8 @@ parity: `h2o-algos/src/main/java/hex/ensemble/StackedEnsemble.java` /
 non-negative weights by default) trained on the cross-validated holdout
 predictions of the base models (which must share fold assignment and
 `keep_cross_validation_predictions=True`), or on their predictions on a
-`blending_frame`. `metalearner_algorithm` ∈ {AUTO/glm/gbm/drf}; the
-metalearner runs on the ensemble's `device`.
+`blending_frame`. `metalearner_algorithm` ∈ {AUTO/glm/gbm/drf/
+deeplearning}; the metalearner runs on the ensemble's `device`.
 
 A multiclass stack's level-one frame holds each base model's K class
 probabilities (`m{i}_p{k}`), and its default metalearner is the
@@ -16,7 +16,6 @@ which no multinomial fit reads; the port sets it for the binomial and
 regression metalearners only, so the model is the same and the
 multinomial GLM's raise for a user's `non_negative` stays (ROADMAP §C).
 
-Not ported: the `deeplearning` metalearner (ROADMAP queue A, item 10).
 `metalearner_nfolds` and `metalearner_transform` are in the reference's
 defaults but its fit never reads them; the port raises for a value other
 than the default (ROADMAP §C).
@@ -152,9 +151,9 @@ class H2OStackedEnsembleEstimator(H2OEstimator):
 
             meta = H2ORandomForestEstimator(**mp)
         elif algo == "deeplearning":
-            raise NotImplementedError(
-                "metalearner_algorithm='deeplearning' is not ported "
-                "(ROADMAP queue A, item 10: DeepLearning)")
+            from .deeplearning import H2ODeepLearningEstimator
+
+            meta = H2ODeepLearningEstimator(**mp)
         else:
             raise ValueError(f"unknown metalearner_algorithm {algo!r}")
         meta.train(y="__y__", training_frame=lvl1)

@@ -512,6 +512,7 @@ class H2OEstimator:
     `_fit`; unknown kwargs raise like the reference's schema validation."""
 
     algo = "base"
+    supervised = True  # class-level default; see _is_supervised()
     _param_defaults: Dict[str, Any] = {}
     _common_defaults: Dict[str, Any] = dict(
         model_id=None,
@@ -548,6 +549,11 @@ class H2OEstimator:
             return parms[name]
         raise AttributeError(name)
 
+    def _is_supervised(self) -> bool:
+        """Instance-level supervision check — overridable where a parameter
+        flips it (DeepLearning's autoencoder=True)."""
+        return type(self).supervised
+
     def train(
         self,
         x: Optional[Sequence[str]] = None,
@@ -557,7 +563,7 @@ class H2OEstimator:
     ) -> "H2OEstimator":
         if training_frame is None:
             raise ValueError("training_frame is required")
-        if y is None:
+        if self._is_supervised() and y is None:
             raise ValueError(f"{self.algo}: response column y is required")
         if self._parms.get("checkpoint") is not None:
             raise NotImplementedError(
@@ -577,14 +583,16 @@ class H2OEstimator:
             x = [n for n in x if n != y and n not in ignored]
         if self._parms.get("ignore_const_cols", True):
             x = [n for n in x if not _is_const(training_frame.vec(n))]
-        # rows with a missing response are dropped before training
-        na = training_frame.vec(y).isna_np()
-        if na.any():
-            training_frame = training_frame.take(np.nonzero(~na)[0])
-        if validation_frame is not None:
-            nav = validation_frame.vec(y).isna_np()
-            if nav.any():
-                validation_frame = validation_frame.take(np.nonzero(~nav)[0])
+        if self._is_supervised() and y is not None:
+            # rows with a missing response are dropped before training
+            na = training_frame.vec(y).isna_np()
+            if na.any():
+                training_frame = training_frame.take(np.nonzero(~na)[0])
+            if validation_frame is not None:
+                nav = validation_frame.vec(y).isna_np()
+                if nav.any():
+                    validation_frame = validation_frame.take(
+                        np.nonzero(~nav)[0])
         t0 = time.time()
         seed = int(self._parms.get("seed", -1))
         self._parms["_actual_seed"] = 1234 if seed in (-1, None) else seed
@@ -602,7 +610,8 @@ class H2OEstimator:
         # a fold_column triggers CV by itself (its folds are the column's
         # distinct values), for estimators that can cross-validate
         supports_cv = type(self)._cv_predict is not H2OEstimator._cv_predict
-        if nfolds >= 2 or (fold_col and supports_cv):
+        if ((nfolds >= 2 or (fold_col and supports_cv))
+                and self._is_supervised()):
             self._run_cv(model, x, y, training_frame, nfolds)
         model.run_time = time.time() - t0
         self._model = model

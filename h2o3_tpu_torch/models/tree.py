@@ -15,8 +15,8 @@ samples features per node and level with the reference's threefry draws
 
 The TPU reference computes per-row lookups and leaf totals as one-hot
 matmuls (the TPU has no fast gather); here they are true gathers and
-`index_add_`. Not ported yet: monotone constraints (ROADMAP queue A, item
-4) and `build_tree_lossguide` (item 10).
+exact integer sums. Not ported yet: monotone constraints (ROADMAP queue
+A, item 4) and `build_tree_lossguide` (item 10).
 """
 
 from __future__ import annotations
@@ -101,21 +101,19 @@ def _leaf_totals(ids: torch.Tensor, vals3: torch.Tensor, nseg: int,
                  n_shard_blocks: int = 0) -> torch.Tensor:
     """Per-cell {Σw, Σg·w, Σh·w} totals of the final level, (nseg, 3); with
     ``n_shard_blocks`` per contiguous row block, folded in block order. On
-    the card the sums are exact integer sums (`_fixed_totals`): float
-    `index_add_` there adds with atomics in an order that changes from run
-    to run, and a fit must give the same leaf values every time."""
-    def one(ids_b, vals_b):
-        if vals_b.is_cuda:
-            return _fixed_totals(ids_b.to(torch.int64), vals_b, nseg)
-        return torch.zeros((nseg, 3), dtype=torch.float32,
-                           device=vals_b.device).index_add_(0, ids_b.to(torch.int64),
-                                                            vals_b.t())
+    every device the sums are exact integer sums (`_fixed_totals`), rounded
+    once to f32: float `index_add_` adds row by row (a leaf of thousands of
+    rows drifts from the f64 sum) and, on the card, with atomics in an
+    order that changes from run to run. So the CPU and the card give the
+    same leaf values, and a fit gives the same ones every time."""
+    ids = ids.to(torch.int64)
     if n_shard_blocks > 0:
         rows = ids.shape[0] // n_shard_blocks
         return ordered_axis_fold(torch.stack([
-            one(ids[b * rows:(b + 1) * rows], vals3[:, b * rows:(b + 1) * rows])
+            _fixed_totals(ids[b * rows:(b + 1) * rows],
+                          vals3[:, b * rows:(b + 1) * rows], nseg)
             for b in range(n_shard_blocks)]))
-    return one(ids, vals3)
+    return _fixed_totals(ids, vals3, nseg)
 
 
 def _fixed_totals(ids: torch.Tensor, vals3: torch.Tensor,

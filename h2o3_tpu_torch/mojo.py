@@ -18,6 +18,9 @@ coefficient names, flags and imputation means). `MojoScorer` scores tree
 artifacts with the reference's numpy walk, summing in f64, through each
 distribution's link, and GLM artifacts by the reference's numpy expansion
 and matvec in f64 (a multinomial one through a softmax).
+A DeepLearning model is written as its layers' weights and biases
+(`W{i}`, `b{i}`, f32) with the same `DataInfo` state, and scored by the
+reference's numpy forward pass.
 A stacked ensemble is written as its `meta` with a child payload per base
 model (`base{i}/`) and one for the metalearner (`meta/`); `MojoScorer`
 scores it by building the level-one frame from its children. An XGBoost
@@ -27,7 +30,7 @@ payload for gblinear.
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
 scorer). The reference's native C++ scorer (`native/loader.py`) and the other
-algorithms' payloads are not ported yet (ROADMAP queue A, items 10 and
+algorithms' payloads are not ported yet (ROADMAP queue A, items 8, 10 and
 11). Exporting any other model raises the reference's `TypeError`.
 """
 
@@ -46,6 +49,7 @@ FORMAT_VERSION = 1
 
 def _model_payload(model) -> Dict[str, Any]:
     """Extract (meta, arrays) from a trained model."""
+    from .models.deeplearning import DeepLearningModel
     from .models.ensemble import StackedEnsembleModel
     from .models.glm import GLMModel
     from .models.shared_tree import SharedTreeModel
@@ -58,7 +62,7 @@ def _model_payload(model) -> Dict[str, Any]:
             out["children"] = {k: _model_payload(c)
                                for k, c in model.children.items()}
         return out
-    if not isinstance(model, (SharedTreeModel, GLMModel,
+    if not isinstance(model, (SharedTreeModel, GLMModel, DeepLearningModel,
                               StackedEnsembleModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
@@ -90,6 +94,20 @@ def _model_payload(model) -> Dict[str, Any]:
             coef_names=model._names(), standardize=model.dinfo.standardize,
         )
         arrays["beta"] = np.asarray(model.beta, np.float64)
+        if model.dinfo.means is not None:
+            arrays["means"] = model.dinfo.means
+            arrays["stds"] = model.dinfo.stds
+        meta["dinfo"] = _dinfo_meta(model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, DeepLearningModel):
+        meta.update(
+            kind="deeplearning", problem=model.problem, nclass=model.nclass,
+            domain=model.domain, activation=model.activation,
+            distribution=model.distribution, n_layers=len(model.net_params),
+        )
+        for i, (W, b) in enumerate(model.net_params):
+            arrays[f"W{i}"] = W.cpu().numpy()
+            arrays[f"b{i}"] = b.cpu().numpy()
         if model.dinfo.means is not None:
             arrays["means"] = model.dinfo.means
             arrays["stds"] = model.dinfo.stds
@@ -306,6 +324,48 @@ class MojoScorer:
             eta = np.exp(eta)
         return Frame.from_dict({"predict": eta})
 
+    def _deeplearning_predict(self, data):
+        """The reference's numpy forward pass (f32 weights, f64 rows): the
+        hidden activations, then a softmax, exp for the log-link families,
+        or the output as it is. An autoencoder's artifact gives its
+        reconstruction as the model's `predict` does (`reconstr_<coef>`
+        columns; the reference's scorer keeps only the first column, under
+        "predict")."""
+        from .frame.frame import Frame
+
+        meta = self.meta
+        h = self._expand_dinfo(data)
+        L = meta["n_layers"]
+        act = meta["activation"].replace("WithDropout", "")
+        for i in range(L):
+            z = h @ self.arrays[f"W{i}"] + self.arrays[f"b{i}"]
+            if i < L - 1:
+                if act == "Rectifier":
+                    h = np.maximum(z, 0)
+                elif act == "Tanh":
+                    h = np.tanh(z)
+                else:  # Maxout
+                    h = z.reshape(z.shape[0], -1, 2).max(axis=2)
+            else:
+                h = z
+        problem = meta["problem"]
+        if problem == "autoencoder":
+            return Frame.from_dict(
+                {f"reconstr_{n}": h[:, i]
+                 for i, n in enumerate(meta["dinfo"]["coef_names"])})
+        if problem in ("binomial", "multinomial"):
+            e = np.exp(h - h.max(axis=1, keepdims=True))
+            probs = e / e.sum(axis=1, keepdims=True)
+            dom = meta["domain"]
+            d = {"predict": np.asarray(dom, dtype=object)[probs.argmax(axis=1)]}
+            for i, cls in enumerate(dom):
+                d[str(cls)] = probs[:, i]
+            return Frame.from_dict(d, column_types={"predict": "enum"})
+        out = h[:, 0]
+        if meta["distribution"] in ("poisson", "gamma", "tweedie"):
+            out = np.exp(out)
+        return Frame.from_dict({"predict": out})
+
     def _ensemble_predict(self, data):
         """A stacked ensemble: each base child scores the rows, its class
         probabilities (or values) form the level-one frame, and the
@@ -375,6 +435,8 @@ class MojoScorer:
             return self._glm_predict(data)
         if meta["kind"] == "stackedensemble":
             return self._ensemble_predict(data)
+        if meta["kind"] == "deeplearning":
+            return self._deeplearning_predict(data)
         if meta["kind"] != "tree":
             raise NotImplementedError(
                 f"scoring a {meta['kind']!r} artifact is not ported "

@@ -18,7 +18,9 @@ Layout as in `jax/_src/prng.py` (jax 0.9.0, `jax_threefry_partitionable`):
 `split(key, n)[i] = threefry(key, (0, i))`; `fold_in(key, d) =
 threefry(key, (0, d))`; `random_bits(key, shape)[i] = x0 ^ x1` of
 `threefry(key, (i >> 32, i & 0xFFFFFFFF))`; `uniform` keeps the top 23
-bits as the mantissa of a float in [1, 2) and subtracts 1.
+bits as the mantissa of a float in [1, 2) and subtracts 1; `bernoulli`
+compares a uniform draw with p; `permutation` sorts by random bits, as
+`jax.random.permutation` does.
 """
 
 from __future__ import annotations
@@ -82,8 +84,45 @@ def random_bits(key: Key, shape: Sequence[int],
 
 
 def uniform(key: Key, shape: Sequence[int],
-            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """`jax.random.uniform(key, shape)`: float32 in [0, 1)."""
+            device: Union[str, torch.device] = "cpu",
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`: float32 in
+    [minval, maxval). The bounds are rounded to f32, and the [0, 1) floats
+    become `max(minval, floats * (maxval − minval) + minval)`. XLA on the
+    CPU contracts that multiply-add into one FMA, a single rounding; here
+    it is computed in f64, where the product and the sum are exact (at
+    most 47 significant bits), and rounded once to f32, the same bits on
+    every device."""
     bits = random_bits(key, shape, device)
     one = (bits >> 9) | 0x3F800000
-    return one.to(torch.int32).view(torch.float32) - 1.0
+    floats = one.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    fma = (floats.double() * span.double() + lo.double()).float()
+    return torch.maximum(lo, fma)
+
+
+def bernoulli(key: Key, p: float, shape: Sequence[int],
+              device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)` for a Python float `p` (mode
+    "low"): with 64-bit mode off `p` is an f32, so the draw is
+    `uniform(key, shape) < f32(p)`."""
+    return uniform(key, shape, device) < torch.tensor(
+        p, dtype=torch.float32, device=device)
+
+
+def permutation(key: Key, n: int,
+                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """`jax.random.permutation(key, n)`: a shuffle of arange(n) (int64), by
+    jax's `_shuffle`: ceil(3·ln n / ln(2^32 − 1)) rounds (one up to n =
+    1625, two above), each drawing fresh 32-bit sort keys for the current
+    order from `split(key)`'s second key and sorting stably by them."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_MASK)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,), device), stable=True)[1]
+        x = x[order]
+    return x

@@ -20,11 +20,12 @@ Two layers of reuse:
    `_margins` pads to `SCORE_ROW_BUCKET` itself, so the sub-512 buckets
    share one device shape.
 
-Output kinds: "predict" is served for every port model (GBM, DRF and GLM,
-whose `predict` pads its own design to `SCORE_ROW_BUCKET` rows);
+Output kinds: "predict" is served for every port model (GBM, DRF, GLM,
+whose `predict` pads its own design to `SCORE_ROW_BUCKET` rows, XGBoost and
+DeepLearning, whose `predict` scores the padded batch on the device);
 "contributions" (TreeSHAP) and "leaves" (leaf node assignment) for GBM and
-DRF. A model without the method (GLM) raises the reference's
-`ValueError`. A contributions fallback scores with the MOJO scorer's
+DRF. A model without the method (GLM, DeepLearning) raises the reference's
+`ValueError`. A predict fallback scores with the model's MOJO scorer. A contributions fallback scores with the MOJO scorer's
 `predict_contributions`; a leaves fallback with the model's own method.
 """
 

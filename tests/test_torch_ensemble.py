@@ -12,9 +12,10 @@ training metrics the metalearner's and its validation metrics the
 reference's. The port raises where it does not follow the reference: a
 multinomial metalearner given a parameter its fit would ignore (the GLM
 names item 8; the multiclass stack itself is held in
-`tests/test_torch_glm_multinomial.py`), the `deeplearning` metalearner
-(item 10), and `metalearner_nfolds` / `metalearner_transform`, which the
-reference accepts and ignores.
+`tests/test_torch_glm_multinomial.py`), a `deeplearning` metalearner
+given a parameter the reference's DeepLearning ignores (item 10; the
+metalearner itself stacks as the reference's), and `metalearner_nfolds` /
+`metalearner_transform`, which the reference accepts and ignores.
 """
 
 import numpy as np
@@ -215,11 +216,27 @@ def test_multinomial_ensemble_raises_item_8():
         se.train(y="y", training_frame=fr)
 
 
-def test_deeplearning_metalearner_raises_item_10(fits):
+def test_deeplearning_metalearner_raises_item_10(fits, cloud1):
+    """The `deeplearning` metalearner stacks as the reference's (the same
+    level-one frame, the same seeded network: predictions within 1e-5);
+    given a parameter the reference's DeepLearning ignores, it raises
+    naming item 10."""
     fx = fits["binomial"]
+    params = dict(hidden=[8], epochs=5, seed=3, mini_batch_size=64)
+    train = dict(ref=frames("binomial", 0, 600)[0], port=fx["port_train"])
+    preds = {}
+    for pkg, mod, dev in (("ref", ref_est, {}),
+                          ("port", port_est, dict(device="cpu"))):
+        se = mod.H2OStackedEnsembleEstimator(
+            base_models=fx[pkg]["bases"], metalearner_algorithm="deeplearning",
+            metalearner_params=dict(params), **dev)
+        se.train(y="y", training_frame=train[pkg])
+        assert type(se.model.meta).__name__ == "H2ODeepLearningEstimator"
+        preds[pkg] = _pred(se.predict(fx[f"{pkg}_test"]), "binomial")
+    np.testing.assert_allclose(preds["port"], preds["ref"], rtol=0, atol=TOL)
     se = port_est.H2OStackedEnsembleEstimator(
         base_models=fx["port"]["bases"], metalearner_algorithm="deeplearning",
-        device="cpu")
+        metalearner_params=dict(params, reproducible=True), device="cpu")
     with pytest.raises(NotImplementedError, match="queue A, item 10"):
         se.train(y="y", training_frame=fx["port_train"])
 

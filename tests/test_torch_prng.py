@@ -81,3 +81,45 @@ def test_f32_rate_comparison_matches_reference():
     assert np.array_equal(ref, got)
     with pytest.raises(ValueError):
         prng.PRNGKey(-1)
+
+
+@pytest.mark.parametrize("fan_in,out_dim", [(8, 32), (32, 64), (717, 200),
+                                            (200, 400), (6, 3)])
+def test_uniform_bounds_bit_equal(fan_in, out_dim):
+    """DeepLearning's initial weights: `uniform(key, (fan_in, out_dim),
+    float32, -limit, limit)` with the f32 limit sqrt(6 / (fan_in +
+    out_dim)) (reference `deeplearning.py:67-80`); XLA's CPU fuses the
+    scale and shift into one FMA, which `prng.uniform` rounds alike."""
+    k = jax.random.fold_in(jax.random.PRNGKey(fan_in), out_dim)
+    limit = jnp.sqrt(6.0 / (fan_in + out_dim))
+    ref = np.asarray(jax.random.uniform(k, (fan_in, out_dim), jnp.float32,
+                                        -limit, limit))
+    lim = float(np.sqrt(np.float32(6.0 / (fan_in + out_dim))))
+    got = prng.uniform(_key(k), (fan_in, out_dim), minval=-lim,
+                       maxval=lim).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(ref.view(np.uint32), got.view(np.uint32))
+
+
+@pytest.mark.parametrize("p", [0.5, 1 - 0.1, 1 - 0.2, 1 - 0.3])
+def test_bernoulli_bit_equal(p):
+    """Dropout's keep masks, `bernoulli(key, 1 - ratio, shape)`: a Python
+    float p is an f32 under 64-bit mode off (the reference's dtype), so the
+    draw is `uniform < f32(p)`."""
+    k = jax.random.fold_in(jax.random.PRNGKey(17), int(p * 100))
+    assert jnp.asarray(p).dtype == jnp.float32
+    for shape in ((128, 6), (32, 717), (64, 33)):
+        ref = np.asarray(jax.random.bernoulli(k, p, shape))
+        got = prng.bernoulli(_key(k), p, shape).numpy()
+        assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize("n", [1, 600, 1625, 1626, 2000, 60000])
+def test_permutation_bit_equal(n):
+    """A DeepLearning chunk's row order, `permutation(key, n)`: one sort
+    round up to n = 1625, two above (jax's `_shuffle`), each a stable sort
+    by fresh 32-bit keys."""
+    k = jax.random.fold_in(jax.random.PRNGKey(23), n)
+    ref = np.asarray(jax.random.permutation(k, n))
+    got = prng.permutation(_key(k), n).numpy()
+    assert np.array_equal(ref, got)
