@@ -3773,6 +3773,9 @@ def small_multinomial_glm_checks(dev, card):
 MSLR_QUERIES, MSLR_DOCS, MSLR_FEAT, MSLR_MAX_DOCS = 31_531, 3_771_125, 136, 1_251
 MSLR_TRAIN_QUERIES = round(MSLR_QUERIES * 3 / 5)
 MSLR_TRAIN_DOCS = round(MSLR_DOCS * 3 / 5)
+# the smoke fits half the fold's queries and documents, to leave phase 33
+# its time (the shape of a query, the features and the labels are kept)
+MSLR_CUT = 2
 # the generator's label shares, falling from 0 to 4 as graded relevance's do
 MSLR_LABEL_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
 XGB_TREES, XGB_DEPTH, XGB_NBINS = 50, 6, 256   # bench.py's trees; defaults
@@ -3806,7 +3809,7 @@ def make_mslr_like(seed: int):
     from h2o3_tpu_torch.frame.frame import Frame
 
     rng = np.random.default_rng(seed)
-    Q, N = MSLR_TRAIN_QUERIES, MSLR_TRAIN_DOCS
+    Q, N = MSLR_TRAIN_QUERIES // MSLR_CUT, MSLR_TRAIN_DOCS // MSLR_CUT
     sizes = np.clip(np.round(rng.gamma(1.5, N / Q / 1.5, Q)), 1,
                     MSLR_MAX_DOCS).astype(np.int64)
     sizes[0] = MSLR_MAX_DOCS
@@ -3896,8 +3899,9 @@ def xgb_rank_path(dev, card):
           f"{np.median(sizes):.0f}, max {sizes.max()}; labels 0-4: "
           f"{np.bincount(rel.astype(int), minlength=5).tolist()}; made in "
           f"{gen_s:.2f} s", flush=True)
-    print(f"phase 31(a) cut: none ({XGB_TREES} trees, bench.py's count)",
-          flush=True)
+    print(f"phase 31(a) cut: 1/{MSLR_CUT} of the fold's {MSLR_TRAIN_QUERIES} "
+          f"queries and {MSLR_TRAIN_DOCS} documents ({XGB_TREES} trees, "
+          "bench.py's count)", flush=True)
     orig = xgb._lambdarank_pass
     events, shapes = [], []
     nonfinite = torch.zeros((), dtype=torch.bool, device=dev)
@@ -4755,6 +4759,419 @@ def dl_small_checks(dev, card):
     return out
 
 
+# phase 33: AutoML and grid search, BASELINE.json config 5 ("H2OAutoML full
+# leaderboard (GBM/DRF/GLM/DeepLearning/StackedEnsemble)") on the
+# HIGGS-shaped frame of phase 4 (28 features, a binary label; cut in rows).
+# (a) runs the reference's whole modeling plan through the train pool on
+# the card: XGBoost_1-3, GLM_1, DRF_1, XRT_1, GBM_1-5, DeepLearning_1-3,
+# the GBM, XGBoost and DeepLearning random grids (three models each) and
+# both stacked ensembles, every base model with AML_FOLDS-fold CV
+# (`tools/automl_higgs.py` runs the same at 100,000 rows). (b) holds a
+# `max_models=6`, 2-fold AutoML and a RandomDiscrete grid of three GBMs on
+# AML_SMALL_ROWS rows to the CPU, and `parallelism=2` to 1 on the card.
+# cut to 2 folds from the reference's 5 to keep the smoke's time
+# (tools/automl_higgs.py runs 5)
+AML_ROWS, AML_FOLDS, AML_SEED = 5_000, 2, 42
+AML_SMALL_ROWS = 2_000
+# card vs CPU, the largest difference of a row's CV AUC, logloss and RMSE,
+# by step (the largest reading on an H100 in brackets; the CPU's GLM sums
+# depend on its thread count, so GLM_1's and the stacks' readings move
+# with AML_CPU_THREADS): B1's fixed-point sums break the near-tied gains
+# of 1,000-row folds at XGBoost's 256 bins otherwise than the CPU's f32
+# sums, so the XGBoost rows' trees part (2.41e-2; tests/test_torch_automl.py
+# sees the same between the packages), and the stacks on them (3.48e-3);
+# the histogram budget clamps DRF_1's and XRT_1's depth 20 to 19 on the
+# card and to 17 on the CPU (`shared_tree._histogram_budget`), so their
+# forests differ by design (5.18e-4); GLM_1's λ path (1.2e-5 on two CPU
+# threads, 1.8e-6 on four; the GLM card bar of β within 1e-4)
+AML_TOLS = (("XGBoost", 3e-2), ("StackedEnsemble", 1e-2), ("DRF", 1e-3),
+            ("XRT", 1e-3), ("GLM", 1e-4))
+# the rows whose fits agree: their CV holdout predictions too (GLM_1
+# 1.62e-4 on two CPU threads, 1.27e-4 on four: its β within 1e-4 moves a
+# probability by more)
+AML_HOLDOUT_TOLS = (("GLM", 5e-4),)
+# the grid's GBMs: training AUC and logloss (6.1e-8) and the predictions
+# on the frame (1.3e-6)
+AML_GRID_TOL = 1e-5
+AML_GRID = dict(max_depth=[2, 3, 4, 5], learn_rate=[0.05, 0.1, 0.2, 0.3])
+AML_TREE_ALGOS = ("gbm", "drf", "xgboost")
+PHASE33_WALLS: dict = {}
+
+
+def automl_frame(rows: int, seed: int):
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    X, y = make_higgs_like(rows, seed=seed)
+    return Frame.from_numpy(np.column_stack([X, y]), names=[
+        f"f{i}" for i in range(N_FEAT)] + ["label"]).asfactor("label")
+
+
+def automl_names(aml) -> list:
+    """The AutoML step name of each leaderboard row, in its order."""
+    return [getattr(r["_est"], "_automl_name", r["model_id"])
+            for r in aml.leaderboard.rows]
+
+
+def automl_family(name: str) -> str:
+    head = name.split("_")[0]
+    head = {"XGBOOST": "XGBoost", "DEEPLEARNING": "DeepLearning"}.get(
+        head, head)
+    return head + (" grid" if "_grid_" in name else "")
+
+
+def automl_plan_names(aml) -> list:
+    """Every base model of the full plan and both ensembles."""
+    steps = [s["name"] for s in aml._steps("binomial")]
+    grids = [f"{g}_grid_1_model_{i}" for g in ("GBM", "XGBOOST",
+                                               "DEEPLEARNING")
+             for i in (1, 2, 3)]
+    return steps + grids + ["StackedEnsemble_BestOfFamily",
+                            "StackedEnsemble_AllModels"]
+
+
+def automl_candidate_memory(dev, mem: dict):
+    """A stand-in for `H2OAutoML._candidate` that records the device bytes
+    each candidate leaves allocated against its model's own: fold models
+    that were not freed (keep_cross_validation_models=False) would show."""
+    from h2o3_tpu_torch.estimators import H2OAutoML
+    from h2o3_tpu_torch.runtime import memory_ledger
+
+    orig = H2OAutoML._candidate
+
+    def candidate(self, name, cls, parms, x, y, training_frame):
+        _, fn = orig(self, name, cls, parms, x, y, training_frame)
+
+        def measured(job):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            est = fn(job)
+            torch.cuda.synchronize()
+            mem[name] = (torch.cuda.memory_allocated(dev) - before,
+                         memory_ledger.measure(est.model)[1])
+            return est
+        return name, measured
+
+    return mock.patch.object(H2OAutoML, "_candidate", candidate)
+
+
+def automl_path(dev, card, rows: int = AML_ROWS, nfolds: int = AML_FOLDS,
+                tag: str = "phase 33(a)"):
+    """Phase 33(a): config 5's full plan through the public API; returns
+    its record."""
+    import shutil
+
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import H2OAutoML
+    from h2o3_tpu_torch.runtime import trainpool
+
+    tf32_off()
+    t_phase = time.perf_counter()
+    fr = automl_frame(rows, AML_SEED)
+    print(f"{tag} frame (HIGGS's shape): {rows} rows x {N_FEAT} features, "
+          f"binary label; cut: {rows} rows of HIGGS's 11,000,000, "
+          f"nfolds {nfolds}, the plan whole", flush=True)
+    bad = []
+    trainpool.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    aml = H2OAutoML(max_runtime_secs=0, seed=AML_SEED, nfolds=nfolds,
+                    device=str(dev))
+    mem: dict = {}
+    t0 = time.perf_counter()
+    with automl_candidate_memory(dev, mem):
+        aml.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    snap = trainpool.snapshot()
+    names = automl_names(aml)
+    board = [dict(name=n, model_id=r["model_id"], algo=r["algo"],
+                  auc=r["auc"], logloss=r["logloss"])
+             for n, r in zip(names, aml.leaderboard.rows)]
+    for i, b in enumerate(board):
+        print(f"{tag} leaderboard {i + 1:2d}: {b['name']:<30} "
+              f"{b['algo']:<16} auc {b['auc']:.6f} logloss "
+              f"{b['logloss']:.6f}", flush=True)
+    cands = [dict(name=c["name"], status=c["status"], wall_s=c["wall_s"],
+                  phases=c["phases"]) for c in snap["candidates"]]
+    for c in cands:
+        print(f"{tag} candidate {c['name']:<26} {c['status']:<6} "
+              f"{c['wall_s']:8.3f} s {json.dumps(c['phases'])}", flush=True)
+    families: dict = {}
+    for c in cands:
+        f = automl_family(c["name"])
+        families[f] = round(families.get(f, 0.0) + c["wall_s"], 4)
+    pool_wall, busy = snap["totals"]["wall_s"], snap["totals"]["busy_s"]
+    rec = dict(rows=rows, nfolds=nfolds, wall_s=wall, models=len(board),
+               family_wall_s=families, pools=snap["totals"]["pools"],
+               pool_wall_s=pool_wall, pool_busy_s=busy,
+               occupancy=busy / max(pool_wall, 1e-9),
+               ensembles_and_rest_s=wall - pool_wall,
+               peak_device_bytes=peak, fit_launches=fit_counts,
+               leader=names[0], leader_auc=board[0]["auc"])
+    errors = [e["message"] for e in aml.event_log.events
+              if e["stage"] in ("error", "budget")]
+    if errors:
+        bad.append(f"failed or skipped steps: {errors}")
+    missing = sorted(set(automl_plan_names(aml)) - set(names))
+    if missing:
+        bad.append(f"steps missing from the leaderboard: {missing}")
+    if not {"xgboost", "glm", "drf", "gbm", "deeplearning",
+            "stackedensemble"} <= {b["algo"] for b in board}:
+        bad.append(f"families {sorted({b['algo'] for b in board})}")
+    aucs = [b["auc"] for b in board]
+    if not all(np.isfinite(aucs)) or aucs != sorted(aucs, reverse=True):
+        bad.append(f"leaderboard not sorted by AUC: {aucs}")
+    # every tree family builds its histograms through B1 (the "auto"
+    # method on the card); nothing of AutoML's goes to B2
+    if fit_counts["hist"] <= 0 or fit_counts["hist_rows"] != 0:
+        bad.append(f"fit launches {fit_counts}")
+    leader = aml.leader
+    bases = (leader._parms.get("base_models") or []
+             if leader.algo == "stackedensemble" else [leader])
+    tree_leader = any(b.algo in AML_TREE_ALGOS for b in bases)
+    zero_counts()
+    t_p = time.perf_counter()
+    pred = aml.predict(fr)
+    torch.cuda.synchronize()
+    rec["predict_s"] = time.perf_counter() - t_p
+    rec["predict_launches"] = kernel_counts()
+    if tree_leader and rec["predict_launches"]["score"] <= 0:
+        bad.append("the leader's predict launched no forest kernel")
+    tmp = tempfile.mkdtemp(prefix="h2o3_aml_")
+    try:
+        path = mojo.save_model(leader, tmp, force=True)
+        got = mojo.load_model(path).predict(fr)
+        rec["mojo_max_abs_err"] = float(np.abs(
+            np.asarray(got.vec("1").data, np.float64)
+            - np.asarray(pred.vec("1").data, np.float64)).max())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not rec["mojo_max_abs_err"] <= 1e-5:
+        bad.append(f"predict {rec['mojo_max_abs_err']:.3e} from the MOJO")
+    # each candidate leaves its model on the card and nothing of its folds;
+    # the slack covers what a library keeps from its first call in the
+    # process (a cuBLAS workspace is 32 MiB: a fresh process's first GLM
+    # and first DeepLearning fit leave one each)
+    rec["candidate_device_bytes"] = {n: dict(left=m[0], model=m[1])
+                                     for n, m in mem.items()}
+    kept = [n for n, (left, model) in mem.items()
+            if left > 1.05 * model + (64 << 20)]
+    if kept or len(mem) != len(cands):
+        bad.append(f"candidates that left more than their model on the "
+                   f"card (fold models kept?): {kept}")
+    print(f"{tag} on {card}: " + json.dumps(rec), flush=True)
+    PHASE33_WALLS["a"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError(f"{tag}: " + "; ".join(bad))
+    return rec
+
+
+AML_CPU: dict = {}       # 33(b)'s CPU side: its child process and files
+# the card phases' host work takes one core of the card's host: the child
+# takes four of the rest, since its DRF_1 and XRT_1 fits scale with threads
+AML_CPU_THREADS = 4
+
+
+def automl_small_frame():
+    return automl_frame(AML_SMALL_ROWS, AML_SEED + 1)
+
+
+def automl_small_aml(device: str, fr):
+    """33(b)'s AutoML on one device, and what 33(b) compares of it: the
+    steps in building order, the leaderboard's order and metrics, the
+    rows' CV holdout predictions."""
+    from h2o3_tpu_torch.estimators import H2OAutoML
+
+    aml = H2OAutoML(max_models=6, nfolds=2, seed=AML_SEED, device=device)
+    aml.train(y="label", training_frame=fr)
+    names = automl_names(aml)
+    return aml, dict(
+        built=[e["message"].split()[1] for e in aml.event_log.events
+               if e["stage"] == "model"],
+        names=names,
+        rows={n: {k: float(r[k]) for k in ("auc", "logloss", "rmse", "mse")}
+              for n, r in zip(names, aml.leaderboard.rows)},
+        holdout={n: r["_est"].model._cv_holdout_pred.tolist()
+                 for n, r in zip(names, aml.leaderboard.rows)
+                 if getattr(r["_est"].model, "_cv_holdout_pred", None)
+                 is not None})
+
+
+def automl_small_grid(device: str, fr, parallelism: int) -> list:
+    """33(b)'s RandomDiscrete grid of three GBMs on one device: each
+    model's combo, training AUC and logloss, and predictions on fr."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2OGridSearch)
+
+    grid = H2OGridSearch(
+        H2OGradientBoostingEstimator(ntrees=20, seed=AML_SEED, device=device),
+        AML_GRID, search_criteria=dict(strategy="RandomDiscrete",
+                                       max_models=3, seed=AML_SEED),
+        parallelism=parallelism)
+    grid.train(y="label", training_frame=fr)
+    return [dict(combo=m._grid_combo, auc=float(m.auc()),
+                 logloss=float(m.logloss()),
+                 predict=np.asarray(m.predict(fr).vec("1").data,
+                                    np.float64).tolist())
+            for m in grid]
+
+
+def automl_cpu_child(out_path: str) -> None:
+    """The child process's entry: 33(b)'s CPU run, its record to out_path."""
+    torch.set_num_threads(AML_CPU_THREADS)
+    t0 = time.perf_counter()
+    fr = automl_small_frame()
+    _, rec = automl_small_aml("cpu", fr)
+    rec = dict(rec, grid=automl_small_grid("cpu", fr, 1),
+               wall_s=time.perf_counter() - t0)
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def automl_cpu_start() -> None:
+    """Start 33(b)'s CPU run in a child process (kept off the card, on
+    AML_CPU_THREADS threads) at phase 33's start, so its minutes overlap
+    33(a) and 33(b)'s card runs and no earlier phase; the smoke reads its
+    record at 33(b) and stops it on any exit."""
+    if AML_CPU:
+        return
+    import atexit
+
+    tmp = tempfile.mkdtemp(prefix="h2o3_aml_cpu_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    out = os.path.join(tmp, "record.json")
+    log = open(os.path.join(tmp, "child.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.automl_cpu_child({out!r})"],
+        cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    AML_CPU.update(proc=proc, dir=tmp, out=out, log=log,
+                   t0=time.perf_counter())
+    atexit.register(automl_cpu_stop)
+
+
+def automl_cpu_stop() -> None:
+    import shutil
+
+    proc = AML_CPU.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if AML_CPU.get("log") is not None:
+        AML_CPU["log"].close()
+    if AML_CPU.get("dir"):
+        shutil.rmtree(AML_CPU["dir"], ignore_errors=True)
+    AML_CPU.clear()
+
+
+def automl_cpu_record(timeout_s: float = 1200.0) -> dict:
+    """Wait for the child's record (it started with phase 33)."""
+    automl_cpu_start()
+    proc = AML_CPU["proc"]
+    try:
+        rc = proc.wait(timeout=timeout_s)
+        AML_CPU["log"].flush()
+        if rc != 0 or not os.path.exists(AML_CPU["out"]):
+            with open(os.path.join(AML_CPU["dir"], "child.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"phase 33(b): the CPU run exited {rc}:\n"
+                                 + tail)
+        with open(AML_CPU["out"]) as f:
+            rec = json.load(f)
+        rec["waited_s"] = time.perf_counter() - AML_CPU["t0"]
+        return rec
+    finally:
+        automl_cpu_stop()
+
+
+def automl_small_checks(dev, card):
+    """Phase 33(b): a max_models=6, 2-fold AutoML and a RandomDiscrete grid
+    of three GBMs on AML_SMALL_ROWS rows, on the card and on the CPU (its
+    run started in a child process at phase 33's start), and the grid again
+    on the card with two candidates in flight."""
+    tf32_off()
+    t_phase = time.perf_counter()
+    fr = automl_small_frame()
+    walls = {}
+    t0 = time.perf_counter()
+    _, crec = automl_small_aml(str(dev), fr)
+    walls["card_automl"] = time.perf_counter() - t0
+    grids = {}
+    for par in (1, 2):
+        t0 = time.perf_counter()
+        grids[par] = automl_small_grid(str(dev), fr, par)
+        walls[f"card_grid_par{par}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = automl_cpu_record()
+    walls.update(cpu_s=cpu["wall_s"], cpu_waited_s=time.perf_counter() - t0)
+    bad, out = [], dict(walls_s=walls)
+    # card against CPU: the same steps in the same order, each row's
+    # cross-validation metrics within its tolerance, the holdouts of the
+    # rows that agree within theirs, the leaderboard in the CPU's order
+    # where two rows lie farther apart than their tolerances
+    if crec["built"] != cpu["built"] or len(crec["built"]) != 8:
+        bad.append(f"built {crec['built']} vs {cpu['built']}")
+    if sorted(crec["names"]) != sorted(cpu["names"]):
+        raise AssertionError(f"phase 33(b): leaderboards {crec['names']} "
+                             f"vs {cpu['names']}")
+    tol = {n: next(t for p, t in AML_TOLS if n.startswith(p))
+           for n in crec["rows"]}
+    diffs = {}
+    for n, r in crec["rows"].items():
+        diffs[n] = {k: abs(r[k] - cpu["rows"][n][k])
+                    for k in ("auc", "logloss", "rmse")}
+        d = max(diffs[n].values())
+        if not d <= tol[n]:
+            bad.append(f"{n}: card and CPU {d:.3e} apart")
+        if n in crec["holdout"]:
+            diffs[n]["holdout"] = float(np.abs(
+                np.asarray(crec["holdout"][n])
+                - np.asarray(cpu["holdout"][n])).max())
+            htol = next((t for p, t in AML_HOLDOUT_TOLS if n.startswith(p)),
+                        None)
+            if htol is not None and not diffs[n]["holdout"] <= htol:
+                bad.append(f"{n}: holdouts {diffs[n]['holdout']:.3e} apart")
+    out["card_vs_cpu_diff"] = diffs
+    rank = {n: i for i, n in enumerate(cpu["names"])}
+    order = crec["names"]
+    for i, a in enumerate(order):
+        for b in order[i + 1:]:
+            gap = abs(crec["rows"][a]["auc"] - crec["rows"][b]["auc"])
+            if gap > max(tol[a], tol[b]) and rank[a] > rank[b]:
+                bad.append(f"{a} above {b} on the card only")
+    out["order_card"], out["order_cpu"] = order, cpu["names"]
+    g1 = grids[1]
+    if [g["combo"] for g in g1] != [g["combo"] for g in cpu["grid"]]:
+        bad.append("the grids' combos differ")
+    gd = [max(abs(a["auc"] - b["auc"]), abs(a["logloss"] - b["logloss"]),
+              float(np.abs(np.asarray(a["predict"])
+                           - np.asarray(b["predict"])).max()))
+          for a, b in zip(g1, cpu["grid"])]
+    out["grid_combos"] = [g["combo"] for g in g1]
+    out["grid_diff"] = gd
+    if len(gd) != 3 or not max(gd) <= AML_GRID_TOL:
+        bad.append(f"grid metrics or predictions {gd}")
+    # two candidates in flight on the card: the same grid, bit for bit
+    out["grid_par2_equal"] = grids[2] == g1
+    if not out["grid_par2_equal"]:
+        bad.append("parallelism=2 gave another grid than 1")
+    PHASE33_WALLS["b"] = time.perf_counter() - t_phase
+    print(f"phase 33(b) on {card}, card vs cpu (tolerances by step "
+          f"{dict(AML_TOLS)}, holdouts {dict(AML_HOLDOUT_TOLS)}, the grid "
+          f"{AML_GRID_TOL}), the grid at parallelism 2 vs 1 bit for bit: "
+          + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 33(b): " + "; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4776,7 +5193,6 @@ def main() -> int:
     for m in (hist_cuda, score_cuda, shap_cuda):
         if m.build_log.strip():
             print(m.build_log.strip(), flush=True)
-
     from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                            H2ORandomForestEstimator)
     from h2o3_tpu_torch.frame.frame import Frame
@@ -4855,6 +5271,13 @@ def main() -> int:
     dl_small_checks(dev, card)
     print(f"phase 32 wall on {card}: " + json.dumps(dict(
         PHASE32_WALLS, total_s=sum(PHASE32_WALLS.values()))), flush=True)
+    # phase 33: AutoML and grid search (config 5), then card vs CPU; 33(b)'s
+    # CPU run starts now, in a child process beside 33(a)
+    automl_cpu_start()
+    automl_path(dev, card)
+    automl_small_checks(dev, card)
+    print(f"phase 33 wall on {card}: " + json.dumps(dict(
+        PHASE33_WALLS, total_s=sum(PHASE33_WALLS.values()))), flush=True)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)

@@ -24,11 +24,16 @@ Maxout (pairs of units, the max over each pair), each optionally
 WithDropout; problems are binomial, multinomial, regression (gaussian or
 poisson) and the autoencoder.
 
+A `max_runtime_secs` budget takes the reference's per-batch path instead:
+the design of `DataInfo.fit_transform` (standardized on the host in f64),
+one step at a time on `mini_batch_size` rows drawn with numpy, and the
+wall-clock check after every step. The fit checks its job for
+cancellation before each chunk or step, as the reference does.
+
 Not ported: the multi-device and multi-process lanes (ROADMAP queue A,
-item 9), the `max_runtime_secs` per-batch path (item 5; the parameter is
-unknown here, as for the tree models) and checkpoints (item 5). The
-parameters the reference accepts but never reads raise
-`NotImplementedError` at any value other than their default (ROADMAP §C).
+item 9) and checkpoints (item 5). The parameters the reference accepts
+but never reads raise `NotImplementedError` at any value other than their
+default (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -45,8 +50,8 @@ from ..ops import prng
 from . import estimator_engine as _est
 from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
                       ModelMetricsRegression)
-from .model_base import (H2OEstimator, H2OModel, ScoreKeeper, ScoringHistory,
-                         _sync, response_info)
+from .model_base import (DataInfo, H2OEstimator, H2OModel, ScoreKeeper,
+                         ScoringHistory, _sync, response_info)
 
 ACTIVATIONS = (
     "Rectifier", "Tanh", "Maxout",
@@ -366,13 +371,33 @@ class H2ODeepLearningEstimator(H2OEstimator):
             if dist == "AUTO":
                 dist = {"binomial": "bernoulli",
                         "multinomial": "multinomial"}.get(problem, "gaussian")
-        # the reference's default path: its dataset cache builds the
-        # device design from compact columns; the port builds it per fit
         timings: Dict[str, float] = {}
-        dinfo, X_dev = _est.design_matrix(
-            train, x, standardize=bool(p.get("standardize", True)),
-            use_all=bool(p.get("use_all_factor_levels", True)), device=dev,
-            timings=timings)
+        max_runtime = float(p.get("max_runtime_secs") or 0)
+        # a time budget keeps the reference's per-batch path (its wall check
+        # needs host control between steps); otherwise the chunked path
+        use_scan = not max_runtime > 0
+        if use_scan:
+            # the reference's default path: its dataset cache builds the
+            # device design from compact columns; the port builds it per fit
+            dinfo, X_dev = _est.design_matrix(
+                train, x, standardize=bool(p.get("standardize", True)),
+                use_all=bool(p.get("use_all_factor_levels", True)),
+                device=dev, timings=timings)
+        else:
+            # the per-batch path trains on the host design (f64
+            # standardization rounded to f32), uploaded once; its scoring
+            # events expand the frame on the device, as the reference's do
+            dinfo = DataInfo(
+                train, x, standardize=bool(p.get("standardize", True)),
+                use_all_factor_levels=bool(
+                    p.get("use_all_factor_levels", True)))
+            t_pk = time.perf_counter()
+            X_host = dinfo.fit_transform(train)
+            t_h = time.perf_counter()
+            X_dev = torch.from_numpy(X_host).to(dev)
+            _sync(dev)
+            timings.update(pack_s=t_h - t_pk, h2d_s=time.perf_counter() - t_h)
+        X_score = X_dev if use_scan else None
         n, nfeat = train.nrow, int(X_dev.shape[1])
         if autoenc:
             K = nfeat  # reconstruct the (expanded, standardized) inputs
@@ -479,11 +504,23 @@ class H2ODeepLearningEstimator(H2OEstimator):
             vel.mul_(float(mom)).sub_(float(rate) * gv)
             pv.add_(vel)
 
+        def step(pflat, state, xb, yb, wb, wsum, k, it_s):
+            """One minibatch update. The gradient is taken with respect to
+            detached views of the flat vector, one per W and b, and
+            concatenated."""
+            segs = [t.detach().requires_grad_(True)
+                    for t in net.segments(pflat)]
+            loss = loss_fn(list(zip(segs[::2], segs[1::2])), xb, yb, wb,
+                           wsum, k)
+            gv = torch.cat([g.reshape(-1) for g in
+                            torch.autograd.grad(loss, segs)])
+            with torch.no_grad():
+                update(pflat, state, gv, it_s)
+
         def train_chunk(pflat, state, sub, it0, nsteps):
             """nsteps minibatch updates: one permutation of the rows, tiled
             and cut to nsteps·batch, gathered once and walked batch by
-            batch. Each step's gradient is taken with respect to detached
-            views of the flat vector, one per W and b, and concatenated."""
+            batch."""
             kperm, kdrop = prng.split(sub)
             need = nsteps * batch
             perm = prng.permutation(kperm, n, dev)
@@ -495,14 +532,8 @@ class H2ODeepLearningEstimator(H2OEstimator):
             keys = prng.split(kdrop, nsteps) if uses_keys else [None] * nsteps
             for s in range(nsteps):
                 lo, hi = s * batch, (s + 1) * batch
-                segs = [t.detach().requires_grad_(True)
-                        for t in net.segments(pflat)]
-                loss = loss_fn(list(zip(segs[::2], segs[1::2])), xs[lo:hi],
-                               ys[lo:hi], ws[lo:hi], wsums[s], keys[s])
-                gv = torch.cat([g.reshape(-1) for g in
-                                torch.autograd.grad(loss, segs)])
-                with torch.no_grad():
-                    update(pflat, state, gv, it0 + s)
+                step(pflat, state, xs[lo:hi], ys[lo:hi], ws[lo:hi], wsums[s],
+                     keys[s], it0 + s)
 
         epochs = float(p.get("epochs", 10.0))
         tspi = int(p.get("train_samples_per_iteration", -2))
@@ -514,6 +545,7 @@ class H2ODeepLearningEstimator(H2OEstimator):
             if int(p.get("stopping_rounds", 0)) > 0 else None
         )
 
+        rng = np.random.default_rng(seed)
         total = int(epochs * n)
         seen = 0
         it = 0
@@ -530,15 +562,29 @@ class H2ODeepLearningEstimator(H2OEstimator):
         _score_time = 0.0
         steps_s = 0.0
         while seen < total:
-            upto = min(next_score, total)
-            steps = max(1, -(-int(upto - seen) // batch))
-            key, sub = prng.split(key)
+            if self.job is not None:
+                self.job.check_cancelled()
             t_c = time.perf_counter()
-            train_chunk(pflat, state, sub, it, steps)
+            if use_scan:
+                upto = min(next_score, total)
+                steps = max(1, -(-int(upto - seen) // batch))
+                key, sub = prng.split(key)
+                train_chunk(pflat, state, sub, it, steps)
+                seen += max(steps * batch, 1)
+                it += steps
+            else:
+                # one step on rows drawn with replacement by numpy; the
+                # step's key feeds its dropout masks directly
+                idx = torch.from_numpy(rng.integers(0, n, batch)).to(dev)
+                key, sub = prng.split(key)
+                wb = w_dev[idx]
+                step(pflat, state, X_dev[idx], y_dev[idx], wb,
+                     torch.clamp(wb.sum(), min=1e-12),
+                     sub if uses_keys else None, it)
+                seen += batch
+                it += 1
             _sync(dev)
             steps_s += time.perf_counter() - t_c
-            seen += max(steps * batch, 1)
-            it += steps
             if seen >= next_score or seen >= total:
                 next_score += score_every
                 # train_samples_per_iteration=-2 (auto-tune): cap the wall
@@ -547,14 +593,17 @@ class H2ODeepLearningEstimator(H2OEstimator):
                 # Early stopping keeps every event (scoring is its signal),
                 # as does the final event and score_each_iteration.
                 if (seen < total and stopper is None and tspi == -2
+                        and not max_runtime
                         and not p.get("score_each_iteration")):
                     if _score_time > float(
                             p.get("score_duty_cycle", 0.1) or 0.1) * max(
                             time.time() - t_loop, 1e-9):
+                        if self.job is not None:
+                            self.job.update(min(seen / total, 1.0))
                         continue
                 _t_sc = time.time()
                 model.net_params = net.unflatten(pflat)
-                sm = model._make_metrics(train, X_pre=X_dev)
+                sm = model._make_metrics(train, X_pre=X_score)
                 ev = {
                     "epochs": seen / n, "iterations": it,
                     "samples": seen, "timestamp": time.time(),
@@ -570,12 +619,16 @@ class H2ODeepLearningEstimator(H2OEstimator):
                 _score_time += time.time() - _t_sc
                 if stop:
                     break
+            if max_runtime and time.time() - t_loop > max_runtime:
+                break
+            if self.job is not None:
+                self.job.update(min(seen / total, 1.0))
 
         t_steps = time.perf_counter()
         model.net_params = [(W.clone(), b.clone())
                             for W, b in net.unflatten(pflat)]
         model.scoring_history = ScoringHistory(history)
-        model.training_metrics = model._make_metrics(train, X_pre=X_dev)
+        model.training_metrics = model._make_metrics(train, X_pre=X_score)
         if valid is not None:
             model.validation_metrics = model._make_metrics(valid)
         t_end = time.perf_counter()

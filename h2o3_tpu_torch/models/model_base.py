@@ -12,9 +12,16 @@ for it. `train` runs the reference's n-fold cross-validation (`_run_cv`,
 model per fold fit through `_fit`, the holdout predictions and the
 cross-validation metrics. Tree builders slice the parent fit's binned
 codes per fold unless `H2O3_CV_REBIN=1` asks for the per-fold re-bin path.
-Checkpoints, jobs and the REST/DKV surface are not ported yet (ROADMAP
-queue A, items 5 and 11); neither are `DataInfo`'s multi-device and
-multi-process layouts (item 9).
+`train` takes up a `Job` (`water.Job`): its own, or the one a caller
+hands it as `_external_job` (the train pool's child job), started there
+and finished when the model is built. The fit loops check it for
+cancellation and report progress at the reference's safe points (the
+tree loop's chunk boundaries, DeepLearning's chunk and step
+boundaries), and `max_runtime_secs` stops a fit at the same boundaries by
+the reference's rule. Checkpoints and the REST/DKV surface are not ported
+yet (ROADMAP queue A, items 5 and 11): `train` registers no model in the
+DKV. Neither are `DataInfo`'s multi-device and multi-process layouts
+(item 9).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -30,15 +38,68 @@ import torch
 from .. import device as devlib
 from ..frame.frame import Frame
 from ..frame.vec import Vec
+from ..runtime import phases as _phases
 from .metrics import (ModelMetricsBase, ModelMetricsBinomial,
                       ModelMetricsMultinomial, ModelMetricsRegression)
 
 _model_counter = itertools.count()
+_job_counter = itertools.count()
 
 # scorer row bucket: tree scoring and the GLM scoring design pad their row
 # dimension to this multiple, as the reference does, so scoring inputs
 # keep a fixed grid of shapes
 SCORE_ROW_BUCKET = 512
+
+
+class JobCancelled(Exception):
+    """Raised at a fit loop's safe point once its job's cancel was requested."""
+
+
+@dataclass
+class Job:
+    """`water.Job` — progress/cancel tracking for a training run."""
+
+    dest: str
+    description: str = ""
+    start_time: float = 0.0
+    end_time: float = 0.0
+    progress: float = 0.0
+    status: str = "CREATED"  # CREATED/RUNNING/DONE/FAILED/CANCELLED
+    warnings: List[str] = field(default_factory=list)
+    cancel_requested: bool = False
+    # the trace the job's spans join (the train pool's candidates carry
+    # their sweep's)
+    trace_id: Optional[str] = None
+
+    def start(self):
+        self.start_time = time.time()
+        self.status = "RUNNING"
+        return self
+
+    def update(self, progress: float):
+        self.progress = float(progress)
+
+    def cancel(self):
+        """Request cancellation: takes effect at the fit loop's next safe
+        point."""
+        if self.status in ("CREATED", "RUNNING"):
+            self.cancel_requested = True
+
+    def check_cancelled(self):
+        """Fit-side safe point: finalize + raise if a cancel is pending."""
+        if self.cancel_requested and self.status == "RUNNING":
+            self.status = "CANCELLED"
+            self.end_time = time.time()
+            raise JobCancelled(self.dest)
+
+    def done(self):
+        self.end_time = time.time()
+        self.progress = 1.0
+        self.status = "DONE"
+
+    @property
+    def run_time(self) -> float:
+        return (self.end_time or time.time()) - self.start_time
 
 
 def _sync(dev: torch.device) -> None:
@@ -517,6 +578,7 @@ class H2OEstimator:
     _common_defaults: Dict[str, Any] = dict(
         model_id=None,
         seed=-1,
+        max_runtime_secs=0.0,
         ignored_columns=None,
         ignore_const_cols=True,
         weights_column=None,
@@ -542,6 +604,7 @@ class H2OEstimator:
                 raise TypeError(f"{type(self).__name__}: unknown parameter {k!r}")
             self._parms[k] = v
         self._model: Optional[H2OModel] = None
+        self.job: Optional[Job] = None
 
     def __getattr__(self, name):
         parms = object.__getattribute__(self, "_parms")
@@ -593,6 +656,14 @@ class H2OEstimator:
                 if nav.any():
                     validation_frame = validation_frame.take(
                         np.nonzero(~nav)[0])
+        # a caller's job (the train pool's child job) rides through, so its
+        # cancellation and watchdog reach the fit loop's safe points
+        ext = getattr(self, "_external_job", None)
+        self.job = ext if ext is not None else Job(
+            dest=f"{self.algo}_{next(_job_counter)}",
+            description=f"{self.algo} train")
+        if self.job.status == "CREATED":
+            self.job.start()
         t0 = time.time()
         seed = int(self._parms.get("seed", -1))
         self._parms["_actual_seed"] = 1234 if seed in (-1, None) else seed
@@ -607,6 +678,7 @@ class H2OEstimator:
         if fold_col and fold_col not in training_frame.names:
             raise ValueError(f"fold_column {fold_col!r} not in frame")
         model = self._fit(x, y, training_frame, validation_frame)
+        _phases.book_fit(getattr(model, "fit_timings", None))
         # a fold_column triggers CV by itself (its folds are the column's
         # distinct values), for estimators that can cross-validate
         supports_cv = type(self)._cv_predict is not H2OEstimator._cv_predict
@@ -615,6 +687,8 @@ class H2OEstimator:
             self._run_cv(model, x, y, training_frame, nfolds)
         model.run_time = time.time() - t0
         self._model = model
+        self.job.result = model.model_id
+        self.job.done()
         return self
 
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> H2OModel:
@@ -677,6 +751,7 @@ class H2OEstimator:
                             for nm in keep_cols})
                 sub._parms["_cv_reuse"] = dict(bm=reuse_bm, rows=idx_tr)
                 cvm = sub._fit(x, y, tr, None)
+                _phases.book_fit(getattr(cvm, "fit_timings", None))
                 pred = sub._cv_predict_codes(cvm, reuse_bm.codes[idx_ho])
             else:
                 # re-bin folds pad to the parent's padded row count, as the
@@ -685,6 +760,7 @@ class H2OEstimator:
                 tr = train.take(idx_tr)
                 ho = train.take(idx_ho)
                 cvm = sub._fit(x, y, tr, None)
+                _phases.book_fit(getattr(cvm, "fit_timings", None))
                 pred = sub._cv_predict(cvm, ho)
             if holdout is None:
                 holdout = np.zeros((n,) + pred.shape[1:], dtype=np.float64)
@@ -727,6 +803,10 @@ class H2OEstimator:
 
     def _cv_predict_codes(self, model: H2OModel, codes) -> np.ndarray:
         raise NotImplementedError
+
+    @property
+    def model_id(self):
+        return self.model.model_id
 
     @property
     def model(self) -> H2OModel:

@@ -275,6 +275,25 @@ def _host_event_loss(problem: str, dist: str, mode: str, m: np.ndarray,
     return float(sq.sum() / max(len(sq), 1e-12))
 
 
+def chunk_boundaries(ntrees: int, score_tree_interval: int = 0,
+                     stopping: bool = False,
+                     one_per_chunk: bool = False) -> list:
+    """The iteration counts that end the reference's chunks (`shared_tree.py`
+    chunking): chunks of 1 tree under `score_each_iteration`, a custom
+    objective or DART (`one_per_chunk`), else of `score_tree_interval`,
+    else of min(10, ntrees) when a stopper runs, else of min(25, ntrees);
+    the last chunk ends at ntrees."""
+    if one_per_chunk:
+        chunk = 1
+    elif score_tree_interval:
+        chunk = score_tree_interval
+    elif stopping:
+        chunk = max(1, min(10, ntrees))
+    else:
+        chunk = min(25, max(ntrees, 1))
+    return sorted(set(range(chunk, ntrees + 1, chunk)) | {ntrees})
+
+
 def score_events(ntrees: int, score_tree_interval: int = 0,
                  stopping: bool = False,
                  score_each_iteration: bool = False) -> list:
@@ -285,16 +304,9 @@ def score_events(ntrees: int, score_tree_interval: int = 0,
     otherwise, with no event); an event falls on a chunk boundary where the
     interval divides the count, or on every boundary when a stopper runs
     without an interval."""
-    if score_each_iteration:
-        chunk = 1
-    elif score_tree_interval:
-        chunk = score_tree_interval
-    elif stopping:
-        chunk = max(1, min(10, ntrees))
-    else:
-        chunk = min(25, max(ntrees, 1))
     out = []
-    for built in sorted(set(range(chunk, ntrees + 1, chunk)) | {ntrees}):
+    for built in chunk_boundaries(ntrees, score_tree_interval, stopping,
+                                  score_each_iteration):
         if ((score_tree_interval and built % score_tree_interval == 0)
                 or score_each_iteration
                 or (stopping and not score_tree_interval)):
@@ -926,8 +938,29 @@ class H2OSharedTreeEstimator(H2OEstimator):
         dart_scales: List[float] = []
         if dart is not None:
             dart_rng = np.random.default_rng((int(seed) + 7919) & 0x7FFFFFFF)
+        # the reference dispatches the trees in chunks and takes its safe
+        # points (job cancellation, progress, the max_runtime_secs check)
+        # at each chunk's end: the port builds tree by tree and stops at the
+        # same ends
+        chunk_ends = set(chunk_boundaries(
+            tp["ntrees"], interval, stopper is not None,
+            bool(self._parms.get("score_each_iteration"))
+            or obj_fn is not None or dart is not None))
+        max_runtime = float(self._parms.get("max_runtime_secs") or 0)
         _sync(dev)
         t_up = time.perf_counter()
+        t_budget = time.time()
+
+        def chunk_end(built: int) -> bool:
+            """The budget check and progress report at a chunk's end; True
+            once the fit has run past max_runtime_secs."""
+            if built not in chunk_ends:
+                return False
+            if max_runtime and time.time() - t_budget > max_runtime:
+                return True
+            if self.job is not None:
+                self.job.update(built / max(tp["ntrees"], 1))
+            return False
 
         trees = [[] for _ in range(K)]
         covers = [[] for _ in range(K)]
@@ -1028,7 +1061,11 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         dart_scales[i] *= fd
                 dart_scales.append(fn)
             built = m + 1
+            if built in chunk_ends and self.job is not None:
+                self.job.check_cancelled()
             if valid is None and built not in events:
+                if chunk_end(built):
+                    break
                 continue
             _sync(dev)
             t_ev = time.perf_counter()
@@ -1076,6 +1113,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
                                else "training_deviance", np.nan)
                 if stopper.record(v):
                     break
+            if chunk_end(built):
+                break
         for i, s in enumerate(dart_scales):
             if s != 1.0:
                 # bake the round's DART scale into its stored leaf values

@@ -7,10 +7,12 @@ and operators arm specific failure points without touching product code.
 Every wired call site costs one dict lookup when nothing is armed (the
 `_ACTIVE` fast path).
 
-The port wires one point so far: ``serving.scorer`` raises inside the
-compiled scorer's call (`serving/model_cache.CompiledScorer.score`). The
-reference's other points (persist, client, trainpool, mesh, qos,
-supervisor) arrive with their modules (ROADMAP queue A, item 11).
+The port wires two points so far: ``serving.scorer`` raises inside the
+compiled scorer's call (`serving/model_cache.CompiledScorer.score`), and
+``trainpool.candidate`` before each attempt at a train-pool candidate
+(`runtime/trainpool.TrainPool`, the candidate's name as the detail). The
+reference's other points (persist, client, mesh, qos, supervisor) arrive
+with their modules (ROADMAP queue A, item 11).
 
 Arming — programmatic or env:
 

@@ -8,18 +8,25 @@ classes PyTorch's own device failures: `torch.cuda.OutOfMemoryError`,
 ("CUDA error: ...", as torch before `AcceleratorError` raised it). A kernel
 of the port that fails to build or launch raises `hist_cuda.KernelError`,
 which is never a device error: it is the kernel's fault or its caller's,
-and serving around it would move the work off the card. The reference's
-`RetryPolicy`, budget and counters serve persist I/O, the client and the
-train pool, which the port has not yet (ROADMAP queue A, item 11).
+and serving around it would move the work off the card.
+
+The train pool retries a candidate that failed with a device error, and
+spends each retry from a `RetryBudget`, the reference's token bucket at
+its default size. The reference's `RetryPolicy` with its backoff and
+counters serves persist I/O and the client, which the port has not yet
+(ROADMAP queue A, item 11).
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import torch
 
 from ..ops.hist_cuda import KernelError
 
-__all__ = ["is_device_error"]
+__all__ = ["is_device_error", "RetryBudget"]
 
 # torch.AcceleratorError exists from torch 2.8 on
 _DEVICE_TYPES = (torch.cuda.OutOfMemoryError,
@@ -49,3 +56,29 @@ def is_device_error(exc: BaseException) -> bool:
         msg = str(exc)
         return any(m in msg for m in _DEVICE_MARKERS)
     return False
+
+
+class RetryBudget:
+    """Token bucket bounding retries per process: a hard outage must
+    degrade to fail-fast, not multiply load by the attempt count.
+    Refills continuously."""
+
+    CAPACITY = 64
+    REFILL_PER_S = 2.0
+
+    def __init__(self):
+        self._tokens = float(self.CAPACITY)
+        self._t_last = time.monotonic()
+        self._lock = threading.Lock()
+
+    def try_spend(self) -> bool:
+        with self._lock:
+            now = time.monotonic()
+            self._tokens = min(self.CAPACITY,
+                               self._tokens
+                               + (now - self._t_last) * self.REFILL_PER_S)
+            self._t_last = now
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                return True
+            return False

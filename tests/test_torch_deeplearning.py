@@ -58,6 +58,20 @@ FIT_TOL = 1e-5
 REG_TOL = 2e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while this module runs. A fit here is
+    thousands of tiny eager steps; with a thread per CPU, torch's OpenMP
+    workers spin between steps, and beside the other workers of a parallel
+    test run (each with its own threads and XLA's pool) a fit runs tens of
+    times slower: the regression case took 80 s under `-n 6` against
+    1.4 s alone. The fits compute the same things on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _classification(n, f, seed):
     X, y = make_classification(n, f, seed=seed)
     return np.column_stack([X, y]), [f"x{i}" for i in range(f)] + ["y"], "y"

@@ -29,6 +29,8 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch.ops.shap_cuda, h2o3_tpu_torch.models.tree_shap\n"
         "import h2o3_tpu_torch.serving, h2o3_tpu_torch.runtime.dkv\n"
         "import h2o3_tpu_torch.runtime.memory_ledger, h2o3_tpu_torch.runtime.retry\n"
+        "import h2o3_tpu_torch.automl, h2o3_tpu_torch.models.grid\n"
+        "import h2o3_tpu_torch.runtime.trainpool, h2o3_tpu_torch.runtime.phases\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'h2o3_tpu' or m.startswith('h2o3_tpu.'))\n"
