@@ -318,6 +318,36 @@ holdout prediction.
    the autoencoder's `anomaly` on the card within DL_CARD_TOL of the
    CPU's. TF32 stays off. The phase's wall is printed.
 
+34. The unsupervised estimators, last, with no hand-written kernel. (a)
+   K-Means on phase 14's Covertype-shaped predictors (581,012 × 54, k = 7,
+   standardized, PlusPlus, ≤ 50 iterations): the fit's split (host
+   matrix, seeding, H2D, the Lloyd loop and its iterations, metrics), the
+   final WSS at or below the seeded centres', and one Lloyd step in f64
+   on the host from the final centres: a fixed point (no centre moves by
+   more than KM_FIXED_TOL) whose WSS is the model's within KM_WSS_TOL
+   relative. (b) PCA (GramSVD and Randomized,
+   STANDARDIZE) and SVD (GramSVD, keep_u) on phase 32's MNIST-shaped
+   pixels (60,000 × 717 not constant, k = nv = 50): GramSVD's eigenvalues
+   within PCA_EIG_TOL relative of an f64 eigh of an f64 Gram of the same
+   matrix, its eigenpairs' residuals there within PCA_EIG_TOL·λ and its
+   eigenvectors within PCA_EIG_TOL where Davis-Kahan (the card's f32 Gram
+   error over the gap) allows it; Randomized's first 10 standard
+   deviations within 2 % of GramSVD's; uᵀu within 1e-3 of I; every
+   spectrum non-increasing. (c) GLRM (k = 10, STANDARDIZE) on a generated
+   rank-10 frame of Covertype's shape with 10 % of its cells missing: the
+   fit's split, the objective never rising between checks, the fit's RMSE
+   on the observed cells at or below the generator's noise floor there
+   (which the true factors reach), `reconstruct` on the missing cells
+   within GLRM_FLOOR_MULT times that floor (its RMSE against the truth,
+   noise included), `transform` on the card
+   within 1e-4 of the reference's per-row loop on 2,000 rows. (d) Each
+   model's MOJO against `predict` within 1e-5 on 2,000 rows (K-Means: the
+   same clusters but for near-ties; GLRM's `transform` too), K-Means and
+   PCA served equal to `predict` with no fallback. (e) Card against CPU
+   on the CPU tests' small frames with their tolerances. (f) The launch
+   counts, zeroed before (a), read after (e): none of B1, B2, the forest
+   scorer or TreeSHAP ran. TF32 stays off. The phase's wall is printed.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
 them again before their `predict`; phase 20 is the TreeSHAP path's; phases
@@ -326,7 +356,7 @@ their own; phase 30's stack `predict` is its own; each of phase 31's
 fits, its `predict` and its contributions are their own; the GLM and
 gblinear run none of the hand-written kernels, and phases 17, 18, 26, 30
 and 31(d) fail if they launched one; so does phase 32's DeepLearning
-fit).
+fit, and phase 34 as a whole).
 TF32 must stay off
 through phases 17-19, 30, 31(d) and 32. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
@@ -5172,6 +5202,551 @@ def automl_small_checks(dev, card):
     return out
 
 
+# phase 34: the estimator engine's unsupervised estimators at full width.
+# (a) K-Means on phase 14's Covertype-shaped predictors (UCI Covertype:
+# 581,012 rows, 54 predictors; k = 7, its number of cover types), (b) PCA
+# and SVD on phase 32's MNIST-shaped pixels (60,000 x 784, 717 not
+# constant; k = nv = 50), (c) GLRM on a generated rank-10 frame of
+# Covertype's shape with 10 % of its cells missing (k = 10, STANDARDIZE),
+# (d) their MOJOs and the engine serving K-Means and PCA, (e) card vs CPU
+# on the CPU tests' small frames; (f) none of them launches a
+# hand-written kernel
+UNSUP_KM = dict(k=COV_K, standardize=True, init="PlusPlus",
+                max_iterations=50, seed=42)
+UNSUP_PCA_K = 50
+UNSUP_GLRM = dict(k=10, transform="STANDARDIZE", seed=42)
+GLRM_ROWS, GLRM_COLS, GLRM_RANK, GLRM_MISSING = COV_ROWS, 54, 10, 0.1
+# (a)'s bars: one f64 Lloyd step from the final (standardized) centres
+# moves none by more than KM_FIXED_TOL, and its WSS is the model's
+# tot_withinss within KM_WSS_TOL relative
+KM_FIXED_TOL, KM_WSS_TOL = 1e-4, 1e-5
+# (c)'s generator noise (sd a cell before each column's scale) and its
+# bar: the holes' RMSE against the truth within GLRM_FLOOR_MULT times
+# that noise in the standardized space, the least any fit can reach
+GLRM_NOISE, GLRM_FLOOR_MULT = 0.3, 1.5
+UNSUP_CHECK_ROWS = 2_000
+# (b)'s bars: eigenvalues within PCA_EIG_TOL relative of an f64 eigh of
+# an f64 Gram of the same matrix, each eigenpair's residual there within
+# PCA_EIG_TOL·λ, and each eigenvector within PCA_EIG_TOL entrywise where
+# Davis-Kahan (2‖E‖₂ / gap, E the f32 Gram's error) bounds it below that;
+# Randomized's first PCA_RAND_SD standard deviations within PCA_RAND_TOL
+# relative of GramSVD's; SVD's uᵀu within SVD_ORTHO_TOL of I
+PCA_EIG_TOL, PCA_RAND_SD, PCA_RAND_TOL, SVD_ORTHO_TOL = 1e-4, 10, 0.02, 1e-3
+# (e)'s bars, the CPU tests' (tests/test_torch_kmeans.py, _pca_svd.py,
+# _glrm.py)
+UNSUP_SMALL_TOLS = dict(center=1e-5, ss=1e-5, eig_abs=1e-4, eig_rel=1e-5,
+                        score=1e-4, svd=1e-4, glrm_obj=1e-4, glrm_fit=1e-3)
+PHASE34_WALLS: dict = {}
+
+
+def make_lowrank_like(n: int, p: int = GLRM_COLS, rank: int = GLRM_RANK,
+                      seed: int = 0):
+    """(frame, full f32 matrix, each column's noise sd): n x p, rank
+    `rank` plus noise (signal variance about `rank` a cell, noise
+    GLRM_NOISE²), each column at its own offset and scale, then
+    GLRM_MISSING of the cells NaN at random (the full matrix keeps them).
+    The factors' law comes from a fixed seed."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    law = np.random.default_rng(3_000)
+    V = law.normal(size=(rank, p)).astype(np.float32)
+    scale = law.gamma(2.0, 50.0, p).astype(np.float32)
+    offset = law.normal(0.0, 500.0, p).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    full = rng.normal(size=(n, rank)).astype(np.float32) @ V
+    full += np.float32(GLRM_NOISE) * rng.standard_normal((n, p), np.float32)
+    full = full * scale + offset
+    holes = rng.random((n, p), np.float32) < GLRM_MISSING
+    A = np.where(holes, np.float32(np.nan), full)
+    return (Frame.from_numpy(A, names=[f"g{j}" for j in range(p)]), full,
+            GLRM_NOISE * scale.astype(np.float64))
+
+
+def _frame_matrix(fr) -> np.ndarray:
+    return np.column_stack([fr.vec(n).numeric_np() for n in fr.names])
+
+
+def _kmeans_mismatch_ties(X64, cents, got, want) -> int:
+    """Rows whose two assignments differ though their two nearest centres
+    are NOT within 1e-5 relative in f64 (a near-tie may go either way)."""
+    bad = 0
+    for i in np.nonzero(got != want)[0]:
+        d2 = ((X64[i][None, :] - cents) ** 2).sum(1)
+        a, b = d2[int(got[i])], d2[int(want[i])]
+        bad += abs(a - b) > 1e-5 * max(a, b)
+    return bad
+
+
+def unsup_kmeans_path(dev, card):
+    """Phase 34(a): K-Means on the Covertype-shaped predictors; returns
+    (record, model, frame)."""
+    from h2o3_tpu_torch.estimators import H2OKMeansEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models import estimator_engine as est
+    from h2o3_tpu_torch.models import kmeans as km
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    X, _ = make_covtype_like(COV_ROWS, 5)
+    fr = Frame.from_numpy(X, names=COV_NAMES)
+    del X
+    gen_s = time.perf_counter() - t0
+    seen = {}
+    real_seed = km._seed_centers
+
+    def spy(Xh, k, init, rng):
+        seen["X"], seen["cents"] = Xh, real_seed(Xh, k, init, rng)
+        return seen["cents"]
+
+    bad = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with mock.patch.object(km, "_seed_centers", spy):
+        model = H2OKMeansEstimator(device=str(dev), **UNSUP_KM).train(
+            training_frame=fr).model
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    plan = est.est_stats()["plans"][-1]
+    ft = model.fit_timings
+    X64 = seen["X"].astype(np.float64)
+    c0 = seen["cents"].astype(np.float64)
+    xsq = (X64 * X64).sum(1)
+    seeded = float(np.maximum(xsq[:, None] - 2.0 * X64 @ c0.T
+                              + (c0 * c0).sum(1)[None, :], 0).min(1).sum())
+    wss, bss, tss = (model.tot_withinss(), model.betweenss(), model.totss())
+    # one Lloyd step in f64 from the final centres: assignments, the WSS
+    # there, and the centres it moves to
+    t2 = time.perf_counter()
+    c = np.asarray(model.centers_std, np.float64)
+    d2 = np.maximum(xsq[:, None] - 2.0 * X64 @ c.T
+                    + (c * c).sum(1)[None, :], 0)
+    wss64 = float(d2.min(1).sum())
+    oh = (d2.argmin(1)[:, None] == np.arange(len(c))[None, :]).astype(
+        np.float64)
+    cnt = oh.sum(0)
+    c_next = np.where(cnt[:, None] > 0,
+                      (oh.T @ X64) / np.maximum(cnt, 1)[:, None], c)
+    move = float(np.abs(c_next - c).max())
+    wss_rel = abs(float(wss) - wss64) / wss64
+    check_s = time.perf_counter() - t2
+    rec = dict(card=card, rows=fr.nrow, cols=len(model.x),
+               params=UNSUP_KM, wall_s=wall, fit_timings=ft,
+               iterations=model.iterations, converged=plan.get("converged"),
+               lloyd_ms_per_iteration=ft["steps_s"] / model.iterations * 1e3,
+               seeded_wss=seeded, tot_withinss=float(wss),
+               betweenss=float(bss), totss=float(tss), f64_wss=wss64,
+               f64_wss_rel=wss_rel, f64_step_centre_move=move,
+               generator_s=gen_s, check_s=check_s)
+    print(f"phase 34(a) on {card}: K-Means {fr.nrow} x {len(model.x)}, "
+          f"k={UNSUP_KM['k']}, fit {wall:.3f} s = host matrix "
+          f"{ft['pack_s']:.3f} + seeding {ft['init_s']:.3f} + H2D "
+          f"{ft['h2d_s']:.3f} + Lloyd {ft['steps_s']:.3f} "
+          f"({model.iterations} iterations, "
+          f"{rec['lloyd_ms_per_iteration']:.3f} ms each, converged "
+          f"{plan.get('converged')}) + metrics {ft['metrics_s']:.3f}; WSS "
+          f"{wss:.6g} from the seeds' {seeded:.6g}, totss {tss:.6g}; an "
+          f"f64 Lloyd step from the final centres moves them {move:.3e}, "
+          f"its WSS {wss64:.9g} ({wss_rel:.3e} relative)", flush=True)
+    if not float(wss) <= seeded * (1 + 1e-6):
+        bad.append(f"WSS {wss} above the seeded centres' {seeded}")
+    if not move <= KM_FIXED_TOL:
+        bad.append(f"not a fixed point: an f64 Lloyd step moves the centres "
+                   f"{move:.3e}")
+    if not wss_rel <= KM_WSS_TOL:
+        bad.append(f"tot_withinss {wss} is {wss_rel:.3e} from the f64 WSS "
+                   f"{wss64}")
+    if not np.all(np.isfinite(model.centers())) or plan["path"] != "fused":
+        bad.append(f"centres not finite or path {plan['path']}")
+    PHASE34_WALLS["a"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 34(a): " + "; ".join(bad))
+    return rec, model, fr
+
+
+def _gram_reference(X32: np.ndarray, k: int):
+    """(evals, evecs, every eigenvalue, Gram) of the f64 Gram of the f32
+    matrix divided by n − 1: the first k eigenpairs ordered and signed as
+    the estimators report them, and the whole spectrum, descending."""
+    X64 = X32.astype(np.float64)
+    G = X64.T @ X64 / max(X32.shape[0] - 1, 1)
+    evals, evecs = np.linalg.eigh(G)
+    order = np.argsort(evals)[::-1]
+    evals, top = np.maximum(evals[order], 0), evecs[:, order[:k]]
+    # the largest |loading| of each vector positive
+    lead = top[np.abs(top).argmax(0), np.arange(k)]
+    return evals[:k], top * np.where(lead < 0, -1.0, 1.0), evals, G
+
+
+def unsup_pca_svd_path(dev, card):
+    """Phase 34(b): PCA (GramSVD and Randomized, STANDARDIZE) and SVD
+    (GramSVD, keep_u) on the MNIST-shaped pixels at k = nv = 50; returns
+    (record, GramSVD PCA model, SVD model, frame)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OPrincipalComponentAnalysisEstimator,
+        H2OSingularValueDecompositionEstimator)
+    from h2o3_tpu_torch.models import estimator_engine as est
+
+    tf32_off()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fr = make_mnist_like(DL_ROWS, 0)
+    gen_s = time.perf_counter() - t0
+    pixels = [f"C{j + 1}" for j in range(DL_SIDE * DL_SIDE)]
+    bad, fits = [], {}
+    for name, cls, params in (
+            ("pca_gram", H2OPrincipalComponentAnalysisEstimator,
+             dict(k=UNSUP_PCA_K, transform="STANDARDIZE",
+                  pca_method="GramSVD")),
+            ("pca_randomized", H2OPrincipalComponentAnalysisEstimator,
+             dict(k=UNSUP_PCA_K, transform="STANDARDIZE",
+                  pca_method="Randomized", seed=42)),
+            ("svd_gram", H2OSingularValueDecompositionEstimator,
+             dict(nv=UNSUP_PCA_K, svd_method="GramSVD", keep_u=True))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = cls(device=str(dev), **params).train(x=pixels,
+                                                  training_frame=fr).model
+        torch.cuda.synchronize()
+        fits[name] = (m, time.perf_counter() - t1)
+    pca, svd = fits["pca_gram"][0], fits["svd_gram"][0]
+    rand = fits["pca_randomized"][0]
+    # the same matrix on the host in f64, and the card's own f32 Gram of
+    # it for the Davis-Kahan bound
+    t2 = time.perf_counter()
+    _, X = est.host_matrix(fr, pca.x, standardize=True)
+    ev64, V64, every, G64 = _gram_reference(X, UNSUP_PCA_K)
+    Xd = torch.from_numpy(X).to(dev)
+    G32 = (Xd.T @ Xd).cpu().numpy().astype(np.float64) / (X.shape[0] - 1)
+    del Xd
+    e_norm = float(np.linalg.norm(G32 - G64, 2))
+    ev, V = np.asarray(pca.eigenvalues), np.asarray(pca.eigenvectors)
+    rel = np.abs(ev - ev64) / ev64
+    resid = np.linalg.norm(G64 @ V - V * ev[None, :], axis=0) / ev
+    # each eigenvalue's distance to its neighbours in the whole spectrum
+    spread = np.r_[np.inf, every]
+    gap = np.minimum(spread[:-2] - spread[1:-1],
+                     spread[1:-1] - spread[2:])[:UNSUP_PCA_K]
+    bound = 2 * e_norm / gap
+    vec_err = np.abs(V - V64).max(0)
+    pinned = bound <= PCA_EIG_TOL
+    sd_g = pca.importance["Standard deviation"][:PCA_RAND_SD]
+    sd_r = rand.importance["Standard deviation"][:PCA_RAND_SD]
+    sd_rel = np.abs(sd_r - sd_g) / sd_g
+    u = svd.u
+    ortho = float(np.abs(u.T @ u - np.eye(u.shape[1])).max())
+    check_s = time.perf_counter() - t2
+    rec = dict(card=card, rows=fr.nrow, cols=len(pca.x), k=UNSUP_PCA_K,
+               walls={n: w for n, (_, w) in fits.items()},
+               fit_timings={n: m.fit_timings for n, (m, _) in fits.items()},
+               eig_rel_max=float(rel.max()), resid_rel_max=float(resid.max()),
+               gram_err_norm=e_norm, pinned_vectors=int(pinned.sum()),
+               pinned_vec_err_max=float(vec_err[pinned].max()
+                                        if pinned.any() else 0.0),
+               vec_err_max=float(vec_err.max()),
+               randomized_sd_rel_max=float(sd_rel.max()),
+               svd_utu_max_dev=ortho, top_sd=[float(s) for s in sd_g[:5]],
+               generator_s=gen_s, check_s=check_s)
+    print(f"phase 34(b) on {card}: {fr.nrow} x {len(pca.x)} pixels, k = "
+          f"{UNSUP_PCA_K}: PCA GramSVD {fits['pca_gram'][1]:.3f} s, "
+          f"Randomized {fits['pca_randomized'][1]:.3f} s, SVD GramSVD + u "
+          f"{fits['svd_gram'][1]:.3f} s; eigenvalues within "
+          f"{rec['eig_rel_max']:.3e} relative of the f64 eigh, residuals "
+          f"{rec['resid_rel_max']:.3e}·λ, ‖E‖₂ {e_norm:.3e}, "
+          f"{rec['pinned_vectors']} vectors pinned by Davis-Kahan within "
+          f"{rec['pinned_vec_err_max']:.3e} (all {rec['vec_err_max']:.3e}); "
+          f"Randomized sd within {rec['randomized_sd_rel_max']:.3e}; "
+          f"uᵀu within {ortho:.3e} of I", flush=True)
+    print("phase 34(b) fits: " + json.dumps(rec), flush=True)
+    if not (rel.max() <= PCA_EIG_TOL and resid.max() <= PCA_EIG_TOL):
+        bad.append(f"eigenvalues {rel.max():.3e} / residuals "
+                   f"{resid.max():.3e} past {PCA_EIG_TOL}")
+    if pinned.any() and vec_err[pinned].max() > PCA_EIG_TOL:
+        bad.append(f"pinned eigenvectors {vec_err[pinned].max():.3e} off")
+    if sd_rel.max() > PCA_RAND_TOL:
+        bad.append(f"Randomized sd {sd_rel.max():.3e} from GramSVD's")
+    if ortho > SVD_ORTHO_TOL:
+        bad.append(f"SVD uᵀu {ortho:.3e} from I")
+    for name, vals in (("pca_gram", ev), ("pca_randomized",
+                                          np.asarray(rand.eigenvalues)),
+                       ("svd_gram", np.asarray(svd.d))):
+        if not (np.all(np.isfinite(vals)) and np.all(np.diff(vals) <= 0)):
+            bad.append(f"{name}: values not finite and non-increasing")
+    PHASE34_WALLS["b"] = time.perf_counter() - t_phase
+    tf32_off()
+    if bad:
+        raise AssertionError("phase 34(b): " + "; ".join(bad))
+    return rec, pca, svd, fr
+
+
+def unsup_glrm_path(dev, card):
+    """Phase 34(c): GLRM on the rank-10 Covertype-shaped frame with holes;
+    returns (record, model, frame)."""
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLowRankEstimator
+
+    tf32_off()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fr, full, noise = make_lowrank_like(GLRM_ROWS, seed=7)
+    gen_s = time.perf_counter() - t0
+    bad = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model = H2OGeneralizedLowRankEstimator(device=str(dev),
+                                           **UNSUP_GLRM).train(
+        training_frame=fr).model
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated(dev)
+    ft = model.fit_timings
+    hist = [o for _, o in model.objective_history]
+    rises = [(a, b) for a, b in zip(hist, hist[1:]) if b > a * (1 + 1e-6)]
+    # the holes: reconstruct against the truth and against column means
+    # (0 in the standardized space), both in the standardized space
+    t2 = time.perf_counter()
+    rec_std = _frame_matrix(model.reconstruct(fr))
+    recon_s = time.perf_counter() - t2
+    A = _frame_matrix(fr)
+    holes = np.isnan(A)
+    di = model.dinfo
+    truth = (full.astype(np.float64) - di.means) / di.stds
+    rmse = float(np.sqrt(np.mean((rec_std[holes] - truth[holes]) ** 2)))
+    rmse_mean = float(np.sqrt(np.mean(truth[holes] ** 2)))
+    # the noise floor: the generator's noise in the standardized space,
+    # over the same holes
+    floor = float(np.sqrt(np.sum(holes.sum(0) * (noise / di.stds) ** 2)
+                          / holes.sum()))
+    # the fit's RMSE on the observed cells, from its objective (γ ≈ 1e-6),
+    # and the floor there: the true factors reach that floor, so the
+    # optimum of the objective lies at or below it
+    seen_cells = ~holes
+    fit_rmse = float(np.sqrt(model.objective / seen_cells.sum()))
+    floor_seen = float(np.sqrt(np.sum(seen_cells.sum(0)
+                                      * (noise / di.stds) ** 2)
+                               / seen_cells.sum()))
+    # transform on the card against the reference's row loop (f64 Y)
+    sub = A[:UNSUP_CHECK_ROWS]
+    As = (sub - di.means) / di.stds
+    Y = np.asarray(model.Y, np.float64)
+    loop = np.zeros((len(As), Y.shape[0]))
+    for i in range(len(As)):
+        m = ~np.isnan(As[i])
+        G = Y[:, m] @ Y[:, m].T + 1e-6 * np.eye(Y.shape[0])
+        loop[i] = np.linalg.solve(G, Y[:, m] @ As[i, m])
+    card_t = _frame_matrix(model.transform(fr.take(np.arange(
+        UNSUP_CHECK_ROWS))))
+    t_err = float(np.abs(card_t - loop).max())
+    rec = dict(card=card, rows=fr.nrow, cols=len(model.x), params=UNSUP_GLRM,
+               missing_share=float(holes.mean()), wall_s=wall,
+               fit_timings=ft, iterations=model.iterations,
+               als_ms_per_iteration=ft["steps_s"] / model.iterations * 1e3,
+               objective=model.objective, objective_checks=hist,
+               peak_bytes=peak, reconstruct_s=recon_s, holes_rmse=rmse,
+               holes_rmse_column_mean=rmse_mean, holes_noise_floor=floor,
+               observed_rmse=fit_rmse, observed_noise_floor=floor_seen,
+               transform_max_err=t_err,
+               generator_s=gen_s)
+    print(f"phase 34(c) on {card}: GLRM {fr.nrow} x {len(model.x)}, k = "
+          f"{UNSUP_GLRM['k']}, {holes.mean() * 100:.2f} % missing: fit "
+          f"{wall:.3f} s = expand {ft['pack_s']:.3f} + SVD init "
+          f"{ft['init_s']:.3f} + H2D {ft['h2d_s']:.3f} + ALS "
+          f"{ft['steps_s']:.3f} ({model.iterations} iterations, "
+          f"{rec['als_ms_per_iteration']:.3f} ms each); objective "
+          f"{model.objective:.6g} (RMSE {fit_rmse:.4f} on the observed "
+          f"cells, their noise floor {floor_seen:.4f}), peak "
+          f"{peak / 2**30:.2f} GiB; holes RMSE "
+          f"{rmse:.4f} against the noise floor {floor:.4f} (column means' "
+          f"{rmse_mean:.4f}); transform "
+          f"within {t_err:.3e} of the row loop", flush=True)
+    if rises or not np.all(np.isfinite(hist)):
+        bad.append(f"objective rose between checks: {rises}")
+    if not fit_rmse <= floor_seen:
+        bad.append(f"observed cells' RMSE {fit_rmse} above the true "
+                   f"factors' {floor_seen}")
+    if not rmse <= GLRM_FLOOR_MULT * floor:
+        bad.append(f"holes RMSE {rmse} past {GLRM_FLOOR_MULT} x the noise "
+                   f"floor {floor}")
+    if not t_err <= 1e-4:
+        bad.append(f"transform {t_err:.3e} from the row loop")
+    PHASE34_WALLS["c"] = time.perf_counter() - t_phase
+    tf32_off()
+    if bad:
+        raise AssertionError("phase 34(c): " + "; ".join(bad))
+    return rec, model, fr
+
+
+def unsup_mojo_serving(dev, card, models):
+    """Phase 34(d): each model saved and loaded, the numpy scorer against
+    `predict` on UNSUP_CHECK_ROWS rows (GLRM's `transform` too); the engine
+    serving K-Means and PCA equal to `predict` with no fallback."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_unsup_") as d:
+        for name, (model, fr) in models.items():
+            sub = fr.take(np.arange(UNSUP_CHECK_ROWS))
+            t0 = time.perf_counter()
+            scorer = mojo.load_model(mojo.save_model(model, d,
+                                                     f"{name}.h2o3"))
+            got = _frame_matrix(scorer.predict(sub))
+            want = _frame_matrix(model.predict(sub))
+            if name == "kmeans":
+                X64 = model.dinfo.transform(sub).astype(np.float64)
+                err = float(_kmeans_mismatch_ties(
+                    X64, model.centers_std.astype(np.float64),
+                    got[:, 0], want[:, 0]))
+                out[name] = dict(mismatched=int((got != want).sum()),
+                                 not_ties=err)
+            else:
+                err = float(np.abs(got - want).max())
+                out[name] = dict(max_abs_err=err)
+                if name == "glrm":
+                    terr = float(np.abs(
+                        _frame_matrix(scorer.transform(sub))
+                        - _frame_matrix(model.transform(sub))).max())
+                    out[name]["transform_max_abs_err"] = terr
+                    err = max(err, terr)
+            out[name]["s"] = time.perf_counter() - t0
+            if err > 1e-5:
+                bad.append(f"{name}: MOJO {err:.3e} from predict")
+    engine = ScoringEngine(ServingConfig())
+    try:
+        for name in ("kmeans", "pca_gram"):
+            model, fr = models[name]
+            batch = fr.take(np.arange(100, 357))
+            served = _frame_matrix(engine.score(f"unsup_{name}", model,
+                                                batch))
+            diff = float(np.abs(served - _frame_matrix(
+                model.predict(batch))).max())
+            out[name]["served_max_abs_err"] = diff
+            if diff > 1e-12:
+                bad.append(f"{name}: served {diff:.3e} from predict")
+        snap = engine.snapshot()
+    finally:
+        engine.shutdown()
+    out["fallback_scores"] = snap["totals"]["fallback_scores"]
+    if snap["totals"]["fallback_scores"] or snap["totals"]["errors"]:
+        bad.append(f"serving {snap['totals']}")
+    PHASE34_WALLS["d"] = time.perf_counter() - t_phase
+    print(f"phase 34(d) on {card}: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 34(d): " + "; ".join(bad))
+    return out
+
+
+def unsup_small_checks(dev, card):
+    """Phase 34(e): card against CPU on the CPU tests' small frames, with
+    their tolerances (UNSUP_SMALL_TOLS)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OGeneralizedLowRankEstimator, H2OKMeansEstimator,
+        H2OPrincipalComponentAnalysisEstimator,
+        H2OSingularValueDecompositionEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    tf32_off()
+    t_phase = time.perf_counter()
+    tol = UNSUP_SMALL_TOLS
+    bad, out = [], {}
+
+    def pair(cls, fr, **params):
+        return [cls(device=d, **params).train(training_frame=fr).model
+                for d in (str(dev), "cpu")]
+
+    rng = np.random.default_rng(2)
+    centers = rng.uniform(-10, 10, (3, 4))
+    blobs = Frame.from_numpy(np.concatenate(
+        [c + rng.normal(size=(300, 4)) for c in centers]))
+    for init in ("PlusPlus", "Furthest", "Random"):
+        a, c = pair(H2OKMeansEstimator, blobs, k=3, max_iterations=20,
+                    seed=1, init=init)
+        cerr = float(np.abs(a.centers() - c.centers()).max())
+        same = np.array_equal(_frame_matrix(a.predict(blobs)),
+                              _frame_matrix(c.predict(blobs)))
+        wrel = abs(a.tot_withinss() - c.tot_withinss()) / c.tot_withinss()
+        out[f"kmeans_{init}"] = dict(center_err=cerr, same_assign=same,
+                                     iterations=(a.iterations, c.iterations),
+                                     wss_rel=float(wrel))
+        if not (cerr <= tol["center"] * max(1, np.abs(c.centers()).max())
+                and same and a.iterations == c.iterations
+                and wrel <= tol["ss"]):
+            bad.append(f"kmeans {init}: {out[f'kmeans_{init}']}")
+    rng = np.random.default_rng(1)
+    Z = rng.normal(size=(600, 6)) * np.asarray([6, 4, 2.5, 1.5, 0.8, 0.3])
+    Q, _ = np.linalg.qr(np.random.default_rng(99).normal(size=(6, 6)))
+    spec = Frame.from_numpy(Z @ Q.T + np.arange(1.0, 7.0))
+    for method in ("GramSVD", "Randomized"):
+        a, c = pair(H2OPrincipalComponentAnalysisEstimator, spec, k=3,
+                    pca_method=method, transform="STANDARDIZE", seed=6)
+        verr = float(np.abs(a.eigenvectors - c.eigenvectors).max())
+        erel = float((np.abs(a.eigenvalues - c.eigenvalues)
+                      / c.eigenvalues).max())
+        serr = float(np.abs(_frame_matrix(a.predict(spec))
+                            - _frame_matrix(c.predict(spec))).max())
+        out[f"pca_{method}"] = dict(vec_err=verr, eig_rel=erel,
+                                    score_err=serr)
+        if not (verr <= tol["eig_abs"] and erel <= tol["eig_rel"]
+                and serr <= tol["score"]):
+            bad.append(f"pca {method}: {out[f'pca_{method}']}")
+    for method in ("GramSVD", "Power", "Randomized"):
+        a, c = pair(H2OSingularValueDecompositionEstimator, spec, nv=3,
+                    svd_method=method, seed=4)
+        errs = dict(d_rel=float((np.abs(a.d - c.d) / c.d).max()),
+                    v=float(np.abs(a.v - c.v).max()),
+                    u=float(np.abs(a.u - c.u).max()))
+        out[f"svd_{method}"] = errs
+        if max(errs.values()) > tol["svd"]:
+            bad.append(f"svd {method}: {errs}")
+    rng = np.random.default_rng(1)
+    L = (rng.normal(size=(400, 3)) @ rng.normal(size=(3, 8))
+         + 0.05 * rng.normal(size=(400, 8)))
+    L = L * np.linspace(1, 3, 8) + np.arange(8)
+    L[rng.random(L.shape) < 0.1] = np.nan
+    low = Frame.from_numpy(L)
+    for init in ("SVD", "Random"):
+        a, c = pair(H2OGeneralizedLowRankEstimator, low, k=3, seed=2,
+                    init=init, max_iterations=200, transform="STANDARDIZE")
+        orel = abs(a.objective - c.objective) / abs(c.objective)
+        ferr = max(float(np.abs(_frame_matrix(getattr(a, f)(low))
+                                - _frame_matrix(getattr(c, f)(low))).max())
+                   for f in ("reconstruct", "transform"))
+        out[f"glrm_{init}"] = dict(obj_rel=orel, fit_err=ferr)
+        if orel > tol["glrm_obj"] or ferr > tol["glrm_fit"]:
+            bad.append(f"glrm {init}: {out[f'glrm_{init}']}")
+    PHASE34_WALLS["e"] = time.perf_counter() - t_phase
+    print(f"phase 34(e) on {card}, card vs cpu (tolerances "
+          f"{json.dumps(tol)}): " + json.dumps(out), flush=True)
+    tf32_off()
+    if bad:
+        raise AssertionError("phase 34(e): " + "; ".join(bad))
+    return out
+
+
+def unsupervised_path(dev, card):
+    """Phase 34: (a)-(e) in turn with every launch count set to 0 before
+    and read after; (f) none of them launched a hand-written kernel."""
+    zero_counts()
+    km_rec, km_model, km_fr = unsup_kmeans_path(dev, card)
+    pca_rec, pca, svd, px_fr = unsup_pca_svd_path(dev, card)
+    glrm_rec, glrm_model, glrm_fr = unsup_glrm_path(dev, card)
+    mojo_rec = unsup_mojo_serving(dev, card, dict(
+        kmeans=(km_model, km_fr), pca_gram=(pca, px_fr),
+        svd_gram=(svd, px_fr), glrm=(glrm_model, glrm_fr)))
+    del km_fr, px_fr, glrm_fr
+    unsup_small_checks(dev, card)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    print(f"phase 34(f): hand-written kernel launches {json.dumps(counts)}",
+          flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"phase 34(f): a hand-written kernel ran: "
+                             f"{counts}")
+    return dict(kmeans=km_rec, pca_svd=pca_rec, glrm=glrm_rec,
+                mojo=mojo_rec)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5278,6 +5853,10 @@ def main() -> int:
     automl_small_checks(dev, card)
     print(f"phase 33 wall on {card}: " + json.dumps(dict(
         PHASE33_WALLS, total_s=sum(PHASE33_WALLS.values()))), flush=True)
+    # phase 34: K-Means, PCA, SVD and GLRM at full width, then card vs CPU
+    unsupervised_path(dev, card)
+    print(f"phase 34 wall on {card}: " + json.dumps(dict(
+        PHASE34_WALLS, total_s=sum(PHASE34_WALLS.values()))), flush=True)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)

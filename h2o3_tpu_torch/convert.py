@@ -20,6 +20,13 @@ A DeepLearning model's weights are its layers' (W, b) pairs (W of shape
 layer's fan-in), its activation, problem, class count, response domain
 and distribution, with the same `DataInfo` state. `dl_from_numpy` builds
 the port's `DeepLearningModel` from them.
+
+The unsupervised models' weights are their fitted arrays with the same
+`DataInfo` state: a K-Means model's standardized centres, a PCA model's
+eigenvectors and eigenvalues (and its DEMEAN means), an SVD model's d, v
+and, if kept, u, and a GLRM model's X and Y with its objective.
+`kmeans_from_numpy`, `pca_from_numpy`, `svd_from_numpy` and
+`glrm_from_numpy` build the port's models from them.
 """
 
 from __future__ import annotations
@@ -34,7 +41,11 @@ from .frame.binning import BinnedMatrix
 from .models import tree as treelib
 from .models.deeplearning import ACTIVATIONS, DeepLearningModel
 from .models.glm import FAMILIES, GLMModel
+from .models.glrm import GLRMModel
+from .models.kmeans import KMeansModel
 from .models.model_base import DataInfo
+from .models.pca import PCAModel
+from .models.svd import SVDModel
 from .models.shared_tree import SharedTreeModel
 
 
@@ -196,3 +207,91 @@ def dl_from_numpy(*, net_params, activation: str, problem: str,
               for W, b in pairs]
     return DeepLearningModel(None, x, y, dinfo, problem, nclass, domain,
                              params, activation, distribution, device=dev)
+
+
+def _dinfo(x, *, spec, coef_names, standardize, use_all, means, stds,
+           col_means, impute_missing=True) -> DataInfo:
+    dinfo = DataInfo.from_state(
+        spec=spec, coef_names=coef_names, standardize=standardize,
+        use_all=use_all, means=means, stds=stds, col_means=col_means,
+        impute_missing=impute_missing)
+    if list(x) != dinfo.x:
+        raise ValueError("x must name the spec's columns in order")
+    return dinfo
+
+
+def kmeans_from_numpy(*, centers_std, x: Sequence[str], spec,
+                      coef_names: Sequence[str], means=None, stds=None,
+                      col_means=None, standardize: bool = True,
+                      use_all: bool = True, device=None) -> KMeansModel:
+    """Port K-Means model from a reference model's state: `centers_std` the
+    (k, p) centres in the standardized space (`KMeansModel.centers_std`),
+    with the `DataInfo` state as for `glm_from_numpy`."""
+    c = np.asarray(centers_std, np.float32)
+    if c.ndim != 2 or c.shape[1] != len(coef_names):
+        raise ValueError(f"centers_std: expected (k, {len(coef_names)}), "
+                         f"got {c.shape}")
+    dinfo = _dinfo(x, spec=spec, coef_names=coef_names,
+                   standardize=standardize, use_all=use_all, means=means,
+                   stds=stds, col_means=col_means)
+    return KMeansModel(None, x, dinfo, c, c.shape[0], device=device)
+
+
+def pca_from_numpy(*, eigenvectors, eigenvalues, x: Sequence[str], spec,
+                   coef_names: Sequence[str], demean_mu=None, means=None,
+                   stds=None, col_means=None, standardize: bool = False,
+                   use_all: bool = False, device=None) -> PCAModel:
+    """Port PCA model from a reference model's state: `eigenvectors`
+    (p, k) and `eigenvalues` (k,), `demean_mu` the training means of a
+    `transform="DEMEAN"` model (its `_demean_mu`), and the `DataInfo`
+    state."""
+    V = np.asarray(eigenvectors)
+    ev = np.asarray(eigenvalues)
+    if V.ndim != 2 or V.shape[0] != len(coef_names) or ev.shape != (V.shape[1],):
+        raise ValueError(f"eigenvectors {V.shape} and eigenvalues {ev.shape}: "
+                         f"expected (p, k) and (k,) for p = {len(coef_names)}")
+    dinfo = _dinfo(x, spec=spec, coef_names=coef_names,
+                   standardize=standardize, use_all=use_all, means=means,
+                   stds=stds, col_means=col_means)
+    model = PCAModel(None, x, dinfo, V, ev, V.shape[1], device=device)
+    if demean_mu is not None:
+        model._demean_mu = np.asarray(demean_mu, np.float64)
+    return model
+
+
+def svd_from_numpy(*, d, v, x: Sequence[str], spec,
+                   coef_names: Sequence[str], u=None, means=None, stds=None,
+                   col_means=None, standardize: bool = False,
+                   use_all: bool = True, device=None) -> SVDModel:
+    """Port SVD model from a reference model's state: the singular values
+    `d` (k,), the right singular vectors `v` (p, k), the left ones `u`
+    (n, k) where kept, and the `DataInfo` state."""
+    d = np.asarray(d)
+    v = np.asarray(v)
+    if v.ndim != 2 or v.shape[0] != len(coef_names) or d.shape != (v.shape[1],):
+        raise ValueError(f"v {v.shape} and d {d.shape}: expected (p, k) and "
+                         f"(k,) for p = {len(coef_names)}")
+    dinfo = _dinfo(x, spec=spec, coef_names=coef_names,
+                   standardize=standardize, use_all=use_all, means=means,
+                   stds=stds, col_means=col_means)
+    return SVDModel(None, x, dinfo, d, v,
+                    None if u is None else np.asarray(u), device=device)
+
+
+def glrm_from_numpy(*, X, Y, objective: float, x: Sequence[str], spec,
+                    coef_names: Sequence[str], means=None, stds=None,
+                    standardize: bool = False, device=None) -> GLRMModel:
+    """Port GLRM model from a reference model's state: the row weights `X`
+    (n, k), the archetypes `Y` (k, p), the final objective, and the
+    NaN-keeping `DataInfo` state (no imputation; `means`/`stds` set under
+    STANDARDIZE, NORMALIZE or DEMEAN)."""
+    Xw = np.asarray(X)
+    Y = np.asarray(Y)
+    if Y.ndim != 2 or Y.shape[1] != len(coef_names) or Xw.shape[1:] != Y.shape[:1]:
+        raise ValueError(f"X {Xw.shape} and Y {Y.shape}: expected (n, k) and "
+                         f"(k, p) for p = {len(coef_names)}")
+    dinfo = _dinfo(x, spec=spec, coef_names=coef_names,
+                   standardize=standardize, use_all=True, means=means,
+                   stds=stds, col_means=None, impute_missing=False)
+    return GLRMModel(None, x, dinfo, Xw, Y, Y.shape[0], float(objective),
+                     device=device)

@@ -51,7 +51,7 @@ from . import estimator_engine as _est
 from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
                       ModelMetricsRegression)
 from .model_base import (DataInfo, H2OEstimator, H2OModel, ScoreKeeper,
-                         ScoringHistory, _sync, response_info)
+                         ScoringHistory, _sync, check_unread, response_info)
 
 ACTIVATIONS = (
     "Rectifier", "Tanh", "Maxout",
@@ -335,12 +335,7 @@ class H2ODeepLearningEstimator(H2OEstimator):
         activation = p.get("activation", "Rectifier")
         if activation not in ACTIVATIONS:
             raise ValueError(f"activation {activation!r} not in {ACTIVATIONS}")
-        for k, default in _UNREAD.items():
-            if p.get(k, default) != default:
-                raise NotImplementedError(
-                    f"{k}={p.get(k)!r}: the reference's DeepLearning accepts "
-                    f"it and never reads it, so only {default!r} is ported "
-                    f"({_ITEM10}; ROADMAP §C)")
+        check_unread("DeepLearning", _ITEM10, p, _UNREAD)
         if p.get("distribution") in ("gamma", "tweedie"):
             raise NotImplementedError(
                 f"distribution={p.get('distribution')!r}: the reference's "

@@ -12,10 +12,15 @@ reaches:
   "mesh" lane (several devices or processes) are not ported; asking for
   either raises (ROADMAP queue A, item 9).
 - **`design_matrix`** — the compact-upload, device-expanded design of
-  `DataInfo.device_design`, built per fit. The reference caches it in its
-  dataset cache's ``std`` layer; the port has no dataset cache yet (ROADMAP
-  queue A, item 7), and the reference builds the same artifact when its
-  cache is off.
+  `DataInfo.device_design`, built per fit (GLM, DeepLearning). The
+  reference caches it in its dataset cache's ``std`` layer; the port has
+  no dataset cache yet (ROADMAP queue A, item 7), and the reference builds
+  the same artifact when its cache is off.
+- **`host_matrix`** — the standardized f32 host matrix of
+  `DataInfo.fit_transform` (K-Means draws its initial centres from it),
+  built per fit for the same reason; K-Means and PCA upload it once,
+  unpadded (the reference's padded `device_matrix` serves its blocked
+  lanes, item 9).
 - **Observability** — per-fit plans (`record_fit`: algo, path, iterations,
   converged on the device) in a bounded ring read by `est_stats`, and the
   `h2o3_est_dispatch{algo,path}` / `h2o3_est_iterations{algo}` families of
@@ -83,12 +88,32 @@ def design_matrix(frame, x, *, standardize: bool, use_all: bool = False,
     padded and sharded layouts belong to its blocked lanes (item 9)."""
     from .model_base import DataInfo
 
-    ua = bool(use_all) and any(frame.vec(c).type == "enum" for c in x)
     dinfo = DataInfo(frame, x, standardize=standardize,
-                     use_all_factor_levels=ua, impute_missing=True)
+                     use_all_factor_levels=_use_all_key(frame, x, use_all),
+                     impute_missing=True)
     Xd = dinfo.device_design(frame, fit=True, add_intercept=add_intercept,
                              device=device, timings=timings)
     return dinfo, Xd
+
+
+def _use_all_key(frame, x, use_all: bool) -> bool:
+    """`use_all_factor_levels` only changes the design when a categorical
+    column exists; the reference normalizes it out of its cache key for
+    all-numeric frames, and so of the `DataInfo` it builds."""
+    return bool(use_all) and any(frame.vec(c).type == "enum" for c in x)
+
+
+def host_matrix(frame, x, *, standardize: bool, use_all: bool = False,
+                impute: bool = True):
+    """(DataInfo, standardized float32 host matrix) for (frame, x): the
+    reference's `host_matrix`, `DataInfo(...).fit_transform` byte for byte.
+    K-Means draws its initial centres from it."""
+    from .model_base import DataInfo
+
+    dinfo = DataInfo(frame, x, standardize=standardize,
+                     use_all_factor_levels=_use_all_key(frame, x, use_all),
+                     impute_missing=impute)
+    return dinfo, dinfo.fit_transform(frame)
 
 
 # -- observability ------------------------------------------------------------

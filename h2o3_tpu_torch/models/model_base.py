@@ -852,6 +852,32 @@ class H2OEstimator:
         return self.model.scoring_history
 
 
+def check_unread(algo: str, item: str, p: dict, unread: dict) -> None:
+    """Raise for a parameter the reference's `algo` accepts and never
+    reads, at any value other than its default (`unread`: name → default),
+    naming the ROADMAP `item` that would port it."""
+    for k, default in unread.items():
+        if p.get(k, default) != default:
+            raise NotImplementedError(
+                f"{k}={p.get(k)!r}: the reference's {algo} accepts it and "
+                f"never reads it, so only {default!r} is ported ({item}; "
+                "ROADMAP §C)")
+
+
+def warn_host_solver(algo: str, n_rows: int, bound: int = 500_000) -> None:
+    """The reference's warning for its host-side numpy solvers (GLRM's SVD
+    initialisation among them): correct at their usual scale, but a big
+    frame gets a WARN line in the port's log rather than a silent slow
+    fit."""
+    if n_rows > bound:
+        from ..runtime.log import Log
+
+        Log.warn(
+            f"{algo}: {n_rows} rows exceed the ~{bound} row envelope of "
+            "this host-side (numpy) solver; expect host memory/time to "
+            "scale accordingly (docs/architecture.md)")
+
+
 def _is_const(v: Vec) -> bool:
     if v.type == "string":
         return False

@@ -27,10 +27,19 @@ scores it by building the level-one frame from its children. An XGBoost
 model is one of these under algo "xgboost": a tree payload for gbtree,
 DART (its round scales baked into the leaf values) and lambdarank, a GLM
 payload for gblinear.
+The unsupervised estimators write the reference's payloads: K-Means its
+standardized centres (`centers_std`), PCA its `eigenvectors` and
+`eigenvalues`, SVD `svd_d` and `svd_v`, GLRM its archetypes (`glrm_y`,
+f64), each with `means`/`stds` where its `DataInfo` holds them and its
+`DataInfo` state. Their numpy scorers are the reference's: the K-Means
+argmin and the PCA and SVD projections over the imputed expansion, and
+GLRM's `reconstr_*` and `transform` through `_glrm_project`, a masked k×k
+solve a row. As in the reference, a PCA payload keeps no DEMEAN means and
+an SVD payload no DEMEAN/DESCALE stats (ROADMAP §C).
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
 scorer). The reference's native C++ scorer (`native/loader.py`) and the other
-algorithms' payloads are not ported yet (ROADMAP queue A, items 8, 10 and
+algorithms' payloads are not ported yet (ROADMAP queue A, items 10 and
 11). Exporting any other model raises the reference's `TypeError`.
 """
 
@@ -52,7 +61,11 @@ def _model_payload(model) -> Dict[str, Any]:
     from .models.deeplearning import DeepLearningModel
     from .models.ensemble import StackedEnsembleModel
     from .models.glm import GLMModel
+    from .models.glrm import GLRMModel
+    from .models.kmeans import KMeansModel
+    from .models.pca import PCAModel
     from .models.shared_tree import SharedTreeModel
+    from .models.svd import SVDModel
 
     if isinstance(model, MojoScorer):
         # a loaded artifact re-exports losslessly: its payload IS its state
@@ -63,7 +76,8 @@ def _model_payload(model) -> Dict[str, Any]:
                                for k, c in model.children.items()}
         return out
     if not isinstance(model, (SharedTreeModel, GLMModel, DeepLearningModel,
-                              StackedEnsembleModel)):
+                              StackedEnsembleModel, KMeansModel, PCAModel,
+                              SVDModel, GLRMModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
             "not a MOJO-exportable kind (see docs/mojo.md for the "
@@ -94,9 +108,32 @@ def _model_payload(model) -> Dict[str, Any]:
             coef_names=model._names(), standardize=model.dinfo.standardize,
         )
         arrays["beta"] = np.asarray(model.beta, np.float64)
-        if model.dinfo.means is not None:
-            arrays["means"] = model.dinfo.means
-            arrays["stds"] = model.dinfo.stds
+        _stats(arrays, model.dinfo)
+        meta["dinfo"] = _dinfo_meta(model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, GLRMModel):
+        meta.update(kind="glrm", k=model.k,
+                    dinfo=_dinfo_meta(model.dinfo))
+        arrays["glrm_y"] = np.asarray(model.Y, np.float64)
+        _stats(arrays, model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, SVDModel):
+        meta.update(kind="svd", dinfo=_dinfo_meta(model.dinfo))
+        arrays["svd_d"] = np.asarray(model.d, np.float64)
+        arrays["svd_v"] = np.asarray(model.v, np.float64)
+        _stats(arrays, model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, KMeansModel):
+        meta.update(kind="kmeans", k=model.k)
+        arrays["centers_std"] = np.asarray(model.centers_std)
+        _stats(arrays, model.dinfo)
+        meta["dinfo"] = _dinfo_meta(model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, PCAModel):
+        meta.update(kind="pca", k=model.k)
+        arrays["eigenvectors"] = np.asarray(model.eigenvectors)
+        arrays["eigenvalues"] = np.asarray(model.eigenvalues)
+        _stats(arrays, model.dinfo)
         meta["dinfo"] = _dinfo_meta(model.dinfo)
         return {"meta": meta, "arrays": arrays}
     if isinstance(model, DeepLearningModel):
@@ -108,9 +145,7 @@ def _model_payload(model) -> Dict[str, Any]:
         for i, (W, b) in enumerate(model.net_params):
             arrays[f"W{i}"] = W.cpu().numpy()
             arrays[f"b{i}"] = b.cpu().numpy()
-        if model.dinfo.means is not None:
-            arrays["means"] = model.dinfo.means
-            arrays["stds"] = model.dinfo.stds
+        _stats(arrays, model.dinfo)
         meta["dinfo"] = _dinfo_meta(model.dinfo)
         return {"meta": meta, "arrays": arrays}
     meta.update(
@@ -130,6 +165,13 @@ def _model_payload(model) -> Dict[str, Any]:
                 model.covers[k].cpu().numpy().astype(np.float32))
     meta["n_forests"] = len(model.forest)
     return {"meta": meta, "arrays": arrays}
+
+
+def _stats(arrays: Dict[str, np.ndarray], dinfo) -> None:
+    """The standardization stats, where the `DataInfo` holds them."""
+    if dinfo.means is not None:
+        arrays["means"] = dinfo.means
+        arrays["stds"] = dinfo.stds
 
 
 def _dinfo_meta(dinfo) -> Dict:
@@ -267,24 +309,24 @@ class MojoScorer:
             outs.append(total + (f0k if meta["mode"] != "drf" else 0.0))
         return np.column_stack(outs)
 
-    def _expand_dinfo(self, data) -> np.ndarray:
+    def _expand_raw(self, data, impute: bool) -> np.ndarray:
+        """The one-hot expansion of the `DataInfo` spec, f64; numeric NaNs
+        filled with the stored column means if `impute`, else kept."""
         from .frame.frame import Frame
 
+        if not isinstance(data, Frame):
+            raise TypeError("dinfo models require a Frame input")
         di = self.meta["dinfo"]
         cols = []
         for kind, n, dom in di["spec"]:
-            if isinstance(data, Frame):
-                v = data.vec(n)
-                raw = v.numeric_np()
-                codes = np.asarray(v.data) if v.type == "enum" else None
-                vdom = v.domain
-            else:
-                raise TypeError("dinfo models require a Frame input")
+            v = data.vec(n)
             if kind == "num":
-                c = np.where(np.isnan(raw), di["col_means"].get(n, 0.0), raw)
+                c = v.numeric_np()
+                if impute:
+                    c = np.where(np.isnan(c), di["col_means"].get(n, 0.0), c)
                 cols.append(c[:, None])
             else:
-                codes = _remap_codes(codes, vdom, dom)
+                codes = _remap_codes(np.asarray(v.data), v.domain, dom)
                 K = len(dom)
                 oh = np.zeros((len(codes), K))
                 valid = codes >= 0
@@ -292,8 +334,11 @@ class MojoScorer:
                 if not di["use_all"] and K > 0:
                     oh = oh[:, 1:]
                 cols.append(oh)
-        X = np.concatenate(cols, axis=1)
-        if di["standardize"] and "means" in self.arrays:
+        return np.concatenate(cols, axis=1)
+
+    def _expand_dinfo(self, data) -> np.ndarray:
+        X = self._expand_raw(data, impute=True)
+        if self.meta["dinfo"]["standardize"] and "means" in self.arrays:
             X = (X - self.arrays["means"]) / self.arrays["stds"]
         return np.nan_to_num(X, nan=0.0)
 
@@ -388,6 +433,66 @@ class MojoScorer:
                 lvl1[f"m{i}"] = pf.vec("predict").numeric_np()
         return self.children["meta"].predict(Frame.from_dict(lvl1))
 
+    def _unsupervised_predict(self, data):
+        """The reference's numpy scorers of the unsupervised kinds: the
+        K-Means argmin of ‖x‖² − 2x·cᵀ + ‖c‖², the PCA scores X·V, the SVD
+        projection X·v / d (over the imputed, standardized expansion), and
+        the GLRM reconstruction X̂·Y of `_glrm_project`'s weights."""
+        from .frame.frame import Frame
+
+        kind = self.meta["kind"]
+        if kind == "glrm":
+            X = self._glrm_project(data)
+            R = X @ self.arrays["glrm_y"]
+            names = self.meta["dinfo"]["coef_names"]
+            return Frame.from_dict(
+                {f"reconstr_{names[j]}": R[:, j] for j in range(R.shape[1])})
+        X = self._expand_dinfo(data)
+        if kind == "kmeans":
+            c = self.arrays["centers_std"]
+            d2 = (np.sum(X * X, axis=1, keepdims=True) - 2.0 * X @ c.T
+                  + np.sum(c * c, axis=1)[None, :])
+            return Frame.from_dict({"predict": d2.argmin(axis=1).astype(np.float64)})
+        if kind == "pca":
+            scores = X @ self.arrays["eigenvectors"]
+            return Frame.from_dict(
+                {f"PC{i+1}": scores[:, i] for i in range(self.meta["k"])})
+        scores = (X @ self.arrays["svd_v"]
+                  ) / np.maximum(self.arrays["svd_d"][None, :], 1e-300)
+        return Frame.from_dict(
+            {f"u{i+1}": scores[:, i] for i in range(scores.shape[1])})
+
+    def _glrm_project(self, data) -> np.ndarray:
+        """GLRM row loadings for new data — the expansion keeps NaNs so
+        the observation mask survives (GLRMModel._project semantics); one
+        masked k×k solve a row, as in the reference."""
+        A = self._expand_raw(data, impute=False)
+        if "means" in self.arrays:
+            A = (A - self.arrays["means"]) / self.arrays["stds"]
+        Y = self.arrays["glrm_y"]
+        k = Y.shape[0]
+        mask = ~np.isnan(A)
+        A0 = np.nan_to_num(A, nan=0.0)
+        lam = 1e-6
+        Xn = np.zeros((A.shape[0], k))
+        YT = Y.T
+        for i in range(A.shape[0]):
+            m = mask[i]
+            G = YT[m].T @ YT[m] + lam * np.eye(k)
+            Xn[i] = np.linalg.solve(G, YT[m].T @ A0[i, m])
+        return Xn
+
+    def transform(self, data):
+        """GLRM archetype loadings (`Arch{j}`), offline."""
+        from .frame.frame import Frame
+
+        kind = self.meta["kind"]
+        if kind != "glrm":
+            raise ValueError(f"transform is not defined for kind {kind!r}")
+        Xn = self._glrm_project(data)
+        return Frame.from_dict(
+            {f"Arch{j+1}": Xn[:, j] for j in range(Xn.shape[1])})
+
     def predict_contributions(self, data):
         """Offline SHAP contributions and BiasTerm (the genmodel side's
         `predictContributions`): tree artifacts with recorded covers only,
@@ -437,6 +542,8 @@ class MojoScorer:
             return self._ensemble_predict(data)
         if meta["kind"] == "deeplearning":
             return self._deeplearning_predict(data)
+        if meta["kind"] in ("kmeans", "pca", "svd", "glrm"):
+            return self._unsupervised_predict(data)
         if meta["kind"] != "tree":
             raise NotImplementedError(
                 f"scoring a {meta['kind']!r} artifact is not ported "

@@ -470,3 +470,61 @@ def test_xgboost_on_cuda_is_repeatable_and_matches_cpu(dev, monkeypatch):
                                    atol=1e-6 * float(want.abs().max()))
     for other in outs[1:]:
         assert all(torch.equal(p, q) for p, q in zip(outs[0], other))
+
+
+def test_kmeans_on_cuda_matches_cpu(dev):
+    """K-Means on the card against the CPU: the seeding is host numpy, so
+    both start from the same centres; the Lloyd loop's one-hot sums add in
+    another order, so centres agree within 1e-5 and assignments and WSS
+    (1e-5 relative) agree. Iteration counts agree within one: the stop
+    test compares two f32 WSS values at 1e-7 relative, and where Lloyd
+    creeps (Random's start here lands two centres in one blob; the WSS
+    falls 2-4e-7 a step) the last step's change is at the sums' rounding,
+    so the card stopped one step after the CPU, at the same centres (an
+    H100 run: 20 against 19)."""
+    from h2o3_tpu_torch.estimators import H2OKMeansEstimator
+
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-10, 10, (4, 6))
+    X = np.concatenate([c + rng.normal(size=(2000, 6)) for c in centers])
+    fr = Frame.from_numpy(X)
+    for init in ("PlusPlus", "Furthest", "Random"):
+        fits = [H2OKMeansEstimator(k=4, init=init, seed=5, max_iterations=30,
+                                   device=d) for d in (str(dev), "cpu")]
+        for est in fits:
+            est.train(training_frame=fr)
+        a, c = (est.model for est in fits)
+        assert abs(a.iterations - c.iterations) <= 1
+        assert np.abs(a.centers() - c.centers()).max() <= 1e-5 * max(
+            1.0, np.abs(c.centers()).max())
+        assert np.array_equal(a.predict(fr).vec("predict").numeric_np(),
+                              c.predict(fr).vec("predict").numeric_np())
+        assert abs(a.tot_withinss() - c.tot_withinss()) <= 1e-5 * abs(
+            c.tot_withinss())
+
+
+def test_glrm_on_cuda_matches_cpu(dev):
+    """GLRM on the card against the CPU: the same host start, the batched
+    normal equations solved by cuSOLVER on the card; objectives within
+    1e-4 relative, reconstructions and `transform` within 1e-3."""
+    from h2o3_tpu_torch.estimators import H2OGeneralizedLowRankEstimator
+
+    rng = np.random.default_rng(4)
+    A = rng.normal(size=(3000, 3)) @ rng.normal(size=(3, 12))
+    A += 0.05 * rng.normal(size=A.shape)
+    A[rng.random(A.shape) < 0.1] = np.nan
+    fr = Frame.from_numpy(A)
+    for init in ("SVD", "Random"):
+        fits = [H2OGeneralizedLowRankEstimator(
+            k=3, init=init, seed=2, transform="STANDARDIZE",
+            max_iterations=200, device=d) for d in (str(dev), "cpu")]
+        for est in fits:
+            est.train(training_frame=fr)
+        a, c = (est.model for est in fits)
+        assert abs(a.objective - c.objective) <= 1e-4 * abs(c.objective)
+        for method in ("reconstruct", "transform"):
+            ga, gc = (getattr(m, method)(fr) for m in (a, c))
+            diff = max(np.abs(ga.vec(n).numeric_np()
+                              - gc.vec(n).numeric_np()).max()
+                       for n in gc.names)
+            assert diff <= 1e-3, (init, method, diff)

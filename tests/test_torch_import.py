@@ -31,6 +31,8 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch.runtime.memory_ledger, h2o3_tpu_torch.runtime.retry\n"
         "import h2o3_tpu_torch.automl, h2o3_tpu_torch.models.grid\n"
         "import h2o3_tpu_torch.runtime.trainpool, h2o3_tpu_torch.runtime.phases\n"
+        "import h2o3_tpu_torch.models.kmeans, h2o3_tpu_torch.models.pca\n"
+        "import h2o3_tpu_torch.models.svd, h2o3_tpu_torch.models.glrm\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'h2o3_tpu' or m.startswith('h2o3_tpu.'))\n"
