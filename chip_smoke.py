@@ -348,6 +348,37 @@ holdout prediction.
    counts, zeroed before (a), read after (e): none of B1, B2, the forest
    scorer or TreeSHAP ran. TF32 stays off. The phase's wall is printed.
 
+35. The isolation forests and the uplift DRF, last. (a) IsolationForest
+   at its defaults (50 trees, sample_size 256, depth 8) and (b)
+   ExtendedIsolationForest at its defaults (100 trees, sample_size 256)
+   at extension_level 0 and 29 (= p − 1) on a generated frame of the ULB
+   credit-card-fraud dataset's shape (284,807 × 30: Time, V1–V28,
+   Amount; 492 planted frauds), and at 27 on V1–V28 alone: each fit's
+   split and `predict`'s wall on all rows; the frauds' mean score above
+   the rest's by IF_GAP and more than IF_TOP of them in the top 5 % (the
+   reference's bars), but at 29 on all columns, where Time's scale fills
+   every oblique projection (printed, not held). (c) UpliftDRF at its
+   defaults (50 trees, depth 10, nbins 20 → B = 32, KL, sample_rate
+   0.632, mtries −2) on a generated frame of the Criteo Uplift v2.1
+   shape (12 features, treatment 85 %, visit ≈4.7 %, a known uplift on a
+   region), cut to UP_ROWS of its 13,979,592 rows: the fit's split
+   (binning, upload, tree loop, metrics); B1 launched exactly 2 × 11 × 50
+   times, B2 never, the forest scorer once for the training metrics and
+   once per `predict`; tree 0's deepest pass (L = 1024, the sampled
+   treatment weights) bit-equal to `hist_plain_fixed`, its 22 passes
+   timed against the bytes bound, the plain version and `index_add_`;
+   one tree built again under the profiler (its launches, the device's
+   busy share); each tree's root value within UP_ROOT_TOL of p_t − p_c of
+   its sampled rows in f64 on the host; the mean predicted uplift on the
+   region above the rest's and the qini AUUC above a random ranking's
+   (the reference's bars). (d) Each model's MOJO against `predict` on
+   UP_CHECK_ROWS rows within 1e-5, but for rows within one f32 rounding
+   of a threshold (counted and printed), no kernel launched by a MOJO
+   scorer; one batch of each served equal to `predict` with no fallback.
+   (e) Card against CPU on the CPU tests' small frames (IF_SMALL_TOLS).
+   (f) The launch counts, zeroed before (a), read after (a, b) (none)
+   and after (e) (no B2 and no TreeSHAP). The phase's wall is printed.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
 them again before their `predict`; phase 20 is the TreeSHAP path's; phases
@@ -356,7 +387,9 @@ their own; phase 30's stack `predict` is its own; each of phase 31's
 fits, its `predict` and its contributions are their own; the GLM and
 gblinear run none of the hand-written kernels, and phases 17, 18, 26, 30
 and 31(d) fail if they launched one; so does phase 32's DeepLearning
-fit, and phase 34 as a whole).
+fit, and phase 34 as a whole; phase 35's fits and `predict`s count
+their own launches, and its isolation forests fail if they launched
+one).
 TF32 must stay off
 through phases 17-19, 30, 31(d) and 32. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
@@ -5747,6 +5780,570 @@ def unsupervised_path(dev, card):
                 mojo=mojo_rec)
 
 
+# phase 35: the isolation forests and the uplift DRF at full width. (a)
+# IsolationForest and (b) ExtendedIsolationForest at their defaults on a
+# generated frame of the ULB credit-card-fraud dataset's shape (Dal Pozzolo
+# et al., "Calibrating Probability with Undersampling for Unbalanced
+# Classification", 2015: 284,807 transactions x 30 columns, Time, V1-V28
+# and Amount, 492 frauds), the frauds planted as scattered anomalies; (c)
+# UpliftDRF at its defaults on a generated frame of the Criteo Uplift v2.1
+# shape (Diemert et al., "A Large Scale Benchmark for Uplift Modeling",
+# 2018: 13,979,592 rows, 12 continuous features f0-f11, treatment 85 %,
+# visit 4.7 %), cut to UP_ROWS rows, with a known uplift on a region of
+# its features; (d) their MOJOs and the engine serving each; (e) card vs
+# CPU on the CPU tests' small frames; (f) only (c)-(e)'s uplift work
+# launches a hand-written kernel: B1 and the forest scorer
+CC_ROWS, CC_FRAUD = 284_807, 492
+CC_NAMES = ["Time"] + [f"V{i}" for i in range(1, 29)] + ["Amount"]
+CC_TIME_S = 172_792            # the dataset's two days, in seconds
+# the V columns in which the generated frauds stand out
+CC_FRAUD_COLS = ("V3", "V4", "V10", "V11", "V12", "V14", "V16", "V17")
+# (a)/(b)'s bars (tests/test_unsupervised.py): the frauds' mean score
+# above the rest's by IF_GAP, and more than IF_TOP of them in the top 5 %
+IF_GAP, IF_TOP = 0.1, 0.8
+CRITEO_ROWS, UP_ROWS = 13_979_592, 1_000_000
+UP_NAMES = [f"f{i}" for i in range(12)]
+UP_DEPTH, UP_TREES, UP_NBINS = 10, 50, 32    # the defaults; B for nbins 20
+UP_CHECK_ROWS = 2_000
+UP_ROOT_TOL = 1e-6
+# (e)'s tolerances, the CPU tests' (tests/test_torch_isolation_forest.py,
+# tests/test_torch_uplift.py)
+IF_SMALL_TOLS = dict(if_path=1e-12, eif=1e-6, uplift_pred=1e-5)
+PHASE35_WALLS: dict = {}
+
+
+def make_creditcard_like(seed: int):
+    """(frame, fraud mask) of the ULB dataset's shape: Time uniform over
+    its two days, sorted; V1-V28 normal with falling standard deviations
+    (1.96 to 0.33, a PCA's components, as the dataset's); Amount lognormal
+    (median about 22, mean about 86, in cents); CC_FRAUD rows at random,
+    each offset in the CC_FRAUD_COLS by 4-8 of their standard deviations
+    with random signs."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    n = CC_ROWS
+    sd = np.linspace(1.96, 0.33, 28)
+    X = np.empty((n, 30))
+    X[:, 0] = np.sort(rng.uniform(0, CC_TIME_S, n))
+    X[:, 1:29] = rng.standard_normal((n, 28)) * sd
+    X[:, 29] = np.round(rng.lognormal(3.1, 1.65, n), 2)
+    fraud = np.zeros(n, bool)
+    fraud[rng.choice(n, CC_FRAUD, replace=False)] = True
+    cols = np.asarray([CC_NAMES.index(c) for c in CC_FRAUD_COLS])
+    k = int(fraud.sum())
+    X[np.ix_(fraud, cols)] += (rng.choice([-1.0, 1.0], (k, len(cols)))
+                               * rng.uniform(4, 8, (k, len(cols)))
+                               * sd[cols - 1])
+    return Frame.from_numpy(X, names=CC_NAMES), fraud
+
+
+def make_criteo_uplift_like(n: int, seed: int):
+    """(frame, τ region mask) of the Criteo Uplift v2.1 shape: 12
+    continuous features (f2, f6 and f9 on a half-unit grid, f5 and f8
+    log-normal, the rest normal), `treatment` at 85 % and `visit`
+    Bernoulli(0.039 + 0.012·tanh(f1) + treatment·τ(x)), τ = 0.045 on the
+    region f0 > 0.8 and f3 < 0 (about 10.6 % of rows) and 0.005
+    elsewhere: visits about 4.7 %, treatment and visit factors."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, 12))
+    X[:, [2, 6, 9]] = np.round(X[:, [2, 6, 9]] * 2) / 2
+    X[:, [5, 8]] = np.exp(X[:, [5, 8]])
+    treat = (rng.random(n) < 0.85).astype(np.float64)
+    region = (X[:, 0] > 0.8) & (X[:, 3] < 0)
+    p = (0.039 + 0.012 * np.tanh(X[:, 1])
+         + treat * np.where(region, 0.045, 0.005))
+    visit = (rng.random(n) < p).astype(np.float64)
+    fr = Frame.from_numpy(np.column_stack([X, treat, visit]),
+                          names=UP_NAMES + ["treatment", "visit"])
+    return fr.asfactor("treatment").asfactor("visit"), region
+
+
+def anomaly_bars(s: np.ndarray, fraud: np.ndarray) -> dict:
+    """The frauds' mean score over the rest's, and the share of frauds
+    above the 95th percentile of all scores."""
+    q = np.quantile(s, 0.95)
+    return dict(gap=float(s[fraud].mean() - s[~fraud].mean()),
+                top5=float((s[fraud] > q).mean()))
+
+
+def if_paths(dev, card):
+    """Phase 35(a, b): IsolationForest and ExtendedIsolationForest (at
+    extension 0 and 29 on all 30 columns, and 27 on V1-V28 alone) on the
+    credit-card-shaped frame; returns ({name: (model, frame)}, record)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OExtendedIsolationForestEstimator, H2OIsolationForestEstimator)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fr, fraud = make_creditcard_like(35)
+    gen_s = time.perf_counter() - t0
+    bad, out, models = [], dict(card=card, rows=fr.nrow, generator_s=gen_s), {}
+    vcols = CC_NAMES[1:29]
+    cases = (("isoforest", H2OIsolationForestEstimator, {}, CC_NAMES, True),
+             ("eif_ext0", H2OExtendedIsolationForestEstimator,
+              dict(extension_level=0), CC_NAMES, True),
+             ("eif_ext29", H2OExtendedIsolationForestEstimator,
+              dict(extension_level=29), CC_NAMES, False),
+             ("eif_v_ext27", H2OExtendedIsolationForestEstimator,
+              dict(extension_level=27), vcols, True))
+    for name, cls, params, x, held in cases:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model = cls(seed=42, device=str(dev), **params).train(
+            x=x, training_frame=fr).model
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        pred = model.predict(fr)
+        pred_s = time.perf_counter() - t2
+        col = "predict" if name == "isoforest" else "anomaly_score"
+        s = pred.vec(col).numeric_np()
+        ml = pred.vec("mean_length").numeric_np()
+        rec = dict(fit_s=fit_s, fit_timings=model.fit_timings,
+                   predict_s=pred_s, cols=len(x), **anomaly_bars(s, fraud))
+        out[name] = rec
+        models[name] = (model, fr)
+        if not (np.isfinite(s).all() and (s > 0).all() and (s <= 1).all()
+                and (ml >= 0).all()):
+            bad.append(f"{name}: scores outside (0, 1] or negative lengths")
+        if held and not (rec["gap"] > IF_GAP and rec["top5"] > IF_TOP):
+            bad.append(f"{name}: frauds gap {rec['gap']:.4f} (bar {IF_GAP}) "
+                       f"top 5 % {rec['top5']:.4f} (bar {IF_TOP})")
+        print(f"phase 35({'a' if name == 'isoforest' else 'b'}) on {card}: "
+              f"{name} {fr.nrow} x {len(x)}, fit {fit_s:.3f} s "
+              f"{json.dumps(model.fit_timings)}, predict {fr.nrow} rows "
+              f"{pred_s:.3f} s; frauds' score gap {rec['gap']:.5f}, "
+              f"{rec['top5']:.4f} of them in the top 5 %"
+              + ("" if held else " (not held to the bars: Time's scale, "
+                 "sd ~50,000 s, fills every oblique projection)"),
+              flush=True)
+    PHASE35_WALLS["ab"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 35(a, b): " + "; ".join(bad))
+    return models, out
+
+
+def _hist_passes(model, codes_w, y_d, treat_d, rate: float, seed: int):
+    """The node ids (int32) and {w, y·w, 0} values of tree 0's 22 B1
+    passes, level by level: its rows routed through its own splits, its
+    row sample redrawn from the fit's seed."""
+    n = codes_w.shape[1]
+    samp = torch.from_numpy((np.random.default_rng(seed).uniform(size=n)
+                             < rate).astype(np.float32)).to(codes_w.device)
+    wt, wc = samp * treat_d, samp * (1 - treat_d)
+    f = model.forest
+    feat, bins, split = (getattr(f, k)[0] for k in ("feat", "bin",
+                                                    "is_split"))
+    idx = torch.zeros(n, dtype=torch.int64, device=codes_w.device)
+    out = []
+    for d in range(model.max_depth + 1):
+        node = idx.to(torch.int32)
+        for w in (wt, wc):
+            out.append((2 ** d, node, torch.stack([w, y_d * w,
+                                                   torch.zeros_like(w)])))
+        if d == model.max_depth:
+            break
+        heap = (2 ** d - 1) + idx
+        rf = feat[heap].to(torch.int64)
+        code = codes_w.gather(0, rf[None, :])[0].to(torch.int32)
+        idx = 2 * idx + ((code > bins[heap]) & split[heap]).to(torch.int64)
+    return out, wt, wc
+
+
+def _profile_calls(fn):
+    """(wall s, device kernels, device busy s, B1 device ms) of fn() under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, b1 = [], 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if "hist_fixed_" in e.name:
+            b1 += e.time_range.elapsed_us()
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, len(spans), busy / 1e6, b1 / 1e3
+
+
+def uplift_path(dev, card):
+    """Phase 35(c): UpliftDRF at its defaults on the Criteo-shaped frame;
+    returns (record, model, frame, the `hist_factored_uplift` kernel
+    entry)."""
+    from h2o3_tpu_torch.estimators import H2OUpliftRandomForestEstimator
+    from h2o3_tpu_torch.models import uplift as up
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, prng
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fr, region = make_criteo_uplift_like(UP_ROWS, 35)
+    gen_s = time.perf_counter() - t0
+    y = np.asarray(fr.vec("visit").data, np.float64)
+    treat = np.asarray(fr.vec("treatment").data, np.float64)
+    print(f"phase 35(c) frame (Criteo Uplift v2.1's shape): {UP_ROWS} rows "
+          f"x {len(UP_NAMES)} features, treatment {treat.mean():.4f}, visit "
+          f"{y.mean():.4f}, τ's region {region.mean():.4f} of rows; cut "
+          f"from {CRITEO_ROWS} rows for the smoke's time; generated in "
+          f"{gen_s:.3f} s", flush=True)
+    bad = []
+    c0 = kernel_counts()
+    histogram.DISPATCH.clear()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    est = H2OUpliftRandomForestEstimator(treatment_column="treatment",
+                                         seed=42, device=str(dev))
+    model = est.train(y="visit", training_frame=fr).model
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    c1 = kernel_counts()
+    fit_launches = {k: c1[k] - c0[k] for k in c1}
+    dispatch = dict(histogram.DISPATCH)
+    want_b1 = 2 * (UP_DEPTH + 1) * UP_TREES
+    if fit_launches != dict(hist=want_b1, hist_rows=0, score=1, shap=0) \
+            or dispatch != {"pallas_factored": want_b1}:
+        bad.append(f"fit launches {fit_launches}, dispatch {dispatch}: "
+                   f"want {want_b1} B1, no B2, one forest call (metrics)")
+    t2 = time.perf_counter()
+    u = model.predict(fr).vec("uplift_predict").numeric_np()
+    pred_s = time.perf_counter() - t2
+    pred_score = kernel_counts()["score"] - c1["score"]
+    if pred_score != 1:
+        bad.append(f"predict made {pred_score} forest calls, not 1")
+    # each tree's root value against p_t − p_c of its own sampled rows, on
+    # the host in f64 (the fit's row draws replayed from its seed)
+    rng = np.random.default_rng(42)
+    root = model.forest.value[:, 0].cpu().numpy().astype(np.float64)
+    root_err = 0.0
+    for t in range(model.ntrees_built):
+        s = rng.uniform(size=UP_ROWS) < 0.632
+        wt, wc = s * treat, s * (1 - treat)
+        want = (y @ wt) / wt.sum() - (y @ wc) / wc.sum()
+        root_err = max(root_err, abs(root[t] - want))
+    if root_err > UP_ROOT_TOL:
+        bad.append(f"a root value is {root_err:.3e} from p_t - p_c")
+    m = model.training_metrics
+    rand, _ = up.auuc(y, treat, np.random.default_rng(7).uniform(size=UP_ROWS))
+    u_in, u_out = float(u[region].mean()), float(u[~region].mean())
+    if not u_in > u_out or not m.auuc > rand:
+        bad.append(f"uplift on τ's region {u_in:.5f} vs {u_out:.5f}, qini "
+                   f"AUUC {m.auuc:.3f} vs a random ranking's {rand:.3f}")
+    # tree 0's passes again: the deepest (L = 1024, treatment weights)
+    # bit-equal to hist_plain_fixed, then all 22 timed
+    codes_w = histogram.feature_major(
+        torch.from_numpy(model.bm.codes).to(dev))
+    y_d = torch.from_numpy(y.astype(np.float32)).to(dev)
+    t_d = torch.from_numpy(treat.astype(np.float32)).to(dev)
+    passes, wt_d, wc_d = _hist_passes(model, codes_w, y_d, t_d, 0.632, 42)
+    L, node, vals = passes[-2]
+    err, err_k, err_p = check_b1(codes_w, node, vals, L, UP_NBINS)
+    rows = []
+    for L, node, vals in passes:
+        n_w = int((vals[0] != 0).sum())
+        r = dict(L=L, weighted_rows=n_w)
+        r["ms"] = time_ms_cold(lambda: hist_cuda.hist_build(
+            codes_w, node, vals, L, UP_NBINS), reps=5, warmup=1)
+        r["plain_ms"] = time_ms(lambda: hist_cuda.hist_plain(
+            codes_w, node, vals, L, UP_NBINS), reps=3, warmup=1)
+        r["library_ms"] = bm_library_ms(dev, codes_w, node, vals, L,
+                                        UP_NBINS)
+        r["bound_ms"], r["bytes"] = bound_ms_of(
+            n_w, L, n_feat=len(UP_NAMES), nbins=UP_NBINS, n_rows=UP_ROWS)
+        r["max_abs_err"] = float((hist_cuda.hist_build(
+            codes_w, node, vals, L, UP_NBINS) - hist_cuda.hist_plain(
+            codes_w, node, vals, L, UP_NBINS)).abs().max())
+        rows.append(r)
+    # one tree built again under the profiler: its launches and the
+    # device's busy share of its wall
+    edges = np.full((len(UP_NAMES), UP_NBINS - 2), np.inf, np.float32)
+    for j, e in enumerate(model.bm.edges):
+        edges[j, :min(len(e), UP_NBINS - 2)] = e[:UP_NBINS - 2]
+    edges_d = torch.from_numpy(edges).to(dev)
+    wall1, events, busy, b1_ms = _profile_calls(lambda: up.build_uplift_tree(
+        codes_w, y_d, wt_d, wc_d, edges_d, max_depth=UP_DEPTH,
+        nbins=UP_NBINS, min_rows=10.0, metric="KL", mtries=3,
+        key=prng.PRNGKey(42)))
+    del codes_w, passes
+    tot = {k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    entry = dict(name="hist_factored_uplift", route="cuda",
+                 source="h2o3_tpu_torch/csrc/hist.cu",
+                 replaces="h2o3_tpu/ops/hist_pallas.py:103",
+                 launches=fit_launches["hist"],
+                 max_abs_err=max(r["max_abs_err"] for r in rows),
+                 ms=tot["ms"], plain_ms=tot["plain_ms"],
+                 bound_ms=tot["bound_ms"], bound_by="bytes",
+                 library_ms=tot["library_ms"])
+    ft = model.fit_timings
+    rec = dict(card=card, rows=UP_ROWS, fit_s=fit_s, fit_timings=ft,
+               predict_s=pred_s, fit_launches=fit_launches,
+               trees=model.ntrees_built, root_err=root_err,
+               uplift_region=u_in, uplift_rest=u_out, auuc_qini=float(m.auuc),
+               auuc_random=rand, ate=float(m.ate),
+               b1_deep_check=dict(L=1024, max_abs_err=err, f64_err=err_k,
+                                  plain_f64_err=err_p),
+               tree_profile=dict(wall_s=wall1, device_kernels=events,
+                                 busy_s=busy, busy_share=busy / wall1,
+                                 b1_device_ms=b1_ms),
+               passes=[{k: r[k] for k in ("L", "weighted_rows", "ms",
+                                          "plain_ms", "library_ms",
+                                          "bound_ms")} for r in rows])
+    print(f"phase 35(c) on {card}: UpliftDRF {UP_ROWS} x {len(UP_NAMES)}, "
+          f"{model.ntrees_built} trees, depth {UP_DEPTH}, fit {fit_s:.3f} s "
+          f"= binning {ft['bin_s']:.3f} + upload {ft['h2d_s']:.3f} + tree "
+          f"loop {ft['trees_s']:.3f} (row draws {ft['sample_s']:.3f}) + "
+          f"metrics {ft['metrics_s']:.3f}; launches {json.dumps(fit_launches)}"
+          f"; predict {pred_s:.3f} s (1 forest call); one tree again under "
+          f"the profiler: {events} device kernels in {wall1:.4f} s, busy "
+          f"{busy / wall1:.3f}, B1 {b1_ms:.3f} ms; B1 over tree 0's 22 "
+          f"passes {tot['ms']:.4f} ms (plain {tot['plain_ms']:.4f}, "
+          f"index_add_ {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}); "
+          f"L=1024 bit-equal to hist_plain_fixed; roots within "
+          f"{root_err:.2e} of p_t - p_c; uplift on τ's region {u_in:.5f} vs "
+          f"{u_out:.5f}; qini AUUC {m.auuc:.3f} vs random {rand:.3f}; ATE "
+          f"{m.ate:.5f}", flush=True)
+    print("phase 35(c) record: " + json.dumps(rec), flush=True)
+    PHASE35_WALLS["c"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 35(c): " + "; ".join(bad))
+    return rec, model, fr, entry
+
+
+def _eif_near_rows(scorer, X64: np.ndarray) -> np.ndarray:
+    """Rows whose f64 walk through an EIF payload passes a node whose
+    threshold lies within the f32 rounding of the live model's projection
+    ((p + 2)·2^-24·Σ|x_j·d_j| + 2^-23·|thr|)."""
+    a, depth = scorer.arrays, scorer.meta["depth"]
+    dirs, thrs, splits = a["eif_dirs"], a["eif_thrs"], a["eif_splits"]
+    N, p = X64.shape
+    near = np.zeros(N, bool)
+    for t in range(dirs.shape[0]):
+        idx = np.zeros(N, np.int64)
+        live = np.ones(N, bool)
+        for d in range(depth):
+            node = 2 ** d - 1 + idx
+            live &= splits[t][node]
+            prod = X64 * dirs[t][node]
+            proj = prod.sum(1)
+            thr = thrs[t][node].astype(np.float64)
+            tol = ((p + 2) * 2.0 ** -24 * np.abs(prod).sum(1)
+                   + 2.0 ** -23 * np.abs(thr))
+            near |= live & (np.abs(proj - thr) <= tol)
+            idx = np.where(live, 2 * idx + (proj > thr), idx)
+    return near
+
+
+def if_mojo_serving(dev, card, models):
+    """Phase 35(d): each model saved and loaded, the numpy scorer against
+    `predict` on UP_CHECK_ROWS rows within 1e-5, but for the rows within
+    one f32 rounding of a threshold (counted); one batch of each served
+    equal to `predict` with no fallback."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.models import isolation_forest as iso
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_iso_") as d:
+        for name, (model, fr) in models.items():
+            sub = fr.take(np.arange(UP_CHECK_ROWS))
+            t0 = time.perf_counter()
+            scorer = mojo.load_model(mojo.save_model(model, d,
+                                                     f"{name}.h2o3"))
+            c0 = kernel_counts()
+            got = _frame_matrix(scorer.predict(sub))
+            c1 = kernel_counts()
+            want = _frame_matrix(model.predict(sub))
+            torch.cuda.synchronize()
+            c2 = kernel_counts()
+            diff = np.abs(got - want).max(axis=1)
+            # the rows a threshold's f32 rounding may send another way:
+            # IsolationForest's payload rounds its f64 thresholds, the EIF
+            # and uplift scorers walk f64 rows where the live models walk
+            # f32 ones
+            X64 = np.column_stack([sub.vec(c).numeric_np() for c in model.x])
+            if name == "isoforest":
+                f32 = [(f, t.astype(np.float32).astype(np.float64), s, n)
+                       for f, t, s, n in model.trees]
+                near = (iso.forest_path_lengths(model.trees, X64,
+                                                model.max_depth)
+                        != iso.forest_path_lengths(f32, X64,
+                                                   model.max_depth))
+            elif name == "uplift":
+                x32 = X64.astype(np.float32).astype(np.float64)
+                near = (_frame_matrix(scorer.predict(X64))
+                        != _frame_matrix(scorer.predict(x32)))[:, 0]
+            else:
+                near = _eif_near_rows(scorer, scorer._expand_dinfo(sub))
+            off = diff > 1e-5
+            out[name] = dict(max_abs_err_far=float(diff[~near].max()),
+                             near_rows=int(near.sum()),
+                             off_rows=int(off.sum()),
+                             s=time.perf_counter() - t0)
+            if (off & ~near).any():
+                bad.append(f"{name}: MOJO {float(diff[~near].max()):.3e} "
+                           f"from predict on {int((off & ~near).sum())} rows "
+                           "no threshold's rounding explains")
+            want_pred = dict(hist=0, hist_rows=0, score=int(name == "uplift"),
+                             shap=0)
+            if c1 != c0 or {k: c2[k] - c1[k] for k in c2} != want_pred:
+                bad.append(f"{name}: launches {c0} -> MOJO {c1} -> predict "
+                           f"{c2}")
+    engine = ScoringEngine(ServingConfig())
+    try:
+        for name, (model, fr) in models.items():
+            batch = fr.take(np.arange(100, 357))
+            served = _frame_matrix(engine.score(f"iso_{name}", model, batch))
+            diff = float(np.abs(served - _frame_matrix(
+                model.predict(batch))).max())
+            out[name]["served_max_abs_err"] = diff
+            if diff > 0:
+                bad.append(f"{name}: served {diff:.3e} from predict")
+        snap = engine.snapshot()
+    finally:
+        engine.shutdown()
+    out["fallback_scores"] = snap["totals"]["fallback_scores"]
+    if snap["totals"]["fallback_scores"] or snap["totals"]["errors"]:
+        bad.append(f"serving {snap['totals']}")
+    PHASE35_WALLS["d"] = time.perf_counter() - t_phase
+    print(f"phase 35(d) on {card}: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 35(d): " + "; ".join(bad))
+    return out
+
+
+def if_small_checks(dev, card):
+    """Phase 35(e): card against CPU on the CPU tests' small frames, with
+    their tolerances (IF_SMALL_TOLS)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OExtendedIsolationForestEstimator, H2OIsolationForestEstimator,
+        H2OUpliftRandomForestEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    t_phase = time.perf_counter()
+    tol = IF_SMALL_TOLS
+    bad, out = [], {}
+
+    def pair(cls, fr, **params):
+        x = params.pop("x", None)
+        y = params.pop("y", None)
+        return [cls(device=d, **params).train(x=x, y=y,
+                                              training_frame=fr).model
+                for d in (str(dev), "cpu")]
+
+    rng = np.random.default_rng(7)
+    X = np.concatenate([rng.normal(size=(500, 3)),
+                        rng.normal(loc=8.0, size=(10, 3))])
+    X[::37, 1] = np.nan
+    fr = Frame.from_numpy(X)
+    for params in (dict(ntrees=40, sample_size=128, seed=8),
+                   dict(ntrees=15, sample_rate=0.3, max_depth=6, seed=3)):
+        a, c = pair(H2OIsolationForestEstimator, fr, **params)
+        same = all(np.array_equal(u, v) for ta, tc in zip(a.trees, c.trees)
+                   for u, v in zip(ta, tc))
+        err = float(np.abs(_frame_matrix(a.predict(fr))
+                           - _frame_matrix(c.predict(fr))).max())
+        key = "if_" + ("rate" if "sample_rate" in params else "size")
+        out[key] = dict(trees_equal=same, path_err=err)
+        if not same or err > tol["if_path"]:
+            bad.append(f"{key}: {out[key]}")
+    rng = np.random.default_rng(4)
+    Y = np.concatenate([rng.normal(size=(500, 4)),
+                        rng.normal(loc=8.0, size=(10, 4))])
+    fr = Frame.from_numpy(Y)
+    for ext in (0, 2, 3):
+        a, c = pair(H2OExtendedIsolationForestEstimator, fr, ntrees=30,
+                    sample_size=128, extension_level=ext, seed=9)
+        same = (torch.equal(a.splits.cpu(), c.splits)
+                and torch.equal(a.counts.cpu(), c.counts))
+        terr = float((a.thrs.cpu() - c.thrs).abs().max())
+        serr = float(np.abs(_frame_matrix(a.predict(fr))
+                            - _frame_matrix(c.predict(fr))).max())
+        out[f"eif_ext{ext}"] = dict(splits_counts_equal=same, thr_err=terr,
+                                    score_err=serr)
+        if not same or terr > tol["eif"] * max(1.0, float(c.thrs.abs().max())) \
+                or serr > tol["eif"]:
+            bad.append(f"eif ext {ext}: {out[f'eif_ext{ext}']}")
+    rng = np.random.default_rng(3)
+    n = 2000
+    X = rng.normal(size=(n, 3))
+    treat = rng.integers(0, 2, n)
+    lift = np.where(X[:, 0] > 0, 0.4, 0.0) * treat
+    yv = (rng.uniform(size=n) < (X[:, 1] > 0.5) * 0.2 + lift + 0.1).astype(int)
+    g = rng.integers(0, 4, n)
+    fr = Frame.from_dict(
+        {"x0": X[:, 0], "x1": X[:, 1], "x2": X[:, 2],
+         "g": np.asarray(list("abcd"), dtype=object)[g],
+         "treatment": np.asarray(["control", "treatment"],
+                                 dtype=object)[treat],
+         "y": np.asarray(["0", "1"], dtype=object)[yv]},
+        column_types={"g": "enum", "treatment": "enum", "y": "enum"})
+    for metric in ("KL", "Euclidean", "ChiSquared"):
+        a, c = pair(H2OUpliftRandomForestEstimator, fr,
+                    x=["x0", "x1", "x2", "g"], y="y",
+                    treatment_column="treatment", uplift_metric=metric,
+                    ntrees=10, max_depth=5, seed=11)
+        diff = sum(int((getattr(a.forest, f).cpu()
+                        != getattr(c.forest, f)).sum())
+                   for f in ("feat", "bin", "is_split"))
+        verr = float((a.forest.value.cpu() - c.forest.value).abs().max())
+        perr = float(np.abs(_frame_matrix(a.predict(fr))
+                            - _frame_matrix(c.predict(fr))).max())
+        out[f"uplift_{metric}"] = dict(nodes_differ=diff, value_err=verr,
+                                       pred_err=perr)
+        if diff or verr > 1e-6 or perr > tol["uplift_pred"]:
+            bad.append(f"uplift {metric}: {out[f'uplift_{metric}']}")
+    PHASE35_WALLS["e"] = time.perf_counter() - t_phase
+    print(f"phase 35(e) on {card}, card vs cpu (tolerances "
+          f"{json.dumps(tol)}): " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 35(e): " + "; ".join(bad))
+    return out
+
+
+def anomaly_uplift_path(dev, card):
+    """Phase 35: (a)-(e) in turn with every launch count set to 0 before
+    (a) and read after (e); (f) the isolation forests and the MOJO
+    scorers launched no hand-written kernel, the uplift fit B1 only.
+    Returns the `hist_factored_uplift` kernel entry."""
+    zero_counts()
+    models, if_rec = if_paths(dev, card)
+    after_ab = kernel_counts()
+    up_rec, up_model, up_fr, entry = uplift_path(dev, card)
+    mojo_rec = if_mojo_serving(dev, card, dict(
+        isoforest=models["isoforest"], eif_ext0=models["eif_ext0"],
+        eif_ext29=models["eif_ext29"], uplift=(up_model, up_fr)))
+    del models, up_model, up_fr
+    small = if_small_checks(dev, card)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    print(f"phase 35(f): hand-written kernel launches after (a, b) "
+          f"{json.dumps(after_ab)}, after (e) {json.dumps(counts)} (the "
+          "uplift fit's, its predict and metrics, the comparison and timing "
+          "launches of (c), the served uplift batch and (e)'s card fits)",
+          flush=True)
+    if any(after_ab.values()) or counts["hist_rows"] or counts["shap"]:
+        raise AssertionError(f"phase 35(f): a kernel ran where none "
+                             f"should: {after_ab} then {counts}")
+    return dict(iforest=if_rec, uplift=up_rec, mojo=mojo_rec,
+                small=small), entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5857,6 +6454,11 @@ def main() -> int:
     unsupervised_path(dev, card)
     print(f"phase 34 wall on {card}: " + json.dumps(dict(
         PHASE34_WALLS, total_s=sum(PHASE34_WALLS.values()))), flush=True)
+    # phase 35: the isolation forests and the uplift DRF at full width,
+    # then card vs CPU
+    _, uplift_entry = anomaly_uplift_path(dev, card)
+    print(f"phase 35 wall on {card}: " + json.dumps(dict(
+        PHASE35_WALLS, total_s=sum(PHASE35_WALLS.values()))), flush=True)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)
@@ -5900,6 +6502,8 @@ def main() -> int:
             library_ms=t["library_ms"]))
     # B1 at XGBoost's 256 bins: phase 31(c), the XGBoost_1 fit's codes
     kernels.append(b256)
+    # B1 over one uplift tree's 22 passes: phase 35(c)
+    kernels.append(uplift_entry)
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
           "uniform codes, L2 flushed; "
@@ -5918,6 +6522,10 @@ def main() -> int:
           f"hist_factored_b256 is one depth-6 tree of phase 31(b)'s "
           f"XGBoost_1 (N={N_ROWS}, F={N_FEAT}, B={XGB_NBINS}, uint8 codes, "
           "L2 flushed), its launches that fit's; "
+          f"hist_factored_uplift is tree 0 of phase 35(c)'s UpliftDRF, its "
+          f"22 passes (L = 1 ... 1024, treatment and control; N={UP_ROWS}, "
+          f"F={len(UP_NAMES)}, B={UP_NBINS}, L2 flushed), its launches that "
+          "fit's; "
           "max_abs_err is against the f32 plain version (hist_factored also "
           "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,6 +27,15 @@ eigenvectors and eigenvalues (and its DEMEAN means), an SVD model's d, v
 and, if kept, u, and a GLRM model's X and Y with its objective.
 `kmeans_from_numpy`, `pca_from_numpy`, `svd_from_numpy` and
 `glrm_from_numpy` build the port's models from them.
+
+An IsolationForest's weights are its trees' heap arrays (feature, f64
+threshold, split flag and training rows per node) with the sample size
+and depth; an ExtendedIsolationForest's its directions, thresholds,
+splits and node counts with its `DataInfo` state; an UpliftDRF's its
+stacked forest with the bin edges and the feature domains of its
+`BinnedMatrix`, the response domain and the treatment column.
+`isoforest_from_numpy`, `eif_from_numpy` and `uplift_from_numpy` build
+the port's models from them.
 """
 
 from __future__ import annotations
@@ -40,13 +49,16 @@ from . import device as devlib
 from .frame.binning import BinnedMatrix
 from .models import tree as treelib
 from .models.deeplearning import ACTIVATIONS, DeepLearningModel
+from .models.extended_isolation_forest import ExtendedIsolationForestModel
 from .models.glm import FAMILIES, GLMModel
 from .models.glrm import GLRMModel
+from .models.isolation_forest import IsolationForestModel
 from .models.kmeans import KMeansModel
 from .models.model_base import DataInfo
 from .models.pca import PCAModel
 from .models.svd import SVDModel
 from .models.shared_tree import SharedTreeModel
+from .models.uplift import UpliftRandomForestModel
 
 
 def _class_forests(a) -> List[np.ndarray]:
@@ -295,3 +307,91 @@ def glrm_from_numpy(*, X, Y, objective: float, x: Sequence[str], spec,
                    stds=stds, col_means=None, impute_missing=False)
     return GLRMModel(None, x, dinfo, Xw, Y, Y.shape[0], float(objective),
                      device=device)
+
+
+def isoforest_from_numpy(*, feat, thr, is_split, leaf_n, sample_size: int,
+                         max_depth: int, x: Sequence[str],
+                         device=None) -> IsolationForestModel:
+    """Port IsolationForest model from a reference model's trees: each
+    field an (ntrees, T) array (or a sequence of per-tree (T,) arrays) for
+    T = 2^(max_depth+1) − 1 — the split feature, the f64 threshold, the
+    split flag and the training rows reaching each node."""
+    T = treelib.heap_size(max_depth)
+    fields = [np.asarray(np.stack(list(a)) if isinstance(a, (list, tuple))
+                         else a).astype(dt)
+              for a, dt in ((feat, np.int64), (thr, np.float64),
+                            (is_split, bool), (leaf_n, np.float64))]
+    if any(f.ndim != 2 or f.shape != fields[0].shape or f.shape[1] != T
+           for f in fields):
+        raise ValueError(f"expected (ntrees, {T}) arrays for max_depth "
+                         f"{max_depth}, got {[f.shape for f in fields]}")
+    trees = [tuple(f[t] for f in fields) for t in range(fields[0].shape[0])]
+    return IsolationForestModel(None, x, trees, int(sample_size),
+                                int(max_depth), device=device)
+
+
+def eif_from_numpy(*, dirs, thrs, splits, counts, depth: int,
+                   sample_size: int, x: Sequence[str], spec,
+                   coef_names: Sequence[str], col_means=None,
+                   use_all: bool = True,
+                   device=None) -> ExtendedIsolationForestModel:
+    """Port ExtendedIsolationForest model from a reference model's state:
+    the directions (ntrees, T, p), thresholds and split flags (ntrees, T)
+    for T = 2^depth − 1, the training rows per node (ntrees, 2T + 1), and
+    the unstandardized `DataInfo` state."""
+    dirs = np.array(dirs, np.float32)
+    T = 2 ** int(depth) - 1
+    nt = dirs.shape[0]
+    if dirs.shape != (nt, T, len(coef_names)):
+        raise ValueError(f"dirs: expected ({nt}, {T}, {len(coef_names)}), "
+                         f"got {dirs.shape}")
+    thrs = np.array(thrs, np.float32)
+    splits = np.array(splits, bool)
+    counts = np.array(counts, np.float32)
+    if thrs.shape != (nt, T) or splits.shape != (nt, T) \
+            or counts.shape != (nt, 2 * T + 1):
+        raise ValueError(f"thrs {thrs.shape}, splits {splits.shape}, counts "
+                         f"{counts.shape}: expected ({nt}, {T}) twice and "
+                         f"({nt}, {2 * T + 1})")
+    dinfo = _dinfo(x, spec=spec, coef_names=coef_names, standardize=False,
+                   use_all=use_all, means=None, stds=None,
+                   col_means=col_means)
+    return ExtendedIsolationForestModel(
+        None, x, dinfo, torch.from_numpy(dirs), torch.from_numpy(thrs),
+        torch.from_numpy(splits), torch.from_numpy(counts), int(depth),
+        int(sample_size), device=device)
+
+
+def uplift_from_numpy(*, feat, bin, thr, is_split, value,
+                      edges: Sequence[np.ndarray], max_depth: int,
+                      x: Sequence[str], y: str, nbins: int,
+                      treatment_column: str,
+                      domain: Optional[List[str]] = None,
+                      feature_domains=None,
+                      device=None) -> UpliftRandomForestModel:
+    """Port UpliftDRF model from a reference model's stacked forest (each
+    field (ntrees, T)), the per-feature bin edges, bin count and feature
+    domains of its `BinnedMatrix` (None entries for numeric features), its
+    response domain and treatment column."""
+    dev = devlib.resolve(device)
+    T = treelib.heap_size(max_depth)
+    fields = []
+    for name, a, dt in (("feat", feat, torch.int32), ("bin", bin, torch.int32),
+                        ("thr", thr, torch.float32),
+                        ("is_split", is_split, torch.bool),
+                        ("value", value, torch.float32)):
+        a = np.array(a)
+        if a.ndim != 2 or a.shape[1] != T:
+            raise ValueError(f"{name}: expected (ntrees, {T}) for max_depth "
+                             f"{max_depth}, got {a.shape}")
+        fields.append(torch.from_numpy(a).to(dt))
+    F = len(x)
+    doms = list(feature_domains) if feature_domains is not None else [None] * F
+    bm = BinnedMatrix(codes=None,
+                      edges=[np.asarray(e, np.float64) for e in edges],
+                      nbins=int(nbins), names=list(x),
+                      is_categorical=np.asarray([d is not None for d in doms]),
+                      domains=doms)
+    return UpliftRandomForestModel(None, x, y, bm, treelib.Tree(*fields),
+                                   int(max_depth), domain, treatment_column,
+                                   device=dev)

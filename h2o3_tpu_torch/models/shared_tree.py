@@ -339,6 +339,17 @@ def frame_to_matrix(frame: Frame, x: Sequence[str], expected_domains=None):
     return np.column_stack(cols), np.asarray(cats), doms
 
 
+def padded_rows(X: np.ndarray, device: torch.device) -> torch.Tensor:
+    """X as an f32 matrix on `device`, zero rows appended up to a multiple
+    of SCORE_ROW_BUCKET (the forest scorers' row bucket; the caller slices
+    them off)."""
+    n = X.shape[0]
+    Xp = np.zeros((_pad_to_multiple(max(n, 1), SCORE_ROW_BUCKET), X.shape[1]),
+                  np.float32)
+    Xp[:n] = X
+    return torch.from_numpy(Xp).to(device)
+
+
 class SharedTreeModel(H2OModel):
     algo = "sharedtree"
 
@@ -376,10 +387,7 @@ class SharedTreeModel(H2OModel):
         with zeros to a multiple of SCORE_ROW_BUCKET, which are sliced off;
         GBM's initial margin is added in f64 on the host."""
         n = X.shape[0]
-        npad = _pad_to_multiple(max(n, 1), SCORE_ROW_BUCKET)
-        Xp = np.zeros((npad, X.shape[1]), np.float32)
-        Xp[:n] = X
-        Xd = torch.from_numpy(Xp).to(self.device)
+        Xd = padded_rows(X, self.device)
         outs = []
         for k, forest in enumerate(self.forest):
             pack = self._score_table(k, X.shape[1]) if Xd.is_cuda else None

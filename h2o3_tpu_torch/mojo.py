@@ -36,6 +36,17 @@ argmin and the PCA and SVD projections over the imputed expansion, and
 GLRM's `reconstr_*` and `transform` through `_glrm_project`, a masked k×k
 solve a row. As in the reference, a PCA payload keeps no DEMEAN means and
 an SVD payload no DEMEAN/DESCALE stats (ROADMAP §C).
+The isolation forests and the uplift DRF write the reference's payloads
+too: an IsolationForest its trees as `if_feat` (int32), `if_thr` (f32,
+while the live model compares f64 rows with f64 draws: a row within one
+f32 rounding of a threshold may walk another way), `if_split` and
+`if_leafn` (f64); an ExtendedIsolationForest its directions, thresholds,
+splits and counts (`eif_*`) with its `DataInfo` state; an UpliftDRF its
+stacked forest as `uforest_*` with the feature domains and the treatment
+column. Their numpy scorers are the reference's: the path-length walk of
+`isolation_forest.forest_path_lengths` in f64, the EIF walk over the
+imputed f64 expansion, and the uplift forest's leaf values summed in f64
+and averaged.
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
 scorer). The reference's native C++ scorer (`native/loader.py`) and the other
@@ -60,12 +71,16 @@ def _model_payload(model) -> Dict[str, Any]:
     """Extract (meta, arrays) from a trained model."""
     from .models.deeplearning import DeepLearningModel
     from .models.ensemble import StackedEnsembleModel
+    from .models.extended_isolation_forest import \
+        ExtendedIsolationForestModel
     from .models.glm import GLMModel
     from .models.glrm import GLRMModel
+    from .models.isolation_forest import IsolationForestModel
     from .models.kmeans import KMeansModel
     from .models.pca import PCAModel
     from .models.shared_tree import SharedTreeModel
     from .models.svd import SVDModel
+    from .models.uplift import UpliftRandomForestModel
 
     if isinstance(model, MojoScorer):
         # a loaded artifact re-exports losslessly: its payload IS its state
@@ -77,7 +92,9 @@ def _model_payload(model) -> Dict[str, Any]:
         return out
     if not isinstance(model, (SharedTreeModel, GLMModel, DeepLearningModel,
                               StackedEnsembleModel, KMeansModel, PCAModel,
-                              SVDModel, GLRMModel)):
+                              SVDModel, GLRMModel, IsolationForestModel,
+                              ExtendedIsolationForestModel,
+                              UpliftRandomForestModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
             "not a MOJO-exportable kind (see docs/mojo.md for the "
@@ -135,6 +152,32 @@ def _model_payload(model) -> Dict[str, Any]:
         arrays["eigenvalues"] = np.asarray(model.eigenvalues)
         _stats(arrays, model.dinfo)
         meta["dinfo"] = _dinfo_meta(model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, IsolationForestModel):
+        meta.update(kind="isoforest", sample_size=model.sample_size,
+                    max_depth=model.max_depth, ntrees=len(model.trees))
+        for name, i, dt in (("if_feat", 0, np.int32), ("if_thr", 1, np.float32),
+                            ("if_split", 2, bool), ("if_leafn", 3, np.float64)):
+            arrays[name] = np.stack([t[i] for t in model.trees]).astype(dt)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, ExtendedIsolationForestModel):
+        meta.update(kind="eif", depth=model.depth,
+                    sample_size=model.sample_size,
+                    dinfo=_dinfo_meta(model.dinfo))
+        arrays["eif_dirs"] = model.dirs.cpu().numpy().astype(np.float32)
+        arrays["eif_thrs"] = model.thrs.cpu().numpy().astype(np.float32)
+        arrays["eif_splits"] = model.splits.cpu().numpy().astype(bool)
+        arrays["eif_counts"] = model.counts.cpu().numpy().astype(np.float64)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, UpliftRandomForestModel):
+        # one forest whose leaves hold treatment−control differences
+        meta.update(kind="uplift", max_depth=model.max_depth,
+                    ntrees=model.ntrees_built,
+                    feature_domains=model.bm.domains,
+                    treatment_col=model.treatment_col)
+        for field in ("feat", "bin", "thr", "is_split", "value"):
+            arrays[f"uforest_{field}"] = getattr(model.forest,
+                                                 field).cpu().numpy()
         return {"meta": meta, "arrays": arrays}
     if isinstance(model, DeepLearningModel):
         meta.update(
@@ -462,6 +505,70 @@ class MojoScorer:
         return Frame.from_dict(
             {f"u{i+1}": scores[:, i] for i in range(scores.shape[1])})
 
+    def _anomaly_predict(self, data):
+        """The isolation forests' numpy scorers: IsolationForest's f64
+        path-length walk over the raw rows against the f32 thresholds of
+        its payload, and the EIF walk over the imputed f64 expansion, each
+        tree's stopping depth + the c(leaf size) credit averaged."""
+        from .frame.frame import Frame
+        from .models.isolation_forest import (anomaly_scores,
+                                              forest_path_lengths)
+
+        meta, a = self.meta, self.arrays
+        if meta["kind"] == "isoforest":
+            X = self._matrix(data)
+            trees = zip(a["if_feat"], a["if_thr"], a["if_split"],
+                        a["if_leafn"])
+            pl = forest_path_lengths(trees, X, meta["max_depth"])
+            score = anomaly_scores(pl, meta["sample_size"])
+            return Frame.from_dict({"predict": score, "mean_length": pl})
+        X = self._expand_dinfo(data)
+        depth = meta["depth"]
+        dirs, thrs = a["eif_dirs"], a["eif_thrs"]
+        splits, counts = a["eif_splits"], a["eif_counts"]
+        N = X.shape[0]
+        pls = []
+        for t in range(dirs.shape[0]):
+            idx = np.zeros(N, np.int64)
+            depth_stop = np.full(N, float(depth))
+            stop_node = np.zeros(N, np.int64)
+            live = np.ones(N, bool)
+            for d in range(depth):
+                node = 2 ** d - 1 + idx
+                s = splits[t][node]
+                proj = np.sum(X * dirs[t][node], axis=1)
+                stopping = live & ~s
+                depth_stop[stopping] = d
+                stop_node[stopping] = node[stopping]
+                live &= s
+                go_right = live & (proj > thrs[t][node])
+                idx = np.where(live, 2 * idx + go_right.astype(np.int64), idx)
+            stop_node = np.where(live, 2 ** depth - 1 + idx, stop_node)
+            nleaf = counts[t][stop_node]
+            credit = np.where(
+                nleaf > 1.5,
+                2.0 * (np.log(np.maximum(nleaf - 1.0, 1.0)) + 0.5772156649)
+                - 2.0 * (nleaf - 1.0) / np.maximum(nleaf, 1.0),
+                0.0)
+            pls.append(depth_stop + credit)
+        mean_length = np.mean(pls, axis=0)
+        S = max(meta["sample_size"], 2.0)
+        cS = 2.0 * (np.log(S - 1.0) + 0.5772156649) - 2.0 * (S - 1.0) / S
+        return Frame.from_dict({"anomaly_score": 2.0 ** (-mean_length / cS),
+                                "mean_length": mean_length})
+
+    def _uplift_predict(self, data):
+        """The uplift forest's leaf values summed in f64 and averaged."""
+        from .frame.frame import Frame
+
+        a = self.arrays
+        total = self._score_one_forest(
+            a["uforest_feat"], a["uforest_thr"],
+            a["uforest_is_split"].astype(bool), a["uforest_value"],
+            self.meta["max_depth"], self._matrix(data))
+        return Frame.from_dict(
+            {"uplift_predict": total / max(self.meta["ntrees"], 1)})
+
     def _glrm_project(self, data) -> np.ndarray:
         """GLRM row loadings for new data — the expansion keeps NaNs so
         the observation mask survives (GLRMModel._project semantics); one
@@ -544,6 +651,10 @@ class MojoScorer:
             return self._deeplearning_predict(data)
         if meta["kind"] in ("kmeans", "pca", "svd", "glrm"):
             return self._unsupervised_predict(data)
+        if meta["kind"] in ("isoforest", "eif"):
+            return self._anomaly_predict(data)
+        if meta["kind"] == "uplift":
+            return self._uplift_predict(data)
         if meta["kind"] != "tree":
             raise NotImplementedError(
                 f"scoring a {meta['kind']!r} artifact is not ported "

@@ -528,3 +528,92 @@ def test_glrm_on_cuda_matches_cpu(dev):
                               - gc.vec(n).numeric_np()).max()
                        for n in gc.names)
             assert diff <= 1e-3, (init, method, diff)
+
+
+def test_uplift_on_cuda_matches_cpu(dev):
+    """UpliftDRF on the card against the CPU (the CPU test's fixture, with
+    its categorical column): B1 takes every histogram pass, 2 ×
+    (max_depth + 1) a tree, and B2 none; the counts and label sums are
+    exact integers on both devices, so the forests are equal node for node
+    and the leaf values bit for bit; `predict` goes through the forest
+    kernel, within 1e-5 of the CPU's walk."""
+    from h2o3_tpu_torch.estimators import H2OUpliftRandomForestEstimator
+    from h2o3_tpu_torch.ops import score_cuda
+
+    rng = np.random.default_rng(3)
+    n = 2000
+    X = rng.normal(size=(n, 3))
+    treat = rng.integers(0, 2, n)
+    base = (X[:, 1] > 0.5).astype(float) * 0.2
+    lift = np.where(X[:, 0] > 0, 0.4, 0.0) * treat
+    y = (rng.uniform(size=n) < base + lift + 0.1).astype(int)
+    g = rng.integers(0, 4, n)
+    fr = Frame.from_dict(
+        {"x0": X[:, 0], "x1": X[:, 1], "x2": X[:, 2],
+         "g": np.asarray(list("abcd"), dtype=object)[g],
+         "treatment": np.asarray(["control", "treatment"],
+                                 dtype=object)[treat],
+         "y": np.asarray(["0", "1"], dtype=object)[y]},
+        column_types={"g": "enum", "treatment": "enum", "y": "enum"})
+    params = dict(treatment_column="treatment", ntrees=10, max_depth=5,
+                  seed=11)
+    before = (hist_cuda.launches, hist_cuda.launches_rows)
+    histogram.DISPATCH.clear()
+    card = H2OUpliftRandomForestEstimator(device=str(dev), **params).train(
+        x=["x0", "x1", "x2", "g"], y="y", training_frame=fr).model
+    torch.cuda.synchronize()
+    assert hist_cuda.launches - before[0] == 2 * 6 * 10
+    assert hist_cuda.launches_rows == before[1]
+    assert dict(histogram.DISPATCH) == {"pallas_factored": 2 * 6 * 10}
+    cpu = H2OUpliftRandomForestEstimator(device="cpu", **params).train(
+        x=["x0", "x1", "x2", "g"], y="y", training_frame=fr).model
+    for f in ("feat", "bin", "thr", "is_split", "value"):
+        assert torch.equal(getattr(card.forest, f).cpu(),
+                           getattr(cpu.forest, f)), f
+    scored = score_cuda.launches
+    a = card.predict(fr).vec("uplift_predict").numeric_np()
+    assert score_cuda.launches == scored + 1
+    c = cpu.predict(fr).vec("uplift_predict").numeric_np()
+    assert np.abs(a - c).max() <= 1e-5
+
+
+def test_isolation_forests_on_cuda_match_cpu(dev):
+    """IsolationForest and ExtendedIsolationForest `predict` on the card
+    against the CPU, from the same host-built trees (IsolationForest) and
+    host draws (ExtendedIsolationForest, whose trees build on the device):
+    path lengths within 1e-12 and 1e-6, the EIF's splits and counts equal
+    and its thresholds within 1e-6; no hand-written kernel runs."""
+    from h2o3_tpu_torch.estimators import (
+        H2OExtendedIsolationForestEstimator, H2OIsolationForestEstimator)
+    from h2o3_tpu_torch.ops import score_cuda
+
+    rng = np.random.default_rng(7)
+    X = np.concatenate([rng.normal(size=(3000, 4)),
+                        rng.normal(loc=8.0, size=(20, 4))])
+    X[::37, 1] = np.nan
+    fr = Frame.from_numpy(X)
+    before = (hist_cuda.launches, hist_cuda.launches_rows,
+              score_cuda.launches)
+    fits = [H2OIsolationForestEstimator(ntrees=30, seed=8, device=d).train(
+        training_frame=fr).model for d in (str(dev), "cpu")]
+    a, c = (m.predict(fr) for m in fits)
+    for name in ("predict", "mean_length"):
+        assert np.abs(a.vec(name).numeric_np()
+                      - c.vec(name).numeric_np()).max() <= 1e-12
+    fr = Frame.from_numpy(np.nan_to_num(X))
+    for ext in (0, 3):
+        fits = [H2OExtendedIsolationForestEstimator(
+            ntrees=30, extension_level=ext, seed=9, device=d).train(
+            training_frame=fr).model for d in (str(dev), "cpu")]
+        ma, mc = fits
+        assert torch.equal(ma.splits.cpu(), mc.splits)
+        assert torch.equal(ma.counts.cpu(), mc.counts)
+        assert (ma.thrs.cpu() - mc.thrs).abs().max() <= 1e-6 * max(
+            1.0, float(mc.thrs.abs().max()))
+        a, c = (m.predict(fr) for m in fits)
+        for name in ("anomaly_score", "mean_length"):
+            assert np.abs(a.vec(name).numeric_np()
+                          - c.vec(name).numeric_np()).max() <= 1e-6
+    torch.cuda.synchronize()
+    assert (hist_cuda.launches, hist_cuda.launches_rows,
+            score_cuda.launches) == before
