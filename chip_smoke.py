@@ -375,9 +375,46 @@ holdout prediction.
    UP_CHECK_ROWS rows within 1e-5, but for rows within one f32 rounding
    of a threshold (counted and printed), no kernel launched by a MOJO
    scorer; one batch of each served equal to `predict` with no fallback.
-   (e) Card against CPU on the CPU tests' small frames (IF_SMALL_TOLS).
+   (e) Card against CPU on the CPU tests' small frames (IF_SMALL_TOLS),
+   and UpliftDRF at nbins 300 (B = 512: uint16 codes sent as int16, B1's
+   int16 instance) with its forest equal to the CPU's node for node.
    (f) The launch counts, zeroed before (a), read after (a, b) (none)
    and after (e) (no B2 and no TreeSHAP). The phase's wall is printed.
+
+36. NaiveBayes, GAM, isotonic regression, ANOVA GLM and ModelSelection,
+   last, TF32 off. (a) NaiveBayes at its defaults on phase 14's
+   Covertype-shaped frame (581,012 rows; the 10 continuous columns
+   numeric, the wilderness area and soil type as enums of 4 and 40
+   levels): the fit's split (host tables, device moments, metrics) and
+   `predict`'s wall; the priors equal bincount / n, each class mean within
+   NB_MEAN_TOL relative of an f64 two-pass mean, each sd's largest
+   relative gap from the f64 two-pass sd printed (the reference's one-pass
+   f32 variance, ROADMAP §C), the tables bit-equal to a host recount, the
+   training logloss below the priors', a second fit bit-equal. (b) A
+   binomial GAM (DepTime and Distance as splines of 10 knots; Origin,
+   Dest, Month and DayOfWeek linear) on GAM_ROWS rows of
+   `make_airlines_gam_like` (config 2's Airlines shape with a smooth
+   afternoon bump in DepTime): the fit's split, its IRLS iterations and
+   each Gram's ms; the IRLS stopped on beta_epsilon; the holdout AUC
+   (GAM_HOLDOUT rows) within GAM_AUC_TOL of the generator's and above a
+   linear GLM's by GAM_GLM_MARGIN. (c) Isotonic regression calibrating
+   (b)'s holdout probabilities against its labels, "clip" and "NA": knots
+   rising, each pool's value its rows' mean within 1e-12, the
+   out-of-range rules. (d) ANOVA GLM (binomial, interactions of 2) on
+   DepTime, DayOfWeek and Month of (b)'s frame cut to ANOVA_ROWS: each
+   GLM fit's wall (each pays the GLM's host pack, ROADMAP A5f), each
+   term's df its column count, every deviance finite and ≥ 0, DepTime
+   and DayOfWeek at p < 1e-6. (e) ModelSelection
+   (maxr, gaussian, up to 7 predictors) on MS_ROWS rows of the prostate
+   columns of H2O's ModelSelection example: the number of GLM fits and
+   the wall; each size's R² within MS_R2_TOL of a host f64 least-squares
+   R², sizes 1-3 of the exhaustive best subset's; the three true
+   predictors first. (f) The MOJOs of NaiveBayes, isotonic and GAM
+   against `predict`; ANOVA GLM and ModelSelection refuse export; one
+   batch of each of the five served equal to `predict` with no fallback.
+   (g) Card against CPU on the CPU tests' small frames (SMALL36_TOLS).
+   (h) The launch counts, zeroed before (a), read after (g): none. The
+   phase's wall and the smoke's are printed.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
@@ -389,9 +426,9 @@ gblinear run none of the hand-written kernels, and phases 17, 18, 26, 30
 and 31(d) fail if they launched one; so does phase 32's DeepLearning
 fit, and phase 34 as a whole; phase 35's fits and `predict`s count
 their own launches, and its isolation forests fail if they launched
-one).
+one; so does phase 36 as a whole).
 TF32 must stay off
-through phases 17-19, 30, 31(d) and 32. The last line is
+through phases 17-19, 30, 31(d), 32 and 36. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
 JSON.
 """
@@ -6308,6 +6345,18 @@ def if_small_checks(dev, card):
                                        pred_err=perr)
         if diff or verr > 1e-6 or perr > tol["uplift_pred"]:
             bad.append(f"uplift {metric}: {out[f'uplift_{metric}']}")
+    # 300 bins pad to B = 512: uint16 codes sent as int16, B1's int16
+    # instance
+    a, c = pair(H2OUpliftRandomForestEstimator, fr,
+                x=["x0", "x1", "x2", "g"], y="y", treatment_column="treatment",
+                nbins=300, ntrees=10, max_depth=5, seed=11)
+    diff = sum(int((getattr(a.forest, f).cpu() != getattr(c.forest, f)).sum())
+               for f in ("feat", "bin", "thr", "is_split", "value"))
+    out["uplift_KL_300bins"] = dict(nbins_padded=a.bm.nbins,
+                                    codes=str(a.bm.codes.dtype),
+                                    nodes_differ=diff)
+    if diff or a.bm.nbins != 512:
+        bad.append(f"uplift 300 bins: {out['uplift_KL_300bins']}")
     PHASE35_WALLS["e"] = time.perf_counter() - t_phase
     print(f"phase 35(e) on {card}, card vs cpu (tolerances "
           f"{json.dumps(tol)}): " + json.dumps(out), flush=True)
@@ -6342,6 +6391,614 @@ def anomaly_uplift_path(dev, card):
                              f"should: {after_ab} then {counts}")
     return dict(iforest=if_rec, uplift=up_rec, mojo=mojo_rec,
                 small=small), entry
+
+
+# phase 36: NaiveBayes on Covertype's shape (a), GAM on Airlines' shape
+# (b), isotonic regression calibrating (b)'s holdout (c), ANOVA GLM on
+# (b)'s frame cut to ANOVA_ROWS (d), ModelSelection's maxr on a frame of
+# the prostate columns of H2O's ModelSelection example (e), MOJOs and
+# serving (f), card vs CPU on the CPU tests' small frames (g); (h) none of
+# them launches a hand-written kernel
+GAM_ROWS, GAM_HOLDOUT = 1_000_000, 200_000
+GAM36 = dict(family="binomial", gam_columns=["DepTime", "Distance"],
+             num_knots=[10, 10])
+GAM_X = ["DepTime", "Distance", "Origin", "Dest", "Month", "DayOfWeek"]
+# (b)'s bars: the holdout AUC within GAM_AUC_TOL of the generator's own
+# probabilities' AUC, and above a GLM's on the same terms, all linear, by
+# GAM_GLM_MARGIN (CPU rehearsals with a 100,000-row holdout: 0.0288 at
+# 100,000 training rows, 0.0291 at 1,000,000; PERF.md §6)
+GAM_AUC_TOL, GAM_GLM_MARGIN = 0.005, 0.01
+ANOVA_ROWS = 60_000             # cut from GAM_ROWS for the phase's time
+ANOVA_X = ["DepTime", "DayOfWeek", "Month"]
+MS_ROWS, MS_MAX_P = 100_000, 7
+MS_NAMES = ["AGE", "RACE", "CAPSULE", "DCAPS", "PSA", "VOL", "DPROS"]
+MS_TRUE = ("CAPSULE", "DPROS", "PSA")
+MS_R2_TOL = 1e-6
+NB_MEAN_TOL = 1e-5
+SMALL36_TOLS = dict(nb_moment=1e-6, nb_prob=1e-6, iso=0.0, gam=2e-4,
+                    gam_ridge=1e-5, anova_active=1e-4, anova_inactive=1e-6,
+                    ms_r2=1e-6, ms_coef=1e-4)
+CHECK36_ROWS = 2_000
+PHASE36_WALLS: dict = {}
+
+
+def make_airlines_gam_like(n: int, seed: int):
+    """`make_airlines_like`'s columns (DepTime, Distance, Origin and Dest of
+    100 levels, Month, DayOfWeek) with a logit that keeps a linear DepTime
+    part and a DayOfWeek term and adds a smooth bump in DepTime around
+    16:00 (sd ≈ 7 hours), which a spline fits and a line does not. (A
+    narrower bump, sd ≈ 3 hours, leaves the GAM's holdout AUC 0.006 below
+    the generator's at 1M rows: the penalty scales with the Gram, so its
+    smoothing does not fade with n; PERF.md §6.) Returns (frame, the
+    generator's P(YES) per row, the 0/1 labels)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    dep = rng.integers(0, 2400, n).astype(np.float64)
+    dist = np.abs(rng.normal(800, 500, n))
+    origin = rng.integers(0, 100, n)
+    dest = rng.integers(0, 100, n)
+    month = rng.integers(0, 12, n)
+    dow = rng.integers(0, 7, n)
+    eff = (0.0003 * (dep - 1200) + 1.5 * np.exp(-((dep - 1600) / 600) ** 2)
+           + 0.4 * (origin % 7 == 0) - 0.3 * (dest % 11 == 0)
+           + 0.8 * (dow >= 5) - 0.4)
+    p = 1 / (1 + np.exp(-eff))
+    y = (rng.random(n) < p).astype(int)
+    fr = Frame.from_dict(
+        {"DepTime": dep, "Distance": dist,
+         "Origin": np.char.add("O", origin.astype(str)),
+         "Dest": np.char.add("D", dest.astype(str)),
+         "Month": month.astype(str), "DayOfWeek": dow.astype(str),
+         "IsDepDelayed": np.where(y == 1, "YES", "NO")},
+        column_types={"Origin": "enum", "Dest": "enum", "Month": "enum",
+                      "DayOfWeek": "enum", "IsDepDelayed": "enum"})
+    return fr, p, y
+
+
+def make_prostate_like(n: int, seed: int):
+    """The columns of H2O's ModelSelection example (prostate.csv: AGE,
+    RACE, CAPSULE, DCAPS, PSA, VOL, DPROS, response GLEASON), numeric as
+    the example reads them, drawn with the dataset's ranges; GLEASON
+    depends linearly on CAPSULE, DPROS and PSA only."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    cols = dict(
+        AGE=np.round(rng.normal(66, 6.5, n)),
+        RACE=rng.choice(3, n, p=[0.01, 0.9, 0.09]).astype(np.float64),
+        CAPSULE=(rng.random(n) < 0.4).astype(np.float64),
+        DCAPS=1.0 + (rng.random(n) < 0.1),
+        PSA=np.round(rng.lognormal(2.2, 1.0, n), 1),
+        VOL=np.where(rng.random(n) < 0.5, 0.0,
+                     np.round(rng.gamma(2.0, 12.0, n), 1)),
+        DPROS=rng.integers(1, 5, n).astype(np.float64))
+    cols["GLEASON"] = (4.6 + 0.9 * cols["CAPSULE"] + 0.35 * cols["DPROS"]
+                       + 0.02 * cols["PSA"] + rng.normal(0, 0.7, n))
+    return Frame.from_dict(cols)
+
+
+def covtype_nb_frame():
+    """Phase 14's Covertype-shaped training frame with the wilderness area
+    and the soil type as two enum columns (4 and 40 levels) recovered from
+    their one-hots."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    X, y = make_covtype_like(COV_ROWS, 5)
+    cols = {f"cont{i}": X[:, i] for i in range(10)}
+    cols["wild"] = np.char.add("W", X[:, 10:14].argmax(1).astype(str))
+    cols["soil"] = np.char.add("S", X[:, 14:54].argmax(1).astype(str))
+    cols["cover"] = np.char.add("C", y.astype(str))
+    return Frame.from_dict(cols, column_types=dict(
+        wild="enum", soil="enum", cover="enum")), y
+
+
+def _auc(y, p) -> float:
+    from h2o3_tpu_torch.models.metrics import auc_exact
+
+    return float(auc_exact(np.asarray(y, np.float64), np.asarray(p, np.float64)))
+
+
+def nb_covtype_path(dev, card):
+    """Phase 36(a): NaiveBayes at its defaults on the Covertype-shaped
+    frame (581,012 rows, 10 numeric and 2 enum columns, 7 classes)."""
+    from h2o3_tpu_torch.estimators import H2ONaiveBayesEstimator
+
+    t_phase = time.perf_counter()
+    fr, y = covtype_nb_frame()
+    bad = []
+    t0 = time.perf_counter()
+    model = H2ONaiveBayesEstimator(device=str(dev)).train(
+        y="cover", training_frame=fr).model
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = model.predict(fr)
+    predict_s = time.perf_counter() - t0
+    again = H2ONaiveBayesEstimator(device=str(dev)).train(
+        y="cover", training_frame=fr).model
+    K = len(model.domain)
+    codes = np.asarray(fr.vec("cover").data)
+    counts = np.bincount(codes, minlength=K).astype(np.float64)
+    priors_ok = model.priors.tobytes() == (counts / counts.sum()).tobytes()
+    mean_err, sd_gap = 0.0, 0.0
+    for name, st in model.num_stats.items():
+        col = fr.vec(name).numeric_np()
+        for k in range(K):
+            xs = col[codes == k]
+            m = xs.sum() / len(xs)                      # two-pass f64
+            sd = np.sqrt(((xs - m) ** 2).sum() / (len(xs) - 1))
+            mean_err = max(mean_err, abs(st[k, 0] - m) / abs(m))
+            sd_gap = max(sd_gap, abs(st[k, 1] - sd) / sd)
+    tables_ok = True
+    for name, (tab, dom) in model.cat_tables.items():
+        c = np.asarray(fr.vec(name).data)
+        L = len(dom)
+        cnt = np.bincount(codes * L + c, minlength=K * L).reshape(K, L)
+        want = cnt / (cnt.sum(axis=1, keepdims=True) + 1e-300)
+        want = np.maximum(want, 0.001 * 1e-3)
+        tables_ok &= tab.tobytes() == want.tobytes()
+    same = all(again.num_stats[n].tobytes() == model.num_stats[n].tobytes()
+               for n in model.num_stats)
+    prior_ll = float(-np.log(model.priors[codes]).mean())
+    ll = float(model.training_metrics.logloss)
+    probs = np.column_stack([pred.vec(c).numeric_np() for c in model.domain])
+    rec = dict(rows=fr.nrow, fit_s=fit_s, fit_split=model.fit_timings,
+               predict_s=predict_s, priors_equal=priors_ok,
+               mean_max_rel_err=mean_err, sd_max_rel_gap=sd_gap,
+               tables_equal=bool(tables_ok), repeat_fit_bit_equal=same,
+               logloss=ll, priors_logloss=prior_ll,
+               accuracy=float((probs.argmax(1) == codes).mean()))
+    if not priors_ok:
+        bad.append("priors differ from bincount / n")
+    if mean_err > NB_MEAN_TOL:
+        bad.append(f"class mean {mean_err:.3e} from the f64 two-pass mean")
+    if not tables_ok:
+        bad.append("a table differs from the host recount")
+    if not same:
+        bad.append("a second fit on the card differs")
+    if not ll < prior_ll:
+        bad.append(f"logloss {ll} not below the priors' {prior_ll}")
+    PHASE36_WALLS["a"] = time.perf_counter() - t_phase
+    print(f"phase 36(a) NaiveBayes on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 36(a): " + "; ".join(bad))
+    return rec, model, fr
+
+
+def gam_airlines_path(dev, card, rows=GAM_ROWS, holdout=GAM_HOLDOUT):
+    """Phase 36(b): the binomial GAM with DepTime and Distance as splines
+    (10 knots each) and Origin, Dest, Month and DayOfWeek linear, on the
+    Airlines-shaped frame; a GLM on the same terms, all linear, beside it."""
+    from h2o3_tpu_torch.estimators import (H2OGeneralizedAdditiveEstimator,
+                                           H2OGeneralizedLinearEstimator)
+
+    t_phase = time.perf_counter()
+    fr, _, _ = make_airlines_gam_like(rows, 11)
+    fh, p_h, y_h = make_airlines_gam_like(holdout, 12)
+    tf32_off()
+    bad = []
+    t0 = time.perf_counter()
+    model = H2OGeneralizedAdditiveEstimator(device=str(dev), **GAM36).train(
+        x=GAM_X, y="IsDepDelayed", training_frame=fr).model
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p1 = model.predict(fh).vec("YES").numeric_np()
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    glm = H2OGeneralizedLinearEstimator(
+        family="binomial", lambda_=0.0, device=str(dev)).train(
+        x=GAM_X, y="IsDepDelayed", training_frame=fr).model
+    glm_s = time.perf_counter() - t0
+    auc, auc_gen = _auc(y_h, p1), _auc(y_h, p_h)
+    auc_glm = _auc(y_h, glm.predict(fh).vec("YES").numeric_np())
+    rec = dict(rows=rows, holdout=holdout, fit_s=fit_s,
+               fit_split=model.fit_timings, iterations=model.iterations,
+               converged=model.converged,
+               gram_ms=[round(g, 3) for g in model.gram_ms],
+               design_cols=len(model.beta), predict_s=predict_s,
+               holdout_auc=auc, generator_auc=auc_gen, glm_auc=auc_glm,
+               glm_fit_s=glm_s, margin_bar=GAM_GLM_MARGIN)
+    if not model.converged:
+        bad.append(f"IRLS did not stop on beta_epsilon in "
+                   f"{model.iterations} iterations")
+    if abs(auc - auc_gen) > GAM_AUC_TOL:
+        bad.append(f"holdout AUC {auc} vs the generator's {auc_gen}")
+    if not auc > auc_glm + GAM_GLM_MARGIN:
+        bad.append(f"holdout AUC {auc} not above the GLM's {auc_glm} "
+                   f"by {GAM_GLM_MARGIN}")
+    PHASE36_WALLS["b"] = time.perf_counter() - t_phase
+    print(f"phase 36(b) GAM on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 36(b): " + "; ".join(bad))
+    return rec, model, fr, fh, p1, y_h
+
+
+def _pools(tx, ty):
+    """The PAV pools from the knots: runs of equal y, each (x_lo, x_hi, y)."""
+    out, i = [], 0
+    while i < len(tx):
+        j = i
+        while j + 1 < len(tx) and ty[j + 1] == ty[i]:
+            j += 1
+        out.append((tx[i], tx[j], ty[i]))
+        i = j + 1
+    return out
+
+
+def isotonic_calibration_path(dev, card, p1, y):
+    """Phase 36(c): isotonic regression calibrating (b)'s holdout p1
+    against its labels, under out_of_bounds "clip" and "NA", and on fresh
+    rows outside the range."""
+    from h2o3_tpu_torch.estimators import H2OIsotonicRegressionEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    t_phase = time.perf_counter()
+    fr = Frame.from_dict({"p1": p1, "label": y.astype(np.float64)})
+    x = fr.vec("p1").numeric_np()       # the frame's values, as fitted
+    bad, out, models = [], {}, {}
+    for oob in ("clip", "NA"):
+        t0 = time.perf_counter()
+        m = H2OIsotonicRegressionEstimator(
+            device=str(dev), out_of_bounds=oob).train(
+            x=["p1"], y="label", training_frame=fr).model
+        fit_s = time.perf_counter() - t0
+        tx, ty = m.thresholds_x, m.thresholds_y
+        rising = bool(np.all(np.diff(tx) > 0) and np.all(np.diff(ty) >= 0))
+        err = 0.0
+        for lo, hi, v in _pools(tx, ty):
+            sel = (x >= lo) & (x <= hi)
+            err = max(err, abs(y[sel].mean() - v))
+        q = np.array([tx[0] - 0.01, -1.0, tx[-1] + 0.01, 2.0, np.nan])
+        s = m._score(q)
+        want = ([ty[0], ty[0], ty[-1], ty[-1]] if oob == "clip"
+                else [np.nan] * 4)
+        oob_ok = bool(np.array_equal(s[:4], np.asarray(want), equal_nan=True)
+                      and np.isnan(s[4]))
+        t0 = time.perf_counter()
+        m.predict(fr)
+        out[oob] = dict(knots=len(tx), pools=len(_pools(tx, ty)),
+                        fit_s=fit_s, fit_split=m.fit_timings,
+                        predict_s=time.perf_counter() - t0,
+                        knots_monotone=rising, pool_mean_max_err=err,
+                        out_of_range_ok=oob_ok)
+        if not rising:
+            bad.append(f"{oob}: knots not monotone")
+        if err > 1e-12:
+            bad.append(f"{oob}: a pool's value {err:.3e} from its rows' mean")
+        if not oob_ok:
+            bad.append(f"{oob}: out-of-range rows gave {s}")
+        models[oob] = m
+    PHASE36_WALLS["c"] = time.perf_counter() - t_phase
+    print(f"phase 36(c) isotonic regression on {card}: " + json.dumps(out),
+          flush=True)
+    if bad:
+        raise AssertionError("phase 36(c): " + "; ".join(bad))
+    return out, models["clip"], fr
+
+
+def anova_path(dev, card, fr):
+    """Phase 36(d): ANOVA GLM (binomial, highest_interaction_term 2) on
+    DepTime, DayOfWeek and Month of (b)'s frame cut to ANOVA_ROWS: six
+    terms, eight GLM fits."""
+    from h2o3_tpu_torch.estimators import H2OANOVAGLMEstimator
+
+    t_phase = time.perf_counter()
+    sub = fr.take(np.arange(ANOVA_ROWS))
+    tf32_off()
+    t0 = time.perf_counter()
+    model = H2OANOVAGLMEstimator(
+        family="binomial", highest_interaction_term=2, device=str(dev)).train(
+        x=ANOVA_X, y="IsDepDelayed", training_frame=sub).model
+    fit_s = time.perf_counter() - t0
+    width = {c: (1 if sub.vec(c).type != "enum" else sub.vec(c).nlevels - 1)
+             for c in ANOVA_X}
+    bad = []
+    table = {r["term"]: r for r in model._table}
+    for r in model._table:
+        want = int(np.prod([width[c] for c in r["term"].split(":")]))
+        if r["df"] != want:
+            bad.append(f"{r['term']}: df {r['df']}, expected {want}")
+        if not (np.isfinite(r["deviance"]) and r["deviance"] >= 0):
+            bad.append(f"{r['term']}: deviance {r['deviance']}")
+    for t in ("DepTime", "DayOfWeek"):
+        if not table[t]["p_value"] < 1e-6:
+            bad.append(f"{t}: p {table[t]['p_value']}")
+    rec = dict(rows=ANOVA_ROWS, fit_s=fit_s, glm_fits=len(model.fit_walls),
+               fit_walls={k: round(v, 4) for k, v in model.fit_walls},
+               table=[{k: r[k] for k in ("term", "df", "deviance", "p_value")}
+                      for r in model._table])
+    PHASE36_WALLS["d"] = time.perf_counter() - t_phase
+    print(f"phase 36(d) ANOVA GLM on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 36(d): " + "; ".join(bad))
+    return rec, model, sub
+
+
+def _ls_r2(X: np.ndarray, y: np.ndarray) -> float:
+    """Host f64 least-squares R² with an intercept."""
+    A = np.column_stack([X, np.ones(len(y))])
+    b = np.linalg.lstsq(A, y, rcond=None)[0]
+    r = y - A @ b
+    return float(1 - (r @ r) / ((y - y.mean()) @ (y - y.mean())))
+
+
+def modelselection_path(dev, card):
+    """Phase 36(e): ModelSelection's maxr (gaussian, up to 7 predictors) on
+    MS_ROWS rows of the prostate columns."""
+    import itertools
+
+    from h2o3_tpu_torch.estimators import H2OModelSelectionEstimator
+
+    t_phase = time.perf_counter()
+    fr = make_prostate_like(MS_ROWS, 21)
+    tf32_off()
+    t0 = time.perf_counter()
+    model = H2OModelSelectionEstimator(
+        mode="maxr", family="gaussian", max_predictor_number=MS_MAX_P,
+        device=str(dev)).train(x=MS_NAMES, y="GLEASON",
+                               training_frame=fr).model
+    fit_s = time.perf_counter() - t0
+    cols = {c: fr.vec(c).numeric_np() for c in MS_NAMES}
+    y = fr.vec("GLEASON").numeric_np()
+    bad = []
+    preds = model.get_best_model_predictors()
+    r2s = model.get_best_r2_values()
+    ls, best = [], []
+    for size, (pr, r2) in enumerate(zip(preds, r2s), start=1):
+        ls.append(_ls_r2(np.column_stack([cols[c] for c in pr]), y))
+        if abs(r2 - ls[-1]) > MS_R2_TOL:
+            bad.append(f"size {size}: R² {r2} vs host {ls[-1]}")
+        if size <= 3:
+            best.append(max(_ls_r2(np.column_stack([cols[c] for c in s]), y)
+                            for s in itertools.combinations(MS_NAMES, size)))
+            if abs(r2 - best[-1]) > MS_R2_TOL:
+                bad.append(f"size {size}: R² {r2} vs best subset {best[-1]}")
+    if set(preds[2]) != set(MS_TRUE):
+        bad.append(f"the first three predictors are {preds[2]}")
+    rec = dict(rows=MS_ROWS, fit_s=fit_s, glm_fits=model.n_glm_fits,
+               ms_a_fit=fit_s / max(model.n_glm_fits, 1),
+               predictors=preds, r2=r2s, host_r2=ls, best_subset_r2=best)
+    PHASE36_WALLS["e"] = time.perf_counter() - t_phase
+    print(f"phase 36(e) ModelSelection on {card}: " + json.dumps(rec),
+          flush=True)
+    if bad:
+        raise AssertionError("phase 36(e): " + "; ".join(bad))
+    return rec, model, fr
+
+
+def glm_family_mojo_serving(dev, card, models):
+    """Phase 36(f): NaiveBayes, isotonic and GAM saved and loaded, each
+    numpy scorer against `predict` on CHECK36_ROWS rows (probabilities
+    within 1e-5, isotonic within 1e-12); ANOVA GLM and ModelSelection
+    refuse export; one batch of each of the five served equal to
+    `predict` with no fallback."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_glmfam_") as d:
+        for name, tol in (("naivebayes", 1e-5), ("isotonic", 1e-12),
+                          ("gam", 1e-5)):
+            model, fr = models[name]
+            sub = fr.take(np.arange(min(CHECK36_ROWS, fr.nrow)))
+            scorer = mojo.load_model(mojo.save_model(model, d, f"{name}.h2o3"))
+            got = _frame_matrix(scorer.predict(sub))
+            want = _frame_matrix(model.predict(sub))
+            err = float(np.nan_to_num(np.abs(got - want)).max())
+            nan_same = bool(np.array_equal(np.isnan(got), np.isnan(want)))
+            out[name] = dict(mojo_max_abs_err=err, nan_same=nan_same)
+            if err > tol or not nan_same:
+                bad.append(f"{name}: MOJO {err:.3e} from predict")
+        for name in ("anovaglm", "modelselection"):
+            try:
+                mojo.save_model(models[name][0], d, f"{name}.h2o3")
+                bad.append(f"{name}: exported")
+            except TypeError:
+                out[name] = dict(export="TypeError")
+    engine = ScoringEngine(ServingConfig())
+    try:
+        for name, (model, fr) in models.items():
+            batch = fr.take(np.arange(100, 357))
+            served = _frame_matrix(engine.score(f"glmfam_{name}", model, batch))
+            want = _frame_matrix(model.predict(batch))
+            diff = float(np.nan_to_num(np.abs(served - want)).max())
+            out[name]["served_max_abs_err"] = diff
+            if diff > 1e-6:
+                bad.append(f"{name}: served {diff:.3e} from predict")
+        snap = engine.snapshot()
+    finally:
+        engine.shutdown()
+    out["fallback_scores"] = snap["totals"]["fallback_scores"]
+    if snap["totals"]["fallback_scores"] or snap["totals"]["errors"]:
+        bad.append(f"serving {snap['totals']}")
+    PHASE36_WALLS["f"] = time.perf_counter() - t_phase
+    print(f"phase 36(f) on {card}: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 36(f): " + "; ".join(bad))
+    return out
+
+
+def _grid16(X):
+    return np.clip(np.round(X * 16) / 16, -8, 8)
+
+
+def glm_family_small_checks(dev, card):
+    """Phase 36(g): card against CPU on the CPU tests' small frames
+    (tests/test_torch_naive_bayes_isotonic.py, test_torch_gam_family.py),
+    with their tolerances (SMALL36_TOLS)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OANOVAGLMEstimator, H2OGeneralizedAdditiveEstimator,
+        H2OIsotonicRegressionEstimator, H2OModelSelectionEstimator,
+        H2ONaiveBayesEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.anovaglm import _deviance
+
+    t_phase = time.perf_counter()
+    tol = SMALL36_TOLS
+    bad, out = [], {}
+
+    def pair(cls, fr, x=None, y="y", **params):
+        return [cls(device=d, **params).train(x=x, y=y,
+                                              training_frame=fr).model
+                for d in (str(dev), "cpu")]
+
+    # NaiveBayes: three classes on numeric columns; binary with enums
+    rng = np.random.default_rng(0)
+    yc = rng.integers(0, 3, 900)
+    X = _grid16(rng.normal(size=(900, 4)) + yc[:, None] * [1.0, -0.5, 0.3, 0])
+    X[::13, 2] = np.nan
+    cols = {f"x{i}": X[:, i] for i in range(4)}
+    cols["y"] = np.asarray(list("abc"), dtype=object)[yc]
+    nb_num = Frame.from_dict(cols, column_types={"y": "enum"})
+    rng = np.random.default_rng(0)
+    yb = rng.integers(0, 2, 900)
+    X = _grid16(rng.normal(size=(900, 2)) * 2 + yb[:, None] * 2.0)
+    g = np.where(rng.uniform(size=900) < 0.7, yb * 2, rng.integers(0, 4, 900))
+    nb_cat = Frame.from_dict(
+        {"x0": X[:, 0], "x1": X[:, 1],
+         "g": np.asarray(list("pqrs"), dtype=object)[g],
+         "h": np.asarray(list("uvw"), dtype=object)[rng.integers(0, 3, 900)],
+         "y": np.asarray(["no", "yes"], dtype=object)[yb]},
+        column_types={"g": "enum", "h": "enum", "y": "enum"})
+    for key, fr, params in (("nb_numeric", nb_num, {}),
+                            ("nb_categorical", nb_cat, dict(laplace=1.0))):
+        a, c = pair(H2ONaiveBayesEstimator, fr, **params)
+        merr = max(float(np.abs(a.num_stats[n] - c.num_stats[n]).max()
+                         / np.abs(c.num_stats[n]).max()) for n in c.num_stats)
+        teq = all(a.cat_tables[n][0].tobytes() == c.cat_tables[n][0].tobytes()
+                  for n in c.cat_tables)
+        perr = float(np.abs(_frame_matrix(a.predict(fr))[:, 1:]
+                            - _frame_matrix(c.predict(fr))[:, 1:]).max())
+        out[key] = dict(moment_rel_err=merr, tables_equal=teq, prob_err=perr)
+        if merr > tol["nb_moment"] or not teq or perr > tol["nb_prob"]:
+            bad.append(f"{key}: {out[key]}")
+    # isotonic regression with weights, ties and NaNs
+    rng = np.random.default_rng(1)
+    xi = np.round(rng.uniform(-2, 2, 600), 2)
+    yi = np.tanh(xi) + rng.normal(0, 0.4, 600)
+    xi[::31] = np.nan
+    fr = Frame.from_dict({"x": xi, "y": yi, "w": rng.uniform(0.2, 3.0, 600)})
+    q = np.concatenate([np.linspace(-2.5, 2.5, 401), [np.nan]])
+    for oob in ("NA", "clip"):
+        a, c = pair(H2OIsotonicRegressionEstimator, fr, x=["x"],
+                    out_of_bounds=oob, weights_column="w")
+        same = (a.thresholds_x.tobytes() == c.thresholds_x.tobytes()
+                and a.thresholds_y.tobytes() == c.thresholds_y.tobytes()
+                and np.array_equal(a._score(q), c._score(q), equal_nan=True))
+        out[f"isotonic_{oob}"] = dict(equal=same)
+        if not same:
+            bad.append(f"isotonic {oob}: card and cpu differ")
+    # GAM, gaussian and binomial at the defaults, and with a ridge
+    for fam, gtol, extra in (("gaussian", tol["gam"], {}),
+                             ("binomial", tol["gam"], {}),
+                             ("binomial", tol["gam_ridge"],
+                              dict(num_knots=8, scale=[0.5], lambda_=1e-4))):
+        rng = np.random.default_rng(3)
+        x = rng.uniform(-3, 3, 800)
+        z = rng.normal(size=800)
+        gg = rng.integers(0, 3, 800)
+        eta = np.sin(x) * 2 + 0.5 * z + 0.4 * (gg == 1)
+        cols = {"x": x, "z": z, "g": np.asarray(list("abc"), dtype=object)[gg]}
+        types = {"g": "enum"}
+        if fam == "gaussian":
+            cols["y"] = eta + rng.normal(0, 0.1, 800)
+        else:
+            yy = (rng.uniform(size=800) < 1 / (1 + np.exp(-1.5 * eta)))
+            cols["y"] = np.asarray(["n", "p"], dtype=object)[yy.astype(int)]
+            types["y"] = "enum"
+        fr = Frame.from_dict(cols, column_types=types)
+        params = dict(dict(gam_columns=["x"], num_knots=[10], family=fam),
+                      **extra)
+        a, c = pair(H2OGeneralizedAdditiveEstimator, fr, x=["x", "z", "g"],
+                    **params)
+        same = all(ka.tobytes() == kc.tobytes() and ca.tobytes() == cc.tobytes()
+                   for (_, ka, ca), (_, kc, cc) in zip(a.gam_spec, c.gam_spec))
+        perr = float(np.abs(a._score(fr) - c._score(fr)).max())
+        key = f"gam_{fam}" + ("_ridge" if extra else "")
+        out[key] = dict(knots_centres_equal=same, pred_err=perr)
+        if not same or perr > gtol:
+            bad.append(f"{key}: {out[key]}")
+    # ANOVA GLM: only `a` matters
+    rng = np.random.default_rng(5)
+    a_, b_ = rng.normal(size=500), rng.normal(size=500)
+    cc = rng.integers(0, 3, 500)
+    fr = Frame.from_dict({"a": a_, "b": b_,
+                          "c": np.asarray(list("xyz"), dtype=object)[cc],
+                          "y": 2.0 * a_ + rng.normal(0, 0.5, 500)},
+                         column_types={"c": "enum"})
+    a, c = pair(H2OANOVAGLMEstimator, fr, x=["a", "b", "c"],
+                family="gaussian")
+    yv = fr.vec("y").numeric_np()
+    dev_full = _deviance("gaussian", yv, c._full.model._score(
+        c._as_design(fr)), np.ones(len(yv)))
+    errs = {}
+    ok = [r["df"] for r in a._table] == [r["df"] for r in c._table]
+    for ra, rc in zip(a._table, c._table):
+        d = abs(ra["deviance"] - rc["deviance"])
+        lim = (tol["anova_active"] * rc["deviance"] if rc["term"] == "a"
+               else tol["anova_inactive"] * dev_full)
+        errs[rc["term"]] = d
+        ok &= ra["term"] == rc["term"] and d <= lim
+    out["anova"] = dict(ok=bool(ok), deviance_err=errs)
+    if not ok:
+        bad.append(f"anova: {out['anova']}")
+    # ModelSelection, maxr and backward
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(400, 4))
+    cols = {f"x{i + 1}": X[:, i] for i in range(4)}
+    cols["y"] = (3 * X[:, 0] + 1.5 * X[:, 1] + 0.6 * X[:, 3]
+                 + rng.normal(0, 0.3, 400))
+    fr = Frame.from_dict(cols)
+    for mode in ("maxr", "backward"):
+        a, c = pair(H2OModelSelectionEstimator, fr, x=list(cols)[:4],
+                    mode=mode, max_predictor_number=4, family="gaussian")
+        same = a.get_best_model_predictors() == c.get_best_model_predictors()
+        rerr = max(abs(u - v) for u, v in zip(a.get_best_r2_values(),
+                                             c.get_best_r2_values()))
+        cerr = max(abs(a.coef(s)[k] - c.coef(s)[k])
+                   for s in range(1, 5) for k in c.coef(s))
+        out[f"ms_{mode}"] = dict(predictors_equal=same, r2_err=rerr,
+                                 coef_err=cerr)
+        if not same or rerr > tol["ms_r2"] or cerr > tol["ms_coef"]:
+            bad.append(f"ms {mode}: {out[f'ms_{mode}']}")
+    PHASE36_WALLS["g"] = time.perf_counter() - t_phase
+    print(f"phase 36(g) on {card}, card vs cpu (tolerances "
+          f"{json.dumps(tol)}): " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 36(g): " + "; ".join(bad))
+    return out
+
+
+def glm_family_path(dev, card):
+    """Phase 36: (a)-(g) in turn with every launch count set to 0 before
+    (a) and read after (g); (h) none of them launched a hand-written
+    kernel."""
+    zero_counts()
+    nb_rec, nb_model, nb_fr = nb_covtype_path(dev, card)
+    nb_check = nb_fr.take(np.arange(0, COV_ROWS, 97))
+    del nb_fr
+    gam_rec, gam_model, g_fr, g_fh, p1, y_h = gam_airlines_path(dev, card)
+    iso_rec, iso_model, iso_fr = isotonic_calibration_path(dev, card, p1, y_h)
+    an_rec, an_model, an_fr = anova_path(dev, card, g_fr)
+    del g_fr
+    ms_rec, ms_model, ms_fr = modelselection_path(dev, card)
+    mojo_rec = glm_family_mojo_serving(dev, card, dict(
+        naivebayes=(nb_model, nb_check),
+        isotonic=(iso_model, iso_fr), gam=(gam_model, g_fh),
+        anovaglm=(an_model, an_fr), modelselection=(ms_model, ms_fr)))
+    del nb_check, g_fh
+    small = glm_family_small_checks(dev, card)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    print(f"phase 36(h): hand-written kernel launches after (a)-(g) "
+          f"{json.dumps(counts)}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"phase 36(h): a kernel ran: {counts}")
+    return dict(naivebayes=nb_rec, gam=gam_rec, isotonic=iso_rec,
+                anova=an_rec, modelselection=ms_rec, mojo=mojo_rec,
+                small=small)
 
 
 def main() -> int:
@@ -6459,6 +7116,13 @@ def main() -> int:
     _, uplift_entry = anomaly_uplift_path(dev, card)
     print(f"phase 35 wall on {card}: " + json.dumps(dict(
         PHASE35_WALLS, total_s=sum(PHASE35_WALLS.values()))), flush=True)
+    # phase 36: NaiveBayes, GAM, isotonic regression, ANOVA GLM and
+    # ModelSelection at full width, then card vs CPU
+    glm_family_path(dev, card)
+    print(f"phase 36 wall on {card}: " + json.dumps(dict(
+        PHASE36_WALLS, total_s=sum(PHASE36_WALLS.values()))), flush=True)
+    print(f"smoke wall on {card}: {time.time() - t0:.1f} s (kernel build "
+          "included)", flush=True)
 
     def total(passes, k):   # per tree: B2 widths weighted by passes per tree
         return sum(r[k] * r.get("per_tree", 1) for r in passes)

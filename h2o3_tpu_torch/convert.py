@@ -36,6 +36,16 @@ stacked forest with the bin edges and the feature domains of its
 `BinnedMatrix`, the response domain and the treatment column.
 `isoforest_from_numpy`, `eif_from_numpy` and `uplift_from_numpy` build
 the port's models from them.
+
+A NaiveBayes model's weights are its priors, each numeric column's
+per-class mean and sd, and each categorical column's probability table
+with its domain; an isotonic regression's its knots and `out_of_bounds`;
+a GAM's its β, its `DataInfo` state and each spline column's knots and
+centres. An ANOVA GLM is its table and terms with its full GLM, and a
+ModelSelection model its per-size results with one GLM each, the GLMs
+given as `glm_from_numpy` arguments. `naivebayes_from_numpy`,
+`isotonic_from_numpy`, `gam_from_numpy`, `anovaglm_from_numpy` and
+`modelselection_from_numpy` build the port's models from them.
 """
 
 from __future__ import annotations
@@ -50,11 +60,16 @@ from .frame.binning import BinnedMatrix
 from .models import tree as treelib
 from .models.deeplearning import ACTIVATIONS, DeepLearningModel
 from .models.extended_isolation_forest import ExtendedIsolationForestModel
-from .models.glm import FAMILIES, GLMModel
+from .models.anovaglm import ANOVAGLMModel, H2OANOVAGLMEstimator
+from .models.gam import GAMModel
+from .models.glm import FAMILIES, GLMModel, H2OGeneralizedLinearEstimator
 from .models.glrm import GLRMModel
 from .models.isolation_forest import IsolationForestModel
+from .models.isotonic import IsotonicRegressionModel
 from .models.kmeans import KMeansModel
 from .models.model_base import DataInfo
+from .models.modelselection import ModelSelectionModel
+from .models.naive_bayes import NaiveBayesModel
 from .models.pca import PCAModel
 from .models.svd import SVDModel
 from .models.shared_tree import SharedTreeModel
@@ -395,3 +410,100 @@ def uplift_from_numpy(*, feat, bin, thr, is_split, value,
     return UpliftRandomForestModel(None, x, y, bm, treelib.Tree(*fields),
                                    int(max_depth), domain, treatment_column,
                                    device=dev)
+
+
+def naivebayes_from_numpy(*, priors, num_stats, cat_tables, spec,
+                          x: Sequence[str], y: str, domain: List[str],
+                          device=None) -> NaiveBayesModel:
+    """Port NaiveBayes model from a reference model's state: `priors` the
+    (K,) class priors, `num_stats` column → (K, 2) per-class mean and sd,
+    `cat_tables` column → ((K, L) probabilities, the column's domain),
+    `spec` the (column, "num" | "cat") list in scoring order and `domain`
+    the K response levels."""
+    priors = np.asarray(priors, np.float64)
+    K = len(domain)
+    if priors.shape != (K,):
+        raise ValueError(f"priors: expected ({K},), got {priors.shape}")
+    nums = {k: np.asarray(v, np.float64) for k, v in num_stats.items()}
+    cats = {k: (np.asarray(t, np.float64), list(d))
+            for k, (t, d) in cat_tables.items()}
+    spec = [(str(n), str(kind)) for n, kind in spec]
+    for n, kind in spec:
+        shape = (nums[n] if kind == "num" else cats[n][0]).shape
+        if shape[0] != K or (kind == "num" and shape != (K, 2)):
+            raise ValueError(f"{n}: expected {K} class rows, got {shape}")
+    return NaiveBayesModel(None, x, y, list(domain), priors, nums, cats,
+                           spec, device=device)
+
+
+def isotonic_from_numpy(*, thresholds_x, thresholds_y, x: str, y: str,
+                        out_of_bounds: str = "NA",
+                        device=None) -> IsotonicRegressionModel:
+    """Port isotonic regression model from a reference model's knots: x
+    rising, y never falling, and its `out_of_bounds` ("NA" or "clip")."""
+    tx = np.asarray(thresholds_x, np.float64)
+    ty = np.asarray(thresholds_y, np.float64)
+    if tx.ndim != 1 or tx.shape != ty.shape or not len(tx):
+        raise ValueError(f"knots: expected two equal (m,) arrays, got "
+                         f"{tx.shape} and {ty.shape}")
+    return IsotonicRegressionModel(None, x, y, tx, ty, str(out_of_bounds),
+                                   device=device)
+
+
+def gam_from_numpy(*, beta, family: str, x: Sequence[str], y: str, spec,
+                   coef_names: Sequence[str], gam_spec, means=None,
+                   stds=None, col_means=None, transfer_groups=None,
+                   standardize: bool = False, use_all: bool = False,
+                   domain: Optional[List[str]] = None,
+                   device=None) -> GAMModel:
+    """Port GAM from a reference model's state: `beta` the (p+1,) f64
+    coefficients over [linear | splines | 1], the linear columns'
+    `DataInfo` state as for `glm_from_numpy`, and `gam_spec` the
+    (column, knots, centres) of each spline column in design order."""
+    gspec = [(str(c), np.asarray(k, np.float64), np.asarray(m, np.float64))
+             for c, k, m in gam_spec]
+    b = np.asarray(beta, np.float64)
+    p1 = len(coef_names) + sum(len(k) - 1 for _, k, _ in gspec) + 1
+    if b.shape != (p1,):
+        raise ValueError(f"beta: expected ({p1},), got {b.shape}")
+    dinfo = DataInfo.from_state(
+        spec=spec, coef_names=coef_names, standardize=standardize,
+        use_all=use_all, means=means, stds=stds, col_means=col_means,
+        transfer_groups=transfer_groups)
+    return GAMModel(None, x, y, dinfo, family, b, domain, gspec,
+                    device=device)
+
+
+def _fitted_glm(kwargs: dict, device) -> H2OGeneralizedLinearEstimator:
+    """A carried GLM held by an estimator, as the ANOVA and ModelSelection
+    models hold their fitted GLMs."""
+    est = H2OGeneralizedLinearEstimator(device=device)
+    est._model = glm_from_numpy(**dict(kwargs, device=device))
+    return est
+
+
+def anovaglm_from_numpy(*, table, terms, x: Sequence[str], y: str,
+                        full_glm: dict, device=None) -> ANOVAGLMModel:
+    """Port ANOVA GLM model from a reference model's table (term, df,
+    deviance, p_value per row), its terms (tuples of column names) and its
+    full GLM's `glm_from_numpy` arguments (over the columns c0, c1, …)."""
+    full = _fitted_glm(full_glm, device)
+    terms = [tuple(t) for t in terms]
+    table = [dict(term=str(r["term"]), df=int(r["df"]),
+                  deviance=float(r["deviance"]), p_value=float(r["p_value"]))
+             for r in table]
+    return ANOVAGLMModel(None, x, y, table, full, terms,
+                         H2OANOVAGLMEstimator()._build_design)
+
+
+def modelselection_from_numpy(*, results, glms, x: Sequence[str], y: str,
+                              device=None) -> ModelSelectionModel:
+    """Port ModelSelection model from a reference model's results (size,
+    predictors and R² per row) and one GLM's `glm_from_numpy` arguments per
+    row, in the same order."""
+    if len(results) != len(glms):
+        raise ValueError(f"{len(results)} results for {len(glms)} GLMs")
+    res = [dict(size=int(r["size"]), predictors=list(r["predictors"]),
+                r2=float(r["r2"])) for r in results]
+    best = [_fitted_glm(g, device) for g in glms]
+    return ModelSelectionModel(None, x, y, res, best)

@@ -1,30 +1,39 @@
 """`h2o.estimators` namespace of the port: the estimators ported so far
-(the unsupervised K-Means, PCA, SVD and GLRM, the isolation forests and
-the uplift DRF among them), with the grid search and AutoML that drive
-them."""
+(the unsupervised K-Means, PCA, SVD and GLRM, the isolation forests, the
+uplift DRF, NaiveBayes, isotonic regression and the GLM family — GAM,
+ANOVA GLM and ModelSelection — among them), with the grid search and
+AutoML that drive them."""
 
 from ..automl import H2OAutoML
+from ..models.anovaglm import H2OANOVAGLMEstimator
 from ..models.deeplearning import H2ODeepLearningEstimator
 from ..models.drf import H2ORandomForestEstimator
 from ..models.ensemble import H2OStackedEnsembleEstimator
 from ..models.extended_isolation_forest import \
     H2OExtendedIsolationForestEstimator
+from ..models.gam import H2OGeneralizedAdditiveEstimator
 from ..models.gbm import H2OGradientBoostingEstimator
 from ..models.glm import H2OGeneralizedLinearEstimator
 from ..models.glrm import H2OGeneralizedLowRankEstimator
 from ..models.grid import H2OGridSearch
 from ..models.isolation_forest import H2OIsolationForestEstimator
+from ..models.isotonic import H2OIsotonicRegressionEstimator
 from ..models.kmeans import H2OKMeansEstimator
+from ..models.modelselection import H2OModelSelectionEstimator
+from ..models.naive_bayes import H2ONaiveBayesEstimator
 from ..models.pca import H2OPrincipalComponentAnalysisEstimator
 from ..models.svd import H2OSingularValueDecompositionEstimator
 from ..models.uplift import H2OUpliftRandomForestEstimator
 from ..models.xgboost import H2OXGBoostEstimator
 
-__all__ = ["H2OAutoML", "H2ODeepLearningEstimator",
+__all__ = ["H2OANOVAGLMEstimator", "H2OAutoML", "H2ODeepLearningEstimator",
            "H2OExtendedIsolationForestEstimator",
+           "H2OGeneralizedAdditiveEstimator",
            "H2OGeneralizedLinearEstimator", "H2OGeneralizedLowRankEstimator",
            "H2OGradientBoostingEstimator", "H2OGridSearch",
-           "H2OIsolationForestEstimator", "H2OKMeansEstimator",
+           "H2OIsolationForestEstimator", "H2OIsotonicRegressionEstimator",
+           "H2OKMeansEstimator", "H2OModelSelectionEstimator",
+           "H2ONaiveBayesEstimator",
            "H2OPrincipalComponentAnalysisEstimator",
            "H2ORandomForestEstimator",
            "H2OSingularValueDecompositionEstimator",

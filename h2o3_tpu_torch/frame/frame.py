@@ -1,7 +1,7 @@
 """Frame — columnar table, trimmed to the port's first slice.
 
-A copy of the construction, column-access, row-take, `rbind`,
-`split_frame` and `asfactor` parts of `h2o3_tpu/frame/frame.py`, with the
+A copy of the construction, column-access, column-assignment, row-take,
+`rbind`, `split_frame` and `asfactor` parts of `h2o3_tpu/frame/frame.py`, with the
 same semantics.
 Columns are host numpy (`Vec`); the algorithms move what they need to the
 device. The munging surface (Rapids, group-by, string ops, parsing) is not
@@ -104,6 +104,17 @@ class Frame:
                 idx = np.nonzero(idx)[0]
             return self.take(idx)
         raise TypeError(f"bad index {item!r}")
+
+    def __setitem__(self, name: str, value) -> None:
+        # the reference's column assignment; the port keeps no per-frame
+        # caches, so there is no `_touch` to call
+        if isinstance(value, Frame):
+            value = value.vecs()[0]
+        if not isinstance(value, Vec):
+            value = Vec.from_numpy(np.asarray(value))
+        if self._vecs and len(value) != self.nrow:
+            raise ValueError("length mismatch")
+        self._vecs[name] = value
 
     def take(self, idx: np.ndarray) -> "Frame":
         return Frame({n: v.take(idx) for n, v in self._vecs.items()})

@@ -10,7 +10,9 @@ AUUC / Qini).
 
 Shape on the card. The frame is binned on the host by `build_bins` at B,
 the next power of two ≥ nbins + 2 (32 at the default 20 bins), the
-reference's codes byte for byte; the codes are uploaded once and widened
+reference's codes byte for byte (uint8, or past 254 bins, at B = 512 or
+1024, uint16 codes sent as int16 by `packing.device_codes`, as the tree
+path sends them); the codes are uploaded once and widened
 to feature-major once per fit, and that transient serves every histogram
 pass of every tree. Each level of a tree builds TWO histograms through
 `ops/histogram.py::build_histograms` — {w_t, y·w_t, 0} over the treatment
@@ -48,7 +50,7 @@ import torch
 from .. import device as devlib
 from ..frame.binning import build_bins
 from ..frame.frame import Frame
-from ..ops import histogram, prng, score_cuda
+from ..ops import hist_cuda, histogram, packing, prng, score_cuda
 from .metrics import ModelMetricsBase
 from .model_base import H2OEstimator, H2OModel, _sync, check_unread
 from .shared_tree import frame_to_matrix, padded_rows
@@ -297,6 +299,16 @@ class H2OUpliftRandomForestEstimator(H2OEstimator):
         B = 1
         while B < nbins + 2:
             B *= 2
+        # past 254 bins B is 512 or 1024 and `build_bins` makes uint16
+        # codes, which go to the device as int16 (`packing.device_codes`),
+        # as on the tree path; past 1022 B is 2048, more than the histogram
+        # kernels take
+        if B > hist_cuda.MAX_BINS:
+            raise ValueError(
+                f"nbins={nbins} pads to {B} bins: the histogram kernels take "
+                f"at most {hist_cuda.MAX_BINS}; set nbins below "
+                f"{hist_cuda.MAX_BINS - 1} (ROADMAP queue B, item 1: more "
+                "than 1024 bins)")
         seed = int(self._parms.get("_actual_seed", 1234))
         bm = build_bins(X, nbins=B, names=list(x), is_categorical=is_cat,
                         domains=doms, seed=seed)
@@ -310,7 +322,8 @@ class H2OUpliftRandomForestEstimator(H2OEstimator):
         n = train.nrow
         # the codes widened to feature-major once: every pass of every
         # tree reads this transient
-        codes_w = histogram.feature_major(torch.from_numpy(bm.codes).to(dev))
+        codes_w = histogram.feature_major(
+            torch.from_numpy(packing.device_codes(bm.codes)).to(dev))
         y_d = torch.from_numpy(yarr).to(dev)
         treat_d = torch.from_numpy(treat).to(dev)
         edges_d = torch.from_numpy(edges).to(dev)

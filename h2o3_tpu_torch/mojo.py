@@ -47,6 +47,16 @@ column. Their numpy scorers are the reference's: the path-length walk of
 `isolation_forest.forest_path_lengths` in f64, the EIF walk over the
 imputed f64 expansion, and the uplift forest's leaf values summed in f64
 and averaged.
+NaiveBayes, isotonic regression and GAM write the reference's payloads:
+NaiveBayes its priors (`nb_priors`), each numeric column's per-class mean
+and sd (`nb_num_<col>`) and each categorical column's probability table
+(`nb_cat_<col>`, with its domain in `meta["nb_spec"]`); isotonic
+regression its knots (`iso_tx`, `iso_ty`) and `out_of_bounds`; GAM its β
+(f64, intercept last), its `DataInfo` state and each spline column's
+knots and centres (`gam{i}_knots`, `gam{i}_center`). Their numpy scorers
+are the reference's: the f64 log-posterior with a softmax, `np.interp`,
+and the f64 design [expansion | splines | 1] through an f64 inverse link.
+ANOVA GLM and ModelSelection export nothing, as in the reference.
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
 scorer). The reference's native C++ scorer (`native/loader.py`) and the other
@@ -73,10 +83,13 @@ def _model_payload(model) -> Dict[str, Any]:
     from .models.ensemble import StackedEnsembleModel
     from .models.extended_isolation_forest import \
         ExtendedIsolationForestModel
+    from .models.gam import GAMModel
     from .models.glm import GLMModel
     from .models.glrm import GLRMModel
     from .models.isolation_forest import IsolationForestModel
+    from .models.isotonic import IsotonicRegressionModel
     from .models.kmeans import KMeansModel
+    from .models.naive_bayes import NaiveBayesModel
     from .models.pca import PCAModel
     from .models.shared_tree import SharedTreeModel
     from .models.svd import SVDModel
@@ -94,7 +107,8 @@ def _model_payload(model) -> Dict[str, Any]:
                               StackedEnsembleModel, KMeansModel, PCAModel,
                               SVDModel, GLRMModel, IsolationForestModel,
                               ExtendedIsolationForestModel,
-                              UpliftRandomForestModel)):
+                              UpliftRandomForestModel, NaiveBayesModel,
+                              IsotonicRegressionModel, GAMModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
             "not a MOJO-exportable kind (see docs/mojo.md for the "
@@ -178,6 +192,38 @@ def _model_payload(model) -> Dict[str, Any]:
         for field in ("feat", "bin", "thr", "is_split", "value"):
             arrays[f"uforest_{field}"] = getattr(model.forest,
                                                  field).cpu().numpy()
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, NaiveBayesModel):
+        nb_spec = []
+        for name, knd in model.spec:
+            ent = {"name": name, "kind": knd}
+            if knd == "num":
+                arrays[f"nb_num_{name}"] = np.asarray(
+                    model.num_stats[name], np.float64)
+            else:
+                probs, dom = model.cat_tables[name]
+                ent["domain"] = list(dom)
+                arrays[f"nb_cat_{name}"] = np.asarray(probs, np.float64)
+            nb_spec.append(ent)
+        meta.update(kind="naivebayes", domain=model.domain, nb_spec=nb_spec)
+        arrays["nb_priors"] = np.asarray(model.priors, np.float64)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, IsotonicRegressionModel):
+        meta.update(kind="isotonic", out_of_bounds=model.out_of_bounds)
+        arrays["iso_tx"] = np.asarray(model.thresholds_x, np.float64)
+        arrays["iso_ty"] = np.asarray(model.thresholds_y, np.float64)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, GAMModel):
+        # the spline basis (knots + centring) rides along, so the artifact
+        # scores new data as the live model does
+        meta.update(kind="gam", family=model.family, domain=model.domain,
+                    dinfo=_dinfo_meta(model.dinfo),
+                    gam_cols=[c for c, _, _ in model.gam_spec])
+        arrays["beta"] = np.asarray(model.beta, np.float64)
+        for i, (_col, knots, center) in enumerate(model.gam_spec):
+            arrays[f"gam{i}_knots"] = np.asarray(knots, np.float64)
+            arrays[f"gam{i}_center"] = np.asarray(center, np.float64)
+        _stats(arrays, model.dinfo)
         return {"meta": meta, "arrays": arrays}
     if isinstance(model, DeepLearningModel):
         meta.update(
@@ -408,6 +454,84 @@ class MojoScorer:
             for i, cls in enumerate(dom):
                 d[str(cls)] = probs[:, i]
             return Frame.from_dict(d, column_types={"predict": "enum"})
+        if fam in ("poisson", "gamma", "tweedie"):
+            eta = np.exp(eta)
+        return Frame.from_dict({"predict": eta})
+
+    def _naivebayes_predict(self, data):
+        """The reference's numpy NaiveBayes scorer: f64 log-priors plus the
+        Gaussian log-densities and table log-probabilities, a softmax."""
+        from .frame.frame import Frame
+
+        meta = self.meta
+        n = data.nrow
+        priors = self.arrays["nb_priors"]
+        logp = np.tile(np.log(priors)[None, :], (n, 1))
+        for ent in meta["nb_spec"]:
+            name = ent["name"]
+            v = data.vec(name)
+            if ent["kind"] == "num":
+                col = v.numeric_np()
+                st = self.arrays[f"nb_num_{name}"]
+                mean, sd = st[:, 0], st[:, 1]
+                valid = ~np.isnan(col)
+                ll = (-0.5 * np.log(2 * np.pi * sd[None, :] ** 2)
+                      - 0.5 * ((np.where(valid, col, 0.0)[:, None]
+                                - mean[None, :]) / sd[None, :]) ** 2)
+                logp += np.where(valid[:, None], ll, 0.0)
+            else:
+                probs = self.arrays[f"nb_cat_{name}"]
+                codes = _remap_codes(np.asarray(v.data), v.domain,
+                                     ent["domain"])
+                valid = codes >= 0
+                ll = np.log(probs[:, np.maximum(codes, 0)]).T
+                logp += np.where(valid[:, None], ll, 0.0)
+        mshift = logp - logp.max(axis=1, keepdims=True)
+        probs2 = np.exp(mshift) / np.exp(mshift).sum(axis=1, keepdims=True)
+        dom = meta["domain"]
+        d = {"predict": np.asarray(dom, dtype=object)[probs2.argmax(axis=1)]}
+        for i, cls in enumerate(dom):
+            d[str(cls)] = probs2[:, i]
+        return Frame.from_dict(d, column_types={"predict": "enum"})
+
+    def _isotonic_predict(self, data):
+        from .frame.frame import Frame
+
+        xname = self.x if isinstance(self.x, str) else self.x[0]
+        col = data.vec(xname).numeric_np()
+        tx, ty = self.arrays["iso_tx"], self.arrays["iso_ty"]
+        p = np.interp(col, tx, ty)
+        if self.meta["out_of_bounds"].lower() == "na":
+            p = np.where((col < tx[0]) | (col > tx[-1]), np.nan, p)
+        p = np.where(np.isnan(col), np.nan, p)
+        return Frame.from_dict({"predict": p})
+
+    def _gam_predict(self, data):
+        """The reference's numpy GAM scorer: the f64 design [expansion |
+        centred spline bases | 1] times β, through an f64 inverse link."""
+        from .frame.frame import Frame
+        from .ops.splines import spline_basis
+
+        meta = self.meta
+        parts = []
+        if meta["dinfo"]["spec"]:
+            parts.append(self._expand_dinfo(data))
+        for i, col in enumerate(meta["gam_cols"]):
+            raw = np.nan_to_num(data.vec(col).numeric_np())
+            parts.append(spline_basis(raw, self.arrays[f"gam{i}_knots"])
+                         - self.arrays[f"gam{i}_center"])
+        X = np.concatenate(parts, axis=1)
+        eta = (np.concatenate([X, np.ones((X.shape[0], 1))], axis=1)
+               @ self.arrays["beta"])
+        fam = meta["family"]
+        if fam == "binomial":
+            p1 = 1 / (1 + np.exp(-np.clip(eta, -500, 500)))
+            dom = meta["domain"]
+            return Frame.from_dict({
+                "predict": np.asarray(dom, dtype=object)[
+                    (p1 > 0.5).astype(int)],
+                str(dom[0]): 1 - p1, str(dom[1]): p1,
+            }, column_types={"predict": "enum"})
         if fam in ("poisson", "gamma", "tweedie"):
             eta = np.exp(eta)
         return Frame.from_dict({"predict": eta})
@@ -655,6 +779,12 @@ class MojoScorer:
             return self._anomaly_predict(data)
         if meta["kind"] == "uplift":
             return self._uplift_predict(data)
+        if meta["kind"] == "naivebayes":
+            return self._naivebayes_predict(data)
+        if meta["kind"] == "isotonic":
+            return self._isotonic_predict(data)
+        if meta["kind"] == "gam":
+            return self._gam_predict(data)
         if meta["kind"] != "tree":
             raise NotImplementedError(
                 f"scoring a {meta['kind']!r} artifact is not ported "

@@ -50,11 +50,13 @@ def add(phase: str, secs: float) -> None:
 # a fit's `fit_timings` keys (the host-clock splits the port's fit loops
 # keep) → the phase each books to
 _FIT_PHASE = dict(
-    bins_s="host_prep", pack_s="host_prep",
+    bins_s="host_prep", pack_s="host_prep", tables_s="host_prep",
+    basis_s="host_prep",
     upload_s="h2d", h2d_s="h2d", expand_s="h2d", yw_h2d_s="h2d",
     trees_s="compute", score_s="compute", init_s="compute",
     steps_s="compute", irls_s="compute", lbfgs_s="compute",
-    rounds_s="compute", pvalues_s="compute",
+    rounds_s="compute", pvalues_s="compute", moments_s="compute",
+    pav_s="compute",
     scoring_s="metrics", metrics_s="metrics")
 
 

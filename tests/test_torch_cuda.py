@@ -617,3 +617,119 @@ def test_isolation_forests_on_cuda_match_cpu(dev):
     torch.cuda.synchronize()
     assert (hist_cuda.launches, hist_cuda.launches_rows,
             score_cuda.launches) == before
+
+
+def test_uplift_300_bins_on_cuda_matches_cpu(dev):
+    """UpliftDRF at nbins=300 pads to B = 512: `build_bins` makes uint16
+    codes, sent to the card as int16, and B1 takes its int16 instance at
+    every pass; the forest equals the CPU's node for node."""
+    from h2o3_tpu_torch.estimators import H2OUpliftRandomForestEstimator
+
+    rng = np.random.default_rng(5)
+    n = 3000
+    X = rng.normal(size=(n, 3))
+    treat = rng.integers(0, 2, n)
+    lift = np.where(X[:, 0] > 0, 0.4, 0.0) * treat
+    y = (rng.uniform(size=n) < 0.2 * (X[:, 1] > 0.5) + lift + 0.1).astype(int)
+    fr = Frame.from_dict(
+        {"x0": X[:, 0], "x1": X[:, 1], "x2": X[:, 2],
+         "treatment": np.asarray(["control", "treatment"],
+                                 dtype=object)[treat],
+         "y": np.asarray(["0", "1"], dtype=object)[y]},
+        column_types={"treatment": "enum", "y": "enum"})
+    params = dict(treatment_column="treatment", ntrees=6, max_depth=5,
+                  nbins=300, seed=11)
+    before = hist_cuda.launches
+    histogram.DISPATCH.clear()
+    card = H2OUpliftRandomForestEstimator(device=str(dev), **params).train(
+        x=["x0", "x1", "x2"], y="y", training_frame=fr).model
+    torch.cuda.synchronize()
+    assert card.bm.codes.dtype == np.uint16 and card.bm.nbins == 512
+    assert hist_cuda.launches - before == 2 * 6 * 6
+    assert dict(histogram.DISPATCH) == {"pallas_factored": 2 * 6 * 6}
+    cpu = H2OUpliftRandomForestEstimator(device="cpu", **params).train(
+        x=["x0", "x1", "x2"], y="y", training_frame=fr).model
+    for f in ("feat", "bin", "thr", "is_split", "value"):
+        assert torch.equal(getattr(card.forest, f).cpu(),
+                           getattr(cpu.forest, f)), f
+
+
+def test_naive_bayes_on_cuda_is_repeatable_and_matches_cpu(dev):
+    """NaiveBayes's moments on the card are one f32 matrix product: two
+    card fits are equal bit for bit, and within 1e-6 relative of the CPU's
+    (another summation order); the tables are equal; the card's f64
+    scoring of the card model's statistics equals the CPU's scoring of the
+    same statistics within 1e-12; no hand-written kernel runs."""
+    from h2o3_tpu_torch import convert
+    from h2o3_tpu_torch.estimators import H2ONaiveBayesEstimator
+    from h2o3_tpu_torch.ops import score_cuda
+
+    rng = np.random.default_rng(4)
+    n = 50_000
+    y = rng.integers(0, 4, n)
+    X = rng.normal(size=(n, 5)) + y[:, None] * 0.7
+    X[::29, 3] = np.nan
+    g = np.where(rng.uniform(size=n) < 0.6, y, rng.integers(0, 4, n))
+    cols = {f"x{i}": X[:, i] for i in range(5)}
+    cols["g"] = np.asarray(list("abcd"), dtype=object)[g]
+    cols["y"] = np.asarray(list("klmn"), dtype=object)[y]
+    fr = Frame.from_dict(cols, column_types={"g": "enum", "y": "enum"})
+    before = (hist_cuda.launches, hist_cuda.launches_rows,
+              score_cuda.launches)
+    card = [H2ONaiveBayesEstimator(device=str(dev), laplace=1.0).train(
+        y="y", training_frame=fr).model for _ in range(2)]
+    cpu = H2ONaiveBayesEstimator(device="cpu", laplace=1.0).train(
+        y="y", training_frame=fr).model
+    for name, st in cpu.num_stats.items():
+        assert card[0].num_stats[name].tobytes() == \
+            card[1].num_stats[name].tobytes()
+        assert np.abs(card[0].num_stats[name] - st).max() <= 1e-6 * np.abs(
+            st).max()
+    assert card[0].cat_tables["g"][0].tobytes() == \
+        cpu.cat_tables["g"][0].tobytes()
+    m = card[0]
+    same_stats = convert.naivebayes_from_numpy(
+        priors=m.priors, num_stats=m.num_stats, cat_tables=m.cat_tables,
+        spec=m.spec, x=m.x, y=m.y, domain=m.domain, device="cpu")
+    assert np.abs(m._probs(fr) - same_stats._probs(fr)).max() <= 1e-12
+    torch.cuda.synchronize()
+    assert (hist_cuda.launches, hist_cuda.launches_rows,
+            score_cuda.launches) == before
+
+
+def test_isotonic_and_gam_on_cuda_match_cpu(dev):
+    """Isotonic regression's knots (host PAV) equal on both devices and its
+    f64 scores bit-equal to the CPU's; a GAM's knots and centres equal and
+    its predictions within 2e-4 of the CPU's at the defaults (the f32
+    Gram's rounding, ROADMAP §C), within 1e-5 with a ridge."""
+    from h2o3_tpu_torch.estimators import (H2OGeneralizedAdditiveEstimator,
+                                           H2OIsotonicRegressionEstimator)
+
+    rng = np.random.default_rng(6)
+    n = 20_000
+    x = rng.uniform(-3, 3, n)
+    z = rng.normal(size=n)
+    yi = np.tanh(x) + rng.normal(0, 0.4, n)
+    fr = Frame.from_dict({"x": x, "z": z, "yi": yi, "w": rng.uniform(0.5, 2, n)})
+    q = np.concatenate([np.linspace(-4, 4, 1001), [np.nan]])
+    for oob in ("NA", "clip"):
+        ms = [H2OIsotonicRegressionEstimator(
+            device=d, out_of_bounds=oob, weights_column="w").train(
+            x=["x"], y="yi", training_frame=fr).model for d in (str(dev), "cpu")]
+        assert ms[0].thresholds_x.tobytes() == ms[1].thresholds_x.tobytes()
+        assert ms[0].thresholds_y.tobytes() == ms[1].thresholds_y.tobytes()
+        assert np.array_equal(ms[0]._score(q), ms[1]._score(q), equal_nan=True)
+    eta = np.sin(x) * 2 + 0.5 * z
+    yb = (rng.uniform(size=n) < 1 / (1 + np.exp(-eta))).astype(int)
+    fr["yb"] = np.asarray(["n", "p"], dtype=object)[yb]
+    fr = fr.asfactor("yb")
+    for tol, extra in ((2e-4, {}), (1e-5, dict(num_knots=[6], lambda_=1e-4))):
+        ms = [H2OGeneralizedAdditiveEstimator(
+            device=d, gam_columns=["x"], family="binomial",
+            **dict(dict(num_knots=[10]), **extra)).train(
+            x=["x", "z"], y="yb", training_frame=fr).model
+            for d in (str(dev), "cpu")]
+        for (_, ka, ca), (_, kc, cc) in zip(ms[0].gam_spec, ms[1].gam_spec):
+            assert ka.tobytes() == kc.tobytes() and ca.tobytes() == cc.tobytes()
+        a, c = (m.predict(fr).vec("p").numeric_np() for m in ms)
+        assert np.abs(a - c).max() <= tol

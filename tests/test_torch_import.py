@@ -33,6 +33,10 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch.runtime.trainpool, h2o3_tpu_torch.runtime.phases\n"
         "import h2o3_tpu_torch.models.kmeans, h2o3_tpu_torch.models.pca\n"
         "import h2o3_tpu_torch.models.svd, h2o3_tpu_torch.models.glrm\n"
+        "import h2o3_tpu_torch.models.naive_bayes, h2o3_tpu_torch.models.isotonic\n"
+        "import h2o3_tpu_torch.models.gam, h2o3_tpu_torch.ops.splines\n"
+        "import h2o3_tpu_torch.models.anovaglm\n"
+        "import h2o3_tpu_torch.models.modelselection\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'h2o3_tpu' or m.startswith('h2o3_tpu.'))\n"

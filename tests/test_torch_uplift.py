@@ -6,7 +6,8 @@ and through the port with `device="cpu"`, where every histogram pass is
 `segment` (B1's plain version):
 
 - the bin codes byte for byte; for KL, Euclidean and ChiSquared, with the
-  default `mtries` column sample, the forest equal node for node (features,
+  default `mtries` column sample (and for KL at 300 bins, whose uint16
+  codes go to the device as int16), the forest equal node for node (features,
   bins, thresholds and split flags), the leaf values within LEAF_TOL =
   1e-6, predictions within PRED_TOL = 1e-5, and the training and
   validation AUUC, qini and ATE within METRIC_TOL = 1e-6 relative. The
@@ -15,7 +16,8 @@ and through the port with `device="cpu"`, where every histogram pass is
 - `auuc` of both kinds against the reference's on random rankings;
 - 3-fold CV: the fold forests, the holdout predictions within PRED_TOL
   and the cross-validation metrics within METRIC_TOL;
-- both `ValueError`s and the `NotImplementedError`s for the parameters the
+- both `ValueError`s, the port's `ValueError` past 1022 bins (ROADMAP
+  queue B, item 1) and the `NotImplementedError`s for the parameters the
   reference never reads;
 - the MOJO member for member and loading across both ways,
   `convert.uplift_from_numpy`, and a served batch equal to `predict` with
@@ -95,14 +97,21 @@ def _uplift(model, frame):
     return model.predict(frame).vec("uplift_predict").numeric_np()
 
 
-@pytest.mark.parametrize("metric", ["KL", "Euclidean", "ChiSquared"])
-def test_forest_matches_the_reference(cloud1, metric):
+@pytest.mark.parametrize("metric,nbins", [
+    ("KL", 20), ("Euclidean", 20), ("ChiSquared", 20), ("KL", 300)],
+    ids=["KL", "Euclidean", "ChiSquared", "KL-300bins"])
+def test_forest_matches_the_reference(cloud1, metric, nbins):
+    """At the default 20 bins B is 32 and the codes uint8; at 300 bins B
+    is 512 and the codes uint16, which the port sends to the device as
+    int16."""
     rf, pf, y, treat, X = _uplift_frames()
     rv, pv, _, _, _ = _uplift_frames(600, seed=8)
-    rm, pm = _fit_both(rf, pf, valid=(rv, pv), uplift_metric=metric)
+    rm, pm = _fit_both(rf, pf, valid=(rv, pv), uplift_metric=metric,
+                       nbins=nbins)
     assert pm.bm.codes.dtype == rm.bm.codes.dtype
+    assert pm.bm.codes.dtype == (np.uint8 if nbins == 20 else np.uint16)
     assert pm.bm.codes.tobytes() == rm.bm.codes.tobytes()
-    assert pm.bm.nbins == rm.bm.nbins == 32
+    assert pm.bm.nbins == rm.bm.nbins == (32 if nbins == 20 else 512)
     assert pm.ntrees_built == rm.ntrees_built == 10
     _check_forest(rm.forest, pm.forest, metric)
     for r_fr, p_fr in ((rf, pf), (rv, pv)):
@@ -161,6 +170,11 @@ def test_errors_and_unread_parameters(cloud1):
         with pytest.raises(ValueError, match=msg):
             H2OUpliftRandomForestEstimator(device="cpu", **bad).train(
                 x=X_COLS, y=y, training_frame=pf)
+    # B pads past the histogram kernels' 1024 bins (the reference fits it)
+    with pytest.raises(ValueError, match="ROADMAP queue B, item 1"):
+        H2OUpliftRandomForestEstimator(
+            treatment_column="treatment", nbins=1023, device="cpu").train(
+            x=X_COLS, y="y", training_frame=pf)
     for bad in (dict(auuc_type="Gain"), dict(auuc_nbins=100),
                 dict(col_sample_rate_per_tree=0.5)):
         name = next(iter(bad))
