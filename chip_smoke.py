@@ -415,6 +415,40 @@ holdout prediction.
    (g) Card against CPU on the CPU tests' small frames (SMALL36_TOLS).
    (h) The launch counts, zeroed before (a), read after (g): none. The
    phase's wall and the smoke's are printed.
+37. CoxPH, PSVM and RuleFit at full width, TF32 off. (a) CoxPH on
+   HEART_ROWS counting-process rows with the columns of H2O's CoxPH
+   example (the Stanford heart transplant data: start, stop, event, age,
+   year, surgery, transplant; `make_heart_like`, a known β, whole-day
+   times), fitted as the example calls it (start and stop columns,
+   Breslow) and again with Efron stratified by surgery: the fit's split
+   (host sort and tie groups, Newton's iterations and ms each, the
+   concordance), Newton stopped on max|step| < 1e-8, the score vector at
+   β from an independent host f64 evaluation within 1e-6 × the events,
+   loglik above the null's, standard errors > 0, the Efron β within
+   HEART_SE_BAR standard errors of the generator's, a tie group of d > 1
+   events, the Breslow gap printed, and the concordance counts on a
+   CONC_CHECK_ROWS slice equal to the reference's loop's. (b) PSVM as
+   H2O's PSVM example calls it (gamma 0.01, rank_ratio 0.1) on
+   SPLICE_ROWS rows of the splice data's shape (60 positions of four
+   values; D = 10,000 Fourier features, Z 4 GB f32 on the card), and the
+   linear kernel: W and b bit-equal to a host draw, Z within
+   4e-6·√(2/D) of a host f64 recompute and `decision_function` within
+   1e-6 of the host's on CHECK37_ROWS rows, the linear fit's Adam stopped
+   on its rule and the gaussian's stopped, or ran the reference's bound of
+   1000 steps still descending (as the reference does on this frame), the
+   gaussian AUC above the linear one's by PSVM_AUC_MARGIN. (c)
+   RuleFit at its defaults with `max_num_rules=100` (H2O's RuleFit
+   example) on RF37_ROWS + RF37_HOLDOUT HIGGS-shaped rows: the split
+   (tree fits, rule counts, evaluation, feature frame, the GLM path and
+   its host pack's share), every kept rule's column and support equal to
+   the host's, at most 100 active rules, the holdout AUC above a lasso
+   GLM's on the linear terms alone by RF_AUC_MARGIN, B1 launched and
+   counted, B2 not. (d) CoxPH's and RuleFit's MOJOs against `predict`;
+   PSVM refuses export; one batch of each served equal to `predict` with
+   no fallback. (e) Card against CPU on the CPU tests' small frames
+   (SMALL37_TOLS), with a 3-fold CV of each (RuleFit's under the GBM).
+   (f) The launch counts, zeroed before (a): none after (a, b); after (e)
+   B1 alone. The phase's wall is printed.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
@@ -426,9 +460,9 @@ gblinear run none of the hand-written kernels, and phases 17, 18, 26, 30
 and 31(d) fail if they launched one; so does phase 32's DeepLearning
 fit, and phase 34 as a whole; phase 35's fits and `predict`s count
 their own launches, and its isolation forests fail if they launched
-one; so does phase 36 as a whole).
+one; so does phase 36 as a whole, and phase 37's CoxPH and PSVM).
 TF32 must stay off
-through phases 17-19, 30, 31(d), 32 and 36. The last line is
+through phases 17-19, 30, 31(d), 32, 36 and 37. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
 JSON.
 """
@@ -4867,12 +4901,17 @@ def dl_small_checks(dev, card):
 # the GBM, XGBoost and DeepLearning random grids (three models each) and
 # both stacked ensembles, every base model with AML_FOLDS-fold CV
 # (`tools/automl_higgs.py` runs the same at 100,000 rows). (b) holds a
-# `max_models=6`, 2-fold AutoML and a RandomDiscrete grid of three GBMs on
-# AML_SMALL_ROWS rows to the CPU, and `parallelism=2` to 1 on the card.
+# `max_models=AML_SMALL_MODELS`, 2-fold AutoML and a RandomDiscrete grid of
+# three GBMs on AML_SMALL_ROWS rows to the CPU, and `parallelism=2` to 1 on
+# the card.
 # cut to 2 folds from the reference's 5 to keep the smoke's time
 # (tools/automl_higgs.py runs 5)
 AML_ROWS, AML_FOLDS, AML_SEED = 5_000, 2, 42
 AML_SMALL_ROWS = 2_000
+# 33(b)'s AutoML: 3 base models (XGBoost_1-3) and the AllModels stack (one
+# family, so no BestOfFamily stack), cut from 6 (with GLM_1, DRF_1 and
+# XRT_1, 8 models with both stacks) to make room for phase 37 (PERF.md §4)
+AML_SMALL_MODELS, AML_SMALL_BUILT = 3, 4
 # card vs CPU, the largest difference of a row's CV AUC, logloss and RMSE,
 # by step (the largest reading on an H100 in brackets; the CPU's GLM sums
 # depend on its thread count, so GLM_1's and the stacks' readings move
@@ -5085,7 +5124,8 @@ def automl_small_aml(device: str, fr):
     rows' CV holdout predictions."""
     from h2o3_tpu_torch.estimators import H2OAutoML
 
-    aml = H2OAutoML(max_models=6, nfolds=2, seed=AML_SEED, device=device)
+    aml = H2OAutoML(max_models=AML_SMALL_MODELS, nfolds=2, seed=AML_SEED,
+                    device=device)
     aml.train(y="label", training_frame=fr)
     names = automl_names(aml)
     return aml, dict(
@@ -5192,7 +5232,7 @@ def automl_cpu_record(timeout_s: float = 1200.0) -> dict:
 
 
 def automl_small_checks(dev, card):
-    """Phase 33(b): a max_models=6, 2-fold AutoML and a RandomDiscrete grid
+    """Phase 33(b): a max_models=3, 2-fold AutoML and a RandomDiscrete grid
     of three GBMs on AML_SMALL_ROWS rows, on the card and on the CPU (its
     run started in a child process at phase 33's start), and the grid again
     on the card with two candidates in flight."""
@@ -5216,7 +5256,8 @@ def automl_small_checks(dev, card):
     # cross-validation metrics within its tolerance, the holdouts of the
     # rows that agree within theirs, the leaderboard in the CPU's order
     # where two rows lie farther apart than their tolerances
-    if crec["built"] != cpu["built"] or len(crec["built"]) != 8:
+    if (crec["built"] != cpu["built"]
+            or len(crec["built"]) != AML_SMALL_BUILT):
         bad.append(f"built {crec['built']} vs {cpu['built']}")
     if sorted(crec["names"]) != sorted(cpu["names"]):
         raise AssertionError(f"phase 33(b): leaderboards {crec['names']} "
@@ -7001,6 +7042,618 @@ def glm_family_path(dev, card):
                 small=small)
 
 
+# phase 37: CoxPH on the Stanford heart transplant data's shape (a), PSVM on
+# the splice data's shape (b), RuleFit on config 1's HIGGS shape (c), MOJOs
+# and serving (d), card vs CPU on the CPU tests' small frames (e); (f) only
+# RuleFit's trees launch a hand-written kernel (B1)
+HEART_ROWS = 500_000            # the reference's envelope, not the 172 rows
+HEART_X = ["age", "year", "surgery", "transplant"]
+# the generator's log hazard ratios (the published fit of the heart data is
+# near age 0.03, year -0.15, surgery -0.64)
+HEART_BETA = dict(age=0.03, year=-0.15, surgery=-0.6, transplant=-0.3)
+HEART_SE_BAR = 4.0              # Efron β within 4 standard errors
+CONC_CHECK_ROWS = 20_000
+SPLICE_ROWS, SPLICE_POS = 100_000, 60   # the reference's envelope
+PSVM37 = dict(gamma=0.01, rank_ratio=0.1, disable_training_metrics=False)
+# (b)'s bar: the gaussian kernel's training AUC above the linear kernel's by
+# PSVM_AUC_MARGIN (CPU rehearsal at 10,000 rows, PERF.md §6)
+PSVM_AUC_MARGIN = 0.1
+# the reference's Adam (constant rate 0.05, a 1e-7 relative stop on the f32
+# loss) runs to its bound of 1000 steps from 30,000 splice-shaped rows up,
+# in both packages (CPU rehearsal, PERF.md §6): the gaussian fit must then
+# have run exactly that bound and still be descending at its last step
+RF37_ROWS, RF37_HOLDOUT = 100_000, 50_000   # cut from HIGGS' 11,000,000
+RF37 = dict(max_num_rules=100, seed=42)
+# (c)'s bar: the holdout AUC above a lasso GLM's on the 28 linear terms by
+# RF_AUC_MARGIN (CPU rehearsal, PERF.md §6)
+RF_AUC_MARGIN = 0.015
+CHECK37_ROWS = 2_000
+SMALL37_TOLS = dict(cox_beta=1e-5, cox_se=1e-5, psvm_decision=5e-3,
+                    psvm_auc=1e-3, psvm_svs=5, rf_coef=5e-3, rf_pred=1e-4,
+                    cv_cox=1e-4, cv_psvm=5e-3, cv_rf=1e-4)
+PHASE37_WALLS: dict = {}
+
+
+def make_heart_like(n_rows: int, seed: int):
+    """Counting-process rows with the columns of H2O's CoxPH example (the
+    Stanford heart transplant data: start, stop, event, age, year,
+    surgery, transplant). Each subject has one (0, stop] row, or two when
+    a transplant comes first: (0, wait] with transplant 0 and (wait, stop]
+    with transplant 1. Hazard exp(HEART_BETA·x)/1500 a day, transplant
+    waits Exp(300 days) for 65 % of subjects, censoring U(1, 7300) days,
+    times in whole days (tie groups of several events); age (years from
+    48) and year (of acceptance) on a 1/16 grid, exact in f32. Returns the
+    frame's columns."""
+    rng = np.random.default_rng(seed)
+    n_sub = int(n_rows / 1.6)
+    age = np.round(rng.normal(-2.5, 9.6, n_sub) * 16) / 16
+    year = np.round(rng.uniform(0.0, 6.5, n_sub) * 16) / 16
+    surgery = (rng.random(n_sub) < 0.17).astype(np.float64)
+    lam1 = np.exp(HEART_BETA["age"] * age + HEART_BETA["year"] * year
+                  + HEART_BETA["surgery"] * surgery) / 1500.0
+    lam2 = lam1 * np.exp(HEART_BETA["transplant"])
+    wait = np.where(rng.random(n_sub) < 0.65,
+                    rng.exponential(300.0, n_sub), np.inf)
+    t1 = rng.exponential(1.0 / lam1)
+    death = np.where(t1 < wait, t1, wait + rng.exponential(1.0 / lam2))
+    cens = rng.uniform(1.0, 7300.0, n_sub)
+    stop = np.ceil(np.minimum(death, cens))
+    event = (death <= cens).astype(np.float64)
+    wd = np.ceil(wait)
+    two = wd < stop
+    idx = np.concatenate([np.arange(n_sub), np.flatnonzero(two)])
+    return dict(
+        start=np.concatenate([np.zeros(n_sub), wd[two]]),
+        stop=np.concatenate([np.where(two, wd, stop), stop[two]]),
+        event=np.concatenate([np.where(two, 0.0, event), event[two]]),
+        age=age[idx], year=year[idx], surgery=surgery[idx],
+        transplant=np.concatenate([np.zeros(n_sub), np.ones(int(two.sum()))]))
+
+
+def cox_score_host(cols, x, ties, strata_col, beta):
+    """The partial likelihood's score vector at β in f64 numpy, written
+    apart from the port (sequential cumulative sums, a loop over tie
+    groups, Efron's f = k/d terms per group), on the uncentred columns
+    (the score does not depend on centring)."""
+    X = np.column_stack([cols[c] for c in x]).astype(np.float64)
+    X = X - X.mean(axis=0)
+    grad = np.zeros(len(x))
+    strata = cols[strata_col] if strata_col else np.zeros(len(X))
+    for s in np.unique(strata):
+        rows = np.flatnonzero(strata == s)
+        rows = rows[np.argsort(-cols["stop"][rows], kind="mergesort")]
+        Xs, ts, t0, ev = (X[rows], cols["stop"][rows], cols["start"][rows],
+                          cols["event"][rows])
+        r = np.exp(Xs @ beta)
+        c0, c1 = np.cumsum(r), np.cumsum(r[:, None] * Xs, axis=0)
+        sp = np.argsort(-t0, kind="mergesort")
+        s_sorted = t0[sp]
+        k0, k1 = np.cumsum(r[sp]), np.cumsum(r[sp, None] * Xs[sp], axis=0)
+        bounds = np.flatnonzero(np.diff(ts) != 0)
+        first = np.concatenate([[0], bounds + 1])
+        last = np.concatenate([bounds, [len(ts) - 1]])
+        for a, b in zip(first, last):
+            e = a + np.flatnonzero(ev[a:b + 1])
+            d = len(e)
+            if d == 0:
+                continue
+            s0, s1 = c0[b], c1[b].copy()
+            k = int(np.searchsorted(-s_sorted, -ts[a], side="right"))
+            if k > 0:
+                s0, s1 = s0 - k0[k - 1], s1 - k1[k - 1]
+            grad += Xs[e].sum(axis=0)
+            if ties == "efron" and d > 1:
+                f = np.arange(d) / d
+                d0 = s0 - f * r[e].sum()
+                d1 = s1[None, :] - f[:, None] * (r[e, None] * Xs[e]).sum(0)
+                grad -= (d1 / d0[:, None]).sum(axis=0)
+            else:
+                grad -= d * s1 / s0
+    return grad
+
+
+def concordance_host(t, ev, lp):
+    """(concordant, tied, comparable) with the reference's loop
+    (`h2o3_tpu/models/coxph.py:147-162`)."""
+    conc = ties = comp = 0
+    for i in np.flatnonzero(ev):
+        later = t > t[i]
+        comp += int(later.sum())
+        conc += int((lp[later] < lp[i]).sum())
+        ties += int((lp[later] == lp[i]).sum())
+    return conc, ties, comp
+
+
+def coxph_heart_path(dev, card, rows=HEART_ROWS):
+    """Phase 37(a): the documented CoxPH call (`start_column="start"`,
+    `stop_column="stop"`, `ties="breslow"`) on a heart-shaped frame of
+    `rows` rows, then Efron stratified by surgery on the other three."""
+    from h2o3_tpu_torch.estimators import H2OCoxProportionalHazardsEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models import coxph
+
+    t_phase = time.perf_counter()
+    cols = make_heart_like(rows, 0)
+    fr = Frame.from_dict(cols)
+    n_ev = int(cols["event"].sum())
+    bad, rec, models = [], dict(rows=fr.nrow, events=n_ev), {}
+    for name, params, x, strat in (
+            ("breslow", dict(ties="breslow"), HEART_X, None),
+            ("efron_strata", dict(ties="efron", stratify_by=["surgery"]),
+             ["age", "year", "transplant"], "surgery")):
+        t0 = time.perf_counter()
+        m = H2OCoxProportionalHazardsEstimator(
+            start_column="start", stop_column="stop", device=str(dev),
+            **params).train(x=x + ["start", "stop"] + (
+                [strat] if strat else []), y="event",
+            training_frame=fr).model
+        wall = time.perf_counter() - t0
+        score = cox_score_host(cols, x, params["ties"], strat, m.beta)
+        coef = m.coef()
+        z = {k: (coef[k] - HEART_BETA[k]) / s
+             for k, s in zip(m.dinfo.coef_names, m.se_coef)}
+        r = dict(wall_s=wall, fit_split=m.fit_timings,
+                 newton_iterations=m.newton["iterations"],
+                 newton_ms=m.newton["ms"],
+                 stopped_on_step=m.newton["stopped_on_step"],
+                 multi_event_tie_groups=m.newton["multi_event_groups"],
+                 coef=coef, se=dict(zip(m.dinfo.coef_names,
+                                        m.se_coef.tolist())),
+                 z_from_generator=z, loglik=m.loglik,
+                 loglik_null=m.loglik_null, concordance=m.concordance,
+                 host_score=score.tolist())
+        rec[name] = r
+        models[name] = m
+        if not (m.newton["stopped_on_step"]
+                and m.newton["iterations"] < 20):
+            bad.append(f"{name}: Newton ran {m.newton['iterations']} "
+                       "iterations without its max|step| < 1e-8 stop")
+        if np.abs(score).max() > 1e-6 * n_ev:
+            bad.append(f"{name}: score {np.abs(score).max():.3e} at β")
+        if not m.loglik > m.loglik_null:
+            bad.append(f"{name}: loglik {m.loglik} <= null {m.loglik_null}")
+        if not (m.se_coef > 0).all():
+            bad.append(f"{name}: a standard error <= 0")
+    ef, br = models["efron_strata"], models["breslow"]
+    if any(abs(v) > HEART_SE_BAR for v in rec["efron_strata"][
+            "z_from_generator"].values()):
+        bad.append(f"efron: β beyond {HEART_SE_BAR} SE of the generator's")
+    if ef.newton["multi_event_groups"] < 1:
+        bad.append("efron: no tie group with d > 1")
+    rec["breslow_gap_from_efron"] = {
+        k: br.coef()[k] - v for k, v in ef.coef().items()}
+    # the concordance counts on a slice, card vs the reference's formula
+    sl = np.arange(CONC_CHECK_ROWS)
+    X = np.column_stack([cols[c][sl] for c in HEART_X])
+    lp = X @ br.beta
+    t, ev = cols["stop"][sl], cols["event"][sl]
+    got = tuple(int(v) for v in coxph.concordance_counts(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (t, ev, lp))))
+    want = concordance_host(t, ev, lp)
+    rec["concordance_slice"] = dict(card=got, host=want)
+    if got != want:
+        bad.append(f"concordance counts {got} != host {want}")
+    PHASE37_WALLS["a"] = time.perf_counter() - t_phase
+    print(f"phase 37(a) CoxPH on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 37(a): " + "; ".join(bad))
+    return rec, br, fr
+
+
+def make_splice_like(n: int, seed: int):
+    """The shape of H2O's PSVM example data (splice: 60 positions, each
+    one of four scaled values, and a binary response C1): the response
+    follows a nonlinear motif of positions 28-33 (an equality of two
+    positions, an interaction of two, a threshold) with 5 % of labels
+    flipped."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    levels = np.array([-1.0, -1 / 3, 1 / 3, 1.0])
+    X = levels[rng.integers(0, 4, (n, SPLICE_POS))]
+    motif = ((X[:, 28] == X[:, 29]).astype(int)
+             + (X[:, 30] * X[:, 31] > 0).astype(int)
+             + (np.abs(X[:, 32] - X[:, 33]) > 1).astype(int))
+    y = motif >= 2
+    y ^= rng.random(n) < 0.05
+    cols = {f"C{i + 2}": X[:, i] for i in range(SPLICE_POS)}
+    cols["C1"] = np.where(y, "1", "-1")
+    return Frame.from_dict(cols, column_types={"C1": "enum"})
+
+
+def psvm_splice_path(dev, card, rows=SPLICE_ROWS):
+    """Phase 37(b): the documented PSVM call (gamma 0.01, rank_ratio 0.1,
+    training metrics on) on a splice-shaped frame of `rows` rows, then the
+    linear kernel."""
+    from h2o3_tpu_torch.estimators import H2OSupportVectorMachineEstimator
+
+    t_phase = time.perf_counter()
+    fr = make_splice_like(rows, 1)
+    bad, rec, models = [], dict(rows=fr.nrow), {}
+    for kernel in ("gaussian", "linear"):
+        t0 = time.perf_counter()
+        m = H2OSupportVectorMachineEstimator(
+            kernel_type=kernel, device=str(dev), **PSVM37).train(
+            y="C1", training_frame=fr).model
+        wall = time.perf_counter() - t0
+        models[kernel] = m
+        L = m.adam["losses"]
+        settle = abs(L[-1] - L[max(0, len(L) - 101)]) / abs(L[-1])
+        rec[kernel] = dict(
+            wall_s=wall, fit_split=m.fit_timings, adam_steps=m.adam["steps"],
+            adam_bound=m.adam["bound"],
+            stopped_on_rule=m.adam["stopped_on_rule"],
+            adam_ms_a_step=m.adam["ms_a_step"], loss_first=L[0],
+            loss_last=L[-1], loss_rel_change_last_100=settle,
+            svs_count=m.svs_count, auc=float(m.training_metrics.auc),
+            D=int(len(m.beta)))
+        # the linear kernel's loop stops on its rule; the gaussian's runs
+        # the reference's bound on this frame (as the reference's does from
+        # 30,000 rows up), still descending at its last step
+        if not (m.adam["stopped_on_rule"]
+                or (kernel == "gaussian" and len(L) == m.adam["bound"]
+                    and L[-1] < L[-101])):
+            bad.append(f"{kernel}: Adam ran {m.adam['steps']} steps, the "
+                       f"loss moving {settle:.2e} over its last 100")
+    g = models["gaussian"]
+    D = g.W.shape[1]
+    rng = np.random.default_rng(1234)     # the estimator's default seed
+    W = rng.normal(scale=np.sqrt(2 * PSVM37["gamma"]),
+                   size=(g.W.shape[0], D)).astype(np.float32)
+    b = rng.uniform(0, 2 * np.pi, D).astype(np.float32)
+    draws_equal = W.tobytes() == g.W.tobytes() and b.tobytes() == g.b.tobytes()
+    sub = fr.take(np.arange(CHECK37_ROWS))
+    X = g.dinfo.transform(sub)
+    Z = g._features(X).cpu().numpy()
+    Zh = np.sqrt(2.0 / D) * np.cos(X.astype(np.float64) @ W.astype(np.float64)
+                                   + b.astype(np.float64))
+    z_err = float(np.abs(Z - Zh).max())
+    f = g.decision_function(sub)
+    fh = Z.astype(np.float64) @ g.beta + g.bias
+    f_err = float(np.max(np.abs(f - fh) / np.maximum(1.0, np.abs(fh))))
+    margin = rec["gaussian"]["auc"] - rec["linear"]["auc"]
+    rec.update(draws_equal=draws_equal, z_max_abs_err=z_err,
+               z_bar=4e-6 * np.sqrt(2.0 / D), decision_rel_err=f_err,
+               auc_margin=margin)
+    if not draws_equal:
+        bad.append("W or b differ from a host default_rng draw")
+    if z_err > 4e-6 * np.sqrt(2.0 / D):
+        bad.append(f"Z {z_err:.3e} from the host f64 recompute")
+    if f_err > 1e-6:
+        bad.append(f"decision_function {f_err:.3e} from the host's")
+    if margin < PSVM_AUC_MARGIN:
+        bad.append(f"gaussian AUC margin {margin:.4f} < {PSVM_AUC_MARGIN}")
+    PHASE37_WALLS["b"] = time.perf_counter() - t_phase
+    print(f"phase 37(b) PSVM on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 37(b): " + "; ".join(bad))
+    return rec, g, sub
+
+
+def rulefit_higgs_path(dev, card, rows=RF37_ROWS, holdout=RF37_HOLDOUT):
+    """Phase 37(c): RuleFit at its defaults (DRF, rule length 3, 50 trees,
+    rules and linear terms) with the documented `max_num_rules=100`, on
+    `rows` HIGGS-shaped rows and a `holdout`, against a lasso GLM on the
+    28 linear terms alone (`model_type="linear"`)."""
+    from h2o3_tpu_torch.estimators import H2ORuleFitEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.ops import hist_cuda
+
+    t_phase = time.perf_counter()
+    X, y = make_higgs_like(rows + holdout, N_FEAT, seed=37)
+    names = [f"f{i}" for i in range(N_FEAT)]
+    fr_all = Frame.from_numpy(np.column_stack([X, y]),
+                              names=names + ["label"]).asfactor("label")
+    fr, fh = (fr_all.take(np.arange(rows)),
+              fr_all.take(np.arange(rows, rows + holdout)))
+    y_h = y[rows:]
+    del fr_all
+    bad = []
+    b1_before, rows_before = hist_cuda.launches, hist_cuda.launches_rows
+    t0 = time.perf_counter()
+    m = H2ORuleFitEstimator(device=str(dev), **RF37).train(
+        y="label", training_frame=fr).model
+    wall = time.perf_counter() - t0
+    b1 = hist_cuda.launches - b1_before
+    b2 = hist_cuda.launches_rows - rows_before
+    t0 = time.perf_counter()
+    p_h = m.predict(fh).vec("1").numeric_np()
+    predict_s = time.perf_counter() - t0
+    lin = H2ORuleFitEstimator(device=str(dev), model_type="linear",
+                              **RF37).train(y="label", training_frame=fr).model
+    p_lin = lin.predict(fh).vec("1").numeric_np()
+    # every kept rule's column and support against the host's evaluation
+    Xh = np.column_stack([fr.vec(n).numeric_np() for n in m.x])
+    feats = m._features(fr)
+    cols_equal = sup_equal = True
+    for i, r in enumerate(m.rules):
+        v = r.evaluate(Xh, m._col_of)
+        cols_equal &= bool(np.array_equal(
+            feats.vec(f"rule_{i}").numeric_np(), v))
+        sup_equal &= r.support == float(v.mean())
+    glm_t = m._glm.model.fit_timings
+    rec = dict(rows=rows, holdout=holdout, wall_s=wall,
+               fit_split=m.fit_timings, rule_counts=m.rule_counts,
+               glm_split=glm_t,
+               glm_pack_share=glm_t.get("pack_s", 0.0) / max(
+                   m.fit_timings["glm_s"], 1e-12),
+               glm_path=m._glm.model.fitplan.get("path"),
+               glm_irls_iterations=m._glm.model.fitplan.get(
+                   "irls_iterations"),
+               glm_ista_steps=m._glm.model.fitplan.get("ista_steps"),
+               b1_launches=b1, b2_launches=b2, predict_s=predict_s,
+               holdout_auc=_auc(y_h, p_h), linear_auc=_auc(y_h, p_lin),
+               linear_wall_s=lin.fit_timings["total_s"],
+               columns_equal=cols_equal, supports_equal=sup_equal)
+    rec["auc_margin"] = rec["holdout_auc"] - rec["linear_auc"]
+    if not (cols_equal and sup_equal):
+        bad.append("a rule column or support differs from the host's")
+    if m.rule_counts["active"] > RF37["max_num_rules"]:
+        bad.append(f"{m.rule_counts['active']} active rules > 100")
+    if rec["auc_margin"] < RF_AUC_MARGIN:
+        bad.append(f"holdout AUC margin {rec['auc_margin']:.4f} < "
+                   f"{RF_AUC_MARGIN}")
+    if dev.type == "cuda" and b1 < 1:
+        bad.append("B1 never launched")
+    if b2:
+        bad.append(f"B2 launched {b2} times")
+    PHASE37_WALLS["c"] = time.perf_counter() - t_phase
+    print(f"phase 37(c) RuleFit on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 37(c): " + "; ".join(bad))
+    return rec, m, fh
+
+
+def survival_mojo_serving(dev, card, models):
+    """Phase 37(d): CoxPH and RuleFit saved and loaded, each numpy scorer
+    against `predict` on CHECK37_ROWS rows (`lp` within 1e-9·max(1, |lp|)
+    on the f32-exact heart columns, probabilities within 1e-5); PSVM's
+    export `TypeError`; one batch of each of the three served equal to
+    `predict` with no fallback."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_surv_") as d:
+        for name, col, tol in (("coxph", "lp", 1e-9), ("rulefit", "1", 1e-5)):
+            model, fr = models[name]
+            sub = fr.take(np.arange(CHECK37_ROWS))
+            scorer = mojo.load_model(mojo.save_model(model, d, f"{name}.h2o3"))
+            got = scorer.predict(sub).vec(col).numeric_np()
+            want = model.predict(sub).vec(col).numeric_np()
+            err = float(np.max(np.abs(got - want) / np.maximum(
+                1.0, np.abs(want))))
+            out[name] = dict(mojo_max_rel_err=err)
+            if not err <= tol:
+                bad.append(f"{name}: MOJO {err:.3e} from predict")
+        try:
+            mojo.save_model(models["psvm"][0], d, "psvm.h2o3")
+            bad.append("psvm: exported")
+        except TypeError:
+            out["psvm"] = dict(export="TypeError")
+    engine = ScoringEngine(ServingConfig())
+    try:
+        for name, (model, fr) in models.items():
+            batch = fr.take(np.arange(100, 357))
+            served = _frame_matrix(engine.score(f"surv_{name}", model, batch))
+            want = _frame_matrix(model.predict(batch))
+            diff = float(np.abs(served - want).max())
+            out[name]["served_max_abs_err"] = diff
+            if diff > 0:
+                bad.append(f"{name}: served {diff:.3e} from predict")
+        snap = engine.snapshot()
+    finally:
+        engine.shutdown()
+    out["fallback_scores"] = snap["totals"]["fallback_scores"]
+    if snap["totals"]["fallback_scores"] or snap["totals"]["errors"]:
+        bad.append(f"serving {snap['totals']}")
+    PHASE37_WALLS["d"] = time.perf_counter() - t_phase
+    print(f"phase 37(d) on {card}: " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 37(d): " + "; ".join(bad))
+    return out
+
+
+def _surv_small(case, n=600, seed=0):
+    """tests/test_torch_coxph_psvm.py's survival frame."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 2))
+    a = rng.integers(0, 3, n)
+    b = rng.integers(0, 4, n)
+    eta = (X @ np.array([0.8, -0.5]) if case != "categorical"
+           else 0.6 * (a == 1) - 0.4 * (a == 2) + 0.3 * b)
+    t = rng.exponential(1.0 / np.exp(eta))
+    c = rng.exponential(2.0, n)
+    tm = np.ceil(np.minimum(t, c) * 20) / 20
+    return Frame.from_dict(
+        {"x1": X[:, 0], "x2": X[:, 1],
+         "a": np.asarray(["p", "q", "r"], dtype=object)[a],
+         "b": np.asarray(["s", "t", "u", "v"], dtype=object)[b],
+         "grp": np.asarray(["g0", "g1"], dtype=object)[rng.integers(0, 2, n)],
+         "time": tm, "event": (t <= c).astype(np.float64),
+         "start": np.floor(rng.uniform(0, 0.6, n) * tm * 20) / 20},
+        column_types={"a": "enum", "b": "enum", "grp": "enum"})
+
+
+def _svm_small(n=400, seed=2, kind="ring"):
+    """tests/test_torch_coxph_psvm.py's frames: a ring, or the half-plane
+    x0 + x1 > 0 for the linear kernel."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 3))
+    y = (np.sqrt((X[:, :2] ** 2).sum(axis=1)) > 1.1 if kind == "ring"
+         else X[:, 0] + X[:, 1] > 0).astype(int)
+    cols = {f"x{i}": X[:, i] for i in range(3)}
+    cols["c"] = np.asarray(["k", "l", "m"], dtype=object)[rng.integers(0, 3, n)]
+    cols["y"] = np.asarray(["in", "out"], dtype=object)[y]
+    return Frame.from_dict(cols, column_types={"c": "enum", "y": "enum"})
+
+
+def _rf_small(n=800, seed=0):
+    """tests/test_torch_rulefit.py's binary frame."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 4))
+    y = ((X[:, 0] > 0.3) & (X[:, 1] < 0.5) | (X[:, 2] > 1.0)).astype(int)
+    X[::23, 3] = np.nan
+    cols = {f"x{i}": X[:, i] for i in range(4)}
+    cols["y"] = np.asarray(["no", "yes"], dtype=object)[y]
+    return Frame.from_dict(cols, column_types={"y": "enum"})
+
+
+def _rf_regression_small(n=500, seed=1):
+    """tests/test_torch_rulefit.py's regression frame."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 3))
+    cols = {f"x{i}": X[:, i] for i in range(3)}
+    cols["y"] = np.where(X[:, 0] > 0, 2.0, -1.0) + 0.1 * rng.normal(size=n)
+    return Frame.from_dict(cols)
+
+
+def survival_small_checks(dev, card):
+    """Phase 37(e): card against CPU on the CPU tests' small frames
+    (tests/test_torch_coxph_psvm.py, test_torch_rulefit.py), with their
+    tolerances (SMALL37_TOLS) and a 3-fold CV of each estimator (RuleFit's
+    under `algorithm="GBM"`)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OCoxProportionalHazardsEstimator, H2ORuleFitEstimator,
+        H2OSupportVectorMachineEstimator)
+
+    t_phase = time.perf_counter()
+    tol = SMALL37_TOLS
+    bad, out = [], {}
+
+    def pair(cls, fr, x=None, y="y", **params):
+        return [cls(device=d, **params).train(x=x, y=y,
+                                              training_frame=fr).model
+                for d in (str(dev), "cpu")]
+
+    for key, case, params, x in (
+            ("cox_efron", "efron", dict(ties="efron"), ["x1", "x2"]),
+            ("cox_breslow_start", "efron",
+             dict(ties="breslow", start_column="start"), ["x1", "x2", "start"]),
+            ("cox_strata_start", "efron", dict(
+                ties="efron", start_column="start", stratify_by=["grp"]),
+             ["x1", "x2", "grp", "start"]),
+            ("cox_categorical", "categorical", dict(ties="efron"), ["a", "b"]),
+            ("cox_cv", "efron", dict(ties="efron", nfolds=3, seed=7),
+             ["x1", "x2"])):
+        fr = _surv_small(case)
+        a, c = pair(H2OCoxProportionalHazardsEstimator, fr, x=x, y="event",
+                    stop_column="time", **params)
+        r = dict(beta_err=float(np.abs(a.beta - c.beta).max()),
+                 se_rel_err=float(np.abs(a.se_coef - c.se_coef).max()
+                                  / np.abs(c.se_coef).max()),
+                 concordance_equal=a.concordance == c.concordance)
+        ok = (r["beta_err"] <= tol["cox_beta"]
+              and r["se_rel_err"] <= tol["cox_se"] and r["concordance_equal"])
+        if "nfolds" in params:
+            r["cv_holdout_err"] = float(np.abs(
+                a._cv_holdout_pred - c._cv_holdout_pred).max())
+            ok &= r["cv_holdout_err"] <= tol["cv_cox"] * max(
+                1.0, float(np.abs(c._cv_holdout_pred).max()))
+        out[key] = r
+        if not ok:
+            bad.append(f"{key}: {r}")
+    for key, fr, params in (
+            ("psvm_gaussian", _svm_small(), dict(
+                kernel_type="gaussian", seed=5, gamma=1.0,
+                positive_weight=2.0)),
+            ("psvm_linear", _svm_small(kind="linear"), dict(
+                kernel_type="linear", seed=5)),
+            ("psvm_cv", _svm_small(360, 4), dict(gamma=1.0, nfolds=3,
+                                                 seed=7))):
+        a, c = pair(H2OSupportVectorMachineEstimator, fr, **params)
+        fa, fc = a.decision_function(fr), c.decision_function(fr)
+        r = dict(decision_err=float(np.max(np.abs(fa - fc) / np.maximum(
+            1.0, np.abs(fc)))), auc_err=abs(float(a.training_metrics.auc)
+                                           - float(c.training_metrics.auc)),
+                 svs_gap=abs(a.svs_count - c.svs_count),
+                 steps=(a.adam["steps"], c.adam["steps"]))
+        ok = (r["decision_err"] <= tol["psvm_decision"]
+              and r["auc_err"] <= tol["psvm_auc"]
+              and r["svs_gap"] <= tol["psvm_svs"])
+        if "nfolds" in params:
+            r["cv_holdout_err"] = float(np.abs(
+                a._cv_holdout_pred - c._cv_holdout_pred).max())
+            ok &= r["cv_holdout_err"] <= tol["cv_psvm"]
+        out[key] = r
+        if not ok:
+            bad.append(f"{key}: {r}")
+    for key, fr, col, params in (
+            ("rulefit_drf_regression", _rf_regression_small(), "predict",
+             dict(model_type="rules", min_rule_length=1, max_rule_length=2,
+                  rule_generation_ntrees=10, seed=3)),
+            ("rulefit_cv", _rf_small(600, 3), "1",
+             dict(nfolds=3, rule_generation_ntrees=8, seed=5,
+                  algorithm="GBM"))):
+        a, c = pair(H2ORuleFitEstimator, fr, **params)
+        forests_equal = all(
+            _forest_diff(ta, tc)[0] == 0
+            for ta, tc in zip(a._tree_models, c._tree_models))
+        pa, pc = (m.predict(fr).vec(col).numeric_np() for m in (a, c))
+        r = dict(forests_equal=forests_equal,
+                 pred_err=float(np.abs(pa - pc).max()))
+        ok = r["pred_err"] <= tol["rf_pred"]
+        if forests_equal:
+            r["rules_equal"] = [q.conds for q in a.rules] == [
+                q.conds for q in c.rules]
+            r["coef_err"] = max((abs(q.coef - s.coef)
+                                 for q, s in zip(a.rules, c.rules)), default=0.0)
+            ok &= r["rules_equal"] and r["coef_err"] <= tol["rf_coef"]
+        if "nfolds" in params:
+            r["cv_holdout_err"] = float(np.abs(
+                a._cv_holdout_pred - c._cv_holdout_pred).max())
+            ok &= r["cv_holdout_err"] <= tol["cv_rf"]
+        out[key] = r
+        if not ok:
+            bad.append(f"{key}: {r}")
+    PHASE37_WALLS["e"] = time.perf_counter() - t_phase
+    print(f"phase 37(e) on {card}, card vs cpu (tolerances "
+          f"{json.dumps(tol)}): " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 37(e): " + "; ".join(bad))
+    return out
+
+
+def survival_path(dev, card):
+    """Phase 37: (a)-(e) in turn with every launch count set to 0 before
+    (a) and read after (e); (f) only RuleFit's trees launched a
+    hand-written kernel, B1."""
+    tf32_off()
+    zero_counts()
+    cox_rec, cox_model, cox_fr = coxph_heart_path(dev, card)
+    psvm_rec, psvm_model, psvm_fr = psvm_splice_path(dev, card)
+    after_ab = kernel_counts()
+    rf_rec, rf_model, rf_fh = rulefit_higgs_path(dev, card)
+    mojo_rec = survival_mojo_serving(dev, card, dict(
+        coxph=(cox_model, cox_fr), psvm=(psvm_model, psvm_fr),
+        rulefit=(rf_model, rf_fh)))
+    del cox_fr, rf_fh
+    small = survival_small_checks(dev, card)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    print(f"phase 37(f): hand-written kernel launches after (a, b) "
+          f"{json.dumps(after_ab)}, after (a)-(e) {json.dumps(counts)}",
+          flush=True)
+    if any(after_ab.values()):
+        raise AssertionError(f"phase 37(f): CoxPH or PSVM launched a kernel: "
+                             f"{after_ab}")
+    if counts["hist"] < 1 or counts["hist_rows"] or counts["shap"]:
+        raise AssertionError(f"phase 37(f): expected B1 alone: {counts}")
+    return dict(coxph=cox_rec, psvm=psvm_rec, rulefit=rf_rec, mojo=mojo_rec,
+                small=small, kernel_counts=counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -7121,6 +7774,10 @@ def main() -> int:
     glm_family_path(dev, card)
     print(f"phase 36 wall on {card}: " + json.dumps(dict(
         PHASE36_WALLS, total_s=sum(PHASE36_WALLS.values()))), flush=True)
+    # phase 37: CoxPH, PSVM and RuleFit at full width, then card vs CPU
+    survival_path(dev, card)
+    print(f"phase 37 wall on {card}: " + json.dumps(dict(
+        PHASE37_WALLS, total_s=sum(PHASE37_WALLS.values()))), flush=True)
     print(f"smoke wall on {card}: {time.time() - t0:.1f} s (kernel build "
           "included)", flush=True)
 

@@ -46,6 +46,15 @@ ModelSelection model its per-size results with one GLM each, the GLMs
 given as `glm_from_numpy` arguments. `naivebayes_from_numpy`,
 `isotonic_from_numpy`, `gam_from_numpy`, `anovaglm_from_numpy` and
 `modelselection_from_numpy` build the port's models from them.
+
+A CoxPH model's weights are its β, standard errors, log-likelihoods,
+concordance and event count with its `DataInfo` state; a PSVM's its
+Fourier projection W and offsets b (None for the linear kernel), β, bias,
+response domain, kernel and `svs_count` with its standardized `DataInfo`
+state; a RuleFit model's its rules (conditions, support and coefficient
+each), its linear terms with their stats, and its lasso GLM given as
+`glm_from_numpy` arguments. `coxph_from_numpy`, `psvm_from_numpy` and
+`rulefit_from_numpy` build the port's models from them.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ import torch
 from . import device as devlib
 from .frame.binning import BinnedMatrix
 from .models import tree as treelib
+from .models.coxph import CoxPHModel
 from .models.deeplearning import ACTIVATIONS, DeepLearningModel
 from .models.extended_isolation_forest import ExtendedIsolationForestModel
 from .models.anovaglm import ANOVAGLMModel, H2OANOVAGLMEstimator
@@ -71,6 +81,8 @@ from .models.model_base import DataInfo
 from .models.modelselection import ModelSelectionModel
 from .models.naive_bayes import NaiveBayesModel
 from .models.pca import PCAModel
+from .models.psvm import PSVMModel
+from .models.rulefit import Rule, RuleFitModel
 from .models.svd import SVDModel
 from .models.shared_tree import SharedTreeModel
 from .models.uplift import UpliftRandomForestModel
@@ -507,3 +519,67 @@ def modelselection_from_numpy(*, results, glms, x: Sequence[str], y: str,
                 r2=float(r["r2"])) for r in results]
     best = [_fitted_glm(g, device) for g in glms]
     return ModelSelectionModel(None, x, y, res, best)
+
+
+def coxph_from_numpy(*, beta, se, loglik: float, loglik_null: float,
+                     concordance: float, n_event: int, x: Sequence[str],
+                     y: str, stop_col: str, spec, coef_names: Sequence[str],
+                     col_means=None, use_all: bool = False,
+                     device=None) -> CoxPHModel:
+    """Port CoxPH from a reference model's state: `beta` and `se` the (p,)
+    f64 coefficients and standard errors over the uncentred `DataInfo`
+    expansion (`spec`, `coef_names`, `col_means`, `use_all`), the
+    log-likelihoods, the concordance and the event count."""
+    b = np.asarray(beta, np.float64)
+    if b.shape != (len(coef_names),):
+        raise ValueError(f"beta: expected ({len(coef_names)},), got {b.shape}")
+    dinfo = DataInfo.from_state(spec=spec, coef_names=coef_names,
+                                standardize=False, use_all=use_all,
+                                col_means=col_means)
+    model = CoxPHModel(None, x, y, dinfo, b, np.asarray(se, np.float64),
+                       float(loglik), float(loglik_null), float(concordance),
+                       int(n_event), stop_col, device=device)
+    return model
+
+
+def psvm_from_numpy(*, W, b, beta, bias: float, domain: List[str],
+                    kernel: str, svs_count: int, x: Sequence[str], y: str,
+                    spec, coef_names: Sequence[str], means, stds,
+                    col_means=None, use_all: bool = False,
+                    device=None) -> PSVMModel:
+    """Port PSVM from a reference model's state: W (p, D) and b (D,) f32
+    (None under the linear kernel), β (D,) or (p,) f64, the bias, the
+    response domain, the kernel, `svs_count` and the standardized
+    `DataInfo` state."""
+    dinfo = DataInfo.from_state(spec=spec, coef_names=coef_names,
+                                standardize=True, use_all=use_all,
+                                means=means, stds=stds, col_means=col_means)
+    W = None if W is None else np.asarray(W, np.float32)
+    b = None if b is None else np.asarray(b, np.float32)
+    beta = np.asarray(beta, np.float64)
+    width = len(coef_names) if W is None else W.shape[1]
+    if beta.shape != (width,):
+        raise ValueError(f"beta: expected ({width},), got {beta.shape}")
+    return PSVMModel(None, x, y, dinfo, W, b, beta, float(bias),
+                     list(domain), str(kernel), int(svs_count),
+                     device=device)
+
+
+def rulefit_from_numpy(*, rules, lin_cols: Sequence[str], lin_stats,
+                       glm: dict, x: Sequence[str], y: str,
+                       domain: Optional[List[str]], problem: str,
+                       device=None) -> RuleFitModel:
+    """Port RuleFit from a reference model's state: `rules` a list of
+    (conditions, support, coef), each condition (column, threshold,
+    is-right); `lin_cols` and `lin_stats` (column → (lo, hi, sd)); `glm`
+    its lasso GLM's `glm_from_numpy` arguments (over the columns rule_i
+    and linear.<col>)."""
+    kept = []
+    for conds, support, coef in rules:
+        r = Rule(tuple((str(f), float(t), bool(rt)) for f, t, rt in conds))
+        r.support, r.coef = float(support), float(coef)
+        kept.append(r)
+    est = _fitted_glm(glm, device)
+    stats = {c: tuple(float(v) for v in lin_stats[c]) for c in lin_cols}
+    return RuleFitModel(None, x, y, kept, list(lin_cols), stats, est, domain,
+                        problem, device=device)

@@ -1,11 +1,12 @@
 """`h2o.estimators` namespace of the port: the estimators ported so far
 (the unsupervised K-Means, PCA, SVD and GLRM, the isolation forests, the
-uplift DRF, NaiveBayes, isotonic regression and the GLM family — GAM,
-ANOVA GLM and ModelSelection — among them), with the grid search and
-AutoML that drive them."""
+uplift DRF, NaiveBayes, isotonic regression, the GLM family — GAM,
+ANOVA GLM and ModelSelection — CoxPH, PSVM and RuleFit among them), with
+the grid search and AutoML that drive them."""
 
 from ..automl import H2OAutoML
 from ..models.anovaglm import H2OANOVAGLMEstimator
+from ..models.coxph import H2OCoxProportionalHazardsEstimator
 from ..models.deeplearning import H2ODeepLearningEstimator
 from ..models.drf import H2ORandomForestEstimator
 from ..models.ensemble import H2OStackedEnsembleEstimator
@@ -22,11 +23,14 @@ from ..models.kmeans import H2OKMeansEstimator
 from ..models.modelselection import H2OModelSelectionEstimator
 from ..models.naive_bayes import H2ONaiveBayesEstimator
 from ..models.pca import H2OPrincipalComponentAnalysisEstimator
+from ..models.psvm import H2OSupportVectorMachineEstimator
+from ..models.rulefit import H2ORuleFitEstimator
 from ..models.svd import H2OSingularValueDecompositionEstimator
 from ..models.uplift import H2OUpliftRandomForestEstimator
 from ..models.xgboost import H2OXGBoostEstimator
 
-__all__ = ["H2OANOVAGLMEstimator", "H2OAutoML", "H2ODeepLearningEstimator",
+__all__ = ["H2OANOVAGLMEstimator", "H2OAutoML",
+           "H2OCoxProportionalHazardsEstimator", "H2ODeepLearningEstimator",
            "H2OExtendedIsolationForestEstimator",
            "H2OGeneralizedAdditiveEstimator",
            "H2OGeneralizedLinearEstimator", "H2OGeneralizedLowRankEstimator",
@@ -35,7 +39,8 @@ __all__ = ["H2OANOVAGLMEstimator", "H2OAutoML", "H2ODeepLearningEstimator",
            "H2OKMeansEstimator", "H2OModelSelectionEstimator",
            "H2ONaiveBayesEstimator",
            "H2OPrincipalComponentAnalysisEstimator",
-           "H2ORandomForestEstimator",
+           "H2ORandomForestEstimator", "H2ORuleFitEstimator",
            "H2OSingularValueDecompositionEstimator",
-           "H2OStackedEnsembleEstimator", "H2OUpliftRandomForestEstimator",
+           "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
+           "H2OUpliftRandomForestEstimator",
            "H2OXGBoostEstimator"]

@@ -57,6 +57,14 @@ knots and centres (`gam{i}_knots`, `gam{i}_center`). Their numpy scorers
 are the reference's: the f64 log-posterior with a softmax, `np.interp`,
 and the f64 design [expansion | splines | 1] through an f64 inverse link.
 ANOVA GLM and ModelSelection export nothing, as in the reference.
+CoxPH writes its β (`beta`, f64) with its `DataInfo` state and RuleFit its
+rules (`meta["rules"]`: each a list of [column, f64 threshold, is-right]
+conditions), its linear terms (`lin_cols`) and their winsorizing stats
+(`lin_stats`: 2.5 % and 97.5 % quantiles and sd), with its lasso GLM as
+the child payload `glm/`; as in the reference. Their numpy scorers are the
+reference's: `lp` = the imputed f64 expansion times β, and the rules
+evaluated on f64 rows (NaN right), the linear terms clipped and scaled,
+scored by the child GLM. PSVM exports nothing, as in the reference.
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
 scorer). The reference's native C++ scorer (`native/loader.py`) and the other
@@ -81,6 +89,7 @@ def _model_payload(model) -> Dict[str, Any]:
     """Extract (meta, arrays) from a trained model."""
     from .models.deeplearning import DeepLearningModel
     from .models.ensemble import StackedEnsembleModel
+    from .models.coxph import CoxPHModel
     from .models.extended_isolation_forest import \
         ExtendedIsolationForestModel
     from .models.gam import GAMModel
@@ -91,6 +100,7 @@ def _model_payload(model) -> Dict[str, Any]:
     from .models.kmeans import KMeansModel
     from .models.naive_bayes import NaiveBayesModel
     from .models.pca import PCAModel
+    from .models.rulefit import RuleFitModel
     from .models.shared_tree import SharedTreeModel
     from .models.svd import SVDModel
     from .models.uplift import UpliftRandomForestModel
@@ -108,7 +118,8 @@ def _model_payload(model) -> Dict[str, Any]:
                               SVDModel, GLRMModel, IsolationForestModel,
                               ExtendedIsolationForestModel,
                               UpliftRandomForestModel, NaiveBayesModel,
-                              IsotonicRegressionModel, GAMModel)):
+                              IsotonicRegressionModel, GAMModel,
+                              CoxPHModel, RuleFitModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
             "not a MOJO-exportable kind (see docs/mojo.md for the "
@@ -223,6 +234,22 @@ def _model_payload(model) -> Dict[str, Any]:
         for i, (_col, knots, center) in enumerate(model.gam_spec):
             arrays[f"gam{i}_knots"] = np.asarray(knots, np.float64)
             arrays[f"gam{i}_center"] = np.asarray(center, np.float64)
+        _stats(arrays, model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, RuleFitModel):
+        meta.update(
+            kind="rulefit",
+            rules=[[[str(f), float(t), bool(rt)] for (f, t, rt) in r.conds]
+                   for r in model.rules],
+            lin_cols=list(model.lin_cols),
+            lin_stats={c: [float(v) for v in model.lin_stats[c]]
+                       for c in model.lin_cols},
+        )
+        return {"meta": meta, "arrays": arrays,
+                "children": {"glm": _model_payload(model._glm.model)}}
+    if isinstance(model, CoxPHModel):
+        meta.update(kind="coxph", dinfo=_dinfo_meta(model.dinfo))
+        arrays["beta"] = np.asarray(model.beta, np.float64)
         _stats(arrays, model.dinfo)
         return {"meta": meta, "arrays": arrays}
     if isinstance(model, DeepLearningModel):
@@ -536,6 +563,31 @@ class MojoScorer:
             eta = np.exp(eta)
         return Frame.from_dict({"predict": eta})
 
+    def _rulefit_predict(self, data):
+        """The reference's numpy RuleFit scorer: each rule on the f64 rows
+        (NaN right), the linear terms clipped and scaled, the child GLM."""
+        from .frame.frame import Frame
+
+        meta = self.meta
+        cols = [data.vec(n).numeric_np() for n in self.x]
+        X = np.column_stack(cols) if cols else np.zeros((data.nrow, 0))
+        col_of = {n: i for i, n in enumerate(self.x)}
+        d = {}
+        for i, conds in enumerate(meta["rules"]):
+            m = np.ones(X.shape[0], bool)
+            for fname, thr, right in conds:
+                col = X[:, col_of[fname]]
+                if right:
+                    m &= np.isnan(col) | (col > thr)
+                else:
+                    m &= ~np.isnan(col) & (col <= thr)
+            d[f"rule_{i}"] = m.astype(np.float64)
+        for c in meta["lin_cols"]:
+            lo, hi, sd = meta["lin_stats"][c]
+            col = np.clip(np.nan_to_num(data.vec(c).numeric_np()), lo, hi)
+            d[f"linear.{c}"] = 0.4 * col / max(sd, 1e-12)
+        return self.children["glm"].predict(Frame.from_dict(d))
+
     def _deeplearning_predict(self, data):
         """The reference's numpy forward pass (f32 weights, f64 rows): the
         hidden activations, then a softmax, exp for the log-link families,
@@ -785,6 +837,11 @@ class MojoScorer:
             return self._isotonic_predict(data)
         if meta["kind"] == "gam":
             return self._gam_predict(data)
+        if meta["kind"] == "rulefit":
+            return self._rulefit_predict(data)
+        if meta["kind"] == "coxph":
+            return Frame.from_dict(
+                {"lp": self._expand_dinfo(data) @ self.arrays["beta"]})
         if meta["kind"] != "tree":
             raise NotImplementedError(
                 f"scoring a {meta['kind']!r} artifact is not ported "

@@ -733,3 +733,93 @@ def test_isotonic_and_gam_on_cuda_match_cpu(dev):
             assert ka.tobytes() == kc.tobytes() and ca.tobytes() == cc.tobytes()
         a, c = (m.predict(fr).vec("p").numeric_np() for m in ms)
         assert np.abs(a - c).max() <= tol
+
+
+def test_coxph_sums_and_concordance_on_cuda_match_cpu(dev):
+    """CoxPH's risk-set sums (in stop order and with a start column) and
+    its partial likelihood on the card within 1e-12 relative of the CPU's
+    (both f64; the scan adds in another order), and the concordance
+    counts equal, with many tied times and tied linear predictors."""
+    from h2o3_tpu_torch.models import coxph
+
+    rng = np.random.default_rng(7)
+    n, p = 30_000, 4
+    X = rng.normal(size=(n, p))
+    X[:, 3] = rng.integers(0, 3, n)
+    ts = -np.sort(-np.ceil(rng.exponential(50.0, n)))
+    t0 = np.floor(rng.uniform(0, 0.5, n) * ts)
+    ev = (rng.random(n) < 0.6).astype(np.float64)
+    w = rng.uniform(0.5, 2.0, n)
+    beta = np.array([0.3, -0.2, 0.1, 0.4])
+    for ties in ("efron", "breslow"):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            st = coxph._Stratum(X, w, ev, ts, t0, ties, d)
+            out.append([v.cpu().numpy() for v in st.partial_ll(
+                torch.from_numpy(beta).to(d))])
+            r = torch.from_numpy(w * np.exp(X @ beta)).to(d)
+            out[-1] += [v.cpu().numpy() for v in coxph.risk_set_sums(
+                st.X, r, st.plan, st.n_groups)]
+        for a, c in zip(*out):
+            assert np.abs(a - c).max() <= 1e-12 * np.abs(c).max()
+    lp = np.round(X @ beta, 1)          # ties in lp
+    counts = [[int(v) for v in coxph.concordance_counts(
+        torch.from_numpy(ts).to(d), torch.from_numpy(ev).to(d),
+        torch.from_numpy(lp).to(d))] for d in (dev, torch.device("cpu"))]
+    assert counts[0] == counts[1]
+
+
+def test_psvm_features_and_adam_step_on_cuda_match_cpu(dev):
+    """PSVM's f32 Fourier features on the card within 4e-6·√(2/D) of the
+    CPU's (true f32: TF32 stays off), and one optax-style Adam step from
+    the same gradient within 1e-6 of the CPU's."""
+    from h2o3_tpu_torch.models import psvm
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(2_000, 60)).astype(np.float32)
+    W = rng.normal(scale=np.sqrt(2 * 0.01), size=(60, 1_000)).astype(np.float32)
+    b = rng.uniform(0, 2 * np.pi, 1_000).astype(np.float32)
+    y = np.where(rng.random(2_000) < 0.5, -1.0, 1.0).astype(np.float32)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        Z = psvm.fourier_features(torch.from_numpy(X).to(d),
+                                  torch.from_numpy(W).to(d),
+                                  torch.from_numpy(b).to(d))
+        yd = torch.from_numpy(y).to(d)
+        beta = torch.full((1_000,), 0.01, dtype=torch.float32, device=d)
+        bias = torch.zeros((), dtype=torch.float32, device=d)
+        _, gb, gbias = psvm.loss_and_grad(Z, yd, torch.ones_like(yd), 1.0,
+                                          beta, bias)
+        params, _, _ = psvm.adam_step(
+            [beta, bias], [gb, gbias], [torch.zeros_like(beta),
+                                        torch.zeros_like(bias)],
+            [torch.zeros_like(beta), torch.zeros_like(bias)], 1)
+        res.append((Z.cpu().numpy(), params[0].cpu().numpy()))
+    assert np.abs(res[0][0] - res[1][0]).max() <= 4e-6 * np.sqrt(2 / 1_000)
+    assert np.abs(res[0][1] - res[1][1]).max() <= 1e-6
+
+
+def test_rulefit_rule_evaluation_on_cuda_matches_cpu(dev):
+    """RuleFit's rule columns on the card bit-equal to the CPU's and to the
+    host's `Rule.evaluate`, with NaNs and rows on the thresholds."""
+    from h2o3_tpu_torch.models import rulefit
+
+    rng = np.random.default_rng(9)
+    X = np.round(rng.normal(size=(50_000, 5)), 2)
+    X[::17, 2] = np.nan
+    names = [f"x{i}" for i in range(5)]
+    col_of = {n: i for i, n in enumerate(names)}
+    rules = []
+    for _ in range(300):
+        k = int(rng.integers(1, 4))
+        rules.append(rulefit.Rule(tuple(
+            (names[int(rng.integers(0, 5))],
+             float(np.float32(np.round(rng.normal(), 2))),
+             bool(rng.integers(0, 2))) for _ in range(k))))
+    got = [rulefit.evaluate_rules(torch.from_numpy(X).to(d), rules,
+                                  col_of).cpu().numpy()
+           for d in (dev, torch.device("cpu"))]
+    want = np.column_stack([r.evaluate(X, col_of) for r in rules])
+    assert np.array_equal(got[0], got[1])
+    assert np.array_equal(got[1].astype(np.float64), want)

@@ -37,6 +37,8 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch.models.gam, h2o3_tpu_torch.ops.splines\n"
         "import h2o3_tpu_torch.models.anovaglm\n"
         "import h2o3_tpu_torch.models.modelselection\n"
+        "import h2o3_tpu_torch.models.coxph, h2o3_tpu_torch.models.psvm\n"
+        "import h2o3_tpu_torch.models.rulefit\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'h2o3_tpu' or m.startswith('h2o3_tpu.'))\n"
