@@ -278,12 +278,14 @@ holdout prediction.
    `hist_plain_fixed`, no farther from f64 than `hist_plain`) and timed
    with the plain, `index_add_` and bound times (the `hist_factored_b256`
    row of the kernel table); XGBoost_2's depth 10 cut to XGB_2_TREES
-   trees, B1 per level width; DART, DART_ROUNDS rounds at rate_drop
-   DART_RATE, both normalize types (rounds rescaled, AUC), and skip_drop=1
-   at XGBoost_1's settings equal bit for bit to the first DART_ROUNDS
-   trees of XGBoost_1. (a) after phase 29: `rank:ndcg` on a generated
+   trees, B1 per level width; DART on the first DART_ROWS rows,
+   DART_ROUNDS rounds at rate_drop DART_RATE, both normalize types (rounds
+   rescaled, AUC), and skip_drop=1 at XGBoost_1's settings equal bit for
+   bit to a gbtree fit of DART_ROUNDS trees at those settings on the same
+   rows. (a) after phase 29: `rank:ndcg` on a generated
    frame of MSLR-WEB30K's shape (`make_mslr_like`, one fold's training
-   part: 18,919 queries, 2,262,675 documents, 136 features) at the
+   part: 18,919 queries, 2,262,675 documents, 136 features; cut to
+   1/MSLR_CUT of its queries and documents) at the
    reference's defaults and bench.py's 50 trees: the fit's split, the
    lambdarank pass's ms a round by CUDA events (g and h finite), B1's
    launches (300, nothing else) and ms a tree at that shape, NDCG@10 of
@@ -446,9 +448,49 @@ holdout prediction.
    counted, B2 not. (d) CoxPH's and RuleFit's MOJOs against `predict`;
    PSVM refuses export; one batch of each served equal to `predict` with
    no fallback. (e) Card against CPU on the CPU tests' small frames
-   (SMALL37_TOLS), with a 3-fold CV of each (RuleFit's under the GBM).
+   (SMALL37_TOLS), with a 3-fold CV of CoxPH and PSVM and an
+   RF_SMALL_FOLDS-fold CV of RuleFit under the GBM (its pairs cut to
+   RF_SMALL_TREES trees).
    (f) The launch counts, zeroed before (a): none after (a, b); after (e)
    B1 alone. The phase's wall is printed.
+38. The rest of the port's estimators at full width, TF32 off. (a)
+   TargetEncoder with the parameters of H2O's target-encoding user-guide
+   example (KFold on a 5-value fold column, blending, inflection point 3,
+   smoothing 10, noise 0.15, seed 1234) on Origin and Dest of a
+   TE_ROWS-row Airlines-shaped frame (phase 36's generator): the fit's and
+   both transforms' walls and splits, the card's per-level sums, counts
+   and out-of-fold tables equal to a host `np.add.at` bit for bit; phase
+   4's GBM on DepTime, Distance and the two encodings, on the raw enums and
+   on DepTime and Distance alone, each fit B1 alone (NTREES x DEPTH
+   launches): holdout AUCs on TE_HOLDOUT fresh rows, the encodings' within
+   TE_RAW_TOL below the raw enums'. (b) Word2Vec at its defaults (W2V38) on a text8-shaped
+   stream (`make_text8_like`: W2V_TOKENS tokens cut from text8's
+   17,005,207, a Zipf law of W2V_TYPES words, sentences broken by NAs,
+   W2V_GROUPS planted topic groups): vocabulary, pairs, steps, ms a step,
+   kernels and device ms a step from a profiled replay of the step and the
+   device's busy share; every planted word's top synonym in its group; the
+   AVERAGE transform one row per sentence. (c) Aggregator at its defaults
+   on phase 14's Covertype frame cut to AGG_ROWS (the reference's
+   envelope): passes, exemplars, the walls of the device block pass and
+   the host loop; the counts summing to the rows, the exemplars within the
+   target's tolerance, AGG_CHECK_ROWS sampled non-exemplar rows each within
+   the final radius of an exemplar in f64. (d) The quantiles op on phase
+   4's first HIGGS column and a weighted column with NaNs: within one
+   final-refinement bin plus f32 spacing of the weighted f64 inverse CDF,
+   and with unit weights equal to the CPU bit for bit. (e) XGBoost with
+   grow_policy="lossguide", max_leaves 31, depth 6 and XGBoost_1's other
+   settings on phase 4's frame: the fit's wall and trees a second, B1
+   launched once a tree and once a split and nothing else, no tree over 31
+   leaves, the holdout AUC within LG_AUC_TOL of phase 31(b)'s XGBoost_1;
+   tree 0's passes as they ran replayed through B1 (bit-equal to
+   `hist_plain_fixed`), timed against the bytes bound, the plain version
+   and one `index_add_` (the hist_factored_lossguide row of the kernel
+   table). (f) The MOJOs: TargetEncoder's columns and Word2Vec's vectors,
+   synonyms and transforms equal to the model's, the lossguide forest
+   within 1e-6 of `predict`, the Aggregator's export a `TypeError`. (g)
+   Card against CPU on the CPU tests' small frames (SMALL38_TOLS). (h) The
+   launch counts of each path: none but for (a)'s GBMs and (e), B1 alone.
+   The phase's wall is printed.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
@@ -460,9 +502,10 @@ gblinear run none of the hand-written kernels, and phases 17, 18, 26, 30
 and 31(d) fail if they launched one; so does phase 32's DeepLearning
 fit, and phase 34 as a whole; phase 35's fits and `predict`s count
 their own launches, and its isolation forests fail if they launched
-one; so does phase 36 as a whole, and phase 37's CoxPH and PSVM).
+one; so does phase 36 as a whole, and phase 37's CoxPH and PSVM, and phase
+38's encoder, Word2Vec, Aggregator and quantiles).
 TF32 must stay off
-through phases 17-19, 30, 31(d), 32, 36 and 37. The last line is
+through phases 17-19, 30, 31(d), 32, 36, 37 and 38. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
 JSON.
 """
@@ -2143,11 +2186,12 @@ def small_glm_checks(dev):
 # FP64 instructions (`__d*_rn`), which issue at half that rate
 FP64_OPS_PER_S = 17e12
 SHAP_ROWS = 100_000
-# the DRF's 10,000 explained rows, cut from 100,000: path-dependent
-# TreeSHAP on its 50 trees of depth 19 costs ~10^9 FP64 operations a row,
-# ≈0.9 ms a row of kernel time on an H100 (PERF.md §5), and phase 20 runs
-# the DRF's rows through the kernel three times
-SHAP_DRF_ROWS, SHAP_DRF_CUT_FROM = 10_000, 100_000
+# the DRF's 2,500 explained rows, cut from 100,000 (10,000 before phase 38
+# came in): path-dependent TreeSHAP on its 50 trees of depth 19 costs
+# ~10^9 FP64 operations a row, ≈0.9 ms a row of kernel time on an H100
+# (PERF.md §5), and phase 20 runs the DRF's rows through the kernel three
+# times
+SHAP_DRF_ROWS, SHAP_DRF_CUT_FROM = 2_500, 100_000
 # the DRF's first rows also timed alone: the size at which the kernel's
 # earlier design was measured (PERF.md §6), and one at which a tree's warps
 # set the call's time
@@ -2776,9 +2820,12 @@ def small_explain_checks(dev):
 
 
 # phases 24-28: cross-validation and the stacked ensemble on phase 4's
-# frame. The DRF's CV is cut to CV_DRF_TREES trees from DRF_TREES: six
-# 50-tree fits would add ≈100 s
-CV_FOLDS, CV_DRF_TREES, CV_SMALL_FOLDS = 5, 10, 3
+# frame. The folds are cut to 2 from the reference's 5 to make room for
+# phase 38 (each cut is printed on its phase's line). The DRF's CV is cut
+# to CV_DRF_TREES trees from DRF_TREES: its 10-tree fits took 0.29 s a
+# tree on an H100, so three 50-tree fits would add ≈40 s
+CV_FOLDS, CV_DRF_TREES, CV_SMALL_FOLDS = 2, 5, 3
+CV_FOLDS_FROM = 5
 SE_ROWS = 100_000
 
 
@@ -2865,8 +2912,9 @@ def _check_holdout(est, fr, y, nfolds, seed, bad, tag):
 
 
 def cv_tree_path(dev, fr, y_np, card):
-    """Phases 24-25: the 5-fold GBM on both fold paths and the 5-fold
-    10-tree DRF; returns their records and estimators."""
+    """Phases 24-25: the CV_FOLDS-fold GBM on both fold paths and the
+    CV_FOLDS-fold CV_DRF_TREES-tree DRF; returns their records and
+    estimators."""
     from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                            H2ORandomForestEstimator)
     from h2o3_tpu_torch.models.tree import histogram_level_plan
@@ -2875,6 +2923,8 @@ def cv_tree_path(dev, fr, y_np, card):
     cv = dict(nfolds=CV_FOLDS, keep_cross_validation_predictions=True,
               seed=42, device=str(dev))
     out, ests, bad = {}, {}, []
+    print(f"phase 24 cut: {CV_FOLDS} folds, reduced from {CV_FOLDS_FROM} "
+          "(phases 24-28)", flush=True)
     for path in ("reuse", "rebin"):
         est = H2OGradientBoostingEstimator(
             ntrees=NTREES, max_depth=DEPTH, learn_rate=0.1,
@@ -2933,8 +2983,8 @@ def cv_tree_path(dev, fr, y_np, card):
         bad.append(f"gbm reuse vs rebin beyond the reference's bars: {cmp}")
 
     print(f"phase 25 cut: the DRF's CV fits {CV_DRF_TREES} trees a model, "
-          f"reduced from {DRF_TREES} (six {DRF_TREES}-tree fits would add "
-          "≈100 s)", flush=True)
+          f"reduced from {DRF_TREES}, and {CV_FOLDS} folds of "
+          f"{CV_FOLDS_FROM}", flush=True)
     drf = H2ORandomForestEstimator(ntrees=CV_DRF_TREES, hist_method="pallas",
                                    **cv)
     with cv_spies() as spy:
@@ -2978,7 +3028,7 @@ def cv_tree_path(dev, fr, y_np, card):
 
 
 def cv_glm_and_ensemble(dev, fr, ests, card):
-    """Phases 26-27: the 5-fold binomial GLM, then the stacked ensemble of
+    """Phases 26-27: the CV_FOLDS-fold binomial GLM, then the stacked ensemble of
     the reuse-path GBM, the DRF and the GLM: AUC against the best base
     model's xval AUC, β ≥ 0, `predict` of SE_ROWS fresh rows against the
     ensemble's MOJO, the forest launches of that `predict`."""
@@ -3550,9 +3600,11 @@ def small_bm_checks(dev, card):
 # λ = 1e-5 (α = 0) gives the softmax one optimum: the one-hot area and soil
 # columns are collinear, and a rare class is separable on some soil types
 # at λ = 0. The stack's GBM is COV_GBM cut to MN_GBM_TREES trees from 50,
-# without early stopping; both base models have MN_FOLDS folds
+# without early stopping; both base models have MN_FOLDS folds and are
+# fitted on the frame's first MN_CV_ROWS rows, to make room for phase 38:
+# their CV fits pay the host pack and the binning of every row
 MN_GLM = dict(family="multinomial", alpha=0.0, lambda_=1e-5)
-MN_FOLDS, MN_GBM_TREES = 3, 10
+MN_FOLDS, MN_GBM_TREES, MN_CV_ROWS = 2, 10, 200_000
 MN_SERVE_TOL = 1e-5
 # the CPU test's tolerance for centred β (tests/test_torch_glm_multinomial.py)
 MN_BETA_TOL = 3e-4
@@ -3733,18 +3785,25 @@ def multinomial_glm_path(dev, fr, fv):
             or snap["cache"]["misses"] != 1 or any(serve_counts.values()):
         bad.append("serving the multinomial GLM: " + json.dumps(serve_rec))
 
-    # MN_FOLDS-fold CV of the same GLM, the holdout kept for the stack
+    # MN_FOLDS-fold CV of the same GLM on the first MN_CV_ROWS rows, the
+    # holdout kept for the stack
+    print(f"phase 30 cut: the CV GLM and the stack fit the first "
+          f"{MN_CV_ROWS} of the frame's {N} rows, {MN_FOLDS} folds a base "
+          f"model; the stack's GBM fits {MN_GBM_TREES} "
+          f"trees a class, reduced from COV_GBM's {COV_GBM['ntrees']}, "
+          "without early stopping", flush=True)
+    fr_cv = fr.take(np.arange(MN_CV_ROWS))
     cv_glm = H2OGeneralizedLinearEstimator(
         device=str(dev), nfolds=MN_FOLDS, seed=42,
         keep_cross_validation_predictions=True, **MN_GLM)
     zero_counts()
     t5 = time.perf_counter()
-    cv_glm.train(y="cover", training_frame=fr)
+    cv_glm.train(y="cover", training_frame=fr_cv)
     torch.cuda.synchronize()
     cv_wall = time.perf_counter() - t5
     cv_counts = kernel_counts()
     ho = cv_glm.model._cv_holdout_pred
-    cv_rec = dict(card=card, folds=MN_FOLDS, wall_s=cv_wall,
+    cv_rec = dict(card=card, rows=MN_CV_ROWS, folds=MN_FOLDS, wall_s=cv_wall,
                   xval_logloss=float(cv_glm.logloss(xval=True)),
                   xval_mean_per_class_error=float(
                       cv_glm.model.mean_per_class_error(xval=True)),
@@ -3755,29 +3814,27 @@ def multinomial_glm_path(dev, fr, fv):
                               cv_glm.model.cross_validation_models],
                   kernel_counts=cv_counts)
     print("multinomial glm cv: " + json.dumps(cv_rec), flush=True)
-    if ho is None or ho.shape != (N, COV_K) or not np.all(np.isfinite(ho)) \
+    if ho is None or ho.shape != (MN_CV_ROWS, COV_K) \
+            or not np.all(np.isfinite(ho)) \
             or float(np.abs(ho.sum(1) - 1).max()) > 1e-5:
         bad.append("cv glm: holdout missing, non-finite or rows off 1")
     if any(cv_counts.values()):
         bad.append(f"the GLM's CV launched a hand-written kernel: {cv_counts}")
 
     # the multiclass stack: the CV GLM and a MN_FOLDS-fold 7-class GBM
-    print(f"phase 30 cut: the stack's GBM fits {MN_GBM_TREES} trees a "
-          f"class, reduced from COV_GBM's {COV_GBM['ntrees']}, without early "
-          f"stopping; both base models have {MN_FOLDS} folds", flush=True)
     gbm = H2OGradientBoostingEstimator(
         device=str(dev), nfolds=MN_FOLDS, keep_cross_validation_predictions=True,
         **dict(COV_GBM, ntrees=MN_GBM_TREES, stopping_rounds=0))
     zero_counts()
     t6 = time.perf_counter()
-    gbm.train(y="cover", training_frame=fr)
+    gbm.train(y="cover", training_frame=fr_cv)
     torch.cuda.synchronize()
     gbm_wall = time.perf_counter() - t6
     gbm_b1 = hist_cuda.launches
     se = H2OStackedEnsembleEstimator(base_models=[gbm, cv_glm],
                                      device=str(dev))
     t7 = time.perf_counter()
-    se.train(y="cover", training_frame=fr)
+    se.train(y="cover", training_frame=fr_cv)
     torch.cuda.synchronize()
     se_wall = time.perf_counter() - t7
     meta = se.model.meta.model
@@ -3907,9 +3964,10 @@ def small_multinomial_glm_checks(dev, card):
 MSLR_QUERIES, MSLR_DOCS, MSLR_FEAT, MSLR_MAX_DOCS = 31_531, 3_771_125, 136, 1_251
 MSLR_TRAIN_QUERIES = round(MSLR_QUERIES * 3 / 5)
 MSLR_TRAIN_DOCS = round(MSLR_DOCS * 3 / 5)
-# the smoke fits half the fold's queries and documents, to leave phase 33
-# its time (the shape of a query, the features and the labels are kept)
-MSLR_CUT = 2
+# the smoke fits an eighth of the fold's queries and documents (a half
+# before phase 38 came in), to leave the later phases their time (the shape
+# of a query, the features and the labels are kept)
+MSLR_CUT = 8
 # the generator's label shares, falling from 0 to 4 as graded relevance's do
 MSLR_LABEL_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
 XGB_TREES, XGB_DEPTH, XGB_NBINS = 50, 6, 256   # bench.py's trees; defaults
@@ -3920,7 +3978,9 @@ XGB_2 = dict(ntrees=50, max_depth=10, learn_rate=0.2, sample_rate=0.6,
              col_sample_rate_per_tree=0.8, reg_lambda=1.0, min_rows=5.0)
 XGB_2_TREES = 3
 XGB_PREDICT_ROWS, XGB_SHAP_ROWS = 100_000, 10_000
-DART_ROUNDS, DART_RATE = 20, 0.1
+# DART fits the first DART_ROWS of phase 4's rows: each fit's 256-bin
+# binning of all 1,000,000 rows was 5.8 s of its 7 s on an H100
+DART_ROUNDS, DART_RATE, DART_ROWS = 20, 0.1, 250_000
 GBLINEAR_ROUNDS = 50
 # the reference's lambdarank fixture (tests/test_automl.py:36-55) and fit
 XGB_RANK_SMALL = dict(ntrees=20, max_depth=4, eta=0.3, seed=4,
@@ -4184,6 +4244,7 @@ def xgb_automl_path(dev, fr, card):
     plans = dict(resident=score_cuda.launches_resident,
                  streamed=score_cuda.launches_streamed)
     p1 = np.asarray(pred.vec("1").data, np.float64)
+    holdout_auc = _auc(yt, p1)
     # contributions on fresh rows (5 % NaN): local accuracy, and the
     # kernel against its plain version on the card, bit for bit
     rng = np.random.default_rng(131)
@@ -4231,6 +4292,7 @@ def xgb_automl_path(dev, fr, card):
     ft, ft2 = m.fit_timings, m2.fit_timings
     rec = dict(
         xgboost_1=dict(wall_s=wall, fit_timings=ft, auc=auc,
+                       holdout_auc=holdout_auc,
                        b1_launches=counts["hist"], dispatch=dispatch,
                        predict_rows=XGB_PREDICT_ROWS, predict_s=pred_s,
                        predict_plans=plans, shap_rows=XGB_SHAP_ROWS,
@@ -4300,15 +4362,18 @@ def xgb_automl_path(dev, fr, card):
     return rec, m, entry
 
 
-def xgb_dart_path(dev, fr, xgb1_model, card):
-    """Phase 31(e): DART on phase 4's frame, DART_ROUNDS rounds at
-    rate_drop DART_RATE, both normalize types; skip_drop=1 at XGBoost_1's
-    settings equals the first DART_ROUNDS trees of phase 31(b)'s fit bit
-    for bit (a round's trees depend on its index, not on the count)."""
+def xgb_dart_path(dev, fr, card):
+    """Phase 31(e): DART on the first DART_ROWS rows of phase 4's frame,
+    DART_ROUNDS rounds at rate_drop DART_RATE, both normalize types;
+    skip_drop=1 at XGBoost_1's settings equals a gbtree fit of DART_ROUNDS
+    trees at those settings on the same rows bit for bit."""
     from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
 
     t_phase = time.perf_counter()
-    rec, bad = {}, []
+    print(f"phase 31(e) cut: DART and its gbtree twin fit the first "
+          f"{DART_ROWS} of phase 4's {fr.nrow} rows", flush=True)
+    fr = fr.take(np.arange(DART_ROWS))
+    rec, bad = dict(rows=DART_ROWS), []
     for nt in ("tree", "forest"):
         est = H2OXGBoostEstimator(booster="dart", ntrees=DART_ROUNDS,
                                   rate_drop=DART_RATE, normalize_type=nt,
@@ -4329,12 +4394,12 @@ def xgb_dart_path(dev, fr, xgb1_model, card):
         if rec[nt]["auc"] < 0.75 or not rec[nt]["rounds_rescaled"]:
             bad.append(f"DART {nt}: AUC {rec[nt]['auc']:.6f}, "
                        f"{rec[nt]['rounds_rescaled']} rounds rescaled")
-    est = H2OXGBoostEstimator(booster="dart", rate_drop=DART_RATE,
-                              skip_drop=1.0, seed=42, device=str(dev),
-                              **dict(XGB_1, ntrees=DART_ROUNDS))
-    est.train(y="label", training_frame=fr)
-    a, b = est.model.forest[0], xgb1_model.forest[0]
-    same = all(torch.equal(fa, fb[:DART_ROUNDS]) for fa, fb in zip(a, b))
+    a, b = (H2OXGBoostEstimator(seed=42, device=str(dev),
+                                **dict(XGB_1, ntrees=DART_ROUNDS), **kw)
+            .train(y="label", training_frame=fr).model.forest[0]
+            for kw in (dict(booster="dart", rate_drop=DART_RATE,
+                            skip_drop=1.0), {}))
+    same = all(torch.equal(fa, fb) for fa, fb in zip(a, b))
     rec["skip_drop_1_equals_gbtree"] = same
     if not same:
         bad.append("DART with skip_drop=1 differs from gbtree's trees")
@@ -4539,11 +4604,12 @@ def xgb_small_checks(dev, card):
 # digits). H2O's DeepLearning benchmark trains on it as a 784-column frame;
 # 67 of its pixels (the corners) are zero in every training image, so
 # ignore_const_cols keeps 717 columns. DL_EPOCHS is cut from the
-# estimator's default 10 to keep the smoke's wall (tools/dl_mnist.py runs
-# the default); the width is the default's
+# estimator's default 10 (to 3, then to 1 for phase 38's room) to keep the
+# smoke's wall (tools/dl_mnist.py runs the default); the width is the
+# default's
 DL_ROWS, DL_VALID, DL_CLASSES, DL_SIDE = 60_000, 10_000, 10, 28
 DL_KEEP_PIXELS = 717
-DL_EPOCHS = 3.0
+DL_EPOCHS = 1.0
 DL_PROFILE_ROWS, DL_PROFILE_EPOCHS = 2_000, (0.8, 2.4)   # 50, 150 steps
 DL_PROFILE_PAUSE = 0.5
 DL_CARD_TOL = 1e-4
@@ -4995,8 +5061,8 @@ def automl_candidate_memory(dev, mem: dict):
 
 def automl_path(dev, card, rows: int = AML_ROWS, nfolds: int = AML_FOLDS,
                 tag: str = "phase 33(a)"):
-    """Phase 33(a): config 5's full plan through the public API; returns
-    its record."""
+    """Phase 33(a): config 5's full plan through the public API, the
+    random grids included; returns its record."""
     import shutil
 
     from h2o3_tpu_torch import mojo
@@ -5006,6 +5072,9 @@ def automl_path(dev, card, rows: int = AML_ROWS, nfolds: int = AML_FOLDS,
     tf32_off()
     t_phase = time.perf_counter()
     fr = automl_frame(rows, AML_SEED)
+    aml = H2OAutoML(max_runtime_secs=0, seed=AML_SEED, nfolds=nfolds,
+                    device=str(dev))
+    plan = automl_plan_names(aml)
     print(f"{tag} frame (HIGGS's shape): {rows} rows x {N_FEAT} features, "
           f"binary label; cut: {rows} rows of HIGGS's 11,000,000, "
           f"nfolds {nfolds}, the plan whole", flush=True)
@@ -5014,8 +5083,7 @@ def automl_path(dev, card, rows: int = AML_ROWS, nfolds: int = AML_FOLDS,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
-    aml = H2OAutoML(max_runtime_secs=0, seed=AML_SEED, nfolds=nfolds,
-                    device=str(dev))
+    t_frame = time.perf_counter() - t_phase
     mem: dict = {}
     t0 = time.perf_counter()
     with automl_candidate_memory(dev, mem):
@@ -5054,9 +5122,10 @@ def automl_path(dev, card, rows: int = AML_ROWS, nfolds: int = AML_FOLDS,
               if e["stage"] in ("error", "budget")]
     if errors:
         bad.append(f"failed or skipped steps: {errors}")
-    missing = sorted(set(automl_plan_names(aml)) - set(names))
-    if missing:
-        bad.append(f"steps missing from the leaderboard: {missing}")
+    missing = sorted(set(plan) - set(names))
+    if missing or len(names) != len(plan):
+        bad.append(f"steps missing from the leaderboard: {missing}, "
+                   f"{len(names)} rows for a plan of {len(plan)}")
     if not {"xgboost", "glm", "drf", "gbm", "deeplearning",
             "stackedensemble"} <= {b["algo"] for b in board}:
         bad.append(f"families {sorted({b['algo'] for b in board})}")
@@ -5073,6 +5142,8 @@ def automl_path(dev, card, rows: int = AML_ROWS, nfolds: int = AML_FOLDS,
     tree_leader = any(b.algo in AML_TREE_ALGOS for b in bases)
     zero_counts()
     t_p = time.perf_counter()
+    rec["split_s"] = dict(frame=t_frame, train=wall,
+                          leaderboard_checks=t_p - t0 - wall)
     pred = aml.predict(fr)
     torch.cuda.synchronize()
     rec["predict_s"] = time.perf_counter() - t_p
@@ -5088,6 +5159,7 @@ def automl_path(dev, card, rows: int = AML_ROWS, nfolds: int = AML_FOLDS,
             - np.asarray(pred.vec("1").data, np.float64)).max())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    rec["split_s"]["predict_mojo"] = time.perf_counter() - t_p
     if not rec["mojo_max_abs_err"] <= 1e-5:
         bad.append(f"predict {rec['mojo_max_abs_err']:.3e} from the MOJO")
     # each candidate leaves its model on the card and nothing of its folds;
@@ -6449,7 +6521,7 @@ GAM_X = ["DepTime", "Distance", "Origin", "Dest", "Month", "DayOfWeek"]
 # GAM_GLM_MARGIN (CPU rehearsals with a 100,000-row holdout: 0.0288 at
 # 100,000 training rows, 0.0291 at 1,000,000; PERF.md §6)
 GAM_AUC_TOL, GAM_GLM_MARGIN = 0.005, 0.01
-ANOVA_ROWS = 60_000             # cut from GAM_ROWS for the phase's time
+ANOVA_ROWS = 30_000             # cut from GAM_ROWS for the phase's time
 ANOVA_X = ["DepTime", "DayOfWeek", "Month"]
 MS_ROWS, MS_MAX_P = 100_000, 7
 MS_NAMES = ["AGE", "RACE", "CAPSULE", "DCAPS", "PSA", "VOL", "DPROS"]
@@ -6744,6 +6816,8 @@ def anova_path(dev, card, fr):
     for t in ("DepTime", "DayOfWeek"):
         if not table[t]["p_value"] < 1e-6:
             bad.append(f"{t}: p {table[t]['p_value']}")
+    print(f"phase 36(d) cut: {ANOVA_ROWS} rows of (b)'s {GAM_ROWS}",
+          flush=True)
     rec = dict(rows=ANOVA_ROWS, fit_s=fit_s, glm_fits=len(model.fit_walls),
                fit_walls={k: round(v, 4) for k, v in model.fit_walls},
                table=[{k: r[k] for k in ("term", "df", "deviance", "p_value")}
@@ -7068,6 +7142,12 @@ RF37 = dict(max_num_rules=100, seed=42)
 # RF_AUC_MARGIN (CPU rehearsal, PERF.md §6)
 RF_AUC_MARGIN = 0.015
 CHECK37_ROWS = 2_000
+# 37(e)'s RuleFit pairs (PERF.md §4): the regression's trees, the CV's
+# folds, trees and rows (its lasso path's iterations, most of a fit's
+# time, fall with the rows: 3.24 s of GLM at 600 rows and 1.48 s at 300
+# in the CPU fit)
+RF_SMALL_TREES, RF_SMALL_FOLDS, RF_SMALL_CV_TREES = 4, 2, 2
+RF_SMALL_CV_ROWS = 300
 SMALL37_TOLS = dict(cox_beta=1e-5, cox_se=1e-5, psvm_decision=5e-3,
                     psvm_auc=1e-3, psvm_svs=5, rf_coef=5e-3, rf_pred=1e-4,
                     cv_cox=1e-4, cv_psvm=5e-3, cv_rf=1e-4)
@@ -7548,6 +7628,7 @@ def survival_small_checks(dev, card):
             ("cox_cv", "efron", dict(ties="efron", nfolds=3, seed=7),
              ["x1", "x2"])):
         fr = _surv_small(case)
+        t_case = time.perf_counter()
         a, c = pair(H2OCoxProportionalHazardsEstimator, fr, x=x, y="event",
                     stop_column="time", **params)
         r = dict(beta_err=float(np.abs(a.beta - c.beta).max()),
@@ -7561,6 +7642,7 @@ def survival_small_checks(dev, card):
                 a._cv_holdout_pred - c._cv_holdout_pred).max())
             ok &= r["cv_holdout_err"] <= tol["cv_cox"] * max(
                 1.0, float(np.abs(c._cv_holdout_pred).max()))
+        r["pair_wall_s"] = time.perf_counter() - t_case
         out[key] = r
         if not ok:
             bad.append(f"{key}: {r}")
@@ -7572,6 +7654,7 @@ def survival_small_checks(dev, card):
                 kernel_type="linear", seed=5)),
             ("psvm_cv", _svm_small(360, 4), dict(gamma=1.0, nfolds=3,
                                                  seed=7))):
+        t_case = time.perf_counter()
         a, c = pair(H2OSupportVectorMachineEstimator, fr, **params)
         fa, fc = a.decision_function(fr), c.decision_function(fr)
         r = dict(decision_err=float(np.max(np.abs(fa - fc) / np.maximum(
@@ -7586,16 +7669,28 @@ def survival_small_checks(dev, card):
             r["cv_holdout_err"] = float(np.abs(
                 a._cv_holdout_pred - c._cv_holdout_pred).max())
             ok &= r["cv_holdout_err"] <= tol["cv_psvm"]
+        r["pair_wall_s"] = time.perf_counter() - t_case
         out[key] = r
         if not ok:
             bad.append(f"{key}: {r}")
+    # RuleFit's pairs are cut (PERF.md §4): the regression to
+    # RF_SMALL_TREES trees from 10, the CV to RF_SMALL_FOLDS folds of
+    # RF_SMALL_CV_TREES trees on RF_SMALL_CV_ROWS rows from 3 of 8 on 600;
+    # a fit's time is its lasso GLM path's IRLS iterations (hundreds on
+    # this separable frame)
+    print(f"phase 37(e) cut: RuleFit's regression pair {RF_SMALL_TREES} "
+          f"trees (from 10), its CV pair {RF_SMALL_FOLDS} folds of "
+          f"{RF_SMALL_CV_TREES} trees on {RF_SMALL_CV_ROWS} rows (from 3 of "
+          "8 on 600)", flush=True)
     for key, fr, col, params in (
             ("rulefit_drf_regression", _rf_regression_small(), "predict",
              dict(model_type="rules", min_rule_length=1, max_rule_length=2,
-                  rule_generation_ntrees=10, seed=3)),
-            ("rulefit_cv", _rf_small(600, 3), "1",
-             dict(nfolds=3, rule_generation_ntrees=8, seed=5,
+                  rule_generation_ntrees=RF_SMALL_TREES, seed=3)),
+            ("rulefit_cv", _rf_small(RF_SMALL_CV_ROWS, 3), "1",
+             dict(nfolds=RF_SMALL_FOLDS,
+                  rule_generation_ntrees=RF_SMALL_CV_TREES, seed=5,
                   algorithm="GBM"))):
+        t_case = time.perf_counter()
         a, c = pair(H2ORuleFitEstimator, fr, **params)
         forests_equal = all(
             _forest_diff(ta, tc)[0] == 0
@@ -7614,6 +7709,7 @@ def survival_small_checks(dev, card):
             r["cv_holdout_err"] = float(np.abs(
                 a._cv_holdout_pred - c._cv_holdout_pred).max())
             ok &= r["cv_holdout_err"] <= tol["cv_rf"]
+        r["pair_wall_s"] = time.perf_counter() - t_case
         out[key] = r
         if not ok:
             bad.append(f"{key}: {r}")
@@ -7654,6 +7750,768 @@ def survival_path(dev, card):
                 small=small, kernel_counts=counts)
 
 
+# phase 38: the rest of the estimators of queue A item 10 at full width.
+# (a) TargetEncoder on an Airlines-shaped frame (phase 36's generator) with
+# the parameters of H2O's target-encoding user-guide example, then phase
+# 4's GBM on its encodings against the same GBM on the raw enums; (b)
+# Word2Vec on a text8-shaped stream; (c) Aggregator on phase 14's
+# Covertype-shaped frame cut to the reference's envelope; (d) the quantiles
+# op on phase 4's HIGGS column and a weighted one with NaNs; (e) XGBoost's
+# lossguide growth on config 1's HIGGS frame; (f) MOJO round trips; (g)
+# card against CPU on the CPU tests' small frames; (h) the launch counts
+TE_ROWS, TE_HOLDOUT = 1_000_000, 200_000
+TE_COLS = ["Origin", "Dest"]
+TE38 = dict(data_leakage_handling="KFold", fold_column="fold", blending=True,
+            inflection_point=3, smoothing=10, noise=0.15, seed=1234)
+TE_GBM = dict(ntrees=NTREES, max_depth=DEPTH, learn_rate=0.1,
+              histogram_type="UniformAdaptive", seed=42)
+# (a)'s bar, in holdout AUC: the GBM on the encodings within TE_RAW_TOL
+# below the GBM on the raw enums (a CPU rehearsal, tools/
+# phase38_rehearsal.py: 0.0014 below; PERF.md §6). The GBM on DepTime and
+# Distance alone is printed beside them: with the example's noise of 0.15
+# on a binary response the encodings add little over it
+TE_RAW_TOL = 0.005
+# text8: 17,005,207 tokens of Wikipedia text, 253,854 types; cut to
+# W2V_TOKENS for the phase's time
+TEXT8_TOKENS, W2V_TOKENS, W2V_TYPES = 17_005_207, 1_000_000, 30_000
+W2V_GROUPS, W2V_GROUP_WORDS = 10, 4
+# the defaults but init_learning_rate: the reference's SGNS step takes the
+# mean over a batch of B = 8192 pairs, so the default 0.025 moves a word by
+# 0.025/8192 of its per-pair gradient: a CPU rehearsal (tools/
+# phase38_rehearsal.py) put no planted word's top synonym in its group at
+# 0.025 and all 40 at 1.0, the rate of the reference's own Word2Vec test
+# (ROADMAP §C)
+W2V38 = dict(vec_size=100, window_size=5, negative_samples=5, epochs=5,
+             min_word_freq=5, seed=38, init_learning_rate=1.0)
+# (b)'s device time a step: the fit's steps from W2V_KEPT_FROM (of its
+# 4,005), W2V_KEPT of them, replayed under the profiler
+W2V_KEPT_FROM, W2V_KEPT = 2_000, 10
+AGG_ROWS, AGG_CHECK_ROWS = 20_000, 10_000
+AGG38 = dict(target_num_exemplars=5000, rel_tol_num_exemplars=0.5,
+             transform="NORMALIZE")
+Q_PROBS = (0.001, 0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 0.999)
+LG38 = dict(XGB_1, grow_policy="lossguide", max_leaves=31, max_depth=6)
+LG_AUC_TOL = 0.005
+SMALL38_TOLS = dict(te=0.0, w2v=1e-5, lg_value=1e-5, lg_pred=1e-5)
+PHASE38_WALLS: dict = {}
+
+
+def make_text8_like(n_tokens: int, seed: int):
+    """A stream of `n_tokens` words shaped like text8 (Wikipedia text, a
+    Zipf law of word frequencies): sentences of 8-24 words with an NA
+    after each; background words `w<rank>` drawn from a Zipf law (s =
+    1.05) over W2V_TYPES ranks; half the sentences carry a topic, one of
+    W2V_GROUPS planted groups of W2V_GROUP_WORDS words `t<g>_<k>`, each of
+    their words that group's with probability 0.4. Returns (object array
+    of words with None breaks, the groups)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, W2V_TYPES + 1) ** 1.05
+    p /= p.sum()
+    groups = [[f"t{g}_{k}" for k in range(W2V_GROUP_WORDS)]
+              for g in range(W2V_GROUPS)]
+    lens = rng.integers(8, 25, n_tokens // 8)
+    lens = lens[:np.searchsorted(np.cumsum(lens + 1), n_tokens)]
+    n_words = int(lens.sum())
+    back = np.char.add("w", rng.choice(W2V_TYPES, n_words, p=p).astype(str))
+    words = back.astype(object)
+    sent = np.repeat(np.arange(len(lens)), lens)
+    topic = np.where(rng.random(len(lens)) < 0.5,
+                     rng.integers(0, W2V_GROUPS, len(lens)), -1)[sent]
+    pick = (topic >= 0) & (rng.random(n_words) < 0.4)
+    flat = np.asarray([w for g in groups for w in g], dtype=object)
+    words[pick] = flat[topic[pick] * W2V_GROUP_WORDS
+                       + rng.integers(0, W2V_GROUP_WORDS, int(pick.sum()))]
+    out = np.empty(n_words + len(lens), dtype=object)
+    ends = np.cumsum(lens + 1) - 1                 # the NA after each
+    mask = np.ones(len(out), bool)
+    mask[ends] = False
+    out[mask] = words
+    out[~mask] = None
+    return out, groups
+
+
+def step_profile(fn, reps: int = 10):
+    """(kernels launched, device ms) per call of fn(), from torch.profiler's
+    CUDA activity over `reps` calls back to back, after a one-step warm-up
+    of the profiler (as `kernel_device_ms`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in ev if not e.name.startswith(("Memcpy", "Memset"))]
+    return (len(kernels) / reps,
+            sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3)
+
+
+def te_airlines_frames():
+    """(a)'s training frame with a 5-value fold column, and its holdout."""
+    fr, _, _ = make_airlines_gam_like(TE_ROWS, 38)
+    fr["fold"] = np.random.default_rng(381).integers(0, 5, TE_ROWS).astype(
+        np.float64)
+    fh, _, yh = make_airlines_gam_like(TE_HOLDOUT, 39)
+    return fr, fh, yh
+
+
+def te_airlines_path(dev, card):
+    """Phase 38(a): TargetEncoder fit and transforms with the card's tables
+    against a host `np.add.at`, then phase 4's GBM on the encodings and on
+    the raw enums. Returns (record, the encoder model, the holdout frame)."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2OTargetEncoderEstimator)
+
+    t_phase = time.perf_counter()
+    fr, fh, yh = te_airlines_frames()
+    bad, rec = [], dict(rows=TE_ROWS, holdout=TE_HOLDOUT, params=TE38)
+    zero_counts()
+    t0 = time.perf_counter()
+    te = H2OTargetEncoderEstimator(device=str(dev), columns=TE_COLS, **TE38)
+    te.train(x=TE_COLS, y="IsDepDelayed", training_frame=fr)
+    rec["fit_s"] = time.perf_counter() - t0
+    m = te.model
+    rec["fit_split"] = m.fit_timings
+    t0 = time.perf_counter()
+    tr = m.transform(fr, as_training=True)
+    rec["transform_train_s"] = time.perf_counter() - t0
+    rec["transform_train_split"] = m.transform_timings
+    t0 = time.perf_counter()
+    th = m.transform(fh)
+    rec["transform_holdout_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rec["encoder_launches"] = kernel_counts()
+    if any(rec["encoder_launches"].values()):
+        bad.append(f"the encoder launched {rec['encoder_launches']}")
+    # the card's tables against a host np.add.at (a binary response: every
+    # sum an integer, exact in f64 in any order)
+    yv = np.asarray(fr.vec("IsDepDelayed").data, np.float64)
+    fold = fr.vec("fold").numeric_np().astype(np.int64)
+    exact = True
+    for col in TE_COLS:
+        codes = np.asarray(fr.vec(col).data)
+        dom, sums, cnts, folds = m.encodings[col]
+        ok = codes >= 0
+        hs, hc = np.zeros(len(sums)), np.zeros(len(sums))
+        np.add.at(hs, codes[ok], yv[ok])
+        np.add.at(hc, codes[ok], 1.0)
+        exact &= np.array_equal(hs, sums) and np.array_equal(hc, cnts)
+        for fid, (fs, fc) in folds.items():
+            mk = ok & (fold == fid)
+            gs, gc = hs.copy(), hc.copy()
+            np.add.at(gs, codes[mk], -yv[mk])
+            np.add.at(gc, codes[mk], -1.0)
+            exact &= np.array_equal(gs, fs) and np.array_equal(gc, fc)
+    rec["tables_equal_host"] = bool(exact)
+    if not exact:
+        bad.append("the card's level tables differ from np.add.at's")
+    te_cols = [f"{c}_te" for c in TE_COLS]
+    for c in te_cols:
+        for f in (tr, th):
+            v = np.asarray(f.vec(c).data)
+            if v.dtype != np.float32 or not np.isfinite(v).all():
+                bad.append(f"{c}: {v.dtype}, finite {np.isfinite(v).all()}")
+    aucs = {}
+    for tag, frame, hold, x in (
+            ("raw", fr, fh, ["DepTime", "Distance"] + TE_COLS),
+            ("te", tr, th, ["DepTime", "Distance"] + te_cols),
+            ("numeric", fr, fh, ["DepTime", "Distance"])):
+        zero_counts()
+        t0 = time.perf_counter()
+        g = H2OGradientBoostingEstimator(device=str(dev), **TE_GBM)
+        g.train(x=x, y="IsDepDelayed", training_frame=frame)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fit_counts = kernel_counts()
+        zero_counts()
+        p1 = g.predict(hold).vec("YES").numeric_np()
+        torch.cuda.synchronize()
+        aucs[tag] = _auc(yh, p1)
+        rec[f"gbm_{tag}"] = dict(wall_s=wall, holdout_auc=aucs[tag],
+                                 fit_launches=fit_counts,
+                                 predict_launches=kernel_counts())
+        if (fit_counts["hist"] != NTREES * DEPTH or fit_counts["hist_rows"]
+                or fit_counts["score"] or fit_counts["shap"]):
+            bad.append(f"gbm {tag}: fit launches {fit_counts}; expected "
+                       f"{NTREES * DEPTH} B1 and nothing else")
+    rec["auc_te_minus_raw"] = aucs["te"] - aucs["raw"]
+    rec["auc_te_minus_numeric"] = aucs["te"] - aucs["numeric"]
+    if not rec["auc_te_minus_raw"] >= -TE_RAW_TOL:
+        bad.append(f"the GBM on the encodings {aucs['te']:.6f} lies more "
+                   f"than {TE_RAW_TOL} below the raw enums' {aucs['raw']:.6f}")
+    PHASE38_WALLS["a"] = time.perf_counter() - t_phase
+    print(f"phase 38(a) TargetEncoder on {card}: " + json.dumps(rec),
+          flush=True)
+    if bad:
+        raise AssertionError("phase 38(a): " + "; ".join(bad))
+    return rec, m, fh
+
+
+def w2v_text8_path(dev, card):
+    """Phase 38(b): Word2Vec at W2V38 on W2V_TOKENS text8-shaped tokens;
+    the fit's split, its ms a step, and the launches, device ms and busy
+    share a step from the fit's own steps W2V_KEPT_FROM onwards (their
+    indices, weights and rates kept during the fit) replayed under the
+    profiler. Returns (record, model, a slice of the stream)."""
+    import itertools
+
+    from h2o3_tpu_torch.estimators import H2OWord2vecEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.models import word2vec
+
+    t_phase = time.perf_counter()
+    words, groups = make_text8_like(W2V_TOKENS, 38)
+    fr = Frame({"words": Vec(None, "string", strings=words)})
+    params = W2V38
+    n_breaks = sum(w is None for w in words)
+    print(f"phase 38(b) corpus (text8's shape): {len(words) - n_breaks} "
+          f"tokens and {n_breaks} NA breaks; cut: {W2V_TOKENS} tokens of "
+          f"text8's {TEXT8_TOKENS}; params {params}", flush=True)
+    bad = []
+    step, kept = word2vec.sgns_step, []
+
+    def keeping_step(*args):
+        """The fit's step; the inputs of W2V_KEPT steps are kept (the step
+        does not change them: it returns new weights)."""
+        if W2V_KEPT_FROM <= keeping_step.calls < W2V_KEPT_FROM + W2V_KEPT:
+            kept.append(args)
+        keeping_step.calls += 1
+        return step(*args)
+
+    keeping_step.calls = 0
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(word2vec, "sgns_step", keeping_step):
+        est = H2OWord2vecEstimator(device=str(dev), **params)
+        est.train(training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    m = est.model
+    st, ft = m.fit_stats, m.fit_timings
+    rec = dict(wall_s=wall, fit_split=ft, **st,
+               ms_per_step=ft["loop_s"] / st["steps"] * 1e3,
+               fit_launches=counts)
+    # the fit's own steps replayed under the profiler: the corpus's Zipf
+    # law sets how often `index_add_` hits one row
+    cycle = itertools.cycle(kept)
+    launches, dev_ms = step_profile(lambda: step(*next(cycle)),
+                                    reps=W2V_KEPT)
+    del kept, cycle
+    rec["profiled_steps"] = [W2V_KEPT_FROM, W2V_KEPT_FROM + W2V_KEPT]
+    rec["launches_per_step"] = launches
+    rec["device_ms_per_step"] = dev_ms
+    rec["busy_share"] = dev_ms / rec["ms_per_step"]
+    syn = {}
+    for grp in groups:
+        for w in grp:
+            top = list(m.find_synonyms(w, 1))
+            syn[w] = top[0] if top else None
+            if not top or top[0] not in grp:
+                bad.append(f"{w}'s top synonym {top} lies outside its group")
+    rec["top_synonyms"] = syn
+    head = words[:5000]
+    fh = Frame({"words": Vec(None, "string", strings=head)})
+    avg = m.transform(fh, aggregate_method="AVERAGE")
+    n_sent = int(sum(w is None for w in head)) + 1
+    rec["average_rows"] = [avg.nrow, n_sent]
+    if avg.nrow != n_sent or avg.ncol != W2V38["vec_size"]:
+        bad.append(f"AVERAGE: {avg.nrow} x {avg.ncol}, expected {n_sent} "
+                   f"sentences x {W2V38['vec_size']}")
+    if any(counts.values()):
+        bad.append(f"Word2Vec launched a hand-written kernel: {counts}")
+    PHASE38_WALLS["b"] = time.perf_counter() - t_phase
+    print(f"phase 38(b) Word2Vec on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 38(b): " + "; ".join(bad[:8]))
+    return rec, m, fh
+
+
+def agg_covtype_path(dev, card):
+    """Phase 38(c): Aggregator at its defaults on phase 14's Covertype
+    frame cut to AGG_ROWS rows. Returns (record, model)."""
+    from h2o3_tpu_torch.estimators import H2OAggregatorEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    t_phase = time.perf_counter()
+    X, _ = make_covtype_like(COV_ROWS, 5)
+    fr = Frame.from_numpy(X[:AGG_ROWS], names=COV_NAMES)
+    del X
+    bad = []
+    zero_counts()
+    t0 = time.perf_counter()
+    est = H2OAggregatorEstimator(device=str(dev), **AGG38)
+    est.train(x=COV_NAMES, training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    m = est.model
+    idx, cnt = np.asarray(m.exemplar_idx), np.asarray(m.counts)
+    r2 = m.passes[-1]["radius2"]
+    rec = dict(rows=AGG_ROWS, cols=len(COV_NAMES), wall_s=wall,
+               fit_split=m.fit_timings, passes=m.passes,
+               exemplars=len(idx), fit_launches=counts)
+    if cnt.sum() != AGG_ROWS:
+        bad.append(f"counts sum to {cnt.sum()}, not {AGG_ROWS}")
+    t, tol = AGG38["target_num_exemplars"], AGG38["rel_tol_num_exemplars"]
+    if not t * (1 - tol) <= len(idx) <= t * (1 + tol):
+        bad.append(f"{len(idx)} exemplars outside {t} ± {tol * 100:.0f} %")
+    # a sample of non-exemplar rows, each within the final radius of an
+    # exemplar, in f64 (slack: the f32 expansion's rounding of d2)
+    A = m.dinfo.transform(fr).astype(np.float64)
+    E = A[idx]
+    rest = np.setdiff1d(np.arange(AGG_ROWS), idx)
+    pick = np.random.default_rng(383).choice(rest, AGG_CHECK_ROWS,
+                                             replace=False)
+    S = A[pick]
+    d2 = ((S * S).sum(1)[:, None] - 2 * S @ E.T
+          + (E * E).sum(1)[None, :]).min(1)
+    slack = 1e-5 * ((S * S).sum(1) + (E * E).sum(1).max())
+    rec["radius2"] = r2
+    rec["sample_max_d2_over_r2"] = float((d2 / r2).max())
+    if not (d2 <= r2 + slack).all():
+        bad.append(f"{int((d2 > r2 + slack).sum())} sampled rows lie beyond "
+                   f"the radius (max d2/r2 {rec['sample_max_d2_over_r2']})")
+    if any(counts.values()):
+        bad.append(f"Aggregator launched a hand-written kernel: {counts}")
+    try:
+        m.predict(fr)
+        bad.append("predict did not raise")
+    except ValueError:
+        pass
+    PHASE38_WALLS["c"] = time.perf_counter() - t_phase
+    print(f"phase 38(c) Aggregator on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 38(c): " + "; ".join(bad))
+    return rec, m
+
+
+def _quantiles_f64(x, w, probs):
+    """The weighted inverse CDF in f64: for each p the smallest value whose
+    cumulative weight reaches the op's target, f32(p)·f32(W) rounded to f32
+    as the op computes it (NaN and zero-weight rows dropped)."""
+    ok = ~np.isnan(x) & (w > 0)
+    xs, ws = x[ok].astype(np.float64), w[ok].astype(np.float64)
+    o = np.argsort(xs, kind="stable")
+    xs, cw = xs[o], np.cumsum(ws[o])
+    W = np.float32(cw[-1])
+    return np.asarray([xs[min(np.searchsorted(cw, float(np.float32(p) * W)),
+                              len(xs) - 1)] for p in probs])
+
+
+def quantiles_path(dev, card):
+    """Phase 38(d): the quantiles op on phase 4's first HIGGS column (unit
+    weights: the card equal to the CPU bit for bit) and on a weighted
+    column with NaNs; each within one final-refinement bin plus f32
+    spacing of the weighted f64 inverse CDF."""
+    from h2o3_tpu_torch.ops.quantiles import distributed_quantiles
+
+    t_phase = time.perf_counter()
+    X, _ = make_higgs_like(N_ROWS)
+    rng = np.random.default_rng(384)
+    x1 = X[:, 0].copy()
+    x2 = X[:, 1].copy()
+    x2[rng.random(N_ROWS) < 0.05] = np.nan
+    w2 = rng.uniform(0, 2, N_ROWS).astype(np.float32)
+    w2[rng.random(N_ROWS) < 0.05] = 0
+    del X
+    bad, rec = [], {}
+    zero_counts()
+    for tag, x, w in (("unit", x1, np.ones(N_ROWS, np.float32)),
+                      ("weighted_nan", x2, w2)):
+        xd, wd = (torch.from_numpy(a).to(dev) for a in (x, w))
+        got = distributed_quantiles(xd, wd, Q_PROBS).cpu().numpy()
+        ms = time_ms(lambda: distributed_quantiles(xd, wd, Q_PROBS), reps=3,
+                     warmup=1)
+        cpu = distributed_quantiles(torch.from_numpy(x), torch.from_numpy(w),
+                                    Q_PROBS).numpy()
+        ok = ~np.isnan(x) & (w > 0)
+        step = float(x[ok].max() - x[ok].min()) / 1024.0 ** 3
+        exact = _quantiles_f64(x, w, Q_PROBS)
+        tol = step + np.spacing(np.abs(exact).astype(np.float32))
+        err = np.abs(got.astype(np.float64) - exact)
+        r = dict(ms=ms, quantiles=got.tolist(),
+                 max_err_over_tol=float((err / tol).max()),
+                 equal_to_cpu=bool(np.array_equal(got, cpu)))
+        rec[tag] = r
+        if not (err <= tol).all():
+            bad.append(f"{tag}: {r['max_err_over_tol']:.3f} bins from f64")
+        if tag == "unit" and not r["equal_to_cpu"]:
+            bad.append("unit weights: the card differs from the CPU")
+        del xd, wd
+    torch.cuda.synchronize()
+    rec["launches"] = kernel_counts()
+    if any(rec["launches"].values()):
+        bad.append(f"the quantiles op launched {rec['launches']}")
+    PHASE38_WALLS["d"] = time.perf_counter() - t_phase
+    print(f"phase 38(d) quantiles on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 38(d): " + "; ".join(bad))
+    return rec
+
+
+class b1_recorder:
+    """Keeps the inputs of the first `n` B1 launches (`hist_build`) while
+    it is entered: one lossguide tree's passes. The wrapper only records;
+    the kernel's own wrapper counts the launch."""
+
+    def __init__(self, n):
+        self.n, self.calls = n, []
+
+    def __enter__(self):
+        from h2o3_tpu_torch.ops import hist_cuda
+
+        self.orig = hist_cuda.hist_build
+
+        def spy(codes, node, vals, L, nbins):
+            if len(self.calls) < self.n:
+                self.calls.append((node.clone(), vals.clone(), L, nbins))
+            return self.orig(codes, node, vals, L, nbins)
+
+        hist_cuda.hist_build = spy
+        return self
+
+    def __exit__(self, *exc):
+        from h2o3_tpu_torch.ops import hist_cuda
+
+        hist_cuda.hist_build = self.orig
+        return False
+
+
+def lossguide_path(dev, fr, card, xgb1_auc: float):
+    """Phase 38(e): XGBoost with `grow_policy="lossguide"`, `max_leaves=31`
+    on phase 4's frame, its holdout AUC against phase 31(b)'s XGBoost_1's
+    (`xgb1_auc`); B1 at tree 0's passes as they ran (each L = 1 over
+    all rows, most weights zero): bit-equal to `hist_plain_fixed`, timed
+    (L2 flushed) against the plain version, one `index_add_` and the
+    bytes bound. Returns (record, model, the kernels line's entry)."""
+    from h2o3_tpu_torch.estimators import H2OXGBoostEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.tree import lossguide_slots
+    from h2o3_tpu_torch.ops import histogram
+
+    t_phase = time.perf_counter()
+    bad = []
+    names = [f"f{i}" for i in range(N_FEAT)]
+    S = lossguide_slots(LG38["max_depth"], LG38["max_leaves"])
+    est = H2OXGBoostEstimator(seed=42, device=str(dev), **LG38)
+    zero_counts()
+    t0 = time.perf_counter()
+    with b1_recorder(S) as rec_b1:
+        est.train(y="label", training_frame=fr)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, dispatch = kernel_counts(), dict(histogram.DISPATCH)
+    m = est.model
+    leaves = (m.forest[0].is_split.sum(dim=1) + 1).cpu().numpy()
+    splits_total = int((leaves - 1).sum())
+    Xt, yt = make_higgs_like(XGB_PREDICT_ROWS, seed=1)
+    ft_ = Frame.from_numpy(np.column_stack([Xt, yt]),
+                           names=names + ["label"]).asfactor("label")
+    zero_counts()
+    pred = m.predict(ft_)
+    p1 = pred.vec("1").numeric_np()
+    auc = _auc(yt, p1)
+    # tree 0's passes replayed: the kernel against its plain twins
+    codes = _fit_codes_fm(m, dev)
+    passes = []
+    for node, vals, L, nbins in rec_b1.calls:
+        n_w = int((vals[0] != 0).sum())
+        r = dict(L=L, weighted_rows=n_w)
+        r["max_abs_err"] = check_b1(codes, node, vals, L, nbins)[0]
+        r["ms"] = time_ms_cold(
+            lambda: histogram.hist_cuda.hist_build(codes, node, vals, L,
+                                                   nbins), reps=5, warmup=1)
+        r["plain_ms"] = time_ms(
+            lambda: histogram.hist_cuda.hist_plain(codes, node, vals, L,
+                                                   nbins), reps=2, warmup=1)
+        r["library_ms"] = bm_library_ms(dev, codes, node, vals, L, nbins)
+        r["bound_ms"] = bound_ms_of(n_w, L, n_feat=N_FEAT, nbins=nbins)[0]
+        passes.append(r)
+    del codes, rec_b1
+    tree = {k: sum(r[k] for r in passes)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    rec = dict(trees=m.ntrees_built, wall_s=wall,
+               trees_per_s=m.ntrees_built / wall, fit_split=m.fit_timings,
+               b1_launches=counts["hist"], expected_b1=m.ntrees_built
+               + splits_total, dispatch=dispatch,
+               leaves_max=int(leaves.max()), leaves_mean=float(leaves.mean()),
+               holdout_auc=auc, xgboost_1_holdout_auc=xgb1_auc,
+               b1_tree0=dict(passes=len(passes), **tree),
+               b1_fit_ms_estimate=tree["ms"] * m.ntrees_built)
+    if leaves.max() > LG38["max_leaves"]:
+        bad.append(f"a tree has {leaves.max()} leaves")
+    if counts["hist"] != rec["expected_b1"] or set(dispatch) != {
+            "pallas_factored"} or counts["hist_rows"] or counts["shap"] \
+            or counts["score"]:
+        bad.append(f"fit launches {counts}, dispatch {dispatch}; expected "
+                   f"{rec['expected_b1']} B1 and nothing else")
+    if abs(auc - xgb1_auc) > LG_AUC_TOL:
+        bad.append(f"holdout AUC {auc:.6f} vs XGBoost_1's {xgb1_auc:.6f}")
+    if m.hist_plan != [("lossguide_node", 1)]:
+        bad.append(f"plan {m.hist_plan}")
+    PHASE38_WALLS["e"] = time.perf_counter() - t_phase
+    print(f"phase 38(e) lossguide on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 38(e): " + "; ".join(bad))
+    entry = dict(
+        name="hist_factored_lossguide", route="cuda",
+        source="h2o3_tpu_torch/csrc/hist.cu",
+        replaces="h2o3_tpu/ops/hist_pallas.py:103", launches=counts["hist"],
+        max_abs_err=max(r["max_abs_err"] for r in passes), **tree,
+        bound_by="bytes")
+    return rec, m, ft_, entry
+
+
+def item10_mojo(dev, card, te_model, te_hold, w2v_model, w2v_frame,
+                agg_model, lg_model, lg_frame):
+    """Phase 38(f): the MOJO round trips of (a), (b) and (e); Aggregator's
+    export raises `TypeError`."""
+    from h2o3_tpu_torch import mojo
+
+    t_phase = time.perf_counter()
+    bad, rec = [], {}
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke38_") as d:
+        sc = mojo.load_model(mojo.save_model(te_model, d, "te.h2o3"))
+        got, want = sc.predict(te_hold), te_model.transform(te_hold)
+        rec["te_max_abs_err"] = max(float(np.abs(
+            np.asarray(got.vec(c).data, np.float64)
+            - np.asarray(want.vec(c).data, np.float64)).max())
+            for c in ("Origin_te", "Dest_te"))
+        sc = mojo.load_model(mojo.save_model(w2v_model, d, "w2v.h2o3"))
+        rec["w2v_vectors_equal"] = bool(np.array_equal(
+            sc.arrays["w2v_vectors"], w2v_model.vectors))
+        words = [w for w in w2v_model.vocab[:50]]
+        rec["w2v_synonyms_equal"] = all(
+            sc.find_synonyms(w, 5) == w2v_model.find_synonyms(w, 5)
+            for w in words)
+        same = True
+        for method in ("NONE", "AVERAGE"):
+            a = sc.transform(w2v_frame, aggregate_method=method)
+            b = w2v_model.transform(w2v_frame, aggregate_method=method)
+            same &= all(np.array_equal(a.vec(n).numeric_np(),
+                                       b.vec(n).numeric_np(), equal_nan=True)
+                        for n in b.names)
+        rec["w2v_transform_equal"] = bool(same)
+        sc = mojo.load_model(mojo.save_model(lg_model, d, "lg.h2o3"))
+        rec["lossguide_max_abs_err"] = float(np.abs(
+            sc.predict(lg_frame).vec("1").numeric_np()
+            - lg_model.predict(lg_frame).vec("1").numeric_np()).max())
+        try:
+            mojo.save_model(agg_model, d, "agg.h2o3")
+            rec["aggregator_export"] = "exported"
+        except TypeError:
+            rec["aggregator_export"] = "TypeError"
+    if rec["te_max_abs_err"] != 0.0:
+        bad.append(f"TargetEncoder MOJO {rec['te_max_abs_err']:.3e} away")
+    if not (rec["w2v_vectors_equal"] and rec["w2v_synonyms_equal"]
+            and rec["w2v_transform_equal"]):
+        bad.append("Word2Vec MOJO differs from the model")
+    if not rec["lossguide_max_abs_err"] <= 1e-6:
+        bad.append(f"lossguide MOJO {rec['lossguide_max_abs_err']:.3e} away")
+    if rec["aggregator_export"] != "TypeError":
+        bad.append("the Aggregator exported")
+    PHASE38_WALLS["f"] = time.perf_counter() - t_phase
+    print(f"phase 38(f) on {card}: " + json.dumps(rec), flush=True)
+    if bad:
+        raise AssertionError("phase 38(f): " + "; ".join(bad))
+    return rec
+
+
+def _te_small(n=3000, seed=0):
+    """tests/test_torch_targetencoder.py's frame: two enum columns with
+    NAs (one of ~150 Zipf levels), a binary response, a fold column."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 6, n)
+    b = rng.zipf(1.6, n) % 150
+    p = 1 / (1 + np.exp(-(a - 2.5) * 0.6 + (b % 7 - 3) * 0.3))
+    d = {"a": np.asarray([f"a{v}" for v in a], dtype=object),
+         "b": np.asarray([f"b{v}" for v in b], dtype=object),
+         "fold": rng.integers(0, 5, n).astype(np.float32)}
+    d["a"][rng.random(n) < 0.05] = None
+    d["b"][rng.random(n) < 0.03] = None
+    d["y"] = np.asarray(["no", "yes"], dtype=object)[
+        (rng.random(n) < p).astype(int)]
+    return Frame.from_dict(d, column_types={"a": "enum", "b": "enum",
+                                            "y": "enum"})
+
+
+def _blobs_small():
+    """tests/test_torch_aggregator_word2vec.py's separated blobs."""
+    rng = np.random.default_rng(0)
+    g = np.stack(np.meshgrid(np.arange(3), np.arange(3), np.arange(2),
+                             indexing="ij"), -1).reshape(-1, 3) * 4.0
+    offs = np.asarray([[0, 0, 0], [0.8, 0, 0], [0, 0.62, 0], [1.0, 0.9, 0.4]])
+    X = np.concatenate([c + o + rng.normal(0, 0.01, size=(25, 3))
+                        for c in g for o in offs])
+    rng.shuffle(X)
+    return X
+
+
+def _w2v_small():
+    """tests/test_torch_aggregator_word2vec.py's mixed corpus."""
+    rng = np.random.default_rng(7)
+    words = np.asarray([f"w{int(v)}" for v in rng.zipf(1.4, 1200) % 60],
+                       dtype=object)
+    words[rng.random(1200) < 0.06] = None
+    words[0] = words[-1] = None
+    return words
+
+
+def _lg_small(n=6000, seed=1):
+    """tests/test_torch_lossguide.py's binomial frame."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    noise = rng.normal(size=n)
+    d = {f"f{i}": X[:, i] for i in range(8)}
+    d["y"] = ((X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * noise) > 0).astype(
+        int).astype(str)
+    return Frame.from_dict(d, column_types={"y": "enum"})
+
+
+def item10_small_checks(dev, card):
+    """Phase 38(g): card against CPU on the CPU tests' small frames."""
+    from h2o3_tpu_torch.estimators import (H2OAggregatorEstimator,
+                                           H2OTargetEncoderEstimator,
+                                           H2OWord2vecEstimator,
+                                           H2OXGBoostEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.models.tree import forest_leaves
+    from h2o3_tpu_torch.ops.quantiles import distributed_quantiles
+
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    fr = _te_small()
+    for mode, extra in (("None", {}), ("LeaveOneOut", {}),
+                        ("KFold", dict(fold_column="fold"))):
+        ms = [H2OTargetEncoderEstimator(
+            device=d, data_leakage_handling=mode, blending=True, noise=0.15,
+            seed=1234, **extra).train(x=["a", "b"], y="y",
+                                      training_frame=fr).model
+            for d in (str(dev), "cpu")]
+        tables = all(
+            all(np.array_equal(x, y) for x, y in zip(ms[0].encodings[c][1:3],
+                                                     ms[1].encodings[c][1:3]))
+            and all(np.array_equal(ms[0].encodings[c][3][f][i],
+                                   ms[1].encodings[c][3][f][i])
+                    for f in ms[1].encodings[c][3] for i in (0, 1))
+            for c in ("a", "b"))
+        cols = all(np.array_equal(
+            np.asarray(ms[0].transform(fr, as_training=t).vec(c).data),
+            np.asarray(ms[1].transform(fr, as_training=t).vec(c).data))
+            for t in (True, False) for c in ("a_te", "b_te"))
+        out[f"te_{mode}"] = dict(tables_equal=tables, te_equal=cols)
+        if not (tables and cols):
+            bad.append(f"te {mode}: {out[f'te_{mode}']}")
+    words = _w2v_small()
+    wf = Frame({"words": Vec(None, "string", strings=words)})
+    wm = [H2OWord2vecEstimator(device=d, vec_size=16, min_word_freq=5,
+                               epochs=3, window_size=4, seed=11,
+                               init_learning_rate=20.0).train(
+        training_frame=wf).model for d in (str(dev), "cpu")]
+    err = float(np.abs(wm[0].vectors - wm[1].vectors).max())
+    tops = [list(m_.find_synonyms("w3", 1)) for m_ in wm]
+    out["w2v"] = dict(max_abs_err=err, top_equal=tops[0] == tops[1])
+    if not (err <= SMALL38_TOLS["w2v"] and tops[0] == tops[1]):
+        bad.append(f"w2v: {out['w2v']}")
+    X = _blobs_small()
+    af = Frame.from_numpy(X, names=["a", "b", "c"])
+    am = [H2OAggregatorEstimator(device=d, target_num_exemplars=60,
+                                 rel_tol_num_exemplars=0.2).train(
+        x=["a", "b", "c"], training_frame=af).model for d in (str(dev), "cpu")]
+    out["aggregator"] = dict(
+        exemplars_equal=bool(np.array_equal(am[0].exemplar_idx,
+                                            am[1].exemplar_idx)),
+        counts_equal=bool(np.array_equal(am[0].counts, am[1].counts)))
+    if not all(out["aggregator"].values()):
+        bad.append(f"aggregator: {out['aggregator']}")
+    rng = np.random.default_rng(0)
+    xq = rng.lognormal(size=20_000).astype(np.float32)
+    qs = [distributed_quantiles(torch.from_numpy(xq).to(d),
+                                torch.ones(20_000, device=d), Q_PROBS
+                                ).cpu().numpy() for d in (dev, "cpu")]
+    out["quantiles_equal"] = bool(np.array_equal(qs[0], qs[1]))
+    if not out["quantiles_equal"]:
+        bad.append("quantiles differ")
+    lf = _lg_small()
+    lm = [H2OXGBoostEstimator(device=d, ntrees=6, seed=3, max_bins=64,
+                              grow_policy="lossguide", max_leaves=12,
+                              max_depth=5).train(
+        x=[f"f{i}" for i in range(8)], y="y", training_frame=lf).model
+        for d in (str(dev), "cpu")]
+    fa, fc = (_cpu_forest(m_.forest[0]) for m_ in lm)
+    same = {f: bool(torch.equal(getattr(fa, f), getattr(fc, f)))
+            for f in ("feat", "bin", "thr", "is_split")}
+    Xl = torch.from_numpy(np.column_stack(
+        [lf.vec(f"f{i}").numeric_np() for i in range(8)]).astype(np.float64))
+    leaves_equal = bool(torch.equal(forest_leaves(fa, Xl, 5),
+                                    forest_leaves(fc, Xl, 5)))
+    verr = float((fa.value - fc.value).abs().max())
+    perr = float(np.abs(lm[0].predict(lf).vec("1").numeric_np()
+                        - lm[1].predict(lf).vec("1").numeric_np()).max())
+    out["lossguide"] = dict(fields_equal=same, leaves_equal=leaves_equal,
+                            value_err=verr, pred_err=perr)
+    if not (same["feat"] and same["is_split"] and leaves_equal
+            and verr <= SMALL38_TOLS["lg_value"]
+            and perr <= SMALL38_TOLS["lg_pred"]):
+        bad.append(f"lossguide: {out['lossguide']}")
+    PHASE38_WALLS["g"] = time.perf_counter() - t_phase
+    print(f"phase 38(g) on {card}, card vs cpu (tolerances "
+          f"{json.dumps(SMALL38_TOLS)}): " + json.dumps(out), flush=True)
+    if bad:
+        raise AssertionError("phase 38(g): " + "; ".join(bad))
+    return out
+
+
+def item10_path(dev, card, xgb1_auc: float):
+    """Phase 38: (a)-(g) in turn, TF32 off, with the launch counts zeroed
+    before each path and read after it; (h) the encoder, Word2Vec, the
+    Aggregator and the quantiles launched no hand-written kernel, (a)'s
+    GBMs and (e) B1 alone. `xgb1_auc` is phase 31(b)'s XGBoost_1 holdout
+    AUC, (e)'s bar. Returns (record, the kernels line's entry)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    tf32_off()
+    te_rec, te_model, te_hold = te_airlines_path(dev, card)
+    w2v_rec, w2v_model, w2v_frame = w2v_text8_path(dev, card)
+    agg_rec, agg_model = agg_covtype_path(dev, card)
+    q_rec = quantiles_path(dev, card)
+    X, y = make_higgs_like(N_ROWS)
+    fr = Frame.from_numpy(np.column_stack([X, y]), names=[
+        f"f{i}" for i in range(N_FEAT)] + ["label"]).asfactor("label")
+    del X
+    lg_rec, lg_model, lg_frame, entry = lossguide_path(dev, fr, card,
+                                                       xgb1_auc)
+    del fr
+    mojo_rec = item10_mojo(dev, card, te_model, te_hold, w2v_model,
+                           w2v_frame, agg_model, lg_model, lg_frame)
+    small = item10_small_checks(dev, card)
+    h = dict(encoder=te_rec["encoder_launches"],
+             gbm_fits={k: te_rec[f"gbm_{k}"]["fit_launches"]
+                       for k in ("raw", "te", "numeric")},
+             word2vec=w2v_rec["fit_launches"],
+             aggregator=agg_rec["fit_launches"], quantiles=q_rec["launches"],
+             lossguide=dict(hist=lg_rec["b1_launches"]))
+    print(f"phase 38(h) launch counts on {card}: " + json.dumps(h),
+          flush=True)
+    return dict(te=te_rec, w2v=w2v_rec, agg=agg_rec, quantiles=q_rec,
+                lossguide=lg_rec, mojo=mojo_rec, small=small,
+                launches=h), entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -7679,15 +8537,25 @@ def main() -> int:
                                            H2ORandomForestEstimator)
     from h2o3_tpu_torch.frame.frame import Frame
 
+    def at(label):
+        """The smoke's elapsed wall after each step of main."""
+        print(f"[smoke at {time.time() - t0:.1f} s] after {label}", flush=True)
+
     rows, worst = kernel_vs_plain(dev)
+    at("kernel_vs_plain")
     rec, fr, gbm_model = main_path(dev)
+    at("main_path")
     small_reference_check(dev)
+    at("small_reference_check")
     profile_fit(H2OGradientBoostingEstimator(
         ntrees=PROFILE_TREES, max_depth=DEPTH, learn_rate=0.1,
         histogram_type="UniformAdaptive", seed=42, device=str(dev)), fr)
     rows_b2, worst_b2 = rows_vs_plain(dev)
+    at("rows_vs_plain")
     drf_rec, drf_model = drf_path(dev, fr)
+    at("drf_path")
     small_drf_check(dev)
+    at("small_drf_check")
     profile_fit(H2ORandomForestEstimator(
         ntrees=DRF_PROFILE_TREES, hist_method="pallas", seed=42,
         device=str(dev)), fr, tag="drf profile")
@@ -7696,33 +8564,48 @@ def main() -> int:
         "gbm": (gbm_model.forest[0], gbm_model.max_depth),
         "drf": (drf_model.forest[0], drf_model.max_depth)})
     serve_rec = serve_path(dev, gbm_model)
+    at("serve_path")
     mojo_round_trip(dev, {"gbm": gbm_model, "drf": drf_model})
+    at("mojo_round_trip")
     # phases 20-23 explain phase 4's and phase 8's models while they live
     _, shap_entry = contributions_path(dev, gbm_model, drf_model)
+    at("contributions_path")
     leaves_path(dev, gbm_model, drf_model)
+    at("leaves_path")
     serve_explanations(dev, gbm_model)
+    at("serve_explanations")
     small_explain_checks(dev)
+    at("small_explain_checks")
     del gbm_model, drf_model
     fr_cov, fv_cov = covtype_frames()
     multinomial_gbm_path(dev, fr_cov, fv_cov)
+    at("multinomial_gbm_path")
     profile_fit(H2OGradientBoostingEstimator(
         device=str(dev), **dict(COV_GBM, ntrees=COV_PROFILE_TREES)),
         fr_cov, tag="multinomial gbm profile", y="cover", valid=fv_cov)
     torch.cuda.reset_peak_memory_stats(dev)
     multinomial_drf_path(dev, fr_cov, fv_cov)
+    at("multinomial_drf_path")
     # phase 30: the multinomial GLM, on the same frames
     multinomial_glm_path(dev, fr_cov, fv_cov)
+    at("multinomial_glm_path")
     del fr_cov, fv_cov
     small_multinomial_glm_checks(dev, card_line())
+    at("small_multinomial_glm_checks")
     small_extension_checks(dev)
+    at("small_extension_checks")
     fr_air, p_air, y_air = make_airlines_like(AIR_ROWS, 0)
     glm_rec = airlines_glm_path(dev, fr_air, p_air, y_air)
+    at("airlines_glm_path")
     fv_air, _, _ = make_airlines_like(AIR_VALID, 2)
     airlines_lambda_path(dev, fr_air, fv_air)
+    at("airlines_lambda_path")
     # phase 31(d): gblinear on the same frame
     xgb_gblinear_path(dev, fr_air, glm_rec, card_line())
+    at("xgb_gblinear_path")
     del fr_air, fv_air
     small_glm_checks(dev)
+    at("small_glm_checks")
     # phases 24-28: cross-validation and the stacked ensemble on phase 4's
     # frame, made again from its seed
     card = card_line()
@@ -7731,53 +8614,79 @@ def main() -> int:
         f"f{i}" for i in range(N_FEAT)] + ["label"]).asfactor("label")
     del X
     _, cv_ests = cv_tree_path(dev, fr, y, card)
+    at("cv_tree_path")
     cv_glm_and_ensemble(dev, fr, cv_ests, card)
+    at("cv_glm_and_ensemble")
     del cv_ests
     # phase 31(b), (c) and (e): XGBoost on the same frame
-    _, xgb1_model, b256 = xgb_automl_path(dev, fr, card)
-    xgb_dart_path(dev, fr, xgb1_model, card)
-    del fr, xgb1_model
+    xgb_rec, _, b256 = xgb_automl_path(dev, fr, card)
+    at("xgb_automl_path")
+    xgb_dart_path(dev, fr, card)
+    at("xgb_dart_path")
+    del fr
     small_cv_checks(dev, card)
+    at("small_cv_checks")
     # phase 29: 16-bit codes, on benchm-ml's Airlines GBM
     bm_recs, bm_codes, bm_passes = airlines_bm_path(dev, card)
+    at("airlines_bm_path")
     b16 = wide_kernels(dev, bm_codes, bm_passes)
+    at("wide_kernels")
     del bm_codes
     small_bm_checks(dev, card)
+    at("small_bm_checks")
     # phase 31(a) and (f): lambdarank at MSLR-WEB30K's shape, card vs CPU
     xgb_rank_path(dev, card)
+    at("xgb_rank_path")
     xgb_small_checks(dev, card)
+    at("xgb_small_checks")
     print("phase 31 wall: " + json.dumps(dict(
         PHASE31_WALLS, total_s=sum(PHASE31_WALLS.values()))), flush=True)
     # phase 32: DeepLearning on an MNIST-shaped frame, then card vs CPU
     dl_mnist_path(dev, card)
+    at("dl_mnist_path")
     dl_small_checks(dev, card)
+    at("dl_small_checks")
     print(f"phase 32 wall on {card}: " + json.dumps(dict(
         PHASE32_WALLS, total_s=sum(PHASE32_WALLS.values()))), flush=True)
     # phase 33: AutoML and grid search (config 5), then card vs CPU; 33(b)'s
     # CPU run starts now, in a child process beside 33(a)
     automl_cpu_start()
+    at("automl_cpu_start")
     automl_path(dev, card)
+    at("automl_path")
     automl_small_checks(dev, card)
+    at("automl_small_checks")
     print(f"phase 33 wall on {card}: " + json.dumps(dict(
         PHASE33_WALLS, total_s=sum(PHASE33_WALLS.values()))), flush=True)
     # phase 34: K-Means, PCA, SVD and GLRM at full width, then card vs CPU
     unsupervised_path(dev, card)
+    at("unsupervised_path")
     print(f"phase 34 wall on {card}: " + json.dumps(dict(
         PHASE34_WALLS, total_s=sum(PHASE34_WALLS.values()))), flush=True)
     # phase 35: the isolation forests and the uplift DRF at full width,
     # then card vs CPU
     _, uplift_entry = anomaly_uplift_path(dev, card)
+    at("anomaly_uplift_path")
     print(f"phase 35 wall on {card}: " + json.dumps(dict(
         PHASE35_WALLS, total_s=sum(PHASE35_WALLS.values()))), flush=True)
     # phase 36: NaiveBayes, GAM, isotonic regression, ANOVA GLM and
     # ModelSelection at full width, then card vs CPU
     glm_family_path(dev, card)
+    at("glm_family_path")
     print(f"phase 36 wall on {card}: " + json.dumps(dict(
         PHASE36_WALLS, total_s=sum(PHASE36_WALLS.values()))), flush=True)
     # phase 37: CoxPH, PSVM and RuleFit at full width, then card vs CPU
     survival_path(dev, card)
+    at("survival_path")
     print(f"phase 37 wall on {card}: " + json.dumps(dict(
         PHASE37_WALLS, total_s=sum(PHASE37_WALLS.values()))), flush=True)
+    # phase 38: TargetEncoder, Word2Vec, Aggregator, the quantiles op and
+    # XGBoost's lossguide growth at full width, then card vs CPU
+    _, lossguide_entry = item10_path(
+        dev, card, xgb_rec["xgboost_1"]["holdout_auc"])
+    at("item10_path")
+    print(f"phase 38 wall on {card}: " + json.dumps(dict(
+        PHASE38_WALLS, total_s=sum(PHASE38_WALLS.values()))), flush=True)
     print(f"smoke wall on {card}: {time.time() - t0:.1f} s (kernel build "
           "included)", flush=True)
 
@@ -7825,6 +8734,8 @@ def main() -> int:
     kernels.append(b256)
     # B1 over one uplift tree's 22 passes: phase 35(c)
     kernels.append(uplift_entry)
+    # B1 over one lossguide tree's passes: phase 38(e)
+    kernels.append(lossguide_entry)
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
           "uniform codes, L2 flushed; "
@@ -7847,6 +8758,10 @@ def main() -> int:
           f"22 passes (L = 1 ... 1024, treatment and control; N={UP_ROWS}, "
           f"F={len(UP_NAMES)}, B={UP_NBINS}, L2 flushed), its launches that "
           "fit's; "
+          f"hist_factored_lossguide is tree 0 of phase 38(e)'s lossguide "
+          f"XGBoost, its passes as they ran (each L = 1 over N={N_ROWS} rows, "
+          f"most weights zero; F={N_FEAT}, B={XGB_NBINS}, L2 flushed), its "
+          "launches that fit's; "
           "max_abs_err is against the f32 plain version (hist_factored also "
           "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

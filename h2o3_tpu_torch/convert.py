@@ -55,6 +55,14 @@ state; a RuleFit model's its rules (conditions, support and coefficient
 each), its linear terms with their stats, and its lasso GLM given as
 `glm_from_numpy` arguments. `coxph_from_numpy`, `psvm_from_numpy` and
 `rulefit_from_numpy` build the port's models from them.
+
+A TargetEncoder's weights are its per-column tables (the training domain,
+the per-level sums and counts, and the KFold out-of-fold tables by fold
+id), its prior, blending parameters, noise, leakage mode, training fold
+assignment and seed; a Word2Vec model's its vocabulary and (V, d)
+vectors; an Aggregator's its exemplar row indices and counts over the
+training frame. `targetencoder_from_numpy`, `word2vec_from_numpy` and
+`aggregator_from_numpy` build the port's models from them.
 """
 
 from __future__ import annotations
@@ -82,7 +90,11 @@ from .models.modelselection import ModelSelectionModel
 from .models.naive_bayes import NaiveBayesModel
 from .models.pca import PCAModel
 from .models.psvm import PSVMModel
+from .frame.frame import Frame
+from .models.aggregator import AggregatorModel
 from .models.rulefit import Rule, RuleFitModel
+from .models.targetencoder import LEAKAGE_MODES, TargetEncoderModel
+from .models.word2vec import Word2VecModel
 from .models.svd import SVDModel
 from .models.shared_tree import SharedTreeModel
 from .models.uplift import UpliftRandomForestModel
@@ -583,3 +595,56 @@ def rulefit_from_numpy(*, rules, lin_cols: Sequence[str], lin_stats,
     stats = {c: tuple(float(v) for v in lin_stats[c]) for c in lin_cols}
     return RuleFitModel(None, x, y, kept, list(lin_cols), stats, est, domain,
                         problem, device=device)
+
+
+def targetencoder_from_numpy(*, encodings, prior: float, blending: bool,
+                             inflection_point: float, smoothing: float,
+                             noise: float, data_leakage_handling: str,
+                             fold_assign, seed: int, x: Sequence[str], y: str,
+                             device=None) -> TargetEncoderModel:
+    """Port TargetEncoder from a reference model's state: `encodings`
+    column → (domain, sums (K,), counts (K,), {fold id: (sums, counts)}),
+    f64; `fold_assign` the training rows' fold ids (KFold) or None."""
+    if data_leakage_handling not in LEAKAGE_MODES:
+        raise ValueError(f"data_leakage_handling={data_leakage_handling!r}: "
+                         f"expected one of {LEAKAGE_MODES}")
+    enc = {}
+    for col, (dom, sums, cnts, folds) in encodings.items():
+        sums = np.asarray(sums, np.float64)
+        cnts = np.asarray(cnts, np.float64)
+        if sums.shape != cnts.shape or sums.ndim != 1:
+            raise ValueError(f"{col}: sums {sums.shape} and counts "
+                             f"{cnts.shape} must be equal (K,) arrays")
+        enc[col] = (list(dom) if dom is not None else dom, sums, cnts,
+                    {fid: (np.asarray(fs, np.float64), np.asarray(fc, np.float64))
+                     for fid, (fs, fc) in folds.items()})
+    fa = None if fold_assign is None else np.asarray(fold_assign, np.int64)
+    return TargetEncoderModel(None, x, y, enc, float(prior), bool(blending),
+                              float(inflection_point), float(smoothing),
+                              float(noise), str(data_leakage_handling), fa,
+                              int(seed), device=device)
+
+
+def word2vec_from_numpy(*, vocab: Sequence[str], vectors) -> Word2VecModel:
+    """Port Word2Vec from a reference model's vocabulary and (V, d) f32
+    vectors."""
+    vec = np.asarray(vectors, np.float32)
+    if vec.ndim != 2 or vec.shape[0] != len(vocab):
+        raise ValueError(f"vectors: expected ({len(vocab)}, d), got {vec.shape}")
+    return Word2VecModel(None, [str(w) for w in vocab], vec)
+
+
+def aggregator_from_numpy(*, exemplar_idx, counts, x: Sequence[str],
+                          training_frame: Frame) -> AggregatorModel:
+    """Port Aggregator from a reference model's exemplar row indices and
+    member counts over `training_frame` (the port's Frame of the same
+    rows): the aggregated frame is rebuilt from it."""
+    idx = np.asarray(exemplar_idx, np.int64)
+    cnt = np.asarray(counts, np.float64)
+    if idx.shape != cnt.shape or idx.ndim != 1:
+        raise ValueError(f"exemplar_idx {idx.shape} and counts {cnt.shape} "
+                         "must be equal (E,) arrays")
+    agg = Frame({n: training_frame.vec(n).take(idx)
+                 for n in training_frame.names})
+    agg["counts"] = cnt
+    return AggregatorModel(None, x, None, agg, idx, cnt)

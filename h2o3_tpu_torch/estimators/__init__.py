@@ -1,10 +1,12 @@
 """`h2o.estimators` namespace of the port: the estimators ported so far
 (the unsupervised K-Means, PCA, SVD and GLRM, the isolation forests, the
 uplift DRF, NaiveBayes, isotonic regression, the GLM family — GAM,
-ANOVA GLM and ModelSelection — CoxPH, PSVM and RuleFit among them), with
-the grid search and AutoML that drive them."""
+ANOVA GLM and ModelSelection — CoxPH, PSVM, RuleFit, TargetEncoder,
+Aggregator and Word2Vec among them), with the grid search and AutoML that
+drive them."""
 
 from ..automl import H2OAutoML
+from ..models.aggregator import H2OAggregatorEstimator
 from ..models.anovaglm import H2OANOVAGLMEstimator
 from ..models.coxph import H2OCoxProportionalHazardsEstimator
 from ..models.deeplearning import H2ODeepLearningEstimator
@@ -26,10 +28,12 @@ from ..models.pca import H2OPrincipalComponentAnalysisEstimator
 from ..models.psvm import H2OSupportVectorMachineEstimator
 from ..models.rulefit import H2ORuleFitEstimator
 from ..models.svd import H2OSingularValueDecompositionEstimator
+from ..models.targetencoder import H2OTargetEncoderEstimator
 from ..models.uplift import H2OUpliftRandomForestEstimator
+from ..models.word2vec import H2OWord2vecEstimator
 from ..models.xgboost import H2OXGBoostEstimator
 
-__all__ = ["H2OANOVAGLMEstimator", "H2OAutoML",
+__all__ = ["H2OANOVAGLMEstimator", "H2OAggregatorEstimator", "H2OAutoML",
            "H2OCoxProportionalHazardsEstimator", "H2ODeepLearningEstimator",
            "H2OExtendedIsolationForestEstimator",
            "H2OGeneralizedAdditiveEstimator",
@@ -42,5 +46,5 @@ __all__ = ["H2OANOVAGLMEstimator", "H2OAutoML",
            "H2ORandomForestEstimator", "H2ORuleFitEstimator",
            "H2OSingularValueDecompositionEstimator",
            "H2OStackedEnsembleEstimator", "H2OSupportVectorMachineEstimator",
-           "H2OUpliftRandomForestEstimator",
-           "H2OXGBoostEstimator"]
+           "H2OTargetEncoderEstimator", "H2OUpliftRandomForestEstimator",
+           "H2OWord2vecEstimator", "H2OXGBoostEstimator"]

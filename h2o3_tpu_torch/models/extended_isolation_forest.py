@@ -20,7 +20,7 @@ depth ceil(log2(sample_size)): the rows' projections on their node's
 direction, the per-node range as `scatter_reduce` amin/amax (the
 reference's `segment_min`/`segment_max`, with its 3.4e38 sentinels for
 rows that have stopped), the counts, and the intercept
-thr = pmin + u·(pmax − pmin) rounded once to f32 (`_fma_f32`: XLA on the
+thr = pmin + u·(pmax − pmin) rounded once to f32 (`ops.quantiles.fma_f32`: XLA on the
 CPU contracts it into one fused multiply-add). At `extension_level` 0 a
 direction has one non-zero component, so the projections are exact and
 the thresholds are the reference's bit for bit; above it the projection's
@@ -44,6 +44,7 @@ import torch
 
 from .. import device as devlib
 from ..frame.frame import Frame
+from ..ops.quantiles import fma_f32
 from .metrics import ModelMetricsBase
 from .model_base import DataInfo, H2OEstimator, H2OModel, _sync, check_unread
 
@@ -57,29 +58,6 @@ def _avg_path(n):
     """c(n): average unsuccessful-search path length in a BST (IF paper)."""
     n = np.maximum(n, 2.0)
     return 2.0 * (np.log(n - 1.0) + _EULER) - 2.0 * (n - 1.0) / n
-
-
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a + b·c for f32 tensors, rounded once to f32, as a fused
-    multiply-add rounds it. The product is exact in f64 (24-bit
-    significands); the f64 sum is rounded once more to f32, which differs
-    from one rounding only where the f64 sum lands exactly halfway between
-    two f32 values: there the sum's exact remainder (TwoSum) picks the
-    side."""
-    a64, p64 = a.double(), b.double() * c.double()
-    s = a64 + p64
-    bb = s - a64
-    err = (a64 - (s - bb)) + (p64 - bb)             # s + err == a + b·c
-    r = s.float()
-    back = r.double()
-    toward = torch.where(s > back, torch.full_like(r, float("inf")),
-                         torch.full_like(r, float("-inf")))
-    nb = torch.nextafter(r, toward)
-    mid = (back + nb.double()) * 0.5
-    # a halfway f64 sum whose remainder leans towards the neighbour rounds
-    # there; one leaning back, or an exact tie, keeps r
-    lean = torch.where(s > back, err > 0, err < 0)
-    return torch.where((s == mid) & lean, nb, r)
 
 
 def build_eif_tree(Xs: torch.Tensor, dirs: torch.Tensor, us: torch.Tensor,
@@ -112,7 +90,7 @@ def build_eif_tree(Xs: torch.Tensor, dirs: torch.Tensor, us: torch.Tensor,
         cnt = torch.zeros(L, dtype=torch.float32, device=dev).index_add_(
             0, idx, alive.to(torch.float32))
         can_split = (cnt > 1.0) & (pmax > pmin)
-        thr = _fma_f32(pmin, us[base:base + L], pmax - pmin)
+        thr = fma_f32(pmin, us[base:base + L], pmax - pmin)
         zero = torch.zeros_like(thr)
         thr_a[base:base + L] = torch.where(can_split, thr, zero)
         split_a[base:base + L] = can_split

@@ -47,7 +47,9 @@ leave the margins before the gradients, the "tree" or "forest"
 normalization rescales the new and the dropped rounds, and the per-round
 scales are baked into the stored leaf values after the loop, so scoring,
 MOJO and TreeSHAP see ordinary trees. Both run one round a scoring chunk,
-as the reference does.
+as the reference does. XGBoost's `grow_policy="lossguide"` grows each tree
+leaf-wise (`tree.build_tree_lossguide`, `max_leaves` slots, one B1 pass a
+split on the card) into the same heap, on one device.
 
 Not ported yet (ROADMAP queue A, items 5-9): per-class row sampling,
 class balancing, calibration, checkpoints, dataset cache, streaming,
@@ -909,8 +911,12 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # deep trees run their wide levels in active-node compaction; a tree
         # whose live nodes overflow the cap is rebuilt with dense levels.
         # Custom objectives keep dense levels, as in the reference
+        # XGBoost's leaf-wise growth (grow_policy="lossguide") builds each
+        # tree with `build_tree_lossguide`, which never compacts
+        lossguide = tp.get("grow_policy", "depthwise") == "lossguide"
         compact_cap = (max(2, int(os.environ.get("H2O3_COMPACT_CAP", 4096)) // 2 * 2)
-                       if tp["max_depth"] > 12 and obj_fn is None else 0)
+                       if tp["max_depth"] > 12 and obj_fn is None
+                       and not lossguide else 0)
         lr = tp["learn_rate"] if not drf else 1.0
         if oob:
             oob_sum = torch.zeros((npad, K), dtype=torch.float32, device=dev)
@@ -1026,6 +1032,16 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 g, h = g.contiguous(), h.contiguous()
 
                 def grow(cap_slots):
+                    if lossguide:
+                        return treelib.build_tree_lossguide(
+                            codes_d, g, h, wt, fm, edges_d,
+                            max_depth=tp["max_depth"], nbins=nbins,
+                            max_leaves=tp["max_leaves"],
+                            min_rows=tp["min_rows"],
+                            min_split_improvement=tp["min_split_improvement"],
+                            reg_lambda=tp["reg_lambda"],
+                            reg_alpha=tp["reg_alpha"], max_abs_leaf=cap,
+                            hist_method=tp["hist_method"], pack_bits=pack_bits)
                     return treelib.build_tree(
                         codes_d, g, h, wt, fm, edges_d,
                         max_depth=tp["max_depth"], nbins=nbins,
@@ -1145,6 +1161,9 @@ class H2OSharedTreeEstimator(H2OEstimator):
                                 tp["max_depth"], dev, mode=self._mode)
         model.compact_cap = compact_cap
         model.dense_rebuilds = dense_rebuilds
+        # the kind of histogram pass each tree ran (the reference's fit plan)
+        model.hist_plan = treelib.histogram_level_plan(
+            tp["max_depth"], compact_cap, tp.get("grow_policy", "depthwise"))
         if dart is not None:
             model.dart_scales = dart_scales   # per round, baked into values
         model._npad = npad     # CV passes this to re-bin folds as _npad_floor

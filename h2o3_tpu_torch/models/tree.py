@@ -16,13 +16,19 @@ samples features per node and level with the reference's threefry draws
 The TPU reference computes per-row lookups and leaf totals as one-hot
 matmuls (the TPU has no fast gather); here they are true gathers and
 exact integer sums. Not ported yet: monotone constraints (ROADMAP queue
-A, item 4) and `build_tree_lossguide` (item 10).
+A, item 4).
+
+`build_tree_lossguide` is XGBoost's leaf-wise growth (`grow_policy=
+"lossguide"`) into the same depth-capped heap: a frontier of leaf slots,
+each split of the best-gain slot one L = 1 histogram pass of its left
+child (B1 on the card) and the right child by subtraction.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..ops import packing, prng
@@ -159,11 +165,16 @@ def compact_switch_depth(max_depth: int, compact_cap: int) -> int:
     return max_depth
 
 
-def histogram_level_plan(max_depth: int, compact_cap: int = 0):
+def histogram_level_plan(max_depth: int, compact_cap: int = 0,
+                         grow_policy: str = "depthwise"):
     """(label, n_nodes) of each histogram pass of one `build_tree`: d0 over
     1 node, deeper dense levels over the PARENT count (sibling subtraction
     accumulates only left children), then the compact transition and one
-    pass per compact level over compact_cap + 1 slots."""
+    pass per compact level over compact_cap + 1 slots. A lossguide tree's
+    passes are all one kind, one node each (`lossguide_slots` counts
+    them)."""
+    if grow_policy == "lossguide":
+        return [("lossguide_node", 1)]
     d_sw = compact_switch_depth(max_depth, compact_cap)
     levels = [("d%d" % d, 1 if d == 0 else 2 ** (d - 1))
               for d in range(min(d_sw, max_depth))]
@@ -428,6 +439,159 @@ def build_tree(
     value_a[abs_node] = torch.where(valid, newton(tot[:, 1], tot[:, 2]), zero_f)
     cover_a[abs_node] = torch.where(valid, tot[:, 0], zero_f)
     return finish(row_leaf) + (overflow,)
+
+
+def lossguide_slots(max_depth: int, max_leaves: int) -> int:
+    """The frontier size S of `build_tree_lossguide`: at most S leaves, and
+    at most S histogram passes a tree (the root's and one a split)."""
+    full = 2 ** max_depth
+    return max(2, min(max_leaves if max_leaves > 0 else full, full))
+
+
+def build_tree_lossguide(
+    codes: torch.Tensor,       # (N, F) uint8/int16 codes, or packed words
+    g: torch.Tensor,
+    h: torch.Tensor,
+    w: torch.Tensor,
+    feat_mask: torch.Tensor,   # (F,) per-tree column mask
+    edges: torch.Tensor,       # (F, nbins-2)
+    max_depth: int,
+    nbins: int,
+    max_leaves: int,
+    min_rows: float = 1.0,
+    min_split_improvement: float = 0.0,
+    reg_lambda: float = 1.0,
+    reg_alpha: float = 0.0,
+    hist_method: str = "auto",
+    max_abs_leaf: Optional[float] = None,
+    pack_bits: int = 0,
+):
+    """Leaf-wise (best-first) growth, xgboost's `grow_policy=lossguide`
+    (port of the reference's `build_tree_lossguide`).
+
+    The frontier holds S = `lossguide_slots` leaf slots, each with its
+    node's histogram and its best split. Each round splits the slot of the
+    largest gain (the first on ties): the split goes into the heap, its
+    rows move, the LEFT child's histogram is one masked L = 1 pass over
+    all rows and the right child's is the parent's minus it (f32), and
+    both children's best splits are searched (`_fused_level_best`, the
+    split search of `build_tree`); a child at the depth cap cannot split.
+    The reference runs all S − 1 rounds; once the best gain is not above
+    max(min_split_improvement, 1e-10) no later round changes the tree, so
+    this stops there. A NaN best gain (0/0 at reg_lambda = 0) splits
+    nothing either, but only its slot is dropped: the other slots go on. Returns (Tree, final heap node per row, gain per
+    feature, cover), as `build_tree` does without compaction."""
+    dev = g.device
+    F = codes.shape[1]
+    N = (packing.packed_nrows(codes.shape[0], pack_bits) if pack_bits
+         else codes.shape[0])
+    T = heap_size(max_depth)
+    S = lossguide_slots(max_depth, max_leaves)
+    method = resolve_method(hist_method, dev)
+    codes_w = widen(codes, pack_bits, method)
+    zeros_n = torch.zeros(N, dtype=torch.int32, device=dev)
+    node_ok = torch.ones(2, dtype=torch.bool, device=dev)
+    thr = np.float32(max(np.float32(min_split_improvement), np.float32(1e-10)))
+
+    def hist_pass(wts):
+        return build_histograms(codes, zeros_n, g, h, wts, 1, nbins,
+                                method=method, pack_bits=pack_bits,
+                                codes_w=codes_w)
+
+    def search(hist):
+        """Best (gain, feature, bin) and the totals of each node of hist."""
+        wsum, gsum, hsum = (hist[..., c].sum(dim=2)[:, 0] for c in range(3))
+        bg, bf, bb = _fused_level_best(hist, node_ok[:hist.shape[0]],
+                                       feat_mask, None, nbins, min_rows,
+                                       reg_lambda, reg_alpha, gsum, hsum, wsum)
+        return bg, bf, bb, wsum, gsum, hsum
+
+    def newton(gs, hs):
+        v = -_tl1(gs, reg_alpha) / (hs + reg_lambda + 1e-12)
+        if max_abs_leaf is not None:
+            v = torch.clamp(v, -max_abs_leaf, max_abs_leaf)
+        return v.to(torch.float32)
+
+    def row_code(f: int) -> torch.Tensor:
+        if method != "pallas":
+            return codes_w[f].to(torch.int32)       # feature-major: one row
+        return codes_w[:, f].to(torch.int32)
+
+    feat_a = torch.zeros(T, dtype=torch.int32, device=dev)
+    bin_a = torch.zeros(T, dtype=torch.int32, device=dev)
+    thr_a = torch.zeros(T, dtype=torch.float32, device=dev)
+    split_a = torch.zeros(T, dtype=torch.bool, device=dev)
+    value_a = torch.zeros(T, dtype=torch.float32, device=dev)
+    cover_a = torch.zeros(T, dtype=torch.float32, device=dev)
+    gain_pf = torch.zeros(F, dtype=torch.float32, device=dev)
+    pad_edges = torch.cat(
+        [edges.to(torch.float32),
+         torch.full((F, 1), _INF, dtype=torch.float32, device=dev)], dim=1)
+
+    hist0 = hist_pass(w)
+    bg0, bf0, bb0, ws0, gs0, hs0 = search(hist0)
+    value_a[0] = newton(gs0, hs0)[0]
+    cover_a[0] = ws0[0]
+    slot_hist = torch.zeros((S,) + tuple(hist0.shape[1:]), dtype=hist0.dtype,
+                            device=dev)
+    slot_hist[0] = hist0[0]
+    slot_gain = torch.full((S,), -_INF, dtype=torch.float32, device=dev)
+    slot_gain[0] = bg0[0]          # the root can split (max_depth >= 1)
+    slot_feat = torch.zeros(S, dtype=torch.int32, device=dev)
+    slot_feat[0] = bf0[0]
+    slot_bin = torch.zeros(S, dtype=torch.int32, device=dev)
+    slot_bin[0] = bb0[0]
+    slot_node = [0] + [-1] * (S - 1)
+    row_node = torch.zeros(N, dtype=torch.int64, device=dev)
+    row_slot = torch.zeros(N, dtype=torch.int32, device=dev)
+
+    for t in range(S - 1):
+        s_star = int(_nan_first_argmax(slot_gain[None, :])[0])
+        gain, bf, bb = (slot_gain[s_star].item(), int(slot_feat[s_star]),
+                        int(slot_bin[s_star]))
+        if np.isnan(gain):
+            # NaN counts as the maximum but does not split (the reference's
+            # `do` is False): the slot is dropped and the round is spent
+            slot_gain[s_star], slot_feat[s_star], slot_bin[s_star] = -_INF, 0, 0
+            continue
+        if not np.float32(gain) > thr:
+            break                  # no slot can split: nothing changes
+        node = slot_node[s_star]
+        left, right = 2 * node + 1, 2 * node + 2
+        new_slot = t + 1
+        feat_a[node] = bf
+        bin_a[node] = bb
+        thr_a[node] = pad_edges[bf, min(bb, nbins - 2)]
+        split_a[node] = True
+
+        in_node = row_slot == s_star
+        go_right = in_node & (row_code(bf) > bb)
+        row_node = torch.where(go_right, right,
+                               torch.where(in_node, left, row_node))
+        row_slot = torch.where(go_right, new_slot, row_slot).to(torch.int32)
+
+        # left child: one masked histogram pass; right = parent − left
+        hist_l = hist_pass(w * (in_node & ~go_right).to(w.dtype))[0]
+        hist_r = slot_hist[s_star] - hist_l
+        slot_hist[s_star] = hist_l
+        slot_hist[new_slot] = hist_r
+        slot_node[s_star], slot_node[new_slot] = left, right
+
+        cg, cbf, cbb, cws, cgs, chs = search(torch.stack([hist_l, hist_r]))
+        cval = newton(cgs, chs)
+        value_a[left], value_a[right] = cval[0], cval[1]
+        cover_a[left], cover_a[right] = cws[0], cws[1]
+        # children at the depth cap cannot split further
+        depth = (left + 1).bit_length() - 1
+        if depth >= max_depth:
+            cg = torch.full_like(cg, -_INF)
+        slot_gain[s_star], slot_gain[new_slot] = cg[0], cg[1]
+        slot_feat[s_star], slot_feat[new_slot] = cbf[0], cbf[1]
+        slot_bin[s_star], slot_bin[new_slot] = cbb[0], cbb[1]
+        gain_pf[bf] += np.float32(gain)
+
+    return (Tree(feat_a, bin_a, thr_a, split_a, value_a), row_node, gain_pf,
+            cover_a)
 
 
 def predict_codes(tree: Tree, codes: torch.Tensor, max_depth: int) -> torch.Tensor:

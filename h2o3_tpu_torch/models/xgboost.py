@@ -19,11 +19,13 @@ default `max_bins=256`. What it adds:
   largest group would cost Q·G² pair elements a round;
 * `booster="gblinear"`: boosted coordinate descent on a linear model
   (`_gblinear_train`, two true-f32 matmuls a round), returned as a
-  `GLMModel` under the xgboost algo.
+  `GLMModel` under the xgboost algo;
+* `grow_policy="lossguide"` with `max_leaves`: leaf-wise growth
+  (`tree.build_tree_lossguide`), one B1 pass of L = 1 a split, under the
+  reference's parameter checks (monotone constraints raise its
+  `ValueError`).
 
-Not ported: `grow_policy="lossguide"` (`build_tree_lossguide`, ROADMAP
-queue A, item 10) raises `NotImplementedError` once the reference's own
-parameter checks pass. The reference's multi-process row gathers for
+The reference's multi-process row gathers for
 ranking and its multi-device and multi-process gblinear lanes are item 9:
 the port fits in one process on one device, where those gathers are the
 identity and the one-device lane is the one that runs.
@@ -44,7 +46,6 @@ from .metrics import ndcg_at_k
 from .model_base import DataInfo, _sync, response_info
 from .shared_tree import H2OSharedTreeEstimator
 
-_LOSSGUIDE = "ROADMAP queue A, item 10: build_tree_lossguide"
 # at most this many (query, i, j) pair elements in one lambdarank chunk;
 # a size-sorted chunk also stops where its largest group would pass
 # PAD_GROWTH times its smallest (or PAD_FLOOR documents), which bounds
@@ -147,8 +148,7 @@ class H2OXGBoostEstimator(H2OSharedTreeEstimator):
 
     def _check_params(self):
         """The reference's checks (`XGBoostModel.java` createParamsMap
-        honors or rejects these), each `ValueError` as written there; then
-        a valid `grow_policy="lossguide"` raises, not ported."""
+        honors or rejects these), each `ValueError` as written there."""
         p = self._parms
         booster = str(p.get("booster", "gbtree"))
         if booster not in ("gbtree", "dart", "gblinear"):
@@ -195,8 +195,6 @@ class H2OXGBoostEstimator(H2OSharedTreeEstimator):
             if p.get("monotone_constraints"):
                 raise ValueError("monotone_constraints are not yet supported "
                                  "with grow_policy='lossguide'")
-            raise NotImplementedError(
-                f"grow_policy='lossguide' is not ported ({_LOSSGUIDE})")
         elif int(p.get("max_leaves", 0) or 0) > 0:
             raise ValueError("max_leaves needs grow_policy='lossguide' "
                              "(depthwise growth is bounded by max_depth)")

@@ -65,11 +65,17 @@ the child payload `glm/`; as in the reference. Their numpy scorers are the
 reference's: `lp` = the imputed f64 expansion times β, and the rules
 evaluated on f64 rows (NaN right), the linear terms clipped and scaled,
 scored by the child GLM. PSVM exports nothing, as in the reference.
+A TargetEncoder writes its per-column domains and global level sums and
+counts (`te{i}_sums`, `te{i}_cnts`, f64) with the prior and the blending
+parameters, scored as the model's plain transform (no leakage handling, no
+noise); a Word2Vec model its vocabulary and f32 vectors, with `transform`
+(`aggregate_method` "NONE" or "AVERAGE") and `find_synonyms`. Aggregator
+exports nothing, as in the reference.
 `MojoScorer.predict_contributions` runs the plain TreeSHAP of
 `models/tree_shap.py` on the host (the serving failover's contributions
-scorer). The reference's native C++ scorer (`native/loader.py`) and the other
-algorithms' payloads are not ported yet (ROADMAP queue A, items 10 and
-11). Exporting any other model raises the reference's `TypeError`.
+scorer). The reference's native C++ scorer (`native/loader.py`) is not
+ported yet (ROADMAP queue A, item 11). Exporting any other model raises the
+reference's `TypeError`.
 """
 
 from __future__ import annotations
@@ -103,7 +109,9 @@ def _model_payload(model) -> Dict[str, Any]:
     from .models.rulefit import RuleFitModel
     from .models.shared_tree import SharedTreeModel
     from .models.svd import SVDModel
+    from .models.targetencoder import TargetEncoderModel
     from .models.uplift import UpliftRandomForestModel
+    from .models.word2vec import Word2VecModel
 
     if isinstance(model, MojoScorer):
         # a loaded artifact re-exports losslessly: its payload IS its state
@@ -119,7 +127,8 @@ def _model_payload(model) -> Dict[str, Any]:
                               ExtendedIsolationForestModel,
                               UpliftRandomForestModel, NaiveBayesModel,
                               IsotonicRegressionModel, GAMModel,
-                              CoxPHModel, RuleFitModel)):
+                              CoxPHModel, RuleFitModel, TargetEncoderModel,
+                              Word2VecModel)):
         raise TypeError(
             f"cannot export model of type {type(model).__name__}: "
             "not a MOJO-exportable kind (see docs/mojo.md for the "
@@ -152,6 +161,22 @@ def _model_payload(model) -> Dict[str, Any]:
         arrays["beta"] = np.asarray(model.beta, np.float64)
         _stats(arrays, model.dinfo)
         meta["dinfo"] = _dinfo_meta(model.dinfo)
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, Word2VecModel):
+        meta.update(kind="word2vec", dim=int(model.vectors.shape[1]))
+        arrays["w2v_vectors"] = np.asarray(model.vectors, np.float32)
+        arrays["w2v_vocab"] = np.asarray(model.vocab, dtype="U")
+        return {"meta": meta, "arrays": arrays}
+    if isinstance(model, TargetEncoderModel):
+        te_cols = []
+        for i, (col, (dom, sums, cnts, _folds)) in enumerate(
+                model.encodings.items()):
+            te_cols.append({"col": col, "domain": list(dom)})
+            arrays[f"te{i}_sums"] = np.asarray(sums, np.float64)
+            arrays[f"te{i}_cnts"] = np.asarray(cnts, np.float64)
+        meta.update(kind="targetencoder", te_cols=te_cols,
+                    prior=float(model.prior), blending=bool(model.blending),
+                    te_k=float(model.k), te_f=float(model.f))
         return {"meta": meta, "arrays": arrays}
     if isinstance(model, GLRMModel):
         meta.update(kind="glrm", k=model.k,
@@ -765,16 +790,113 @@ class MojoScorer:
             Xn[i] = np.linalg.solve(G, YT[m].T @ A0[i, m])
         return Xn
 
-    def transform(self, data):
-        """GLRM archetype loadings (`Arch{j}`), offline."""
+    def transform(self, data, aggregate_method: str = "NONE"):
+        """word2vec words → vectors (``aggregate_method`` "AVERAGE": one
+        mean vector per NA-delimited sentence), GLRM archetype loadings
+        (`Arch{j}`) and targetencoder column appends, offline."""
         from .frame.frame import Frame
 
         kind = self.meta["kind"]
-        if kind != "glrm":
+        if kind == "glrm":
+            Xn = self._glrm_project(data)
+            return Frame.from_dict(
+                {f"Arch{j+1}": Xn[:, j] for j in range(Xn.shape[1])})
+        if kind == "targetencoder":
+            return self._targetencoder_predict(data)
+        if kind != "word2vec":
             raise ValueError(f"transform is not defined for kind {kind!r}")
-        Xn = self._glrm_project(data)
-        return Frame.from_dict(
-            {f"Arch{j+1}": Xn[:, j] for j in range(Xn.shape[1])})
+        vecs, vocab, index = self._w2v()
+        col = data.vecs()[0]
+        words = (col.to_numpy() if col.type == "string" else np.asarray(
+            [col.domain[c] if c >= 0 else None
+             for c in np.asarray(col.data)], dtype=object))
+        dim = vecs.shape[1]
+        if aggregate_method.upper() == "NONE":
+            out = np.full((len(words), dim), np.nan)
+            for i, w in enumerate(words):
+                if w is not None and w in index:
+                    out[i] = vecs[index[w]]
+            return Frame.from_dict(
+                {f"C{j+1}": out[:, j] for j in range(dim)})
+        sents, cur = [], []
+        for w in words:
+            if w is None:
+                sents.append(cur)
+                cur = []
+            else:
+                cur.append(w)
+        sents.append(cur)
+        rows = []
+        for s in sents:
+            hit = [vecs[index[w]] for w in s if w in index]
+            rows.append(np.mean(hit, axis=0) if hit
+                        else np.full(dim, np.nan))
+        out = np.stack(rows)
+        return Frame.from_dict({f"C{j+1}": out[:, j] for j in range(dim)})
+
+    def _w2v(self):
+        """(vectors, vocab, word → index), decoded once per scorer."""
+        if "_w2v_cache" not in self.__dict__:
+            vocab = [str(w) for w in self.arrays["w2v_vocab"]]
+            self._w2v_cache = (self.arrays["w2v_vectors"], vocab,
+                               {w: i for i, w in enumerate(vocab)})
+        return self._w2v_cache
+
+    def find_synonyms(self, word: str, count: int = 20) -> Dict[str, float]:
+        if self.meta["kind"] != "word2vec":
+            raise ValueError("find_synonyms requires a word2vec artifact")
+        vecs, vocab, index = self._w2v()
+        if word not in index:
+            return {}
+        v = vecs[index[word]]
+        norms = (np.linalg.norm(vecs, axis=1)
+                 * max(np.linalg.norm(v), 1e-12))
+        sims = vecs @ v / np.maximum(norms, 1e-12)
+        out = {}
+        for i in np.argsort(-sims):
+            if vocab[i] == word:
+                continue
+            out[vocab[i]] = float(sims[i])
+            if len(out) >= count:
+                break
+        return out
+
+    def _targetencoder_predict(self, data):
+        """The reference's numpy encoding: each `<col>_te` from the global
+        tables (no leakage handling, no noise), f64 then f32."""
+        from .frame.frame import Frame
+        from .frame.vec import Vec
+
+        meta = self.meta
+        out = {n: v for n, v in zip(data.names, data.vecs())}
+        for i, ent in enumerate(meta["te_cols"]):
+            col, dom = ent["col"], ent["domain"]
+            if col not in data.names:
+                continue
+            v = data.vec(col)
+            codes = (np.asarray(v.data) if v.type == "enum"
+                     else v.numeric_np().astype(np.int64))
+            if v.type == "enum":
+                codes = _remap_codes(codes, v.domain, dom)
+            sums = self.arrays[f"te{i}_sums"]
+            cnts = self.arrays[f"te{i}_cnts"]
+            prior = meta["prior"]
+            enc = np.full(len(codes), prior)
+            ok = (codes >= 0) & (codes < len(sums))
+            ci = np.maximum(codes, 0)
+            s, c = sums[ci], cnts[ci]
+            if meta["blending"]:
+                # the model's blend: the mean is s / max(c, 1e-12), 0.0 for
+                # an empty level, not the prior
+                with np.errstate(over="ignore"):
+                    lam = 1.0 / (1.0 + np.exp(
+                        -(c - meta["te_k"]) / max(meta["te_f"], 1e-12)))
+                e = lam * (s / np.maximum(c, 1e-12)) + (1 - lam) * prior
+            else:
+                e = np.where(c > 0, s / np.maximum(c, 1e-12), prior)
+            enc[ok] = e[ok]
+            out[f"{col}_te"] = Vec(enc.astype(np.float32), "real")
+        return Frame(out)
 
     def predict_contributions(self, data):
         """Offline SHAP contributions and BiasTerm (the genmodel side's
@@ -839,6 +961,10 @@ class MojoScorer:
             return self._gam_predict(data)
         if meta["kind"] == "rulefit":
             return self._rulefit_predict(data)
+        if meta["kind"] == "word2vec":
+            return self.transform(data)
+        if meta["kind"] == "targetencoder":
+            return self._targetencoder_predict(data)
         if meta["kind"] == "coxph":
             return Frame.from_dict(
                 {"lp": self._expand_dinfo(data) @ self.arrays["beta"]})

@@ -51,12 +51,13 @@ def add(phase: str, secs: float) -> None:
 # keep) → the phase each books to
 _FIT_PHASE = dict(
     bins_s="host_prep", pack_s="host_prep", tables_s="host_prep",
-    basis_s="host_prep",
+    basis_s="host_prep", design_s="host_prep", host_loop_s="host_prep",
+    vocab_pairs_s="host_prep", draws_s="host_prep",
     upload_s="h2d", h2d_s="h2d", expand_s="h2d", yw_h2d_s="h2d",
     trees_s="compute", score_s="compute", init_s="compute",
     steps_s="compute", irls_s="compute", lbfgs_s="compute",
     rounds_s="compute", pvalues_s="compute", moments_s="compute",
-    pav_s="compute",
+    pav_s="compute", levels_s="compute", block_s="compute",
     scoring_s="metrics", metrics_s="metrics")
 
 

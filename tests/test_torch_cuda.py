@@ -823,3 +823,69 @@ def test_rulefit_rule_evaluation_on_cuda_matches_cpu(dev):
     want = np.column_stack([r.evaluate(X, col_of) for r in rules])
     assert np.array_equal(got[0], got[1])
     assert np.array_equal(got[1].astype(np.float64), want)
+
+
+def test_item10_estimators_on_cuda_match_cpu(dev):
+    """TargetEncoder's tables and encodings, the quantiles op on unit
+    weights and Aggregator's exemplars equal on the card and the CPU;
+    Word2Vec's vectors after 3 steps within 1e-5; a lossguide XGBoost
+    launches B1 once a tree and once a split, with the CPU's features and
+    splits."""
+    from h2o3_tpu_torch.estimators import (H2OAggregatorEstimator,
+                                           H2OTargetEncoderEstimator,
+                                           H2OWord2vecEstimator,
+                                           H2OXGBoostEstimator)
+    from h2o3_tpu_torch.frame.vec import Vec
+    from h2o3_tpu_torch.ops.quantiles import distributed_quantiles
+
+    rng = np.random.default_rng(0)
+    n = 3000
+    d = {"a": np.asarray([f"a{v}" for v in rng.integers(0, 9, n)], dtype=object),
+         "fold": rng.integers(0, 5, n).astype(np.float32),
+         "y": np.asarray(["no", "yes"], dtype=object)[rng.integers(0, 2, n)]}
+    fr = Frame.from_dict(d, column_types={"a": "enum", "y": "enum"})
+    te = [H2OTargetEncoderEstimator(
+        device=dv, data_leakage_handling="KFold", fold_column="fold",
+        blending=True, noise=0.15, seed=7).train(
+        x=["a"], y="y", training_frame=fr).model for dv in (str(dev), "cpu")]
+    for i in (1, 2):
+        np.testing.assert_array_equal(te[0].encodings["a"][i],
+                                      te[1].encodings["a"][i])
+    np.testing.assert_array_equal(
+        np.asarray(te[0].transform(fr, as_training=True).vec("a_te").data),
+        np.asarray(te[1].transform(fr, as_training=True).vec("a_te").data))
+    x = rng.lognormal(size=50_000).astype(np.float32)
+    q = [distributed_quantiles(torch.from_numpy(x).to(dv),
+                               torch.ones(50_000, device=dv), (0.1, 0.5, 0.9)
+                               ).cpu() for dv in (dev, "cpu")]
+    assert torch.equal(q[0], q[1])
+    centers = np.repeat(np.arange(6)[:, None] * 5.0, 2, axis=1)
+    X = np.repeat(centers, 40, axis=0) + rng.normal(0, 0.01, (240, 2))
+    af = Frame.from_numpy(X, names=["u", "v"])
+    ag = [H2OAggregatorEstimator(device=dv, target_num_exemplars=6,
+                                 rel_tol_num_exemplars=0.5).train(
+        x=["u", "v"], training_frame=af).model for dv in (str(dev), "cpu")]
+    np.testing.assert_array_equal(ag[0].exemplar_idx, ag[1].exemplar_idx)
+    np.testing.assert_array_equal(ag[0].counts, ag[1].counts)
+    words = np.asarray([f"w{int(v)}" for v in rng.zipf(1.4, 1200) % 60],
+                       dtype=object)
+    words[rng.random(1200) < 0.06] = None
+    wf = Frame({"words": Vec(None, "string", strings=words)})
+    wv = [H2OWord2vecEstimator(device=dv, vec_size=16, epochs=3, seed=11,
+                               init_learning_rate=20.0).train(
+        training_frame=wf).model.vectors for dv in (str(dev), "cpu")]
+    np.testing.assert_allclose(wv[0], wv[1], rtol=0, atol=1e-5)
+    Xl = rng.normal(size=(4000, 6)).astype(np.float32)
+    lf = Frame.from_dict({**{f"f{i}": Xl[:, i] for i in range(6)},
+                          "y": (Xl[:, 0] + Xl[:, 1] * Xl[:, 2] > 0).astype(
+                              int).astype(str)}, column_types={"y": "enum"})
+    hist_cuda.launches = 0
+    lg = [H2OXGBoostEstimator(device=dv, ntrees=3, max_depth=4, max_bins=64,
+                              grow_policy="lossguide", max_leaves=7,
+                              seed=1).train(y="y", training_frame=lf).model
+          for dv in (str(dev), "cpu")]
+    splits = int(lg[0].forest[0].is_split.sum())
+    assert hist_cuda.launches == 3 + splits
+    for f in ("feat", "is_split"):
+        assert torch.equal(getattr(lg[0].forest[0], f).cpu(),
+                           getattr(lg[1].forest[0], f))

@@ -39,6 +39,8 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch.models.modelselection\n"
         "import h2o3_tpu_torch.models.coxph, h2o3_tpu_torch.models.psvm\n"
         "import h2o3_tpu_torch.models.rulefit\n"
+        "import h2o3_tpu_torch.models.targetencoder, h2o3_tpu_torch.models.word2vec\n"
+        "import h2o3_tpu_torch.models.aggregator, h2o3_tpu_torch.ops.quantiles\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'h2o3_tpu' or m.startswith('h2o3_tpu.'))\n"

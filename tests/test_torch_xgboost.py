@@ -22,8 +22,8 @@ package's `H2OXGBoostEstimator`, on the same numpy-seeded frames, on the CPU.
   reference's, `reg_alpha` zeroing the same coefficients, the distribution
   mismatch's `ValueError`, and 3-fold CV on the re-bin path.
 - The reference's `ValueError` cases (`tests/test_xgboost.py:69-85`) raise
-  `ValueError` here; a valid `lossguide` raises `NotImplementedError`
-  naming its ROADMAP item.
+  `ValueError` here; a valid `lossguide` fit trains and its forest equals
+  the reference's (`tests/test_torch_lossguide.py` holds the rest).
 - The surfaces: 3-fold CV holdouts on the fold-reuse path within 1e-5,
   TreeSHAP of a carried reference model within 1e-12, the MOJO loaded
   across both ways within 1e-5, served predictions equal to `predict`.
@@ -309,7 +309,7 @@ REF_VALUE_ERRORS = [
 ]
 
 
-def test_parameter_checks_raise_as_the_reference():
+def test_parameter_checks_raise_as_the_reference(cloud1):
     d = _data(500, 0, "binomial")
     rf, pf = _frames(d)
     for params in REF_VALUE_ERRORS:
@@ -318,10 +318,18 @@ def test_parameter_checks_raise_as_the_reference():
         with pytest.raises(ValueError):
             H2OXGBoostEstimator(ntrees=2, device="cpu", **params).train(
                 x=X_NAMES, y="y", training_frame=pf)
-    with pytest.raises(NotImplementedError, match="item 10: build_tree_lossguide"):
-        H2OXGBoostEstimator(ntrees=2, device="cpu", grow_policy="lossguide",
-                            max_leaves=8).train(x=X_NAMES, y="y",
-                                                training_frame=pf)
+    lg = dict(ntrees=2, grow_policy="lossguide", max_leaves=8, max_bins=64)
+    ref = RefXGB(**lg)
+    ref.train(x=X_NAMES, y="y", training_frame=rf)
+    port = H2OXGBoostEstimator(device="cpu", **lg)
+    port.train(x=X_NAMES, y="y", training_frame=pf)
+    for pt, rt in zip(port.model.forest, ref.model.forest):
+        for f in ("feat", "bin", "is_split"):
+            np.testing.assert_array_equal(getattr(pt, f).numpy(),
+                                          np.asarray(getattr(rt, f)), err_msg=f)
+        np.testing.assert_allclose(pt.value.numpy(), np.asarray(rt.value),
+                                   rtol=0, atol=1e-6)
+    assert int(port.model.forest[0].is_split.sum(dim=1).max()) + 1 == 8
     with pytest.raises(TypeError, match="unknown parameter"):
         H2OXGBoostEstimator(nbins=20)
 
