@@ -220,7 +220,8 @@ holdout prediction.
 24. The GBM of phase 4 with `nfolds=CV_FOLDS` and the holdout kept, on the
    fold-reuse path (one `build_bins`; B1 launched (CV_FOLDS + 1) x NTREES x
    DEPTH times and nothing else; no forest launch: the folds walk their
-   holdout codes), then under `H2O3_CV_REBIN=1` (`build_bins` once a fit;
+   holdout codes), then under `H2O3_CV_REBIN=1` (`build_bins` once a fold:
+   the parent's bins come from the dataset cache the reuse-path fit filled;
    the same B1 launches; 2 x CV_FOLDS resident forest launches, a fold's
    holdout and its validation metrics). Each: xval AUC ≥ 0.75, a
    probability on every row, the fold sizes the reference's Random
@@ -230,8 +231,9 @@ holdout prediction.
    parent's and each fold's wall, `bins_s` and `trees_s`, beside the card.
 25. The DRF of phase 8 with `nfolds=CV_FOLDS`, cut to CV_DRF_TREES trees
    from DRF_TREES (printed on a line of its own): B2 launched the passes of
-   every fit's level plan plus its dense rebuilds, and nothing else; one
-   `build_bins`; the holdout checks of phase 24.
+   every fit's level plan plus its dense rebuilds, and nothing else; no
+   `build_bins` (the parent's bins come from the dataset cache, the folds
+   slice them); the holdout checks of phase 24.
 26. A binomial GLM (λ = 0) on the 28 columns with `nfolds=CV_FOLDS`: no
    hand-written kernel launched, the holdout finite; the parent's and
    each fold's split printed.
@@ -491,6 +493,42 @@ holdout prediction.
    Card against CPU on the CPU tests' small frames (SMALL38_TOLS). (h) The
    launch counts of each path: none but for (a)'s GBMs and (e), B1 alone.
    The phase's wall is printed.
+39. The dataset cache and the out-of-core tree path (the block store, its
+   disk tier, the streamed GBM/DRF step and GOSS). (a) A streamed GBM
+   (`H2O3_TREE_OOC=1`, a stream budget of a quarter of the packed codes,
+   S = 16)
+   on config 1's HIGGS shape cut to OOC_ROWS of its 11,000,000 rows (the
+   cut printed), binomial, depth 6, UniformAdaptive, 20 trees: S, the
+   streamed bytes, the store's resident peak (within the budget), the
+   fit's device peak, B1 launched 20 x 6 x S times and nothing else, the
+   holdout AUC on OOC_HOLDOUT fresh rows. (b) The blocks lane at that S
+   (`H2O3_TREE_OOC=0 H2O3_TREE_SHARD=1 H2O3_TREE_SHARD_BLOCKS=S`) on the
+   same frame: forest, varimp, scoring history and `predict` equal to (a)
+   bit for bit; it hits the cache's matrix and bins layers (it does not
+   bin again); its device peak above (a)'s. (c) GOSS (rates 0.2 and 0.1)
+   on (a)'s frame and budget, twice: fewer bytes streamed than (a), the
+   two forests equal, the holdout AUC within OOC_GOSS_AUC_TOL of (a)'s.
+   (d) OOC_SMALL of the rows, 5 trees, a host budget of a third of the
+   packed codes and a stream budget of a quarter (blocks spill to disk and
+   are read back every level): the forest equal to the
+   blocks lane's at its S; the spilled and restored bytes; after the
+   cache closes the store, its spill directory is empty and the ledger
+   shows no leak. (e) A streamed DRF on B2 (`hist_method="pallas"`, depth
+   12, sample rate 0.632, mtries, OOB) on those rows: its forest equal to
+   the blocks lane's; B2 launched 5 x 12 x S times and nothing else. (f) A
+   random grid of three GBMs with the cache and without it: the forests
+   equal, the second and third candidates hitting the matrix, bins and
+   device layers; then a GLM, K-Means and PCA on the same predictors: PCA
+   takes K-Means's host and device artifacts from the std layer. (g) A
+   streamed GBM at S = 4 (a seeded weights column: every row reaches the
+   same leaf) and a streamed DRF (0/1 sums: the same forest), card against
+   CPU on phase 5's fixture. Then B1 over one block of (a)'s codes at each
+   of a depth-6 tree's passes and B2 over one block of (e)'s at each of a
+   depth-12 tree's (bit-equal to `hist_plain_fixed` and within rtol 1e-5
+   of their plain versions, timed with the L2 flushed beside the plain
+   versions, one `index_add_` and the bytes bound: the
+   hist_factored_stream and hist_rows_stream rows of the kernel table).
+   The phase's walls are printed.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
@@ -503,7 +541,8 @@ and 31(d) fail if they launched one; so does phase 32's DeepLearning
 fit, and phase 34 as a whole; phase 35's fits and `predict`s count
 their own launches, and its isolation forests fail if they launched
 one; so does phase 36 as a whole, and phase 37's CoxPH and PSVM, and phase
-38's encoder, Word2Vec, Aggregator and quantiles).
+38's encoder, Word2Vec, Aggregator and quantiles; phase 39's fits count
+their own).
 TF32 must stay off
 through phases 17-19, 30, 31(d), 32, 36, 37 and 38. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
@@ -2198,10 +2237,13 @@ SHAP_DRF_ROWS, SHAP_DRF_CUT_FROM = 2_500, 100_000
 SHAP_DRF_SHORT_ROWS = 1_000
 SHAP_PLAIN_ROWS = 512
 # the DRF's rows that its slice of one depth-19 tree explains, kernel
-# against plain on the CPU (~1.5 ms of host time a leaf, ~22,600 leaves)
-SHAP_SLICE_ROWS = 32
-# phase 21's rows per forest; phase 22's requests, as phase 12's
-LEAF_ROWS = 100_000
+# against plain on the CPU (~1.5 ms of host time a leaf, ~22,600 leaves):
+# 8, cut from 32 to make room for phase 39 (the 32 rows took 11.1 s of
+# host on an H100's host)
+SHAP_SLICE_ROWS, SHAP_SLICE_FROM = 8, 32
+# phase 21's rows per forest: 25,000, cut from 100,000 to make room for
+# phase 39 (the DRF's Path strings and the CPU's walk scale with the rows)
+LEAF_ROWS, LEAF_ROWS_FROM = 25_000, 100_000
 MOJO_SHAP_ROWS = 1_000
 
 
@@ -2364,7 +2406,9 @@ def contributions_path(dev, gbm_model, drf_model):
     fg = Frame.from_numpy(Xg, names=names)
     fd = Frame.from_numpy(Xr, names=names)
     print(f"phase 20 cut: the DRF explains {SHAP_DRF_ROWS} rows, reduced "
-          f"from {SHAP_DRF_CUT_FROM}", flush=True)
+          f"from {SHAP_DRF_CUT_FROM}; its depth-19 tree's CPU slice "
+          f"{SHAP_SLICE_ROWS} rows, reduced from {SHAP_SLICE_FROM}",
+          flush=True)
     for model in (gbm_model, drf_model):
         model.__dict__.pop("_shap_plan_of", None)
     zero_counts()
@@ -2620,6 +2664,8 @@ def leaves_path(dev, gbm_model, drf_model):
 
     rng = np.random.default_rng(61)
     names = [f"f{i}" for i in range(N_FEAT)]
+    print(f"phase 21 cut: {LEAF_ROWS} rows a forest, reduced from "
+          f"{LEAF_ROWS_FROM}", flush=True)
     fr = Frame.from_numpy(score_rows(rng, LEAF_ROWS), names=names)
     rec, bad = {}, []
     for name, model in (("gbm", gbm_model), ("drf", drf_model)):
@@ -2949,7 +2995,9 @@ def cv_tree_path(dev, fr, y_np, card):
         print(f"cv gbm {path}: " + json.dumps(rec), flush=True)
         out[f"gbm_{path}"], ests[f"gbm_{path}"] = rec, est
         expect = (CV_FOLDS + 1) * NTREES * DEPTH
-        bins_expect = 1 if path == "reuse" else CV_FOLDS + 1
+        # the rebin parent's bins come from the dataset cache, which the
+        # reuse-path parent filled on this frame
+        bins_expect = 1 if path == "reuse" else CV_FOLDS
         # re-bin folds score their holdout and their fold metrics through
         # the forest kernels; reuse folds walk the codes
         score_expect = 0 if path == "reuse" else 2 * CV_FOLDS
@@ -3016,9 +3064,11 @@ def cv_tree_path(dev, fr, y_np, card):
         bad.append(f"drf: B2 {rec['hist_rows_launches']} launches, B1 "
                    f"{rec['hist_launches']}, dispatch {rec['dispatch']}; "
                    f"expected {planned} B2 launches (the level plans) only")
-    if rec["build_bins_calls"] != 1 or rec["score_launches"]:
+    # the parent's bins come from the dataset cache (the GBMs' on this
+    # frame), and its folds slice them
+    if rec["build_bins_calls"] != 0 or rec["score_launches"]:
         bad.append(f"drf: build_bins {rec['build_bins_calls']}, forest "
-                   f"launches {rec['score_launches']}; expected 1 and 0")
+                   f"launches {rec['score_launches']}; expected 0 and 0")
     if rec["xval_auc"] < DRF_AUC_FLOOR - 0.05:
         bad.append(f"drf: xval AUC {rec['xval_auc']} too low")
     _check_holdout(drf, fr, y_np, CV_FOLDS, 42, bad, "drf")
@@ -4688,8 +4738,10 @@ def _dl_launches(dev, fr):
                                      train_samples_per_iteration=10 ** 9)
             for e in DL_PROFILE_EPOCHS]
     # the device's activity only: recording every host op of the steps
-    # as well cost seconds a fit
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # as well cost seconds a fit. The dataset cache is off, so both fits
+    # build their design and it cancels in the difference
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            mock.patch.dict(os.environ, {"H2O3_DATASET_CACHE": "0"}):
         for i, est in enumerate(ests):
             if i:
                 time.sleep(DL_PROFILE_PAUSE)
@@ -8512,6 +8564,505 @@ def item10_path(dev, card, xgb1_auc: float):
                 launches=h), entry
 
 
+# phase 39: the dataset cache and the out-of-core tree path (the block
+# store with its disk tier, the streamed GBM/DRF step and GOSS). (a)-(c)
+# run on config 1's HIGGS shape (`make_higgs_like`, the generator
+# tools/automl_higgs.py uses) at OOC_ROWS of its 11,000,000 rows, the cut
+# printed on the phase's line: the host's frame build and binning take
+# ≈2.5 s a million rows and GOSS's per-tree host sample ≈0.4 s a million
+# (18 trees a fit, two fits), and at 2,000,000 rows the phase took 73.6 s
+# on a fast host and 98.8 s on a slow one (H100, 700 W), past its 90 s.
+# The stream budget is a quarter of the packed codes: the store holds
+# four of its blocks and streams the rest every level.
+OOC_ROWS_FROM, OOC_ROWS, OOC_HOLDOUT = 11_000_000, 1_000_000, 100_000
+OOC_GBM = dict(ntrees=20, max_depth=6, learn_rate=0.1, nbins=20,
+               histogram_type="UniformAdaptive", seed=42)
+OOC_GOSS = dict(goss=True, goss_top_rate=0.2, goss_other_rate=0.1)
+OOC_GOSS_AUC_TOL = 0.01
+# (d)-(f): 1,000,000 of (a)'s rows; (d) 5 trees through the disk tier,
+# (e) a 5-tree depth-12 DRF on B2, (f) three candidates of a random grid
+OOC_SMALL, OOC_DISK_TREES = 1_000_000, 5
+OOC_DRF = dict(ntrees=5, max_depth=12, hist_method="pallas",
+               sample_rate=0.632, seed=42)
+OOC_GRID = dict(learn_rate=[0.05, 0.1, 0.2], max_depth=[4, 5, 6],
+                sample_rate=[0.7, 1.0])
+OOC_GRID_MODELS = 3
+# (g): card against CPU on phase 5's fixture, S = 4
+OOC_SMALL_S = 4
+OOC_LEVELS = [1, 1, 2, 4, 8, 16]    # B1's passes of one depth-6 tree
+PHASE39_WALLS: dict = {}
+_OOC_KNOBS = ("H2O3_TREE_OOC", "H2O3_STREAM_BLOCKS", "H2O3_STREAM_BUDGET_MB",
+              "H2O3_STREAM_HOST_BUDGET_MB", "H2O3_TREE_OOC_DISK",
+              "H2O3_SPILL_DIR", "H2O3_TREE_SHARD", "H2O3_TREE_SHARD_BLOCKS",
+              "H2O3_DATASET_CACHE")
+
+
+def ooc_env(**knobs):
+    """The out-of-core and cache knobs as given (the others unset) while
+    the context is entered."""
+    env = {k: v for k, v in os.environ.items() if k not in _OOC_KNOBS}
+    env.update({k: str(v) for k, v in knobs.items()})
+    return mock.patch.dict(os.environ, env, clear=True)
+
+
+def _ooc_fit(dev, fr, params, algo="gbm", **knobs):
+    """(model, wall s, device peak bytes, B1 launches, B2 launches) of one
+    fit under `knobs`, the launch counts zeroed just before it."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.ops import hist_cuda
+
+    cls = (H2OGradientBoostingEstimator if algo == "gbm"
+           else H2ORandomForestEstimator)
+    with ooc_env(**knobs):
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        est = cls(device=str(dev), **params)
+        est.train(y="label", training_frame=fr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (est.model, wall, torch.cuda.max_memory_allocated(dev),
+            hist_cuda.launches, hist_cuda.launches_rows)
+
+
+def _bitexact(a, b, fr) -> list:
+    """What differs between two models: forest, varimp, scoring history,
+    tree count, `predict` on `fr` (empty when they agree bit for bit)."""
+    out = []
+    if a.ntrees_built != b.ntrees_built:
+        out.append(f"trees {a.ntrees_built} vs {b.ntrees_built}")
+    for k, (fa, fb) in enumerate(zip(a.forest, b.forest)):
+        for f in fa._fields:
+            if not torch.equal(getattr(fa, f), getattr(fb, f)):
+                out.append(f"class {k} {f}")
+    if a.varimp_table != b.varimp_table:
+        out.append("varimp")
+    keys = ("number_of_trees", "logloss", "training_deviance")
+    if [[e.get(k) for k in keys] for e in a.scoring_history] != \
+            [[e.get(k) for k in keys] for e in b.scoring_history]:
+        out.append("scoring history")
+    pa = np.asarray(a.predict(fr).vec("1").data)
+    pb = np.asarray(b.predict(fr).vec("1").data)
+    if not np.array_equal(pa, pb):
+        out.append(f"predict (max diff {float(np.abs(pa - pb).max()):.3e})")
+    return out
+
+
+def _codes_mb(n: int, bits: int = 5) -> float:
+    """Packed code bytes of n rows x N_FEAT at `bits`, in MB (1e6)."""
+    return -(-n // 8) * 8 * N_FEAT * bits / 8 / 1e6
+
+
+def ooc_higgs_path(dev, card, fr, fv, y_v):
+    """Phase 39(a)-(c): the streamed GBM, the blocks lane at its S, GOSS
+    twice. Returns (record, the streamed model, its store's first block
+    feature-major on the card for the B1 timings)."""
+    from h2o3_tpu_torch.models import dataset_cache as dsc
+
+    bad, rec = [], dict(card=card, rows=fr.nrow, rows_from=OOC_ROWS_FROM)
+    budget = _codes_mb(fr.nrow) / 4
+    print(f"phase 39 cut: (a)-(c) fit {fr.nrow} of config 1's "
+          f"{OOC_ROWS_FROM} HIGGS rows (the host's frame build, binning and "
+          f"GOSS sampling at more rows pass the phase's 90 s); packed codes "
+          f"{_codes_mb(fr.nrow):.2f} MB, stream budget {budget:.4f} MB "
+          "(a quarter)", flush=True)
+    t0 = time.perf_counter()
+    a, wall_a, peak_a, b1_a, b2_a = _ooc_fit(
+        dev, fr, OOC_GBM, H2O3_TREE_OOC=1, H2O3_STREAM_BUDGET_MB=budget)
+    PHASE39_WALLS["a_s"] = time.perf_counter() - t0
+    st = a._stream_stats
+    S = st["blocks"]
+    auc_a = _auc(y_v, np.asarray(a.predict(fv).vec("1").data))
+    rec["a"] = dict(wall_s=wall_a, fit_timings=a.fit_timings, S=S,
+                    stream=st, device_peak_bytes=peak_a, b1_launches=b1_a,
+                    b2_launches=b2_a, block_reads=a.ntrees_built
+                    * (OOC_GBM["max_depth"] + 1) * S, holdout_auc=auc_a)
+    print(f"phase 39(a) streamed GBM on {card}: {json.dumps(rec['a'])}",
+          flush=True)
+    if S < 8 or b1_a != a.ntrees_built * OOC_GBM["max_depth"] * S or b2_a:
+        bad.append(f"(a): S = {S}, B1 {b1_a}, B2 {b2_a}; expected S >= 8 "
+                   f"and {a.ntrees_built} x {OOC_GBM['max_depth']} x S B1 "
+                   "launches alone")
+    if st["resident_block_peak"] > max(budget * 1e6, 2 * st["streamed_bytes"]
+                                       // max(st["blocks_uploaded"], 1)):
+        bad.append(f"(a): resident peak {st['resident_block_peak']} over the "
+                   f"budget {budget} MB")
+    if auc_a < 0.75:
+        bad.append(f"(a): holdout AUC {auc_a:.6f} below 0.75")
+    c0 = dsc.snapshot()
+    t0 = time.perf_counter()
+    b, wall_b, peak_b, b1_b, _ = _ooc_fit(
+        dev, fr, OOC_GBM, H2O3_TREE_OOC=0, H2O3_TREE_SHARD=1,
+        H2O3_TREE_SHARD_BLOCKS=S)
+    PHASE39_WALLS["b_s"] = time.perf_counter() - t0
+    c1 = dsc.snapshot()
+    hits = {k: c1[k] - c0[k] for k in ("matrix_hits", "matrix_misses",
+                                       "bins_hits", "bins_misses",
+                                       "device_hits", "device_misses")}
+    diff = _bitexact(a, b, fv)
+    rec["b"] = dict(wall_s=wall_b, fit_timings=b.fit_timings,
+                    device_peak_bytes=peak_b, b1_launches=b1_b, cache=hits,
+                    differs=diff,
+                    peak_saving_bytes=peak_b - peak_a,
+                    codes_less_budget_bytes=int((_codes_mb(fr.nrow) - budget)
+                                                * 1e6))
+    print(f"phase 39(b) blocks lane at S = {S} on {card}: "
+          f"{json.dumps(rec['b'])}", flush=True)
+    if diff:
+        bad.append(f"(b): the blocks lane differs from the streamed fit in "
+                   f"{diff}")
+    if hits["matrix_hits"] != 1 or hits["bins_hits"] != 1 \
+            or hits["bins_misses"]:
+        bad.append(f"(b): cache {hits}; expected a matrix and a bins hit")
+    if not peak_a < peak_b:
+        bad.append(f"(b): the streamed fit's device peak {peak_a} is not "
+                   f"below the in-core fit's {peak_b}")
+    t0 = time.perf_counter()
+    goss = [_ooc_fit(dev, fr, dict(OOC_GBM, **OOC_GOSS), H2O3_TREE_OOC=1,
+                     H2O3_STREAM_BUDGET_MB=budget) for _ in range(2)]
+    PHASE39_WALLS["c_s"] = time.perf_counter() - t0
+    g = goss[0][0]
+    auc_g = _auc(y_v, np.asarray(g.predict(fv).vec("1").data))
+    rep = _bitexact(g, goss[1][0], fv)
+    rec["c"] = dict(walls_s=[x[1] for x in goss], stream=g._stream_stats,
+                    b1_launches=goss[0][3], holdout_auc=auc_g,
+                    auc_diff=auc_a - auc_g, repeat_differs=rep)
+    print(f"phase 39(c) GOSS on {card}: {json.dumps(rec['c'])}", flush=True)
+    if rep:
+        bad.append(f"(c): two GOSS fits differ in {rep}")
+    if not g._stream_stats["streamed_bytes"] < st["streamed_bytes"]:
+        bad.append(f"(c): GOSS streamed {g._stream_stats['streamed_bytes']} "
+                   f"bytes, not fewer than (a)'s {st['streamed_bytes']}")
+    if abs(auc_a - auc_g) > OOC_GOSS_AUC_TOL:
+        bad.append(f"(c): GOSS holdout AUC {auc_g:.6f} more than "
+                   f"{OOC_GOSS_AUC_TOL} from (a)'s {auc_a:.6f}")
+    # the streamed fit's first block, widened as its passes read it
+    from h2o3_tpu_torch.ops.histogram import feature_major
+
+    (store,) = [s for e in dsc._ENTRIES.values() for s in e.blocks.values()
+                if s.n_blocks == S]
+    block = feature_major(store.get(0), store.pack_bits)
+    if bad:
+        raise AssertionError("phase 39(a-c): " + "; ".join(bad))
+    return rec, block
+
+
+def ooc_disk_path(dev, card, fr):
+    """Phase 39(d): 5 trees through the disk tier, the blocks lane at its S,
+    and the spill directory and the ledger after `close()`."""
+    from h2o3_tpu_torch.models import dataset_cache as dsc
+    from h2o3_tpu_torch.runtime import memory_ledger as ml
+
+    params = dict(OOC_GBM, ntrees=OOC_DISK_TREES)
+    # a third of the codes on the host, a quarter on the card: every level
+    # reads most blocks back from disk (the page cache is warm)
+    host_mb, budget = _codes_mb(fr.nrow) / 3, _codes_mb(fr.nrow) / 4
+    bad = []
+    with tempfile.TemporaryDirectory(prefix="h2o3_smoke_spill_") as root:
+        t0 = time.perf_counter()
+        a, wall, _, b1, _ = _ooc_fit(dev, fr, params, H2O3_TREE_OOC=1,
+                                     H2O3_STREAM_BUDGET_MB=budget,
+                                     H2O3_STREAM_HOST_BUDGET_MB=host_mb,
+                                     H2O3_SPILL_DIR=root)
+        st = a._stream_stats
+        b, _, _, _, _ = _ooc_fit(dev, fr, params, H2O3_TREE_OOC=0,
+                                 H2O3_TREE_SHARD=1,
+                                 H2O3_TREE_SHARD_BLOCKS=st["blocks"])
+        diff = _bitexact(a, b, fr)
+        files_before = sum(len(fs) for _, _, fs in os.walk(root))
+        dsc.clear()                   # closes the cached store
+        files_after = sorted(os.listdir(root))
+        leaks = [lk for lk in ml.refresh(force=True)["leaks"]
+                 if lk["kind"] in ("block_store", "dataset_cache")]
+        PHASE39_WALLS["d_s"] = time.perf_counter() - t0
+    rec = dict(card=card, rows=fr.nrow, host_budget_mb=host_mb,
+               budget_mb=budget, wall_s=wall, stream=st, b1_launches=b1, differs=diff,
+               spill_files_before_close=files_before,
+               spill_dir_after_close=files_after, leaks=leaks)
+    print(f"phase 39(d) disk tier on {card}: {json.dumps(rec)}", flush=True)
+    if diff:
+        bad.append(f"differs from the blocks lane in {diff}")
+    if not (st["spilled_bytes"] and st["restored_bytes"]):
+        bad.append("nothing spilled or restored")
+    if files_after or leaks:
+        bad.append(f"after close: {files_after} left, leaks {leaks}")
+    if bad:
+        raise AssertionError("phase 39(d): " + "; ".join(bad))
+    return rec
+
+
+def ooc_drf_path(dev, card, fr):
+    """Phase 39(e): the streamed DRF on B2 against the blocks lane; returns
+    (record, its store's first block row-major on the card)."""
+    from h2o3_tpu_torch.models import dataset_cache as dsc
+    from h2o3_tpu_torch.ops.histogram import row_major
+
+    budget = _codes_mb(fr.nrow) / 4
+    t0 = time.perf_counter()
+    a, wall, peak, b1, b2 = _ooc_fit(dev, fr, OOC_DRF, "drf",
+                                     H2O3_TREE_OOC=1,
+                                     H2O3_STREAM_BUDGET_MB=budget)
+    S = a._stream_stats["blocks"]
+    (store,) = [s for e in dsc._ENTRIES.values() for s in e.blocks.values()
+                if s.n_blocks == S]
+    block = row_major(store.get(0), store.pack_bits)
+    b, wall_b, _, _, _ = _ooc_fit(dev, fr, OOC_DRF, "drf", H2O3_TREE_OOC=0,
+                                  H2O3_TREE_SHARD=1,
+                                  H2O3_TREE_SHARD_BLOCKS=S)
+    PHASE39_WALLS["e_s"] = time.perf_counter() - t0
+    diff = _bitexact(a, b, fr)
+    want = a.ntrees_built * OOC_DRF["max_depth"] * S
+    rec = dict(card=card, rows=fr.nrow, S=S, wall_s=wall,
+               blocks_lane_wall_s=wall_b, stream=a._stream_stats,
+               b2_launches=b2, b1_launches=b1, oob_auc=float(a.auc()),
+               differs=diff, device_peak_bytes=peak)
+    print(f"phase 39(e) streamed DRF on {card}: {json.dumps(rec)}",
+          flush=True)
+    if diff or b2 != want or b1:
+        raise AssertionError(
+            f"phase 39(e): differs in {diff}; B2 {b2} (expected {want}), "
+            f"B1 {b1}")
+    return rec, block
+
+
+def ooc_sweep_path(dev, card, fr):
+    """Phase 39(f): a 3-candidate random grid with the cache and without
+    it, then a GLM, K-Means and PCA on the frame's predictors."""
+    from h2o3_tpu_torch.estimators import (
+        H2OGeneralizedLinearEstimator, H2OGradientBoostingEstimator,
+        H2OKMeansEstimator, H2OPrincipalComponentAnalysisEstimator)
+    from h2o3_tpu_torch.models import dataset_cache as dsc
+    from h2o3_tpu_torch.models.grid import H2OGridSearch
+
+    x = [f"f{i}" for i in range(N_FEAT)]
+    fr = fr.take(np.arange(fr.nrow))          # a frame the cache has not seen
+    bad, rec = [], dict(card=card, rows=fr.nrow)
+    base = H2OGradientBoostingEstimator(ntrees=10, seed=42, device=str(dev))
+    crit = dict(strategy="RandomDiscrete", max_models=OOC_GRID_MODELS,
+                seed=42)
+    runs = {}
+    t0 = time.perf_counter()
+    for mode in ("1", "0"):
+        c0 = dsc.snapshot()
+        per = []
+        real = H2OGradientBoostingEstimator._fit
+
+        def counted(est, *a, **kw):
+            s0 = dsc.snapshot()
+            m = real(est, *a, **kw)
+            s1 = dsc.snapshot()
+            per.append({k: s1[k] - s0[k] for k in (
+                "matrix_hits", "bins_hits", "device_hits", "matrix_misses",
+                "bins_misses", "device_misses")})
+            return m
+
+        with ooc_env(H2O3_DATASET_CACHE=mode), \
+                mock.patch.object(H2OGradientBoostingEstimator, "_fit",
+                                  counted):
+            t1 = time.perf_counter()
+            grid = H2OGridSearch(base, OOC_GRID, search_criteria=crit)
+            grid.train(x=x, y="label", training_frame=fr)
+            torch.cuda.synchronize()
+            runs[mode] = dict(models=[e.model for e in grid.models],
+                              wall_s=time.perf_counter() - t1,
+                              per_candidate=per,
+                              combos=[e._grid_combo for e in grid.models])
+    PHASE39_WALLS["f_grid_s"] = time.perf_counter() - t0
+    diff = [_bitexact(a, b, fr) for a, b in zip(runs["1"]["models"],
+                                                 runs["0"]["models"])]
+    per = runs["1"]["per_candidate"]
+    rec["grid"] = dict(cached_wall_s=runs["1"]["wall_s"],
+                       uncached_wall_s=runs["0"]["wall_s"],
+                       combos=runs["1"]["combos"], per_candidate=per,
+                       differs=diff)
+    print(f"phase 39(f) grid on {card}: {json.dumps(rec['grid'])}",
+          flush=True)
+    if runs["1"]["combos"] != runs["0"]["combos"] or any(diff):
+        bad.append(f"cache-on and cache-off candidates differ: {diff}")
+    hit = dict(matrix_hits=1, bins_hits=1, device_hits=1, matrix_misses=0,
+               bins_misses=0, device_misses=0)
+    if len(per) != OOC_GRID_MODELS or per[1] != hit or per[2] != hit:
+        bad.append(f"candidates 2 and 3 did not hit every layer: {per}")
+    t0 = time.perf_counter()
+    s0 = dsc.snapshot()
+    glm = H2OGeneralizedLinearEstimator(family="binomial", lambda_=0.0,
+                                        device=str(dev))
+    glm.train(x=x, y="label", training_frame=fr)
+    s1 = dsc.snapshot()
+    H2OKMeansEstimator(k=3, seed=42, device=str(dev)).train(
+        x=x, training_frame=fr)
+    s2 = dsc.snapshot()
+    H2OPrincipalComponentAnalysisEstimator(
+        k=3, transform="STANDARDIZE", device=str(dev)).train(
+        x=x, training_frame=fr)
+    torch.cuda.synchronize()
+    s3 = dsc.snapshot()
+    PHASE39_WALLS["f_std_s"] = time.perf_counter() - t0
+    (entry,) = [e for e in dsc._ENTRIES.values() if e.frame_ref() is fr
+                and len(e.key[4]) == N_FEAT]
+    std = dict(glm={k: s1[k] - s0[k] for k in ("std_hits", "std_misses")},
+               kmeans={k: s2[k] - s1[k] for k in ("std_hits", "std_misses")},
+               pca={k: s3[k] - s2[k] for k in ("std_hits", "std_misses")},
+               artifacts=sorted(k[0] for k in entry.std),
+               glm_design_s={k: glm.model.fit_timings[k]
+                             for k in ("pack_s", "h2d_s", "expand_s")})
+    rec["std"] = std
+    print(f"phase 39(f) std layer on {card}: {json.dumps(std)}", flush=True)
+    if std["pca"] != dict(std_hits=3, std_misses=0) \
+            or std["artifacts"] != ["design", "dev", "host"]:
+        bad.append(f"the std layer: {std}; expected PCA to take K-Means's "
+                   "host and device artifacts beside the GLM's design")
+    if bad:
+        raise AssertionError("phase 39(f): " + "; ".join(bad))
+    return rec
+
+
+def ooc_small_checks(dev, card):
+    """Phase 39(g): a streamed GBM at S = 4 (with a seeded weights column:
+    the rows must reach the same leaves) and a streamed DRF (0/1 sums are
+    exact: the forests must be equal), card against CPU on phase 5's
+    fixture."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.frame.vec import Vec
+
+    X, y = make_higgs_like(4000, n_feat=8, seed=3)
+    names = [f"f{i}" for i in range(8)] + ["label"]
+    fr = Frame.from_numpy(np.column_stack([X, y]),
+                          names=names).asfactor("label")
+    w = np.random.default_rng(4000).uniform(0.5, 1.5, 4000)
+    frw = Frame({**{n: fr.vec(n) for n in fr.names},
+                 "w": Vec(w.astype(np.float32))})
+    knobs = dict(H2O3_TREE_OOC="1", H2O3_STREAM_BLOCKS=str(OOC_SMALL_S),
+                 H2O3_STREAM_BUDGET_MB="0.01")
+    cases = (("gbm_weighted", H2OGradientBoostingEstimator, frw,
+              dict(ntrees=5, max_depth=4, seed=42, weights_column="w")),
+             ("drf", H2ORandomForestEstimator, fr,
+              dict(ntrees=5, max_depth=8, seed=42, hist_method="pallas")))
+    bad, out = [], {}
+    for name, cls, frame, params in cases:
+        with ooc_env(**knobs):
+            a = _pair_fit(cls, str(dev), params, frame)
+            b = _pair_fit(cls, "cpu", params, frame)
+        nodes, dv = _forest_diff(a, b)
+        rows, dleaf = _leaves_diff(a, b, frame)
+        dp = _pred_diff(a, b, frame)
+        out[name] = dict(card=card, S=a._stream_stats["blocks"],
+                         differing_nodes=nodes, max_value_diff=dv,
+                         rows_in_other_leaves=rows,
+                         max_leaf_value_diff=dleaf, max_predict_diff=dp)
+        print(f"phase 39(g) {name} card vs cpu: {json.dumps(out[name])}",
+              flush=True)
+        same = (not nodes and dv <= 1e-5) if name == "drf" else not rows
+        if not same or dleaf > 1e-5 or dp > 1e-5 \
+                or a._stream_stats["blocks"] != OOC_SMALL_S:
+            bad.append(f"{name}: {out[name]}")
+    if bad:
+        raise AssertionError("phase 39(g): card and CPU differ: "
+                             + "; ".join(bad))
+    return out
+
+
+def b2_block_passes(dev, codes_rm, nbins, widths, seed):
+    """B2 at each pass of `widths` on one block's row-major codes (the
+    first a root pass with the in-bag 63.2 % weighted, the others about
+    half): within rtol 1e-5 of `hist_plain_rows`, times with the L2
+    flushed, the plain version's, one `index_add_`'s and the bytes bound.
+    Returns one record a pass."""
+    from h2o3_tpu_torch.ops import hist_cuda
+
+    N, F = codes_rm.shape
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, L in enumerate(widths):
+        w = (rng.random(N) < (0.632 if i == 0 else 0.5)).astype(np.float32)
+        g = rng.normal(size=N).astype(np.float32)
+        vals = torch.from_numpy(np.stack([w, g * w, w])).to(dev)
+        node = torch.from_numpy(rng.integers(0, L, N, dtype=np.int32)).to(dev)
+        got = hist_cuda.hist_build_rows(codes_rm, node, vals, L, nbins)
+        ref = hist_cuda.hist_plain_rows(codes_rm, node, vals, L, nbins)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+        n_w = int(w.sum())
+        rec = dict(L=L, weighted_rows=n_w,
+                   max_abs_err=float((got - ref).abs().max()))
+        rec["ms"] = time_ms_cold(lambda: hist_cuda.hist_build_rows(
+            codes_rm, node, vals, L, nbins), reps=10, warmup=2)
+        rec["plain_ms"] = time_ms(lambda: hist_cuda.hist_plain_rows(
+            codes_rm, node, vals, L, nbins), reps=3, warmup=1)
+        rec["library_ms"] = bm_library_ms(dev, codes_rm.t().contiguous(),
+                                          node, vals, L, nbins)
+        rec["bound_ms"], rec["bytes"] = bound_ms_of(
+            n_w, L, n_feat=F, nbins=nbins, n_rows=N)
+        out.append(rec)
+        del got, ref, node, vals
+    return out
+
+
+def ooc_path(dev, card):
+    """Phase 39: (a)-(g) in turn, then B1 and B2 at the block shapes the
+    streamed fits ran. Returns the kernels line's two entries."""
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models import dataset_cache as dsc
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    X, y = make_higgs_like(OOC_ROWS)
+    names = [f"f{i}" for i in range(N_FEAT)] + ["label"]
+    fr = Frame.from_numpy(np.column_stack([X, y]),
+                          names=names).asfactor("label")
+    del X
+    Xv, y_v = make_higgs_like(OOC_HOLDOUT, seed=1)
+    fv = Frame.from_numpy(np.column_stack([Xv, y_v]),
+                          names=names).asfactor("label")
+    PHASE39_WALLS["frames_s"] = time.perf_counter() - t0
+    rec_ac, block_fm = ooc_higgs_path(dev, card, fr, fv, y_v)
+    fr1 = fr.take(np.arange(OOC_SMALL))
+    del fr
+    dsc.clear()
+    rec_d = ooc_disk_path(dev, card, fr1)
+    rec_e, block_rm = ooc_drf_path(dev, card, fr1)
+    rec_f = ooc_sweep_path(dev, card, fr1)
+    del fr1
+    dsc.clear()
+    t0 = time.perf_counter()
+    rec_g = ooc_small_checks(dev, card)
+    PHASE39_WALLS["g_s"] = time.perf_counter() - t0
+    PHASE39_WALLS["fits_s"] = time.perf_counter() - t_phase
+    # the kernels at the block shapes: B1 over one block of (a)'s codes at
+    # each of a depth-6 tree's six passes, B2 over one block of (e)'s at
+    # each of a depth-12 tree's twelve
+    b1 = b1_passes(dev, block_fm, NBINS, OOC_LEVELS, 39)
+    b2 = b2_block_passes(dev, block_rm, NBINS,
+                         [1] + [2 ** d for d in range(OOC_DRF["max_depth"]
+                                                      - 1)], 139)
+    PHASE39_WALLS["phase_s"] = time.perf_counter() - t_phase
+    for tag, recs, n in (("B1", b1, block_fm.shape[1]),
+                         ("B2", b2, block_rm.shape[0])):
+        print(f"phase 39 {tag} at one block ({n} rows) on {card}: "
+              + json.dumps(recs), flush=True)
+    entries = []
+    for name, recs, launches, replaces in (
+            ("hist_factored_stream", b1, rec_ac["a"]["b1_launches"],
+             "h2o3_tpu/ops/hist_pallas.py:103"),
+            ("hist_rows_stream", b2, rec_e["b2_launches"],
+             "h2o3_tpu/ops/hist_pallas.py:174")):
+        entries.append(dict(
+            name=name, route="cuda", source="h2o3_tpu_torch/csrc/hist.cu",
+            replaces=replaces, launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in recs),
+            ms=sum(r["ms"] for r in recs),
+            plain_ms=sum(r["plain_ms"] for r in recs),
+            bound_ms=sum(r["bound_ms"] for r in recs), bound_by="bytes",
+            library_ms=sum(r["library_ms"] for r in recs)))
+    print(f"phase 39 record on {card}: " + json.dumps(dict(
+        d=rec_d, e=rec_e, f=rec_f, g=rec_g)), flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -8687,6 +9238,12 @@ def main() -> int:
     at("item10_path")
     print(f"phase 38 wall on {card}: " + json.dumps(dict(
         PHASE38_WALLS, total_s=sum(PHASE38_WALLS.values()))), flush=True)
+    # phase 39: the dataset cache and the out-of-core tree path, then card
+    # vs CPU and the kernels at the streamed block shapes
+    stream_entries = ooc_path(dev, card)
+    at("ooc_path")
+    print(f"phase 39 wall on {card}: " + json.dumps(PHASE39_WALLS),
+          flush=True)
     print(f"smoke wall on {card}: {time.time() - t0:.1f} s (kernel build "
           "included)", flush=True)
 
@@ -8736,6 +9293,8 @@ def main() -> int:
     kernels.append(uplift_entry)
     # B1 over one lossguide tree's passes: phase 38(e)
     kernels.append(lossguide_entry)
+    # B1 and B2 over one streamed block: phase 39(a) and (e)
+    kernels.extend(stream_entries)
     print(f"times are sums over passes at N={N_ROWS}, F={N_FEAT}, B={NBINS}: "
           f"hist_factored over one depth-6 tree's six (L = {LEVEL_WIDTHS}; "
           "uniform codes, L2 flushed; "
@@ -8762,6 +9321,12 @@ def main() -> int:
           f"XGBoost, its passes as they ran (each L = 1 over N={N_ROWS} rows, "
           f"most weights zero; F={N_FEAT}, B={XGB_NBINS}, L2 flushed), its "
           "launches that fit's; "
+          f"hist_factored_stream is one block of phase 39(a)'s streamed GBM "
+          f"(its six passes, N = {OOC_ROWS} / S rows, F={N_FEAT}, B={NBINS}, "
+          "the block's own codes, L2 flushed), its launches that fit's; "
+          f"hist_rows_stream is one block of phase 39(e)'s streamed DRF (its "
+          f"{OOC_DRF['max_depth']} passes, N = {OOC_SMALL} / S rows, "
+          "row-major, L2 flushed), its launches that fit's; "
           "max_abs_err is against the f32 plain version (hist_factored also "
           "equals its fixed-point twin bit for bit)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -106,8 +106,6 @@ class Frame:
         raise TypeError(f"bad index {item!r}")
 
     def __setitem__(self, name: str, value) -> None:
-        # the reference's column assignment; the port keeps no per-frame
-        # caches, so there is no `_touch` to call
         if isinstance(value, Frame):
             value = value.vecs()[0]
         if not isinstance(value, Vec):
@@ -115,6 +113,14 @@ class Frame:
         if self._vecs and len(value) != self.nrow:
             raise ValueError("length mismatch")
         self._vecs[name] = value
+        self._touch()
+
+    def _touch(self) -> None:
+        """In-place mutation hook: every mutator calls this, so per-frame
+        caches (the training dataset cache keyed on `_version`,
+        `models/dataset_cache.py`) never serve results computed from the
+        frame's previous contents."""
+        self._version = getattr(self, "_version", 0) + 1
 
     def take(self, idx: np.ndarray) -> "Frame":
         return Frame({n: v.take(idx) for n, v in self._vecs.items()})

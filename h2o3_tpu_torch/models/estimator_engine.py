@@ -11,16 +11,20 @@ reaches:
   (``H2O3_EST_SHARD=1``, S ordered blocks forced on one device) and its
   "mesh" lane (several devices or processes) are not ported; asking for
   either raises (ROADMAP queue A, item 9).
-- **`design_matrix`** — the compact-upload, device-expanded design of
-  `DataInfo.device_design`, built per fit (GLM, DeepLearning). The
-  reference caches it in its dataset cache's ``std`` layer; the port has
-  no dataset cache yet (ROADMAP queue A, item 7), and the reference builds
-  the same artifact when its cache is off.
-- **`host_matrix`** — the standardized f32 host matrix of
-  `DataInfo.fit_transform` (K-Means draws its initial centres from it),
-  built per fit for the same reason; K-Means and PCA upload it once,
-  unpadded (the reference's padded `device_matrix` serves its blocked
-  lanes, item 9).
+- **Cached matrices** — through the dataset cache's ``std`` layer
+  (`dataset_cache.std_artifact`, keyed by `_std_key`), so every fit, CV
+  fold and sweep candidate that shares a (frame, x, parameters) triple
+  reuses one extraction and one upload (``H2O3_DATASET_CACHE=0`` or the
+  legacy switch builds them per fit, the same bits):
+  `host_matrix`, the standardized f32 host matrix of
+  `DataInfo.fit_transform` (K-Means draws its initial centres from it);
+  `device_matrix`, that matrix uploaded once to the fit's device (K-Means,
+  PCA); `design_matrix`, the compact-upload, device-expanded design of
+  `DataInfo.device_design` (GLM, DeepLearning). `use_all_factor_levels`
+  is normalized out of the key for all-numeric frames, so GLM and K-Means
+  on one numeric frame share an entry, and K-Means and PCA one artifact.
+  One device, unpadded: the reference's padded layouts for its blocked
+  and mesh lanes are item 9.
 - **Observability** — per-fit plans (`record_fit`: algo, path, iterations,
   converged on the device) in a bounded ring read by `est_stats`, and the
   `h2o3_est_dispatch{algo,path}` / `h2o3_est_iterations{algo}` families of
@@ -39,6 +43,11 @@ import threading
 import time
 from collections import deque
 from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import device as devlib
 
 _ITEM9 = "(ROADMAP queue A, item 9)"
 
@@ -78,22 +87,10 @@ def pad_rows(n: int, n_shards: int) -> int:
     return -(-n // n_shards) * n_shards
 
 
-def design_matrix(frame, x, *, standardize: bool, use_all: bool = False,
-                  add_intercept: bool = False, device=None, timings=None):
-    """(DataInfo, device design matrix) via `DataInfo.device_design` — the
-    compact upload with the expansion on the device (small-range integer
-    columns travel at 1-2 bytes/value; the dense one-hot never crosses the
-    link). `use_all` only matters where a categorical column exists, as in
-    the reference's cache key. One device, unpadded: the reference's
-    padded and sharded layouts belong to its blocked lanes (item 9)."""
-    from .model_base import DataInfo
+def cache_enabled() -> bool:
+    from . import dataset_cache
 
-    dinfo = DataInfo(frame, x, standardize=standardize,
-                     use_all_factor_levels=_use_all_key(frame, x, use_all),
-                     impute_missing=True)
-    Xd = dinfo.device_design(frame, fit=True, add_intercept=add_intercept,
-                             device=device, timings=timings)
-    return dinfo, Xd
+    return dataset_cache.enabled() and not legacy()
 
 
 def _use_all_key(frame, x, use_all: bool) -> bool:
@@ -103,17 +100,86 @@ def _use_all_key(frame, x, use_all: bool) -> bool:
     return bool(use_all) and any(frame.vec(c).type == "enum" for c in x)
 
 
+def _std_artifact(frame, x, skey: tuple, build):
+    """`build()` → ((value), nbytes, space), through the std layer when the
+    cache is on."""
+    if not cache_enabled():
+        return build()[0]
+    from . import dataset_cache
+
+    return dataset_cache.std_artifact(frame, x, skey, build)
+
+
+# the host-clock split `DataInfo.device_design` books; a cached design
+# books nothing, so its fit records zeros
+_DESIGN_TIMINGS = ("pack_s", "h2d_s", "expand_s")
+
+
+def design_matrix(frame, x, *, standardize: bool, use_all: bool = False,
+                  add_intercept: bool = False, device=None, timings=None):
+    """(DataInfo, device design matrix) via `DataInfo.device_design` — the
+    compact upload with the expansion on the device (small-range integer
+    columns travel at 1-2 bytes/value; the dense one-hot never crosses the
+    link), cached per (frame, x, standardize, expansion, intercept,
+    device). `timings` receives the build's split, zeros on a hit."""
+    from .model_base import DataInfo
+
+    ua = _use_all_key(frame, x, use_all)
+    dev = devlib.resolve(device)
+    built = {}
+
+    def build():
+        dinfo = DataInfo(frame, x, standardize=standardize,
+                         use_all_factor_levels=ua, impute_missing=True)
+        Xd = dinfo.device_design(frame, fit=True, add_intercept=add_intercept,
+                                 device=dev, timings=built)
+        nbytes = Xd.numel() * Xd.element_size()
+        return (dinfo, Xd), nbytes, "device" if dev.type == "cuda" else "host"
+
+    out = _std_artifact(frame, x, ("design", bool(standardize), ua,
+                                   bool(add_intercept), str(dev)), build)
+    if timings is not None:
+        timings.update({k: built.get(k, 0.0) for k in _DESIGN_TIMINGS})
+    return out
+
+
 def host_matrix(frame, x, *, standardize: bool, use_all: bool = False,
                 impute: bool = True):
     """(DataInfo, standardized float32 host matrix) for (frame, x): the
-    reference's `host_matrix`, `DataInfo(...).fit_transform` byte for byte.
-    K-Means draws its initial centres from it."""
+    reference's `host_matrix`, `DataInfo(...).fit_transform` byte for byte,
+    cached. K-Means draws its initial centres from it."""
     from .model_base import DataInfo
 
-    dinfo = DataInfo(frame, x, standardize=standardize,
-                     use_all_factor_levels=_use_all_key(frame, x, use_all),
-                     impute_missing=impute)
-    return dinfo, dinfo.fit_transform(frame)
+    ua = _use_all_key(frame, x, use_all)
+
+    def build():
+        dinfo = DataInfo(frame, x, standardize=standardize,
+                         use_all_factor_levels=ua, impute_missing=impute)
+        X = dinfo.fit_transform(frame)
+        return (dinfo, X), int(X.nbytes), "host"
+
+    return _std_artifact(frame, x, ("host", bool(standardize), ua,
+                                    bool(impute)), build)
+
+
+def device_matrix(frame, x, *, standardize: bool, use_all: bool = False,
+                  impute: bool = True, device=None):
+    """(DataInfo, the `host_matrix` on `device`): one cached upload that
+    K-Means and PCA iterate on, bitwise the `fit_transform` values."""
+    ua = _use_all_key(frame, x, use_all)
+    dev = devlib.resolve(device)
+    # the host layer resolves outside the device layer's build: both live
+    # on one cache entry, whose lock is held around a build
+    dinfo, X = host_matrix(frame, x, standardize=standardize, use_all=ua,
+                           impute=impute)
+
+    def build():
+        Xd = torch.from_numpy(np.ascontiguousarray(X)).to(dev)
+        return (dinfo, Xd), int(X.nbytes), \
+            "device" if dev.type == "cuda" else "host"
+
+    return _std_artifact(frame, x, ("dev", bool(standardize), ua,
+                                    bool(impute), str(dev)), build)
 
 
 # -- observability ------------------------------------------------------------

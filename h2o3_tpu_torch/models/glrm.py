@@ -189,24 +189,29 @@ class H2OGeneralizedLowRankEstimator(H2OEstimator):
     def _expand_masked(train: Frame, x, transform: str):
         """(dinfo, zero-filled A float32, observation mask float32) — the
         NaN-masked expansion, standardized (STANDARDIZE/NORMALIZE) or
-        demeaned (DEMEAN) with stats over the observed cells."""
-        dinfo = DataInfo(train, x,
-                         standardize=transform in ("STANDARDIZE",
-                                                   "NORMALIZE"),
-                         use_all_factor_levels=True, impute_missing=False)
-        A_raw = dinfo._expand(train, fit=True)
-        if dinfo.standardize:
-            dinfo.means = np.nanmean(A_raw, axis=0)
-            sd = np.nanstd(A_raw, axis=0)
-            dinfo.stds = np.where(sd < 1e-10, 1.0, sd)
-            A_raw = (A_raw - dinfo.means) / dinfo.stds
-        elif transform == "DEMEAN":
-            dinfo.means = np.nanmean(A_raw, axis=0)
-            dinfo.stds = np.ones(A_raw.shape[1])
-            A_raw = A_raw - dinfo.means
-        mask = (~np.isnan(A_raw)).astype(np.float32)
-        A = np.nan_to_num(A_raw, nan=0.0).astype(np.float32)
-        return dinfo, A, mask
+        demeaned (DEMEAN) with stats over the observed cells; cached in the
+        dataset cache's std layer per (frame, x, transform)."""
+        def build():
+            dinfo = DataInfo(train, x,
+                             standardize=transform in ("STANDARDIZE",
+                                                       "NORMALIZE"),
+                             use_all_factor_levels=True,
+                             impute_missing=False)
+            A_raw = dinfo._expand(train, fit=True)
+            if dinfo.standardize:
+                dinfo.means = np.nanmean(A_raw, axis=0)
+                sd = np.nanstd(A_raw, axis=0)
+                dinfo.stds = np.where(sd < 1e-10, 1.0, sd)
+                A_raw = (A_raw - dinfo.means) / dinfo.stds
+            elif transform == "DEMEAN":
+                dinfo.means = np.nanmean(A_raw, axis=0)
+                dinfo.stds = np.ones(A_raw.shape[1])
+                A_raw = A_raw - dinfo.means
+            mask = (~np.isnan(A_raw)).astype(np.float32)
+            A = np.nan_to_num(A_raw, nan=0.0).astype(np.float32)
+            return (dinfo, A, mask), int(A.nbytes + mask.nbytes), "host"
+
+        return _est._std_artifact(train, x, ("glrm", str(transform)), build)
 
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> GLRMModel:
         p = self._parms

@@ -210,7 +210,12 @@ class H2OKMeansEstimator(H2OEstimator):
         else:
             cents = _seed_centers(X, k, init, rng)
         t_init = time.perf_counter()
-        Xd = torch.from_numpy(X).to(dev)
+        if engine_on:
+            # the cached upload of the host matrix (one per frame and device)
+            _, Xd = _est.device_matrix(train, x, standardize=std,
+                                       use_all=True, device=dev)
+        else:
+            Xd = torch.from_numpy(X).to(dev)
         cd = torch.from_numpy(np.ascontiguousarray(cents, np.float32)).to(dev)
         _sync(dev)
         t_up = time.perf_counter()

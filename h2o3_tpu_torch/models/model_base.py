@@ -39,6 +39,7 @@ from .. import device as devlib
 from ..frame.frame import Frame
 from ..frame.vec import Vec
 from ..runtime import phases as _phases
+from ..runtime import trainpool as _trainpool
 from .metrics import (ModelMetricsBase, ModelMetricsBinomial,
                       ModelMetricsMultinomial, ModelMetricsRegression)
 
@@ -698,9 +699,10 @@ class H2OEstimator:
     def _run_cv(self, model: H2OModel, x, y, train: Frame, nfolds: int):
         """The reference's `_run_cv`: assign every row a fold, fit one model
         per fold on the other folds' rows and predict its own, then score
-        the (n, …) f64 holdout. The reference's trainpool fold counters and
-        its multi-process gate are not ported (ROADMAP queue A, items 9 and
-        11); the port runs one process."""
+        the (n, …) f64 holdout. Every fold is counted in the train pool's
+        CV fold counters (`trainpool.record_cv_fold`). The reference's
+        multi-process gate is not ported (ROADMAP queue A, item 9); the
+        port runs one process."""
         n = train.nrow
         rng = np.random.default_rng(self._parms["_actual_seed"])
         fold_col = self._parms.get("fold_column")
@@ -744,6 +746,7 @@ class H2OEstimator:
             sub._parms["nfolds"] = 0
             sub._parms["model_id"] = None  # fold models get their own ids
             sub._parms["_actual_seed"] = self._parms["_actual_seed"]
+            _trainpool.record_cv_fold(reused=reuse_bm is not None)
             if reuse_bm is not None:
                 # reuse folds take their natural row count, not the
                 # parent's padded one

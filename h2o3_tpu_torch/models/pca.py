@@ -147,7 +147,9 @@ class H2OPrincipalComponentAnalysisEstimator(H2OEstimator):
               else np.zeros(pdim, np.float32))
         k = min(k, pdim)
         t_pack = time.perf_counter()
-        Xd = torch.from_numpy(np.ascontiguousarray(X)).to(dev)
+        # the cached upload of the host matrix (one per frame and device)
+        _, Xd = _est.device_matrix(train, x, standardize=standardize,
+                                   use_all=use_all, device=dev)
         _sync(dev)
         t_up = time.perf_counter()
         iters = None

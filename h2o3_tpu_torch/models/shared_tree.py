@@ -51,9 +51,32 @@ as the reference does. XGBoost's `grow_policy="lossguide"` grows each tree
 leaf-wise (`tree.build_tree_lossguide`, `max_leaves` slots, one B1 pass a
 split on the card) into the same heap, on one device.
 
-Not ported yet (ROADMAP queue A, items 5-9): per-class row sampling,
-class balancing, calibration, checkpoints, dataset cache, streaming,
-sharding and QoS. Asking for any of them raises `NotImplementedError`.
+Every fit reads its training frame through the dataset cache
+(`dataset_cache.py`): the f64 matrix, the `BinnedMatrix`, and the packed
+code matrix on the device (or its `BlockStore`) are built once per
+(frame, x) and reused by the next candidate, CV parent or grid point on
+the same frame (``H2O3_DATASET_CACHE=0`` turns it off).
+
+Two lanes change how a tree's rows reduce, both on one device:
+
+- the blocks lane (``H2O3_TREE_SHARD=1``, S = ``H2O3_TREE_SHARD_BLOCKS``,
+  default 8; `_shard_plan`) pads the rows to a multiple of 8·S and runs
+  every histogram pass and the leaf totals as S ordered block partials
+  (`build_tree(..., n_shard_blocks=S)`), and the scoring-event loss as S
+  ordered block sums (`_event_loss`);
+- the out-of-core lane (`_ooc_plan`: ``H2O3_TREE_OOC`` ``auto``, ``1`` or
+  ``0``; ``H2O3_STREAM_BUDGET_MB``, ``H2O3_STREAM_BLOCKS``,
+  ``H2O3_STREAM_HOST_BUDGET_MB``, ``H2O3_TREE_OOC_DISK``,
+  ``H2O3_SPILL_DIR``) keeps the packed matrix in a `BlockStore` and builds
+  each tree with `tree_stream.StreamedTreeStep`, which is the blocks lane
+  over blocks uploaded one at a time: a streamed fit equals the blocks-lane
+  fit that shares S bit for bit. It also runs GOSS (``goss=True``). A
+  streamed fit keeps its stream counters in ``model._stream_stats``.
+
+Not ported yet (ROADMAP queue A, items 5, 9 and 11): per-class row
+sampling, class balancing, calibration, checkpoints, the mesh lane over
+several devices and QoS. Asking for any of them raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -70,7 +93,9 @@ from .. import device as devlib
 from ..frame.binning import BinnedMatrix, bin_apply, build_bins
 from ..frame.frame import Frame
 from ..ops import hist_cuda, packing, prng, score_cuda
+from ..ops.histogram import ordered_axis_fold
 from ..runtime.log import Log
+from . import dataset_cache as _dsc
 from . import distributions as dist_mod
 from . import tree as treelib
 from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
@@ -175,13 +200,35 @@ def _response_matrix(yvec, problem: str, K: int) -> np.ndarray:
             else np.asarray(yvec.data)).astype(np.float32)[:, None]
 
 
+def _shard_plan(tp, ndev: int = 1):
+    """(shard_mode, n_shards) of one fit, the reference's `_shard_plan` on
+    one device: "off" by default and for lossguide growth or
+    ``H2O3_TREE_SHARD=0``; ``H2O3_TREE_SHARD=1`` gives the blocks lane
+    ("blocks", S = ``H2O3_TREE_SHARD_BLOCKS``, default 8), whose every row
+    reduction is S ordered block partials, so two fits that share S agree
+    bit for bit. The mesh lane over several devices raises."""
+    if ndev > 1:
+        raise NotImplementedError(
+            f"the sharded tree lane over {ndev} devices is not ported "
+            "(ROADMAP queue A, item 9)")
+    env = os.environ.get("H2O3_TREE_SHARD", "").strip()
+    if env != "1" or tp.get("grow_policy", "depthwise") == "lossguide":
+        return "off", 0
+    return "blocks", max(int(os.environ.get("H2O3_TREE_SHARD_BLOCKS", "8")
+                             or 8), 1)
+
+
 def _event_loss(margins: torch.Tensor, y: torch.Tensor, n: int,
                 inv_ntrees: float, mode: str, problem: str,
-                dist: str) -> torch.Tensor:
+                dist: str, n_blocks: int = 0) -> torch.Tensor:
     """Mean loss of a scoring event over the first `n` rows, on the device
     in f32 (the reference's `_event_loss_terms`): logloss for binomial and
     multinomial, squared error of the prediction for regression. Clips are
-    1e-7, as f32 needs. Returns a 0-d tensor."""
+    1e-7, as f32 needs. With `n_blocks` (the blocks and streamed lanes)
+    the sums are per contiguous row block, folded in block order (the
+    reference's `_sharded_event_loss_fn`), so the early-stop decisions of
+    two fits that share the block grid agree bit for bit. Returns a 0-d
+    tensor."""
     valid = (torch.arange(margins.shape[0], device=margins.device) < n)
     vf = valid.to(torch.float32)
     m = margins
@@ -207,7 +254,15 @@ def _event_loss(margins: torch.Tensor, y: torch.Tensor, n: int,
         if mode != "drf" and dist in ("poisson", "gamma", "tweedie"):
             pred = torch.exp(pred)
         num = (pred - y[:, 0]) ** 2
-    return torch.sum(num * vf) / torch.sum(vf).clamp(min=1e-12)
+    num = num * vf
+    if n_blocks:
+        rows = num.shape[0] // n_blocks
+        tot = ordered_axis_fold(torch.stack([
+            torch.stack([torch.sum(num[b * rows:(b + 1) * rows]),
+                         torch.sum(vf[b * rows:(b + 1) * rows])])
+            for b in range(n_blocks)]))
+        return tot[0] / tot[1].clamp(min=1e-12)
+    return torch.sum(num) / torch.sum(vf).clamp(min=1e-12)
 
 
 def _f32(v: float, dev: torch.device) -> torch.Tensor:
@@ -659,7 +714,6 @@ class H2OSharedTreeEstimator(H2OEstimator):
         monotone_constraints=(None, "queue A, item 4"),
         calibrate_model=(False, "queue A, item 5"),
         calibration_frame=(None, "queue A, item 5"),
-        goss=(False, "queue A, item 7"),
         balance_classes=(False, "queue A, item 5"),
         class_sampling_factors=(None, "queue A, item 5"),
     )
@@ -694,6 +748,15 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         else (0.0 if drf else 1.0)),
             reg_alpha=float(p.get("reg_alpha") or 0.0) if "reg_alpha" in p else 0.0,
             max_abs_leaf=float(p.get("max_abs_leafnode_pred") or np.inf),
+            # gradient-based sampling: opt-in, on the streamed lane only.
+            # `is None` (not `or`): an explicit 0.0 must reach the
+            # validator's 0 < rate < 1 check
+            goss=bool(p.get("goss", False)),
+            goss_top_rate=float(0.2 if p.get("goss_top_rate") is None
+                                else p["goss_top_rate"]),
+            goss_other_rate=float(0.1 if p.get("goss_other_rate") is None
+                                  else p["goss_other_rate"]),
+            goss_start_tree=p.get("goss_start_tree"),
         )
 
     def _resolved_mtries(self, tp, F: int, problem: str) -> int:
@@ -733,6 +796,84 @@ class H2OSharedTreeEstimator(H2OEstimator):
                              f"{tp['min_split_improvement']}")
         if tp["mtries"] not in (-2, -1, 0) and tp["mtries"] < 1:
             raise ValueError(f"mtries must be -2, -1, or >= 1, got {tp['mtries']}")
+        if tp.get("goss"):
+            a, b = tp["goss_top_rate"], tp["goss_other_rate"]
+            if not (0.0 < a < 1.0 and 0.0 < b < 1.0 and a + b <= 1.0):
+                raise ValueError(
+                    "goss rates must satisfy 0 < goss_top_rate < 1, "
+                    f"0 < goss_other_rate < 1, sum <= 1 (got {a}, {b})")
+            st = tp.get("goss_start_tree")
+            if st is not None and int(st) < 1:
+                raise ValueError(
+                    f"goss_start_tree must be >= 1, got {st} (the first "
+                    "trees must train unsampled to seed the gradients)")
+
+    def _ooc_plan(self, tp, npad: int, F: int, nbins: int, pack_bits: int,
+                  n_shards: int, K: int, dev: torch.device):
+        """(n_blocks, goss_cfg): the one out-of-core decision of a fit.
+        ``H2O3_TREE_OOC=0`` never streams (a plain in-core fit), ``1``
+        always streams, ``auto`` (the default) streams when the packed
+        code matrix passes the stream budget (``H2O3_STREAM_BUDGET_MB``,
+        default half the card's memory) or the host budget of the disk
+        tier. S is a multiple of ``H2O3_TREE_SHARD_BLOCKS`` (and of a
+        blocks-lane fit's own S) sized so a block is about a quarter of the
+        budget; ``H2O3_STREAM_BLOCKS`` forces it. It is capped at npad / 8,
+        so each block holds whole pack groups. Checkpoints, DART, custom
+        objectives, lossguide growth, monotone constraints and more than
+        256 bins train in-core; a GOSS request on such a fit warns and
+        trains unsampled."""
+        env = os.environ.get("H2O3_TREE_OOC", "auto").strip() or "auto"
+        goss_cfg = None
+        if tp.get("goss"):
+            if self._mode != "gbm" or K != 1:
+                raise ValueError(
+                    "goss requires a GBM fit with a single margin "
+                    "(binomial or regression response)")
+            if tp["sample_rate"] < 1.0 \
+                    or self._parms.get("sample_rate_per_class"):
+                raise ValueError(
+                    "goss replaces row sampling; keep sample_rate=1.0")
+            start = tp.get("goss_start_tree")
+            if start is None:
+                start = max(1, int(tp["ntrees"]) // 10)
+            goss_cfg = dict(top_rate=float(tp["goss_top_rate"]),
+                            other_rate=float(tp["goss_other_rate"]),
+                            start_tree=int(start))
+        eligible = (env != "0"
+                    and self._parms.get("checkpoint") is None
+                    and not tp.get("dart")
+                    and getattr(self, "_objective_fn", None) is None
+                    and tp.get("grow_policy", "depthwise") != "lossguide"
+                    and not self._parms.get("monotone_constraints")
+                    and nbins <= 256)
+        if not eligible:
+            if goss_cfg is not None:
+                Log.warn("goss: this fit is not eligible for the "
+                         "out-of-core streamed path; training unsampled "
+                         "in-core")
+            return 0, None
+        from . import block_store as _bs
+
+        codes_bytes = npad * F * pack_bits // 8 if pack_bits else npad * F
+        budget = _bs.stream_budget_bytes(dev)
+        host_budget = _bs.stream_host_budget_bytes()
+        over_host = host_budget > 0 and codes_bytes > host_budget
+        if env != "1" and goss_cfg is None and codes_bytes <= budget \
+                and not over_host:
+            return 0, None
+        base = max(int(os.environ.get("H2O3_TREE_SHARD_BLOCKS", "8") or 8),
+                   1)
+        if n_shards:
+            # a blocks-lane fit keeps its grid a multiple of its S
+            base = max(base, n_shards)
+        forced = int(os.environ.get("H2O3_STREAM_BLOCKS", "0") or 0)
+        if forced > 0:
+            S = forced
+        else:
+            target = max(budget // 4, 1)
+            needed = max(-(-codes_bytes // target), base)
+            S = -(-needed // base) * base
+        return max(min(S, max(npad // 8, 1)), 1), goss_cfg
 
     def _default_stopping_metric(self, problem: str) -> str:
         sm = self._parms.get("stopping_metric", "AUTO")
@@ -804,12 +945,22 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # fit's BinnedMatrix by row; its frame holds only the response and
         # the *_column parameters
         cvr = self._parms.get("_cv_reuse")
+        # the one sharding decision (the blocks lane or none); a streamed
+        # fit below turns into a blocks-lane fit of its own S
+        shard_mode, n_shards = _shard_plan(tp)
+        # the dataset cache serves the fit's matrix, bins and device codes;
+        # a fold on the reuse path slices its parent's codes instead
+        use_cache = cvr is None and _dsc.enabled()
         if cvr is not None:
             pbm, cv_rows = cvr["bm"], np.asarray(cvr["rows"])
             n, F = int(len(cv_rows)), int(pbm.codes.shape[1])
             nbins = int(pbm.nbins)
         else:
-            X, is_cat, doms = frame_to_matrix(train, x)
+            if use_cache:
+                X, is_cat, doms = _dsc.matrix(
+                    train, x, lambda: frame_to_matrix(train, x))
+            else:
+                X, is_cat, doms = frame_to_matrix(train, x)
             n, F = X.shape
             max_card = int(max([len(d) for d, c in zip(doms, is_cat)
                                 if c and d], default=0))
@@ -845,10 +996,14 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 names=list(pbm.names), is_categorical=pbm.is_categorical,
                 domains=list(pbm.domains))
         else:
-            bm = build_bins(X, nbins=nbins,
-                            histogram_type=tp["histogram_type"],
-                            names=list(x), is_categorical=is_cat,
-                            domains=doms, seed=seed)
+            def _bins():
+                return build_bins(X, nbins=nbins,
+                                  histogram_type=tp["histogram_type"],
+                                  names=list(x), is_categorical=is_cat,
+                                  domains=doms, seed=seed)
+
+            bm = (_dsc.bins(train, x, nbins, tp["histogram_type"], seed,
+                            _bins) if use_cache else _bins())
         t_bins = time.perf_counter()
         wc = self._parms.get("weights_column")
         w = (train.vec(wc).numeric_np() if wc else np.ones(n)).astype(np.float32)
@@ -871,21 +1026,58 @@ class H2OSharedTreeEstimator(H2OEstimator):
             f0 = np.asarray([np.float32(dist_mod.init_margin(
                 dist, yk[:, 0], w, alpha=dist_kw["alpha"]))])
 
-        # rows padded to a multiple of 8 (every pack group divides 8) with
+        # rows padded to a multiple of 8 (every pack group divides 8), and
+        # of 8·S on the blocks lane (each block whole pack groups), with
         # zero-weight rows, which contribute nothing. A re-bin CV fold pads
         # to the parent's padded row count (`_npad_floor`), as the
         # reference does: the row draws are taken at that count
-        npad = _pad_to_multiple(n, 8)
         floor = int(self._parms.get("_npad_floor") or 0)
-        if floor > npad and floor % 8 == 0:
-            npad = floor
-        pad = npad - n
-        codes_p = np.concatenate([bm.codes, np.zeros((pad, F), bm.codes.dtype)])
+
+        def padded_rows(row_mult: int) -> int:
+            npad = _pad_to_multiple(n, row_mult)
+            return floor if floor > npad and floor % row_mult == 0 else npad
+
+        npad = padded_rows(max(8 * n_shards, 8))
         pack_bits = packing.pack_bits_for(nbins, npad)
-        # the resident matrix stays packed; each tree widens it once
-        codes_d = torch.from_numpy(
-            packing.pack_host(codes_p, pack_bits) if pack_bits
-            else packing.device_codes(codes_p)).to(dev)
+        # out of core: the packed matrix lives in a BlockStore and each
+        # tree streams its blocks; the fit is a blocks-lane fit of S blocks
+        ooc_blocks, goss_cfg = self._ooc_plan(tp, npad, F, nbins, pack_bits,
+                                              n_shards, K, dev)
+        if ooc_blocks:
+            shard_mode, n_shards = "blocks", ooc_blocks
+            npad = padded_rows(8 * n_shards)
+            pack_bits = packing.pack_bits_for(nbins, npad)
+        pad = npad - n
+
+        def codes_padded():
+            return np.concatenate([bm.codes,
+                                   np.zeros((pad, F), bm.codes.dtype)])
+
+        store = None
+        codes_d = None
+        if ooc_blocks:
+            from .block_store import BlockStore
+
+            def build_store():
+                return BlockStore.from_codes(
+                    codes_padded(), n_blocks=ooc_blocks, pack_bits=pack_bits,
+                    register=not use_cache, device=dev)
+
+            store = (_dsc.blocked_codes(
+                train, x, nbins, tp["histogram_type"], seed, npad,
+                build_store, pack_bits, ooc_blocks, dev) if use_cache
+                else build_store())
+        else:
+            def build_codes():
+                # the resident matrix stays packed; each tree widens it once
+                codes_p = codes_padded()
+                return torch.from_numpy(
+                    packing.pack_host(codes_p, pack_bits) if pack_bits
+                    else packing.device_codes(codes_p)).to(dev)
+
+            codes_d = (_dsc.device_codes(
+                train, x, nbins, tp["histogram_type"], seed, npad,
+                build_codes, pack_bits, dev) if use_cache else build_codes())
         y_d = torch.from_numpy(np.concatenate([yk, np.zeros((pad, K), np.float32)])).to(dev)
         w_d = torch.from_numpy(np.concatenate([w, np.zeros(pad, np.float32)])).to(dev)
         edges = np.full((F, nbins - 2), np.float32(np.inf), np.float32)
@@ -914,9 +1106,11 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # XGBoost's leaf-wise growth (grow_policy="lossguide") builds each
         # tree with `build_tree_lossguide`, which never compacts
         lossguide = tp.get("grow_policy", "depthwise") == "lossguide"
+        # the streamed level loop is dense only, so a streamed fit never
+        # compacts; it equals the blocks-lane fit of its S up to depth 12
         compact_cap = (max(2, int(os.environ.get("H2O3_COMPACT_CAP", 4096)) // 2 * 2)
                        if tp["max_depth"] > 12 and obj_fn is None
-                       and not lossguide else 0)
+                       and not lossguide and not ooc_blocks else 0)
         lr = tp["learn_rate"] if not drf else 1.0
         if oob:
             oob_sum = torch.zeros((npad, K), dtype=torch.float32, device=dev)
@@ -961,6 +1155,20 @@ class H2OSharedTreeEstimator(H2OEstimator):
             bool(self._parms.get("score_each_iteration"))
             or obj_fn is not None or dart is not None))
         max_runtime = float(self._parms.get("max_runtime_secs") or 0)
+        stream = stream0 = None
+        if ooc_blocks:
+            from .tree_stream import StreamedTreeStep
+
+            stream = StreamedTreeStep(
+                store, npad=npad, max_depth=tp["max_depth"], nbins=nbins,
+                hist_method=tp["hist_method"], min_rows=tp["min_rows"],
+                min_split_improvement=tp["min_split_improvement"],
+                reg_lambda=tp["reg_lambda"], reg_alpha=tp["reg_alpha"],
+                max_abs_leaf=cap, mtries_rate=mtries_rate, seed=seed,
+                goss=goss_cfg)
+            stream0 = dict(store.counters)
+            store.peak_window_start()      # this fit's resident watermark
+        loss_blocks = n_shards if shard_mode == "blocks" else 0
         _sync(dev)
         t_up = time.perf_counter()
         t_budget = time.time()
@@ -1050,18 +1258,23 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         reg_lambda=tp["reg_lambda"],
                         reg_alpha=tp["reg_alpha"], max_abs_leaf=cap,
                         hist_method=tp["hist_method"], pack_bits=pack_bits,
-                        mtries_rate=mtries_rate, key=ktree,
-                        compact_cap=cap_slots)
+                        n_shard_blocks=n_shards, mtries_rate=mtries_rate,
+                        key=ktree, compact_cap=cap_slots)
 
-                out = grow(compact_cap)
-                if compact_cap and int(out[4]) > 0:
-                    # exactness is never traded: the same tree (same keys),
-                    # grown with dense levels
-                    dense_rebuilds += 1
-                    out = grow(0)
-                tr, leaf_idx, gain_f, cover = out[:4]
-                tr = tr._replace(value=tr.value * torch.tensor(scale, device=dev))
-                leaf_vals = treelib.value_at(tr.value, leaf_idx)
+                scale_d = torch.tensor(scale, device=dev)
+                if stream is not None:
+                    tr, leaf_vals, gain_f, cover = stream(
+                        g, h, wt, fm, edges_d, ktree, m, scale_d)
+                else:
+                    out = grow(compact_cap)
+                    if compact_cap and int(out[4]) > 0:
+                        # exactness is never traded: the same tree (same
+                        # keys), grown with dense levels
+                        dense_rebuilds += 1
+                        out = grow(0)
+                    tr, leaf_idx, gain_f, cover = out[:4]
+                    tr = tr._replace(value=tr.value * scale_d)
+                    leaf_vals = treelib.value_at(tr.value, leaf_idx)
                 margins[:, k] += leaf_vals
                 if oob:
                     # out-of-bag: rows this tree did not sample take its vote
@@ -1116,7 +1329,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
                                            oob_mean * built, yk, built)
                 else:
                     val = float(_event_loss(margins, y_d, n, 1.0 / built,
-                                            self._mode, problem, dist))
+                                            self._mode, problem, dist,
+                                            n_blocks=loss_blocks))
                 ev = _event_record(problem, built, val)
                 if valid is not None:
                     vval = float(_event_loss(margins_v, y_v, n_v, 1.0 / built,
@@ -1167,6 +1381,28 @@ class H2OSharedTreeEstimator(H2OEstimator):
         if dart is not None:
             model.dart_scales = dart_scales   # per round, baked into values
         model._npad = npad     # CV passes this to re-bin folds as _npad_floor
+        if stream is not None:
+            # the fit's stream: blocks and bytes moved, resident peaks
+            delta = {k2: store.counters[k2] - stream0[k2]
+                     for k2 in store.counters}
+            model._stream_stats = dict(
+                blocks=int(ooc_blocks),
+                blocks_uploaded=delta["uploaded"],
+                blocks_evicted=delta["evicted"],
+                blocks_reused=delta["reused"],
+                streamed_bytes=delta["bytes_streamed"],
+                bytes_per_tree=int(delta["bytes_streamed"]
+                                   / max(len(trees[0]), 1)),
+                resident_block_peak=int(store.peak_window_bytes()),
+                spilled_blocks=delta["spilled"],
+                restored_blocks=delta["restored"],
+                spilled_bytes=delta["bytes_spilled"],
+                restored_bytes=delta["bytes_restored"],
+                disk_bytes=int(store.disk_bytes()),
+                resident_host_peak=int(store.host_peak_window_bytes()),
+                goss=bool(goss_cfg))
+            if not use_cache:
+                store.close()      # the fit owns a store the cache does not
         model.scoring_history = ScoringHistory(history)
         gain_total = gains.cpu().numpy().astype(np.float64)
         if gain_total.sum() > 0:

@@ -153,6 +153,121 @@ def value_at(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.to(torch.int64)]
 
 
+class LevelRule:
+    """The per-level arithmetic of a dense depth-wise level, shared by
+    `build_tree` and the streamed step (`tree_stream.py`), which must
+    compute the same bits: Newton node values, the fused split search with
+    its gain-per-feature fold, and the raw thresholds."""
+
+    def __init__(self, feat_mask: torch.Tensor, edges: torch.Tensor,
+                 nbins: int, min_rows: float, min_split_improvement: float,
+                 reg_lambda: float, reg_alpha: float,
+                 max_abs_leaf: Optional[float]):
+        F = edges.shape[0]
+        self.feat_mask = feat_mask
+        self.nbins = nbins
+        self.min_rows = min_rows
+        self.min_split_improvement = min_split_improvement
+        self.reg_lambda = reg_lambda
+        self.reg_alpha = reg_alpha
+        self.max_abs_leaf = max_abs_leaf
+        self.pad_edges = torch.cat(
+            [edges.to(torch.float32),
+             torch.full((F, 1), _INF, dtype=torch.float32,
+                        device=edges.device)], dim=1)
+        self.gain_per_feature = torch.zeros(F, dtype=torch.float32,
+                                            device=edges.device)
+
+    def newton(self, gs: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
+        v = -_tl1(gs, self.reg_alpha) / (hs + self.reg_lambda + 1e-12)
+        if self.max_abs_leaf is not None:
+            v = torch.clamp(v, -self.max_abs_leaf, self.max_abs_leaf)
+        return v.to(torch.float32)
+
+    @staticmethod
+    def totals(hist: torch.Tensor):
+        """(wsum, gsum, hsum) per node (the same for every feature)."""
+        return (hist[..., 0].sum(dim=2)[:, 0], hist[..., 1].sum(dim=2)[:, 0],
+                hist[..., 2].sum(dim=2)[:, 0])
+
+    def search(self, hist, node_ok, keep, gsum, hsum, wsum):
+        """(do_split, feature, bin, raw threshold) per node. The split
+        gains fold into `gain_per_feature` with `index_put_(accumulate=
+        True)`: node order on the CPU, and on the card a sorted fold in the
+        same order, so varimp has the same bits in every run (a float
+        `index_add_` there adds with atomics in no fixed order)."""
+        best_gain, bf, bb = _fused_level_best(
+            hist, node_ok, self.feat_mask, keep, self.nbins, self.min_rows,
+            self.reg_lambda, self.reg_alpha, gsum, hsum, wsum)
+        do = best_gain > max(self.min_split_improvement, 1e-10)
+        self.gain_per_feature.index_put_(
+            (bf.to(torch.int64),),
+            torch.where(do, best_gain, torch.zeros_like(best_gain)),
+            accumulate=True)
+        bthr = self.pad_edges[bf.to(torch.int64),
+                              torch.clamp(bb, max=self.nbins - 2).to(torch.int64)]
+        return do, bf, bb, bthr
+
+    def dense_level(self, heap: "Heap", d: int, hist: torch.Tensor,
+                    active: torch.Tensor, keep):
+        """Decide dense level d from its (2^d, F, B, 3) histogram: the
+        nodes' values and covers, then their splits, written into `heap`;
+        returns (do_split, feature, bin)."""
+        L = 2 ** d
+        base = L - 1
+        wsum, gsum, hsum = self.totals(hist)
+        heap.value[base:base + L] = self.newton(gsum, hsum)
+        heap.cover[base:base + L] = wsum
+        do_split, bf, bb, bthr = self.search(hist, active, keep, gsum, hsum,
+                                             wsum)
+        zero_i = torch.zeros_like(bf)
+        heap.feat[base:base + L] = torch.where(do_split, bf, zero_i)
+        heap.bin[base:base + L] = torch.where(do_split, bb, zero_i)
+        heap.thr[base:base + L] = torch.where(do_split, bthr,
+                                              torch.zeros_like(bthr))
+        heap.split[base:base + L] = do_split
+        return do_split, bf, bb
+
+    def leaf_level(self, heap: "Heap", max_depth: int, tot: torch.Tensor):
+        """The final level's values and covers from exact (2^D, 3) totals."""
+        basef = 2 ** max_depth - 1
+        T = heap_size(max_depth)
+        heap.value[basef:T] = self.newton(tot[:, 1], tot[:, 2])
+        heap.cover[basef:T] = tot[:, 0]
+
+
+class Heap:
+    """A tree's heap arrays under construction, one spare cell at index T
+    (the compact phase's writes of dead slots, the reference's scatter
+    ``mode="drop"``), cut off by `tree`."""
+
+    def __init__(self, max_depth: int, device: torch.device):
+        T = heap_size(max_depth)
+        self.T = T
+        self.feat = torch.zeros(T + 1, dtype=torch.int32, device=device)
+        self.bin = torch.zeros(T + 1, dtype=torch.int32, device=device)
+        self.thr = torch.zeros(T + 1, dtype=torch.float32, device=device)
+        self.split = torch.zeros(T + 1, dtype=torch.bool, device=device)
+        self.value = torch.zeros(T + 1, dtype=torch.float32, device=device)
+        self.cover = torch.zeros(T + 1, dtype=torch.float32, device=device)
+
+    def tree(self) -> Tree:
+        T = self.T
+        return Tree(self.feat[:T], self.bin[:T], self.thr[:T],
+                    self.split[:T], self.value[:T])
+
+
+def partition(codes: torch.Tensor, idx: torch.Tensor, bf: torch.Tensor,
+              bb: torch.Tensor, do_split: torch.Tensor,
+              pack_bits: int) -> torch.Tensor:
+    """A dense level's row partition: decided-leaf rows flow left,
+    splitters route by their code of the split feature; returns each row's
+    next level-local node (int64)."""
+    rf, rb, rs = bf[idx], bb[idx], do_split[idx]
+    go_right = (_row_code(codes, rf, pack_bits) > rb) & rs
+    return 2 * idx + go_right.to(torch.int64)
+
+
 def compact_switch_depth(max_depth: int, compact_cap: int) -> int:
     """First level handled by active-node compaction (max_depth = never):
     the first level wider than the cap. Shared by `build_tree` and
@@ -243,21 +358,15 @@ def build_tree(
     N = (packing.packed_nrows(codes.shape[0], pack_bits) if pack_bits
          else codes.shape[0])
     T = heap_size(max_depth)
-    # one spare cell at index T takes the compact phase's writes of dead
-    # slots (the reference's scatter mode="drop"); it is cut off at the end
-    feat_a = torch.zeros(T + 1, dtype=torch.int32, device=dev)
-    bin_a = torch.zeros(T + 1, dtype=torch.int32, device=dev)
-    thr_a = torch.zeros(T + 1, dtype=torch.float32, device=dev)
-    split_a = torch.zeros(T + 1, dtype=torch.bool, device=dev)
-    value_a = torch.zeros(T + 1, dtype=torch.float32, device=dev)
-    cover_a = torch.zeros(T + 1, dtype=torch.float32, device=dev)
+    heap = Heap(max_depth, dev)
+    feat_a, bin_a, thr_a = heap.feat, heap.bin, heap.thr
+    split_a, value_a, cover_a = heap.split, heap.value, heap.cover
+    rule = LevelRule(feat_mask, edges, nbins, min_rows, min_split_improvement,
+                     reg_lambda, reg_alpha, max_abs_leaf)
+    newton, totals, search = rule.newton, rule.totals, rule.search
 
     idx = torch.zeros(N, dtype=torch.int64, device=dev)   # level-local node
     active = torch.ones(1, dtype=torch.bool, device=dev)
-    gain_per_feature = torch.zeros(F, dtype=torch.float32, device=dev)
-    pad_edges = torch.cat(
-        [edges.to(torch.float32),
-         torch.full((F, 1), _INF, dtype=torch.float32, device=dev)], dim=1)
     # the widened codes every level's histogram pass reads, in the layout of
     # the resolved method's kernel: built once per tree, a tree-lifetime
     # transient (the resident matrix stays packed)
@@ -279,32 +388,9 @@ def build_tree(
             pack_bits=pack_bits, n_shard_blocks=n_shard_blocks,
             codes_w=codes_w)
 
-    def newton(gs, hs):
-        v = -_tl1(gs, reg_alpha) / (hs + reg_lambda + 1e-12)
-        if max_abs_leaf is not None:
-            v = torch.clamp(v, -max_abs_leaf, max_abs_leaf)
-        return v.to(torch.float32)
-
-    def totals(hist):
-        return (hist[..., 0].sum(dim=2)[:, 0], hist[..., 1].sum(dim=2)[:, 0],
-                hist[..., 2].sum(dim=2)[:, 0])
-
-    def search(hist, node_ok, keep, gsum, hsum, wsum):
-        best_gain, bf, bb = _fused_level_best(
-            hist, node_ok, feat_mask, keep, nbins, min_rows, reg_lambda,
-            reg_alpha, gsum, hsum, wsum)
-        do = best_gain > max(min_split_improvement, 1e-10)
-        gain_per_feature.index_add_(
-            0, bf.to(torch.int64),
-            torch.where(do, best_gain, torch.zeros_like(best_gain)))
-        bthr = pad_edges[bf.to(torch.int64),
-                         torch.clamp(bb, max=nbins - 2).to(torch.int64)]
-        return do, bf, bb, bthr
-
     hist_prev = None
     for d in range(min(d_switch, max_depth)):
         L = 2 ** d
-        base = L - 1                        # heap offset of this level
         if d == 0:
             hist = hist_pass(idx, w, L)
         else:
@@ -316,41 +402,27 @@ def build_tree(
                 (L,) + tuple(hist_left.shape[1:]))
         hist_prev = hist
 
-        wsum, gsum, hsum = totals(hist)     # (L,) totals (same for all F)
-        value_a[base:base + L] = newton(gsum, hsum)
-        cover_a[base:base + L] = wsum
-
         keep = None
         if rate is not None:
             key, keep = _keep_mask(key, L, F, rate)
-        do_split, bf, bb, bthr = search(hist, active, keep, gsum, hsum, wsum)
-        zero_i = torch.zeros_like(bf)
-        feat_a[base:base + L] = torch.where(do_split, bf, zero_i)
-        bin_a[base:base + L] = torch.where(do_split, bb, zero_i)
-        thr_a[base:base + L] = torch.where(do_split, bthr, torch.zeros_like(bthr))
-        split_a[base:base + L] = do_split
-
-        # partition: decided-leaf rows flow left; splitters route by code
-        rf, rb, rs = bf[idx], bb[idx], do_split[idx]
-        go_right = (_row_code(codes, rf, pack_bits) > rb) & rs
-        idx = 2 * idx + go_right.to(torch.int64)
+        do_split, bf, bb = rule.dense_level(heap, d, hist, active, keep)
+        if row_leaf is not None:
+            rs = do_split[idx]
+        idx = partition(codes, idx, bf, bb, do_split, pack_bits)
         if row_leaf is not None:
             row_leaf = torch.where(rs, (2 ** (d + 1) - 1) + idx, row_leaf)
         active = torch.repeat_interleave(do_split, 2)
 
     def finish(leaf):
-        return (Tree(feat_a[:T], bin_a[:T], thr_a[:T], split_a[:T], value_a[:T]),
-                leaf, gain_per_feature, cover_a[:T])
+        return (heap.tree(), leaf, rule.gain_per_feature, cover_a[:T])
 
     if d_switch >= max_depth:
         # final level: leaf values from exact per-cell totals
         Lf = 2 ** max_depth
-        basef = Lf - 1
         tot = _leaf_totals(idx, torch.stack([w, g * w, h * w]), Lf,
                            n_shard_blocks)
-        value_a[basef:T] = newton(tot[:, 1], tot[:, 2])
-        cover_a[basef:T] = tot[:, 0]
-        out = finish(idx + basef)
+        rule.leaf_level(heap, max_depth, tot)
+        out = finish(idx + Lf - 1)
         if compact_cap:
             return out + (torch.zeros((), dtype=torch.int32, device=dev),)
         return out

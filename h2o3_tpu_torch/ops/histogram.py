@@ -27,6 +27,17 @@ within rtol 1e-5. B2 sums in f32.
 
 Every call counts its resolved method in `DISPATCH`, the stand-in for the
 reference's `_record_selection` registry counters.
+
+``n_shard_blocks`` (the blocked reduction: S equal contiguous row blocks,
+each one kernel pass, their partials folded in block order by
+`ordered_axis_fold`) is the in-core half of the out-of-core contract: the
+blocks lane (``H2O3_TREE_SHARD=1``) sets it, and the streamed step
+(`models/tree_stream.py`) runs the same per-block passes through
+`run_block_kernel` on blocks it uploads one at a time, so the two fold the
+same partials and agree bit for bit. B1's fixed-point scale is set per
+pass from that pass's rows (`hist_cuda.fixed_shifts`), so a block's
+partial carries its own rounding: a blocked fit equals a blocked fit of
+the same S, not the unblocked one.
 """
 
 from __future__ import annotations
@@ -101,6 +112,22 @@ def _run_kernel(method: str, codes_w, node, vals, n_nodes: int, nbins: int):
     if method == "pallas":
         return hist_cuda.hist_build_rows(codes_w, node, vals, n_nodes, nbins)
     return hist_cuda.hist_build(codes_w, node, vals, n_nodes, nbins)
+
+
+def run_block_kernel(method: str, codes: torch.Tensor, node_id: torch.Tensor,
+                     vals: torch.Tensor, n_nodes: int, nbins: int,
+                     pack_bits: int = 0) -> torch.Tensor:
+    """One resolved method over one contiguous row block: B1
+    (`hist_cuda.hist_build`) or B2 (`hist_cuda.hist_build_rows`) on the
+    card, `segment` or the rows plain twin on the CPU. `codes` is the
+    block's own (packed) (rows, F) matrix, widened here into one contiguous
+    tensor of the method's layout; `vals` is its (3, rows) {w, g·w, h·w}.
+    The partial equals the same block's partial of `build_histograms` with
+    ``n_shard_blocks``, which is what makes a streamed fit bit-identical to
+    the in-core blocks-lane fit."""
+    return _run_kernel(method, widen(codes, pack_bits, method),
+                       node_id.to(torch.int32).contiguous(),
+                       vals.contiguous(), n_nodes, nbins)
 
 
 def build_histograms(

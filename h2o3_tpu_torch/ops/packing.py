@@ -1,7 +1,8 @@
 """Sub-byte bin-code packing — the device-resident compressed code matrix.
 
 Port of `h2o3_tpu/ops/packing.py`. The host half (`pack_bits_for`,
-`pack_host`, `unpack_host`) is a numpy copy and must stay byte-identical to
+`pack_host`, `pack_host_range`, `unpack_host`) is a numpy copy and must
+stay byte-identical to
 the reference; the device half (`unpack_device`, `packed_row_values`) is
 torch. Layout: codes are packed ALONG ROWS in fixed groups so any row slice
 at a group boundary unpacks standalone:
@@ -76,6 +77,21 @@ def pack_host(codes: np.ndarray, bits: int) -> np.ndarray:
     out[1::3] = ((b & 0xF) << 4) | (c >> 2)
     out[2::3] = ((c & 0x3) << 6) | d
     return out
+
+
+def pack_host_range(codes: np.ndarray, bits: int, r0: int, r1: int) -> np.ndarray:
+    """Pack rows ``[r0, r1)`` of a full-width code matrix: one streamed
+    block's bitstream (`models.block_store`), built from a view of its rows
+    and never from a whole-matrix packed transient. `r0` and `r1` must sit
+    on pack-group boundaries (block grids are multiples of 8 rows and every
+    group size divides 8), so the block is byte-identical to the same slice
+    of a whole-matrix `pack_host`."""
+    group = GROUP_ROWS[bits]
+    if r0 % group or r1 % group:
+        raise ValueError(
+            f"block [{r0}, {r1}) is not aligned to the {group}-row pack "
+            f"group of {bits}-bit codes")
+    return pack_host(codes[r0:r1], bits)
 
 
 def unpack_host(packed: np.ndarray, bits: int) -> np.ndarray:

@@ -7,12 +7,15 @@ and operators arm specific failure points without touching product code.
 Every wired call site costs one dict lookup when nothing is armed (the
 `_ACTIVE` fast path).
 
-The port wires two points so far: ``serving.scorer`` raises inside the
-compiled scorer's call (`serving/model_cache.CompiledScorer.score`), and
+The port wires these points: ``serving.scorer`` raises inside the
+compiled scorer's call (`serving/model_cache.CompiledScorer.score`),
 ``trainpool.candidate`` before each attempt at a train-pool candidate
-(`runtime/trainpool.TrainPool`, the candidate's name as the detail). The
-reference's other points (persist, client, mesh, qos, supervisor) arrive
-with their modules (ROADMAP queue A, item 11).
+(`runtime/trainpool.TrainPool`, the candidate's name as the detail), and
+``persist.open``, ``persist.read`` and ``persist.list`` in the local-file
+persist backend (`runtime/persist.py`, the path as the detail), which the
+block store's disk tier reads its spill files through. The reference's
+other points (client, mesh, qos, supervisor) arrive with their modules
+(ROADMAP queue A, item 11).
 
 Arming — programmatic or env:
 

@@ -1,12 +1,15 @@
 """Memory ledger — host + device byte accounting for the port's subsystems.
 
-A copy of the parts of `h2o3_tpu/runtime/memory_ledger.py` that the serving
-path reaches: owner registration (the DKV's `dkv:<key>` owners and the
-scorer cache's `scorer:<model_key>:<kind>` owners), the one deep sizer
-`measure`, the refresh pass with its leak scan, watermarks and gauges, and
-the `pressure()` signal admission control sheds on. The reference's job-leak
-check, ingest buffers and dataset-cache owners arrive with their modules
-(ROADMAP queue A, items 7 and 11).
+A copy of the parts of `h2o3_tpu/runtime/memory_ledger.py` that the
+port's subsystems reach: owner registration (the DKV's `dkv:<key>` owners,
+the scorer cache's `scorer:<model_key>:<kind>` owners, the dataset cache's
+`dataset_cache:<fp>:<layer>` owners and the block store's
+`block_store:<id>` owners with their `<owner>:spill` disk owners), the one
+deep sizer `measure`, the refresh pass with its leak scan over the host,
+device and disk spaces, watermarks and gauges, the `memory` lifecycle
+events, and the `pressure()` signal that admission control and the
+dataset cache shed on. The reference's job-leak check and ingest buffers
+arrive with their modules (ROADMAP queue A, item 11).
 
 Where the reference met the device, the port reads torch:
 
@@ -17,7 +20,13 @@ Where the reference met the device, the port reads torch:
   allocator holds for live tensors) and `torch.cuda.mem_get_info` (the
   card's capacity) for every device of an initialised CUDA context. It
   never initialises one: with no context there are no device buffers to
-  probe.
+  probe. `device_capacity_bytes(device)` asks the card it is given, which
+  the out-of-core stream budget is half of.
+
+A byte callback returns (host, device) or (host, device, disk): the third
+element is the bytes of files an owner keeps on disk (the block store's
+spill files, counted from the filesystem, so a store dropped without
+`close()` leaves a dead owner that still reports them: a leak).
 
 Design — an *accountant*, not an allocator: owners register byte callbacks
 and an optional weakref *referent* whose death marks the owner dead;
@@ -37,6 +46,7 @@ import os
 import threading
 import time
 import weakref
+import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -44,7 +54,8 @@ import torch
 from . import env_float, env_int
 
 __all__ = ["register", "unregister", "unregister_prefix", "record_event",
-           "measure", "refresh", "pressure", "owners", "clear"]
+           "measure", "refresh", "pressure", "owners", "clear",
+           "evict_threshold", "device_capacity_bytes", "fingerprint"]
 
 # how stale a cached refresh may be before a read recomputes (the
 # admission-path pressure() rides this)
@@ -63,7 +74,7 @@ _LOCK_TYPE = type(threading.Lock())
 class _Owner:
     __slots__ = ("owner", "kind", "type_name", "bytes_fn", "ref", "dead",
                  "leaked", "t_register", "last_host", "last_device",
-                 "__weakref__")
+                 "last_disk", "__weakref__")
 
     def __init__(self, owner: str, kind: str, type_name: str,
                  bytes_fn: Callable[[], Tuple[int, int]]):
@@ -77,6 +88,7 @@ class _Owner:
         self.t_register = time.time()
         self.last_host = 0
         self.last_device = 0
+        self.last_disk = 0
 
 
 _REG_LOCK = threading.Lock()       # guards _OWNERS only
@@ -88,11 +100,11 @@ _STATE_LOCK = threading.Lock()     # guards the cached-result REFERENCE
 # readers got handed this dict lock-free
 _STATE: Dict = dict(
     t=0.0, by_kind={}, totals=dict(host_bytes=0, device_bytes=0,
-                                   leaked_bytes=0,
+                                   disk_bytes=0, leaked_bytes=0,
                                    unaccounted_device_bytes=0,
                                    owner_count=0),
     owners=[], leaks=[], device={}, pressure={})
-_HWM = dict(host=0, device=0)
+_HWM = dict(host=0, device=0, disk=0)
 _PRESS_HIGH = [False]
 
 _TLS = threading.local()           # .seen — per-refresh measure dedup set
@@ -133,6 +145,7 @@ def _registry() -> Dict:
             labelnames=("event", "owner_kind"))
         for f, m in (("host_bytes", "h2o3_memory_bytes"),
                      ("device_bytes", "h2o3_memory_bytes"),
+                     ("disk_bytes", "h2o3_memory_bytes"),
                      ("unaccounted_device_bytes", "h2o3_memory_bytes"),
                      ("leaked_bytes", "h2o3_memory_leaked_bytes"),
                      ("owner_count", "h2o3_memory_owners")):
@@ -154,6 +167,32 @@ def _host_budget_bytes() -> int:
     except OSError:
         pass
     return 16 << 30
+
+
+def evict_threshold() -> float:
+    """Pressure above which byte caches (the dataset cache, the block
+    store's device and host tiers) shed."""
+    return env_float("H2O3_MEM_EVICT_PRESSURE", 0.9)
+
+
+def device_capacity_bytes(device=None) -> int:
+    """Device byte capacity as the ledger sees it: the card's total memory
+    (`torch.cuda.mem_get_info`) for a CUDA `device`, else the probe's
+    capacity, else ``H2O3_DEVICE_BUDGET_MB`` or the host budget (a CPU
+    fit's "device" is host memory). The out-of-core stream budget derives
+    from this one number."""
+    if device is not None and torch.device(device).type == "cuda":
+        return int(torch.cuda.mem_get_info(torch.device(device))[1])
+    cap = int(_probe_device().get("capacity_bytes", 0))
+    if cap:
+        return cap
+    mb = env_float("H2O3_DEVICE_BUDGET_MB", 0.0)
+    return int(mb * 1e6) if mb > 0 else _host_budget_bytes()
+
+
+def fingerprint(key) -> str:
+    """Short stable digest for owner ids built from unhashable-ish keys."""
+    return "%08x" % (zlib.crc32(repr(key).encode()) & 0xFFFFFFFF)
 
 
 def _rss_bytes() -> int:
@@ -279,7 +318,7 @@ def register(owner: str, kind: str, *,
              bytes_fn: Callable[[], Tuple[int, int]],
              referent=None, type_name: str = "") -> str:
     """Register (or replace) a byte owner. `bytes_fn` returns (host,
-    device). `referent` is the object whose death marks the owner dead
+    device) or (host, device, disk). `referent` is the object whose death marks the owner dead
     (weakref-backed — never pinned); callbacks must not strongly hold the
     referent either, or the ledger itself becomes the leak it exists to
     find."""
@@ -306,16 +345,19 @@ def _mark_dead(owner_ref) -> None:
 
 
 def unregister(owner: str, *, event: Optional[str] = None,
-               trigger: str = "") -> bool:
-    """Remove an owner; optionally emit a lifecycle event sized by the
-    owner's last-refreshed bytes."""
+               nbytes: Optional[int] = None, trigger: str = "",
+               space: str = "host") -> bool:
+    """Remove an owner; optionally emit a lifecycle event sized by
+    `nbytes` (default: the owner's last-refreshed bytes)."""
     with _REG_LOCK:
         o = _OWNERS.pop(owner, None)
     if o is None:
         return False
     if event:
-        record_event(event, owner, o.last_host + o.last_device,
-                     trigger=trigger, kind=o.kind)
+        if nbytes is None:
+            nbytes = o.last_host + o.last_device + o.last_disk
+        record_event(event, owner, nbytes, trigger=trigger, space=space,
+                     kind=o.kind)
     return True
 
 
@@ -333,7 +375,7 @@ def owners(prefix: str = "") -> List[Dict]:
         items = [o for k, o in _OWNERS.items() if k.startswith(prefix)]
     return [dict(owner=o.owner, kind=o.kind, type=o.type_name,
                  host_bytes=o.last_host, device_bytes=o.last_device,
-                 dead=o.dead) for o in items]
+                 disk_bytes=o.last_disk, dead=o.dead) for o in items]
 
 
 def record_event(event: str, owner: str, nbytes: int = 0, *,
@@ -384,37 +426,41 @@ def _refresh_locked(now: float) -> Dict:
         rows: List[Dict] = []
         leaks: List[Dict] = []
         retire: List[_Owner] = []
-        host_total = dev_total = leaked = 0
+        host_total = dev_total = disk_total = leaked = 0
         for o in owner_objs:
             try:
                 vals = o.bytes_fn()
                 h, d = int(vals[0]), int(vals[1])
+                k = int(vals[2]) if len(vals) > 2 else 0
             except Exception:
-                h = d = 0
-            o.last_host, o.last_device = h, d
+                h = d = k = 0
+            o.last_host, o.last_device, o.last_disk = h, d, k
             if o.dead:
-                if h + d <= 0:
+                if h + d + k <= 0:
                     if o.leaked:
                         record_event("leak_cleared", o.owner, 0,
                                      kind=o.kind)
                     retire.append(o)
                     continue
-                leaked += h + d
+                leaked += h + d + k
                 leaks.append(dict(owner=o.owner, kind=o.kind,
-                                  bytes=h + d, reason="referent_dead"))
+                                  bytes=h + d + k, reason="referent_dead"))
                 if not o.leaked:
                     o.leaked = True
-                    record_event("leak", o.owner, h + d,
+                    record_event("leak", o.owner, h + d + k,
                                  trigger="referent_dead", kind=o.kind,
-                                 space="device" if d else "host")
+                                 space="disk" if (k and not d and not h)
+                                 else ("device" if d else "host"))
             host_total += h
             dev_total += d
-            agg = by_kind.setdefault(o.kind, [0, 0, 0])
+            disk_total += k
+            agg = by_kind.setdefault(o.kind, [0, 0, 0, 0])
             agg[0] += h
             agg[1] += d
-            agg[2] += 1
-            rows.append(dict(owner=o.owner, kind=o.kind,
-                             host_bytes=h, device_bytes=d, dead=o.dead))
+            agg[2] += k
+            agg[3] += 1
+            rows.append(dict(owner=o.owner, kind=o.kind, host_bytes=h,
+                             device_bytes=d, disk_bytes=k, dead=o.dead))
     finally:
         _TLS.seen = None
     with _REG_LOCK:
@@ -447,14 +493,18 @@ def _refresh_locked(now: float) -> Dict:
     # watermarks
     _HWM["host"] = max(_HWM["host"], host_total)
     _HWM["device"] = max(_HWM["device"], dev_total)
+    _HWM["disk"] = max(_HWM["disk"], disk_total)
 
     # gauges (zero kinds that vanished so stale series don't lie)
     seen_labels = set()
-    for kind, (h, d, _n) in by_kind.items():
+    for kind, (h, d, k, _n) in by_kind.items():
         reg["bytes"].set(h, kind, "host")
         reg["bytes"].set(d, kind, "device")
         seen_labels.add((kind, "host"))
         seen_labels.add((kind, "device"))
+        if k:
+            reg["bytes"].set(k, kind, "disk")
+            seen_labels.add((kind, "disk"))
     reg["bytes"].set(unaccounted, "unaccounted", "device")
     seen_labels.add(("unaccounted", "device"))
     for lv in reg["bytes"].children():
@@ -462,18 +512,21 @@ def _refresh_locked(now: float) -> Dict:
             reg["bytes"].set(0, *lv)
     reg["hwm"].set(_HWM["host"], "host")
     reg["hwm"].set(_HWM["device"], "device")
+    reg["hwm"].set(_HWM["disk"], "disk")
     reg["leaked"].set(leaked)
     reg["owners"].set(n_owners)
     reg["pressure"].set(round(press, 4))
 
-    rows.sort(key=lambda r: -(r["host_bytes"] + r["device_bytes"]))
+    rows.sort(key=lambda r: -(r["host_bytes"] + r["device_bytes"]
+                              + r["disk_bytes"]))
     state = dict(
         t=now,
         totals=dict(host_bytes=host_total, device_bytes=dev_total,
-                    leaked_bytes=leaked,
+                    disk_bytes=disk_total, leaked_bytes=leaked,
                     unaccounted_device_bytes=unaccounted,
                     owner_count=n_owners),
-        by_kind={k: dict(host_bytes=v[0], device_bytes=v[1], owners=v[2])
+        by_kind={k: dict(host_bytes=v[0], device_bytes=v[1],
+                         disk_bytes=v[2], owners=v[3])
                  for k, v in sorted(by_kind.items())},
         owners=rows[:_SNAPSHOT_OWNERS],
         leaks=leaks,
@@ -507,5 +560,5 @@ def clear() -> None:
         _OWNERS.clear()
     with _STATE_LOCK:
         _STATE = dict(_STATE, t=0.0)   # rebind: readers hold the old dict
-    _HWM.update(host=0, device=0)
+    _HWM.update(host=0, device=0, disk=0)
     _PRESS_HIGH[0] = False

@@ -9,12 +9,18 @@ design's host pack), ``h2d`` (uploads and the design's expansion on the
 device), ``compute`` (the tree, step or solver loop) and ``metrics``
 (scoring events on the host, training and validation metrics):
 `book_fit` folds a fit's `fit_timings` into them. Outside a sink `add`
-books nothing.
+books no candidate seconds.
 
-The reference's process-wide totals (`timed`, `snapshot`, `reset`, the
-transfer bytes), its XLA compile/retrace tracker and its jax monitoring
-listener have no reader in the port yet: they wait for the profiler work
-of ROADMAP queue A, item 9.
+Every `add` also lands in the process-wide totals that `snapshot` reads:
+seconds and bytes per phase. The out-of-core tree path books its
+transfers there: ``h2d_stream`` (packed code blocks uploaded by the block
+store, bytes; an upload on the card is asynchronous, so it books 0 s and
+its time shows in the streamed step's wall) and ``disk_stream`` (the
+disk tier's spill writes and restores, host-clock seconds and bytes).
+
+The reference's `timed` context, its XLA compile/retrace tracker and its
+jax monitoring listener have no reader in the port yet: they wait for the
+profiler work of ROADMAP queue A, item 9.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from contextlib import contextmanager
 # from that thread lands in it, so the pool can report each candidate's
 # split even when several candidates train at once
 _TLS = threading.local()
+_LOCK = threading.Lock()
+_TOTALS: dict = {}          # phase -> [seconds, bytes]
 
 
 @contextmanager
@@ -41,10 +49,27 @@ def candidate_sink():
         _TLS.sink = prev
 
 
-def add(phase: str, secs: float) -> None:
+def add(phase: str, secs: float, nbytes: int = 0) -> None:
     sink = getattr(_TLS, "sink", None)
     if sink is not None:   # thread-local — no lock needed
         sink[phase] = sink.get(phase, 0.0) + secs
+    with _LOCK:
+        t = _TOTALS.setdefault(phase, [0.0, 0])
+        t[0] += secs
+        t[1] += int(nbytes)
+
+
+def snapshot() -> dict:
+    """Process-wide totals: ``<phase>`` seconds and ``bytes_<phase>``."""
+    with _LOCK:
+        out = {k: v[0] for k, v in _TOTALS.items()}
+        out.update({f"bytes_{k}": v[1] for k, v in _TOTALS.items() if v[1]})
+    return out
+
+
+def reset() -> None:
+    with _LOCK:
+        _TOTALS.clear()
 
 
 # a fit's `fit_timings` keys (the host-clock splits the port's fit loops

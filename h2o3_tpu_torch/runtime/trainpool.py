@@ -45,15 +45,16 @@ their next safe point and skips the ones not started.
 Observability: per-candidate wall seconds and the phase split booked
 through `runtime/phases.candidate_sink` (host_prep / h2d / compute /
 metrics), pool occupancy (busy worker-seconds ÷ wall·parallelism), and the
-hardening counters (retried / watchdog_cancelled / resumed), read by
+hardening counters (retried / watchdog_cancelled / resumed), and the
+CV fold counters (`record_cv_fold`: folds that slice the parent's
+binned codes vs folds that re-bin, `h2o3_train_cv_folds{mode}`), read by
 `snapshot()`.
 
 Not ported: the QoS admission gate the reference passes each candidate
 through (`qos.admission_gate`) is ROADMAP queue A, item 11 (QoS, both
 halves); the retry of a watchdog-cancelled candidate from its fit-level
 checkpoints needs the supervisor (items 5 and 9), so a watchdog kill here
-always records the candidate failed; the CV fold counters
-(`record_cv_fold`) wait for the dataset cache (item 7); the reference's
+always records the candidate failed; the reference's
 ``H2O3_TRAIN_LEGACY`` switch, a sequential walk outside the pool for its
 benchmark's comparator, waits for the port's first benchmark (item A5e).
 """
@@ -80,6 +81,7 @@ _LOCK = threading.Lock()
 _TOTALS = dict(pools=0, submitted=0, completed=0, failed=0, cancelled=0,
                skipped=0, retried=0, watchdog_cancelled=0, resumed=0,
                busy_s=0.0, wall_s=0.0)
+_CV = dict(reuse_folds=0, rebin_folds=0)
 _CANDIDATES: deque = deque(maxlen=64)   # the most recent candidates
 _LAST_POOL: Dict = {}
 # the process's retry budget that candidate retries spend from
@@ -106,8 +108,19 @@ def _registry():
                               "busy worker-seconds across pool candidates")
     c["wall_s"] = reg.counter("h2o3_train_wall_seconds",
                               "pool wall-seconds")
+    c["cv"] = reg.counter("h2o3_train_cv_folds",
+                          "CV folds by preparation mode",
+                          labelnames=("mode",))
     _REGISTRY = c
     return c
+
+
+def record_cv_fold(reused: bool) -> None:
+    """One CV fold fit: `reused` when it slices the parent fit's binned
+    codes, else a fold that re-bins its own rows."""
+    with _LOCK:
+        _CV["reuse_folds" if reused else "rebin_folds"] += 1
+    _registry()["cv"].inc(1, "reuse" if reused else "rebin")
 
 
 def record_resumed(n: int = 1) -> None:
@@ -440,16 +453,17 @@ def _record_candidate(label: str, rec: JobRecord, parallelism: int) -> None:
 
 
 def snapshot() -> Dict:
-    """The pool's totals, its recent candidates and the last pool's
-    entry."""
+    """The pool's totals, the CV fold counters, its recent candidates and
+    the last pool's entry."""
     with _LOCK:
         totals = dict(_TOTALS)
+        cv = dict(_CV)
         cands = list(_CANDIDATES)
         last = dict(_LAST_POOL) if _LAST_POOL else None
     busy, wall = totals.pop("busy_s"), totals.pop("wall_s")
     totals["busy_s"] = round(busy, 4)
     totals["wall_s"] = round(wall, 4)
-    return dict(totals=totals, candidates=cands, last_pool=last,
+    return dict(totals=totals, cv=cv, candidates=cands, last_pool=last,
                 active=totals["submitted"] > 0)
 
 
@@ -459,5 +473,6 @@ def reset() -> None:
                        cancelled=0, skipped=0, retried=0,
                        watchdog_cancelled=0, resumed=0,
                        busy_s=0.0, wall_s=0.0)
+        _CV.update(reuse_folds=0, rebin_folds=0)
         _CANDIDATES.clear()
         _LAST_POOL.clear()

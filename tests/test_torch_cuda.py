@@ -889,3 +889,92 @@ def test_item10_estimators_on_cuda_match_cpu(dev):
     for f in ("feat", "is_split"):
         assert torch.equal(getattr(lg[0].forest[0], f).cpu(),
                            getattr(lg[1].forest[0], f))
+
+
+# -- the out-of-core lane on the card -----------------------------------------
+
+_OOC_KNOBS = ("H2O3_TREE_OOC", "H2O3_STREAM_BLOCKS", "H2O3_STREAM_BUDGET_MB",
+              "H2O3_TREE_SHARD", "H2O3_TREE_SHARD_BLOCKS",
+              "H2O3_STREAM_HOST_BUDGET_MB", "H2O3_DATASET_CACHE")
+
+
+def _ooc_frame(n=20_000, seed=5):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    y = ((X[:, 0] + X[:, 1] * X[:, 2] + 0.5 * rng.normal(size=n)) > 0)
+    names = [f"f{i}" for i in range(8)] + ["label"]
+    return Frame.from_numpy(np.column_stack([X, y.astype(np.float32)]),
+                            names=names).asfactor("label")
+
+
+def _ooc_fit(mp, dev, fr, env, algo, **params):
+    for k in _OOC_KNOBS:
+        mp.delenv(k, raising=False)
+    mp.setenv("H2O3_DATASET_CACHE", "0")
+    for k, v in env.items():
+        mp.setenv(k, v)
+    cls = (H2OGradientBoostingEstimator if algo == "gbm"
+           else H2ORandomForestEstimator)
+    e = cls(seed=42, device=str(dev), **params)
+    e.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    return e.model
+
+
+def _same_forest(a, b):
+    assert a.ntrees_built == b.ntrees_built
+    for fa, fb in zip(a.forest, b.forest):
+        for f in fa._fields:
+            assert torch.equal(getattr(fa, f).cpu(), getattr(fb, f).cpu()), f
+    assert a.varimp_table == b.varimp_table
+
+
+_OOC_PARAMS = {"gbm": dict(ntrees=3, max_depth=5),
+               "drf": dict(ntrees=3, max_depth=8, hist_method="pallas",
+                           sample_rate=0.632, mtries=3)}
+
+
+@pytest.mark.parametrize("S", [4, 8])
+@pytest.mark.parametrize("algo", ["gbm", "drf"])
+def test_streamed_fit_on_cuda_equals_the_blocks_lane(dev, monkeypatch, algo,
+                                                     S):
+    """A streamed fit on the card (B1 for the GBM, B2 for the DRF) equals
+    the blocks-lane fit of the same S bit for bit, and launches one kernel
+    per block and level."""
+    fr = _ooc_frame()
+    params = _OOC_PARAMS[algo]
+    before = (hist_cuda.launches, hist_cuda.launches_rows)
+    a = _ooc_fit(monkeypatch, dev, fr, {
+        "H2O3_TREE_OOC": "1", "H2O3_STREAM_BLOCKS": str(S),
+        "H2O3_STREAM_BUDGET_MB": "0.05"}, algo, **params)
+    launched = (hist_cuda.launches - before[0],
+                hist_cuda.launches_rows - before[1])
+    b = _ooc_fit(monkeypatch, dev, fr, {
+        "H2O3_TREE_OOC": "0", "H2O3_TREE_SHARD": "1",
+        "H2O3_TREE_SHARD_BLOCKS": str(S)}, algo, **params)
+    assert a._stream_stats["blocks"] == S
+    assert a._stream_stats["blocks_evicted"] > 0
+    want = a.ntrees_built * params["max_depth"] * S
+    assert launched == ((want, 0) if algo == "gbm" else (0, want))
+    _same_forest(a, b)
+
+
+def test_prefetch_evicting_blocks_in_flight_keeps_the_forest(dev,
+                                                             monkeypatch):
+    """A resident budget of one block (floored at the double buffer): each
+    block's prefetch of the next evicts the one before while its kernels
+    and copies may still run. Twenty fits give one forest, the blocks
+    lane's."""
+    fr = _ooc_frame()
+    params = dict(ntrees=3, max_depth=5)
+    env = {"H2O3_TREE_OOC": "1", "H2O3_STREAM_BLOCKS": "8",
+           "H2O3_STREAM_BUDGET_MB": "0.000001"}
+    want = _ooc_fit(monkeypatch, dev, fr, {
+        "H2O3_TREE_OOC": "0", "H2O3_TREE_SHARD": "1",
+        "H2O3_TREE_SHARD_BLOCKS": "8"}, "gbm", **params)
+    for _ in range(20):
+        got = _ooc_fit(monkeypatch, dev, fr, env, "gbm", **params)
+        assert got._stream_stats["resident_block_peak"] <= \
+            2 * (got._stream_stats["streamed_bytes"]
+                 // max(got._stream_stats["blocks_uploaded"], 1))
+        _same_forest(got, want)

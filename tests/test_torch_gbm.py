@@ -152,10 +152,12 @@ def test_forest_from_numpy_predicts_like_the_jax_model(fits, kind):
                                    rtol=1e-6, atol=1e-6)
 
 
-# nfolds is ported: its case now holds the reference's check of nfolds=1
+# nfolds and goss are ported: their cases now hold the reference's checks
+# of nfolds=1 and of goss with row sampling
 @pytest.mark.parametrize("kw,error,match", [
     (dict(sample_rate_per_class=[0.5, 0.9]), NotImplementedError, "ROADMAP"),
-    (dict(goss=True), NotImplementedError, "ROADMAP"),
+    (dict(goss=True, sample_rate=0.5), ValueError,
+     "goss replaces row sampling"),
     (dict(balance_classes=True), NotImplementedError, "ROADMAP"),
     (dict(monotone_constraints={"f0": 1}), NotImplementedError, "ROADMAP"),
     (dict(nfolds=1), ValueError, "nfolds must be 0 \\(no CV\\) or >= 2"),
