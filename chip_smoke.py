@@ -529,6 +529,27 @@ holdout prediction.
    versions, one `index_add_` and the bytes bound: the
    hist_factored_stream and hist_rows_stream rows of the kernel table).
    The phase's walls are printed.
+40. The multi-process tree lane: ranks started as fresh interpreters
+   through `python -m h2o3_tpu_torch.parallel.launcher` (this script with
+   `--pod-rank`, after the kernels are built), rendezvousing through a
+   FileStore in a temporary directory and sharing the card over gloo; each
+   rank draws phase 39's frame, keeps only its own ingest rows (uneven
+   shards) and fits; every leg must equal this process's own blocks-lane
+   fit at S = 8 (`H2O3_TREE_SHARD=1`) bit for bit: forest, varimp,
+   scoring history, tree count, and each rank's `predict` on its ingest
+   rows against the same rows of the one-process `predict`. (a) Two ranks
+   (rows [0, 499,993) and the rest of POD_ROWS of config 1's 11,000,000),
+   the depth-6 UniformAdaptive GBM of 20 trees with a scoring interval of
+   5 and a stopper: B1 launched trees x 6 x 4 times a rank and nothing
+   else, each rank's device peak (the allocator's, over its fit) at most
+   0.75x the one-process fit's; the gathers (count, bytes, seconds). (b)
+   The same ranks and frame, a depth-12 DRF of 5 trees on B2 (sample rate
+   0.632, mtries, out-of-bag events every tree): B2 trees x 12 x 4 a rank.
+   (c) Four ranks on POD_QG_ROWS of the rows, a QuantilesGlobal GBM of 10
+   trees (edges from the global quantile collective): B1 trees x 6 x 2 a
+   rank. (d) Where the host shows two cards, (a) again with one card a
+   rank over NCCL; else a line says it did not run. Every wall is printed
+   beside the card's name and power limit; any child left is killed.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
@@ -542,7 +563,7 @@ fit, and phase 34 as a whole; phase 35's fits and `predict`s count
 their own launches, and its isolation forests fail if they launched
 one; so does phase 36 as a whole, and phase 37's CoxPH and PSVM, and phase
 38's encoder, Word2Vec, Aggregator and quantiles; phase 39's fits count
-their own).
+their own, and so do phase 40's, in each rank's process).
 TF32 must stay off
 through phases 17-19, 30, 31(d), 32, 36, 37 and 38. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
@@ -5023,8 +5044,9 @@ def dl_small_checks(dev, card):
 # three GBMs on AML_SMALL_ROWS rows to the CPU, and `parallelism=2` to 1 on
 # the card.
 # cut to 2 folds from the reference's 5 to keep the smoke's time
-# (tools/automl_higgs.py runs 5)
-AML_ROWS, AML_FOLDS, AML_SEED = 5_000, 2, 42
+# (tools/automl_higgs.py runs 5), and to 2,500 rows of HIGGS' 11,000,000
+# (5,000 before phase 40 took its room; the whole plan still runs)
+AML_ROWS, AML_FOLDS, AML_SEED = 2_500, 2, 42
 AML_SMALL_ROWS = 2_000
 # 33(b)'s AutoML: 3 base models (XGBoost_1-3) and the AllModels stack (one
 # family, so no BestOfFamily stack), cut from 6 (with GLM_1, DRF_1 and
@@ -5276,11 +5298,13 @@ def automl_small_grid(device: str, fr, parallelism: int) -> list:
                                        max_models=3, seed=AML_SEED),
         parallelism=parallelism)
     grid.train(y="label", training_frame=fr)
+    # a failed combo shows as its error, so a comparison names it
     return [dict(combo=m._grid_combo, auc=float(m.auc()),
                  logloss=float(m.logloss()),
                  predict=np.asarray(m.predict(fr).vec("1").data,
                                     np.float64).tolist())
-            for m in grid]
+            for m in grid] + [dict(combo=f["params"], failed=f["error"])
+                              for f in grid.failed]
 
 
 def automl_cpu_child(out_path: str) -> None:
@@ -5418,6 +5442,7 @@ def automl_small_checks(dev, card):
     gd = [max(abs(a["auc"] - b["auc"]), abs(a["logloss"] - b["logloss"]),
               float(np.abs(np.asarray(a["predict"])
                            - np.asarray(b["predict"])).max()))
+          if "failed" not in a and "failed" not in b else float("inf")
           for a, b in zip(g1, cpu["grid"])]
     out["grid_combos"] = [g["combo"] for g in g1]
     out["grid_diff"] = gd
@@ -5426,6 +5451,15 @@ def automl_small_checks(dev, card):
     # two candidates in flight on the card: the same grid, bit for bit
     out["grid_par2_equal"] = grids[2] == g1
     if not out["grid_par2_equal"]:
+        # what differs, model by model: combo, AUC, logloss, predictions
+        out["grid_par2_diff"] = [
+            dict(combo=(a["combo"], b["combo"]), auc=(a["auc"], b["auc"]),
+                 logloss=(a["logloss"], b["logloss"]),
+                 predict=float(np.abs(np.asarray(a["predict"])
+                                      - np.asarray(b["predict"])).max()))
+            if "failed" not in a and "failed" not in b else (a, b)
+            for a, b in zip(g1, grids[2])] + [
+            f"{len(g1)} entries at parallelism 1, {len(grids[2])} at 2"]
         bad.append("parallelism=2 gave another grid than 1")
     PHASE33_WALLS["b"] = time.perf_counter() - t_phase
     print(f"phase 33(b) on {card}, card vs cpu (tolerances by step "
@@ -7188,7 +7222,9 @@ PSVM_AUC_MARGIN = 0.1
 # loss) runs to its bound of 1000 steps from 30,000 splice-shaped rows up,
 # in both packages (CPU rehearsal, PERF.md §6): the gaussian fit must then
 # have run exactly that bound and still be descending at its last step
-RF37_ROWS, RF37_HOLDOUT = 100_000, 50_000   # cut from HIGGS' 11,000,000
+# cut from HIGGS' 11,000,000 (100,000 rows took 81.7 s, 50,000 66.0 s on an
+# H100 at 700 W: the lasso path, most of the wall, barely moves with rows)
+RF37_ROWS, RF37_HOLDOUT = 50_000, 50_000
 RF37 = dict(max_num_rules=100, seed=42)
 # (c)'s bar: the holdout AUC above a lasso GLM's on the 28 linear terms by
 # RF_AUC_MARGIN (CPU rehearsal, PERF.md §6)
@@ -7473,6 +7509,8 @@ def rulefit_higgs_path(dev, card, rows=RF37_ROWS, holdout=RF37_HOLDOUT):
     from h2o3_tpu_torch.ops import hist_cuda
 
     t_phase = time.perf_counter()
+    print(f"phase 37(c) cut: RuleFit on {rows} of config 1's 11,000,000 "
+          f"HIGGS rows and a {holdout}-row holdout", flush=True)
     X, y = make_higgs_like(rows + holdout, N_FEAT, seed=37)
     names = [f"f{i}" for i in range(N_FEAT)]
     fr_all = Frame.from_numpy(np.column_stack([X, y]),
@@ -9063,6 +9101,368 @@ def ooc_path(dev, card):
     return entries
 
 
+# -- phase 40: the multi-process tree lane -------------------------------------
+#
+# Ranks are fresh interpreters started through the port's launcher
+# (`python -m h2o3_tpu_torch.parallel.launcher --coordinator file://…
+# --nprocs N --rank r chip_smoke.py --pod-rank …`), sharing the card over
+# gloo (NCCL refuses two ranks on one device), rendezvousing through a
+# FileStore in a temporary directory. Each rank draws phase 39's HIGGS
+# frame from its seed, keeps only its own ingest shard of the rows (uneven,
+# so the canonical exchange moves rows), fits, and writes its record; the
+# smoke holds it against its own one-process blocks-lane fit at S = 8.
+POD_ROWS_FROM, POD_ROWS, POD_SPLIT = 11_000_000, 1_000_000, 499_993
+POD_S = 8
+POD_GBM = dict(ntrees=20, max_depth=6, learn_rate=0.1, nbins=20,
+               histogram_type="UniformAdaptive", seed=42,
+               score_tree_interval=5, stopping_rounds=2,
+               stopping_tolerance=0.01)
+POD_DRF = dict(ntrees=5, max_depth=12, hist_method="pallas",
+               sample_rate=0.632, seed=42, score_tree_interval=1)
+# (c): four ranks on 200,000 of the rows, QuantilesGlobal
+POD_QG_ROWS = 200_000
+POD_QG_SPLITS = [0, 49_999, 100_003, 150_000, POD_QG_ROWS]
+POD_QG = dict(ntrees=10, max_depth=6, learn_rate=0.1, nbins=20,
+              histogram_type="QuantilesGlobal", seed=42,
+              score_tree_interval=5)
+POD_CASES = {"gbm": ("gbm", POD_GBM), "drf": ("drf", POD_DRF),
+             "qg": ("gbm", POD_QG)}
+POD_TIMEOUT_S = 150
+PHASE40_WALLS: dict = {}
+
+
+def pod_splits(case: str, nranks: int) -> list:
+    """The ranks' first ingest rows (and the end) of `case`'s frame."""
+    if case == "qg":
+        return POD_QG_SPLITS if nranks == 4 else [0, POD_QG_ROWS]
+    return [0, POD_SPLIT, POD_ROWS] if nranks == 2 else [0, POD_ROWS]
+
+
+def pod_frame(lo: int, hi: int, X=None, y=None):
+    """Rows [lo, hi) of phase 39's HIGGS frame as a Frame of those rows
+    alone (drawn from the seed when X is not given)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    if X is None:
+        X, y = make_higgs_like(POD_ROWS)
+    names = [f"f{i}" for i in range(N_FEAT)] + ["label"]
+    return Frame.from_numpy(np.column_stack([X[lo:hi], y[lo:hi]]),
+                            names=names).asfactor("label")
+
+
+def pod_record(model, fr) -> dict:
+    """What a pod fit must share with its one-process twin: the forest,
+    tree count, scoring history and varimp; and `predict` on `fr`."""
+    f = [t.cpu().numpy() for t in model.forest[0]]
+    hist = model.scoring_history
+    return dict(
+        feat=f[0], bin=f[1], thr=f[2], split=f[3], value=f[4],
+        ntrees=np.asarray(model.ntrees_built),
+        sh=np.asarray([[e["number_of_trees"], e["training_deviance"]]
+                       for e in hist], np.float64),
+        vi_names=np.asarray([r[0] for r in model.varimp_table]),
+        vi_gain=np.asarray([r[1] for r in model.varimp_table], np.float64),
+        p1=np.asarray(model.predict(fr).vec("1").data, np.float64))
+
+
+def pod_fit(dev, case: str, fr) -> tuple:
+    """(model, record) of one fit of `case` on `fr`: the wall, the B1, B2
+    and gather counts (zeroed just before), the allocator's peak over the
+    fit on `dev`, then `predict`'s forest launches."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
+    from h2o3_tpu_torch.parallel import mesh
+
+    algo, params = POD_CASES[case]
+    cls = (H2OGradientBoostingEstimator if algo == "gbm"
+           else H2ORandomForestEstimator)
+    zero_counts()
+    mesh.GATHER_STATS.update(calls=0, bytes=0, seconds=0.0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    m = cls(device=str(dev), **params).train(y="label",
+                                             training_frame=fr).model
+    torch.cuda.synchronize(dev)
+    rec = dict(wall_s=time.perf_counter() - t0, fit_timings=m.fit_timings,
+               b1=hist_cuda.launches, b2=hist_cuda.launches_rows,
+               gathers=dict(mesh.GATHER_STATS),
+               device_peak_bytes=torch.cuda.max_memory_allocated(dev) - base,
+               ntrees=m.ntrees_built, pod=getattr(m, "_pod", None))
+    score_cuda.launches = 0
+    rec.update(pod_record(m, fr))
+    rec["score_launches"] = score_cuda.launches
+    return m, rec
+
+
+def pod_rank_main(argv) -> int:
+    """A rank's entry (the launcher runs `chip_smoke.py --pod-rank OUT
+    CASES T0 GO`, T0 the launch's clock): draw the frame, keep this rank's
+    ingest rows (cases with the same rows share one frame), wait for the
+    file GO, then fit each case and write its record to
+    OUT/<case>_<rank>.npz."""
+    from h2o3_tpu_torch import device as devlib
+    from h2o3_tpu_torch.ops import hist_cuda, score_cuda
+    from h2o3_tpu_torch.parallel import distdata, mesh
+    from h2o3_tpu_torch.runtime import memory_ledger
+
+    out_dir, cases, t_launch, go = (argv[0], argv[1].split(","),
+                                    float(argv[2]), argv[3])
+    torch.set_num_threads(1)
+    c = mesh.cloud()
+    dev = devlib.resolve(None)
+    # the smoke built both libraries before starting any rank: load them
+    hist_cuda.build()
+    score_cuda.build()
+    started_s = time.time() - t_launch
+    X, y = make_higgs_like(POD_ROWS)
+    rows = {case: tuple(pod_splits(case, c.size)[c.self_idx:c.self_idx + 2])
+            for case in cases}
+    frames = {lohi: pod_frame(*lohi, X, y) for lohi in set(rows.values())}
+    del X, y
+    frame_s = time.time() - t_launch
+    deadline = time.monotonic() + POD_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no go file {go}")
+        time.sleep(0.02)
+    go_s = time.time() - t_launch
+    for case in cases:
+        fr = frames[rows[case]]
+        _, rec = pod_fit(dev, case, fr)
+        rec.update(rank=c.self_idx, ranks=c.size, backend=c.backend,
+                   device=str(dev), row_off=distdata.row_offset(fr.nrow),
+                   ledger_peak=memory_ledger.peak(), started_s=started_s,
+                   frame_s=frame_s, go_s=go_s, done_s=time.time() - t_launch)
+        arrays = {k: v for k, v in rec.items() if isinstance(v, np.ndarray)}
+        meta = {k: v for k, v in rec.items() if k not in arrays}
+        np.savez(os.path.join(out_dir, f"{case}_{c.self_idx}.npz"),
+                 meta=json.dumps(meta, default=str), **arrays)
+    return 0
+
+
+def pod_start(nranks: int, cases, tmp: str, tag: str, env=None) -> dict:
+    """Start `nranks` ranks of this script through the launcher. Each
+    joins its group, loads the kernels and builds its frames, then waits
+    for the launch's go file (`pod_join` writes it), so the ranks' start
+    overlaps other work while their fits run alone on the card. `env`
+    adds to the ranks' environment."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict({k: v for k, v in os.environ.items() if k not in _OOC_KNOBS},
+               **(env or {}))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    launch = dict(tag=tag, nranks=nranks, procs=[],
+                  go=os.path.join(tmp, f"go_{tag}"))
+    t_launch = time.time()
+    for r in range(nranks):
+        log = open(os.path.join(tmp, f"log_{tag}_{r}.txt"), "w")
+        launch["procs"].append((subprocess.Popen(
+            [sys.executable, "-m", "h2o3_tpu_torch.parallel.launcher",
+             "--coordinator", f"file://{os.path.join(tmp, 'store_' + tag)}",
+             "--nprocs", str(nranks), "--rank", str(r),
+             os.path.join(root, "chip_smoke.py"), "--pod-rank", tmp,
+             ",".join(cases), repr(t_launch), launch["go"]],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return launch
+
+
+def pod_stop(launch: dict) -> None:
+    """Kill every rank of `launch` still alive; close the logs."""
+    for p, log in launch["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        if not log.closed:
+            log.close()
+
+
+def pod_join(launch: dict) -> float:
+    """Write the launch's go file, wait for its ranks under POD_TIMEOUT_S,
+    stop them all, and raise with a failed rank's log; returns the wall
+    from go to the last exit."""
+    procs = launch["procs"]
+    t0 = time.perf_counter()
+    with open(launch["go"], "w"):
+        pass
+    deadline = time.monotonic() + POD_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            # a failed rank leaves its peers in a collective: stop now
+            if any(p.poll() not in (None, 0) for p, _ in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        pod_stop(launch)
+    for r, (p, log) in enumerate(procs):
+        if p.returncode != 0:
+            with open(log.name) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(
+                f"phase 40({launch['tag']}): rank {r} of {launch['nranks']} "
+                f"exited {p.returncode}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def pod_load(tmp: str, case: str, rank: int) -> dict:
+    with np.load(os.path.join(tmp, f"{case}_{rank}.npz")) as z:
+        rec = {k: z[k] for k in z.files if k != "meta"}
+        rec.update(json.loads(str(z["meta"])))
+    return rec
+
+
+def pod_diff(one: dict, pod: dict, lo: int, hi: int) -> list:
+    """What differs between a rank's fit and the one-process fit: forest,
+    tree count, scoring history, varimp, and `predict` on the rank's
+    ingest rows [lo, hi) (empty when they agree bit for bit)."""
+    out = [k for k in ("feat", "bin", "thr", "split", "value", "ntrees",
+                       "sh", "vi_names", "vi_gain")
+           if not np.array_equal(one[k], pod[k])]
+    if pod["row_off"] != lo or len(pod["p1"]) != hi - lo:
+        out.append(f"rows {pod['row_off']}+{len(pod['p1'])}, not {lo}:{hi}")
+    elif not np.array_equal(one["p1"][lo:hi], pod["p1"]):
+        out.append("predict")
+    return out
+
+
+def pod_leg(card, tmp, tag, case, nranks, one, per_rank, bad, rec, wall):
+    """Hold every rank's record of `case` (from a launch of `wall` s)
+    against the one-process record `one`, check each rank's launches
+    (`per_rank`: {count: expected}) and print the leg."""
+    splits = pod_splits(case, nranks)
+    ranks = []
+    for r in range(nranks):
+        p = pod_load(tmp, case, r)
+        diff = pod_diff(one, p, splits[r], splits[r + 1])
+        g = p["gathers"]
+        ranks.append(dict(
+            rank=r, backend=p["backend"], device=p["device"],
+            rows=splits[r + 1] - splits[r], wall_s=p["wall_s"],
+            fit_timings=p["fit_timings"], b1=p["b1"], b2=p["b2"],
+            score_launches=p["score_launches"],
+            device_peak_bytes=p["device_peak_bytes"],
+            ledger_host_peak=p["ledger_peak"]["host_bytes"],
+            started_s=p["started_s"], frame_s=p["frame_s"],
+            go_s=p["go_s"], done_s=p["done_s"],
+            gathers=g["calls"], gathered_bytes=g["bytes"],
+            gather_s=g["seconds"],
+            gather_ms_mean=1e3 * g["seconds"] / max(g["calls"], 1),
+            differs=diff))
+        if diff:
+            bad.append(f"({tag}) rank {r} differs from the one-process fit "
+                       f"in {diff}")
+        for k, want in per_rank.items():
+            if p[k] != want:
+                bad.append(f"({tag}) rank {r}: {k} {p[k]}, expected {want}")
+    rec[tag] = dict(ranks=nranks, launch_wall_s=wall,
+                    one_process=dict(wall_s=one["wall_s"], b1=one["b1"],
+                                     b2=one["b2"],
+                                     device_peak_bytes=one[
+                                         "device_peak_bytes"],
+                                     ntrees=one["ntrees"]),
+                    per_rank=ranks)
+    print(f"phase 40({tag}) {nranks} ranks, {case}, on {card}: "
+          + json.dumps(rec[tag], default=str), flush=True)
+    return ranks
+
+
+def pod_path(dev, card):
+    """Phase 40: (a) the 2-rank GBM and (b) the 2-rank DRF on B2 at config
+    1's width, (c) four ranks with QuantilesGlobal, (d) NCCL where each
+    rank has a card; each equal to the one-process blocks-lane fit at
+    S = 8."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    bad, rec = [], dict(card=card, rows=POD_ROWS, rows_from=POD_ROWS_FROM,
+                        S=POD_S)
+    print(f"phase 40 cut: (a), (b) fit {POD_ROWS} of config 1's "
+          f"{POD_ROWS_FROM} HIGGS rows, as phase 39; (c) {POD_QG_ROWS} of "
+          "them", flush=True)
+    tmp = tempfile.mkdtemp(prefix="h2o3_pod_")
+    # (a)-(c) share one card over gloo, whatever the host shows
+    one_card = dict(CUDA_VISIBLE_DEVICES=os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
+    # every rank starts now: its start and its frame overlap the
+    # one-process fits below, and each waits for its go before it fits
+    launches = [pod_start(2, ["gbm", "drf"], tmp, "ab", one_card),
+                pod_start(4, ["qg"], tmp, "c", one_card)]
+    try:
+        _pod_legs(dev, card, tmp, launches, bad, rec)
+    finally:
+        for launch in launches:
+            pod_stop(launch)
+        shutil.rmtree(tmp, ignore_errors=True)
+    PHASE40_WALLS["phase_s"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError("phase 40: " + "; ".join(bad))
+    return rec
+
+
+def _pod_legs(dev, card, tmp, launches, bad, rec):
+    """Phase 40's one-process fits, then each launch's go, join and legs
+    (a)-(d)."""
+    from h2o3_tpu_torch.models import dataset_cache as dsc
+
+    X, y = make_higgs_like(POD_ROWS)
+    ones = {}
+    with ooc_env(H2O3_TREE_OOC=0, H2O3_TREE_SHARD=1,
+                 H2O3_TREE_SHARD_BLOCKS=POD_S):
+        # the GBM and the DRF share one frame (the DRF hits its bins), as
+        # they do on the ranks
+        fr = pod_frame(0, POD_ROWS, X, y)
+        for case in ("gbm", "drf", "qg"):
+            if case == "qg":
+                fr = pod_frame(0, POD_QG_ROWS, X, y)
+            t0 = time.perf_counter()
+            _, ones[case] = pod_fit(dev, case, fr)
+            PHASE40_WALLS[f"one_{case}_s"] = time.perf_counter() - t0
+        del fr
+    del X, y
+    dsc.clear()
+    half = POD_S // 2
+    nt = {k: int(v["ntrees"]) for k, v in ones.items()}
+    for case, b1, b2 in (("gbm", nt["gbm"] * 6 * POD_S, 0),
+                         ("drf", 0, nt["drf"] * 12 * POD_S),
+                         ("qg", nt["qg"] * 6 * POD_S, 0)):
+        if (ones[case]["b1"], ones[case]["b2"]) != (b1, b2):
+            bad.append(f"one-process {case}: B1 {ones[case]['b1']}, B2 "
+                       f"{ones[case]['b2']}; expected {b1}, {b2}")
+    # (a) and (b) in one launch, sharing each rank's frame
+    wall = PHASE40_WALLS["ab_launch_s"] = pod_join(launches[0])
+    ranks_a = pod_leg(card, tmp, "a", "gbm", 2, ones["gbm"],
+                      dict(b1=nt["gbm"] * 6 * half, b2=0), bad, rec,
+                      wall)
+    for r in ranks_a:
+        if r["device_peak_bytes"] > 0.75 * ones["gbm"][
+                "device_peak_bytes"]:
+            bad.append(f"(a) rank {r['rank']}: device peak "
+                       f"{r['device_peak_bytes']} over 0.75x the "
+                       f"one-process fit's "
+                       f"{ones['gbm']['device_peak_bytes']}")
+    pod_leg(card, tmp, "b", "drf", 2, ones["drf"],
+            dict(b1=0, b2=nt["drf"] * 12 * half), bad, rec, wall)
+    wall = PHASE40_WALLS["c_launch_s"] = pod_join(launches[1])
+    pod_leg(card, tmp, "c", "qg", 4, ones["qg"],
+            dict(b1=nt["qg"] * 6 * (POD_S // 4), b2=0), bad, rec, wall)
+    if torch.cuda.device_count() >= 2:
+        # one card a rank: the launcher picks NCCL
+        launches.append(pod_start(2, ["gbm"], tmp, "d"))
+        wall = PHASE40_WALLS["d_launch_s"] = pod_join(launches[-1])
+        ranks_d = pod_leg(card, tmp, "d", "gbm", 2, ones["gbm"],
+                          dict(b1=nt["gbm"] * 6 * half, b2=0), bad, rec,
+                          wall)
+        if any(r["backend"] != "nccl" for r in ranks_d):
+            bad.append("(d) the ranks did not run over NCCL")
+    else:
+        print(f"phase 40(d) on {card}: one card visible "
+              f"(torch.cuda.device_count() = "
+              f"{torch.cuda.device_count()}); the NCCL leg did not run "
+              "(the gloo legs ran the same fits on the card)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -9244,6 +9644,12 @@ def main() -> int:
     at("ooc_path")
     print(f"phase 39 wall on {card}: " + json.dumps(PHASE39_WALLS),
           flush=True)
+    # phase 40: the multi-process tree lane, ranks on the card through the
+    # launcher, each held against a one-process blocks-lane fit
+    pod_path(dev, card)
+    at("pod_path")
+    print(f"phase 40 wall on {card}: " + json.dumps(PHASE40_WALLS),
+          flush=True)
     print(f"smoke wall on {card}: {time.time() - t0:.1f} s (kernel build "
           "included)", flush=True)
 
@@ -9337,4 +9743,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pod-rank"]:
+        sys.exit(pod_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -36,12 +36,25 @@ callback. ``H2O3_DATASET_CACHE=0`` turns the cache off. `snapshot()`
 gives hits, misses and evictions per layer.
 
 The port keys the device, blocks and std layers by the torch device as
-well: one process may fit on the CPU and on the card. The reference's
-pod and mesh layouts (row-sharded artifacts) are ROADMAP queue A, item 9.
+well: one process may fit on the CPU and on the card.
+
+Pod fits (a tree fit on a multi-process cloud, `shared_tree`'s pod lane)
+reuse the cache too. Their bins and device codes are this rank's
+artifacts of a global layout: the bins carry the global column ranges
+(and QuantilesGlobal edges), the device layer this rank's canonical slice
+of the padded rows. Both keys carry the fit's `layout` — the cloud size,
+the rank and a `digest` of the global facts (ranges, edges, per-rank row
+counts) — so a pod never reads a one-rank entry or a stale one when
+another rank's frame changed. The collectives that produce those facts
+and the canonical row exchange run eagerly in every fit, before any
+build callback, and the callbacks are collective-free: a hit on one rank and a
+miss on another can never strand a rank inside a collective. The
+estimator engine's pod and mesh layouts are ROADMAP queue A, item 9.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import threading
 import weakref
@@ -229,6 +242,30 @@ def _evict_locked(keep=None) -> None:
         _pop_entry_locked(victims.pop(0), "pressure")
 
 
+def digest(*facts) -> str:
+    """A short fingerprint of host arrays (None, arrays or lists of them):
+    the global facts a pod's layout key carries."""
+    import numpy as np
+
+    h = hashlib.blake2b(digest_size=12)
+
+    def feed(v):
+        if v is None:
+            h.update(b"\0")
+        elif isinstance(v, (list, tuple)):
+            h.update(b"[%d" % len(v))
+            for u in v:
+                feed(u)
+        else:
+            a = np.ascontiguousarray(v)
+            h.update(str((a.dtype, a.shape)).encode())
+            h.update(a.tobytes())
+
+    for f in facts:
+        feed(f)
+    return h.hexdigest()
+
+
 def _bins_key(nbins: int, histogram_type: str, seed) -> tuple:
     ht = "UniformAdaptive" if histogram_type in ("AUTO", None) \
         else str(histogram_type)
@@ -287,20 +324,23 @@ def matrix(frame, x, build: Callable[[], tuple]):
 
 
 def bins(frame, x, nbins: int, histogram_type: str, seed,
-         build: Callable[[], object]):
-    """`BinnedMatrix` for (frame, x, nbins, histogram_type)."""
-    return _cached(frame, x, "bins", _bins_key(nbins, histogram_type, seed),
+         build: Callable[[], object], layout=None):
+    """`BinnedMatrix` for (frame, x, nbins, histogram_type); a pod fit
+    passes its `layout`."""
+    return _cached(frame, x, "bins",
+                   _bins_key(nbins, histogram_type, seed) + (layout,),
                    build, lambda bm: int(bm.codes.nbytes))
 
 
 def device_codes(frame, x, nbins: int, histogram_type: str, seed, npad: int,
                  build: Callable[[], torch.Tensor], pack_bits: int,
-                 device: torch.device):
+                 device: torch.device, layout=None):
     """The padded code matrix on `device` (the packed words when
-    `pack_bits`), so repeat candidates skip the pack and the upload.
-    `build` packs and uploads on a miss."""
+    `pack_bits`), so repeat candidates skip the pack and the upload; on a
+    pod (`layout`) this rank's canonical slice of it. `build` packs and
+    uploads on a miss."""
     key = (_bins_key(nbins, histogram_type, seed), int(npad), int(pack_bits),
-           str(device))
+           str(device), layout)
     return _cached(frame, x, "device", key, build, _arr_nbytes,
                    space="device" if torch.device(device).type == "cuda"
                    else "host")

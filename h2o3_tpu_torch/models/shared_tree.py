@@ -94,6 +94,8 @@ from ..frame.binning import BinnedMatrix, bin_apply, build_bins
 from ..frame.frame import Frame
 from ..ops import hist_cuda, packing, prng, score_cuda
 from ..ops.histogram import ordered_axis_fold
+from ..parallel import distdata
+from ..parallel import mesh as cloudlib
 from ..runtime.log import Log
 from . import dataset_cache as _dsc
 from . import distributions as dist_mod
@@ -200,67 +202,170 @@ def _response_matrix(yvec, problem: str, K: int) -> np.ndarray:
             else np.asarray(yvec.data)).astype(np.float32)[:, None]
 
 
-def _shard_plan(tp, ndev: int = 1):
-    """(shard_mode, n_shards) of one fit, the reference's `_shard_plan` on
-    one device: "off" by default and for lossguide growth or
-    ``H2O3_TREE_SHARD=0``; ``H2O3_TREE_SHARD=1`` gives the blocks lane
-    ("blocks", S = ``H2O3_TREE_SHARD_BLOCKS``, default 8), whose every row
-    reduction is S ordered block partials, so two fits that share S agree
-    bit for bit. The mesh lane over several devices raises."""
-    if ndev > 1:
-        raise NotImplementedError(
-            f"the sharded tree lane over {ndev} devices is not ported "
-            "(ROADMAP queue A, item 9)")
+_MESH_PSUM = ("the psum tree lane (\"mesh_psum\": lossguide growth, "
+              "H2O3_TREE_LEGACY=1 or H2O3_TREE_SHARD=0 over several ranks) "
+              "is not ported (ROADMAP queue A, item 9)")
+
+
+def _shard_plan(tp, ndev: int = 1, multiproc: bool = False):
+    """(shard_mode, n_shards) of one fit — the reference's `_shard_plan`,
+    with one device a rank (`ndev` is the cloud's rank count).
+
+    One rank: "off" by default and for lossguide growth,
+    ``H2O3_TREE_LEGACY=1`` or ``H2O3_TREE_SHARD=0``; ``H2O3_TREE_SHARD=1``
+    gives the blocks lane ("blocks", S = ``H2O3_TREE_SHARD_BLOCKS``,
+    default 8), whose every row reduction is S ordered block partials, so
+    two fits that share S agree bit for bit.
+
+    Several ranks (a pod): the deterministic "mesh" lane with S =
+    lcm(``H2O3_TREE_SHARD_BLOCKS``, ranks), each rank holding S/N whole
+    blocks of the canonical row layout, so an N-rank fit is bit-identical
+    to the one-rank blocks-lane fit that shares S. Where the reference
+    falls back to its psum lane ("mesh_psum": lossguide growth,
+    ``H2O3_TREE_LEGACY=1``, or ``H2O3_TREE_SHARD=0`` on a pod) the port
+    raises. `multiproc` is the reference's argument; with one device a
+    rank, several devices are always several processes."""
+    import math
+
     env = os.environ.get("H2O3_TREE_SHARD", "").strip()
-    if env != "1" or tp.get("grow_policy", "depthwise") == "lossguide":
+    legacy_lane = (os.environ.get("H2O3_TREE_LEGACY", "") == "1"
+                   or tp.get("grow_policy", "depthwise") == "lossguide")
+    if env == "0" or legacy_lane:
+        if ndev > 1:
+            raise NotImplementedError(_MESH_PSUM)
         return "off", 0
-    return "blocks", max(int(os.environ.get("H2O3_TREE_SHARD_BLOCKS", "8")
-                             or 8), 1)
+    base = max(int(os.environ.get("H2O3_TREE_SHARD_BLOCKS", "8") or 8), 1)
+    if ndev > 1:
+        return "mesh", base * ndev // math.gcd(base, ndev)
+    if env == "1":
+        return "blocks", base
+    return "off", 0
+
+
+def _pod_unported(est, tp, cvr) -> None:
+    """The pod lane's raises: what the reference runs on a pod and the
+    port does not yet, each naming its ROADMAP item."""
+    p = est._parms
+    item9 = "is not ported on a multi-process cloud (ROADMAP queue A, item 9)"
+    if cvr is not None or int(p.get("nfolds") or 0) >= 2 \
+            or p.get("fold_column"):
+        raise NotImplementedError(f"cross-validation {item9}")
+    if tp.get("dart"):
+        raise NotImplementedError(f"DART {item9}")
+    if getattr(est, "_objective_fn", None) is not None:
+        raise NotImplementedError(f"a custom objective {item9}")
+
+
+def _pod_check_frame(train: Frame, x, y) -> None:
+    """Every rank must train on the same columns with the same types and
+    domains (a parser's global domains; the port has no parser yet, ROADMAP
+    queue A, item 11): a difference would give ranks different bins and a
+    hung collective, so it raises on every rank instead."""
+    cols = list(x) + [y]
+    sig = repr([(c, train.vec(c).type, train.vec(c).domain)
+                for c in cols]).encode()
+    if len(set(distdata.allgather_bytes(sig))) != 1:
+        raise ValueError(
+            "the ranks of this cloud hold different training columns, "
+            "types or categorical domains; every rank must see the same "
+            "x, y and levels")
+
+
+def _pod_bin_facts(X: np.ndarray, is_cat, nbins: int, histogram_type: str):
+    """(col_ranges, col_quantile_edges) of a pod fit: the global min/max of
+    every column (`global_minmax`) and, for QuantilesGlobal, each numeric
+    column's global quantile edges (`global_quantiles`, `np.quantile` of
+    the global column bit for bit), so every rank bins with the one-rank
+    fit's edges."""
+    with np.errstate(all="ignore"):
+        lmin = np.nanmin(np.where(np.isnan(X), np.inf, X), axis=0) \
+            if X.shape[0] else np.full(X.shape[1], np.inf)
+        lmax = np.nanmax(np.where(np.isnan(X), -np.inf, X), axis=0) \
+            if X.shape[0] else np.full(X.shape[1], -np.inf)
+    gmin, gmax = distdata.global_minmax(lmin, lmax)
+    col_ranges = np.stack([gmin, gmax], axis=1)
+    col_qedges = None
+    if histogram_type == "QuantilesGlobal":
+        qs = np.linspace(0, 1, nbins)[1:-1]
+        num = [j for j in range(X.shape[1]) if not is_cat[j]]
+        edges = dict(zip(num, distdata.global_quantiles_columns(
+            [X[:, j] for j in num], qs)))
+        col_qedges = [np.unique(edges[j]) if j in edges else None
+                      for j in range(X.shape[1])]
+    return col_ranges, col_qedges
+
+
+# torch's CPU elementwise loops run a tensor's last elements past a multiple
+# of their SIMD step through scalar libm calls, whose exp and log can differ
+# from the vector ones in the last bit. A pod rank's slice is a tensor of
+# its own, so on the CPU its per-row exp/log run on rows padded to a
+# multiple of _CPU_ALIGN: every real row then takes the vector path, as in
+# the one-rank fit (whose npad, a multiple of 8·S, has no such tail). On the
+# card every element is computed alike.
+_CPU_ALIGN = 64
+
+
+def _aligned_rows(fn, align: int, *ts):
+    """fn(*ts) on per-row tensors, their rows padded with zeros to a
+    multiple of `align` first (0: as they are) and every output cut back
+    to the rows given."""
+    n = ts[0].shape[0]
+    m = -(-n // align) * align if align else n
+    if m == n:
+        return fn(*ts)
+    out = fn(*[torch.cat([t, t.new_zeros((m - n,) + tuple(t.shape[1:]))])
+               for t in ts])
+    return tuple(o[:n] for o in out) if isinstance(out, tuple) else out[:n]
 
 
 def _event_loss(margins: torch.Tensor, y: torch.Tensor, n: int,
                 inv_ntrees: float, mode: str, problem: str,
-                dist: str, n_blocks: int = 0) -> torch.Tensor:
+                dist: str, n_blocks: int = 0,
+                axis_name: Optional[str] = None,
+                align: int = 0) -> torch.Tensor:
     """Mean loss of a scoring event over the first `n` rows, on the device
     in f32 (the reference's `_event_loss_terms`): logloss for binomial and
     multinomial, squared error of the prediction for regression. Clips are
     1e-7, as f32 needs. With `n_blocks` (the blocks and streamed lanes)
     the sums are per contiguous row block, folded in block order (the
     reference's `_sharded_event_loss_fn`), so the early-stop decisions of
-    two fits that share the block grid agree bit for bit. Returns a 0-d
-    tensor."""
+    two fits that share the block grid agree bit for bit; with `axis_name`
+    (a pod) the blocks are this rank's and the fold runs over every
+    rank's. `align` as `_aligned_rows`'. Returns a 0-d tensor."""
     valid = (torch.arange(margins.shape[0], device=margins.device) < n)
     vf = valid.to(torch.float32)
-    m = margins
     eps = 1e-7
-    if mode == "drf":
-        m = m * float(np.float32(inv_ntrees))
-    if problem == "binomial":
-        p1 = (m[:, 0].clamp(0.0, 1.0) if mode == "drf"
-              else 1 / (1 + torch.exp(-m[:, 0])))
-        pc = p1.clamp(eps, 1 - eps)
-        num = -torch.where(y[:, 0] > 0.5, torch.log(pc), torch.log1p(-pc))
-    elif problem == "multinomial":
+
+    def terms(m, y):
         if mode == "drf":
-            p = m.clamp(min=0.0)
-            s = p.sum(dim=1, keepdim=True)
-            probs = torch.where(s > 0, p / s.clamp(min=1e-12),
-                                torch.full_like(p, 1.0 / m.shape[1]))
-        else:
-            probs = dist_mod.softmax(m)
-        num = -torch.sum(torch.log(probs.clamp(eps, 1.0)) * y, dim=1)
-    else:
+            m = m * float(np.float32(inv_ntrees))
+        if problem == "binomial":
+            p1 = (m[:, 0].clamp(0.0, 1.0) if mode == "drf"
+                  else 1 / (1 + torch.exp(-m[:, 0])))
+            pc = p1.clamp(eps, 1 - eps)
+            return -torch.where(y[:, 0] > 0.5, torch.log(pc),
+                                torch.log1p(-pc))
+        if problem == "multinomial":
+            if mode == "drf":
+                p = m.clamp(min=0.0)
+                s = p.sum(dim=1, keepdim=True)
+                probs = torch.where(s > 0, p / s.clamp(min=1e-12),
+                                    torch.full_like(p, 1.0 / m.shape[1]))
+            else:
+                probs = dist_mod.softmax(m)
+            return -torch.sum(torch.log(probs.clamp(eps, 1.0)) * y, dim=1)
         pred = m[:, 0]
         if mode != "drf" and dist in ("poisson", "gamma", "tweedie"):
             pred = torch.exp(pred)
-        num = (pred - y[:, 0]) ** 2
-    num = num * vf
+        return (pred - y[:, 0]) ** 2
+
+    num = _aligned_rows(terms, align, margins, y) * vf
     if n_blocks:
         rows = num.shape[0] // n_blocks
         tot = ordered_axis_fold(torch.stack([
             torch.stack([torch.sum(num[b * rows:(b + 1) * rows]),
                          torch.sum(vf[b * rows:(b + 1) * rows])])
-            for b in range(n_blocks)]))
+            for b in range(n_blocks)]), axis_name)
         return tot[0] / tot[1].clamp(min=1e-12)
     return torch.sum(num) / torch.sum(vf).clamp(min=1e-12)
 
@@ -945,9 +1050,22 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # fit's BinnedMatrix by row; its frame holds only the response and
         # the *_column parameters
         cvr = self._parms.get("_cv_reuse")
-        # the one sharding decision (the blocks lane or none); a streamed
-        # fit below turns into a blocks-lane fit of its own S
-        shard_mode, n_shards = _shard_plan(tp)
+        # the one sharding decision (the blocks lane, a pod's mesh lane or
+        # none); a streamed fit below turns into a blocks-lane fit of its
+        # own S
+        multiproc = distdata.multiprocess()
+        cloud = cloudlib.cloud()
+        shard_mode, n_shards = _shard_plan(tp, cloud.size, multiproc)
+        # a pod: this rank holds S/N whole blocks of the canonical row
+        # layout, and every row reduction gathers all S partials over the
+        # rows axis and folds them in rank order
+        pod = multiproc and shard_mode == "mesh"
+        if pod:
+            _pod_unported(self, tp, cvr)
+            _pod_check_frame(train, x, y)
+        axis = cloudlib.ROWS_AXIS if pod else None
+        local_blocks = n_shards // cloud.size if pod else n_shards
+        align = _CPU_ALIGN if pod and dev.type == "cpu" else 0
         # the dataset cache serves the fit's matrix, bins and device codes;
         # a fold on the reuse path slices its parent's codes instead
         use_cache = cvr is None and _dsc.enabled()
@@ -988,6 +1106,7 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 f"({budget >> 30} GiB)")
             tp["max_depth"] = feas
 
+        col_ranges = col_qedges = layout = None
         if cvr is not None:
             # edges and domains are the parent's: the fold model scores
             # through the same quantization grid
@@ -996,14 +1115,26 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 names=list(pbm.names), is_categorical=pbm.is_categorical,
                 domains=list(pbm.domains))
         else:
+            if pod:
+                # global facts from collectives, run eagerly on every rank
+                # before any cache build (a hit on one rank and a miss on
+                # another never strands a rank inside a collective)
+                col_ranges, col_qedges = _pod_bin_facts(
+                    X, is_cat, nbins, tp["histogram_type"])
+                counts = distdata.row_counts(n)
+                layout = ("pod", cloud.size, cloud.self_idx, _dsc.digest(
+                    col_ranges, col_qedges, counts))
+
             def _bins():
                 return build_bins(X, nbins=nbins,
                                   histogram_type=tp["histogram_type"],
                                   names=list(x), is_categorical=is_cat,
-                                  domains=doms, seed=seed)
+                                  domains=doms, seed=seed,
+                                  col_ranges=col_ranges,
+                                  col_quantile_edges=col_qedges)
 
             bm = (_dsc.bins(train, x, nbins, tp["histogram_type"], seed,
-                            _bins) if use_cache else _bins())
+                            _bins, layout=layout) if use_cache else _bins())
         t_bins = time.perf_counter()
         wc = self._parms.get("weights_column")
         w = (train.vec(wc).numeric_np() if wc else np.ones(n)).astype(np.float32)
@@ -1014,17 +1145,22 @@ class H2OSharedTreeEstimator(H2OEstimator):
             raise ValueError("offset_column is not supported for DRF")
         K = nclass if problem == "multinomial" else 1
         yk = _response_matrix(yvec, problem, K)
+        # a pod gathers the response and weights (rank order is the global
+        # ingest order), so f0 and DRF's out-of-bag events are the one-rank
+        # host computations on the same vectors
+        yk_g, w_g = ((distdata.allgather_rows(yk), distdata.allgather_rows(w))
+                     if pod else (yk, w))
         if drf:
             f0 = np.zeros(K, np.float32)
         elif problem == "multinomial":
             # log of the weighted class priors
-            pri = np.average(yk, axis=0, weights=w)
+            pri = np.average(yk_g, axis=0, weights=w_g)
             f0 = np.log(np.clip(pri, 1e-10, 1.0)).astype(np.float32)
         elif obj_fn is not None:
             f0 = np.zeros(1, np.float32)   # custom objectives start at 0
         else:
             f0 = np.asarray([np.float32(dist_mod.init_margin(
-                dist, yk[:, 0], w, alpha=dist_kw["alpha"]))])
+                dist, yk_g[:, 0], w_g, alpha=dist_kw["alpha"]))])
 
         # rows padded to a multiple of 8 (every pack group divides 8), and
         # of 8·S on the blocks lane (each block whole pack groups), with
@@ -1032,24 +1168,66 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # to the parent's padded row count (`_npad_floor`), as the
         # reference does: the row draws are taken at that count
         floor = int(self._parms.get("_npad_floor") or 0)
+        # a pod pads the GLOBAL row count with the one-rank formula: the
+        # same npad and block grid as the blocks-lane fit that shares S
+        n_layout = int(counts.sum()) if pod else n
 
         def padded_rows(row_mult: int) -> int:
-            npad = _pad_to_multiple(n, row_mult)
+            npad = _pad_to_multiple(n_layout, row_mult)
             return floor if floor > npad and floor % row_mult == 0 else npad
 
         npad = padded_rows(max(8 * n_shards, 8))
         pack_bits = packing.pack_bits_for(nbins, npad)
         # out of core: the packed matrix lives in a BlockStore and each
         # tree streams its blocks; the fit is a blocks-lane fit of S blocks
-        ooc_blocks, goss_cfg = self._ooc_plan(tp, npad, F, nbins, pack_bits,
-                                              n_shards, K, dev)
+        # (a pod decides on its own slice, and raises: not ported there)
+        ooc_blocks, goss_cfg = self._ooc_plan(
+            tp, npad // cloud.size if pod else npad, F, nbins, pack_bits,
+            n_shards, K, dev)
+        if ooc_blocks and pod:
+            raise NotImplementedError(
+                "the streamed out-of-core lane is not ported on a "
+                "multi-process cloud (ROADMAP queue A, item 9)")
         if ooc_blocks:
             shard_mode, n_shards = "blocks", ooc_blocks
+            local_blocks = n_shards
             npad = padded_rows(8 * n_shards)
             pack_bits = packing.pack_bits_for(nbins, npad)
         pad = npad - n
+        # this rank's rows: all npad on one rank; on a pod its canonical
+        # slice of `quota` rows, the first `n_real` of them real (the pad
+        # sits at the global tail), starting at global row `row0`
+        quota, n_real, row0 = npad, n, 0
+        if pod:
+            quota = npad // cloud.size
+            n_real = int(distdata.canonical_counts(counts, npad)[
+                cloud.self_idx])
+            row0 = cloud.self_idx * quota
+
+        def padr(a: np.ndarray, fill=0) -> np.ndarray:
+            """Rows → this rank's padded layout: the canonical slice on a
+            pod (a collective: every call site runs it eagerly, never in a
+            cache build), else zero rows appended up to npad."""
+            if pod:
+                return distdata.to_canonical(a, npad, counts=counts,
+                                             fill=fill)
+            return np.concatenate(
+                [a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+
+        def unpadr(a: torch.Tensor) -> np.ndarray:
+            """This rank's REAL rows in INGEST order, on the host (a pod
+            pairs its canonical slice back with the local frame's
+            response)."""
+            a = a.cpu().numpy()
+            if pod:
+                return distdata.from_canonical(a, npad, counts)
+            return a[:n]
+
+        codes_rows = padr(bm.codes) if pod else None
 
         def codes_padded():
+            if pod:
+                return codes_rows
             return np.concatenate([bm.codes,
                                    np.zeros((pad, F), bm.codes.dtype)])
 
@@ -1077,19 +1255,20 @@ class H2OSharedTreeEstimator(H2OEstimator):
 
             codes_d = (_dsc.device_codes(
                 train, x, nbins, tp["histogram_type"], seed, npad,
-                build_codes, pack_bits, dev) if use_cache else build_codes())
-        y_d = torch.from_numpy(np.concatenate([yk, np.zeros((pad, K), np.float32)])).to(dev)
-        w_d = torch.from_numpy(np.concatenate([w, np.zeros(pad, np.float32)])).to(dev)
+                build_codes, pack_bits, dev, layout=layout) if use_cache
+                else build_codes())
+        y_d = torch.from_numpy(padr(yk)).to(dev)
+        w_d = torch.from_numpy(padr(w)).to(dev)
         edges = np.full((F, nbins - 2), np.float32(np.inf), np.float32)
         for j, e in enumerate(bm.edges):
             edges[j, : min(len(e), nbins - 2)] = e[: nbins - 2]
         edges_d = torch.from_numpy(edges).to(dev)
         ones = torch.ones(F, dtype=torch.float32, device=dev)
-        margins = torch.from_numpy(f0).to(dev)[None, :].repeat(npad, 1)
+        margins = torch.from_numpy(f0).to(dev)[None, :].repeat(quota, 1)
         if offset is not None:
             # training margins start at f0 + offset; f0 ignores the offset
-            margins = margins + torch.from_numpy(np.concatenate(
-                [offset, np.zeros(pad, np.float32)])).to(dev)[:, None]
+            margins = margins + torch.from_numpy(padr(offset)).to(
+                dev)[:, None]
         cap = tp["max_abs_leaf"] if np.isfinite(tp["max_abs_leaf"]) else 3.4e38
         # sampling: per-row rate, per-tree column product, DRF's per-split
         # mtries rate, each compared in f32 as the reference does
@@ -1113,8 +1292,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
                        and not lossguide and not ooc_blocks else 0)
         lr = tp["learn_rate"] if not drf else 1.0
         if oob:
-            oob_sum = torch.zeros((npad, K), dtype=torch.float32, device=dev)
-            oob_cnt = torch.zeros(npad, dtype=torch.float32, device=dev)
+            oob_sum = torch.zeros((quota, K), dtype=torch.float32, device=dev)
+            oob_cnt = torch.zeros(quota, dtype=torch.float32, device=dev)
         # validation margins, tracked per tree on the validation frame's
         # codes in the training bins (SharedTree's Score pass)
         if valid is not None:
@@ -1168,7 +1347,7 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 goss=goss_cfg)
             stream0 = dict(store.counters)
             store.peak_window_start()      # this fit's resident watermark
-        loss_blocks = n_shards if shard_mode == "blocks" else 0
+        loss_blocks = local_blocks if shard_mode in ("blocks", "mesh") else 0
         _sync(dev)
         t_up = time.perf_counter()
         t_budget = time.time()
@@ -1178,8 +1357,12 @@ class H2OSharedTreeEstimator(H2OEstimator):
             once the fit has run past max_runtime_secs."""
             if built not in chunk_ends:
                 return False
-            if max_runtime and time.time() - t_budget > max_runtime:
-                return True
+            if max_runtime:
+                # clock consensus on a pod: every rank takes the same
+                # branch, or the next tree's gathers would hang
+                over = time.time() - t_budget > max_runtime
+                if distdata.global_any(over) if pod else over:
+                    return True
             if self.job is not None:
                 self.job.update(built / max(tp["ntrees"], 1))
             return False
@@ -1193,7 +1376,9 @@ class H2OSharedTreeEstimator(H2OEstimator):
         for m in range(tp["ntrees"]):
             krow, kcol, ktree = prng.split(prng.fold_in(prng.fold_in(key, m), 0), 3)
             if row_sampled:
-                row_mask = (prng.uniform(krow, (npad,), dev) < row_rate).to(torch.float32)
+                # this rank's rows of the global (npad,) draw
+                row_mask = (prng.uniform(krow, (quota,), dev, offset=row0)
+                            < row_rate).to(torch.float32)
                 wt = w_d * row_mask
             else:
                 wt = w_d
@@ -1232,11 +1417,14 @@ class H2OSharedTreeEstimator(H2OEstimator):
                     g, h = -y_d[:, k], torch.ones_like(y_d[:, k])
                 elif problem == "multinomial":
                     # class k sees the margins classes < k already moved
-                    p = dist_mod.softmax(margins)[:, k]
+                    p = _aligned_rows(dist_mod.softmax, align,
+                                      margins)[:, k]
                     g, h = p - y_d[:, k], p * (1 - p)
                 else:
-                    g, h = dist_mod.grad_hess(dist, margins[:, 0], y_d[:, 0],
-                                              **dist_kw)
+                    g, h = _aligned_rows(
+                        lambda m_, y_: dist_mod.grad_hess(dist, m_, y_,
+                                                          **dist_kw),
+                        align, margins[:, 0], y_d[:, 0])
                 g, h = g.contiguous(), h.contiguous()
 
                 def grow(cap_slots):
@@ -1258,8 +1446,9 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         reg_lambda=tp["reg_lambda"],
                         reg_alpha=tp["reg_alpha"], max_abs_leaf=cap,
                         hist_method=tp["hist_method"], pack_bits=pack_bits,
-                        n_shard_blocks=n_shards, mtries_rate=mtries_rate,
-                        key=ktree, compact_cap=cap_slots)
+                        n_shard_blocks=local_blocks,
+                        mtries_rate=mtries_rate, key=ktree,
+                        compact_cap=cap_slots, axis_name=axis)
 
                 scale_d = torch.tensor(scale, device=dev)
                 if stream is not None:
@@ -1298,7 +1487,9 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         dart_scales[i] *= fd
                 dart_scales.append(fn)
             built = m + 1
-            if built in chunk_ends and self.job is not None:
+            if built in chunk_ends and self.job is not None and not pod:
+                # one rank's cancellation would strand the others: a pod
+                # takes none, as in the reference
                 self.job.check_cancelled()
             if valid is None and built not in events:
                 if chunk_end(built):
@@ -1320,21 +1511,32 @@ class H2OSharedTreeEstimator(H2OEstimator):
             if built in events:
                 if oob:
                     # DRF scores its out-of-bag votes, on the host in f64
-                    osum = oob_sum[:n].cpu().numpy().astype(np.float64)
-                    ocnt = oob_cnt[:n].cpu().numpy().astype(np.float64)[:, None]
-                    mnp = margins[:n].cpu().numpy().astype(np.float64)
+                    # (a pod gathers every rank's real rows: rank order is
+                    # the global row order)
+                    rows = torch.cat([oob_sum[:n_real], oob_cnt[:n_real, None],
+                                      margins[:n_real]], dim=1).cpu().numpy()
+                    if pod:
+                        rows = distdata.allgather_rows(rows)
+                    rows = rows.astype(np.float64)
+                    osum, ocnt, mnp = rows[:, :K], rows[:, K:K + 1], rows[:, K + 1:]
                     oob_mean = np.where(ocnt > 0, osum / np.maximum(ocnt, 1.0),
                                         mnp / built)
                     val = _host_event_loss(problem, dist, self._mode,
-                                           oob_mean * built, yk, built)
+                                           oob_mean * built, yk_g, built)
                 else:
-                    val = float(_event_loss(margins, y_d, n, 1.0 / built,
+                    val = float(_event_loss(margins, y_d, n_real, 1.0 / built,
                                             self._mode, problem, dist,
-                                            n_blocks=loss_blocks))
+                                            n_blocks=loss_blocks,
+                                            axis_name=axis, align=align))
                 ev = _event_record(problem, built, val)
                 if valid is not None:
-                    vval = float(_event_loss(margins_v, y_v, n_v, 1.0 / built,
-                                             self._mode, problem, dist))
+                    # a pod's validation rows are each rank's own: their
+                    # sums fold over the ranks in rank order (the same on
+                    # every rank; not the one-rank sum's bits)
+                    vval = float(_event_loss(
+                        margins_v, y_v, n_v, 1.0 / built, self._mode,
+                        problem, dist, n_blocks=1 if pod else 0,
+                        axis_name=axis, align=align))
                     ev.update({f"validation_{k2}": v2 for k2, v2 in
                                _event_record(problem, built, vval).items()
                                if k2 not in ("number_of_trees", "timestamp")})
@@ -1349,7 +1551,10 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 if v is None:
                     v = ev.get("validation_training_deviance" if valid is not None
                                else "training_deviance", np.nan)
-                if stopper.record(v):
+                stop = stopper.record(v)
+                # every rank scored the same folded loss; the vote keeps
+                # a rank from leaving the next tree's gathers alone
+                if distdata.global_any(stop) if pod else stop:
                     break
             if chunk_end(built):
                 break
@@ -1381,6 +1586,11 @@ class H2OSharedTreeEstimator(H2OEstimator):
         if dart is not None:
             model.dart_scales = dart_scales   # per round, baked into values
         model._npad = npad     # CV passes this to re-bin folds as _npad_floor
+        if pod:
+            # the pod the model was fit on: its blocks and this rank's
+            model._pod = dict(ranks=cloud.size, rank=cloud.self_idx,
+                              n_shards=n_shards, local_blocks=local_blocks,
+                              npad=npad, quota=quota, rows=n_real)
         if stream is not None:
             # the fit's stream: blocks and bytes moved, resident peaks
             delta = {k2: store.counters[k2] - stream0[k2]
@@ -1413,7 +1623,10 @@ class H2OSharedTreeEstimator(H2OEstimator):
                  float(gain_total[i] / gain_total.sum()))
                 for i in order]
         ntrees = model.ntrees_built
-        if problem == "binomial" and dist == "bernoulli" and not drf:
+        # a pod's training metrics are this rank's own rows (as the
+        # reference's): the global numbers live in the scoring history
+        if problem == "binomial" and dist == "bernoulli" and not drf \
+                and not pod:
             # the whole training-metric reduction runs on the device (AUC2
             # binned design): only the bin counts come back
             qs, npos, nneg, nll, sq = _binom_binned_stats(margins[:, 0],
@@ -1422,13 +1635,13 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 qs.cpu().numpy(), npos.cpu().numpy(), nneg.cpu().numpy(),
                 float(nll), float(sq))
         else:
-            m_np = margins[:n].cpu().numpy().astype(np.float64)
+            m_np = unpadr(margins).astype(np.float64)
             if oob:
                 # DRF training metrics are out-of-bag: each row is scored
                 # by the trees that did not sample it; rows every tree
                 # sampled fall back to the in-bag forest average
-                osum = oob_sum[:n].cpu().numpy().astype(np.float64)
-                ocnt = oob_cnt[:n].cpu().numpy().astype(np.float64)[:, None]
+                osum = unpadr(oob_sum).astype(np.float64)
+                ocnt = unpadr(oob_cnt).astype(np.float64)[:, None]
                 m_np = np.where(ocnt > 0, osum / np.maximum(ocnt, 1.0),
                                 m_np / max(ntrees, 1)) * max(ntrees, 1)
             model.training_metrics = _metrics_for(

@@ -104,9 +104,11 @@ def _fused_level_best(hist, node_ok, feat_mask, keep, nbins: int, min_rows,
 
 
 def _leaf_totals(ids: torch.Tensor, vals3: torch.Tensor, nseg: int,
-                 n_shard_blocks: int = 0) -> torch.Tensor:
+                 n_shard_blocks: int = 0,
+                 axis_name: Optional[str] = None) -> torch.Tensor:
     """Per-cell {Σw, Σg·w, Σh·w} totals of the final level, (nseg, 3); with
-    ``n_shard_blocks`` per contiguous row block, folded in block order. On
+    ``n_shard_blocks`` per contiguous row block, folded in block order
+    (with `axis_name`, every rank's blocks in rank order). On
     every device the sums are exact integer sums (`_fixed_totals`), rounded
     once to f32: float `index_add_` adds row by row (a leaf of thousands of
     rows drifts from the f64 sum) and, on the card, with atomics in an
@@ -118,7 +120,7 @@ def _leaf_totals(ids: torch.Tensor, vals3: torch.Tensor, nseg: int,
         return ordered_axis_fold(torch.stack([
             _fixed_totals(ids[b * rows:(b + 1) * rows],
                           vals3[:, b * rows:(b + 1) * rows], nseg)
-            for b in range(n_shard_blocks)]))
+            for b in range(n_shard_blocks)]), axis_name)
     return _fixed_totals(ids, vals3, nseg)
 
 
@@ -338,6 +340,7 @@ def build_tree(
     mtries_rate: Optional[float] = None,
     key=None,
     compact_cap: int = 0,
+    axis_name: Optional[str] = None,
 ):
     """Build one tree; returns (Tree, final leaf heap index (N,), gain per
     feature (F,), cover (T,) — Σ row weights per heap node), and with
@@ -352,7 +355,13 @@ def build_tree(
     (slot CAP is the trash slot of dead rows), so a level's histogram is
     (CAP + 1, F, B, 3) whatever its depth. If the live nodes ever exceed
     the cap the overflow count is nonzero and the tree is not the exact
-    one: the caller must rebuild it densely (`shared_tree`'s fit loop does)."""
+    one: the caller must rebuild it densely (`shared_tree`'s fit loop does).
+
+    With ``axis_name`` (a pod fit) the rows are this rank's canonical
+    slice and ``n_shard_blocks`` its own block count: every histogram pass
+    and the leaf totals fold every rank's block partials in rank order
+    (`ordered_axis_fold`), so every rank searches the same histograms and
+    grows the same tree with no broadcast."""
     dev = g.device
     F = codes.shape[1]
     N = (packing.packed_nrows(codes.shape[0], pack_bits) if pack_bits
@@ -386,7 +395,7 @@ def build_tree(
         return build_histograms(
             codes, node_id, g, h, wts, n_nodes, nbins, method=method,
             pack_bits=pack_bits, n_shard_blocks=n_shard_blocks,
-            codes_w=codes_w)
+            codes_w=codes_w, axis_name=axis_name)
 
     hist_prev = None
     for d in range(min(d_switch, max_depth)):
@@ -420,7 +429,7 @@ def build_tree(
         # final level: leaf values from exact per-cell totals
         Lf = 2 ** max_depth
         tot = _leaf_totals(idx, torch.stack([w, g * w, h * w]), Lf,
-                           n_shard_blocks)
+                           n_shard_blocks, axis_name)
         rule.leaf_level(heap, max_depth, tot)
         out = finish(idx + Lf - 1)
         if compact_cap:
@@ -505,7 +514,7 @@ def build_tree(
     basef = 2 ** max_depth - 1
     valid = (slot_node >= 0) & (slot_iota < CAP)
     tot = _leaf_totals(row_slot, torch.stack([w, g * w, h * w]), CAP + 1,
-                       n_shard_blocks)
+                       n_shard_blocks, axis_name)
     abs_node = torch.where(valid, basef + slot_node, T)
     zero_f = torch.zeros_like(tot[:, 0])
     value_a[abs_node] = torch.where(valid, newton(tot[:, 1], tot[:, 2]), zero_f)

@@ -47,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import mesh
 from . import hist_cuda, packing
 
 # resolved histogram method -> dispatches
@@ -98,8 +99,13 @@ def widen(codes: torch.Tensor, pack_bits: int, method: str) -> torch.Tensor:
     return feature_major(codes, pack_bits)
 
 
-def ordered_axis_fold(parts: torch.Tensor) -> torch.Tensor:
-    """Sum of per-block partials folded left to right (a fixed order)."""
+def ordered_axis_fold(parts: torch.Tensor,
+                      axis_name: Optional[str] = None) -> torch.Tensor:
+    """Sum of per-block partials folded left to right (a fixed order).
+    With `axis_name` the (local_blocks, ...) stack is first gathered from
+    every rank into the global block order (`mesh.gather_blocks`)."""
+    if axis_name is not None:
+        parts = mesh.gather_blocks(parts)
     acc = parts[0]
     for i in range(1, parts.shape[0]):
         acc = acc + parts[i]
@@ -142,6 +148,7 @@ def build_histograms(
     pack_bits: int = 0,
     n_shard_blocks: int = 0,
     codes_w: Optional[torch.Tensor] = None,
+    axis_name: Optional[str] = None,
 ) -> torch.Tensor:
     """Histogram of {Σw, Σg·w, Σh·w} per (tree node, feature, bin), shape
     (n_nodes, F, nbins, 3). Rows with w == 0 contribute nothing.
@@ -152,7 +159,8 @@ def build_histograms(
 
     ``n_shard_blocks`` > 0 splits the rows into that many equal contiguous
     blocks, runs the same kernel on each and folds the partials in block
-    order (`ordered_axis_fold`)."""
+    order (`ordered_axis_fold`); with `axis_name` those are this rank's
+    blocks, and the fold runs over every rank's."""
     vals = torch.stack([w, g * w, h * w]).to(torch.float32)   # (3, N)
     method = resolve_method(method, vals.device)
     DISPATCH[method] += 1
@@ -174,5 +182,7 @@ def build_histograms(
                              vals[:, b * rows:(b + 1) * rows].contiguous(),
                              n_nodes, nbins)
                  for b in range(n_shard_blocks)]
-        return ordered_axis_fold(torch.stack(parts))
+        return ordered_axis_fold(torch.stack(parts), axis_name)
+    if axis_name is not None:
+        raise ValueError("a pod histogram needs n_shard_blocks > 0")
     return _run_kernel(method, codes_w, node, vals, n_nodes, nbins)

@@ -12,7 +12,12 @@ PyTorch, so a forest trained here is the reference's forest:
   into (high, low) words — and runs on the tensor's device in int64
   arithmetic masked to 32 bits, so the draws stay where they are used.
   Element i depends only on i, not on the shape's size: the first n draws
-  of a longer vector are the draws of a vector of n.
+  of a longer vector are the draws of a vector of n. So `random_bits`,
+  `uniform` and `bernoulli` take a counter `offset`: the draw of `shape`
+  at offset o is the slice [o, o + prod(shape)) of the flat draw of any
+  longer shape. A rank of a multi-process fit draws only its own rows of
+  the global (npad, …) draw this way (offset row_start · K for a 2-D
+  draw of K columns).
 
 Layout as in `jax/_src/prng.py` (jax 0.9.0, `jax_threefry_partitionable`):
 `split(key, n)[i] = threefry(key, (0, i))`; `fold_in(key, d) =
@@ -75,25 +80,28 @@ def split(key: Key, num: int = 2) -> List[Key]:
 
 
 def random_bits(key: Key, shape: Sequence[int],
-                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """32 random bits per element (int64 holding uint32), `shape`."""
+                device: Union[str, torch.device] = "cpu",
+                offset: int = 0) -> torch.Tensor:
+    """32 random bits per element (int64 holding uint32), `shape`, from
+    flat counter `offset` on."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     x0, x1 = threefry2x32(key[0], key[1], idx >> 32, idx & _MASK)
     return (x0 ^ x1).reshape(tuple(shape))
 
 
 def uniform(key: Key, shape: Sequence[int],
             device: Union[str, torch.device] = "cpu",
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+            minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0) -> torch.Tensor:
     """`jax.random.uniform(key, shape, float32, minval, maxval)`: float32 in
     [minval, maxval). The bounds are rounded to f32, and the [0, 1) floats
     become `max(minval, floats * (maxval − minval) + minval)`. XLA on the
     CPU contracts that multiply-add into one FMA, a single rounding; here
     it is computed in f64, where the product and the sum are exact (at
     most 47 significant bits), and rounded once to f32, the same bits on
-    every device."""
-    bits = random_bits(key, shape, device)
+    every device. `offset` as `random_bits`'."""
+    bits = random_bits(key, shape, device, offset)
     one = (bits >> 9) | 0x3F800000
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:
@@ -105,11 +113,12 @@ def uniform(key: Key, shape: Sequence[int],
 
 
 def bernoulli(key: Key, p: float, shape: Sequence[int],
-              device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+              device: Union[str, torch.device] = "cpu",
+              offset: int = 0) -> torch.Tensor:
     """`jax.random.bernoulli(key, p, shape)` for a Python float `p` (mode
     "low"): with 64-bit mode off `p` is an f32, so the draw is
-    `uniform(key, shape) < f32(p)`."""
-    return uniform(key, shape, device) < torch.tensor(
+    `uniform(key, shape) < f32(p)`. `offset` as `random_bits`'."""
+    return uniform(key, shape, device, offset=offset) < torch.tensor(
         p, dtype=torch.float32, device=device)
 
 

@@ -37,7 +37,9 @@ once), reconciles attributed device bytes against what the allocator holds
 (the rest is ``owner_kind="unaccounted"``), tracks watermarks and feeds the
 ``h2o3_memory_*`` registry families. A dead owner whose callbacks still
 report bytes is a leak. The reference's `snapshot`/`peak` read surfaces
-serve its REST layer (ROADMAP queue A, item 11).
+serve its REST layer (ROADMAP queue A, item 11); `peak` (the watermarks,
+and the caching allocator's peak) is ported for the per-rank memory pins
+of a multi-process fit, where each rank's ledger reads its own card.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ import torch
 from . import env_float, env_int
 
 __all__ = ["register", "unregister", "unregister_prefix", "record_event",
-           "measure", "refresh", "pressure", "owners", "clear",
+           "measure", "refresh", "peak", "pressure", "owners", "clear",
            "evict_threshold", "device_capacity_bytes", "fingerprint"]
 
 # how stale a cached refresh may be before a read recomputes (the
@@ -209,15 +211,27 @@ def _rss_bytes() -> int:
             return 0
 
 
+def _cards() -> List[int]:
+    """The cards this process probes: a rank of a multi-process cloud reads
+    its own card only (probing another would open a context there), a
+    lone process every visible card."""
+    from .. import device as devlib
+
+    card = devlib.rank_device()
+    if card is not None and card.index is not None:
+        return [card.index]
+    return list(range(torch.cuda.device_count()))
+
+
 def _probe_device() -> Dict:
     """What the CUDA caching allocator holds for live tensors on each
-    device, against each card's capacity. Never initialises CUDA: without a
-    context there are no device buffers to probe."""
+    probed card (`_cards`), against its capacity. Never initialises CUDA:
+    without a context there are no device buffers to probe."""
     if not torch.cuda.is_initialized():
         return dict(probe="unavailable", in_use_bytes=0, capacity_bytes=0,
                     devices=[])
     devices = []
-    for i in range(torch.cuda.device_count()):
+    for i in _cards():
         used = int(torch.cuda.memory_allocated(i))
         cap = int(torch.cuda.mem_get_info(i)[1])
         devices.append(dict(id=str(i), platform="cuda", bytes_in_use=used,
@@ -546,6 +560,19 @@ def _refresh_locked(now: float) -> Dict:
 
 
 # -- read side -----------------------------------------------------------------
+
+def peak() -> Dict:
+    """High watermarks of the ledger-attributed bytes per space (host,
+    device, disk) after a forced refresh, and the caching allocator's peak
+    over the probed cards (`allocator_peak_bytes`, 0 without a CUDA
+    context): on a rank, its own card's. The per-rank peaks a pod fit is
+    held to."""
+    refresh(force=True)
+    alloc = (sum(int(torch.cuda.max_memory_allocated(i)) for i in _cards())
+             if torch.cuda.is_initialized() else 0)
+    return dict(host_bytes=_HWM["host"], device_bytes=_HWM["device"],
+                disk_bytes=_HWM["disk"], allocator_peak_bytes=alloc)
+
 
 def pressure() -> float:
     """The [0,1] pressure signal admission control consults — a cached

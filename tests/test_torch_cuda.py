@@ -978,3 +978,31 @@ def test_prefetch_evicting_blocks_in_flight_keeps_the_forest(dev,
             2 * (got._stream_stats["streamed_bytes"]
                  // max(got._stream_stats["blocks_uploaded"], 1))
         _same_forest(got, want)
+
+
+def test_pod_gbm_on_one_card_equals_the_blocks_lane(dev, tmp_path):
+    """Two ranks sharing the card over gloo (the launcher, a FileStore
+    rendezvous) fit the GBM of `test_torch_multiprocess.py` at 200,000
+    rows: forest, varimp, scoring history, tree count and each rank's
+    `predict` equal the one-rank blocks-lane fit at S = 8 on the card bit
+    for bit, and each rank's allocator peak over its fit is at most 0.75×
+    the one-rank fit's."""
+    from test_torch_multiprocess import (_assert_pod_equals_blocks, _join,
+                                         _launch)
+
+    n = 200_000
+    splits = {1: [0, n], 2: [0, 99_993, n]}
+    _join(tmp_path, [_launch(tmp_path, 1, ["gbm"], n=n, splits=splits,
+                             device="cuda", env={"H2O3_TREE_SHARD": "1"})])
+    _join(tmp_path, [_launch(tmp_path, 2, ["gbm"], n=n, splits=splits,
+                             device="cuda")])
+
+    def load(case, size, rank):
+        return np.load(tmp_path / f"{case}_{size}_{rank}.npz")
+
+    _assert_pod_equals_blocks(load, "gbm", 2, 8, splits)
+    one = load("gbm", 1, 0)
+    for r in range(2):
+        pod = load("gbm", 2, r)
+        assert 0 < int(pod["dev_alloc"]) <= 0.75 * int(one["dev_alloc"]), (
+            r, int(pod["dev_alloc"]), int(one["dev_alloc"]))

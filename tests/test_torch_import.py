@@ -43,6 +43,8 @@ def test_import_loads_no_jax():
         "import h2o3_tpu_torch.models.aggregator, h2o3_tpu_torch.ops.quantiles\n"
         "import h2o3_tpu_torch.models.dataset_cache, h2o3_tpu_torch.runtime.persist\n"
         "import h2o3_tpu_torch.models.block_store, h2o3_tpu_torch.models.tree_stream\n"
+        "import h2o3_tpu_torch.parallel.mesh, h2o3_tpu_torch.parallel.distdata\n"
+        "import h2o3_tpu_torch.parallel.launcher\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'h2o3_tpu' or m.startswith('h2o3_tpu.'))\n"
