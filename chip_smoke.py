@@ -548,8 +548,21 @@ holdout prediction.
    (c) Four ranks on POD_QG_ROWS of the rows, a QuantilesGlobal GBM of 10
    trees (edges from the global quantile collective): B1 trees x 6 x 2 a
    rank. (d) Where the host shows two cards, (a) again with one card a
-   rank over NCCL; else a line says it did not run. Every wall is printed
-   beside the card's name and power limit; any child left is killed.
+   rank over NCCL; else a line says it did not run. (e)-(g) The estimator
+   engine on (a)'s ranks, after (a) and (b), each against this process's
+   blocks-lane fit at S = 8 (`H2O3_EST_SHARD=1`; (g) with
+   `H2O3_TREE_SHARD=1` and `H2O3_CV_REBIN=1`): (e) config 2's Airlines
+   logistic GLM (217 slopes and the intercept) with p-values and 3 folds
+   on POD_AIR_ROWS of phase 17's generator, β, standard errors, p-values,
+   fold β, holdout rows and CV metrics within POD_EST_TOL, no hand-written
+   kernel; (f) K-Means at UNSUP_KM and a GramSVD PCA at k = UNSUP_PCA_K
+   (DEMEAN) on POD_COV_ROWS of phase 34's Covertype-shaped predictors,
+   within UNSUP_SMALL_TOLS, no hand-written kernel, the bytes each rank's
+   whole-matrix gathers held printed; (g) (a)'s GBM with 3 folds on
+   POD_CV_ROWS of the rows, fold forests, holdout rows and CV metrics bit
+   for bit, B1 (Σ trees of the parent and its folds) x 6 x 4 a rank. Every
+   wall is printed beside the card's name and power limit; any child left
+   is killed.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
@@ -8947,7 +8960,9 @@ def ooc_sweep_path(dev, card, fr):
                              for k in ("pack_s", "h2d_s", "expand_s")})
     rec["std"] = std
     print(f"phase 39(f) std layer on {card}: {json.dumps(std)}", flush=True)
-    if std["pca"] != dict(std_hits=3, std_misses=0) \
+    # PCA's device matrix: the host layer under it and the device layer,
+    # both hits (`device_matrix` hands the host matrix back with it)
+    if std["pca"] != dict(std_hits=2, std_misses=0) \
             or std["artifacts"] != ["design", "dev", "host"]:
         bad.append(f"the std layer: {std}; expected PCA to take K-Means's "
                    "host and device artifacts beside the GLM's design")
@@ -9127,6 +9142,28 @@ POD_QG = dict(ntrees=10, max_depth=6, learn_rate=0.1, nbins=20,
               score_tree_interval=5)
 POD_CASES = {"gbm": ("gbm", POD_GBM), "drf": ("drf", POD_DRF),
              "qg": ("gbm", POD_QG)}
+# (e)-(g): the estimator engine on a pod, fitted by (a)'s ranks after (a)
+# and (b), each held against the smoke's own one-process blocks-lane fit
+# at S = 8 (H2O3_EST_SHARD=1; the CV of (g) under H2O3_TREE_SHARD=1 and
+# H2O3_CV_REBIN=1, the fold path a pod takes). (e) config 2's Airlines
+# logistic GLM (phase 17's generator, 217 slopes and the intercept) with
+# p-values and 3 folds; (f) K-Means at UNSUP_KM and a GramSVD PCA at
+# k = UNSUP_PCA_K (DEMEAN, whose mean a pod takes from the gathered
+# matrix) on phase 34's Covertype-shaped predictors; (g) (a)'s GBM with
+# 3 folds. Each cuts its rows for the phase's time (+30 s at most)
+POD_AIR_ROWS, POD_AIR_SPLIT = 200_000, 99_991
+POD_COV_ROWS, POD_COV_SPLIT = 200_000, 99_989
+POD_CV_ROWS, POD_CV_SPLIT = 200_000, 99_997
+POD_GLM = dict(family="binomial", solver="IRLSM", lambda_=0.0,
+               compute_p_values=True, nfolds=3, seed=42)
+POD_PCA = dict(k=UNSUP_PCA_K, transform="DEMEAN", pca_method="GramSVD")
+POD_GBM_CV = dict(POD_GBM, nfolds=3)
+# (e)'s standardization takes the pod's global f64 moments, not the
+# one-process np.nanmean bits: β, its standard errors, the fold β, the
+# holdouts and the CV metrics within POD_EST_TOL·max(1, |x|), p-values
+# within POD_EST_TOL; (f) within UNSUP_SMALL_TOLS
+POD_EST_TOL = 1e-5
+POD_EST_CASES = ("glm", "kmpca", "gbmcv")
 POD_TIMEOUT_S = 150
 PHASE40_WALLS: dict = {}
 
@@ -9135,7 +9172,44 @@ def pod_splits(case: str, nranks: int) -> list:
     """The ranks' first ingest rows (and the end) of `case`'s frame."""
     if case == "qg":
         return POD_QG_SPLITS if nranks == 4 else [0, POD_QG_ROWS]
-    return [0, POD_SPLIT, POD_ROWS] if nranks == 2 else [0, POD_ROWS]
+    n, split = {"glm": (POD_AIR_ROWS, POD_AIR_SPLIT),
+                "kmpca": (POD_COV_ROWS, POD_COV_SPLIT),
+                "gbmcv": (POD_CV_ROWS, POD_CV_SPLIT)}.get(
+                    case, (POD_ROWS, POD_SPLIT))
+    return [0, split, n] if nranks == 2 else [0, n]
+
+
+def pod_kind(case: str) -> str:
+    """Which data `case` fits: "air", "cov" or "higgs"."""
+    return {"glm": "air", "kmpca": "cov"}.get(case, "higgs")
+
+
+def pod_source(case: str, cache: dict):
+    """The whole of `case`'s data, drawn from its seed once a process:
+    the HIGGS rows (X, y), the Airlines frame, or the Covertype-shaped
+    predictors."""
+    kind = pod_kind(case)
+    if kind not in cache:
+        if kind == "air":
+            cache[kind] = make_airlines_like(POD_AIR_ROWS, 0)[0]
+        elif kind == "cov":
+            cache[kind] = make_covtype_like(POD_COV_ROWS, 5)[0]
+        else:
+            cache[kind] = make_higgs_like(POD_ROWS)
+    return kind, cache[kind]
+
+
+def pod_case_frame(case: str, lo: int, hi: int, cache: dict):
+    """Rows [lo, hi) of `case`'s data as a Frame of those rows alone (the
+    Airlines rows keep the whole frame's domains)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    kind, src = pod_source(case, cache)
+    if kind == "air":
+        return src.take(np.arange(lo, hi))
+    if kind == "cov":
+        return Frame.from_numpy(src[lo:hi], names=COV_NAMES)
+    return pod_frame(lo, hi, *src)
 
 
 def pod_frame(lo: int, hi: int, X=None, y=None):
@@ -9174,6 +9248,8 @@ def pod_fit(dev, case: str, fr) -> tuple:
     from h2o3_tpu_torch.ops import hist_cuda, score_cuda
     from h2o3_tpu_torch.parallel import mesh
 
+    if case in POD_EST_CASES:
+        return None, pod_est_fit(dev, case, fr)
     algo, params = POD_CASES[case]
     cls = (H2OGradientBoostingEstimator if algo == "gbm"
            else H2ORandomForestEstimator)
@@ -9196,6 +9272,79 @@ def pod_fit(dev, case: str, fr) -> tuple:
     return m, rec
 
 
+def _cv_record(model) -> dict:
+    """A CV parent's holdouts (this process's rows), cross-validation
+    metrics and each fold model's validation AUC."""
+    xm = model.cross_validation_metrics
+    return dict(holdout=np.asarray(model._cv_holdout_pred, np.float64),
+                xval=np.asarray([xm.auc, xm.logloss], np.float64),
+                fold_auc=np.asarray([f.validation_metrics.auc for f in
+                                     model.cross_validation_models]))
+
+
+def pod_est_fit(dev, case: str, fr) -> dict:
+    """The record of one (e)-(g) fit on `fr`: its wall, every kernel's
+    launches and the gathers (zeroed just before), the engine's paths and
+    what the comparison reads."""
+    from h2o3_tpu_torch.estimators import (
+        H2OGeneralizedLinearEstimator, H2OGradientBoostingEstimator,
+        H2OKMeansEstimator, H2OPrincipalComponentAnalysisEstimator)
+    from h2o3_tpu_torch.models import estimator_engine as est
+    from h2o3_tpu_torch.parallel import mesh
+
+    tf32_off()
+    zero_counts()
+    mesh.GATHER_STATS.update(calls=0, bytes=0, seconds=0.0)
+    t0 = time.perf_counter()
+    rec = {}
+    if case == "glm":
+        m = H2OGeneralizedLinearEstimator(device=str(dev), **POD_GLM).train(
+            y="IsDepDelayed", training_frame=fr).model
+        rec.update(beta=np.asarray(m.beta, np.float64),
+                   stderr=np.asarray(m.stderr, np.float64),
+                   pv=np.asarray([r["p_value"]
+                                  for r in m.coef_with_p_values()]),
+                   fold_beta=np.stack([f.beta for f in
+                                       m.cross_validation_models]),
+                   path=m.fitplan["path"], iters=m.fitplan["iterations"],
+                   fit_timings=m.fit_timings, **_cv_record(m))
+    elif case == "kmpca":
+        km = H2OKMeansEstimator(device=str(dev), **UNSUP_KM).train(
+            training_frame=fr).model
+        km_path = est.est_stats()["plans"][-1]["path"]
+        km_s = time.perf_counter() - t0
+        pca = H2OPrincipalComponentAnalysisEstimator(
+            device=str(dev), **POD_PCA).train(training_frame=fr).model
+        pod_km, pod_pca = (getattr(km, "_pod", {}),
+                           getattr(pca, "_pod", {}))
+        rec.update(centers=np.asarray(km.centers_std, np.float64),
+                   wss=float(km.fit_wss), km_iters=int(km.iterations),
+                   evals=np.asarray(pca.eigenvalues, np.float64),
+                   evecs=np.asarray(pca.eigenvectors, np.float64),
+                   path=km_path,
+                   pca_path=est.est_stats()["plans"][-1]["path"],
+                   km_wall_s=km_s,
+                   init_gather_bytes=pod_km.get("init_gather_bytes", 0),
+                   demean_gather_bytes=pod_pca.get("demean_gather_bytes",
+                                                   0))
+    else:
+        m = H2OGradientBoostingEstimator(device=str(dev),
+                                         **POD_GBM_CV).train(
+            y="label", training_frame=fr).model
+        folds = m.cross_validation_models
+        for i, f in enumerate(folds):
+            for name, t in zip(("feat", "bin", "thr", "split", "value"),
+                               f.forest[0]):
+                rec[f"fold{i}_{name}"] = t.cpu().numpy()
+        rec.update(ntrees=[m.ntrees_built] + [f.ntrees_built
+                                              for f in folds],
+                   **_cv_record(m))
+    torch.cuda.synchronize(dev)
+    rec.update(wall_s=time.perf_counter() - t0, kernels=kernel_counts(),
+               gathers=dict(mesh.GATHER_STATS))
+    return rec
+
+
 def pod_rank_main(argv) -> int:
     """A rank's entry (the launcher runs `chip_smoke.py --pod-rank OUT
     CASES T0 GO`, T0 the launch's clock): draw the frame, keep this rank's
@@ -9216,11 +9365,15 @@ def pod_rank_main(argv) -> int:
     hist_cuda.build()
     score_cuda.build()
     started_s = time.time() - t_launch
-    X, y = make_higgs_like(POD_ROWS)
+    src = {}
     rows = {case: tuple(pod_splits(case, c.size)[c.self_idx:c.self_idx + 2])
             for case in cases}
-    frames = {lohi: pod_frame(*lohi, X, y) for lohi in set(rows.values())}
-    del X, y
+    frames = {}
+    for case in cases:
+        key = (pod_kind(case),) + rows[case]
+        if key not in frames:
+            frames[key] = pod_case_frame(case, *rows[case], src)
+    del src
     frame_s = time.time() - t_launch
     deadline = time.monotonic() + POD_TIMEOUT_S
     while not os.path.exists(go):
@@ -9229,7 +9382,7 @@ def pod_rank_main(argv) -> int:
         time.sleep(0.02)
     go_s = time.time() - t_launch
     for case in cases:
-        fr = frames[rows[case]]
+        fr = frames[(pod_kind(case),) + rows[case]]
         _, rec = pod_fit(dev, case, fr)
         rec.update(rank=c.self_idx, ranks=c.size, backend=c.backend,
                    device=str(dev), row_off=distdata.row_offset(fr.nrow),
@@ -9368,11 +9521,112 @@ def pod_leg(card, tmp, tag, case, nranks, one, per_rank, bad, rec, wall):
     return ranks
 
 
+def _max_rel(a, b) -> float:
+    """max |a − b| / max(1, |b|) over the entries (0 for two empties)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    if not a.size:
+        return 0.0
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+
+
+def _evec_err(a, b) -> float:
+    """Largest entrywise gap of two eigenvector sets up to each column's
+    sign."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return float("inf")
+    sign = np.sign((a * b).sum(axis=0))
+    sign[sign == 0] = 1.0
+    return float(np.max(np.abs(a * sign - b))) if a.size else 0.0
+
+
+def pod_est_diff(case: str, one: dict, pod: dict, lo: int, hi: int):
+    """(errors, what breaks its bar) of a rank's (e)-(g) record against
+    the one-process record; `holdout` is the rank's ingest rows
+    [lo, hi)."""
+    ho = one["holdout"][lo:hi] if "holdout" in one else None
+    if case == "glm":
+        errs = dict(beta=_max_rel(pod["beta"], one["beta"]),
+                    stderr=_max_rel(pod["stderr"], one["stderr"]),
+                    p_value=float(np.max(np.abs(pod["pv"] - one["pv"]))),
+                    fold_beta=_max_rel(pod["fold_beta"], one["fold_beta"]),
+                    holdout=_max_rel(pod["holdout"], ho),
+                    xval=_max_rel(pod["xval"], one["xval"]),
+                    fold_auc=_max_rel(pod["fold_auc"], one["fold_auc"]))
+        return errs, [k for k, v in errs.items() if not v <= POD_EST_TOL]
+    if case == "kmpca":
+        t = UNSUP_SMALL_TOLS
+        errs = dict(centers=float(np.max(np.abs(pod["centers"]
+                                                - one["centers"]))),
+                    wss=abs(pod["wss"] - one["wss"]) / abs(one["wss"]),
+                    evals=float(np.max(np.abs(pod["evals"] - one["evals"])
+                                       / np.abs(one["evals"]))),
+                    evecs=_evec_err(pod["evecs"], one["evecs"]))
+        bars = dict(centers=t["center"], wss=t["ss"], evals=t["eig_rel"],
+                    evecs=t["eig_abs"])
+        return errs, [k for k, v in errs.items() if not v <= bars[k]]
+    keys = [k for k in one if k.startswith("fold") and k != "fold_auc"]
+    same = {k: bool(np.array_equal(pod.get(k), one[k])) for k in keys}
+    same.update(holdout=bool(np.array_equal(pod["holdout"], ho)),
+                xval=bool(np.array_equal(pod["xval"], one["xval"])),
+                fold_auc=bool(np.array_equal(pod["fold_auc"],
+                                             one["fold_auc"])),
+                ntrees=list(pod["ntrees"]) == list(one["ntrees"]))
+    return ({"bit_equal": all(same.values())},
+            [k for k, v in same.items() if not v])
+
+
+def pod_est_leg(card, tmp, tag, case, one, bad, rec, wall):
+    """Hold both ranks' (e)-(g) records of `case` against the one-process
+    record `one`, check the kernels each launched, and print the leg."""
+    splits = pod_splits(case, 2)
+    ranks = []
+    for r in range(2):
+        p = pod_load(tmp, case, r)
+        lo, hi = splits[r], splits[r + 1]
+        errs, broken = pod_est_diff(case, one, p, lo, hi)
+        if broken:
+            bad.append(f"({tag}) rank {r} differs from the one-process fit "
+                       f"in {broken}: {errs}")
+        k = p["kernels"]
+        if case == "gbmcv":
+            want = sum(p["ntrees"]) * 6 * (POD_S // 2)
+            if (k["hist"], k["hist_rows"]) != (want, 0):
+                bad.append(f"({tag}) rank {r}: B1 {k['hist']}, B2 "
+                           f"{k['hist_rows']}; expected {want}, 0")
+        elif any(k.values()):
+            bad.append(f"({tag}) rank {r} launched hand-written kernels: "
+                       f"{k}")
+        if case != "gbmcv" and p["path"] != "fused_mesh":
+            bad.append(f"({tag}) rank {r}: path {p['path']}, not "
+                       "fused_mesh")
+        g = p["gathers"]
+        ranks.append(dict(
+            rank=r, rows=hi - lo, wall_s=p["wall_s"], errors=errs,
+            kernels=k, gathers=g["calls"], gathered_bytes=g["bytes"],
+            gather_s=g["seconds"],
+            **{key: p[key] for key in ("path", "pca_path", "iters",
+                                       "km_iters", "km_wall_s",
+                                       "init_gather_bytes",
+                                       "demean_gather_bytes", "ntrees",
+                                       "fit_timings") if key in p}))
+    rec[tag] = dict(ranks=2, case=case, launch_wall_s=wall,
+                    one_process={key: one[key] for key in (
+                        "wall_s", "path", "pca_path", "iters", "km_iters",
+                        "ntrees", "kernels", "fit_timings") if key in one},
+                    per_rank=ranks)
+    print(f"phase 40({tag}) 2 ranks, {case}, on {card}: "
+          + json.dumps(rec[tag], default=str), flush=True)
+
+
 def pod_path(dev, card):
     """Phase 40: (a) the 2-rank GBM and (b) the 2-rank DRF on B2 at config
     1's width, (c) four ranks with QuantilesGlobal, (d) NCCL where each
     rank has a card; each equal to the one-process blocks-lane fit at
-    S = 8."""
+    S = 8. (e)-(g) the estimator engine on (a)'s ranks: the Airlines GLM
+    with p-values and 3 folds, K-Means and PCA, (a)'s GBM with 3 folds."""
     import shutil
 
     t_phase = time.perf_counter()
@@ -9380,14 +9634,17 @@ def pod_path(dev, card):
                         S=POD_S)
     print(f"phase 40 cut: (a), (b) fit {POD_ROWS} of config 1's "
           f"{POD_ROWS_FROM} HIGGS rows, as phase 39; (c) {POD_QG_ROWS} of "
-          "them", flush=True)
+          f"them; (e) {POD_AIR_ROWS} of config 2's {AIR_ROWS} Airlines "
+          f"rows; (f) {POD_COV_ROWS} of Covertype's {COV_ROWS}; (g) "
+          f"{POD_CV_ROWS} of (a)'s rows", flush=True)
     tmp = tempfile.mkdtemp(prefix="h2o3_pod_")
     # (a)-(c) share one card over gloo, whatever the host shows
     one_card = dict(CUDA_VISIBLE_DEVICES=os.environ.get(
         "CUDA_VISIBLE_DEVICES", "0").split(",")[0])
     # every rank starts now: its start and its frame overlap the
     # one-process fits below, and each waits for its go before it fits
-    launches = [pod_start(2, ["gbm", "drf"], tmp, "ab", one_card),
+    launches = [pod_start(2, ["gbm", "drf", *POD_EST_CASES], tmp, "ab",
+                          one_card),
                 pod_start(4, ["qg"], tmp, "c", one_card)]
     try:
         _pod_legs(dev, card, tmp, launches, bad, rec)
@@ -9409,7 +9666,8 @@ def _pod_legs(dev, card, tmp, launches, bad, rec):
     X, y = make_higgs_like(POD_ROWS)
     ones = {}
     with ooc_env(H2O3_TREE_OOC=0, H2O3_TREE_SHARD=1,
-                 H2O3_TREE_SHARD_BLOCKS=POD_S):
+                 H2O3_TREE_SHARD_BLOCKS=POD_S, H2O3_CV_REBIN=1,
+                 H2O3_EST_SHARD=1, H2O3_EST_SHARD_BLOCKS=POD_S):
         # the GBM and the DRF share one frame (the DRF hits its bins), as
         # they do on the ranks
         fr = pod_frame(0, POD_ROWS, X, y)
@@ -9420,10 +9678,29 @@ def _pod_legs(dev, card, tmp, launches, bad, rec):
             _, ones[case] = pod_fit(dev, case, fr)
             PHASE40_WALLS[f"one_{case}_s"] = time.perf_counter() - t0
         del fr
+        src = {"higgs": (X, y)}
+        for case in POD_EST_CASES:
+            t0 = time.perf_counter()
+            fr = pod_case_frame(case, 0, pod_splits(case, 1)[-1], src)
+            PHASE40_WALLS[f"frame_{case}_s"] = time.perf_counter() - t0
+            _, ones[case] = pod_fit(dev, case, fr)
+            PHASE40_WALLS[f"one_{case}_s"] = time.perf_counter() - t0
+            del fr
+        del src
     del X, y
     dsc.clear()
+    for case in POD_EST_CASES:
+        k = ones[case]["kernels"]
+        want = (dict(k, hist=sum(ones[case]["ntrees"]) * 6 * POD_S,
+                     hist_rows=0) if case == "gbmcv"
+                else {name: 0 for name in k})
+        if k != want:
+            bad.append(f"one-process {case}: kernels {k}, expected {want}")
+        if case != "gbmcv" and ones[case]["path"] != "fused_blocks":
+            bad.append(f"one-process {case}: path {ones[case]['path']}, "
+                       "not fused_blocks")
     half = POD_S // 2
-    nt = {k: int(v["ntrees"]) for k, v in ones.items()}
+    nt = {k: int(ones[k]["ntrees"]) for k in POD_CASES}
     for case, b1, b2 in (("gbm", nt["gbm"] * 6 * POD_S, 0),
                          ("drf", 0, nt["drf"] * 12 * POD_S),
                          ("qg", nt["qg"] * 6 * POD_S, 0)):
@@ -9444,6 +9721,8 @@ def _pod_legs(dev, card, tmp, launches, bad, rec):
                        f"{ones['gbm']['device_peak_bytes']}")
     pod_leg(card, tmp, "b", "drf", 2, ones["drf"],
             dict(b1=0, b2=nt["drf"] * 12 * half), bad, rec, wall)
+    for tag, case in zip("efg", POD_EST_CASES):
+        pod_est_leg(card, tmp, tag, case, ones[case], bad, rec, wall)
     wall = PHASE40_WALLS["c_launch_s"] = pod_join(launches[1])
     pod_leg(card, tmp, "c", "qg", 4, ones["qg"],
             dict(b1=nt["qg"] * 6 * (POD_S // 4), b2=0), bad, rec, wall)

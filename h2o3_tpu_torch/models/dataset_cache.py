@@ -49,7 +49,8 @@ another rank's frame changed. The collectives that produce those facts
 and the canonical row exchange run eagerly in every fit, before any
 build callback, and the callbacks are collective-free: a hit on one rank and a
 miss on another can never strand a rank inside a collective. The
-estimator engine's pod and mesh layouts are ROADMAP queue A, item 9.
+estimator engine's std layer does the same (`estimator_engine.py`): its
+device keys carry the padded row count and, on a pod, the layout.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""H2OGeneralizedLinearEstimator — GLM, single device.
+"""H2OGeneralizedLinearEstimator — GLM, on one device or across ranks.
 
 Port of `h2o3_tpu/models/glm.py` (reference parity: `hex/glm/GLM.java`'s
 IRLSM, `hex/glm/GLMTask.java`'s Gram task, `hex/DataInfo.java`). The
@@ -35,8 +35,20 @@ reference's multinomial fit silently ignores a parameter
 (`lambda_search`, the L1 share of α, `non_negative`), the port raises
 naming it (ROADMAP §C).
 
-Not ported: the multi-device and multi-process lanes (ROADMAP queue A,
-item 9).
+The single-λ IRLS fit runs under the estimator engine's shard plan
+(`estimator_engine.shard_plan`): "off" on one rank; "blocks" under
+``H2O3_EST_SHARD=1``, S ordered row blocks, each block's Gram and X'Wz
+one augmented product (W·w·X)ᵀ[X | z] (`_gram_fn`), the partials folded
+in block order; "mesh" on a pod, each rank holding S/N whole blocks of the
+canonical row layout (its design, y and w), the partials gathered in rank
+order and folded, β₀ from the gathered y and w, so a pod fit equals the
+blocks-lane fit that shares S bit for bit on an unstandardized design.
+Every rank then solves the same folded Gram: β, Δβ, the iteration count
+and the f32-divergence fallback (voted all the same) agree; p-values
+invert the folded Gram and fold the Pearson sums. A pod's training and
+validation metrics are its rank's own rows. λ search and the multinomial
+family run one rank's full rows (a pod raises for them: ROADMAP queue A,
+item 9, part 1b).
 """
 
 from __future__ import annotations
@@ -51,11 +63,13 @@ import torch
 
 from .. import device as devlib
 from ..frame.frame import Frame
+from ..parallel import distdata
+from ..parallel import mesh as cloudlib
 from . import estimator_engine as _est
 from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
                       ModelMetricsRegression)
 from .model_base import (SCORE_ROW_BUCKET, DataInfo, H2OEstimator, H2OModel,
-                         _sync, response_info)
+                         _sync, pod_check_frame, response_info)
 
 FAMILIES = (
     "AUTO", "gaussian", "binomial", "quasibinomial", "multinomial",
@@ -168,6 +182,54 @@ def _gram_step(X, y, w, beta, family: str, tweedie_p: float = 1.5):
     del Xw
     xy = X.T @ (Ww * z)
     return gram, xy
+
+
+def _row_blocks(X, y, w, local_blocks: int):
+    """(X, y, w) of each of this rank's row blocks, each a tensor of its
+    own (`estimator_engine.row_blocks`), or None without blocks."""
+    if not local_blocks:
+        return None
+    return list(zip(*(_est.row_blocks(t, local_blocks) for t in (X, y, w))))
+
+
+def _gram_fn(X, y, w, family: str, tweedie_p: float, blocks=None,
+             axis_name: Optional[str] = None):
+    """β → (X'WX, X'Wz) of one fit under its shard plan. Off (`blocks`
+    None): `_gram_step` over every row. The blocks and mesh lanes: each of
+    this rank's row blocks (`_row_blocks`) gives η, W and z from its own
+    rows and its Gram and X'Wz as ONE augmented product (W·w·X)ᵀ[X | z]
+    (the reference's form: one product per block gives the same bits in
+    both lanes); the block partials fold in block order over the ranks
+    (`estimator_engine.fold_blocks`). Pad rows weigh 0."""
+    if blocks is None:
+        return lambda b: _gram_step(X, y, w, b, family, tweedie_p)
+
+    def gram(b):
+        parts = []
+        for Xb, yb, wb in blocks:
+            eta = Xb @ b
+            mu = _linkinv(family, eta)
+            W, z = _irls_weights(family, eta, mu, yb, tweedie_p)
+            Xw = Xb * (W * wb)[:, None]
+            parts.append(Xw.T @ torch.cat([Xb, z[:, None]], dim=1))
+        gz = _est.fold_blocks(torch.stack(parts), axis_name)
+        return gz[:, :-1], gz[:, -1]
+
+    return gram
+
+
+def _eta_by_columns(X: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """X·β with each row's sum taken column by column in a fixed order, as
+    two exactly rounded elementwise operations a column: a row's value
+    does not depend on how many rows the matrix holds or where the row
+    sits, which a gemv does not promise (its kernels group rows and peel
+    for alignment). CV holdouts score through it, so a pod rank's holdout
+    rows equal the same rows of the one-process fit's."""
+    Xt = X.t().contiguous()
+    eta = Xt[0] * beta[0]
+    for j in range(1, Xt.shape[0]):
+        eta = eta + Xt[j] * beta[j]
+    return eta
 
 
 def _f32(v) -> float:
@@ -372,9 +434,9 @@ def attach_linear_artifacts(model: "GLMModel", train, valid, Xd,
                             n: int) -> "GLMModel":
     """Training/validation metrics + |coefficient| varimp for a fitted
     linear model. Training metrics reuse the fit's design matrix when it
-    has exactly the frame's rows."""
+    has exactly the frame's rows (`Xd` None: never)."""
     model.training_metrics = model._make_metrics(
-        train, Xd=Xd if int(Xd.shape[0]) == n else None)
+        train, Xd=Xd if Xd is not None and int(Xd.shape[0]) == n else None)
     if valid is not None:
         model.validation_metrics = model._make_metrics(valid)
     # GLM varimp = |standardized coefficient| magnitudes (a multinomial
@@ -485,7 +547,8 @@ class GLMModel(H2OModel):
         out[-1] = b[-1] - float((b[:-1] * self.dinfo.means / self.dinfo.stds).sum())
         return out
 
-    def _eta_dev(self, frame: Frame, Xd=None) -> torch.Tensor:
+    def _eta_dev(self, frame: Frame, Xd=None,
+                 by_columns: bool = False) -> torch.Tensor:
         """Linear predictor as a DEVICE tensor. Expansion + matvec run on
         the device (compact upload, see DataInfo.device_design), in true
         f32; `Xd` lets the fit reuse its design matrix for training
@@ -499,13 +562,17 @@ class GLMModel(H2OModel):
                                           device=self.device)
         beta = torch.as_tensor(np.asarray(self.beta, np.float32),
                                device=Xd.device)
+        if by_columns:
+            return (_eta_by_columns(Xd, beta) if beta.dim() == 1 else
+                    torch.stack([_eta_by_columns(Xd, b) for b in beta], 1))
         return Xd @ beta.t()       # (rows,), or (rows, K) multinomial
 
-    def _score(self, frame: Frame, Xd=None) -> np.ndarray:
+    def _score(self, frame: Frame, Xd=None,
+               by_columns: bool = False) -> np.ndarray:
         # link inverse (a multinomial model's softmax) applied on the
         # device: ONE transfer per scoring; the host-side slice drops any
         # row-bucket pad
-        eta = self._eta_dev(frame, Xd=Xd)
+        eta = self._eta_dev(frame, Xd=Xd, by_columns=by_columns)
         if self.family == "multinomial":
             mu = torch.softmax(eta, dim=1)
         else:
@@ -539,6 +606,7 @@ class GLMModel(H2OModel):
 
 class H2OGeneralizedLinearEstimator(H2OEstimator):
     algo = "glm"
+    _pod_lane = True
     _param_defaults = dict(
         family="AUTO",
         solver="AUTO",
@@ -630,15 +698,43 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         beta_eps = float(p.get("beta_epsilon", 1e-4))
 
         # -- estimator-engine dispatch: the fused device loops, or the host
-        # loops under H2O3_EST_LEGACY=1; one device, so the plan is "off"
+        # loops under H2O3_EST_LEGACY=1. The shard plan: "off" on one rank,
+        # "blocks" under H2O3_EST_SHARD=1, "mesh" on a pod. The blocked
+        # lanes carry the single-λ IRLS fit; λ search and the multinomial
+        # family run full-row reductions (a pod raises for both in train)
         engine_on = not _est.legacy()
-        shard_mode, n_shards = _est.shard_plan(1, False)
+        cloud = cloudlib.cloud()
+        multiproc = distdata.multiprocess()
+        shard_mode, n_shards = _est.shard_plan(cloud.size, multiproc)
+        if family == "multinomial" or lambda_search or not engine_on:
+            shard_mode, n_shards = "off", 0
+        pod = shard_mode == "mesh"
+        local_blocks, axis = _est.local_plan(cloud, shard_mode, n_shards)
+        if pod:
+            pod_check_frame(train, x, y)
         design_t: Dict[str, float] = {}
         dinfo, Xd = _est.design_matrix(
-            train, x, standardize=std_flag, add_intercept=True, device=dev,
-            timings=design_t)
-        yd = torch.from_numpy(yarr).to(dev)
-        wd = torch.from_numpy(w).to(dev)
+            train, x, standardize=std_flag, add_intercept=True,
+            n_shards=n_shards, device=dev, timings=design_t)
+        npad = int(Xd.shape[0])
+        y_host, w_host = yarr, w
+        if pod:
+            # this rank's canonical slice of y and w (zero-weight pad at the
+            # global tail), and the exact global columns for β₀'s f64 sums:
+            # rank order is the global ingest order, so they equal the
+            # one-process np.sum bit for bit
+            counts, npad = _est.pod_rows(n, n_shards)
+            y_loc = distdata.to_canonical(yarr, npad, counts=counts)
+            w_loc = distdata.to_canonical(w, npad, counts=counts)
+            y_host = distdata.allgather_rows(yarr)
+            w_host = distdata.allgather_rows(w)
+        else:
+            y_loc = np.concatenate([yarr, np.zeros(npad - n, yarr.dtype)])
+            w_loc = np.concatenate([w, np.zeros(npad - n, np.float32)])
+        yd = torch.from_numpy(y_loc).to(dev)
+        wd = torch.from_numpy(w_loc).to(dev)
+        blocks = _row_blocks(Xd, yd, wd, local_blocks)
+        gram = _gram_fn(Xd, yd, wd, family, tweedie_p, blocks, axis)
         nfeat = len(dinfo.coef_names)
         fitplan: Dict[str, object] = dict(path="legacy")
         t_design = time.perf_counter()
@@ -661,8 +757,10 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         else:
             if engine_on:
                 beta = self._irls_fused(
-                    Xd, yd, wd, family, lam_v, alpha, max_iter, beta_eps,
-                    tweedie_p, fitplan, y_host=yarr, w_host=w)
+                    Xd, gram, family, lam_v, alpha, max_iter, beta_eps,
+                    fitplan, y_host=y_host, w_host=w_host, pod=pod)
+                if fitplan["path"] == "fused":
+                    fitplan["path"] = _est.fused_path(shard_mode)
             else:
                 beta = self._irls(Xd, yd, wd, family, lam_v, alpha, max_iter, beta_eps, tweedie_p)
             lam_best = lam_v
@@ -673,20 +771,29 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         if (p.get("compute_p_values") and lam_best == 0
                 and family != "multinomial"):
             cov, stderr = self._covariance(Xd, yd, wd, beta, family,
-                                           tweedie_p)
+                                           tweedie_p, gram, blocks, axis)
         t_pv = time.perf_counter()
 
         _est.record_fit(
             "glm", str(fitplan.get("path", "legacy")),
             iterations=fitplan.get("iterations"),
             converged=fitplan.get("converged"),
-            n_shards=n_shards, family=family)
+            n_shards=n_shards,
+            n_devices=cloud.size if pod else 1, family=family)
         model = GLMModel(self, x, y, dinfo, family, beta, domain,
                          lambda_best=lam_best, stderr=stderr,
                          full_path=full_path, device=dev)
         model.covmat = cov
         model.fitplan = fitplan
-        attach_linear_artifacts(model, train, valid, Xd, n)
+        if pod:
+            # the pod the model was fit on: its blocks and this rank's
+            model._pod = dict(ranks=cloud.size, rank=cloud.self_idx,
+                              n_shards=n_shards, local_blocks=local_blocks,
+                              npad=npad, quota=int(Xd.shape[0]))
+        # a pod's training and validation metrics are this rank's own rows
+        # (as the tree lane's), scored through a design of those rows
+        attach_linear_artifacts(model, train, valid,
+                                None if pod else Xd, n)
         # host-clock split of the fit (the device is synchronised at each
         # mark): the design's host pack, upload and expansion, the IRLS
         # loop (or the λ path with its re-solve), the p-value covariance,
@@ -763,27 +870,40 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
               else np.ones(Xv.shape[0])).astype(np.float32)
         return tuple(torch.from_numpy(a).to(dev) for a in (Xvi, yva, wv))
 
-    def _covariance(self, Xd, yd, wd, beta, family, tweedie_p):
+    def _covariance(self, Xd, yd, wd, beta, family, tweedie_p, gram=None,
+                    blocks=None, axis=None):
         """(cov, stderr) of β: the inverse Gram at β, scaled by the
         dispersion — Pearson X²/(n−p) for the families whose variance is
         estimated (gaussian/gamma/tweedie), fixed at 1 for binomial/poisson
-        (GLM dispersion_estimated). (None, None) for a singular Gram."""
+        (GLM dispersion_estimated). (None, None) for a singular Gram.
+        Under the blocks and mesh lanes the Gram is the fit's folded one
+        (every rank inverts the same matrix) and the Pearson sums are f64
+        block partials folded in block order over the ranks."""
         beta_d = self._f32_dev(beta, Xd)
-        gram, _ = _gram_step(Xd, yd, wd, beta_d, family, tweedie_p)
+        g, _ = (gram or (lambda b: _gram_step(Xd, yd, wd, b, family,
+                                              tweedie_p)))(beta_d)
         try:
-            cov = np.linalg.inv(gram.cpu().numpy().astype(np.float64))
+            cov = np.linalg.inv(g.cpu().numpy().astype(np.float64))
         except np.linalg.LinAlgError:
             return None, None
         if family in ("gaussian", "gamma", "tweedie"):
-            eta = (Xd @ beta_d).cpu().numpy().astype(np.float64)
-            mu = _linkinv(family, torch.from_numpy(eta).float()).numpy().astype(np.float64)
-            yv_ = yd.cpu().numpy().astype(np.float64)
-            wv_ = wd.cpu().numpy().astype(np.float64)
-            vfun = {"gaussian": np.ones_like(mu),
-                    "gamma": np.maximum(mu, 1e-12) ** 2,
-                    "tweedie": np.maximum(mu, 1e-12) ** tweedie_p}[family]
-            dof = max(float(wv_.sum()) - Xd.shape[1], 1.0)
-            dispersion = float(np.sum(wv_ * (yv_ - mu) ** 2 / vfun) / dof)
+            def pearson(X, y, w):
+                eta = (X @ beta_d).cpu().numpy().astype(np.float64)
+                mu = _linkinv(family, torch.from_numpy(eta).float()).numpy().astype(np.float64)
+                yv_ = y.cpu().numpy().astype(np.float64)
+                wv_ = w.cpu().numpy().astype(np.float64)
+                vfun = {"gaussian": np.ones_like(mu),
+                        "gamma": np.maximum(mu, 1e-12) ** 2,
+                        "tweedie": np.maximum(mu, 1e-12) ** tweedie_p}[family]
+                return np.asarray([np.sum(wv_ * (yv_ - mu) ** 2 / vfun),
+                                   wv_.sum()])
+            if blocks is not None:
+                x2, wsum = _est.fold_blocks(torch.from_numpy(np.stack(
+                    [pearson(*blk) for blk in blocks])), axis).numpy()
+            else:
+                x2, wsum = pearson(Xd, yd, wd)
+            dof = max(float(wsum) - Xd.shape[1], 1.0)
+            dispersion = float(x2 / dof)
         else:
             dispersion = 1.0
         cov = cov * dispersion
@@ -809,20 +929,27 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         n_obs, wy = (float(v) for v in _wsums(yd, wd))
         return self._beta_from_sums(wy, n_obs, family, pdim), n_obs
 
-    def _irls_fused(self, Xd, yd, wd, family, lam, alpha, max_iter,
-                    beta_eps, tweedie_p, fitplan, y_host, w_host):
-        """The fused single-λ IRLS fit: Gram, penalized solve and the
-        convergence test max|Δβ| < β_eps all on the device; the host reads
-        Δβ once per iteration to decide whether to go on (the reference's
+    def _irls_fused(self, Xd, gram, family, lam, alpha, max_iter,
+                    beta_eps, fitplan, y_host, w_host, pod=False):
+        """The fused single-λ IRLS fit: Gram (`gram`, `_gram_fn` under the
+        fit's shard plan), penalized solve and the convergence test
+        max|Δβ| < β_eps all on the device; the host reads Δβ once per
+        iteration to decide whether to go on (the reference's
         `lax.while_loop` reads nothing until the end). `one_step` marks
         gaussian with α·λ = 0, whose single solve mirrors the host loop's
         unconditional gaussian break — including under non_negative, where
         both paths do exactly one projected-ISTA pass; plain gaussian
         hoists the β-independent Gram out of the loop. Falls back to the
-        f64 host loop if the f32 loop diverged (separation-shaped data)."""
+        f64 host loop if the f32 loop diverged (separation-shaped data).
+
+        On a pod every rank solves the same folded Gram, so β, Δβ and the
+        iteration count are the same on every rank; the fallback is voted
+        all the same (`global_all`), as a collective must never be left
+        by one rank alone."""
         pdim = int(Xd.shape[1])
         dev = Xd.device
-        # host init sums, as the reference takes them on this path
+        # host init sums, as the reference takes them on this path (a pod's
+        # y and w are the gathered global columns)
         wts = np.asarray(w_host, np.float64)
         n_obs = float(wts.sum())
         wy = float((wts * np.asarray(y_host, np.float64)).sum())
@@ -833,13 +960,13 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         ista_each = ISTA_STEPS if _uses_ista(lam, alpha, n_obs,
                                              non_negative) else 0
 
-        def solve(gram, xy, bprev):
-            return _solve_pen_device(gram, xy, lam, alpha, n_obs, pen_mask,
+        def solve(g, xy, bprev):
+            return _solve_pen_device(g, xy, lam, alpha, n_obs, pen_mask,
                                      bprev, non_negative)
 
         b = torch.as_tensor(np.asarray(beta0, np.float32), device=dev)
         if one_step or family == "gaussian":
-            gram_g, xy_g = _gram_step(Xd, yd, wd, b, family, tweedie_p)
+            gram_g, xy_g = gram(b)
         if one_step:
             nb = solve(gram_g, xy_g, b)
             it, deltas = 1, [float(torch.max(torch.abs(nb - b)))]
@@ -849,20 +976,20 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
             eps = _f32(beta_eps)
             it, deltas = 0, [float("inf")]
             while it < max_iter and deltas[-1] >= eps:
-                gram, xy = ((gram_g, xy_g) if family == "gaussian"
-                            else _gram_step(Xd, yd, wd, b, family, tweedie_p))
-                nb = solve(gram, xy, b)
+                g, xy = (gram_g, xy_g) if family == "gaussian" else gram(b)
+                nb = solve(g, xy, b)
                 deltas.append(float(torch.max(torch.abs(nb - b))))
                 b = nb
                 it += 1
             deltas = deltas[1:]
         beta = b.cpu().numpy().astype(np.float64)
-        if not np.isfinite(beta).all():
+        finite = bool(np.isfinite(beta).all())
+        if not (distdata.global_all(finite) if pod else finite):
             # f32 divergence — the robust host loop is the answer, and the
             # plan records that the fused loop did not stick
             fitplan.update(path="host_fallback")
-            return self._irls(Xd, yd, wd, family, lam, alpha, max_iter,
-                              beta_eps, tweedie_p)
+            return self._irls_host(gram, pdim, dev, beta0, n_obs, family,
+                                   lam, alpha, max_iter, beta_eps)
         fitplan.update(
             path="fused", iterations=it, ista_steps=it * ista_each,
             deltas=deltas,
@@ -874,10 +1001,19 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         """The host IRLS loop: Gram on the device, f64 solve on the host."""
         pdim = Xd.shape[1]
         beta, n_obs = self._beta_init(yd, wd, family, pdim)
+        return self._irls_host(
+            lambda b: _gram_step(Xd, yd, wd, b, family, tweedie_p), pdim,
+            Xd.device, beta, n_obs, family, lam, alpha, max_iter, beta_eps)
+
+    def _irls_host(self, gram, pdim, dev, beta, n_obs, family, lam, alpha,
+                   max_iter, beta_eps):
+        """The host loop over a Gram function: each iteration's Gram on the
+        device, its f64 penalized solve on the host."""
         for it in range(max_iter):
-            gram, xy = _gram_step(Xd, yd, wd, self._f32_dev(beta, Xd), family, tweedie_p)
+            g, xy = gram(torch.as_tensor(np.asarray(beta, np.float32),
+                                         device=dev))
             new_beta = _solve_penalized(
-                gram.cpu().numpy().astype(np.float64),
+                g.cpu().numpy().astype(np.float64),
                 xy.cpu().numpy().astype(np.float64),
                 lam, alpha, n_obs, pdim - 1, beta,
                 non_negative=bool(self._parms.get("non_negative")),
@@ -988,8 +1124,25 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
 
     def _cv_predict(self, model: GLMModel, frame: Frame) -> np.ndarray:
         """Holdout prediction of a CV fold (GLM folds re-fit on their own
-        rows: `_cv_can_reuse` stays False)."""
-        return model._score(frame)
+        rows: `_cv_can_reuse` stays False), η by columns
+        (`_eta_by_columns`): a row's value is the same whichever rows
+        share its frame."""
+        return model._score(frame, by_columns=True)
+
+    def _pod_off_lane(self, y, train: Frame):
+        """The fits the reference keeps off its engine lanes on a pod (it
+        runs them on global arrays): λ search and the multinomial family;
+        and the lanes' own switches."""
+        p = self._parms
+        fam = p.get("family", "AUTO")
+        yv = train.vec(y) if y is not None else None
+        if fam == "multinomial" or (fam == "AUTO" and yv is not None
+                                    and yv.type == "enum"
+                                    and yv.nlevels > 2):
+            return "the multinomial family has no multi-process lane"
+        if p.get("lambda_search"):
+            return "lambda_search has no multi-process lane"
+        return _est.pod_switch_off()
 
     # h2o-py convenience
     @staticmethod

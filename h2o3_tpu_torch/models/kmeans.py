@@ -1,4 +1,4 @@
-"""H2OKMeansEstimator — K-Means clustering, single device.
+"""H2OKMeansEstimator — K-Means clustering, on one device or across ranks.
 
 Port of `h2o3_tpu/models/kmeans.py` (reference parity:
 `hex/kmeans/KMeans.java`: Lloyd iterations, `init` ∈ {Random, PlusPlus,
@@ -23,8 +23,18 @@ WSS once per iteration and applies the same test in f32:
 on the same test in f64. The one-hot and segment sums add in different
 orders, so the two paths agree within f32 rounding, as in the reference.
 
+Under the estimator engine's blocks and mesh lanes (`_lloyd_fn`) each of
+S row blocks gives its (weighted) sums, counts and WSS as one partial,
+folded in block order; on a pod the partials of every rank's S/N blocks
+are gathered in rank order, and the initial draws read the matrix
+gathered in rank order, so a pod fit equals the one-rank blocks lane bit
+for bit on an unstandardized matrix. (The reference keeps K-Means off its
+lanes on a pod and fits each rank's rows, ROADMAP §C.) `user_points` and
+the legacy loop have no pod lane (item 9, part 1b).
+
 `predict` computes the same distances on the model's device; the
-training and validation metrics are the reference's numpy code.
+training and validation metrics are the reference's numpy code (a pod's
+are its rank's own rows).
 `estimate_k` is accepted by the reference and never read: only its
 default is ported (ROADMAP §C).
 """
@@ -39,9 +49,12 @@ import torch
 
 from .. import device as devlib
 from ..frame.frame import Frame
+from ..parallel import distdata
+from ..parallel import mesh as cloudlib
 from . import estimator_engine as _est
 from .metrics import ModelMetricsClustering
-from .model_base import DataInfo, H2OEstimator, H2OModel, _sync, check_unread
+from .model_base import (DataInfo, H2OEstimator, H2OModel, _sync,
+                         check_unread, pod_check_frame)
 
 _ITEM8 = "ROADMAP queue A, item 8"
 _UNREAD = dict(estimate_k=False)
@@ -72,20 +85,60 @@ def _lloyd_step(X, cents, w, k: int):
     return new_cents, assign, wss, cnts
 
 
-def _fused_step(X, xsq, karange, cents):
-    """One engine-path Lloyd step (the body of the reference's
-    `_lloyd_fit_fn` in "off" mode): cluster sums and counts as a one-hot
-    matrix product. Every row has weight 1 (no pad rows on one device)."""
+def _fused_step(X, xsq, karange, cents, w=None):
+    """One engine-path Lloyd step's reductions (the body of the reference's
+    `_lloyd_fit_fn`): (cluster sums, counts, WSS), the sums and counts as
+    a one-hot matrix product. `w` weighs the rows (0 a pad row of the
+    blocked lanes); without it every row weighs 1."""
     d2 = _distances(X, cents, xsq)
     assign = torch.argmin(d2, dim=1)
     mind2 = torch.clamp(torch.min(d2, dim=1).values, min=0.0)
     oh = (assign[:, None] == karange).to(X.dtype)
-    sums = oh.T @ X
-    cnts = torch.sum(oh, dim=0)
-    new_cents = torch.where(cnts[:, None] > 0,
-                            sums / torch.clamp(cnts[:, None], min=1e-12),
-                            cents)
-    return new_cents, torch.sum(mind2)
+    if w is not None:
+        oh = oh * w[:, None]
+        mind2 = mind2 * w
+    return oh.T @ X, torch.sum(oh, dim=0), torch.sum(mind2)
+
+
+def _update(cents, sums, cnts):
+    """New centres from the cluster sums; a centre with no rows keeps its
+    value."""
+    return torch.where(cnts[:, None] > 0,
+                       sums / torch.clamp(cnts[:, None], min=1e-12), cents)
+
+
+def _lloyd_fn(Xd, wd, k: int, local_blocks: int, axis):
+    """centres → (new centres, WSS) of one fused Lloyd step under the fit's
+    shard plan. Off: full-row reductions. The blocks and mesh lanes: each
+    of this rank's row blocks a tensor of its own
+    (`estimator_engine.row_blocks`), its (sums | counts, WSS) partial one
+    (k + 1, p + 1) tensor, the partials folded in block order over the
+    ranks in one gather a step."""
+    karange = torch.arange(k, device=Xd.device)[None, :]
+    if not local_blocks:
+        xsq = torch.sum(Xd * Xd, dim=1)
+
+        def step(cents):
+            sums, cnts, wss = _fused_step(Xd, xsq, karange, cents)
+            return _update(cents, sums, cnts), wss
+        return step
+    blocks = [(Xb, torch.sum(Xb * Xb, dim=1), wb) for Xb, wb in zip(
+        _est.row_blocks(Xd, local_blocks), _est.row_blocks(wd, local_blocks))]
+    p = Xd.shape[1]
+
+    def step(cents):
+        parts = []
+        for Xb, xsq, wb in blocks:
+            sums, cnts, wss = _fused_step(Xb, xsq, karange, cents, wb)
+            part = torch.zeros((k + 1, p + 1), dtype=Xd.dtype,
+                               device=Xd.device)
+            part[:k, :p] = sums
+            part[:k, p] = cnts
+            part[k, 0] = wss
+            parts.append(part)
+        tot = _est.fold_blocks(torch.stack(parts), axis)
+        return _update(cents, tot[:k, :p], tot[:k, p]), tot[k, 0]
+    return step
 
 
 def _seed_centers(X, k: int, init: str, rng) -> np.ndarray:
@@ -165,6 +218,7 @@ class KMeansModel(H2OModel):
 class H2OKMeansEstimator(H2OEstimator):
     algo = "kmeans"
     supervised = False
+    _pod_lane = True
     _param_defaults = dict(
         k=1,
         estimate_k=False,
@@ -173,6 +227,13 @@ class H2OKMeansEstimator(H2OEstimator):
         user_points=None,
         standardize=True,
     )
+
+    def _pod_off_lane(self, y, train: Frame):
+        """`user_points` keeps the host loop, which has no multi-process
+        lane; and the engine's switches."""
+        if self._parms.get("user_points") is not None:
+            return "user_points has no multi-process lane"
+        return _est.pod_switch_off()
 
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> KMeansModel:
         if int(self._parms.get("k", 1) or 0) < 1:
@@ -189,31 +250,43 @@ class H2OKMeansEstimator(H2OEstimator):
         init = p.get("init", "Furthest")
         rng = np.random.default_rng(seed)
         engine_on = not _est.legacy() and p.get("user_points") is None
-        if engine_on:
-            _est.shard_plan(1, False)
+        cloud = cloudlib.cloud()
+        shard_mode, n_shards = (_est.shard_plan(
+            cloud.size, distdata.multiprocess()) if engine_on else ("off", 0))
+        pod = shard_mode == "mesh"
+        local_blocks, axis = _est.local_plan(cloud, shard_mode, n_shards)
+        if pod:
+            pod_check_frame(train, x, None)
         t0 = time.perf_counter()
         if engine_on:
-            dinfo, X = _est.host_matrix(train, x, standardize=std,
-                                        use_all=True)
+            # the host matrix and its cached upload, padded to the block
+            # grid (a pod: this rank's canonical slice)
+            dinfo, X, Xd = _est.device_matrix(
+                train, x, standardize=std, use_all=True, n_shards=n_shards,
+                device=dev)
         else:
             dinfo = DataInfo(train, x, standardize=std,
                              use_all_factor_levels=True)
             X = dinfo.fit_transform(train)
         t_pack = time.perf_counter()
-        n = X.shape[0]
+        # the initial draws read the whole matrix: a pod gathers it in rank
+        # order (the global ingest order), so they are the one-rank draws
+        Xall = distdata.allgather_rows(X) if pod else X
+        n = Xall.shape[0]
         if p.get("user_points") is not None:
             up = p["user_points"]
             cents = np.asarray(up.to_numpy() if isinstance(up, Frame)
                                else up, np.float32)
         elif init == "Random":
-            cents = X[rng.choice(n, k, replace=False)]
+            cents = Xall[rng.choice(n, k, replace=False)]
         else:
-            cents = _seed_centers(X, k, init, rng)
+            cents = _seed_centers(Xall, k, init, rng)
+        gathered = int(Xall.nbytes) if pod else 0
+        del Xall
         t_init = time.perf_counter()
         if engine_on:
-            # the cached upload of the host matrix (one per frame and device)
-            _, Xd = _est.device_matrix(train, x, standardize=std,
-                                       use_all=True, device=dev)
+            w_loc, _ = _est.row_mask(X.shape[0], n_shards)
+            wd = torch.from_numpy(w_loc).to(dev)
         else:
             Xd = torch.from_numpy(X).to(dev)
         cd = torch.from_numpy(np.ascontiguousarray(cents, np.float32)).to(dev)
@@ -233,28 +306,38 @@ class H2OKMeansEstimator(H2OEstimator):
             converged = None
             path = "legacy"
         else:
-            xsq = torch.sum(Xd * Xd, dim=1)
-            karange = torch.arange(k, device=dev)[None, :]
+            step = _lloyd_fn(Xd, wd, k, local_blocks, axis)
             # the reference's device-side test, in f32: one host read of
-            # the WSS a step
+            # the WSS a step (a pod's WSS is folded: the same on every rank)
             prev = np.float32(np.inf)
             tol, one = np.float32(1e-7), np.float32(1.0)
             iters, converged = 0, False
             while iters < max_iter:
-                cd, wss_d = _fused_step(Xd, xsq, karange, cd)
+                cd, wss_d = step(cd)
                 wss = np.float32(wss_d.item())
                 iters += 1
                 if np.abs(prev - wss) < tol * np.maximum(np.abs(prev), one):
                     converged = True
                     break
                 prev = wss
-            path = "fused"
+            path = _est.fused_path(shard_mode)
         cents_out = cd.cpu().numpy()
+        fit_wss = float(wss)      # the loop's last WSS (a pod's: folded)
         t_loop = time.perf_counter()
         _est.record_fit("kmeans", path, iterations=iters, converged=converged,
+                        n_shards=n_shards,
+                        n_devices=cloud.size if pod else 1,
                         wall_s=t_loop - t_up)
         model = KMeansModel(self, x, dinfo, cents_out, k, device=dev)
         model.iterations = iters
+        model.fit_wss = fit_wss
+        if pod:
+            # the pod the model was fit on, and the bytes this rank held
+            # for the initial draws' gather
+            model._pod = dict(ranks=cloud.size, rank=cloud.self_idx,
+                              n_shards=n_shards, local_blocks=local_blocks,
+                              init_gather_bytes=gathered)
+        # a pod's training metrics are this rank's own rows
         model.training_metrics = model._make_metrics(train)
         if valid is not None:
             model.validation_metrics = model._make_metrics(valid)

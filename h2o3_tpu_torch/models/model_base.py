@@ -20,8 +20,16 @@ tree loop's chunk boundaries, DeepLearning's chunk and step
 boundaries), and `max_runtime_secs` stops a fit at the same boundaries by
 the reference's rule. Checkpoints and the REST/DKV surface are not ported
 yet (ROADMAP queue A, items 5 and 11): `train` registers no model in the
-DKV. Neither are `DataInfo`'s multi-device and multi-process layouts
-(item 9).
+DKV.
+
+On a pod (a cloud of several ranks, `parallel/mesh.py`) `train` lets only
+the estimators with a pod lane fit (`_pod_lane`: the tree estimators,
+GLM, K-Means, PCA) and raises for the rest, and for the fits their lanes
+do not take (`_pod_off_lane`), on every rank before any collective
+(`_pod_guard`); `ignore_const_cols` decides over every rank's rows.
+`DataInfo` takes the global moments, imputation means and transfer
+groups there, and `_run_cv` draws the one-process folds over the global
+rows.
 """
 
 from __future__ import annotations
@@ -268,8 +276,22 @@ class DataInfo:
     def fit_transform(self, frame: Frame) -> np.ndarray:
         X = self._expand(frame, fit=True)
         if self.standardize:
-            self.means = np.nanmean(X, axis=0)
-            self.stds = np.nanstd(X, axis=0)
+            from ..parallel import distdata
+
+            if distdata.multiprocess():
+                # global moments across the pod (the MRTask mean/σ reduce):
+                # two passes of f64 global sums, the mean first, then
+                # Σ(x − μ)², as the reference takes them
+                finite = ~np.isnan(X)
+                s = distdata.global_sum(np.nansum(X, axis=0))
+                c = np.maximum(distdata.global_sum(finite.sum(axis=0)), 1.0)
+                self.means = s / c
+                dev2 = distdata.global_sum(
+                    np.nansum((X - self.means) ** 2, axis=0))
+                self.stds = np.sqrt(dev2 / c)
+            else:
+                self.means = np.nanmean(X, axis=0)
+                self.stds = np.nanstd(X, axis=0)
             self.stds = np.where(self.stds < 1e-10, 1.0, self.stds)
             X = (X - self.means) / self.stds
         return np.nan_to_num(X, nan=0.0).astype(np.float32)
@@ -294,38 +316,100 @@ class DataInfo:
         categorical int32 codes, ~P_cat× smaller than the dense one-hot),
         and `expand_design` expands it on the device. With `row_bucket` the
         rows pad to its multiple; the pad rows expand to values the CALLER
-        slices off on the host.
+        slices off on the host or weighs 0.
 
-        `cloud`/`quota` (the reference's row-sharded multi-device and
-        multi-process assembly) are not ported. `timings`, when given,
+        With a `cloud` of several ranks (a pod fit) the statistics are the
+        global ones and every rank takes the same transfer group for each
+        column (`design_packs`); the design is this rank's canonical slice
+        of the global rows padded to `quota`. `timings`, when given,
         receives the host-clock split pack_s / h2d_s / expand_s (the device
         is synchronised at each mark)."""
-        if cloud is not None or quota is not None:
-            raise NotImplementedError(
-                "DataInfo.device_design over a multi-device or "
-                "multi-process cloud is not ported (ROADMAP queue A, item 9)")
         dev = devlib.resolve(device)
         t0 = time.perf_counter()
+        packs = self.design_packs(frame, fit, cloud=cloud, quota=quota,
+                                  row_bucket=row_bucket)
+        if timings is not None:
+            timings["pack_s"] = time.perf_counter() - t0
+        return self.expand_packs(packs, add_intercept, dev, timings)
+
+    def expand_packs(self, packs, add_intercept: bool, dev,
+                     timings: Optional[Dict[str, float]] = None):
+        """Upload `design_packs`' compact packs to `dev` and expand them
+        there (`expand_design`)."""
+        spec, arrays, m_h, s_h = packs
+        t0 = time.perf_counter()
+        up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (*arrays, m_h, s_h)]
+        if timings is not None:
+            _sync(dev)
+        t_h2d = time.perf_counter()
+        X = expand_design(spec, self.use_all, m_h.size > 0, add_intercept,
+                          *up)
+        if timings is not None:
+            _sync(dev)
+            timings.update(h2d_s=t_h2d - t0,
+                           expand_s=time.perf_counter() - t_h2d)
+        return X
+
+    def _pod_num_stats(self, mats: np.ndarray):
+        """(means, stds, valid counts) of the numeric columns over every
+        rank's rows: f64 global sums in two passes (the mean, then
+        Σ(x − μ)² over the valid values), all columns in one gather each."""
+        from ..parallel import distdata
+
+        ok = ~np.isnan(mats)
+        sums = distdata.global_sum(np.concatenate(
+            [np.nansum(mats, axis=0), ok.sum(axis=0).astype(np.float64)]))
+        k = mats.shape[1]
+        cnt = sums[k:]
+        with np.errstate(all="ignore"):
+            mean = np.where(cnt > 0, sums[:k] / np.maximum(cnt, 1.0), 0.0)
+        dev2 = distdata.global_sum(np.nansum((mats - mean) ** 2, axis=0))
+        std = np.where(cnt > 0, np.sqrt(dev2 / np.maximum(cnt, 1.0)), 0.0)
+        return mean, std, cnt.astype(np.int64)
+
+    def design_packs(self, frame: Frame, fit: bool, cloud=None,
+                     quota: Optional[int] = None, counts=None,
+                     row_bucket: int = 0):
+        """The host half of `device_design`: (spec, [uint8, int16, f32
+        numeric packs, int32 categorical codes], means, stds), fitting the
+        statistics when `fit`. On a pod (`cloud` of several ranks) the
+        statistics, imputation means and transfer groups are global
+        collectives and the packs are this rank's canonical slice of
+        `quota` padded global rows (`counts`: the ranks' row counts)."""
+        from ..parallel import distdata
+
+        pod = cloud is not None and cloud.size > 1 and distdata.multiprocess()
         n = frame.nrow
+        n_stats = n
         nums, cats = [], []
         means, stds = [], []
         # wide-numeric fast pre-pass: per-column nanmean/nanstd/isnan calls
         # cost ~2 s of host time at MNIST width (784 × 60k); batching them
         # as axis-0 reductions over one stacked matrix is ~10× cheaper and
-        # numerically identical
+        # numerically identical. A pod takes every numeric column this way,
+        # its statistics global.
         _num_cols = [nm for k, nm, _ in self._spec if k == "num"]
         _pre = {}
-        if len(_num_cols) > 8:
-            mat = np.stack([frame.vec(nm).numeric_np()
-                            for nm in _num_cols], axis=1)
+        if pod or len(_num_cols) > 8:
+            mat = (np.stack([frame.vec(nm).numeric_np() for nm in _num_cols],
+                            axis=1) if _num_cols else np.zeros((n, 0)))
             nan_mask = np.isnan(mat)
             has_nan_vec = nan_mask.any(axis=0)
-            if fit:
+            if fit and pod:
+                if counts is None:
+                    counts = distdata.row_counts(n)
+                n_stats = int(np.sum(counts))
+                mvec, svec, nvalid = self._pod_num_stats(
+                    mat.astype(np.float64))
+                has_nan_vec = nvalid < n_stats
+            elif fit:
                 has_valid = ~nan_mask.all(axis=0)
                 with np.errstate(all="ignore"):
                     mvec = np.where(has_valid, np.nanmean(mat, axis=0), 0.0)
                     svec = np.where(has_valid, np.nanstd(mat, axis=0), 0.0)
                 nvalid = (~nan_mask).sum(axis=0)
+            if fit:
                 # isfinite-else-0.0, matching the narrow per-column path:
                 # nan_to_num would map an infinite column mean to ±1.8e308
                 # and diverge the standardization stats by frame width
@@ -339,6 +423,18 @@ class DataInfo:
                 # only the column data + NaN flags are needed
                 _pre = {nm: (mat[:, j], bool(has_nan_vec[j]), 0.0, 0.0, 0)
                         for j, nm in enumerate(_num_cols)}
+        cat_counts = None
+        if fit and pod and self.standardize:
+            # every categorical column's global level counts, one gather
+            local = [np.bincount(c[c >= 0], minlength=len(d))[:len(d)]
+                     for c, d in ((self._codes(frame, name, dom), dom)
+                                  for kind, name, dom in self._spec
+                                  if kind == "cat")]
+            flat = distdata.global_sum(np.concatenate(
+                [np.zeros(0, np.int64)] + [v.astype(np.int64)
+                                           for v in local]))
+            cat_counts = iter(np.split(flat, np.cumsum(
+                [len(v) for v in local])[:-1]) if local else [])
         pos = 0  # expanded-column position (for stored-stat lookups)
         for kind, name, dom in self._spec:
             v = frame.vec(name)
@@ -365,7 +461,8 @@ class DataInfo:
                         # post-impute plain std: mean-filling leaves the
                         # mean unchanged and shrinks the variance by the
                         # valid-row fraction (exactly, analytically)
-                        pre_s = pre_s * float(np.sqrt(n_ok / max(n, 1)))
+                        pre_s = pre_s * float(np.sqrt(n_ok / max(n_stats,
+                                                                 1)))
                 if fit and self.standardize:
                     # stats over valid rows only (nanmean/nanstd), exactly
                     # like fit_transform. All-NaN columns get (0, 1) so
@@ -386,17 +483,13 @@ class DataInfo:
                 nums.append(c.astype(np.float32))
                 pos += 1
             else:
-                codes = np.asarray(v.data)
-                if v.domain != dom and v.domain:
-                    remap = np.asarray(
-                        [dom.index(d) if d in dom else -1 for d in v.domain],
-                        np.int64)
-                    codes = np.where(codes >= 0, remap[np.maximum(codes, 0)], -1)
+                codes = self._codes(frame, name, dom)
                 cats.append(codes.astype(np.int32))
                 if fit and self.standardize:
                     K = len(dom)
-                    cnt = np.bincount(codes[codes >= 0], minlength=K)[:K]
-                    p_lvl = cnt / max(n, 1)
+                    cnt = (next(cat_counts) if cat_counts is not None else
+                           np.bincount(codes[codes >= 0], minlength=K)[:K])
+                    p_lvl = cnt / max(n_stats, 1)
                     lv = p_lvl if self.use_all else p_lvl[1:]
                     means.append(lv.tolist())
                     stds.append([float(s) if (s := np.sqrt(pl * (1 - pl))) >= 1e-10
@@ -420,7 +513,8 @@ class DataInfo:
             if g == 2:
                 return True
             if not c.size:
-                return False
+                # a pod rank with no rows votes for the narrowest group
+                return pod
             with np.errstate(invalid="ignore"):
                 if not bool(np.all(np.mod(c, 1.0) == 0.0)):
                     return False
@@ -430,6 +524,11 @@ class DataInfo:
         if fit:
             num_group = [0 if _fits_group(c, 0) else 1 if _fits_group(c, 1)
                          else 2 for c in nums]
+            if pod and nums:
+                # the reference's multi-process decision: each column takes
+                # the widest group any rank needs, the same on every rank
+                num_group = [int(g) for g in distdata.allgather_host(
+                    np.asarray(num_group, np.int32)).max(axis=0)]
             self._transfer_groups = list(num_group)
         else:
             stored = getattr(self, "_transfer_groups", None)
@@ -440,11 +539,29 @@ class DataInfo:
         for c, g in zip(nums, num_group):
             groups[g].append(c)
         dts = (np.uint8, np.int16, np.float32)
-        packs = [
+        arrays = [
             (np.stack(g, axis=1).astype(dt) if g
              else np.zeros((n, 0), dt))
             for g, dt in zip(groups, dts)
-        ]
+        ] + [cats_a]
+        if pod:
+            # this rank's canonical slice of the padded global rows: the
+            # pad (zero packs, code 0) sits at the global tail
+            if counts is None:
+                counts = distdata.row_counts(n)
+            npad = int(quota) if quota is not None else \
+                -(-int(np.sum(counts)) // cloud.size) * cloud.size
+            arrays = [distdata.to_canonical(a, npad, counts=counts)
+                      for a in arrays]
+        elif row_bucket:
+            # quantize the row dimension: nearby scoring frame sizes share
+            # one shape; the zero-filled pad rows expand to garbage the
+            # CALLER slices off (or weighs 0)
+            npad_b = -(-n // row_bucket) * row_bucket
+            if npad_b != n:
+                arrays = [np.concatenate(
+                    [a, np.zeros((npad_b - n,) + a.shape[1:], a.dtype)])
+                    for a in arrays]
         gi = iter(num_group)
         spec = tuple((k, next(gi) if k == "num" else (len(d) if d else 0))
                      for k, _, d in self._spec)
@@ -453,50 +570,44 @@ class DataInfo:
                else np.zeros(0, np.float32))
         s_h = (np.asarray(self.stds, np.float32) if standardized
                else np.ones(0, np.float32))
-        if row_bucket:
-            # quantize the row dimension: nearby scoring frame sizes share
-            # one shape; the zero-filled pad rows expand to garbage the
-            # CALLER slices off
-            npad_b = -(-n // row_bucket) * row_bucket
-            if npad_b != n:
-                packs = [np.concatenate(
-                    [p, np.zeros((npad_b - n,) + p.shape[1:], p.dtype)])
-                    for p in packs]
-                cats_a = np.concatenate(
-                    [cats_a, np.zeros((npad_b - n, cats_a.shape[1]),
-                                      cats_a.dtype)])
-        t_pack = time.perf_counter()
-        up = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-              for a in (*packs, cats_a, m_h, s_h)]
-        if timings is not None:
-            _sync(dev)
-        t_h2d = time.perf_counter()
-        X = expand_design(spec, self.use_all, standardized, add_intercept,
-                          *up)
-        if timings is not None:
-            _sync(dev)
-            timings.update(pack_s=t_pack - t0, h2d_s=t_h2d - t_pack,
-                           expand_s=time.perf_counter() - t_h2d)
-        return X
+        return spec, arrays, m_h, s_h
+
+    @staticmethod
+    def _codes(frame: Frame, name: str, dom) -> np.ndarray:
+        """A categorical column's codes in the fitted domain `dom` (−1 for
+        NA or an unseen level)."""
+        v = frame.vec(name)
+        codes = np.asarray(v.data)
+        if v.domain != dom and v.domain:
+            remap = np.asarray(
+                [dom.index(d) if d in dom else -1 for d in v.domain],
+                np.int64)
+            codes = np.where(codes >= 0, remap[np.maximum(codes, 0)], -1)
+        return codes
 
     def _expand(self, frame: Frame, fit: bool) -> np.ndarray:
+        from ..parallel import distdata
+
         cols = []
         for kind, n, dom in self._spec:
             v = frame.vec(n)
             if kind == "num":
                 c = v.numeric_np()
                 if self.impute_missing:
-                    if fit:
+                    if fit and distdata.multiprocess():
+                        # the global imputation mean: a rank's own mean
+                        # would bake different values into each rank's
+                        # design (and into the model's col_means)
+                        sc = distdata.global_sum(np.asarray(
+                            [np.nansum(c), float((~np.isnan(c)).sum())],
+                            np.float64))
+                        self.col_means[n] = float(sc[0] / max(sc[1], 1.0))
+                    elif fit:
                         self.col_means[n] = float(np.nanmean(c))
                     c = np.where(np.isnan(c), self.col_means.get(n, 0.0), c)
                 cols.append(c[:, None])
             else:
-                codes = np.asarray(v.data)
-                if v.domain != dom and v.domain:
-                    remap = np.asarray(
-                        [dom.index(d) if d in dom else -1 for d in v.domain], np.int64
-                    )
-                    codes = np.where(codes >= 0, remap[np.maximum(codes, 0)], -1)
+                codes = self._codes(frame, n, dom)
                 K = len(dom)
                 oh = np.zeros((len(codes), K))
                 valid = codes >= 0
@@ -597,6 +708,11 @@ class H2OEstimator:
         device=None,      # the port's own: "cuda" (default) or "cpu"
     )
 
+    # True where the estimator fits a pod (a cloud of several ranks) as one
+    # global fit: the tree estimators, GLM, K-Means and PCA. Any other
+    # raises on a pod before its first collective (`_pod_guard`).
+    _pod_lane = False
+
     def __init__(self, **kwargs):
         self._parms: Dict[str, Any] = dict(self._common_defaults)
         self._parms.update(self._param_defaults)
@@ -633,6 +749,11 @@ class H2OEstimator:
             raise NotImplementedError(
                 "checkpoint is not ported (ROADMAP queue A, item 5: "
                 "checkpoints)")
+        from ..parallel import mesh
+
+        pod = mesh.cloud().size > 1
+        if pod:
+            self._pod_guard(y, training_frame)
         wc = self._parms.get("weights_column")
         if wc is not None and wc not in training_frame.names:
             raise ValueError(f"weights_column {wc!r} not in the training frame")
@@ -646,7 +767,10 @@ class H2OEstimator:
             x = [training_frame.names[i] if isinstance(i, int) else i for i in x]
             x = [n for n in x if n != y and n not in ignored]
         if self._parms.get("ignore_const_cols", True):
-            x = [n for n in x if not _is_const(training_frame.vec(n))]
+            # on a pod a column is constant over every rank's rows (a
+            # rank's own rows may hold one value where the frame does not)
+            x = (_pod_nonconst(training_frame, x) if pod else
+                 [n for n in x if not _is_const(training_frame.vec(n))])
         if self._is_supervised() and y is not None:
             # rows with a missing response are dropped before training
             na = training_frame.vec(y).isna_np()
@@ -695,45 +819,95 @@ class H2OEstimator:
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> H2OModel:
         raise NotImplementedError
 
+    def _pod_off_lane(self, y, train: Frame) -> Optional[str]:
+        """What keeps this fit off its estimator's pod lane (the fits the
+        reference runs off its lanes on a pod), or None."""
+        return None
+
+    def _pod_guard(self, y, train: Frame) -> None:
+        """On a cloud of several ranks: raise, on every rank and before any
+        collective, for an estimator without a pod lane and for a fit its
+        lane does not take; then (one gather) for a frame with fewer rows
+        than ranks. Without this each rank would fit its own rows alone."""
+        from ..parallel import distdata, mesh
+
+        name = type(self).__name__
+        why = (self._pod_off_lane(y, train) if type(self)._pod_lane
+               else "it has no multi-process lane")
+        if why is None:
+            size = mesh.cloud().size
+            n = int(distdata.row_counts(train.nrow).sum())
+            if n < size:
+                why = f"a frame of {n} rows on {size} ranks"
+        if why is not None:
+            raise NotImplementedError(
+                f"{name} on a multi-process cloud: {why} (ROADMAP queue A, "
+                "item 9); each rank would fit its own rows alone")
+
     # -- n-fold CV (ModelBuilder.computeCrossValidation) --------------------
     def _run_cv(self, model: H2OModel, x, y, train: Frame, nfolds: int):
         """The reference's `_run_cv`: assign every row a fold, fit one model
         per fold on the other folds' rows and predict its own, then score
         the (n, …) f64 holdout. Every fold is counted in the train pool's
-        CV fold counters (`trainpool.record_cv_fold`). The reference's
-        multi-process gate is not ported (ROADMAP queue A, item 9); the
-        port runs one process."""
+        CV fold counters (`trainpool.record_cv_fold`).
+
+        On a pod (a cloud of several ranks) the folds are the one-process
+        fit's: drawn once over the global row count in global ingest order,
+        each rank taking its rows at its `distdata.row_offset`. Each fold
+        fit is a pod fit of the fold's rows on the re-bin path (the folds
+        of a pod never slice a parent's codes), each rank predicts its own
+        holdout rows, and the fold and cross-validation metrics score the
+        holdouts and responses gathered in rank order, so every rank
+        reports the one-process metrics. (The reference draws its folds
+        over each rank's own rows and scores its ranks' rows apart, ROADMAP
+        §C.)"""
+        from ..parallel import distdata
+
+        pod = distdata.multiprocess()
         n = train.nrow
+        n_all, off = n, 0
+        if pod:
+            counts = distdata.row_counts(n)
+            n_all = int(counts.sum())
+            off = int(counts[:distdata._rank()].sum())
         rng = np.random.default_rng(self._parms["_actual_seed"])
         fold_col = self._parms.get("fold_column")
         if fold_col:
             assign = train.vec(fold_col).numeric_np().astype(np.int64)
-            folds = np.unique(assign)
+            folds = np.unique(distdata.allgather_rows(assign) if pod
+                              else assign)
         else:
             mode = self._parms.get("fold_assignment", "AUTO")
             if mode in ("AUTO", "Random"):
-                assign = rng.integers(0, nfolds, n)
+                assign = rng.integers(0, nfolds, n_all)
             elif mode == "Modulo":
-                assign = np.arange(n) % nfolds
+                assign = np.arange(n_all) % nfolds
             else:  # Stratified — approximate by per-class modulo
                 yv = train.vec(y).numeric_np()
+                if pod:
+                    yv = distdata.allgather_rows(yv)
                 order = np.argsort(yv, kind="mergesort")
-                assign = np.empty(n, np.int64)
-                assign[order] = np.arange(n) % nfolds
+                assign = np.empty(n_all, np.int64)
+                assign[order] = np.arange(n_all) % nfolds
+            assign = assign[off:off + n]
             folds = np.arange(nfolds)
         # Tree builders expose the parent fit's BinnedMatrix; the folds then
         # slice its codes by row instead of re-binning a copy of the frame.
         # The fold frame shrinks to the response and the *_column
-        # parameters. H2O3_CV_REBIN=1 restores the per-fold re-bin path,
-        # which is bit-exact with the reference's fold fits.
+        # parameters. H2O3_CV_REBIN=1 (and every pod) takes the per-fold
+        # re-bin path, which is bit-exact with the reference's fold fits.
         reuse_bm = None
-        if (os.environ.get("H2O3_CV_REBIN", "") in ("", "0")
+        if (os.environ.get("H2O3_CV_REBIN", "") in ("", "0") and not pod
                 and self._cv_can_reuse()):
             reuse_bm = self._cv_reuse_source(model, train)
         keep_cols = [y] + sorted(
             v for k, v in self._parms.items()
             if k.endswith("_column") and isinstance(v, str)
             and v in train.names and v != y)
+        yvec = train.vec(y)
+        # a pod rank may hold no holdout rows of a fold
+        trail = ((yvec.nlevels,) if yvec.type == "enum" and yvec.nlevels > 2
+                 else ())
 
         holdout = None
         cv_models = []
@@ -764,23 +938,32 @@ class H2OEstimator:
                 ho = train.take(idx_ho)
                 cvm = sub._fit(x, y, tr, None)
                 _phases.book_fit(getattr(cvm, "fit_timings", None))
-                pred = sub._cv_predict(cvm, ho)
+                pred = (sub._cv_predict(cvm, ho) if ho.nrow
+                        else np.zeros((0,) + trail))
             if holdout is None:
                 holdout = np.zeros((n,) + pred.shape[1:], dtype=np.float64)
             holdout[assign == f] = pred
             if self._parms.get("keep_cross_validation_models", True):
-                if reuse_bm is not None:
+                if pod:
+                    # the fold's holdout over every rank, in rank order
+                    cvm.validation_metrics = self._metrics_from_cv(
+                        _gathered_vec(yvec.take(idx_ho)), None,
+                        distdata.allgather_rows(
+                            np.asarray(pred, np.float64)))
+                elif reuse_bm is not None:
                     # fold validation metrics straight from the holdout
                     # prediction: the codes walk is the scoring path here
                     cvm.validation_metrics = self._metrics_from_cv(
-                        train.vec(y).take(idx_ho), None, pred)
+                        yvec.take(idx_ho), None, pred)
                 else:
                     cvm.validation_metrics = cvm._make_metrics(ho)
                 cv_models.append(cvm)
         model._cv_holdout_pred = holdout
         model.cross_validation_models = cv_models or None
-        model.cross_validation_metrics = self._metrics_from_cv(
-            train.vec(y), assign, holdout)
+        model.cross_validation_metrics = (
+            self._metrics_from_cv(_gathered_vec(yvec), None,
+                                  distdata.allgather_rows(holdout))
+            if pod else self._metrics_from_cv(yvec, assign, holdout))
 
     def _metrics_from_cv(self, yvec: Vec, assign, holdout):
         if yvec.type == "enum" and yvec.nlevels == 2:
@@ -879,6 +1062,54 @@ def warn_host_solver(algo: str, n_rows: int, bound: int = 500_000) -> None:
             f"{algo}: {n_rows} rows exceed the ~{bound} row envelope of "
             "this host-side (numpy) solver; expect host memory/time to "
             "scale accordingly (docs/architecture.md)")
+
+
+def pod_check_frame(train: Frame, x, y) -> None:
+    """Every rank must train on the same columns with the same types and
+    domains (a parser's global domains; the port has no parser yet, ROADMAP
+    queue A, item 11): a difference would give ranks different designs or
+    bins and a hung collective, so it raises on every rank instead."""
+    from ..parallel import distdata
+
+    cols = list(x) + ([y] if y is not None else [])
+    sig = repr([(c, train.vec(c).type, train.vec(c).domain)
+                for c in cols]).encode()
+    if len(set(distdata.allgather_bytes(sig))) != 1:
+        raise ValueError(
+            "the ranks of this cloud hold different training columns, "
+            "types or categorical domains; every rank must see the same "
+            "x, y and levels")
+
+
+def _pod_nonconst(train: Frame, x) -> List[str]:
+    """`x` less the columns constant over every rank's rows: `_is_const`
+    of the global column, from one gather of each column's finite
+    (min, max)."""
+    from ..parallel import distdata
+
+    lo, hi = [], []
+    for n in x:
+        v = train.vec(n)
+        a = (v.numeric_np() if v.type != "string"
+             else np.zeros(0))
+        fin = a[~np.isnan(a)]
+        lo.append(float(fin.min()) if fin.size and v.type != "string"
+                  else np.inf)
+        hi.append(float(fin.max()) if fin.size and v.type != "string"
+                  else -np.inf)
+    if not x:
+        return []
+    gmin, gmax = distdata.global_minmax(np.asarray(lo), np.asarray(hi))
+    return [n for n, a, b in zip(x, gmin, gmax)
+            if not (np.isfinite(a) and a == b)]
+
+
+def _gathered_vec(v: Vec) -> Vec:
+    """Every rank's rows of `v` in rank order (the global ingest order)."""
+    from ..parallel import distdata
+
+    return Vec(distdata.allgather_rows(np.asarray(v.data)), type=v.type,
+               domain=v.domain)
 
 
 def _is_const(v: Vec) -> bool:

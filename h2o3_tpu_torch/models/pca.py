@@ -1,4 +1,5 @@
-"""H2OPrincipalComponentAnalysisEstimator — PCA, single device.
+"""H2OPrincipalComponentAnalysisEstimator — PCA, on one device or across
+ranks.
 
 Port of `h2o3_tpu/models/pca.py` (reference parity:
 `hex/pca/PCA.java`, `pca_method` ∈ {GramSVD, Power, GLRM, Randomized}).
@@ -11,6 +12,14 @@ truncated to k, as in the reference. Randomized (Halko): Ω comes from
 `np.random.default_rng(seed)`; the sketch, the q = 2 subspace iterations
 (the reference's default) with `torch.linalg.qr` and the SVD of the small
 B run on the card.
+
+Under the estimator engine's blocks and mesh lanes the Gram is S block
+partials of the masked (X − μ)ᵀ(X − μ) (pad rows weigh 0), folded in
+block order, on a pod over every rank's blocks in rank order; DEMEAN's μ
+comes from the matrix gathered in rank order. The eigen-solve is the
+same on every rank. (The reference keeps PCA off its lanes on a pod and
+fits each rank's rows, ROADMAP §C.) Randomized has no pod lane (item 9,
+part 1b).
 
 Eigenvectors and singular vectors come back with arbitrary signs from
 LAPACK, cuSOLVER and XLA alike; the reference's sign rule (the largest
@@ -29,9 +38,12 @@ import torch
 
 from .. import device as devlib
 from ..frame.frame import Frame
+from ..parallel import distdata
+from ..parallel import mesh as cloudlib
 from . import estimator_engine as _est
 from .metrics import ModelMetricsBase
-from .model_base import H2OEstimator, H2OModel, _sync, check_unread
+from .model_base import (H2OEstimator, H2OModel, _sync, check_unread,
+                         pod_check_frame)
 
 _ITEM8 = "ROADMAP queue A, item 8"
 _UNREAD = dict(compute_metrics=True, impute_missing=True, max_iterations=1000)
@@ -119,6 +131,14 @@ class PCAModel(H2OModel):
 class H2OPrincipalComponentAnalysisEstimator(H2OEstimator):
     algo = "pca"
     supervised = False
+    _pod_lane = True
+
+    def _pod_off_lane(self, y, train: Frame):
+        """Randomized has no multi-process lane (the reference runs its
+        sketch on one device); and the engine's switches."""
+        if self._parms.get("pca_method", "GramSVD") == "Randomized":
+            return "pca_method='Randomized' has no multi-process lane"
+        return _est.pod_switch_off()
     _param_defaults = dict(
         k=1,
         transform="NONE",
@@ -138,42 +158,86 @@ class H2OPrincipalComponentAnalysisEstimator(H2OEstimator):
         standardize = transform in ("STANDARDIZE", "NORMALIZE")
         use_all = bool(p.get("use_all_factor_levels", False))
         method = p.get("pca_method", "GramSVD")
+        cloud = cloudlib.cloud()
+        shard_mode, n_shards = _est.shard_plan(cloud.size,
+                                               distdata.multiprocess())
+        if method not in ("GramSVD", "GLRM", "Power"):
+            # the Randomized sketch runs on one rank's full rows (a pod
+            # raises for it in train: distributed QR is not ported)
+            shard_mode, n_shards = "off", 0
+        pod = shard_mode == "mesh"
+        local_blocks, axis = _est.local_plan(cloud, shard_mode, n_shards)
+        if pod:
+            pod_check_frame(train, x, None)
         t0 = time.perf_counter()
-        _est.shard_plan(1, False)
-        dinfo, X = _est.host_matrix(train, x, standardize=standardize,
-                                    use_all=use_all)
-        n, pdim = X.shape
-        mu = (X.mean(axis=0).astype(np.float32) if transform == "DEMEAN"
-              else np.zeros(pdim, np.float32))
+        # the host matrix and its cached upload, padded to the block grid
+        # (a pod: this rank's canonical slice)
+        dinfo, X, Xd = _est.device_matrix(train, x, standardize=standardize,
+                                          use_all=use_all, n_shards=n_shards,
+                                          device=dev)
+        w_loc, n = _est.row_mask(X.shape[0], n_shards)
+        pdim = X.shape[1]
+        gathered = 0
+        if transform == "DEMEAN":
+            # the mean of the whole matrix: a pod gathers it in rank order
+            # (the global ingest order), so it is the one-rank mean
+            Xall = distdata.allgather_rows(X) if pod else X
+            mu = Xall.mean(axis=0).astype(np.float32)
+            gathered = int(Xall.nbytes) if pod else 0
+            del Xall
+        else:
+            mu = np.zeros(pdim, np.float32)
         k = min(k, pdim)
         t_pack = time.perf_counter()
-        # the cached upload of the host matrix (one per frame and device)
-        _, Xd = _est.device_matrix(train, x, standardize=standardize,
-                                   use_all=use_all, device=dev)
         _sync(dev)
         t_up = time.perf_counter()
         iters = None
-        Xc = Xd - torch.from_numpy(mu).to(dev)[None, :]
-        del Xd
+        mud = torch.from_numpy(mu).to(dev)
         if method in ("GramSVD", "GLRM", "Power"):
-            gram = (Xc.T @ Xc).cpu().numpy().astype(np.float64) / max(n - 1, 1)
-            # the p×p eigendecomposition on the host in f64, one read
+            if local_blocks:
+                # the centred masked Gram, one partial a block (each block a
+                # tensor of its own; pad rows weigh 0), folded in block
+                # order over the ranks
+                parts = []
+                for Xb, wb in zip(_est.row_blocks(Xd, local_blocks),
+                                  _est.row_blocks(
+                                      torch.from_numpy(w_loc).to(dev),
+                                      local_blocks)):
+                    Xc = (Xb - mud[None, :]) * wb[:, None]
+                    parts.append(Xc.T @ Xc)
+                gram_d = _est.fold_blocks(torch.stack(parts), axis)
+            else:
+                Xc = Xd - mud[None, :]
+                gram_d = Xc.T @ Xc
+                del Xc
+            gram = gram_d.cpu().numpy().astype(np.float64) / max(n - 1, 1)
+            # the p×p eigendecomposition on the host in f64, one read, the
+            # same on every rank
             evals, evecs = gram_eigen(gram, k)
         else:  # Randomized — the sketch and its iterations on the card
+            Xc = Xd[:X.shape[0]] - mud[None, :]
             rng = np.random.default_rng(p["_actual_seed"])
             om = rng.normal(size=(pdim, min(k + 10, pdim))).astype(np.float32)
             s, Vt = randomized_sketch(Xc, om, _POWER_ITERS)
+            del Xc
             evecs = Vt[:k].T
             evals = (s[:k] ** 2) / max(n - 1, 1)
             iters = _POWER_ITERS
-        del Xc
         t_dec = time.perf_counter()
-        _est.record_fit("pca", "fused", iterations=iters, method=method,
+        _est.record_fit("pca", _est.fused_path(shard_mode), iterations=iters,
+                        method=method, n_shards=n_shards,
+                        n_devices=cloud.size if pod else 1,
                         wall_s=t_dec - t_up)
         evecs = sign_rule(np.array(evecs))
         model = PCAModel(self, x, dinfo, evecs, evals, k, device=dev)
         if transform == "DEMEAN":
             model._demean_mu = mu.astype(np.float64)
+        if pod:
+            # the pod the model was fit on, and the bytes this rank held
+            # for DEMEAN's gather
+            model._pod = dict(ranks=cloud.size, rank=cloud.self_idx,
+                              n_shards=n_shards, local_blocks=local_blocks,
+                              demean_gather_bytes=gathered)
         model.training_metrics = ModelMetricsBase(nobs=n)
         model.fit_timings = dict(pack_s=t_pack - t0, h2d_s=t_up - t_pack,
                                  steps_s=t_dec - t_up,

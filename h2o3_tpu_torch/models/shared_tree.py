@@ -103,7 +103,8 @@ from . import tree as treelib
 from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
                       ModelMetricsRegression)
 from .model_base import (SCORE_ROW_BUCKET, H2OEstimator, H2OModel,
-                         ScoreKeeper, ScoringHistory, response_info)
+                         ScoreKeeper, ScoringHistory, pod_check_frame,
+                         response_info)
 
 
 def _sync(dev: torch.device) -> None:
@@ -242,33 +243,18 @@ def _shard_plan(tp, ndev: int = 1, multiproc: bool = False):
     return "off", 0
 
 
-def _pod_unported(est, tp, cvr) -> None:
+def _pod_unported(est, tp) -> None:
     """The pod lane's raises: what the reference runs on a pod and the
     port does not yet, each naming its ROADMAP item."""
-    p = est._parms
     item9 = "is not ported on a multi-process cloud (ROADMAP queue A, item 9)"
-    if cvr is not None or int(p.get("nfolds") or 0) >= 2 \
-            or p.get("fold_column"):
-        raise NotImplementedError(f"cross-validation {item9}")
     if tp.get("dart"):
         raise NotImplementedError(f"DART {item9}")
     if getattr(est, "_objective_fn", None) is not None:
         raise NotImplementedError(f"a custom objective {item9}")
 
 
-def _pod_check_frame(train: Frame, x, y) -> None:
-    """Every rank must train on the same columns with the same types and
-    domains (a parser's global domains; the port has no parser yet, ROADMAP
-    queue A, item 11): a difference would give ranks different bins and a
-    hung collective, so it raises on every rank instead."""
-    cols = list(x) + [y]
-    sig = repr([(c, train.vec(c).type, train.vec(c).domain)
-                for c in cols]).encode()
-    if len(set(distdata.allgather_bytes(sig))) != 1:
-        raise ValueError(
-            "the ranks of this cloud hold different training columns, "
-            "types or categorical domains; every rank must see the same "
-            "x, y and levels")
+# every rank trains on the same columns, types and domains
+_pod_check_frame = pod_check_frame
 
 
 def _pod_bin_facts(X: np.ndarray, is_cat, nbins: int, histogram_type: str):
@@ -812,6 +798,7 @@ class H2OSharedTreeEstimator(H2OEstimator):
     """Common GBM/DRF estimator. Subclasses set `_mode` ('gbm' | 'drf')."""
 
     _mode = "gbm"
+    _pod_lane = True
     # parameter -> (value the slice runs, ROADMAP item that ports the rest)
     _UNPORTED = dict(
         sample_rate_per_class=(None, "queue A, item 5 (per-class rates)"),
@@ -1061,7 +1048,7 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # rows axis and folds them in rank order
         pod = multiproc and shard_mode == "mesh"
         if pod:
-            _pod_unported(self, tp, cvr)
+            _pod_unported(self, tp)
             _pod_check_frame(train, x, y)
         axis = cloudlib.ROWS_AXIS if pod else None
         local_blocks = n_shards // cloud.size if pod else n_shards

@@ -203,6 +203,17 @@ class H2OXGBoostEstimator(H2OSharedTreeEstimator):
         obj = self._parms.get("objective")
         return bool(obj) and str(obj).startswith("rank")
 
+    def _pod_off_lane(self, y, train: Frame):
+        """gblinear and the lambdarank objective have no pod lane (the
+        reference fits both globally on a pod: ROADMAP queue A, item 9,
+        parts 3 and 4); gbtree and DART reach the tree path's."""
+        if str(self._parms.get("booster", "gbtree")) == "gblinear":
+            return "booster='gblinear' has no multi-process lane"
+        if self._is_rank():
+            return (f"objective={self._parms.get('objective')!r} has no "
+                    "multi-process lane")
+        return None
+
     def _cv_can_reuse(self) -> bool:
         """gblinear folds fit a DataInfo design from the fold frame's raw x
         columns, and ranking folds rebuild lambdarank state (and NDCG) from

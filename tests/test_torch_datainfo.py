@@ -194,24 +194,38 @@ def test_design_matrix_equals_the_reference_engine():
     assert set(timings) == {"pack_s", "h2d_s", "expand_s"}
 
 
-def test_sharded_layouts_raise_naming_item_9(monkeypatch):
-    d = frame_dict(50, 0)
-    _, pf = frames(d)
-    di = DataInfo(pf, x_of(d))
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
-        di.device_design(pf, fit=True, cloud=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
-        est.shard_plan(4, False)
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
-        est.shard_plan(1, True)
-    monkeypatch.setenv("H2O3_EST_SHARD", "1")
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
-        est.shard_plan(1, False)
-    monkeypatch.setenv("H2O3_EST_SHARD", "0")
-    assert est.shard_plan(4, False) == ("off", 0)
-    monkeypatch.delenv("H2O3_EST_SHARD")
-    monkeypatch.setenv("H2O3_EST_LEGACY", "1")
-    assert est.legacy() and est.shard_plan(1, False) == ("off", 0)
+def test_shard_plan_equals_the_reference(monkeypatch):
+    """The engine's lane decision is the reference's for one to four
+    devices, one process or several, under every setting of the switches
+    (H2O3_EST_SHARD unset, "0" and "1", a block count, the legacy
+    switch); `local_plan` and `block_slices` cut the same grid."""
+    from h2o3_tpu_torch.parallel import mesh
+
+    for env, blocks, leg in ((None, None, None), ("0", None, None),
+                             ("1", None, None), ("1", "6", None),
+                             (None, "6", None), ("1", None, "1")):
+        for k, v in (("H2O3_EST_SHARD", env),
+                     ("H2O3_EST_SHARD_BLOCKS", blocks),
+                     ("H2O3_EST_LEGACY", leg)):
+            if v is None:
+                monkeypatch.delenv(k, raising=False)
+            else:
+                monkeypatch.setenv(k, v)
+        assert est.shard_blocks() == ref_est.shard_blocks()
+        for ndev in (1, 2, 3, 4):
+            for mp in (False, True):
+                plan = est.shard_plan(ndev, mp)
+                assert plan == ref_est.shard_plan(ndev, mp), (env, ndev, mp)
+                mode, s = plan
+                cloud = mesh.Cloud(size=ndev)
+                lb, axis = est.local_plan(cloud, mode, s)
+                rlb, raxis = ref_est.local_plan(cloud, mode, s)
+                assert (lb, axis) == (rlb, raxis)
+                if lb:
+                    npad = est.pad_rows(1000, s) // (ndev if mode == "mesh"
+                                                     else 1)
+                    assert est.block_slices(npad, lb) == \
+                        ref_est.block_slices(npad, lb)
 
 
 def test_engine_helpers_match_the_reference(monkeypatch):

@@ -10,7 +10,9 @@ in one process (no spawned rank):
 - `shared_tree._shard_plan` against the reference's for 1, 2, 4 and 8
   ranks under the default, the blocks lane, another block count and the
   escape hatches; where the reference falls back to its psum lane the
-  port raises naming item 9;
+  port still raises naming item 9 (part 4). The estimator engine's
+  `shard_plan` is held to the reference's, lanes included, in
+  `test_torch_datainfo.py`;
 - the counter offset of `ops.prng`: a rank's slice of a draw equals the
   same rows of the whole draw and of `jax.random`'s, bit for bit;
 - `global_quantiles` on one rank equals `np.quantile`, and
