@@ -563,6 +563,26 @@ holdout prediction.
    for bit, B1 (Σ trees of the parent and its folds) x 6 x 4 a rank. Every
    wall is printed beside the card's name and power limit; any child left
    is killed.
+41. The GBM/DRF class and constraint parameters (`tree_params_path`). (a)
+   Phase 4's HIGGS GBM (1M x 28, depth 6, 20 trees, UniformAdaptive) with
+   a +1 constraint on f0 and a -1 on f1: B1 launched 20 x 6 times and
+   nothing else, no constrained split out of order in any tree
+   (`tree.monotone_violations`), no violation in a 64-point sweep of each
+   constrained column over 1,000 holdout rows, holdout AUC >= 0.75 beside
+   phase 4's, wall and trees/s. (b) The ULB credit-card shape (284,807 x
+   30) with its label drawn from a known logistic of four V columns, the
+   intercept set for exactly 492 positives, split train / calibration /
+   holdout: a balanced GBM with Platt scaling, then one with isotonic
+   regression: the weights equal to a host recount bit for bit, the prior
+   correction to the host f64 formula within 1e-12, (a, b) to a host f64
+   Newton within 1e-10, the knots to host `pav` bit for bit, the calibrated
+   holdout logloss within CC41_LOGLOSS_TOL of the raw one, a served batch
+   and a forced failover batch equal to `predict` within 1e-6 (`cal_`
+   columns included), the MOJO's gap printed. (c) A DRF with
+   `sample_rate_per_class=[0.1, 1.0]` on the same frame: the fit's row
+   rates equal to rates[y], B2 the plan's passes and nothing else,
+   out-of-bag and holdout AUC beside the generator's against
+   CC41_DRF_FLOORS. (d) (a)-(c) at P41_SMALL rows, card against CPU.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after (phase 12 is the scoring path's own; phases 14 and 15 zero
@@ -576,7 +596,7 @@ fit, and phase 34 as a whole; phase 35's fits and `predict`s count
 their own launches, and its isolation forests fail if they launched
 one; so does phase 36 as a whole, and phase 37's CoxPH and PSVM, and phase
 38's encoder, Word2Vec, Aggregator and quantiles; phase 39's fits count
-their own, and so do phase 40's, in each rank's process).
+their own, and so do phase 40's, in each rank's process, and phase 41's).
 TF32 must stay off
 through phases 17-19, 30, 31(d), 32, 36, 37 and 38. The last line is
 {"ok": true, "device": {...}}; the line before it is the kernel table as
@@ -9742,6 +9762,455 @@ def _pod_legs(dev, card, tmp, launches, bad, rec):
               "(the gloo legs ran the same fits on the card)", flush=True)
 
 
+# -- phase 41: the GBM/DRF class and constraint parameters --------------------
+#
+# (a) phase 4's HIGGS GBM (1M x 28, depth 6, 20 trees, UniformAdaptive) with a
+# +1 constraint on f0 and a -1 on f1 (the generator's logit rises with f0 and
+# falls with f1); (b) the ULB credit-card shape (284,807 x 30, 492 positives)
+# with its label drawn from a known logistic of four V columns: a balanced GBM
+# with Platt scaling and one with isotonic regression; (c) a DRF with
+# sample_rate_per_class=[0.1, 1.0] on the same frame; (d) (a)-(c) card
+# against CPU at 20,000 rows.
+
+MONO41 = {"f0": 1, "f1": -1}
+MONO41_SWEEP_ROWS, MONO41_SWEEP_POINTS = 1_000, 64
+# the label's logistic, per standard deviation of each column
+CC41_BETA = {"V4": 1.1, "V10": -0.9, "V14": -1.3, "V17": -0.8}
+CC41_SPLIT = (0.6, 0.2)            # train, calibration; the rest is holdout
+CC41_GBM = dict(ntrees=20, max_depth=5, learn_rate=0.1, seed=41,
+                balance_classes=True, calibrate_model=True)
+CC41_DRF = dict(ntrees=20, seed=41, hist_method="pallas",
+                sample_rate_per_class=[0.1, 1.0])
+CC41_LOGLOSS_TOL = 0.01            # calibrated holdout logloss ≤ raw + this
+# (c)'s floors, from tools/phase41_rehearsal.py on the CPU (a quarter of
+# the rows, seeds 41-43: out-of-bag AUC 1.0 each, holdout 0.751-0.814). The
+# positives' rate of 1.0 leaves them never out of bag, so their out-of-bag
+# scores fall back to the in-bag forest and the out-of-bag AUC reads high
+CC41_DRF_FLOORS = dict(oob_auc=0.95, holdout_auc=0.70)
+P41_SMALL = 20_000                 # (d)'s rows
+# (d)'s bars: predictions (and `cal_` columns) and the DRF's leaf values
+# the CPU tests' 1e-5; the GBMs' leaf values the rows reach 1e-4, as phase
+# 16's 4-class GBM: their node values and monotone bounds come from
+# histogram sums, B1's fixed point on the card and f32 sums on the CPU
+P41_SMALL_TOL, P41_GBM_LEAF_TOL = 1e-5, 1e-4
+PHASE41_WALLS: dict = {}
+
+
+def make_creditcard_labelled(seed: int, n: int = CC_ROWS,
+                             positives: int = CC_FRAUD):
+    """(X, y, p) of the ULB dataset's shape: `make_creditcard_like`'s
+    columns without its planted offsets, and a label drawn from the
+    logistic of CC41_BETA's columns (each over its standard deviation)
+    plus an intercept, found by bisection on one draw of uniforms so that
+    exactly `positives` rows are 1; p is the generator's probability."""
+    rng = np.random.default_rng(seed)
+    sd = np.linspace(1.96, 0.33, 28)
+    X = np.empty((n, 30))
+    X[:, 0] = np.sort(rng.uniform(0, CC_TIME_S, n))
+    X[:, 1:29] = rng.standard_normal((n, 28)) * sd
+    X[:, 29] = np.round(rng.lognormal(3.1, 1.65, n), 2)
+    s = sum(b * X[:, CC_NAMES.index(c)] / sd[CC_NAMES.index(c) - 1]
+            for c, b in CC41_BETA.items())
+    u = rng.random(n)
+    lo, hi = -40.0, 10.0
+    for _ in range(200):
+        b0 = 0.5 * (lo + hi)
+        k = int((u < 1 / (1 + np.exp(-(b0 + s)))).sum())
+        if k == positives:
+            break
+        lo, hi = (b0, hi) if k < positives else (lo, b0)
+    else:
+        raise AssertionError("no intercept gives the positives asked for")
+    p = 1 / (1 + np.exp(-(b0 + s)))
+    return X, (u < p).astype(np.float64), p
+
+
+def creditcard_frames(seed: int = 41):
+    """The labelled credit-card frame split train / calibration / holdout
+    (CC41_SPLIT, a seeded permutation, each part in row order): returns
+    the three frames and, per part, (y, generator probability)."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    X, y, p = make_creditcard_labelled(seed)
+    fr = Frame.from_numpy(np.column_stack([X, y]),
+                          names=CC_NAMES + ["Class"]).asfactor("Class")
+    n = len(y)
+    perm = np.random.default_rng(seed + 1).permutation(n)
+    a, b = int(CC41_SPLIT[0] * n), int((CC41_SPLIT[0] + CC41_SPLIT[1]) * n)
+    parts = [np.sort(perm[:a]), np.sort(perm[a:b]), np.sort(perm[b:])]
+    return ([fr.take(i) for i in parts], [(y[i], p[i]) for i in parts])
+
+
+def _logloss(y, p) -> float:
+    p = np.clip(p, 1e-15, 1 - 1e-15)
+    return float(-np.mean(np.where(y > 0.5, np.log(p), np.log(1 - p))))
+
+
+def _reset_counts():
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
+
+    hist_cuda.launches = hist_cuda.launches_rows = score_cuda.launches = 0
+    score_cuda.launches_resident = score_cuda.launches_streamed = 0
+    histogram.DISPATCH.clear()
+    torch.cuda.synchronize()
+
+
+def _read_counts() -> dict:
+    from h2o3_tpu_torch.ops import hist_cuda, histogram, score_cuda
+
+    torch.cuda.synchronize()
+    return dict(b1=hist_cuda.launches, b2=hist_cuda.launches_rows,
+                score=score_cuda.launches,
+                dispatch=dict(histogram.DISPATCH))
+
+
+def sweep_violations(model, X: np.ndarray, col: int, sign: int,
+                     points: int) -> int:
+    """Rows whose prediction moves against `sign` along a sweep of column
+    `col` over its range, the row's other columns held."""
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    grid = np.linspace(X[:, col].min(), X[:, col].max(), points)
+    rows = np.repeat(X, points, axis=0)
+    rows[:, col] = np.tile(grid, X.shape[0])
+    p = np.asarray(model.predict(Frame.from_numpy(rows, names=model.x))
+                   .vec("1").data, np.float64)
+    return int((sign * np.diff(p.reshape(X.shape[0], points), axis=1)
+                < 0).sum())
+
+
+def monotone_higgs_path(dev, card, phase4_holdout_auc: float):
+    """Phase 41(a): the monotone HIGGS GBM, B1 its only route."""
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.frame.frame import Frame
+    from h2o3_tpu_torch.models.metrics import auc_exact
+    from h2o3_tpu_torch.models.tree import monotone_violations
+
+    t0 = time.perf_counter()
+    X, y = make_higgs_like(N_ROWS)
+    names = [f"f{i}" for i in range(N_FEAT)] + ["label"]
+    fr = Frame.from_numpy(np.column_stack([X, y]), names=names).asfactor("label")
+    del X
+    Xt, yt = make_higgs_like(100_000, seed=1)
+    ft = Frame.from_numpy(np.column_stack([Xt, yt]), names=names).asfactor("label")
+    PHASE41_WALLS["a_frames_s"] = time.perf_counter() - t0
+    gbm = H2OGradientBoostingEstimator(
+        ntrees=NTREES, max_depth=DEPTH, learn_rate=0.1,
+        histogram_type="UniformAdaptive", seed=42,
+        monotone_constraints=MONO41, device=str(dev))
+    _reset_counts()
+    t0 = time.perf_counter()
+    gbm.train(y="label", training_frame=fr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit = _read_counts()
+    del fr
+    model = gbm.model
+    mono = [float(MONO41.get(n, 0)) for n in model.x]
+    p1 = np.asarray(model.predict(ft).vec("1").data, np.float64)
+    sweep = {c: sweep_violations(model, Xt[:MONO41_SWEEP_ROWS],
+                                 model.x.index(c), s, MONO41_SWEEP_POINTS)
+             for c, s in MONO41.items()}
+    after = _read_counts()
+    rec = dict(card=card, rows=N_ROWS, wall_s=wall,
+               trees_per_s=NTREES / wall, fit_timings=model.fit_timings,
+               holdout_auc=auc_exact(yt, p1),
+               phase4_holdout_auc=phase4_holdout_auc,
+               bound_violations=monotone_violations(model.forest[0], mono),
+               sweep_violations=sweep, compact_cap=model.compact_cap,
+               b1_launches=fit["b1"], b2_launches=fit["b2"],
+               dispatch=fit["dispatch"], score_launches=after["score"])
+    PHASE41_WALLS["a_s"] = time.perf_counter() - t0
+    print(f"phase 41(a) monotone HIGGS GBM on {card}: " + json.dumps(rec),
+          flush=True)
+    bad = []
+    expect = NTREES * DEPTH
+    if fit["b1"] != expect or fit["b2"] or fit["dispatch"] != {
+            "pallas_factored": expect}:
+        bad.append(f"dispatch {fit}, expected {expect} B1 passes only")
+    if rec["bound_violations"] or any(sweep.values()):
+        bad.append(f"monotonicity violated: {rec['bound_violations']} "
+                   f"splits, sweep {sweep}")
+    if rec["holdout_auc"] < 0.75:
+        bad.append(f"holdout AUC {rec['holdout_auc']} < 0.75")
+    if after["score"] != 3:
+        bad.append(f"{after['score']} forest launches for 3 predicts")
+    if bad:
+        raise AssertionError("phase 41(a): " + "; ".join(bad))
+    return rec
+
+
+def _served_equal(dev, model, frame, key: str) -> dict:
+    """The engine's batch and a forced failover batch of `frame`, each
+    against `predict`: the largest difference over every probability and
+    `cal_` column, and the failover's scorer kind."""
+    from h2o3_tpu_torch.runtime import faults
+    from h2o3_tpu_torch.serving import ScoringEngine
+    from h2o3_tpu_torch.serving.config import ServingConfig
+
+    want = model.predict(frame)
+    eng = ScoringEngine(ServingConfig(max_wait_ms=1.0, breaker_reset_s=30.0))
+    outs = {"served": eng.score(key, model, frame)}
+    faults.arm("serving.scorer", error="device", rate=1.0)
+    try:
+        outs["failover"] = eng.score(key, model, frame)
+        snap = eng.snapshot()
+    finally:
+        faults.reset()
+        eng.shutdown()
+    rec = dict(fallback_scores=snap["totals"]["fallback_scores"])
+    for tag, out in outs.items():
+        same = (out.names == want.names and list(out.vec("predict").to_numpy())
+                == list(want.vec("predict").to_numpy()))
+        rec[f"{tag}_max_diff"] = (max(float(np.abs(
+            np.asarray(out.vec(c).data, np.float64)
+            - np.asarray(want.vec(c).data, np.float64)).max())
+            for c in want.names[1:]) if same else float("inf"))
+    return rec
+
+
+def _host_newton(p1: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Platt's (a, b) by Newton on the host in f64, written out: the
+    2 × 2 system inverted by hand, 50 steps."""
+    z = np.log(np.clip(p1, 1e-12, 1 - 1e-12) / np.clip(1 - p1, 1e-12, 1 - 1e-12))
+    a = b = 0.0
+    for _ in range(50):
+        mu = 1 / (1 + np.exp(-(a * z + b)))
+        wd = np.clip(mu * (1 - mu), 1e-10, None)
+        ga, gb = float(z @ (y - mu)), float((y - mu).sum())
+        haa, hab, hbb = float((wd * z) @ z), float(wd @ z), float(wd.sum())
+        det = haa * hbb - hab * hab
+        a, b = a + (hbb * ga - hab * gb) / det, b + (haa * gb - hab * ga) / det
+    return np.asarray([a, b])
+
+
+def creditcard_gbm_path(dev, card, frames, labels):
+    """Phase 41(b): a balanced GBM with Platt scaling, then one with
+    isotonic regression, on the labelled credit-card frame."""
+    from h2o3_tpu_torch import mojo
+    from h2o3_tpu_torch.estimators import H2OGradientBoostingEstimator
+    from h2o3_tpu_torch.models import shared_tree
+    from h2o3_tpu_torch.models.isotonic import pav
+
+    tr, cal, ho = frames
+    (y_tr, _), (y_cal, _), (y_ho, _) = labels
+    counts = np.bincount(y_tr.astype(np.int64), minlength=2).astype(np.float64)
+    n = float(len(y_tr))
+    factors = np.minimum(n / (2 * counts), 5.0 * n / counts)
+    w_host = (np.ones(len(y_tr), np.float32)
+              * factors[y_tr.astype(np.int64)]).astype(np.float32)
+    prior, modeld = counts / n, counts * factors / (counts * factors).sum()
+    bad, out = [], {}
+    for method in ("PlattScaling", "IsotonicRegression"):
+        t0 = time.perf_counter()
+        seen = []
+        real = shared_tree.dist_mod.init_margin
+
+        def rec_w(dist, yv, w, **kw):
+            seen.append(np.array(w))
+            return real(dist, yv, w, **kw)
+
+        est = H2OGradientBoostingEstimator(
+            calibration_frame=cal, calibration_method=method,
+            device=str(dev), **CC41_GBM)
+        _reset_counts()
+        with mock.patch.object(shared_tree.dist_mod, "init_margin", rec_w):
+            est.train(y="Class", training_frame=tr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fit = _read_counts()
+        m = est.model
+        Xh = m._matrix(ho)
+        raw = shared_tree.probs_from_margins("gbm", "binomial", "bernoulli",
+                                             m._margins(Xh), m.ntrees_built)
+        q = raw * (prior / modeld)[None, :]
+        q = q / q.sum(axis=1, keepdims=True)
+        corr_err = float(np.abs(m._score_probs(Xh) - q).max())
+        p_cal = m._score_probs(m._matrix(cal))[:, 1]
+        r = dict(card=card, method=method, rows=tr.nrow, wall_s=wall,
+                 trees_per_s=CC41_GBM["ntrees"] / wall,
+                 weights_equal=bool(len(seen) == 1 and np.array_equal(
+                     seen[0], w_host)),
+                 correction_max_err=corr_err, b1_launches=fit["b1"],
+                 dispatch=fit["dispatch"])
+        if method == "PlattScaling":
+            host = _host_newton(p_cal, y_cal)
+            r["platt_ab"] = [m.calibrator.a, m.calibrator.b]
+            r["platt_max_err"] = float(np.abs(
+                np.asarray(r["platt_ab"]) - host).max())
+            ok_cal = r["platt_max_err"] <= 1e-10
+        else:
+            tx, ty = pav(p_cal, y_cal, np.ones_like(y_cal))
+            r["knots"] = len(tx)
+            ok_cal = (np.array_equal(tx, m.calibrator.knots_x)
+                      and np.array_equal(ty, m.calibrator.knots_y))
+            r["knots_equal"] = ok_cal
+        pred = m.predict(ho)
+        p_raw = np.asarray(pred.vec("1").data, np.float64)
+        p_c = np.asarray(pred.vec("cal_1").data, np.float64)
+        r["holdout_logloss_raw"] = _logloss(y_ho, p_raw)
+        r["holdout_logloss_calibrated"] = _logloss(y_ho, p_c)
+        r.update(_served_equal(dev, m, ho.take(np.arange(2_000)),
+                               f"cc_{method}"))
+        with tempfile.TemporaryDirectory() as d:
+            sc = mojo.load_model(mojo.save_model(m, d, "cc.h2o3"))
+            p_mojo = np.asarray(sc.predict(ho).vec("1").data, np.float64)
+        r["mojo_gap"] = float(np.abs(p_mojo - p_raw).max())
+        PHASE41_WALLS[f"b_{method}_s"] = time.perf_counter() - t0
+        print(f"phase 41(b) balanced GBM, {method}, on {card}: "
+              + json.dumps(r), flush=True)
+        out[method] = r
+        expect = CC41_GBM["ntrees"] * CC41_GBM["max_depth"]
+        if not r["weights_equal"] or corr_err > 1e-12 or not ok_cal:
+            bad.append(f"{method}: weights, correction or calibrator off "
+                       "their host recounts")
+        if fit["b1"] != expect or fit["dispatch"] != {"pallas_factored": expect}:
+            bad.append(f"{method}: dispatch {fit}, expected {expect} B1")
+        if r["holdout_logloss_calibrated"] > (r["holdout_logloss_raw"]
+                                              + CC41_LOGLOSS_TOL):
+            bad.append(f"{method}: calibrated logloss "
+                       f"{r['holdout_logloss_calibrated']} above raw "
+                       f"{r['holdout_logloss_raw']} + {CC41_LOGLOSS_TOL}")
+        if max(r["served_max_diff"], r["failover_max_diff"]) > 1e-6 \
+                or r["fallback_scores"] < 1:
+            bad.append(f"{method}: served {r['served_max_diff']}, failover "
+                       f"{r['failover_max_diff']} from predict")
+    if bad:
+        raise AssertionError("phase 41(b): " + "; ".join(bad))
+    return out
+
+
+def creditcard_drf_path(dev, card, frames, labels):
+    """Phase 41(c): the DRF with per-class rates; B2 the plan's passes."""
+    from h2o3_tpu_torch.estimators import H2ORandomForestEstimator
+    from h2o3_tpu_torch.models import shared_tree
+    from h2o3_tpu_torch.models.metrics import auc_exact
+    from h2o3_tpu_torch.models.tree import histogram_level_plan
+
+    tr, _, ho = frames
+    (y_tr, p_tr), _, (y_ho, p_ho) = labels
+    seen = []
+    real = shared_tree.class_row_rates
+
+    def rec_rates(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out.copy())
+        return out
+
+    t0 = time.perf_counter()
+    est = H2ORandomForestEstimator(device=str(dev), **CC41_DRF)
+    _reset_counts()
+    with mock.patch.object(shared_tree, "class_row_rates", rec_rates):
+        est.train(y="Class", training_frame=tr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit = _read_counts()
+    m = est.model
+    plan = (CC41_DRF["ntrees"] * len(histogram_level_plan(m.max_depth,
+                                                           m.compact_cap))
+            + m.dense_rebuilds * len(histogram_level_plan(m.max_depth)))
+    want = np.asarray(CC41_DRF["sample_rate_per_class"],
+                      np.float32)[y_tr.astype(np.int64)]
+    p1 = np.asarray(m.predict(ho).vec("1").data, np.float64)
+    rec = dict(card=card, rows=tr.nrow, wall_s=wall,
+               trees_per_s=CC41_DRF["ntrees"] / wall,
+               max_depth=m.max_depth, dense_rebuilds=m.dense_rebuilds,
+               rates_equal=bool(len(seen) == 1
+                                and np.array_equal(seen[0], want)),
+               b2_launches=fit["b2"], planned_passes=plan,
+               b1_launches=fit["b1"], dispatch=fit["dispatch"],
+               oob_auc=float(m.training_metrics.auc),
+               generator_train_auc=auc_exact(y_tr, p_tr),
+               holdout_auc=auc_exact(y_ho, np.round(p1, 6)),
+               generator_holdout_auc=auc_exact(y_ho, p_ho))
+    PHASE41_WALLS["c_s"] = time.perf_counter() - t0
+    print(f"phase 41(c) DRF with per-class rates on {card}: "
+          + json.dumps(rec), flush=True)
+    bad = []
+    if not rec["rates_equal"]:
+        bad.append("the fit's row rates are not rates[y]")
+    if fit["b2"] != plan or fit["b1"] or fit["dispatch"] != {"pallas": plan}:
+        bad.append(f"dispatch {fit}, expected {plan} B2 passes only")
+    if any(rec[k] < v for k, v in CC41_DRF_FLOORS.items()):
+        bad.append(f"AUCs {rec['oob_auc']} (OOB), {rec['holdout_auc']} "
+                   f"(holdout) under the floors {CC41_DRF_FLOORS}")
+    if bad:
+        raise AssertionError("phase 41(c): " + "; ".join(bad))
+    return rec
+
+
+def tree_params_small_checks(dev, card, frames):
+    """Phase 41(d): (a)-(c) at P41_SMALL rows, card against CPU: the
+    forests node for node, every row in the same leaf of every tree, the
+    leaf values it reaches within P41_GBM_LEAF_TOL (the DRF's 0/1 sums are
+    exact: within P41_SMALL_TOL) and predictions (`cal_` columns
+    included) within P41_SMALL_TOL."""
+    from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
+                                           H2ORandomForestEstimator)
+    from h2o3_tpu_torch.frame.frame import Frame
+
+    X, y = make_higgs_like(P41_SMALL, seed=41)
+    names = [f"f{i}" for i in range(N_FEAT)] + ["label"]
+    fh = Frame.from_numpy(np.column_stack([X, y]), names=names).asfactor("label")
+    tr, cal, _ = frames
+    small, small_cal = tr.take(np.arange(P41_SMALL)), cal.take(np.arange(5_000))
+    cases = (
+        ("monotone_gbm", H2OGradientBoostingEstimator, fh, "label",
+         dict(ntrees=5, max_depth=DEPTH, histogram_type="UniformAdaptive",
+              seed=42, monotone_constraints=MONO41)),
+        ("balanced_platt_gbm", H2OGradientBoostingEstimator, small, "Class",
+         dict(CC41_GBM, ntrees=5, calibration_frame=small_cal)),
+        # a set depth: the memory clamp of the default 20 differs between
+        # the card (19) and the CPU (17)
+        ("rates_drf", H2ORandomForestEstimator, small, "Class",
+         dict(CC41_DRF, ntrees=5, max_depth=12)))
+    bad, out = [], {}
+    for name, cls, frame, y_name, params in cases:
+        a = _pair_fit(cls, str(dev), params, frame, y=y_name)
+        b = _pair_fit(cls, "cpu", params, frame, y=y_name)
+        nodes, dv = _forest_diff(a, b)
+        check = small_cal if name == "balanced_platt_gbm" else frame
+        rows, dleaf = _leaves_diff(a, b, check)
+        pa, pb = a.predict(check), b.predict(check)
+        dp = max(float(np.abs(np.asarray(pa.vec(c).data, np.float64)
+                              - np.asarray(pb.vec(c).data, np.float64)).max())
+                 for c in pa.names[1:]) if pa.names == pb.names else float("inf")
+        out[name] = dict(card=card, rows=frame.nrow, differing_nodes=nodes,
+                         max_node_value_diff=dv, rows_in_other_leaves=rows,
+                         max_leaf_value_diff=dleaf, max_predict_diff=dp,
+                         columns=pa.names)
+        print(f"phase 41(d) {name} card vs cpu: {json.dumps(out[name])}",
+              flush=True)
+        leaf_tol = P41_SMALL_TOL if name == "rates_drf" else P41_GBM_LEAF_TOL
+        if nodes or rows or dleaf > leaf_tol or dp > P41_SMALL_TOL \
+                or (name == "rates_drf" and dv > P41_SMALL_TOL):
+            bad.append(f"{name}: {out[name]}")
+    if bad:
+        raise AssertionError("phase 41(d): card and CPU differ: "
+                             + "; ".join(bad))
+    return out
+
+
+def tree_params_path(dev, card, phase4_holdout_auc: float):
+    """Phase 41: (a)-(d) in turn; returns the phase's record."""
+    from h2o3_tpu_torch.models import dataset_cache as dsc
+
+    t_phase = time.perf_counter()
+    rec_a = monotone_higgs_path(dev, card, phase4_holdout_auc)
+    dsc.clear()
+    t0 = time.perf_counter()
+    frames, labels = creditcard_frames()
+    PHASE41_WALLS["b_frames_s"] = time.perf_counter() - t0
+    rec_b = creditcard_gbm_path(dev, card, frames, labels)
+    rec_c = creditcard_drf_path(dev, card, frames, labels)
+    t0 = time.perf_counter()
+    rec_d = tree_params_small_checks(dev, card, frames)
+    PHASE41_WALLS["d_s"] = time.perf_counter() - t0
+    dsc.clear()
+    PHASE41_WALLS["phase_s"] = time.perf_counter() - t_phase
+    return dict(a=rec_a, b=rec_b, c=rec_c, d=rec_d)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -9928,6 +10397,12 @@ def main() -> int:
     pod_path(dev, card)
     at("pod_path")
     print(f"phase 40 wall on {card}: " + json.dumps(PHASE40_WALLS),
+          flush=True)
+    # phase 41: monotone constraints, class balancing with calibration and
+    # per-class rates on the GBM/DRF path, then card vs CPU
+    tree_params_path(dev, card, rec["holdout_auc"])
+    at("tree_params_path")
+    print(f"phase 41 wall on {card}: " + json.dumps(PHASE41_WALLS),
           flush=True)
     print(f"smoke wall on {card}: {time.time() - t0:.1f} s (kernel build "
           "included)", flush=True)

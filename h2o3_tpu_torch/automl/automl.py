@@ -20,7 +20,9 @@ One step differs from a straight copy: on a multinomial problem the
 reference's GLM_1 asks for `lambda_search=True`, which its multinomial
 fit never reads (it fits λ = 0). The port's GLM raises for that request
 (ROADMAP §C), so the port's GLM_1 asks for the model the reference
-computes, α 0.5 at λ = 0.
+computes, α 0.5 at λ = 0. The reference accepts `balance_classes` and
+never reads it (no candidate gets it); the port raises for
+`balance_classes=True`.
 
 Not ported: AutoML over a frame on an attached server (`_remote_train`)
 needs the REST client, ROADMAP queue A, item 11; the in-flight pointer of
@@ -36,7 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..frame.frame import Frame
-from ..models.model_base import response_info
+from ..models.model_base import check_unread, response_info
 
 
 class EventLog:
@@ -131,6 +133,8 @@ class H2OAutoML:
         device: Optional[str] = None,
         **kw,
     ):
+        check_unread("AutoML", None, dict(balance_classes=balance_classes),
+                     dict(balance_classes=False))
         self.max_models = max_models
         self._lb_frame = None
         self.max_runtime_secs = max_runtime_secs

@@ -7,7 +7,9 @@ multinomial model, else one) and per tree the heap arrays `feat`, `bin`,
 mode (``"gbm"`` sums the trees through the link; ``"drf"`` averages them).
 `forest_from_numpy` builds the port's model from them, so a GBM or DRF
 model trained by the JAX package (whose arrays the caller reads out as
-numpy) scores in the port.
+numpy) scores in the port. A balanced model adds its (prior, model) class
+distributions, and a calibrated one its calibration map as data: the
+method with Platt's (a, b) or the isotonic knots.
 
 A GLM's weights are its standardized β (intercept last; one row per
 class, (K, p+1), for a multinomial model), its family and response domain,
@@ -96,7 +98,7 @@ from .models.rulefit import Rule, RuleFitModel
 from .models.targetencoder import LEAKAGE_MODES, TargetEncoderModel
 from .models.word2vec import Word2VecModel
 from .models.svd import SVDModel
-from .models.shared_tree import SharedTreeModel
+from .models.shared_tree import Calibrator, SharedTreeModel
 from .models.uplift import UpliftRandomForestModel
 
 
@@ -115,13 +117,18 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0,
                       problem: str = "binomial",
                       distribution: str = "bernoulli",
                       mode: str = "gbm", algo: Optional[str] = None,
+                      balance_dists=None, calibrator=None,
                       device=None) -> SharedTreeModel:
     """Port model from heap arrays: each field one (ntrees, T) array, or K
     of them for a multinomial model (one per class forest, in class order).
     `f0` is a float, or the K-vector of a multinomial model. `edges` are
     the per-feature bin edges of the training `BinnedMatrix`; `domain` the
     response levels of a classifier; `mode` the reference model's `mode`;
-    `algo` its algo where it is not the shared tree's ("xgboost")."""
+    `algo` its algo where it is not the shared tree's ("xgboost").
+    `balance_dists` is a balanced model's (prior, model) class
+    distributions; `calibrator` a calibrated binomial model's map as a dict
+    of `Calibrator`'s fields: ``method`` with ``a`` and ``b`` for Platt
+    scaling, ``knots_x`` and ``knots_y`` for ``"IsotonicRegression"``."""
     if mode not in ("gbm", "drf"):
         raise ValueError(f"mode must be 'gbm' or 'drf', got {mode!r}")
     dev = devlib.resolve(device)
@@ -163,6 +170,14 @@ def forest_from_numpy(*, feat, bin, thr, is_split, value, covers, f0,
                             dev, mode=mode)
     if algo:
         model.algo = algo
+    if balance_dists is not None:
+        prior, modeld = balance_dists
+        model.balance_dists = (np.asarray(prior, np.float64),
+                               np.asarray(modeld, np.float64))
+    if calibrator is not None:
+        if problem != "binomial":
+            raise ValueError("a calibrator needs a binomial model")
+        model.calibrator = Calibrator(**calibrator)
     return model
 
 

@@ -69,7 +69,11 @@ from . import estimator_engine as _est
 from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
                       ModelMetricsRegression)
 from .model_base import (SCORE_ROW_BUCKET, DataInfo, H2OEstimator, H2OModel,
-                         _sync, pod_check_frame, response_info)
+                         _sync, check_unread, pod_check_frame, response_info)
+
+# parameters the reference's GLM accepts and never reads
+_UNREAD = dict(balance_classes=False, class_sampling_factors=None,
+               max_after_balance_size=5.0)
 
 FAMILIES = (
     "AUTO", "gaussian", "binomial", "quasibinomial", "multinomial",
@@ -640,6 +644,7 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
 
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> GLMModel:
         p = self._parms
+        check_unread("GLM", None, p, _UNREAD)
         if p.get("offset_column") is not None:
             # the reference's GLM never reads the offset (it drops the
             # column and fits without it); the port does not copy that

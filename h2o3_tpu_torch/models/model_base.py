@@ -1038,16 +1038,17 @@ class H2OEstimator:
         return self.model.scoring_history
 
 
-def check_unread(algo: str, item: str, p: dict, unread: dict) -> None:
+def check_unread(algo: str, item: Optional[str], p: dict,
+                 unread: dict) -> None:
     """Raise for a parameter the reference's `algo` accepts and never
     reads, at any value other than its default (`unread`: name → default),
-    naming the ROADMAP `item` that would port it."""
+    naming the ROADMAP `item` that would port it, where one would."""
     for k, default in unread.items():
         if p.get(k, default) != default:
+            where = f"{item}; ROADMAP §C" if item else "ROADMAP §C"
             raise NotImplementedError(
                 f"{k}={p.get(k)!r}: the reference's {algo} accepts it and "
-                f"never reads it, so only {default!r} is ported ({item}; "
-                "ROADMAP §C)")
+                f"never reads it, so only {default!r} is ported ({where})")
 
 
 def warn_host_solver(algo: str, n_rows: int, bound: int = 500_000) -> None:

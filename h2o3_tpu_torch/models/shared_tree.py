@@ -73,9 +73,22 @@ Two lanes change how a tree's rows reduce, both on one device:
   fit that shares S bit for bit. It also runs GOSS (``goss=True``). A
   streamed fit keeps its stream counters in ``model._stream_stats``.
 
-Not ported yet (ROADMAP queue A, items 5, 9 and 11): per-class row
-sampling, class balancing, calibration, checkpoints, the mesh lane over
-several devices and QoS. Asking for any of them raises
+The reference's class and constraint parameters fit as it fits them:
+
+- ``monotone_constraints`` ({column: ±1}, GBM) constrains the depth-wise
+  split search (`tree.LevelRule`) and keeps every level dense;
+- ``sample_rate_per_class`` compares each row's draw with its class's
+  rate instead of ``sample_rate`` (and turns on DRF's out-of-bag metrics);
+- ``balance_classes`` (with ``class_sampling_factors`` and
+  ``max_after_balance_size``) scales the row weights by class, and the
+  model's `_finish_probs` rescales its probabilities back to the prior
+  class distribution (``balance_dists``);
+- ``calibrate_model`` fits Platt scaling or isotonic regression of the
+  ``calibration_frame``'s labels on its p1 (`Calibrator`, kept as data),
+  and a binomial model's `predict` appends the ``cal_`` columns.
+
+Not ported yet (ROADMAP queue A, items 5, 9 and 11): checkpoints, the
+mesh lane over several devices and QoS. Asking for any of them raises
 `NotImplementedError`.
 """
 
@@ -103,8 +116,8 @@ from . import tree as treelib
 from .metrics import (ModelMetricsBinomial, ModelMetricsMultinomial,
                       ModelMetricsRegression)
 from .model_base import (SCORE_ROW_BUCKET, H2OEstimator, H2OModel,
-                         ScoreKeeper, ScoringHistory, pod_check_frame,
-                         response_info)
+                         ScoreKeeper, ScoringHistory, check_unread,
+                         pod_check_frame, response_info)
 
 
 def _sync(dev: torch.device) -> None:
@@ -181,6 +194,91 @@ def probs_from_margins(mode: str, problem: str, dist: str, m: np.ndarray,
     if dist in ("poisson", "gamma", "tweedie"):
         return np.exp(m[:, :1])
     return m[:, :1]
+
+
+def balance_weights(w: np.ndarray, codes_y: np.ndarray, nclass: int,
+                    factors=None, max_after: float = 5.0, counts=None):
+    """`balance_classes` as per-class row weights (the reference's
+    `shared_tree.py:1716-1739`): the factors in f64 (`class_sampling_factors`,
+    or n / (K · count) each class), capped so no class grows past
+    `max_after` times n, then (w · factor[y]) rounded to f32. `counts` are
+    the global class counts on a pod (the rows' own otherwise). Returns
+    (weights, (prior distribution, model distribution))."""
+    if counts is None:
+        counts = np.bincount(codes_y, minlength=nclass).astype(np.float64)
+    n_bal = float(counts.sum())
+    if factors is not None:
+        factors = np.asarray(factors, np.float64)
+    else:
+        factors = n_bal / (len(counts) * np.maximum(counts, 1.0))
+    factors = np.minimum(factors, max_after * n_bal / np.maximum(counts, 1.0))
+    model_w = counts * factors
+    return ((w * factors[codes_y]).astype(np.float32),
+            (counts / counts.sum(), model_w / model_w.sum()))
+
+
+def class_row_rates(rates, codes_y: np.ndarray, nclass: int,
+                    problem: str) -> np.ndarray:
+    """`sample_rate_per_class` as each row's f32 sampling rate, its class's
+    (rates[y]); a regression response or a vector that is not one rate a
+    class raises, as in the reference."""
+    if problem not in ("binomial", "multinomial"):
+        raise ValueError("sample_rate_per_class requires a categorical "
+                         "response (classification only)")
+    rates_np = np.asarray(list(rates), np.float32)
+    if len(rates_np) != nclass:
+        raise ValueError(f"sample_rate_per_class needs {nclass} entries, "
+                         f"got {len(rates_np)}")
+    return rates_np[np.asarray(codes_y, np.int64)]
+
+
+def _logit(p: np.ndarray) -> np.ndarray:
+    return np.log(np.clip(p, 1e-12, 1 - 1e-12) / np.clip(1 - p, 1e-12, 1 - 1e-12))
+
+
+class Calibrator:
+    """`calibrate_model`'s map of a binomial model's p1, kept as data so the
+    model pickles and carries across: Platt scaling's (a, b), p ↦ σ(a ·
+    logit(p) + b), or isotonic regression's knots, p ↦ the knots' linear
+    interpolation (`np.interp`)."""
+
+    def __init__(self, method: str, a: float = 0.0, b: float = 0.0,
+                 knots_x=None, knots_y=None):
+        self.method = method
+        self.a, self.b = float(a), float(b)
+        self.knots_x = None if knots_x is None else np.asarray(knots_x, np.float64)
+        self.knots_y = None if knots_y is None else np.asarray(knots_y, np.float64)
+
+    def __call__(self, p: np.ndarray) -> np.ndarray:
+        if self.method == "IsotonicRegression":
+            return np.interp(p, self.knots_x, self.knots_y)
+        return 1 / (1 + np.exp(-(self.a * _logit(p) + self.b)))
+
+    @classmethod
+    def fit(cls, method: str, p1: np.ndarray, y: np.ndarray) -> "Calibrator":
+        """Platt scaling (``AUTO``, ``PlattScaling``): the 1-D logistic
+        regression y ~ a · logit(p1) + b by at most 25 Newton steps from
+        (0, 0), stopping at a step below 1e-10; or isotonic regression
+        (``IsotonicRegression``): `isotonic.pav` of y on p1 with unit
+        weights. The reference's `_fit_calibrator` arithmetic, in f64."""
+        if method in ("AUTO", "PlattScaling"):
+            X = np.column_stack([_logit(p1), np.ones_like(p1)])
+            ab = np.zeros(2)
+            for _ in range(25):
+                mu = 1 / (1 + np.exp(-(X @ ab)))
+                wd = np.clip(mu * (1 - mu), 1e-10, None)
+                step = np.linalg.solve((X * wd[:, None]).T @ X + 1e-9 * np.eye(2),
+                                       X.T @ (y - mu))
+                ab = ab + step
+                if np.max(np.abs(step)) < 1e-10:
+                    break
+            return cls("PlattScaling", a=ab[0], b=ab[1])
+        if method == "IsotonicRegression":
+            from .isotonic import pav
+
+            tx, ty = pav(p1, y, np.ones_like(y))
+            return cls(method, knots_x=tx, knots_y=ty)
+        raise ValueError(f"unknown calibration_method {method!r}")
 
 
 def _metrics_for(problem, yvec, probs):
@@ -500,6 +598,10 @@ def padded_rows(X: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class SharedTreeModel(H2OModel):
     algo = "sharedtree"
+    # a balanced fit's (prior, model) class distributions, and a
+    # calibrated binomial fit's `Calibrator`
+    balance_dists = None
+    calibrator = None
 
     def __init__(self, params, x, y, bm: BinnedMatrix, problem, nclass,
                  domain, distribution, f0, forest: List[treelib.Tree],
@@ -566,9 +668,7 @@ class SharedTreeModel(H2OModel):
         return np.column_stack(outs)
 
     def _probs_from_codes(self, codes: np.ndarray) -> np.ndarray:
-        return probs_from_margins(self.mode, self.problem, self.distribution,
-                                  self._margins_codes(codes),
-                                  self.ntrees_built)
+        return self._finish_probs(self._margins_codes(codes))
 
     def _score_table(self, k: int, n_feat: int) -> score_cuda.ScorePack:
         """Class k's packed score table (8 bytes a node), built at the first
@@ -627,22 +727,46 @@ class SharedTreeModel(H2OModel):
 
     def _score_probs(self, X: np.ndarray,
                      offset: Optional[np.ndarray] = None) -> np.ndarray:
+        return self._finish_probs(self._margins(X), offset)
+
+    def _finish_probs(self, m: np.ndarray,
+                      offset: Optional[np.ndarray] = None) -> np.ndarray:
         """Predictions from the f64 margins, the offset added to them first
-        (not for DRF, which never applies one)."""
-        m = self._margins(X)
+        (not for DRF, which never applies one). A balanced model's
+        probabilities are rescaled to the prior class distribution
+        (`hex.Model.correctProbabilities`): each class's column times its
+        prior over its model share, rows renormalised, in f64."""
         if offset is not None and self.mode != "drf":
             m = m + offset[:, None]
-        return probs_from_margins(self.mode, self.problem, self.distribution,
-                                  m, self.ntrees_built)
+        out = probs_from_margins(self.mode, self.problem, self.distribution,
+                                 m, self.ntrees_built)
+        if self.balance_dists is None \
+                or self.problem not in ("binomial", "multinomial"):
+            return out
+        prior, modeld = (np.asarray(d) for d in self.balance_dists)
+        out = out * (prior / np.maximum(modeld, 1e-12))[None, :]
+        return out / np.maximum(out.sum(axis=1, keepdims=True), 1e-12)
 
     def predict(self, test_data: Frame) -> Frame:
-        out = self._score_probs(self._matrix(test_data),
-                                self._offset_of(test_data))
+        return self._predict_frame(self._score_probs(
+            self._matrix(test_data), self._offset_of(test_data)))
+
+    def predict_from_margins(self, m: np.ndarray) -> Frame:
+        """`predict`'s frame from (N, K) f64 margins scored elsewhere (the
+        serving failover's, from the model's artifact on the host): the
+        prior correction and the `cal_` columns applied here, in numpy."""
+        return self._predict_frame(self._finish_probs(m))
+
+    def _predict_frame(self, out: np.ndarray) -> Frame:
         if self.problem in ("binomial", "multinomial"):
             lab = out.argmax(axis=1)
             d = {"predict": np.asarray(self.domain, dtype=object)[lab]}
             for i, cls in enumerate(self.domain):
                 d[str(cls)] = out[:, i]
+            if self.calibrator is not None and self.problem == "binomial":
+                c1 = self.calibrator(out[:, 1])
+                d[f"cal_{self.domain[0]}"] = 1.0 - c1
+                d[f"cal_{self.domain[1]}"] = c1
             return Frame.from_dict(d, column_types={"predict": "enum"})
         return Frame.from_dict({"predict": out[:, 0]})
 
@@ -725,11 +849,11 @@ class SharedTreeModel(H2OModel):
         if self.problem != "binomial" or self.mode == "drf":
             raise ValueError("staged_predict_proba supports binomial "
                              "boosting models only (reference parity)")
-        if self._parm("offset_column"):
+        if self._parm("offset_column") or self.balance_dists is not None:
             raise ValueError(
                 "staged_predict_proba is not supported for models trained "
-                "with an offset_column (staged margins would disagree with "
-                "predict())")
+                "with offset_column or balance_classes (staged margins "
+                "would disagree with predict())")
         X = torch.from_numpy(self._matrix(test_data).astype(np.float32)).to(
             self.device)
         per_tree = treelib.predict_raw(self.forest[0], X,
@@ -799,28 +923,15 @@ class H2OSharedTreeEstimator(H2OEstimator):
 
     _mode = "gbm"
     _pod_lane = True
-    # parameter -> (value the slice runs, ROADMAP item that ports the rest)
-    _UNPORTED = dict(
-        sample_rate_per_class=(None, "queue A, item 5 (per-class rates)"),
-        binomial_double_trees=(False, "queue A, item 5"),
-        monotone_constraints=(None, "queue A, item 4"),
-        calibrate_model=(False, "queue A, item 5"),
-        calibration_frame=(None, "queue A, item 5"),
-        balance_classes=(False, "queue A, item 5"),
-        class_sampling_factors=(None, "queue A, item 5"),
-    )
+    # parameters the reference's tree estimators accept and never read
+    _UNREAD = dict(binomial_double_trees=False)
 
-    def _check_unported(self) -> None:
-        p = self._parms
-        for k, (ok, item) in self._UNPORTED.items():
-            if k in p and p[k] != ok:
-                raise NotImplementedError(
-                    f"{type(self).__name__}: {k}={p[k]!r} is not ported "
-                    f"(ROADMAP {item})")
+    def _check_unread(self) -> None:
+        check_unread(self.algo.upper(), None, self._parms, self._UNREAD)
 
     def _tree_params(self) -> Dict:
         p = self._parms
-        self._check_unported()
+        self._check_unread()
         drf = self._mode == "drf"
         return dict(
             ntrees=int(p.get("ntrees", 50)),
@@ -966,6 +1077,48 @@ class H2OSharedTreeEstimator(H2OEstimator):
             needed = max(-(-codes_bytes // target), base)
             S = -(-needed // base) * base
         return max(min(S, max(npad // 8, 1)), 1), goss_cfg
+
+    def _monotone_vector(self, x, train: Frame) -> Optional[np.ndarray]:
+        """`monotone_constraints` ({column: ±1}) as an (F,) f32 vector
+        aligned with x, or None; an unknown or categorical column raises,
+        as in the reference."""
+        mc = self._parms.get("monotone_constraints")
+        if not mc:
+            return None
+        vec = np.zeros(len(x), np.float32)
+        for cname, d in dict(mc).items():
+            if cname not in x:
+                raise ValueError(
+                    f"monotone_constraints: unknown column {cname!r}")
+            if train.vec(cname).type == "enum":
+                raise ValueError(
+                    f"monotone_constraints: {cname!r} is categorical — "
+                    "constraints apply to numeric columns only")
+            vec[list(x).index(cname)] = float(d)
+        return vec
+
+    def _fit_calibrator(self, model: SharedTreeModel, pod: bool) -> Calibrator:
+        """The calibration frame's p1, scored exactly as `predict` scores
+        it (offsets included), against its labels; the reference's errors
+        for a model that is not binomial, no `calibration_frame` and an
+        unknown method. A pod gathers every rank's (p1, y) in rank order
+        first, so every rank fits the one-process map bit for bit (the
+        reference's Platt branch sums per rank instead, ROADMAP §C)."""
+        if model.problem != "binomial":
+            raise ValueError("calibrate_model is only supported for "
+                             "binomial models")
+        calib = self._parms.get("calibration_frame")
+        if calib is None:
+            raise ValueError("calibrate_model=True requires calibration_frame")
+        p1 = model._score_probs(model._matrix(calib),
+                                model._offset_of(calib))[:, 1]
+        ycal = np.asarray(calib.vec(model.y).data, np.float64)
+        if pod:
+            both = distdata.allgather_rows(np.column_stack([p1, ycal]))
+            p1 = np.ascontiguousarray(both[:, 0])
+            ycal = np.ascontiguousarray(both[:, 1])
+        return Calibrator.fit(str(self._parms.get("calibration_method", "AUTO")),
+                              p1, ycal)
 
     def _default_stopping_metric(self, problem: str) -> str:
         sm = self._parms.get("stopping_metric", "AUTO")
@@ -1130,6 +1283,20 @@ class H2OSharedTreeEstimator(H2OEstimator):
         if offset is not None and drf:
             # reference parity: DRF.init rejects offsets
             raise ValueError("offset_column is not supported for DRF")
+        mono_vec = self._monotone_vector(x, train)
+        balance_dists = None
+        if self._parms.get("balance_classes") \
+                and problem in ("binomial", "multinomial"):
+            # the class counts are global on a pod, so every rank scales
+            # its rows by the one-process factors
+            codes_y = np.asarray(yvec.data)
+            class_counts = (distdata.global_sum(np.bincount(
+                codes_y, minlength=nclass).astype(np.float64))
+                if pod else None)
+            w, balance_dists = balance_weights(
+                w, codes_y, nclass, self._parms.get("class_sampling_factors"),
+                float(self._parms.get("max_after_balance_size", 5.0)),
+                counts=class_counts)
         K = nclass if problem == "multinomial" else 1
         yk = _response_matrix(yvec, problem, K)
         # a pod gathers the response and weights (rank order is the global
@@ -1258,11 +1425,18 @@ class H2OSharedTreeEstimator(H2OEstimator):
                 dev)[:, None]
         cap = tp["max_abs_leaf"] if np.isfinite(tp["max_abs_leaf"]) else 3.4e38
         # sampling: per-row rate, per-tree column product, DRF's per-split
-        # mtries rate, each compared in f32 as the reference does
-        row_sampled = tp["sample_rate"] < 1.0
+        # mtries rate, each compared in f32 as the reference does. With
+        # sample_rate_per_class each row's draw is compared with its
+        # class's rate (pad rows: 0)
+        srpc = self._parms.get("sample_rate_per_class")
+        if srpc:
+            row_rate = torch.from_numpy(padr(class_row_rates(
+                srpc, np.asarray(yvec.data), nclass, problem))).to(dev)
+        else:
+            row_rate = torch.tensor(np.float32(tp["sample_rate"]), device=dev)
+        row_sampled = tp["sample_rate"] < 1.0 or bool(srpc)
         oob = drf and row_sampled        # DRF training metrics are out-of-bag
         colp = tp["col_sample_rate"] * tp["col_sample_rate_per_tree"]
-        row_rate = torch.tensor(np.float32(tp["sample_rate"]), device=dev)
         col_rate = torch.tensor(np.float32(colp), device=dev)
         mtries = self._resolved_mtries(tp, F, problem)
         mtries_rate = float(np.float32(mtries / max(F, 1))) if mtries > 0 else None
@@ -1273,10 +1447,14 @@ class H2OSharedTreeEstimator(H2OEstimator):
         # tree with `build_tree_lossguide`, which never compacts
         lossguide = tp.get("grow_policy", "depthwise") == "lossguide"
         # the streamed level loop is dense only, so a streamed fit never
-        # compacts; it equals the blocks-lane fit of its S up to depth 12
+        # compacts; it equals the blocks-lane fit of its S up to depth 12.
+        # Monotone bounds live per dense level node: no compaction either
         compact_cap = (max(2, int(os.environ.get("H2O3_COMPACT_CAP", 4096)) // 2 * 2)
                        if tp["max_depth"] > 12 and obj_fn is None
-                       and not lossguide and not ooc_blocks else 0)
+                       and not lossguide and not ooc_blocks
+                       and mono_vec is None else 0)
+        mono_d = (torch.from_numpy(mono_vec).to(dev)
+                  if mono_vec is not None else None)
         lr = tp["learn_rate"] if not drf else 1.0
         if oob:
             oob_sum = torch.zeros((quota, K), dtype=torch.float32, device=dev)
@@ -1435,7 +1613,8 @@ class H2OSharedTreeEstimator(H2OEstimator):
                         hist_method=tp["hist_method"], pack_bits=pack_bits,
                         n_shard_blocks=local_blocks,
                         mtries_rate=mtries_rate, key=ktree,
-                        compact_cap=cap_slots, axis_name=axis)
+                        compact_cap=cap_slots, axis_name=axis,
+                        monotone=mono_d)
 
                 scale_d = torch.tensor(scale, device=dev)
                 if stream is not None:
@@ -1567,6 +1746,9 @@ class H2OSharedTreeEstimator(H2OEstimator):
                                 tp["max_depth"], dev, mode=self._mode)
         model.compact_cap = compact_cap
         model.dense_rebuilds = dense_rebuilds
+        model.balance_dists = balance_dists
+        if self._parms.get("calibrate_model"):
+            model.calibrator = self._fit_calibrator(model, pod)
         # the kind of histogram pass each tree ran (the reference's fit plan)
         model.hist_plan = treelib.histogram_level_plan(
             tp["max_depth"], compact_cap, tp.get("grow_policy", "depthwise"))

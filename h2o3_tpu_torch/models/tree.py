@@ -15,8 +15,14 @@ samples features per node and level with the reference's threefry draws
 
 The TPU reference computes per-row lookups and leaf totals as one-hot
 matmuls (the TPU has no fast gather); here they are true gathers and
-exact integer sums. Not ported yet: monotone constraints (ROADMAP queue
-A, item 4).
+exact integer sums.
+
+Monotone constraints (``monotone``, an (F,) f32 vector in {-1, 0, 1}) run
+on dense levels only: the split search admits a split on a constrained
+feature only where its clipped child values keep the constraint's order,
+and each node's value bounds pass to its children by the chosen split's
+mid-point (the reference's LightGBM-style propagation), so no tree can
+violate a constraint.
 
 `build_tree_lossguide` is XGBoost's leaf-wise growth (`grow_policy=
 "lossguide"`) into the same depth-capped heap: a frontier of leaf slots,
@@ -68,13 +74,21 @@ def _nan_first_argmax(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fused_level_best(hist, node_ok, feat_mask, keep, nbins: int, min_rows,
-                      reg_lambda, reg_alpha, gsum, hsum, wsum):
+                      reg_lambda, reg_alpha, gsum, hsum, wsum,
+                      monotone=None, lo=None, hi=None):
     """Best (gain, feature, bin) per level node from an (L, F, B, 3)
     histogram; `keep` is the (L, F) mtries column sample or None. The
     reference scans features keeping a running best with a strict `>` (NaN
     gains count as the maximum); that equals one flat argmax over (F·B)
     with first-occurrence ties and NaN-as-max, which is what this computes,
-    over all features at once."""
+    over all features at once.
+
+    With `monotone` ((F,) f32 in {-1, 0, 1}) and the nodes' (L,) value
+    bounds `lo`/`hi`, each candidate's child values are the Newton values
+    clipped into the bounds, a split on a constrained feature is admissible
+    only where c·(vR − vL) ≥ 0, and the chosen split's (vL, vR) come back
+    as two more outputs (0 where no split is admissible, as the
+    reference's running scan leaves them)."""
     L, F, B = hist.shape[0], hist.shape[1], hist.shape[2]
     G, H, W = gsum[:, None, None], hsum[:, None, None], wsum[:, None, None]
     Gt = _tl1(G, reg_alpha)
@@ -95,12 +109,25 @@ def _fused_level_best(hist, node_ok, feat_mask, keep, nbins: int, min_rows,
     ok = ok & (feat_mask > 0)[None, :, None] & node_ok[:, None, None]
     if keep is not None:
         ok = ok & keep[:, :, None]
+    if monotone is not None:
+        lo3, hi3 = lo[:, None, None], hi[:, None, None]
+        vL = torch.clamp(-GLt / (HL + reg_lambda + 1e-12), lo3, hi3)
+        vR = torch.clamp(-GRt / (HR + reg_lambda + 1e-12), lo3, hi3)
+        mc = monotone[None, :, None]
+        ok = ok & ((mc == 0) | (mc * (vR - vL) >= 0))
     gain = torch.where(ok, gain, torch.full_like(gain, -_INF))
     flat = gain.reshape(L, F * B)
     best = _nan_first_argmax(flat)
     best_gain = flat.gather(1, best[:, None])[:, 0]
-    return (best_gain, (best // B).to(torch.int32),
-            (best % B).to(torch.int32))
+    out = (best_gain, (best // B).to(torch.int32), (best % B).to(torch.int32))
+    if monotone is None:
+        return out
+    # the reference's scan never takes a feature whose best is −inf
+    none = torch.isneginf(best_gain)
+    zero = torch.zeros_like(best_gain)
+    return out + tuple(
+        torch.where(none, zero, v.reshape(L, F * B).gather(1, best[:, None])[:, 0])
+        for v in (vL, vR))
 
 
 def _leaf_totals(ids: torch.Tensor, vals3: torch.Tensor, nseg: int,
@@ -159,12 +186,21 @@ class LevelRule:
     """The per-level arithmetic of a dense depth-wise level, shared by
     `build_tree` and the streamed step (`tree_stream.py`), which must
     compute the same bits: Newton node values, the fused split search with
-    its gain-per-feature fold, and the raw thresholds."""
+    its gain-per-feature fold, and the raw thresholds.
+
+    With `monotone` the rule also owns the level's value bounds: node
+    values are clipped into them after `max_abs_leaf` (the bounds encode
+    the constraint, so they win over the magnitude cap), and each dense
+    level passes them to its children by the chosen split's mid-point
+    (the reference's `tree.py:502-517`)."""
+
+    _BIG = 3.4e38
 
     def __init__(self, feat_mask: torch.Tensor, edges: torch.Tensor,
                  nbins: int, min_rows: float, min_split_improvement: float,
                  reg_lambda: float, reg_alpha: float,
-                 max_abs_leaf: Optional[float]):
+                 max_abs_leaf: Optional[float],
+                 monotone: Optional[torch.Tensor] = None):
         F = edges.shape[0]
         self.feat_mask = feat_mask
         self.nbins = nbins
@@ -179,12 +215,21 @@ class LevelRule:
                         device=edges.device)], dim=1)
         self.gain_per_feature = torch.zeros(F, dtype=torch.float32,
                                             device=edges.device)
+        self.monotone = monotone
+        if monotone is not None:
+            self.lo = torch.full((1,), -self._BIG, dtype=torch.float32,
+                                 device=edges.device)
+            self.hi = torch.full((1,), self._BIG, dtype=torch.float32,
+                                 device=edges.device)
 
     def newton(self, gs: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
         v = -_tl1(gs, self.reg_alpha) / (hs + self.reg_lambda + 1e-12)
         if self.max_abs_leaf is not None:
             v = torch.clamp(v, -self.max_abs_leaf, self.max_abs_leaf)
-        return v.to(torch.float32)
+        v = v.to(torch.float32)
+        if self.monotone is not None:
+            v = torch.clamp(v, self.lo, self.hi)
+        return v
 
     @staticmethod
     def totals(hist: torch.Tensor):
@@ -197,10 +242,15 @@ class LevelRule:
         gains fold into `gain_per_feature` with `index_put_(accumulate=
         True)`: node order on the CPU, and on the card a sorted fold in the
         same order, so varimp has the same bits in every run (a float
-        `index_add_` there adds with atomics in no fixed order)."""
-        best_gain, bf, bb = _fused_level_best(
+        `index_add_` there adds with atomics in no fixed order). Under
+        `monotone` the level's bounds then pass to the next level."""
+        mono = self.monotone
+        found = _fused_level_best(
             hist, node_ok, self.feat_mask, keep, self.nbins, self.min_rows,
-            self.reg_lambda, self.reg_alpha, gsum, hsum, wsum)
+            self.reg_lambda, self.reg_alpha, gsum, hsum, wsum, monotone=mono,
+            lo=self.lo if mono is not None else None,
+            hi=self.hi if mono is not None else None)
+        best_gain, bf, bb = found[:3]
         do = best_gain > max(self.min_split_improvement, 1e-10)
         self.gain_per_feature.index_put_(
             (bf.to(torch.int64),),
@@ -208,7 +258,23 @@ class LevelRule:
             accumulate=True)
         bthr = self.pad_edges[bf.to(torch.int64),
                               torch.clamp(bb, max=self.nbins - 2).to(torch.int64)]
+        if mono is not None:
+            self._propagate(do, bf, *found[3:])
         return do, bf, bb, bthr
+
+    def _propagate(self, do, bf, vl, vr):
+        """The children's bounds: on a ±1-constrained split the mid-point
+        of the chosen child values caps the lower-valued side and floors
+        the higher-valued one; other nodes' children inherit theirs."""
+        lo, hi = self.lo, self.hi
+        mid = 0.5 * (vl + vr)
+        c = self.monotone[bf.to(torch.int64)] * do.to(torch.float32)
+        hi_l = torch.where(c > 0, torch.minimum(hi, mid), hi)
+        lo_l = torch.where(c < 0, torch.maximum(lo, mid), lo)
+        hi_r = torch.where(c < 0, torch.minimum(hi, mid), hi)
+        lo_r = torch.where(c > 0, torch.maximum(lo, mid), lo)
+        self.lo = torch.stack([lo_l, lo_r], dim=1).reshape(-1)
+        self.hi = torch.stack([hi_l, hi_r], dim=1).reshape(-1)
 
     def dense_level(self, heap: "Heap", d: int, hist: torch.Tensor,
                     active: torch.Tensor, keep):
@@ -341,6 +407,7 @@ def build_tree(
     key=None,
     compact_cap: int = 0,
     axis_name: Optional[str] = None,
+    monotone: Optional[torch.Tensor] = None,
 ):
     """Build one tree; returns (Tree, final leaf heap index (N,), gain per
     feature (F,), cover (T,) — Σ row weights per heap node), and with
@@ -361,7 +428,13 @@ def build_tree(
     slice and ``n_shard_blocks`` its own block count: every histogram pass
     and the leaf totals fold every rank's block partials in rank order
     (`ordered_axis_fold`), so every rank searches the same histograms and
-    grows the same tree with no broadcast."""
+    grows the same tree with no broadcast.
+
+    ``monotone`` ((F,) f32 in {-1, 0, 1}) constrains the tree's values to
+    rise (+1) or fall (−1) with each constrained feature; it needs dense
+    levels (``compact_cap=0``)."""
+    if compact_cap and monotone is not None:
+        raise ValueError("compact_cap requires monotone=None")
     dev = g.device
     F = codes.shape[1]
     N = (packing.packed_nrows(codes.shape[0], pack_bits) if pack_bits
@@ -371,7 +444,7 @@ def build_tree(
     feat_a, bin_a, thr_a = heap.feat, heap.bin, heap.thr
     split_a, value_a, cover_a = heap.split, heap.value, heap.cover
     rule = LevelRule(feat_mask, edges, nbins, min_rows, min_split_improvement,
-                     reg_lambda, reg_alpha, max_abs_leaf)
+                     reg_lambda, reg_alpha, max_abs_leaf, monotone)
     newton, totals, search = rule.newton, rule.totals, rule.search
 
     idx = torch.zeros(N, dtype=torch.int64, device=dev)   # level-local node
@@ -726,6 +799,33 @@ def forest_leaves(forest: Tree, X: torch.Tensor, max_depth: int,
             visit(s, f, right)
         node = torch.where(s, 2 * node + 1 + (right & s).to(torch.int64), node)
     return node
+
+
+def monotone_violations(forest: Tree, monotone) -> int:
+    """Constrained splits whose subtrees break their order, over every tree
+    of a stacked forest: a split on a +1 feature (`monotone` per feature,
+    in {-1, 0, 1}) whose left subtree can score above its right, or on a
+    −1 feature below it. A subtree's scores are the values of its nodes
+    where a walk stops (nodes that do not split). A fit with monotone
+    constraints has none, which makes each tree, and so the forest's sum,
+    monotone in every constrained feature."""
+    feat, split = forest.feat.cpu().numpy(), forest.is_split.cpu().numpy()
+    value = forest.value.cpu().numpy()
+    mono = np.asarray(monotone)
+    inner = (feat.shape[1] - 1) // 2
+    bad = 0
+    for t in range(feat.shape[0]):
+        lo, hi = value[t].copy(), value[t].copy()
+        for i in range(inner - 1, -1, -1):
+            if split[t, i]:
+                lo[i] = min(lo[2 * i + 1], lo[2 * i + 2])
+                hi[i] = max(hi[2 * i + 1], hi[2 * i + 2])
+        for i in np.nonzero(split[t, :inner])[0]:
+            c = mono[feat[t, i]]
+            if (c > 0 and hi[2 * i + 1] > lo[2 * i + 2]) or \
+                    (c < 0 and lo[2 * i + 1] < hi[2 * i + 2]):
+                bad += 1
+    return bad
 
 
 def predict_raw(tree: Tree, X: torch.Tensor, max_depth: int) -> torch.Tensor:

@@ -107,7 +107,7 @@ class H2OXGBoostEstimator(H2OSharedTreeEstimator):
 
     def _tree_params(self):
         p = self._parms
-        self._check_unported()
+        self._check_unread()
 
         def pick(a, b, default):
             va = p.get(a)

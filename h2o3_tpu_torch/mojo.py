@@ -420,9 +420,10 @@ class MojoScorer:
     def _score_one_forest(feat, thr, split, value, D: int,
                           X: np.ndarray) -> np.ndarray:
         """Summed leaf values of one stacked forest over raw feature rows,
-        in f64 (the reference's numpy walk)."""
+        in f64 (the reference's numpy walk); on f32 rows, in f32, the
+        trees added in order from 0.0."""
         ntrees = feat.shape[0]
-        total = np.zeros(X.shape[0])
+        total = np.zeros(X.shape[0], X.dtype)
         for t in range(ntrees):
             node = np.zeros(X.shape[0], np.int64)
             for _ in range(D):
@@ -447,8 +448,16 @@ class MojoScorer:
                 a[f"forest{k}_value"], D, X)
             f0 = meta["f0"]
             f0k = f0[k] if isinstance(f0, list) else f0
-            outs.append(total + (f0k if meta["mode"] != "drf" else 0.0))
+            outs.append(total.astype(np.float64)
+                        + (f0k if meta["mode"] != "drf" else 0.0))
         return np.column_stack(outs)
+
+    def tree_margins(self, data) -> np.ndarray:
+        """(N, K) f64 margins of a tree artifact on f32 rows, each class
+        forest's trees added in order in f32 from 0.0 and f0 added in f64:
+        the forest kernels' order and routing, so they equal the fitted
+        model's `_margins` on the card bit for bit."""
+        return self._tree_scores(self._matrix(data).astype(np.float32))
 
     def _expand_raw(self, data, impute: bool) -> np.ndarray:
         """The one-hot expansion of the `DataInfo` spec, f64; numeric NaNs

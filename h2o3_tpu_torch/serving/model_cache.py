@@ -25,8 +25,11 @@ whose `predict` pads its own design to `SCORE_ROW_BUCKET` rows, XGBoost and
 DeepLearning, whose `predict` scores the padded batch on the device);
 "contributions" (TreeSHAP) and "leaves" (leaf node assignment) for GBM and
 DRF. A model without the method (GLM, DeepLearning) raises the reference's
-`ValueError`. A predict fallback scores with the model's MOJO scorer. A contributions fallback scores with the MOJO scorer's
-`predict_contributions`; a leaves fallback with the model's own method.
+`ValueError`. A predict fallback scores with the model's MOJO scorer
+(a balanced or calibrated tree model's correction and `cal_` columns
+applied after it, on the host). A contributions fallback scores with the
+MOJO scorer's `predict_contributions`; a leaves fallback with the model's
+own method.
 """
 
 from __future__ import annotations
@@ -239,7 +242,12 @@ def build_fallback_scorer(model, output_kind: str):
     poisoned by a sick accelerator. When the artifact format doesn't cover
     the algo (TypeError from the exporter) the model's own bound method is
     the last resort — still isolated from the quarantined scorer
-    cache. Returns (callable, kind_label)."""
+    cache. The artifact format does not carry a balanced tree model's
+    prior correction or a calibrated one's `cal_` columns: such a model's
+    fallback takes the artifact's margins in the card's order
+    (`MojoScorer.tree_margins`) and finishes them on the host with the
+    model's own `predict_from_margins`, so a failed-over batch gives
+    `predict`'s numbers. Returns (callable, kind_label)."""
     method = OUTPUT_KINDS[output_kind]
     try:
         import tempfile
@@ -250,6 +258,11 @@ def build_fallback_scorer(model, output_kind: str):
             path = mojolib.save_model(model, d, force=True)
             scorer = mojolib.load_model(path)   # arrays load eagerly
         fn = getattr(scorer, method, None)
+        if output_kind == "predict" and (
+                getattr(model, "balance_dists", None) is not None
+                or getattr(model, "calibrator", None) is not None):
+            return (lambda data: model.predict_from_margins(
+                scorer.tree_margins(data))), "mojo-cpu"
         if fn is not None:
             return fn, "mojo-cpu"
     except Exception:

@@ -15,7 +15,8 @@ import torch
 from h2o3_tpu_torch.estimators import (H2OGradientBoostingEstimator,
                                        H2ORandomForestEstimator)
 from h2o3_tpu_torch.frame.frame import Frame
-from h2o3_tpu_torch.models.tree import histogram_level_plan
+from h2o3_tpu_torch.models.tree import (histogram_level_plan,
+                                        monotone_violations)
 from h2o3_tpu_torch.ops import hist_cuda, histogram
 
 pytestmark = pytest.mark.cuda
@@ -1006,3 +1007,46 @@ def test_pod_gbm_on_one_card_equals_the_blocks_lane(dev, tmp_path):
         pod = load("gbm", 2, r)
         assert 0 < int(pod["dev_alloc"]) <= 0.75 * int(one["dev_alloc"]), (
             r, int(pod["dev_alloc"]), int(one["dev_alloc"]))
+
+
+@pytest.mark.parametrize("case", ["monotone", "balanced"])
+def test_tree_params_fit_on_cuda_matches_cpu(dev, case):
+    """A GBM with a +1 and a −1 monotone constraint, and a GBM with
+    `balance_classes`, per-class rates and Platt calibration: B1 at every
+    level on the card, the card's forest the CPU's node for node (values
+    within 1e-5), the monotone forest with no constrained split out of
+    order, predictions (`cal_` columns included) within 1e-5."""
+    rng = np.random.default_rng(17)
+    X = rng.normal(size=(6000, 6)).astype(np.float32)
+    logit = 1.4 * X[:, 0] - 0.9 * X[:, 1] + 0.6 * X[:, 2] * X[:, 3] - 1.8
+    y = (rng.random(6000) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    names = [f"f{i}" for i in range(6)] + ["label"]
+    fr = Frame.from_numpy(np.column_stack([X, y]), names=names).asfactor("label")
+    train, cal = fr[:4500], fr[4500:]
+    kw = (dict(monotone_constraints={"f0": 1, "f1": -1})
+          if case == "monotone" else
+          dict(balance_classes=True, sample_rate_per_class=[0.7, 1.0],
+               calibrate_model=True, calibration_frame=cal))
+    fits = {}
+    for d in ("cuda", "cpu"):
+        hist_cuda.launches = 0
+        histogram.DISPATCH.clear()
+        est = H2OGradientBoostingEstimator(ntrees=5, max_depth=5, seed=42,
+                                           device=d, **kw)
+        est.train(y="label", training_frame=train)
+        fits[d] = (est.model, hist_cuda.launches, dict(histogram.DISPATCH))
+    model, launches, dispatch = fits["cuda"]
+    assert launches == 25 and dispatch == {"pallas_factored": 25}
+    cpu = fits["cpu"][0]
+    a, b = model.forest[0], cpu.forest[0]
+    for f in ("feat", "bin", "is_split"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    torch.testing.assert_close(a.value.cpu(), b.value, rtol=1e-5, atol=1e-5)
+    if case == "monotone":
+        assert monotone_violations(a, [1.0, -1.0, 0, 0, 0, 0]) == 0
+    pa, pb = model.predict(cal), cpu.predict(cal)
+    assert pa.names == pb.names
+    for c in pa.names[1:]:
+        np.testing.assert_allclose(np.asarray(pa.vec(c).data),
+                                   np.asarray(pb.vec(c).data), rtol=0,
+                                   atol=1e-5, err_msg=c)

@@ -152,24 +152,40 @@ def test_forest_from_numpy_predicts_like_the_jax_model(fits, kind):
                                    rtol=1e-6, atol=1e-6)
 
 
-# nfolds and goss are ported: their cases now hold the reference's checks
-# of nfolds=1 and of goss with row sampling
+# nfolds, goss, per-class rates, balancing, monotone constraints and
+# calibration are ported: their cases now hold the reference's checks of
+# nfolds=1, goss with row sampling, a wrong-length rate vector, a monotone
+# constraint on an unknown column and calibration without a frame;
+# balancing, where the reference has no check, fits and is held to its
+# prior correction
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(sample_rate_per_class=[0.5, 0.9]), NotImplementedError, "ROADMAP"),
+    (dict(sample_rate_per_class=[0.5]), ValueError,
+     "sample_rate_per_class needs 2 entries, got 1"),
     (dict(goss=True, sample_rate=0.5), ValueError,
      "goss replaces row sampling"),
-    (dict(balance_classes=True), NotImplementedError, "ROADMAP"),
-    (dict(monotone_constraints={"f0": 1}), NotImplementedError, "ROADMAP"),
+    (dict(balance_classes=True), None, None),
+    (dict(monotone_constraints={"f99": 1}), ValueError,
+     "monotone_constraints: unknown column 'f99'"),
     (dict(nfolds=1), ValueError, "nfolds must be 0 \\(no CV\\) or >= 2"),
-    (dict(calibrate_model=True), NotImplementedError, "ROADMAP")],
+    (dict(calibrate_model=True), ValueError,
+     "calibrate_model=True requires calibration_frame")],
     ids=[f"kw{i}" for i in range(6)])
 def test_unported_parameters_raise(kw, error, match):
     X, y = make_higgs_like(200)
     fr = Frame.from_numpy(np.column_stack([X, y]), names=NAMES).asfactor("label")
     params = dict(PARAMS, device="cpu")
     params.update(kw)
-    with pytest.raises(error, match=match):
-        H2OGradientBoostingEstimator(**params).train(y="label", training_frame=fr)
+    est = H2OGradientBoostingEstimator(**params)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            est.train(y="label", training_frame=fr)
+        return
+    est.train(y="label", training_frame=fr)
+    prior, modeld = est.model.balance_dists
+    np.testing.assert_array_equal(prior, np.bincount(y.astype(int)) / 200)
+    np.testing.assert_allclose(modeld, [0.5, 0.5], rtol=0, atol=1e-15)
+    p = est.model._score_probs(est.model._matrix(fr))
+    np.testing.assert_allclose(p.sum(axis=1), 1.0, rtol=0, atol=1e-12)
 
 
 def test_split_frame_matches_reference():

@@ -31,6 +31,10 @@ child is killed on failure or timeout.
 - (4) The GBM of (1) on four ranks and 8,000 rows: S = 8, two blocks a
   rank, slices that are no multiple of the CPU's SIMD step.
 - (5) A 2-rank GBM with a validation frame split over the ranks.
+- (6) A 2-rank GBM with a +1 and a −1 monotone constraint,
+  `balance_classes`, per-class rates and Platt calibration on (5)'s
+  frame split over the ranks: forest, predictions, `cal_1` and Platt's
+  (a, b) equal the one-rank blocks-lane fit bit for bit.
 """
 
 import os
@@ -118,6 +122,11 @@ RANK_SCRIPT = textwrap.dedent('''
         qg=(H2OGradientBoostingEstimator, dict(
             ntrees=10, max_depth=4, seed=3, nbins=16, score_tree_interval=5,
             histogram_type="QuantilesGlobal")),
+        gbmx=(H2OGradientBoostingEstimator, dict(
+            ntrees=10, max_depth=4, seed=5, score_tree_interval=5,
+            monotone_constraints={"x0": 1, "x1": -1}, balance_classes=True,
+            sample_rate_per_class=[0.6, 1.0], calibrate_model=True,
+            calibration_frame=fv)),
     )
     for case in cases:
         if c.size == 1:
@@ -139,6 +148,8 @@ RANK_SCRIPT = textwrap.dedent('''
                         if o["type"] == "device")
         f = [t.cpu() for t in m.forest[0]]
         hist = m.scoring_history
+        pred = m.predict(fr)
+        cal = m.calibrator
         np.savez(os.path.join(out_dir, f"{case}_{c.size}_{c.self_idx}.npz"),
                  feat=f[0].numpy(), bin=f[1].numpy(), thr=f[2].numpy(),
                  split=f[3].numpy(), value=f[4].numpy(),
@@ -151,7 +162,11 @@ RANK_SCRIPT = textwrap.dedent('''
                  vi_names=np.asarray([r[0] for r in m.varimp_table]),
                  vi_gain=np.asarray([r[1] for r in m.varimp_table],
                                     np.float64),
-                 p1=np.asarray(m.predict(fr).vec("1").data, np.float64),
+                 p1=np.asarray(pred.vec("1").data, np.float64),
+                 cal1=(np.asarray(pred.vec("cal_1").data, np.float64)
+                       if "cal_1" in pred.names else np.zeros(0)),
+                 cal_ab=(np.asarray([cal.a, cal.b]) if cal is not None
+                         else np.zeros(0)),
                  row_off=distdata.row_offset(fr.nrow),
                  peak_host=peak["host_bytes"], dev_layer=dev_layer,
                  dev_alloc=alloc,
@@ -228,12 +243,12 @@ def pod_runs(tmp_path_factory):
     blocks-lane comparator of all four fits, run side by side."""
     tmp = tmp_path_factory.mktemp("pod")
     launches = [
-        _launch(tmp, 2, ["gbm", "drf", "qg", "gbmv"]),
+        _launch(tmp, 2, ["gbm", "drf", "qg", "gbmv", "gbmx"]),
         _launch(tmp, 3, ["gbm3"]),
         _launch(tmp / "n4", 4, ["gbm"], n=N4, splits=SPLITS4),
         _launch(tmp / "n4", 1, ["gbm"], n=N4, splits=SPLITS4,
                 env={"H2O3_TREE_SHARD": "1"}),
-        _launch(tmp, 1, ["gbm", "drf", "qg", "gbmv", "gbm3"],
+        _launch(tmp, 1, ["gbm", "drf", "qg", "gbmv", "gbm3", "gbmx"],
                 env={"H2O3_TREE_SHARD": "1"}),
     ]
     _join(tmp, launches)
@@ -324,6 +339,21 @@ def test_pod_fits_bit_identical_to_the_blocks_lane(pod_runs):
     for case in ("drf", "qg"):
         _check_drf_or_qg(pod_runs, case)
     _check_validation(pod_runs)
+
+
+def test_pod_tree_params_bit_identical_to_the_blocks_lane(pod_runs):
+    """(6) Monotone constraints, balancing (global class counts), per-class
+    rates and Platt calibration (the calibration rows gathered in rank
+    order) on two ranks: the one-rank blocks-lane fit bit for bit, its
+    `cal_1` on each rank's rows included."""
+    _assert_pod_equals_blocks(pod_runs, "gbmx", 2, 8)
+    one = pod_runs("gbmx", 1, 0)
+    assert len(one["cal_ab"]) == 2 and len(one["cal1"]) == N_ROWS
+    for r in range(2):
+        pod = pod_runs("gbmx", 2, r)
+        np.testing.assert_array_equal(pod["cal_ab"], one["cal_ab"])
+        off, nr = int(pod["row_off"]), len(pod["cal1"])
+        np.testing.assert_array_equal(pod["cal1"], one["cal1"][off:off + nr])
 
 
 def test_one_rank_blocks_lane_matches_the_reference(pod_runs, monkeypatch):
