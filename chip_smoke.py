@@ -560,9 +560,21 @@ holdout prediction.
    within UNSUP_SMALL_TOLS, no hand-written kernel, the bytes each rank's
    whole-matrix gathers held printed; (g) (a)'s GBM with 3 folds on
    POD_CV_ROWS of the rows, fold forests, holdout rows and CV metrics bit
-   for bit, B1 (Σ trees of the parent and its folds) x 6 x 4 a rank. Every
-   wall is printed beside the card's name and power limit; any child left
-   is killed.
+   for bit, B1 (Σ trees of the parent and its folds) x 6 x 4 a rank.
+   (h)-(j) on the same ranks after (g), against this process's blocks-lane
+   fits at S = 8, no hand-written kernel: (h) phase 18's λ search (30 λ,
+   α 0.5) on (e)'s rows with a validation frame of POD_AIR_VALID more
+   generated rows split unevenly over the ranks, the λ list, λ_best, each
+   λ's deviance and β within POD_EST_TOL; (i) phase 30's 7-class GLM on
+   (f)'s rows and their labels, centred β and each rank's probabilities
+   within the CPU tests' bars; (j) K-Means from POD_KM_POINTS seeded rows
+   of (f)'s frame (unstandardized) and, on phase 34's MNIST-shaped pixels,
+   PCA Randomized (DEMEAN) and SVD with keep_u (GramSVD and Randomized at
+   nv = UNSUP_PCA_K, Power at POD_POWER_NV), bit for bit: centres, WSS,
+   iterations, eigenpairs, d, v and each rank's rows of u. Each leg prints
+   its fits' walls and splits and each rank's gathers (count, bytes,
+   seconds). Every wall is printed beside the card's name and power limit;
+   any child left is killed.
 41. The GBM/DRF class and constraint parameters (`tree_params_path`). (a)
    Phase 4's HIGGS GBM (1M x 28, depth 6, 20 trees, UniformAdaptive) with
    a +1 constraint on f0 and a -1 on f1: B1 launched 20 x 6 times and
@@ -9183,8 +9195,43 @@ POD_GBM_CV = dict(POD_GBM, nfolds=3)
 # holdouts and the CV metrics within POD_EST_TOL·max(1, |x|), p-values
 # within POD_EST_TOL; (f) within UNSUP_SMALL_TOLS
 POD_EST_TOL = 1e-5
-POD_EST_CASES = ("glm", "kmpca", "gbmcv")
+# (h)-(j): item 9, part 1b's fits on the same ranks after (g), each held
+# against the smoke's one-process blocks-lane fit at S = 8. (h) phase 18's
+# λ search on (e)'s rows with a validation frame of POD_AIR_VALID more
+# generated rows, split unevenly over the ranks; (i) phase 30's 7-class
+# GLM (MN_GLM) on (f)'s rows and their labels; (j) K-Means from
+# POD_KM_POINTS rows of (f)'s frame drawn by seed (unstandardized: the
+# points are those rows), PCA Randomized and SVD (keep_u) on phase 34's
+# MNIST-shaped pixels, nothing cut but Power's vectors (POD_POWER_NV of
+# UNSUP_PCA_K). (h) and (i) standardize, so they are held as (e) is: the
+# λ list and λ_best's index equal, β and the path deviances within
+# POD_EST_TOL; (i)'s centred β and probabilities within the CPU tests'
+# POD_MN_TOLS; (j) bit for bit
+POD_AIR_VALID, POD_AIR_VALID_SPLIT = 50_000, 24_989
+POD_LS = dict(family="binomial", alpha=0.5, lambda_search=True,
+              nlambdas=AIR_NLAMBDA)
+POD_MN_TOLS = dict(beta=3e-4, probs=1e-4)
+POD_KM_POINTS, POD_KM_SEED = COV_K, 40
+POD_KMUP = dict(k=COV_K, standardize=False,
+                max_iterations=UNSUP_KM["max_iterations"])
+POD_MNIST_SPLIT = 29_989
+POD_PCAR = dict(k=UNSUP_PCA_K, transform="DEMEAN", pca_method="Randomized",
+                seed=42)
+POD_POWER_NV = 10
+POD_SVD = (("GramSVD", UNSUP_PCA_K), ("Randomized", UNSUP_PCA_K),
+           ("Power", POD_POWER_NV))
+POD_EST_CASES = ("glm", "kmpca", "gbmcv", "ls", "mn", "kmup", "pcasvd")
+# each case's leg; (j) is two cases, K-Means on (f)'s frame and PCA/SVD on
+# the pixels
+POD_EST_TAGS = dict(glm="e", kmpca="f", gbmcv="g", ls="h", mn="i",
+                    kmup="j", pcasvd="j")
+# the recorded path of each fit of the new cases: one process / a pod
+POD_EST_PATHS = dict(ls=("fused_path", "fused_path"),
+                     mn=("lbfgs", "lbfgs"))
 POD_TIMEOUT_S = 150
+# how long a rank waits for its launch's go: (c)'s ranks wait through the
+# one-process fits and every leg of (a)'s launch
+POD_GO_TIMEOUT_S = 600
 PHASE40_WALLS: dict = {}
 
 
@@ -9193,43 +9240,83 @@ def pod_splits(case: str, nranks: int) -> list:
     if case == "qg":
         return POD_QG_SPLITS if nranks == 4 else [0, POD_QG_ROWS]
     n, split = {"glm": (POD_AIR_ROWS, POD_AIR_SPLIT),
+                "ls": (POD_AIR_ROWS, POD_AIR_SPLIT),
                 "kmpca": (POD_COV_ROWS, POD_COV_SPLIT),
+                "mn": (POD_COV_ROWS, POD_COV_SPLIT),
+                "kmup": (POD_COV_ROWS, POD_COV_SPLIT),
+                "pcasvd": (DL_ROWS, POD_MNIST_SPLIT),
                 "gbmcv": (POD_CV_ROWS, POD_CV_SPLIT)}.get(
                     case, (POD_ROWS, POD_SPLIT))
     return [0, split, n] if nranks == 2 else [0, n]
 
 
+def pod_valid_rows(nranks: int, rank: int) -> tuple:
+    """The validation rows [lo, hi) of (h)'s rank `rank` of `nranks` (1 or
+    2)."""
+    cuts = ([0, POD_AIR_VALID_SPLIT, POD_AIR_VALID] if nranks == 2
+            else [0, POD_AIR_VALID])
+    return cuts[rank], cuts[rank + 1]
+
+
 def pod_kind(case: str) -> str:
-    """Which data `case` fits: "air", "cov" or "higgs"."""
-    return {"glm": "air", "kmpca": "cov"}.get(case, "higgs")
+    """Which frame `case` fits (cases of one kind on the same rows share
+    it): "air", "airv" (the Airlines rows and a validation frame), "cov",
+    "covp" (the Covertype-shaped rows and (j)'s seeded points of the whole
+    frame), "covy" (the rows with their labels), "mnist" or "higgs"."""
+    return {"glm": "air", "ls": "airv", "kmpca": "cov", "kmup": "covp",
+            "mn": "covy", "pcasvd": "mnist"}.get(case, "higgs")
 
 
-def pod_source(case: str, cache: dict):
-    """The whole of `case`'s data, drawn from its seed once a process:
-    the HIGGS rows (X, y), the Airlines frame, or the Covertype-shaped
-    predictors."""
-    kind = pod_kind(case)
+def pod_source(kind: str, cache: dict):
+    """The whole of one data source, drawn from its seed once a process:
+    the HIGGS rows (X, y), the Airlines frame ("air") and (h)'s validation
+    frame ("airval"), the Covertype-shaped (X, y) ("cov"), or the
+    MNIST-shaped frame."""
     if kind not in cache:
         if kind == "air":
             cache[kind] = make_airlines_like(POD_AIR_ROWS, 0)[0]
+        elif kind == "airval":
+            cache[kind] = make_airlines_like(POD_AIR_VALID, 7)[0]
         elif kind == "cov":
-            cache[kind] = make_covtype_like(POD_COV_ROWS, 5)[0]
+            cache[kind] = make_covtype_like(POD_COV_ROWS, 5)
+        elif kind == "mnist":
+            cache[kind] = make_mnist_like(DL_ROWS, 0)
         else:
             cache[kind] = make_higgs_like(POD_ROWS)
-    return kind, cache[kind]
+    return cache[kind]
 
 
-def pod_case_frame(case: str, lo: int, hi: int, cache: dict):
+def pod_case_frame(case: str, lo: int, hi: int, cache: dict,
+                   vrows=(0, POD_AIR_VALID)):
     """Rows [lo, hi) of `case`'s data as a Frame of those rows alone (the
-    Airlines rows keep the whole frame's domains)."""
+    Airlines and MNIST rows keep the whole frame's domains); (h)'s is the
+    pair (rows, validation rows `vrows`), (j)'s K-Means (rows, user
+    points, the columns they span)."""
     from h2o3_tpu_torch.frame.frame import Frame
 
-    kind, src = pod_source(case, cache)
-    if kind == "air":
-        return src.take(np.arange(lo, hi))
-    if kind == "cov":
-        return Frame.from_numpy(src[lo:hi], names=COV_NAMES)
-    return pod_frame(lo, hi, *src)
+    kind = pod_kind(case)
+    if kind in ("air", "airv", "mnist"):
+        fr = pod_source("mnist" if kind == "mnist" else "air",
+                        cache).take(np.arange(lo, hi))
+        if kind == "airv":
+            return fr, pod_source("airval", cache).take(np.arange(*vrows))
+        return fr
+    if kind in ("cov", "covp", "covy"):
+        X, y = pod_source("cov", cache)
+        if kind == "cov":
+            return Frame.from_numpy(X[lo:hi], names=COV_NAMES)
+        if kind == "covp":
+            # the points in the design's columns: the frame's columns not
+            # constant over the whole frame (the rest are ignored)
+            keep = np.ptp(X, axis=0) > 0
+            pts = X[np.random.default_rng(POD_KM_SEED).choice(
+                len(X), POD_KM_POINTS, replace=False)][:, keep]
+            return (Frame.from_numpy(X[lo:hi], names=COV_NAMES), pts,
+                    [n for n, k in zip(COV_NAMES, keep) if k])
+        return Frame.from_numpy(
+            np.column_stack([X[lo:hi], y[lo:hi].astype(np.float32)]),
+            names=COV_NAMES + ["cover"]).asfactor("cover")
+    return pod_frame(lo, hi, *pod_source("higgs", cache))
 
 
 def pod_frame(lo: int, hi: int, X=None, y=None):
@@ -9347,6 +9434,8 @@ def pod_est_fit(dev, case: str, fr) -> dict:
                    init_gather_bytes=pod_km.get("init_gather_bytes", 0),
                    demean_gather_bytes=pod_pca.get("demean_gather_bytes",
                                                    0))
+    elif case in ("ls", "mn", "kmup", "pcasvd"):
+        rec.update(pod_est_fit_1b(dev, case, fr))
     else:
         m = H2OGradientBoostingEstimator(device=str(dev),
                                          **POD_GBM_CV).train(
@@ -9363,6 +9452,104 @@ def pod_est_fit(dev, case: str, fr) -> dict:
     rec.update(wall_s=time.perf_counter() - t0, kernels=kernel_counts(),
                gathers=dict(mesh.GATHER_STATS))
     return rec
+
+
+def pod_est_fit_1b(dev, case: str, fr) -> dict:
+    """The record of one (h)-(j) fit: what the comparison reads, and of
+    each fit its wall, split (`fit_timings`), recorded plan and gathers
+    (count, bytes, seconds: the difference of `mesh.GATHER_STATS` over
+    it)."""
+    from h2o3_tpu_torch.estimators import (
+        H2OGeneralizedLinearEstimator, H2OKMeansEstimator,
+        H2OPrincipalComponentAnalysisEstimator,
+        H2OSingularValueDecompositionEstimator)
+    from h2o3_tpu_torch.models import estimator_engine as est
+    from h2o3_tpu_torch.parallel import mesh
+
+    fits, rec = {}, {}
+
+    def timed(name, make):
+        g0 = dict(mesh.GATHER_STATS)
+        t0 = time.perf_counter()
+        m = make()
+        torch.cuda.synchronize(dev)
+        plan = est.est_stats()["plans"][-1]
+        fits[name] = dict(
+            wall_s=time.perf_counter() - t0, fit_timings=m.fit_timings,
+            plan=[plan["path"], plan["n_shards"], plan["n_devices"]],
+            gathers={k: mesh.GATHER_STATS[k] - g0[k] for k in g0})
+        return m
+
+    if case == "ls":
+        tr, fv = fr
+        m = timed("glm_lambda_search", lambda: H2OGeneralizedLinearEstimator(
+            device=str(dev), **POD_LS).train(
+            y="IsDepDelayed", training_frame=tr,
+            validation_frame=fv).model)
+        rec.update(beta=np.asarray(m.beta, np.float64),
+                   lambdas=np.asarray([lv for lv, _ in m.full_path]),
+                   devs=np.asarray(m.fitplan["path_deviances"]),
+                   best=int(m.fitplan["best_index"]),
+                   irls_iterations=int(m.fitplan["irls_iterations"]))
+    elif case == "mn":
+        m = timed("glm_multinomial", lambda: H2OGeneralizedLinearEstimator(
+            device=str(dev), **MN_GLM).train(y="cover",
+                                             training_frame=fr).model)
+        rec.update(beta=np.asarray(m.beta, np.float64),
+                   probs=m._score(fr, by_columns=True),
+                   lbfgs_steps=int(m.fitplan["iterations"]),
+                   func_evals=int(m.fitplan["func_evals"]))
+    elif case == "kmup":
+        fr, pts, x = fr
+        m = timed("kmeans_user_points", lambda: H2OKMeansEstimator(
+            device=str(dev), user_points=pts, **POD_KMUP).train(
+            x=x, training_frame=fr).model)
+        rec.update(centers=np.asarray(m.centers_std, np.float64),
+                   wss=float(m.fit_wss), km_iters=int(m.iterations))
+    else:
+        pixels = [f"C{j + 1}" for j in range(DL_SIDE * DL_SIDE)]
+        m = timed("pca_randomized",
+                  lambda: H2OPrincipalComponentAnalysisEstimator(
+                      device=str(dev), **POD_PCAR).train(
+                      x=pixels, training_frame=fr).model)
+        rec.update(evals=np.asarray(m.eigenvalues, np.float64),
+                   evecs=np.asarray(m.eigenvectors, np.float64))
+        for method, nv in POD_SVD:
+            m = timed(f"svd_{method}",
+                      lambda: H2OSingularValueDecompositionEstimator(
+                          device=str(dev), nv=nv, svd_method=method,
+                          keep_u=True, seed=42).train(
+                          x=pixels, training_frame=fr).model)
+            rec.update({f"d_{method}": np.asarray(m.d, np.float64),
+                        f"v_{method}": np.asarray(m.v, np.float64),
+                        f"u_{method}": np.asarray(m.u, np.float64)})
+    rec["fits"] = fits
+    return rec
+
+
+def pod_warm(dev, cases) -> float:
+    """Before its go, a rank whose cases hold (i) runs the multinomial
+    loss and L-BFGS on seeded tensors of its blocks' shapes, outside any
+    fit and any collective: a process's first launches of those kernels
+    took 8-10 s over the warm fit's ≈1 s in a dev call (PR 28), the cost
+    phase 30's twice-run fit pays once in the smoke's own process. Returns
+    its wall."""
+    if "mn" not in cases:
+        return 0.0
+    from h2o3_tpu_torch.models import estimator_engine as est, glm
+
+    t0 = time.perf_counter()
+    rows = est.pad_rows(POD_COV_ROWS, POD_S) // POD_S
+    p = len(COV_NAMES) + 1
+    g = torch.Generator(device=dev).manual_seed(0)
+    blocks = [(torch.randn((rows, p), device=dev, generator=g),
+               torch.randint(0, COV_K, (rows,), device=dev, generator=g),
+               torch.ones(rows, device=dev)) for _ in range(POD_S // 2)]
+    fun = glm._softmax_fn(None, None, None, MN_GLM["lambda_"],
+                          rows * len(blocks), blocks, None)
+    glm._lbfgs(fun, torch.zeros((COV_K, p), device=dev), 20)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
 
 
 def pod_rank_main(argv) -> int:
@@ -9392,10 +9579,14 @@ def pod_rank_main(argv) -> int:
     for case in cases:
         key = (pod_kind(case),) + rows[case]
         if key not in frames:
-            frames[key] = pod_case_frame(case, *rows[case], src)
+            frames[key] = pod_case_frame(
+                case, *rows[case], src,
+                vrows=(pod_valid_rows(c.size, c.self_idx) if case == "ls"
+                       else None))
     del src
     frame_s = time.time() - t_launch
-    deadline = time.monotonic() + POD_TIMEOUT_S
+    warm_s = pod_warm(dev, cases)
+    deadline = time.monotonic() + POD_GO_TIMEOUT_S
     while not os.path.exists(go):
         if time.monotonic() > deadline:
             raise TimeoutError(f"no go file {go}")
@@ -9404,10 +9595,12 @@ def pod_rank_main(argv) -> int:
     for case in cases:
         fr = frames[(pod_kind(case),) + rows[case]]
         _, rec = pod_fit(dev, case, fr)
+        train = fr[0] if isinstance(fr, tuple) else fr
         rec.update(rank=c.self_idx, ranks=c.size, backend=c.backend,
-                   device=str(dev), row_off=distdata.row_offset(fr.nrow),
+                   device=str(dev), row_off=distdata.row_offset(train.nrow),
                    ledger_peak=memory_ledger.peak(), started_s=started_s,
-                   frame_s=frame_s, go_s=go_s, done_s=time.time() - t_launch)
+                   frame_s=frame_s, warm_s=warm_s, go_s=go_s,
+                   done_s=time.time() - t_launch)
         arrays = {k: v for k, v in rec.items() if isinstance(v, np.ndarray)}
         meta = {k: v for k, v in rec.items() if k not in arrays}
         np.savez(os.path.join(out_dir, f"{case}_{c.self_idx}.npz"),
@@ -9451,14 +9644,20 @@ def pod_stop(launch: dict) -> None:
             log.close()
 
 
+def pod_go(launch: dict) -> None:
+    """Write the launch's go file (once): its ranks start fitting."""
+    if "t_go" not in launch:
+        launch["t_go"] = time.perf_counter()
+        with open(launch["go"], "w"):
+            pass
+
+
 def pod_join(launch: dict) -> float:
-    """Write the launch's go file, wait for its ranks under POD_TIMEOUT_S,
-    stop them all, and raise with a failed rank's log; returns the wall
-    from go to the last exit."""
+    """Write the launch's go file if `pod_go` has not, wait for its ranks
+    under POD_TIMEOUT_S, stop them all, and raise with a failed rank's log;
+    returns the wall from go to the last exit."""
     procs = launch["procs"]
-    t0 = time.perf_counter()
-    with open(launch["go"], "w"):
-        pass
+    pod_go(launch)
     deadline = time.monotonic() + POD_TIMEOUT_S
     try:
         while any(p.poll() is None for p, _ in procs):
@@ -9476,7 +9675,7 @@ def pod_join(launch: dict) -> float:
             raise AssertionError(
                 f"phase 40({launch['tag']}): rank {r} of {launch['nranks']} "
                 f"exited {p.returncode}:\n{tail}")
-    return time.perf_counter() - t0
+    return time.perf_counter() - launch["t_go"]
 
 
 def pod_load(tmp: str, case: str, rank: int) -> dict:
@@ -9587,6 +9786,36 @@ def pod_est_diff(case: str, one: dict, pod: dict, lo: int, hi: int):
         bars = dict(centers=t["center"], wss=t["ss"], evals=t["eig_rel"],
                     evecs=t["eig_abs"])
         return errs, [k for k, v in errs.items() if not v <= bars[k]]
+    if case == "ls":
+        errs = dict(beta=_max_rel(pod["beta"], one["beta"]),
+                    lambdas=_max_rel(pod["lambdas"], one["lambdas"]),
+                    devs=_max_rel(pod["devs"], one["devs"]))
+        broken = [k for k, v in errs.items() if not v <= POD_EST_TOL]
+        errs.update(best=[pod["best"], one["best"]],
+                    irls_iterations=[pod["irls_iterations"],
+                                     one["irls_iterations"]])
+        return errs, broken + (["best"] if pod["best"] != one["best"]
+                               else [])
+    if case == "mn":
+        pb, ob = pod["beta"], one["beta"]
+        errs = dict(beta=float(np.max(np.abs((pb - pb.mean(0))
+                                             - (ob - ob.mean(0))))),
+                    probs=float(np.max(np.abs(pod["probs"]
+                                              - one["probs"][lo:hi]))))
+        broken = [k for k, v in errs.items() if not v <= POD_MN_TOLS[k]]
+        errs.update(lbfgs_steps=[pod["lbfgs_steps"], one["lbfgs_steps"]],
+                    func_evals=[pod["func_evals"], one["func_evals"]])
+        return errs, broken
+    if case in ("kmup", "pcasvd"):
+        keys = (["centers", "wss", "km_iters"] if case == "kmup" else
+                ["evals", "evecs"] + [f"{x}_{m}" for m, _ in POD_SVD
+                                      for x in ("d", "v")])
+        same = {k: bool(np.array_equal(pod[k], one[k])) for k in keys}
+        for m, _ in POD_SVD if case == "pcasvd" else ():
+            same[f"u_{m}"] = bool(np.array_equal(pod[f"u_{m}"],
+                                                 one[f"u_{m}"][lo:hi]))
+        return ({"bit_equal": all(same.values())},
+                [k for k, v in same.items() if not v])
     keys = [k for k in one if k.startswith("fold") and k != "fold_auc"]
     same = {k: bool(np.array_equal(pod.get(k), one[k])) for k in keys}
     same.update(holdout=bool(np.array_equal(pod["holdout"], ho)),
@@ -9619,26 +9848,45 @@ def pod_est_leg(card, tmp, tag, case, one, bad, rec, wall):
         elif any(k.values()):
             bad.append(f"({tag}) rank {r} launched hand-written kernels: "
                        f"{k}")
-        if case != "gbmcv" and p["path"] != "fused_mesh":
+        if case in ("glm", "kmpca") and p["path"] != "fused_mesh":
             bad.append(f"({tag}) rank {r}: path {p['path']}, not "
                        "fused_mesh")
+        bad.extend(f"({tag}) rank {r}: {why}"
+                   for why in _lane_faults(case, p.get("fits"), pod=True))
         g = p["gathers"]
         ranks.append(dict(
             rank=r, rows=hi - lo, wall_s=p["wall_s"], errors=errs,
             kernels=k, gathers=g["calls"], gathered_bytes=g["bytes"],
             gather_s=g["seconds"],
             **{key: p[key] for key in ("path", "pca_path", "iters",
-                                       "km_iters", "km_wall_s",
+                                       "warm_s", "km_iters", "km_wall_s",
                                        "init_gather_bytes",
                                        "demean_gather_bytes", "ntrees",
-                                       "fit_timings") if key in p}))
-    rec[tag] = dict(ranks=2, case=case, launch_wall_s=wall,
+                                       "fit_timings", "lbfgs_steps",
+                                       "func_evals", "irls_iterations",
+                                       "fits") if key in p}))
+    key = f"j_{case}" if tag == "j" else tag
+    rec[key] = dict(ranks=2, case=case, launch_wall_s=wall,
                     one_process={key: one[key] for key in (
                         "wall_s", "path", "pca_path", "iters", "km_iters",
-                        "ntrees", "kernels", "fit_timings") if key in one},
+                        "ntrees", "kernels", "fit_timings", "lbfgs_steps",
+                        "func_evals", "irls_iterations", "fits")
+                        if key in one},
                     per_rank=ranks)
     print(f"phase 40({tag}) 2 ranks, {case}, on {card}: "
-          + json.dumps(rec[tag], default=str), flush=True)
+          + json.dumps(rec[key], default=str), flush=True)
+
+
+def _lane_faults(case: str, fits, pod: bool) -> list:
+    """What is wrong with the lanes (h)-(j)'s fits recorded: each fit's
+    path, S = POD_S and its ranks (2 on the pod, 1 in one process)."""
+    if not fits:
+        return []
+    want = POD_EST_PATHS.get(case, ("fused_blocks", "fused_mesh"))[int(pod)]
+    return [f"{name}: plan {plan}, expected [{want!r}, {POD_S}, "
+            f"{2 if pod else 1}]" for name, f in fits.items()
+            for plan in [f["plan"]]
+            if plan != [want, POD_S, 2 if pod else 1]]
 
 
 def pod_path(dev, card):
@@ -9656,7 +9904,11 @@ def pod_path(dev, card):
           f"{POD_ROWS_FROM} HIGGS rows, as phase 39; (c) {POD_QG_ROWS} of "
           f"them; (e) {POD_AIR_ROWS} of config 2's {AIR_ROWS} Airlines "
           f"rows; (f) {POD_COV_ROWS} of Covertype's {COV_ROWS}; (g) "
-          f"{POD_CV_ROWS} of (a)'s rows", flush=True)
+          f"{POD_CV_ROWS} of (a)'s rows; (h) (e)'s rows and "
+          f"{POD_AIR_VALID} validation rows (phase 18's {AIR_VALID}); (i) "
+          f"(f)'s rows; (j) K-Means on (f)'s rows, PCA and SVD on all "
+          f"{DL_ROWS} MNIST-shaped rows, Power at nv {POD_POWER_NV} of "
+          f"{UNSUP_PCA_K}", flush=True)
     tmp = tempfile.mkdtemp(prefix="h2o3_pod_")
     # (a)-(c) share one card over gloo, whatever the host shows
     one_card = dict(CUDA_VISIBLE_DEVICES=os.environ.get(
@@ -9680,14 +9932,29 @@ def pod_path(dev, card):
 
 def _pod_legs(dev, card, tmp, launches, bad, rec):
     """Phase 40's one-process fits, then each launch's go, join and legs
-    (a)-(d)."""
+    (a)-(d). (a)'s launch goes before the one-process fits of (h)-(j),
+    which then run beside its ranks' (a)-(g), and (c)'s after them, beside
+    (a)'s last legs (the card shared by up to seven processes: the walls
+    include that)."""
     from h2o3_tpu_torch.models import dataset_cache as dsc
 
     X, y = make_higgs_like(POD_ROWS)
     ones = {}
-    with ooc_env(H2O3_TREE_OOC=0, H2O3_TREE_SHARD=1,
-                 H2O3_TREE_SHARD_BLOCKS=POD_S, H2O3_CV_REBIN=1,
-                 H2O3_EST_SHARD=1, H2O3_EST_SHARD_BLOCKS=POD_S):
+    env = dict(H2O3_TREE_OOC=0, H2O3_TREE_SHARD=1,
+               H2O3_TREE_SHARD_BLOCKS=POD_S, H2O3_CV_REBIN=1,
+               H2O3_EST_SHARD=1, H2O3_EST_SHARD_BLOCKS=POD_S)
+    src = {"higgs": (X, y)}
+
+    def one_est(cases):
+        for case in cases:
+            t0 = time.perf_counter()
+            fr = pod_case_frame(case, 0, pod_splits(case, 1)[-1], src)
+            PHASE40_WALLS[f"frame_{case}_s"] = time.perf_counter() - t0
+            _, ones[case] = pod_fit(dev, case, fr)
+            PHASE40_WALLS[f"one_{case}_s"] = time.perf_counter() - t0
+            del fr
+
+    with ooc_env(**env):
         # the GBM and the DRF share one frame (the DRF hits its bins), as
         # they do on the ranks
         fr = pod_frame(0, POD_ROWS, X, y)
@@ -9698,16 +9965,15 @@ def _pod_legs(dev, card, tmp, launches, bad, rec):
             _, ones[case] = pod_fit(dev, case, fr)
             PHASE40_WALLS[f"one_{case}_s"] = time.perf_counter() - t0
         del fr
-        src = {"higgs": (X, y)}
-        for case in POD_EST_CASES:
-            t0 = time.perf_counter()
-            fr = pod_case_frame(case, 0, pod_splits(case, 1)[-1], src)
-            PHASE40_WALLS[f"frame_{case}_s"] = time.perf_counter() - t0
-            _, ones[case] = pod_fit(dev, case, fr)
-            PHASE40_WALLS[f"one_{case}_s"] = time.perf_counter() - t0
-            del fr
-        del src
-    del X, y
+        one_est(POD_EST_CASES[:3])
+    pod_go(launches[0])
+    with ooc_env(**env):
+        one_est(POD_EST_CASES[3:])
+    PHASE40_WALLS["one_after_go_s"] = time.perf_counter() - launches[0][
+        "t_go"]
+    # (c)'s ranks go now, beside (a)'s last legs
+    pod_go(launches[1])
+    del src, X, y
     dsc.clear()
     for case in POD_EST_CASES:
         k = ones[case]["kernels"]
@@ -9716,9 +9982,11 @@ def _pod_legs(dev, card, tmp, launches, bad, rec):
                 else {name: 0 for name in k})
         if k != want:
             bad.append(f"one-process {case}: kernels {k}, expected {want}")
-        if case != "gbmcv" and ones[case]["path"] != "fused_blocks":
+        if case in ("glm", "kmpca") and ones[case]["path"] != "fused_blocks":
             bad.append(f"one-process {case}: path {ones[case]['path']}, "
                        "not fused_blocks")
+        bad.extend(f"one-process {case}: {why}" for why in _lane_faults(
+            case, ones[case].get("fits"), pod=False))
     half = POD_S // 2
     nt = {k: int(ones[k]["ntrees"]) for k in POD_CASES}
     for case, b1, b2 in (("gbm", nt["gbm"] * 6 * POD_S, 0),
@@ -9741,8 +10009,9 @@ def _pod_legs(dev, card, tmp, launches, bad, rec):
                        f"{ones['gbm']['device_peak_bytes']}")
     pod_leg(card, tmp, "b", "drf", 2, ones["drf"],
             dict(b1=0, b2=nt["drf"] * 12 * half), bad, rec, wall)
-    for tag, case in zip("efg", POD_EST_CASES):
-        pod_est_leg(card, tmp, tag, case, ones[case], bad, rec, wall)
+    for case in POD_EST_CASES:
+        pod_est_leg(card, tmp, POD_EST_TAGS[case], case, ones[case], bad,
+                    rec, wall)
     wall = PHASE40_WALLS["c_launch_s"] = pod_join(launches[1])
     pod_leg(card, tmp, "c", "qg", 4, ones["qg"],
             dict(b1=nt["qg"] * 6 * (POD_S // 4), b2=0), bad, rec, wall)

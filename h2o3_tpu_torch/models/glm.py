@@ -46,9 +46,19 @@ blocks-lane fit that shares S bit for bit on an unstandardized design.
 Every rank then solves the same folded Gram: β, Δβ, the iteration count
 and the f32-divergence fallback (voted all the same) agree; p-values
 invert the folded Gram and fold the Pearson sums. A pod's training and
-validation metrics are its rank's own rows. λ search and the multinomial
-family run one rank's full rows (a pod raises for them: ROADMAP queue A,
-item 9, part 1b).
+validation metrics are its rank's own rows.
+
+λ search and the multinomial family run on the same lanes. The λ path
+takes every Gram and X'Wz from `_gram_fn` (λ_max from the folded X'Wz at
+β = 0), Σw from the global weights, and each λ's deviance as block
+partials folded in block order (`_deviance_fn`), against the validation
+frame's rows laid out on their own canonical grid when one is given; the
+f32-divergence guard is voted, and the f64 re-solve of λ_best reads the
+folded Gram. The multinomial loss's f64 row sums and its (K, p) gradient
+products are block partials folded in block order, over the true global
+row count (`_softmax_fn`), so L-BFGS takes the same steps on every rank.
+The reference fits both on row-sharded global arrays; on one rank
+without ``H2O3_EST_SHARD`` both keep their full-row reductions.
 """
 
 from __future__ import annotations
@@ -56,7 +66,7 @@ from __future__ import annotations
 import math
 import time
 from math import erfc, sqrt
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -222,6 +232,23 @@ def _gram_fn(X, y, w, family: str, tweedie_p: float, blocks=None,
     return gram
 
 
+def _deviance_fn(X, y, w, family: str, tweedie_p: float, blocks=None,
+                 axis_name: Optional[str] = None):
+    """β → the deviance Σ w·d(y, μ) of (X, y, w) as a device scalar under
+    the fit's shard plan: one full-row sum (off), or each row block's sum a
+    partial, folded in block order over the ranks (pad rows weigh 0 and
+    add exact zeros)."""
+    if blocks is None:
+        return lambda b: _deviance_device(X, y, w, b, family, tweedie_p)
+
+    def deviance(b):
+        return _est.fold_blocks(torch.stack(
+            [_deviance_device(Xb, yb, wb, b, family, tweedie_p)
+             for Xb, yb, wb in blocks]), axis_name)
+
+    return deviance
+
+
 def _eta_by_columns(X: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """X·β with each row's sum taken column by column in a fixed order, as
     two exactly rounded elementwise operations a column: a row's value
@@ -290,26 +317,25 @@ def _penalty_mask(pdim: int, dev) -> torch.Tensor:
     return m
 
 
-def _glm_path_device(X, y, w, Xe, ye, we, lams, alpha, n_obs, beta0,
-                     beta_eps, tweedie_p, family: str, max_iter: int,
-                     non_negative: bool, fitplan: Dict):
+def _glm_path_device(gram, deviance, pdim: int, dev, lams, alpha, n_obs,
+                     beta0, beta_eps, family: str, max_iter: int,
+                     non_negative: bool, fitplan: Dict, pod: bool = False):
     """The elastic-net regularization path on the device: a loop over λ
     (warm-started), an IRLS loop per λ whose host reads Δβ once per
-    iteration, the penalized solve on the device, the deviance evaluated
-    against (Xe, ye, we) — the validation set when given, else training.
-    Returns (betas (nλ, p), deviances (nλ,)) as device tensors; the
-    caller re-solves the chosen λ on the host in f64 (hex/glm/GLM.java
-    lambda search). For gaussian the IRLS weights do not depend on β, so
-    the Gram and X'Wz are computed ONCE for the whole path. `fitplan`
-    receives the IRLS iterations and ISTA steps run."""
-    pdim = X.shape[1]
-    dev = X.device
+    iteration, each iteration's Gram and X'Wz from `gram` (`_gram_fn`
+    under the fit's shard plan), the penalized solve on the device, the
+    deviance from `deviance` (`_deviance_fn`: the validation set when
+    given, else training). Returns (betas (nλ, p), deviances (nλ,)) as
+    device tensors; the caller re-solves the chosen λ on the host in f64
+    (hex/glm/GLM.java lambda search). For gaussian the IRLS weights do not
+    depend on β, so the Gram and X'Wz are computed ONCE for the whole
+    path. On a pod every rank holds the same folded Gram and so the same
+    β; the divergence guard is voted all the same. `fitplan` receives the
+    IRLS iterations and ISTA steps run."""
     pen_mask = _penalty_mask(pdim, dev)
     eps = _f32(beta_eps)
     if family == "gaussian":
-        Wg = torch.ones_like(y) * w
-        gram_g = (X * Wg[:, None]).T @ X
-        xy_g = X.T @ (Wg * y)
+        gram_g, xy_g = gram(beta0)
     betas, devs = [], []
     beta = beta0
     iters = ista = 0
@@ -320,10 +346,10 @@ def _glm_path_device(X, y, w, Xe, ye, we, lams, alpha, n_obs, beta0,
         it, delta = 0, float("inf")
         while it < max_iter and delta >= eps:
             if family == "gaussian":
-                gram, xy = gram_g, xy_g
+                g, xy = gram_g, xy_g
             else:
-                gram, xy = _gram_step(X, y, w, beta, family, tweedie_p)
-            nb = _solve_pen_device(gram, xy, lam, alpha, n_obs, pen_mask,
+                g, xy = gram(beta)
+            nb = _solve_pen_device(g, xy, lam, alpha, n_obs, pen_mask,
                                    beta, non_negative)
             delta = float(torch.max(torch.abs(nb - beta)))
             beta = nb
@@ -334,8 +360,10 @@ def _glm_path_device(X, y, w, Xe, ye, we, lams, alpha, n_obs, beta0,
         # warm-start carry for every later λ — reset instead, and report
         # +inf deviance so this λ can never be selected
         ok = torch.isfinite(beta).all()
+        if pod:
+            ok = torch.tensor(distdata.global_all(bool(ok)), device=dev)
         beta = torch.where(ok, beta, torch.zeros_like(beta))
-        d = _deviance_device(Xe, ye, we, beta, family, tweedie_p)
+        d = deviance(beta)
         devs.append(torch.where(ok, d, torch.full_like(d, float("inf"))))
         betas.append(beta)
     fitplan.update(irls_iterations=iters, ista_steps=ista)
@@ -378,6 +406,33 @@ def _solve_penalized(gram, xy, lam, alpha, n_obs, intercept_idx, beta0,
     return b
 
 
+def _softmax_parts(Xd, ycodes, wd, B, n: int):
+    """(Σ_i w_i·(⟨x_i, B_{y_i}⟩ − logsumexp(x_i Bᵀ)) as an f64 scalar,
+    ((P − Y)·w)ᵀX / n as an f32 (K, p)) of the rows of (Xd, ycodes, wd): the
+    data terms of the multinomial loss and its gradient, the row terms f32
+    and their sum f64, the gradient two f32 matrix products. A zero-weight
+    row adds exact zeros to both."""
+    logits = Xd @ B.T                                    # (n, K)
+    lse = torch.logsumexp(logits, dim=1)
+    picked = logits.gather(1, ycodes[:, None]).squeeze(1)
+    ll = torch.sum((picked - lse) * wd, dtype=torch.float64)
+    G = torch.exp(logits - lse[:, None])                 # softmax
+    G.scatter_add_(1, ycodes[:, None],
+                   torch.full_like(lse[:, None], -1.0))  # P − Y
+    return ll, (G * (wd / n)[:, None]).T @ Xd
+
+
+def _softmax_loss(ll, grad, B, l2: float, n: int):
+    """(loss, gradient) from the data terms: −ll / n + ½·l2·‖B without its
+    intercept column‖² (f64), and the gradient plus l2·B (intercept column
+    0)."""
+    slopes = B[:, :-1]
+    loss = -ll / n + 0.5 * l2 * torch.sum(slopes * slopes,
+                                         dtype=torch.float64)
+    grad[:, :-1] += l2 * slopes
+    return loss, grad
+
+
 def _softmax_loss_grad(Xd, ycodes, wd, B, l2: float, n: int):
     """(loss, ∂loss/∂B) of the reference's multinomial objective as device
     tensors: −Σ_i w_i·(⟨x_i, B_{y_i}⟩ − logsumexp(x_i Bᵀ)) / n + ½·l2·‖B
@@ -385,19 +440,35 @@ def _softmax_loss_grad(Xd, ycodes, wd, B, l2: float, n: int):
     row terms are f32 and their sum f64 (an f64 scalar); the gradient is
     the closed form ((P − Y)·w)ᵀX / n + l2·B (intercept column 0), f32,
     from two f32 matrix products."""
-    logits = Xd @ B.T                                    # (n, K)
-    lse = torch.logsumexp(logits, dim=1)
-    picked = logits.gather(1, ycodes[:, None]).squeeze(1)
-    slopes = B[:, :-1]
-    f64 = torch.float64
-    loss = (-torch.sum((picked - lse) * wd, dtype=f64) / n
-            + 0.5 * l2 * torch.sum(slopes * slopes, dtype=f64))
-    G = torch.exp(logits - lse[:, None])                 # softmax
-    G.scatter_add_(1, ycodes[:, None],
-                   torch.full_like(lse[:, None], -1.0))  # P − Y
-    grad = (G * (wd / n)[:, None]).T @ Xd
-    grad[:, :-1] += l2 * slopes
-    return loss, grad
+    ll, grad = _softmax_parts(Xd, ycodes, wd, B, n)
+    return _softmax_loss(ll, grad, B, l2, n)
+
+
+def _softmax_fn(Xd, ycodes, wd, l2: float, n: int, blocks=None,
+                axis_name: Optional[str] = None):
+    """B → (loss, gradient) of one multinomial fit under its shard plan,
+    `n` the true global row count. Off: `_softmax_loss_grad` over every
+    row. The blocks and mesh lanes: each row block's (ll, (K, p) gradient
+    product) packed as one f64 row (the f32 gradient widens exactly),
+    gathered in rank order in one gather, then the ll column folded in
+    block order in f64 and the gradient columns, back in f32, in f32 —
+    the same loss and gradient on every rank."""
+    if blocks is None:
+        return lambda b: _softmax_loss_grad(Xd, ycodes, wd, b, l2, n)
+
+    def fun(b):
+        parts = []
+        for Xb, yb, wb in blocks:
+            ll, g = _softmax_parts(Xb, yb, wb, b, n)
+            parts.append(torch.cat([ll.reshape(1), g.reshape(-1).double()]))
+        every = torch.stack(parts)
+        if axis_name is not None:
+            every = cloudlib.gather_blocks(every)
+        ll = _est.fold_blocks(every[:, 0], None)
+        grad = _est.fold_blocks(every[:, 1:].float(), None).reshape(b.shape)
+        return _softmax_loss(ll, grad, b, l2, n)
+
+    return fun
 
 
 def _lbfgs(fun, x, max_steps: int):
@@ -456,6 +527,16 @@ def attach_linear_artifacts(model: "GLMModel", train, valid, Xd,
              float(mags[i] / mags.max()), float(mags[i] / mags.sum()))
             for i in order if mags[i] > 0]
     return model
+
+
+class _PathLane(NamedTuple):
+    """The reductions of one λ search under its shard plan."""
+    gram: Callable           # β → (X'WX, X'Wz), `_gram_fn`
+    deviance: Callable       # f32 device β → deviance, `_deviance_fn`
+    host_deviance: Callable  # f64 host β → deviance (the host loop's)
+    n_obs: float             # Σw of the path's penalties
+    warm_n_obs: float        # Σw of the f64 re-solve
+    pod: bool                # vote the divergence guard over the ranks
 
 
 class GLMModel(H2OModel):
@@ -704,15 +785,12 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
 
         # -- estimator-engine dispatch: the fused device loops, or the host
         # loops under H2O3_EST_LEGACY=1. The shard plan: "off" on one rank,
-        # "blocks" under H2O3_EST_SHARD=1, "mesh" on a pod. The blocked
-        # lanes carry the single-λ IRLS fit; λ search and the multinomial
-        # family run full-row reductions (a pod raises for both in train)
+        # "blocks" under H2O3_EST_SHARD=1, "mesh" on a pod; every fit (one
+        # λ, the λ path, the multinomial family) runs on the plan's lane
         engine_on = not _est.legacy()
         cloud = cloudlib.cloud()
         multiproc = distdata.multiprocess()
         shard_mode, n_shards = _est.shard_plan(cloud.size, multiproc)
-        if family == "multinomial" or lambda_search or not engine_on:
-            shard_mode, n_shards = "off", 0
         pod = shard_mode == "mesh"
         local_blocks, axis = _est.local_plan(cloud, shard_mode, n_shards)
         if pod:
@@ -723,6 +801,7 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
             n_shards=n_shards, device=dev, timings=design_t)
         npad = int(Xd.shape[0])
         y_host, w_host = yarr, w
+        n_glob = n
         if pod:
             # this rank's canonical slice of y and w (zero-weight pad at the
             # global tail), and the exact global columns for β₀'s f64 sums:
@@ -733,6 +812,7 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
             w_loc = distdata.to_canonical(w, npad, counts=counts)
             y_host = distdata.allgather_rows(yarr)
             w_host = distdata.allgather_rows(w)
+            n_glob = int(counts.sum())
         else:
             y_loc = np.concatenate([yarr, np.zeros(npad - n, yarr.dtype)])
             w_loc = np.concatenate([w, np.zeros(npad - n, np.float32)])
@@ -748,17 +828,35 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         stderr = None
         cov = None
         if family == "multinomial":
-            beta = self._fit_multinomial(Xd, yd, wd, nclass, alpha, lam_v,
-                                         max_iter, fitplan)
+            beta = self._fit_multinomial(
+                _softmax_fn(Xd, yd, wd, lam_v * (1.0 - alpha), n_glob,
+                            blocks, axis),
+                (nclass, int(Xd.shape[1])), dev, max_iter, fitplan)
             lam_best = lam_v
         elif lambda_search:
-            vdata = None
+            # the deviances read the validation rows when given (each rank
+            # its own, laid out on their canonical grid), else training's
+            Xe, ye, we, eblocks = Xd, yd, wd, blocks
             if valid is not None:
-                vdata = self._valid_data(dinfo, valid, y, domain, dev)
+                Xe, ye, we = self._valid_data(dinfo, valid, y, domain, dev,
+                                              n_shards)
+                eblocks = _row_blocks(Xe, ye, we, local_blocks)
+            # Σw of the global rows (the gathered weights on a pod); the
+            # one-rank full-row path keeps the device sum for its re-solve
+            n_obs = float(np.asarray(w_host, np.float32).sum())
+            lane = _PathLane(
+                gram=gram,
+                deviance=_deviance_fn(Xe, ye, we, family, tweedie_p,
+                                      eblocks, axis),
+                host_deviance=self._host_deviance_fn(
+                    Xe, ye, we, family, tweedie_p, eblocks, axis),
+                n_obs=n_obs,
+                warm_n_obs=(n_obs if blocks is not None
+                            else float(_wsums(yd, wd)[0])),
+                pod=pod)
             beta, lam_best, full_path = self._lambda_path(
-                Xd, yd, wd, family, alpha, n, nfeat, max_iter, beta_eps,
-                tweedie_p, p, vdata=vdata, fitplan=fitplan,
-            )
+                lane, int(Xd.shape[1]), dev, family, alpha, n_glob, nfeat,
+                max_iter, beta_eps, p, fitplan=fitplan)
         else:
             if engine_on:
                 beta = self._irls_fused(
@@ -832,26 +930,26 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
                     f"reference ignores it ({why}; ROADMAP {_MULTINOMIAL}, "
                     "§C)")
 
-    def _fit_multinomial(self, Xd, ycodes, wd, K: int, alpha: float,
-                         lam: float, max_iter: int, fitplan) -> np.ndarray:
+    def _fit_multinomial(self, fun, shape, dev, max_iter: int,
+                         fitplan) -> np.ndarray:
         """The softmax GLM (the reference's `_fit_multinomial`): B (K, p+1)
-        from f32 zeros, the loss of `_softmax_loss_grad`, minimised by
-        `_lbfgs` on the device with the reference's stop rule and step cap.
-        `fitplan` receives the steps, the function evaluations, the last
-        loss and the gradient's norm at the returned B."""
-        n = int(Xd.shape[0])
-        l2 = float(lam) * (1.0 - float(alpha))
-        B = torch.zeros((K, int(Xd.shape[1])), dtype=torch.float32,
-                        device=Xd.device)
-        B, plan = _lbfgs(
-            lambda b: _softmax_loss_grad(Xd, ycodes, wd, b, l2, n), B,
-            max(LBFGS_MIN_STEPS, 4 * int(max_iter)))
+        from f32 zeros, the loss and gradient of `fun` (`_softmax_fn` under
+        the fit's shard plan), minimised by `_lbfgs` on the device with the
+        reference's stop rule and step cap. `fitplan` receives the steps,
+        the function evaluations, the last loss and the gradient's norm at
+        the returned B."""
+        B = torch.zeros(shape, dtype=torch.float32, device=dev)
+        B, plan = _lbfgs(fun, B, max(LBFGS_MIN_STEPS, 4 * int(max_iter)))
         fitplan.update(path="lbfgs", **plan)
         return B.cpu().numpy().astype(np.float64)
 
-    def _valid_data(self, dinfo, valid, y, domain, dev):
+    def _valid_data(self, dinfo, valid, y, domain, dev, n_shards: int = 0):
         """(Xv, yv, wv) device tensors of a validation frame for λ
-        selection, its enum response remapped to the TRAINING domain."""
+        selection, its enum response remapped to the TRAINING domain. Under
+        the blocks and mesh lanes the rows lie on the validation frame's
+        own canonical grid (`pad_rows` of its global rows, zero-weight pad
+        at the global tail; a pod rank's slice of it), so its deviances
+        fold the one-rank blocks lane's partials."""
         p = self._parms
         Xv = dinfo.transform(valid)
         Xvi = np.concatenate([Xv, np.ones((Xv.shape[0], 1), np.float32)],
@@ -873,7 +971,12 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
               if p.get("weights_column")
               and p["weights_column"] in valid.names
               else np.ones(Xv.shape[0])).astype(np.float32)
-        return tuple(torch.from_numpy(a).to(dev) for a in (Xvi, yva, wv))
+        arrays = (Xvi, yva, wv)
+        if n_shards:
+            counts, npad = _est.pod_rows(Xv.shape[0], n_shards)
+            arrays = tuple(distdata.to_canonical(a, npad, counts=counts)
+                           for a in arrays)
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
     def _covariance(self, Xd, yd, wd, beta, family, tweedie_p, gram=None,
                     blocks=None, axis=None):
@@ -1035,16 +1138,16 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
     def _f32_dev(beta, Xd) -> torch.Tensor:
         return torch.as_tensor(np.asarray(beta, np.float32), device=Xd.device)
 
-    def _lambda_path(self, Xd, yd, wd, family, alpha, n, nfeat, max_iter,
-                     beta_eps, tweedie_p, p, vdata, fitplan):
+    def _lambda_path(self, lane: "_PathLane", pdim: int, dev, family,
+                     alpha, n, nfeat, max_iter, beta_eps, p, fitplan):
         """lambda_search: geometric path from lambda_max down, warm starts
-        (hex/glm/GLM.java regularization path). `lambda_best` is chosen by
+        (hex/glm/GLM.java regularization path), every reduction from
+        `lane`, `n` the global row count. `lambda_best` is chosen by
         VALIDATION deviance when a validation_frame was given (the reference
         selects on held-out deviance; training deviance otherwise, which
         favours the smallest lambda)."""
-        _, xy0 = _gram_step(
-            Xd, yd, wd, torch.zeros(Xd.shape[1], dtype=torch.float32,
-                                    device=Xd.device), family, tweedie_p)
+        _, xy0 = lane.gram(torch.zeros(pdim, dtype=torch.float32,
+                                       device=dev))
         xy0 = xy0.cpu().numpy()
         lam_max = float(np.max(np.abs(xy0[:-1])) / max(n * max(alpha, 1e-3), 1e-12))
         nlam = int(p.get("nlambdas", -1))
@@ -1061,15 +1164,12 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
             # re-solved on the host in f64 for the reported coefficients.
             # H2O3_EST_LEGACY=1 takes the host IRLS loop below instead (the
             # per-λ gram-D2H + host-solve shape, the engine comparator)
-            Xe, ye, we = vdata if vdata is not None else (Xd, yd, wd)
             betas, devs = _glm_path_device(
-                Xd, yd, wd, Xe, ye, we, np.asarray(lams, np.float32),
-                float(alpha), float(wd.cpu().numpy().sum()),
-                torch.zeros(Xd.shape[1], dtype=torch.float32,
-                            device=Xd.device),
-                float(beta_eps), float(tweedie_p), family=family,
-                max_iter=int(max_iter), non_negative=non_negative,
-                fitplan=fitplan)
+                lane.gram, lane.deviance, pdim, dev,
+                np.asarray(lams, np.float32), float(alpha), lane.n_obs,
+                torch.zeros(pdim, dtype=torch.float32, device=dev),
+                float(beta_eps), family=family, max_iter=int(max_iter),
+                non_negative=non_negative, fitplan=fitplan, pod=lane.pod)
             betas = betas.cpu().numpy().astype(np.float64)
             devs = devs.cpu().numpy().astype(np.float64)
             finite = np.isfinite(devs)
@@ -1077,8 +1177,8 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
                 path = [(float(lv), betas[i]) for i, lv in enumerate(lams)]
                 best_i = int(np.argmin(np.where(finite, devs, np.inf)))
                 lam_best = float(lams[best_i])
-                beta = self._irls_warm(Xd, yd, wd, family, lam_best, alpha,
-                                       max_iter, beta_eps, tweedie_p,
+                beta = self._irls_warm(lane, pdim, dev, lam_best, alpha,
+                                       max_iter, beta_eps,
                                        betas[best_i].copy())
                 fitplan.update(path="fused_path", converged=True,
                                iterations=len(lams),
@@ -1087,31 +1187,30 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
             # every λ diverged in f32 — fall through to the robust host loop
 
         # host path: the H2O3_EST_LEGACY comparator, or f32 divergence
-        beta = np.zeros(Xd.shape[1], np.float64)
+        beta = np.zeros(pdim, np.float64)
         path = []
         best = (None, np.inf, 0.0)
         for lv in lams:
-            beta = self._irls_warm(Xd, yd, wd, family, float(lv), alpha,
-                                   max_iter, beta_eps, tweedie_p, beta)
-            if vdata is not None:
-                dev = self._deviance(vdata[0], vdata[1], vdata[2], family,
-                                     beta, tweedie_p)
-            else:
-                dev = self._deviance(Xd, yd, wd, family, beta, tweedie_p)
+            beta = self._irls_warm(lane, pdim, dev, float(lv), alpha,
+                                   max_iter, beta_eps, beta)
+            d = lane.host_deviance(beta)
             path.append((float(lv), beta.copy()))
-            if dev < best[1]:
-                best = (beta.copy(), dev, float(lv))
+            if d < best[1]:
+                best = (beta.copy(), d, float(lv))
         return best[0], best[2], path
 
-    def _irls_warm(self, Xd, yd, wd, family, lam, alpha, max_iter, beta_eps, tweedie_p, beta0):
+    def _irls_warm(self, lane: "_PathLane", pdim: int, dev, lam, alpha,
+                   max_iter, beta_eps, beta0):
+        """The f64 host IRLS loop at one λ from `beta0`, its Grams from
+        `lane.gram` (folded on the blocked lanes)."""
         beta = beta0.copy()
-        n_obs = float(_wsums(yd, wd)[0])
         for it in range(max_iter):
-            gram, xy = _gram_step(Xd, yd, wd, self._f32_dev(beta, Xd), family, tweedie_p)
+            gram, xy = lane.gram(torch.as_tensor(
+                np.asarray(beta, np.float32), device=dev))
             new_beta = _solve_penalized(
                 gram.cpu().numpy().astype(np.float64),
                 xy.cpu().numpy().astype(np.float64),
-                lam, alpha, n_obs, Xd.shape[1] - 1, beta,
+                lam, alpha, lane.warm_n_obs, pdim - 1, beta,
                 non_negative=bool(self._parms.get("non_negative")),
             )
             delta = np.max(np.abs(new_beta - beta))
@@ -1127,6 +1226,22 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         mu = _linkinv(family, torch.from_numpy(eta).float()).numpy().astype(np.float64)
         return float(_family_deviance_sum(family, y, mu, w, tweedie_p, xp=np))
 
+    def _host_deviance_fn(self, X, y, w, family, tweedie_p, blocks=None,
+                          axis=None):
+        """β (f64 host) → the f64 host deviance of (X, y, w): one sum
+        (off), or each row block's a partial folded in block order over the
+        ranks."""
+        if blocks is None:
+            return lambda b: self._deviance(X, y, w, family, b, tweedie_p)
+
+        def deviance(b):
+            parts = np.asarray([self._deviance(Xb, yb, wb, family, b,
+                                               tweedie_p)
+                                for Xb, yb, wb in blocks])
+            return float(_est.fold_blocks(torch.from_numpy(parts), axis))
+
+        return deviance
+
     def _cv_predict(self, model: GLMModel, frame: Frame) -> np.ndarray:
         """Holdout prediction of a CV fold (GLM folds re-fit on their own
         rows: `_cv_can_reuse` stays False), η by columns
@@ -1135,18 +1250,8 @@ class H2OGeneralizedLinearEstimator(H2OEstimator):
         return model._score(frame, by_columns=True)
 
     def _pod_off_lane(self, y, train: Frame):
-        """The fits the reference keeps off its engine lanes on a pod (it
-        runs them on global arrays): λ search and the multinomial family;
-        and the lanes' own switches."""
-        p = self._parms
-        fam = p.get("family", "AUTO")
-        yv = train.vec(y) if y is not None else None
-        if fam == "multinomial" or (fam == "AUTO" and yv is not None
-                                    and yv.type == "enum"
-                                    and yv.nlevels > 2):
-            return "the multinomial family has no multi-process lane"
-        if p.get("lambda_search"):
-            return "lambda_search has no multi-process lane"
+        """What keeps a GLM off its pod lane: the engine's switches (every
+        family, λ search included, has the lane)."""
         return _est.pod_switch_off()
 
     # h2o-py convenience

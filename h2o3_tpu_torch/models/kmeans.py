@@ -18,19 +18,22 @@ test on the device; the port runs it as a Python loop that reads the f32
 WSS once per iteration and applies the same test in f32:
 |prev − wss| < 1e-7·max(|prev|, 1).
 
-``H2O3_EST_LEGACY=1`` and `user_points` take the reference's host loop
-(`_lloyd_step`: cluster sums by `index_add_`, the segment sum), which stops
-on the same test in f64. The one-hot and segment sums add in different
-orders, so the two paths agree within f32 rounding, as in the reference.
+``H2O3_EST_LEGACY=1``, and `user_points` on one rank without
+``H2O3_EST_SHARD``, take the reference's host loop (`_lloyd_step`:
+cluster sums by `index_add_`, the segment sum), which stops on the same
+test in f64. The one-hot and segment sums add in different orders, so the
+two paths agree within f32 rounding, as in the reference.
 
 Under the estimator engine's blocks and mesh lanes (`_lloyd_fn`) each of
 S row blocks gives its (weighted) sums, counts and WSS as one partial,
 folded in block order; on a pod the partials of every rank's S/N blocks
 are gathered in rank order, and the initial draws read the matrix
 gathered in rank order, so a pod fit equals the one-rank blocks lane bit
-for bit on an unstandardized matrix. (The reference keeps K-Means off its
-lanes on a pod and fits each rank's rows, ROADMAP §C.) `user_points` and
-the legacy loop have no pod lane (item 9, part 1b).
+for bit on an unstandardized matrix. `user_points` on these lanes seed
+`_lloyd_fn` with the given centres and keep the host loop's f64 stop test,
+so the fit stops at the reference's iteration. (The reference keeps
+K-Means, `user_points` too, off its lanes on a pod and fits each rank's
+rows, ROADMAP §C.) The legacy loop has no pod lane.
 
 `predict` computes the same distances on the model's device; the
 training and validation metrics are the reference's numpy code (a pod's
@@ -229,10 +232,8 @@ class H2OKMeansEstimator(H2OEstimator):
     )
 
     def _pod_off_lane(self, y, train: Frame):
-        """`user_points` keeps the host loop, which has no multi-process
-        lane; and the engine's switches."""
-        if self._parms.get("user_points") is not None:
-            return "user_points has no multi-process lane"
+        """What keeps a K-Means fit off its pod lane: the engine's
+        switches."""
         return _est.pod_switch_off()
 
     def _fit(self, x, y, train: Frame, valid: Optional[Frame]) -> KMeansModel:
@@ -249,10 +250,13 @@ class H2OKMeansEstimator(H2OEstimator):
         max_iter = int(p.get("max_iterations", 10))
         init = p.get("init", "Furthest")
         rng = np.random.default_rng(seed)
-        engine_on = not _est.legacy() and p.get("user_points") is None
+        user = p.get("user_points") is not None
         cloud = cloudlib.cloud()
-        shard_mode, n_shards = (_est.shard_plan(
-            cloud.size, distdata.multiprocess()) if engine_on else ("off", 0))
+        shard_mode, n_shards = _est.shard_plan(cloud.size,
+                                               distdata.multiprocess())
+        # the host loop: the legacy comparator, and user points on one rank
+        # without the blocks lane (the reference's loop)
+        engine_on = not (_est.legacy() or (user and shard_mode == "off"))
         pod = shard_mode == "mesh"
         local_blocks, axis = _est.local_plan(cloud, shard_mode, n_shards)
         if pod:
@@ -269,20 +273,22 @@ class H2OKMeansEstimator(H2OEstimator):
                              use_all_factor_levels=True)
             X = dinfo.fit_transform(train)
         t_pack = time.perf_counter()
-        # the initial draws read the whole matrix: a pod gathers it in rank
-        # order (the global ingest order), so they are the one-rank draws
-        Xall = distdata.allgather_rows(X) if pod else X
-        n = Xall.shape[0]
-        if p.get("user_points") is not None:
+        gathered = 0
+        if user:
             up = p["user_points"]
             cents = np.asarray(up.to_numpy() if isinstance(up, Frame)
                                else up, np.float32)
-        elif init == "Random":
-            cents = Xall[rng.choice(n, k, replace=False)]
         else:
-            cents = _seed_centers(Xall, k, init, rng)
-        gathered = int(Xall.nbytes) if pod else 0
-        del Xall
+            # the initial draws read the whole matrix: a pod gathers it in
+            # rank order (the global ingest order), so they are the one-rank
+            # draws
+            Xall = distdata.allgather_rows(X) if pod else X
+            if init == "Random":
+                cents = Xall[rng.choice(Xall.shape[0], k, replace=False)]
+            else:
+                cents = _seed_centers(Xall, k, init, rng)
+            gathered = int(Xall.nbytes) if pod else 0
+            del Xall
         t_init = time.perf_counter()
         if engine_on:
             w_loc, _ = _est.row_mask(X.shape[0], n_shards)
@@ -293,7 +299,7 @@ class H2OKMeansEstimator(H2OEstimator):
         _sync(dev)
         t_up = time.perf_counter()
         if not engine_on:
-            wd = torch.ones(n, dtype=torch.float32, device=dev)
+            wd = torch.ones(X.shape[0], dtype=torch.float32, device=dev)
             prev = np.inf
             iters = 0
             for it in range(max_iter):
@@ -307,14 +313,19 @@ class H2OKMeansEstimator(H2OEstimator):
             path = "legacy"
         else:
             step = _lloyd_fn(Xd, wd, k, local_blocks, axis)
-            # the reference's device-side test, in f32: one host read of
-            # the WSS a step (a pod's WSS is folded: the same on every rank)
-            prev = np.float32(np.inf)
-            tol, one = np.float32(1e-7), np.float32(1.0)
+            # one host read of the WSS a step (a pod's WSS is folded: the
+            # same on every rank). User points keep the host loop's test in
+            # f64, so they stop at the reference's iteration; the drawn
+            # centres take the reference's device-side test, in f32
+            if user:
+                prev, tol, one = np.inf, 1e-7, 1.0
+            else:
+                prev = np.float32(np.inf)
+                tol, one = np.float32(1e-7), np.float32(1.0)
             iters, converged = 0, False
             while iters < max_iter:
                 cd, wss_d = step(cd)
-                wss = np.float32(wss_d.item())
+                wss = float(wss_d) if user else np.float32(wss_d.item())
                 iters += 1
                 if np.abs(prev - wss) < tol * np.maximum(np.abs(prev), one):
                     converged = True

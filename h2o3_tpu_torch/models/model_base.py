@@ -24,8 +24,8 @@ DKV.
 
 On a pod (a cloud of several ranks, `parallel/mesh.py`) `train` lets only
 the estimators with a pod lane fit (`_pod_lane`: the tree estimators,
-GLM, K-Means, PCA) and raises for the rest, and for the fits their lanes
-do not take (`_pod_off_lane`), on every rank before any collective
+GLM, K-Means, PCA, SVD) and raises for the rest, and for the fits their
+lanes do not take (`_pod_off_lane`), on every rank before any collective
 (`_pod_guard`); `ignore_const_cols` decides over every rank's rows.
 `DataInfo` takes the global moments, imputation means and transfer
 groups there, and `_run_cv` draws the one-process folds over the global
@@ -588,21 +588,25 @@ class DataInfo:
     def _expand(self, frame: Frame, fit: bool) -> np.ndarray:
         from ..parallel import distdata
 
+        pod = distdata.multiprocess()
+        num = [n for kind, n, _ in self._spec if kind == "num"]
+        if fit and self.impute_missing and pod and num:
+            # the global imputation means, every numeric column's in one
+            # gather: a rank's own mean would bake different values into
+            # each rank's design (and into the model's col_means)
+            sc = distdata.global_sum(np.asarray(
+                [[np.nansum(c), float((~np.isnan(c)).sum())]
+                 for c in (frame.vec(n).numeric_np() for n in num)],
+                np.float64))
+            for n, (total, count) in zip(num, sc):
+                self.col_means[n] = float(total / max(count, 1.0))
         cols = []
         for kind, n, dom in self._spec:
             v = frame.vec(n)
             if kind == "num":
                 c = v.numeric_np()
                 if self.impute_missing:
-                    if fit and distdata.multiprocess():
-                        # the global imputation mean: a rank's own mean
-                        # would bake different values into each rank's
-                        # design (and into the model's col_means)
-                        sc = distdata.global_sum(np.asarray(
-                            [np.nansum(c), float((~np.isnan(c)).sum())],
-                            np.float64))
-                        self.col_means[n] = float(sc[0] / max(sc[1], 1.0))
-                    elif fit:
+                    if fit and not pod:
                         self.col_means[n] = float(np.nanmean(c))
                     c = np.where(np.isnan(c), self.col_means.get(n, 0.0), c)
                 cols.append(c[:, None])

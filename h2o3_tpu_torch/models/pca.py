@@ -17,9 +17,14 @@ Under the estimator engine's blocks and mesh lanes the Gram is S block
 partials of the masked (X − μ)ᵀ(X − μ) (pad rows weigh 0), folded in
 block order, on a pod over every rank's blocks in rank order; DEMEAN's μ
 comes from the matrix gathered in rank order. The eigen-solve is the
-same on every rank. (The reference keeps PCA off its lanes on a pod and
-fits each rank's rows, ROADMAP §C.) Randomized has no pod lane (item 9,
-part 1b).
+same on every rank. Randomized runs its sketch as a tall-skinny QR over
+the same blocks (`blocked_sketch`): each block's Y_b its own QR, the
+(k+10)×(k+10) R factors gathered in rank order and QR'd again on every
+rank, each block's Q its local Q times its slice of that second Q; XcᵀQ
+and B = QᵀXc are folded block partials, so no rank's rows, sketch or Q
+cross the ranks. Its Q differs from one QR of the whole Y in its bits but
+not in its subspace. (The reference keeps PCA, Randomized too, off its
+lanes on a pod and fits each rank's rows, ROADMAP §C.)
 
 Eigenvectors and singular vectors come back with arbitrary signs from
 LAPACK, cuSOLVER and XLA alike; the reference's sign rule (the largest
@@ -84,6 +89,55 @@ def randomized_sketch(Xc: torch.Tensor, om: np.ndarray, q: int):
             Vt.cpu().numpy().astype(np.float64))
 
 
+def tsqr(Ys, axis):
+    """Q of the tall matrix stacked from this rank's row blocks `Ys`, as
+    each block's rows of it (a tall-skinny QR): each block's own QR (a
+    block of fewer rows than columns padded to an l×l R with zero rows and
+    its Q with zero columns), the R factors of every block gathered in rank
+    order and QR'd again, the same on every rank, and each block's Q its
+    local Q times its own l-row slice of that second Q."""
+    from ..parallel import mesh
+
+    l = Ys[0].shape[1]
+    qs, rs = [], []
+    for Yb in Ys:
+        Qb, Rb = torch.linalg.qr(Yb)
+        short = l - Rb.shape[0]
+        if short:
+            Qb = torch.cat([Qb, Qb.new_zeros((Qb.shape[0], short))], 1)
+            Rb = torch.cat([Rb, Rb.new_zeros((short, l))], 0)
+        qs.append(Qb)
+        rs.append(Rb)
+    R = torch.stack(rs)
+    first = 0
+    if axis is not None:
+        R = mesh.gather_blocks(R)
+        first = mesh.cloud().self_idx * len(Ys)
+    Q2, _ = torch.linalg.qr(R.reshape(-1, l))
+    return [Qb @ Q2[(first + i) * l:(first + i + 1) * l].clone()
+            for i, Qb in enumerate(qs)]
+
+
+def blocked_sketch(Xcs, om: np.ndarray, q: int, axis):
+    """`randomized_sketch` over this rank's row blocks `Xcs` (each a
+    tensor of its own, pad rows zero): Y_b = Xc_b Ω, its Q by `tsqr`; q
+    power iterations Y_b ← Xc_b (XcᵀQ), XcᵀQ = Σ_b Xc_bᵀQ_b folded in block
+    order; then B = Σ_b Q_bᵀXc_b folded the same way and its SVD, the same
+    on every rank. What crosses the ranks is R factors and p×l and l×p
+    partials. Returns (s, Vt) as f64 host arrays."""
+    omd = torch.from_numpy(om).to(Xcs[0].device)
+    Qs = tsqr([Xb @ omd for Xb in Xcs], axis)
+    for _ in range(q):
+        Z = _est.fold_blocks(torch.stack([Xb.T @ Qb for Xb, Qb in
+                                          zip(Xcs, Qs)]), axis)
+        Qs = tsqr([Xb @ Z for Xb in Xcs], axis)
+    B = _est.fold_blocks(torch.stack([Qb.T @ Xb for Xb, Qb in
+                                      zip(Xcs, Qs)]), axis)
+    _, s, Vt = torch.linalg.svd(B, full_matrices=False)
+    return (s.cpu().numpy().astype(np.float64),
+            Vt.cpu().numpy().astype(np.float64))
+
+
 class PCAModel(H2OModel):
     algo = "pca"
 
@@ -134,10 +188,7 @@ class H2OPrincipalComponentAnalysisEstimator(H2OEstimator):
     _pod_lane = True
 
     def _pod_off_lane(self, y, train: Frame):
-        """Randomized has no multi-process lane (the reference runs its
-        sketch on one device); and the engine's switches."""
-        if self._parms.get("pca_method", "GramSVD") == "Randomized":
-            return "pca_method='Randomized' has no multi-process lane"
+        """What keeps a PCA fit off its pod lane: the engine's switches."""
         return _est.pod_switch_off()
     _param_defaults = dict(
         k=1,
@@ -161,10 +212,6 @@ class H2OPrincipalComponentAnalysisEstimator(H2OEstimator):
         cloud = cloudlib.cloud()
         shard_mode, n_shards = _est.shard_plan(cloud.size,
                                                distdata.multiprocess())
-        if method not in ("GramSVD", "GLRM", "Power"):
-            # the Randomized sketch runs on one rank's full rows (a pod
-            # raises for it in train: distributed QR is not ported)
-            shard_mode, n_shards = "off", 0
         pod = shard_mode == "mesh"
         local_blocks, axis = _est.local_plan(cloud, shard_mode, n_shards)
         if pod:
@@ -193,19 +240,20 @@ class H2OPrincipalComponentAnalysisEstimator(H2OEstimator):
         t_up = time.perf_counter()
         iters = None
         mud = torch.from_numpy(mu).to(dev)
+        Xcs = None
+        if local_blocks:
+            # the centred masked blocks, each a tensor of its own (pad rows
+            # weigh 0)
+            Xcs = [(Xb - mud[None, :]) * wb[:, None] for Xb, wb in zip(
+                _est.row_blocks(Xd, local_blocks),
+                _est.row_blocks(torch.from_numpy(w_loc).to(dev),
+                                local_blocks))]
         if method in ("GramSVD", "GLRM", "Power"):
-            if local_blocks:
-                # the centred masked Gram, one partial a block (each block a
-                # tensor of its own; pad rows weigh 0), folded in block
+            if Xcs is not None:
+                # the centred Gram, one partial a block, folded in block
                 # order over the ranks
-                parts = []
-                for Xb, wb in zip(_est.row_blocks(Xd, local_blocks),
-                                  _est.row_blocks(
-                                      torch.from_numpy(w_loc).to(dev),
-                                      local_blocks)):
-                    Xc = (Xb - mud[None, :]) * wb[:, None]
-                    parts.append(Xc.T @ Xc)
-                gram_d = _est.fold_blocks(torch.stack(parts), axis)
+                gram_d = _est.fold_blocks(
+                    torch.stack([Xc.T @ Xc for Xc in Xcs]), axis)
             else:
                 Xc = Xd - mud[None, :]
                 gram_d = Xc.T @ Xc
@@ -215,14 +263,19 @@ class H2OPrincipalComponentAnalysisEstimator(H2OEstimator):
             # same on every rank
             evals, evecs = gram_eigen(gram, k)
         else:  # Randomized — the sketch and its iterations on the card
-            Xc = Xd[:X.shape[0]] - mud[None, :]
+            # Ω from the seed, the same on every rank
             rng = np.random.default_rng(p["_actual_seed"])
             om = rng.normal(size=(pdim, min(k + 10, pdim))).astype(np.float32)
-            s, Vt = randomized_sketch(Xc, om, _POWER_ITERS)
-            del Xc
+            if Xcs is not None:
+                s, Vt = blocked_sketch(Xcs, om, _POWER_ITERS, axis)
+            else:
+                Xc = Xd[:X.shape[0]] - mud[None, :]
+                s, Vt = randomized_sketch(Xc, om, _POWER_ITERS)
+                del Xc
             evecs = Vt[:k].T
             evals = (s[:k] ** 2) / max(n - 1, 1)
             iters = _POWER_ITERS
+        del Xcs
         t_dec = time.perf_counter()
         _est.record_fit("pca", _est.fused_path(shard_mode), iterations=iters,
                         method=method, n_shards=n_shards,

@@ -1,12 +1,13 @@
-"""The estimator engine across processes: GLM, K-Means, PCA and
+"""The estimator engine across processes: GLM, K-Means, PCA, SVD and
 cross-validation on gloo ranks on the CPU, each against the one-rank
 blocks lane at the same S.
 
 Ranks are fresh interpreters started through the port's launcher, as in
 `test_torch_multiprocess.py` (whose `_launch`-style harness this file
 shares: a `FileStore` under the test's temporary directory, one torch
-thread a rank, every launch side by side under one hard deadline, every
-child killed on failure). A rank draws the frame from the seed, keeps only
+thread and one BLAS thread a rank — the host eigen-solves' bits depend on
+the BLAS thread count —, every launch side by side under one hard
+deadline, every child killed on failure). A rank draws the frame from the seed, keeps only
 its own ingest shard of the rows (uneven, so the canonical exchange moves
 rows) and builds its `Frame` from those rows alone. The one-rank
 comparator is the launcher with no flags under ``H2O3_EST_SHARD=1``
@@ -28,8 +29,24 @@ same S.
   eigenvalues and eigenvectors bit for bit.
 - CV: a 3-fold GBM and a 3-fold GLM, fold forests / fold β, each rank's
   holdout rows and the CV metrics bit for bit.
-- The guard: on 2 ranks DeepLearning, NaiveBayes and a λ-search GLM raise
-  `NotImplementedError` naming item 9 on both ranks, and neither hangs.
+- λ search (binomial, α 0.5, 8 λ) with a validation frame of its own
+  seeded rows, split unevenly over the ranks: the λ list, each λ's path β
+  and deviance, the IRLS iterations, λ_best and β bit for bit; and a 3-fold
+  λ-search GLM: fold β, each rank's holdout rows and the CV metrics.
+- The multinomial GLM (3 classes, a ridge): β, the L-BFGS steps and
+  function evaluations, and each rank's probabilities (η by columns, as
+  the CV holdouts score) bit for bit.
+- K-Means from `user_points` (path `fused_mesh`): centres, WSS and
+  iterations; PCA Randomized (DEMEAN, the tall-skinny QR sketch):
+  eigenvalues and eigenvectors; SVD GramSVD, Power (DEMEAN) and Randomized
+  (DESCALE) with `keep_u`: d, v and each rank's rows of u, all bit for
+  bit; and a STANDARDIZE Randomized SVD (global moments) within 1e-5.
+- The lane cases (`LANE_CASES`: all but the p-values, the standardized
+  GLM and the 3-fold GBM and GLM) run on 2 ranks at S = 8 and on 3 ranks
+  at S = 24; the rest on 2 ranks.
+- The guard: on 2 ranks DeepLearning, NaiveBayes and GLRM raise
+  `NotImplementedError` naming item 9 on both ranks, a λ-search GLM fits,
+  and neither rank hangs.
 """
 
 import os
@@ -48,7 +65,13 @@ SPLITS = {1: [0, N_ROWS], 2: [0, 1993, N_ROWS], 3: [0, 1301, 2702, N_ROWS]}
 TIMEOUT_S = 240
 BETA_TOL = 1e-5
 STAT_RTOL = 1e-12
-CASES = ["glm", "glmpv", "glmstd", "km", "pca", "pcad", "cvgbm", "cvglm"]
+# the cases fitted at S = 8 on 2 ranks and at S = 24 (suffix "24") on 3
+LANE_CASES = ["glm", "km", "pca", "pcad", "ls", "cvls", "mn", "kmup",
+              "pcar", "svd"]
+CASES = LANE_CASES + ["glmpv", "glmstd", "cvgbm", "cvglm"]
+CASES24 = [c + "24" for c in LANE_CASES]
+# (case suffix, ranks, S) of the two pod launches
+LANES = (("", 2, 8), ("24", 3, 24))
 
 RANK_SCRIPT = textwrap.dedent('''
     import os, sys, json
@@ -59,8 +82,10 @@ RANK_SCRIPT = textwrap.dedent('''
     from h2o3_tpu_torch import set_device
     from h2o3_tpu_torch.estimators import (
         H2ODeepLearningEstimator, H2OGeneralizedLinearEstimator,
-        H2OGradientBoostingEstimator, H2OKMeansEstimator,
-        H2ONaiveBayesEstimator, H2OPrincipalComponentAnalysisEstimator)
+        H2OGeneralizedLowRankEstimator, H2OGradientBoostingEstimator,
+        H2OKMeansEstimator, H2ONaiveBayesEstimator,
+        H2OPrincipalComponentAnalysisEstimator,
+        H2OSingularValueDecompositionEstimator)
     from h2o3_tpu_torch.frame.frame import Frame
     from h2o3_tpu_torch.models import dataset_cache
     from h2o3_tpu_torch.models import estimator_engine as est
@@ -81,16 +106,39 @@ RANK_SCRIPT = textwrap.dedent('''
     mrng = np.random.default_rng(3)
     Xm[mrng.random(n) < 0.07, 0] = np.nan
     Xm[mrng.random(n) < 0.05, 2] = np.nan
+    # a 3-class response from its own seed, and a validation frame of
+    # NV rows drawn like the training rows
+    crng = np.random.default_rng(41)
+    score = np.column_stack([X[:, 0], X[:, 1] - X[:, 0], -X[:, 2]])
+    m = np.argmax(2.0 * score + crng.gumbel(size=(n, 3)), axis=1)
+    vrng = np.random.default_rng(31)
+    NV = 1500
+    Xv = np.round(vrng.normal(size=(NV, 3)), 6)
+    catv = vrng.integers(0, 3, size=NV)
+    effv = 1.1 * Xv[:, 0] - 0.6 * Xv[:, 1] + 0.4 * (catv == 2)
+    yv = (vrng.random(NV) < 1 / (1 + np.exp(-effv))).astype(int)
     lo, hi = splits[str(c.size)][c.self_idx:c.self_idx + 2]
+    vlo, vhi = {1: (0, NV), 2: (0, 611, NV), 3: (0, 402, 1013, NV)}[
+        c.size][c.self_idx:c.self_idx + 2]
 
-    def frame(M):
+    def frame(M, C, Y, lo, hi, mc=None):
         d = {f"x{i + 1}": M[lo:hi, i] for i in range(3)}
-        d["cat"] = np.asarray([f"g{v}" for v in cat[lo:hi]])
-        d["y"] = np.asarray(["yes" if v else "no" for v in y[lo:hi]])
-        return Frame.from_dict(d, column_types={"cat": "enum", "y": "enum"})
+        d["cat"] = np.asarray([f"g{v}" for v in C[lo:hi]])
+        d["y"] = np.asarray(["yes" if v else "no" for v in Y[lo:hi]])
+        types = {"cat": "enum", "y": "enum"}
+        if mc is not None:
+            d["m"] = np.asarray([f"c{v}" for v in mc[lo:hi]])
+            types["m"] = "enum"
+        return Frame.from_dict(d, column_types=types)
 
-    fr, frm = frame(X), frame(Xm)
+    fr, frm = frame(X, cat, y, lo, hi, m), frame(Xm, cat, y, lo, hi)
+    fv = frame(Xv, catv, yv, vlo, vhi)
     x = ["x1", "x2", "x3", "cat"]
+    LS = dict(family="binomial", alpha=0.5, lambda_search=True, nlambdas=8,
+              standardize=False, device="cpu")
+    # user points in the design's space (x1-x3, unstandardized)
+    PTS = np.asarray([[-1.0, 0.5, 0.0], [1.0, -1.0, 0.5], [0.0, 1.0, -1.0]])
+    KMUP_ITERS = 200
     GLM = dict(family="binomial", lambda_=0.05, alpha=0.0,
                standardize=False, device="cpu")
     out = {}
@@ -99,11 +147,12 @@ RANK_SCRIPT = textwrap.dedent('''
         return est.est_stats()["plans"][-1]
 
     for case in cases:
+        base = case[:-2] if case.endswith("24") else case
         if c.size == 1:
             os.environ["H2O3_EST_SHARD_BLOCKS"] = \\
-                "24" if case == "glm24" else "8"
+                "24" if case.endswith("24") else "8"
         rec = {}
-        if case in ("glm", "glm24"):
+        if base == "glm":
             m = H2OGeneralizedLinearEstimator(**GLM).train(
                 x=x, y="y", training_frame=fr).model
             rec = dict(beta=m.beta, iters=m.fitplan["iterations"],
@@ -124,28 +173,67 @@ RANK_SCRIPT = textwrap.dedent('''
                        col_means=np.asarray([m.dinfo.col_means[k]
                                              for k in ("x1", "x2", "x3")]),
                        path=plan()["path"])
-        elif case == "km":
+        elif base == "km":
             m = H2OKMeansEstimator(k=3, init="PlusPlus", standardize=False,
                                    seed=7, max_iterations=20,
                                    device="cpu").train(
                 x=x, training_frame=fr).model
             rec = dict(centers=m.centers_std, wss=m.fit_wss,
                        iters=m.iterations, path=plan()["path"])
-        elif case in ("pca", "pcad"):
+        elif base in ("pca", "pcad", "pcar"):
             m = H2OPrincipalComponentAnalysisEstimator(
-                k=3, transform="DEMEAN" if case == "pcad" else "NONE",
-                device="cpu").train(x=x, training_frame=fr).model
+                k=3, transform="NONE" if base == "pca" else "DEMEAN",
+                pca_method="Randomized" if base == "pcar" else "GramSVD",
+                seed=3, device="cpu").train(x=x, training_frame=fr).model
             rec = dict(evals=m.eigenvalues, evecs=m.eigenvectors,
                        path=plan()["path"])
-        elif case in ("cvgbm", "cvglm"):
-            if case == "cvgbm":
+        elif base == "ls":
+            m = H2OGeneralizedLinearEstimator(**LS).train(
+                x=x, y="y", training_frame=fr, validation_frame=fv).model
+            rec = dict(beta=m.beta, lambda_best=m.lambda_best,
+                       lambdas=np.asarray([lv for lv, _ in m.full_path]),
+                       path_beta=np.stack([b for _, b in m.full_path]),
+                       devs=np.asarray(m.fitplan["path_deviances"]),
+                       best=m.fitplan["best_index"],
+                       iters=m.fitplan["irls_iterations"],
+                       path=plan()["path"], n_shards=plan()["n_shards"])
+        elif base == "mn":
+            m = H2OGeneralizedLinearEstimator(
+                family="multinomial", alpha=0.0, lambda_=1e-3,
+                standardize=False, device="cpu").train(
+                x=x, y="m", training_frame=fr).model
+            rec = dict(beta=m.beta, iters=m.fitplan["iterations"],
+                       evals=m.fitplan["func_evals"],
+                       probs=m._score(fr, by_columns=True),
+                       n_shards=plan()["n_shards"])
+        elif base == "kmup":
+            m = H2OKMeansEstimator(k=3, user_points=PTS, standardize=False,
+                                   max_iterations=KMUP_ITERS,
+                                   device="cpu").train(
+                x=x[:3], training_frame=fr).model
+            rec = dict(centers=m.centers_std, wss=m.fit_wss,
+                       iters=m.iterations, path=plan()["path"])
+        elif base == "svd":
+            for method, tr in (("GramSVD", "NONE"), ("Power", "DEMEAN"),
+                               ("Randomized", "DESCALE"),
+                               ("Randomized", "STANDARDIZE")):
+                m = H2OSingularValueDecompositionEstimator(
+                    nv=3, svd_method=method, transform=tr, seed=4,
+                    device="cpu").train(x=x, training_frame=fr).model
+                rec.update({f"{k}_{method}_{tr}": v for k, v in (
+                    ("d", m.d), ("v", m.v), ("u", m.u))})
+                rec[f"path_{method}_{tr}"] = plan()["path"]
+        elif base in ("cvgbm", "cvglm", "cvls"):
+            if base == "cvgbm":
                 e = H2OGradientBoostingEstimator(
                     ntrees=5, max_depth=3, seed=5, nfolds=3, device="cpu")
+            elif base == "cvls":
+                e = H2OGeneralizedLinearEstimator(nfolds=3, seed=5, **LS)
             else:
                 e = H2OGeneralizedLinearEstimator(nfolds=3, seed=5, **GLM)
             m = e.train(x=x, y="y", training_frame=fr).model
             folds = m.cross_validation_models
-            if case == "cvgbm":
+            if base == "cvgbm":
                 for i, fm in enumerate(folds):
                     for j, t in enumerate(fm.forest[0]):
                         rec[f"fold{i}_{j}"] = t.cpu().numpy()
@@ -158,14 +246,19 @@ RANK_SCRIPT = textwrap.dedent('''
                        fold_auc=np.asarray([fm.validation_metrics.auc
                                             for fm in folds]))
         elif case == "guard":
-            for name, mk in (
+            sup = dict(x=x, y="y", training_frame=fr)
+            for name, fit in (
                     ("dl", lambda: H2ODeepLearningEstimator(
-                        epochs=1, device="cpu")),
-                    ("nb", lambda: H2ONaiveBayesEstimator(device="cpu")),
+                        epochs=1, device="cpu").train(**sup)),
+                    ("nb", lambda: H2ONaiveBayesEstimator(
+                        device="cpu").train(**sup)),
+                    ("glrm", lambda: H2OGeneralizedLowRankEstimator(
+                        k=2, device="cpu").train(x=x, training_frame=fr)),
                     ("glm_search", lambda: H2OGeneralizedLinearEstimator(
-                        lambda_search=True, device="cpu"))):
+                        lambda_search=True, nlambdas=4,
+                        device="cpu").train(**sup))):
                 try:
-                    mk().train(x=x, y="y", training_frame=fr)
+                    fit()
                     rec[name] = "fitted"
                 except NotImplementedError as err:
                     rec[name] = str(err)
@@ -237,15 +330,15 @@ def _join(launches):
 @pytest.fixture(scope="module")
 def est_runs(tmp_path_factory):
     """One launch each, side by side: two ranks (every case and the
-    guard), three ranks (the GLM at S = 24) and the one-rank blocks-lane
-    comparator of every case."""
+    guard), three ranks (the lane cases at S = 24) and the one-rank
+    blocks-lane comparator of every case."""
     tmp = tmp_path_factory.mktemp("estpod")
     one_env = {"H2O3_EST_SHARD": "1", "H2O3_TREE_SHARD": "1",
                "H2O3_CV_REBIN": "1"}
     launches = [
         _launch(tmp, 2, CASES + ["guard"]),
-        _launch(tmp, 3, ["glm24"]),
-        _launch(tmp, 1, CASES + ["glm24"], env=one_env),
+        _launch(tmp, 3, CASES24),
+        _launch(tmp, 1, CASES + CASES24, env=one_env),
     ]
     _join(launches)
 
@@ -258,6 +351,15 @@ def est_runs(tmp_path_factory):
 def _equal(one, pod, keys):
     for k in keys:
         np.testing.assert_array_equal(pod[k], one[k], err_msg=k)
+
+
+def _rows(one, pod, key):
+    """A rank's rows of a per-row output against the same rows of the
+    one-rank fit's."""
+    off, nr = int(pod["row_off"]), int(pod["nrow"])
+    assert pod[key].shape[0] == nr, key
+    np.testing.assert_array_equal(pod[key], one[key][off:off + nr],
+                                  err_msg=key)
 
 
 def _check_glm(load, case, nranks, n_shards):
@@ -292,27 +394,82 @@ def _check_standardized(load):
 
 
 def _check_unsupervised(load):
-    for case, keys in (("km", ("centers", "wss", "iters")),
-                       ("pca", ("evals", "evecs")),
-                       ("pcad", ("evals", "evecs"))):
-        one = load(case, 1, 0)
-        assert str(one["path"]) == "fused_blocks"
-        for r in range(2):
-            pod = load(case, 2, r)
-            assert str(pod["path"]) == "fused_mesh"
-            _equal(one, pod, keys)
+    """K-Means (drawn and user centres) and PCA (GramSVD, Randomized):
+    the pod's paths `fused_mesh` against `fused_blocks`, every output bit
+    for bit."""
+    for suffix, nranks, _ in LANES:
+        for base, keys in (("km", ("centers", "wss", "iters")),
+                           ("kmup", ("centers", "wss", "iters")),
+                           ("pca", ("evals", "evecs")),
+                           ("pcad", ("evals", "evecs")),
+                           ("pcar", ("evals", "evecs"))):
+            one = load(base + suffix, 1, 0)
+            assert str(one["path"]) == "fused_blocks"
+            if base == "kmup":
+                # the f64 stop test fired (the cap is 200)
+                assert int(one["iters"]) < 200
+            for r in range(nranks):
+                pod = load(base + suffix, nranks, r)
+                assert str(pod["path"]) == "fused_mesh"
+                _equal(one, pod, keys)
 
 
-def _check_cv(load, case):
+def _check_lambda_search(load):
+    """The λ path with a validation frame: every λ, path β, deviance and
+    the choice, then the f64 re-solve."""
+    for suffix, nranks, n_shards in LANES:
+        one = load("ls" + suffix, 1, 0)
+        assert str(one["path"]) == "fused_path"
+        assert int(one["n_shards"]) == n_shards
+        assert np.isfinite(one["devs"]).all() and len(one["lambdas"]) == 8
+        for r in range(nranks):
+            pod = load("ls" + suffix, nranks, r)
+            _equal(one, pod, ("beta", "lambda_best", "lambdas", "path_beta",
+                              "devs", "best", "iters", "path", "n_shards"))
+
+
+def _check_multinomial(load):
+    for suffix, nranks, n_shards in LANES:
+        one = load("mn" + suffix, 1, 0)
+        assert int(one["n_shards"]) == n_shards
+        assert one["beta"].shape == (3, 6)
+        for r in range(nranks):
+            pod = load("mn" + suffix, nranks, r)
+            _equal(one, pod, ("beta", "iters", "evals", "n_shards"))
+            _rows(one, pod, "probs")
+
+
+def _check_svd(load):
+    """d, v and u of each method bit for bit; the STANDARDIZE fit, whose
+    moments are global f64 sums, within BETA_TOL."""
+    for suffix, nranks, _ in LANES:
+        one = load("svd" + suffix, 1, 0)
+        for r in range(nranks):
+            pod = load("svd" + suffix, nranks, r)
+            for method, tr in (("GramSVD", "NONE"), ("Power", "DEMEAN"),
+                               ("Randomized", "DESCALE")):
+                tag = f"{method}_{tr}"
+                assert str(one[f"path_{tag}"]) == "fused_blocks"
+                assert str(pod[f"path_{tag}"]) == "fused_mesh"
+                _equal(one, pod, (f"d_{tag}", f"v_{tag}"))
+                _rows(one, pod, f"u_{tag}")
+            tag = "Randomized_STANDARDIZE"
+            off, nr = int(pod["row_off"]), int(pod["nrow"])
+            for k, want in ((f"d_{tag}", one[f"d_{tag}"]),
+                            (f"v_{tag}", one[f"v_{tag}"]),
+                            (f"u_{tag}", one[f"u_{tag}"][off:off + nr])):
+                assert np.all(np.abs(pod[k] - want)
+                              <= BETA_TOL * np.maximum(1.0, np.abs(want))), k
+
+
+def _check_cv(load, case, nranks=2):
     one = load(case, 1, 0)
     folds = [k for k in one.files if k.startswith("fold") and k != "fold_auc"]
     assert len(folds) >= 3
-    for r in range(2):
-        pod = load(case, 2, r)
+    for r in range(nranks):
+        pod = load(case, nranks, r)
         _equal(one, pod, folds + ["xval", "fold_auc"])
-        off, nr = int(pod["row_off"]), int(pod["nrow"])
-        np.testing.assert_array_equal(pod["holdout"],
-                                      one["holdout"][off:off + nr])
+        _rows(one, pod, "holdout")
 
 
 def test_pod_fits_equal_the_blocks_lane(est_runs):
@@ -322,18 +479,23 @@ def test_pod_fits_equal_the_blocks_lane(est_runs):
     _check_p_values(est_runs)
     _check_standardized(est_runs)
     _check_unsupervised(est_runs)
-    for case in ("cvgbm", "cvglm"):
+    _check_lambda_search(est_runs)
+    _check_multinomial(est_runs)
+    _check_svd(est_runs)
+    for case in ("cvgbm", "cvglm", "cvls"):
         _check_cv(est_runs, case)
+    _check_cv(est_runs, "cvls24", 3)
 
 
 def test_fits_without_a_pod_lane_raise_on_every_rank(est_runs):
-    """DeepLearning and NaiveBayes have no pod lane, λ search is off the
-    GLM's: each raises on both ranks, naming item 9, and the ranks went on
-    to exit (the launch joined)."""
+    """DeepLearning, NaiveBayes and GLRM have no pod lane: each raises on
+    both ranks, naming item 9, and the ranks went on to exit (the launch
+    joined). A λ-search GLM, which has the lane, fits on both."""
     for r in range(2):
         g = est_runs("guard", 2, r)
         for name, cls in (("dl", "H2ODeepLearningEstimator"),
                           ("nb", "H2ONaiveBayesEstimator"),
-                          ("glm_search", "H2OGeneralizedLinearEstimator")):
+                          ("glrm", "H2OGeneralizedLowRankEstimator")):
             msg = str(g[name])
             assert cls in msg and "ROADMAP queue A, item 9" in msg, msg
+        assert str(g["glm_search"]) == "fitted"
